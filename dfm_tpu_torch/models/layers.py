@@ -1,0 +1,193 @@
+"""Shared building blocks (NCHW / NCDHW, 2D and 3D).
+
+Port of `dfm_tpu/models/layers.py:278-465`. Parameters are kept in
+float32 and cast to the activation dtype at use, as the flax modules
+do (`dtype` is the compute precision, parameters stay f32); norm
+statistics are always f32.
+
+Module and attribute names follow the reference torch layout
+(mmcv `ConvModule` `.conv`/`.gn`, `convbn` `Sequential(conv, norm)`,
+hourglass `conv1..conv6`), so a `state_dict` of the port carries the
+reference keys that `dfm_tpu/utils/checkpoint_import.py` maps.
+
+The JAX package's TPU lowerings of the same convolutions
+(`Conv3DSum`, `_wgroup_conv3d`, `grouped_convgn3d`, `Conv2D`,
+`Conv2DStride2`, `ops/wfold.py`) compute plain conv (+ GN); the port
+has only the plain form.
+"""
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.resize import resize_linear
+
+__all__ = ['Conv', 'ConvTranspose', 'GroupNorm', 'BatchNorm', 'ConvNorm',
+           'convbn', 'Hourglass', 'UpconvModule', 'group_norm',
+           'gn_groups']
+
+
+def gn_groups(c):
+    """32 groups, or one per channel when C is not a multiple of 32 (the
+    JAX `apply_norm` group rule)."""
+    return 32 if c % 32 == 0 else c
+
+
+def group_norm(x, weight, bias, groups):
+    """GroupNorm with f32 statistics (var = E[x^2] - E[x]^2) applied as
+    ONE folded per-(batch, channel) scale/bias, cast back to x.dtype
+    (`dfm_tpu/models/layers.py:336-362`)."""
+    b, c = x.shape[:2]
+    xf = x.float()
+    flat = xf.reshape(b, groups, -1)
+    mean = flat.mean(-1)
+    var = (flat * flat).mean(-1) - mean * mean
+    rstd = torch.rsqrt(var + 1e-5)                             # (B, g)
+    sc = weight.float().view(groups, c // groups) * rstd[..., None]
+    bs = bias.float().view(groups, c // groups) - mean[..., None] * sc
+    shape = (b, c) + (1,) * (x.dim() - 2)
+    return (xf * sc.reshape(shape) + bs.reshape(shape)).to(x.dtype)
+
+
+class Conv(nn.Module):
+    """Conv2d / Conv3d (by `ndim`) whose f32 weight is cast to the
+    input dtype at use. 'same' padding k//2 * dilation."""
+
+    def __init__(self, cin, cout, k=3, stride=1, dilation=1, ndim=2,
+                 bias=False):
+        super().__init__()
+        self.ndim = ndim
+        self.stride = stride
+        self.dilation = dilation
+        self.padding = (k // 2) * dilation
+        self.weight = nn.Parameter(torch.empty((cout, cin) + (k,) * ndim))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+
+    def forward(self, x):
+        fn = F.conv2d if self.ndim == 2 else F.conv3d
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return fn(x, self.weight.to(x.dtype), b, self.stride,
+                  self.padding, self.dilation)
+
+
+class ConvTranspose(nn.Module):
+    """torch ConvTranspose{2,3}d(k3, s2, p1, output_padding 1): exact 2x
+    upsample; the flax equivalent is padding (1, 2) per spatial dim
+    (`layers.py:393-398`). Weight layout (I, O, k...)."""
+
+    def __init__(self, cin, cout, ndim=2):
+        super().__init__()
+        self.ndim = ndim
+        self.weight = nn.Parameter(torch.empty((cin, cout) + (3,) * ndim))
+
+    def forward(self, x):
+        fn = F.conv_transpose2d if self.ndim == 2 else F.conv_transpose3d
+        return fn(x, self.weight.to(x.dtype), None, 2, 1, 1)
+
+
+class GroupNorm(nn.Module):
+    def __init__(self, c):
+        super().__init__()
+        self.groups = gn_groups(c)
+        self.weight = nn.Parameter(torch.empty(c))
+        self.bias = nn.Parameter(torch.empty(c))
+
+    def forward(self, x):
+        return group_norm(x, self.weight, self.bias, self.groups)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm (running statistics), f32 math, cast back to
+    the input dtype. Inference only: the port has no train step yet."""
+
+    def __init__(self, c):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c))
+        self.bias = nn.Parameter(torch.empty(c))
+        self.register_buffer('running_mean', torch.empty(c))
+        self.register_buffer('running_var', torch.empty(c))
+
+    def forward(self, x):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        sc = self.weight.float() * torch.rsqrt(self.running_var.float()
+                                               + 1e-5)
+        bs = self.bias.float() - self.running_mean.float() * sc
+        return (x.float() * sc.view(shape) + bs.view(shape)).to(x.dtype)
+
+
+def _norm(norm, c):
+    if norm == 'gn':
+        return GroupNorm(c)
+    if norm == 'bn':
+        return BatchNorm(c)
+    raise ValueError(norm)
+
+
+class ConvNorm(nn.Module):
+    """mmcv ConvModule: conv + norm (+ ReLU); keys `.conv`, `.gn`/`.bn`."""
+
+    def __init__(self, cin, cout, k=3, ndim=2, norm='gn', act=True):
+        super().__init__()
+        self.conv = Conv(cin, cout, k, ndim=ndim)
+        self.norm_name = norm
+        setattr(self, norm, _norm(norm, cout))
+        self.act = act
+
+    def forward(self, x):
+        x = getattr(self, self.norm_name)(self.conv(x))
+        return F.relu(x) if self.act else x
+
+
+def convbn(cin, cout, stride=1, ndim=2, norm='gn'):
+    """Reference `convbn`/`convbn_3d`: Sequential(3x3 conv, norm)."""
+    return nn.Sequential(Conv(cin, cout, 3, stride, ndim=ndim),
+                         _norm(norm, cout))
+
+
+class Hourglass(nn.Module):
+    """Two stride-2 encoders, two transposed-conv decoders, skip add at
+    1/2 scale (`layers.py:404-443` with presqu = postsqu = None).
+    GroupNorm throughout. Returns the full-resolution output (the caller
+    adds its residual)."""
+
+    def __init__(self, c, ndim=3):
+        super().__init__()
+        c2 = 2 * c
+        self.conv1 = nn.Sequential(convbn(c, c2, 2, ndim), nn.ReLU())
+        self.conv2 = convbn(c2, c2, ndim=ndim)
+        self.conv3 = nn.Sequential(convbn(c2, c2, 2, ndim), nn.ReLU())
+        self.conv4 = nn.Sequential(convbn(c2, c2, ndim=ndim), nn.ReLU())
+        self.conv5 = nn.Sequential(ConvTranspose(c2, c2, ndim),
+                                   GroupNorm(c2))
+        self.conv6 = nn.Sequential(ConvTranspose(c2, c, ndim), GroupNorm(c))
+
+    def forward(self, x):
+        pre = F.relu(self.conv2(self.conv1(x)))             # 1/2
+        out = self.conv4(self.conv3(pre))                   # 1/4
+        post = F.relu(self.conv5(out) + pre)                # 1/2
+        return self.conv6(post)                             # 1/1
+
+
+class UpconvModule(nn.Module):
+    """LIGA upconv decoder: repeated [conv -> bilinear up
+    (align_corners=False) -> add lateral -> ReLU]
+    (`layers.py:446-465`). BatchNorm, as the reference hard-codes."""
+
+    def __init__(self, in_channels, lateral_channels, up_channels):
+        super().__init__()
+        ins = [in_channels] + list(up_channels[:-1])
+        self.conv = nn.ModuleList(
+            [convbn(ci, co, norm='bn') for ci, co in zip(ins, up_channels)])
+        self.redir = nn.ModuleList(
+            [convbn(cl, co, norm='bn')
+             for cl, co in zip(lateral_channels, up_channels)])
+
+    def forward(self, feats):
+        x = feats[0]
+        for stage, (conv, redir) in enumerate(zip(self.conv, self.redir)):
+            x = conv(x)
+            lateral = redir(feats[stage + 1])
+            up = resize_linear(x, lateral.shape[2:], dims=(2, 3),
+                               align_corners=False)
+            x = F.relu(up + lateral)
+        return x

@@ -1,0 +1,311 @@
+"""The port's DfM slice (dfm_tpu_torch) against the JAX package.
+
+* DfMBackbone (dense form) against the flax module and against the
+  reference's own torch activations (tests/data/golden_dfm_backbone.npz,
+  golden tolerances 2e-3 / 4e-3 of tests/test_golden_parity.py).
+* The whole slice at the tiny config of tests/test_dfm_model.py: every
+  head output and depth_cost / volume_feat / bev_feat against
+  `DfM.apply` in float32, atol/rtol 3e-4 (dozens of stacked f32 convs
+  and GroupNorms summed in other orders; measured max abs err 5e-5 on
+  outputs up to 7). The JAX neck builds its fine
+  depth-softmax volume in bf16 even in an f32 model; the test makes it
+  build that volume in f32 (the port's f32 behaviour), so the
+  comparison is f32 throughout.
+* `dfm_predict` on the same head outputs, one streaming step with
+  `prev_stereo_cache`, the full-tree weight round trip, and the port's
+  independence from JAX.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import dfm_tpu.ops.frustum_separable as JFS
+from dfm_tpu.models import BatchMeta as JMeta
+from dfm_tpu.models import DfM as JDfM
+from dfm_tpu.models import DfMConfig as JConfig
+from dfm_tpu.models import dfm_predict as jax_predict
+from dfm_tpu.models.backbones.dfm_backbone import DfMBackbone as JBackbone
+from dfm_tpu.utils.checkpoint_import import (dfm_key_map as jax_key_map,
+                                             import_dfm_state_dict)
+from dfm_tpu_torch.apis import init_dfm_model
+from dfm_tpu_torch.models.backbones.dfm_backbone import DfMBackbone
+from dfm_tpu_torch.models.detectors.dfm import BatchMeta, DfM, DfMConfig, \
+    dfm_predict
+from dfm_tpu_torch.utils import weights as W
+
+from test_torch_layers import randomize
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(ROOT, 'tests', 'data', 'golden_dfm_backbone.npz')
+SLICE_TOL = dict(atol=3e-4, rtol=3e-4)
+B, H, W_ = 1, 64, 128
+TINY = dict(depth_num_bins=48, voxel_size=(3.6, 3.8, 0.5), nms_pre=128,
+            max_num=8)
+
+
+def _np_meta(cam):
+    return dict(ori_cam2img=cam[None], cam2img=cam[None],
+                cur2prev=np.eye(4, dtype=np.float32)[None],
+                org_w=np.full((B,), float(W_), np.float32),
+                flip=np.zeros((B,), np.float32),
+                crop_offset=np.zeros((B, 2), np.float32),
+                scale_factor=np.ones((B,), np.float32))
+
+
+@pytest.fixture(scope='module')
+def tiny():
+    """JAX DfM at the tiny config with random variables, its f32
+    outputs, and the port model carrying the same weights."""
+    rng = np.random.RandomState(0)
+    img = rng.randn(B, 2, H, W_, 3).astype(np.float32)
+    cam = np.eye(4, dtype=np.float32)
+    cam[0, 0] = cam[1, 1] = 200.0
+    cam[0, 2], cam[1, 2] = W_ / 2, H / 2
+    m = _np_meta(cam)
+    m['cur2prev'][0, :3, 3] = (0.1, 0.0, -0.6)     # ego-motion
+    jmeta = JMeta(**{k: jnp.asarray(v) for k, v in m.items()})
+    model = JDfM(cfg=JConfig(**TINY))
+    variables = randomize(model.init(jax.random.PRNGKey(0),
+                                     jnp.asarray(img), jmeta, train=False), 0)
+    orig = JFS.build_fine_softmax_volume
+
+    def fine_f32(*a, **kw):
+        kw['dtype'] = jnp.float32
+        return orig(*a, **kw)
+
+    with mock.patch.object(JFS, 'build_fine_softmax_volume', fine_f32):
+        out = jax.jit(lambda v, i, mt: model.apply(v, i, mt, train=False))(
+            variables, jnp.asarray(img), jmeta)
+    out = {k: np.asarray(v) for k, v in out.items()}
+    port = DfM(DfMConfig(**TINY))
+    port.load_state_dict(W.state_dict_from_jax(variables), strict=True)
+    meta = BatchMeta(**{k: torch.from_numpy(v) for k, v in m.items()})
+    return dict(img=img, variables=variables, jax_out=out,
+                port=port.eval(), meta=meta)
+
+
+@pytest.mark.parametrize('key', ['depth_cost', 'volume_feat', 'bev_feat',
+                                 'cls_score', 'bbox_pred', 'dir_pred'])
+def test_slice_matches_jax(tiny, key):
+    if 'port_out' not in tiny:
+        with torch.inference_mode():
+            tiny['port_out'] = tiny['port'](torch.from_numpy(tiny['img']),
+                                            tiny['meta'])
+    got = tiny['port_out'][key].numpy()
+    want = tiny['jax_out'][key]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **SLICE_TOL)
+
+
+def test_stream_step_matches_two_frame_jax(tiny):
+    """Streaming: frame 0 as a self-pair, then frame 1 with the cached
+    stereo features == the JAX two-frame forward on (frame 1, frame 0)."""
+    img = torch.from_numpy(tiny['img'])
+    f1, f0 = img[:, 0], img[:, 1]
+    with torch.inference_mode():
+        cache0 = tiny['port'](torch.stack([f0, f0], 1),
+                              tiny['meta'])['stereo_cache']
+        out = tiny['port'](torch.stack([f1, f1], 1), tiny['meta'],
+                           prev_stereo_cache=cache0)
+    for key in ('cls_score', 'bbox_pred', 'dir_pred'):
+        np.testing.assert_allclose(out[key].numpy(), tiny['jax_out'][key],
+                                   **SLICE_TOL)
+
+
+def test_full_tree_round_trip(tiny):
+    """port state_dict -> JAX importer -> the same flax variables."""
+    sd = tiny['port'].state_dict()
+    assert sorted(sd) == sorted(W.state_dict_from_jax(tiny['variables']))
+    back = import_dfm_state_dict(sd, tiny['variables'], strict=True)
+    a = jax.tree_util.tree_leaves_with_path(tiny['variables'])
+    b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(a) == len(b)
+    for path, leaf in a:
+        np.testing.assert_array_equal(np.asarray(b[path]), np.asarray(leaf))
+
+
+def test_key_map_copy_matches_jax():
+    assert W.dfm_key_map() == jax_key_map()
+
+
+def test_dfm_predict_matches_jax():
+    """Decode + rotated NMS on the same head outputs (continuous random
+    scores: no ties for top-k to order differently)."""
+    kw = dict(TINY, max_num=24)
+    jcfg, pcfg = JConfig(**kw), DfMConfig(**kw)
+    _, ny, nx = pcfg.voxel_grid_size()
+    rng = np.random.RandomState(1)
+    heads = dict(cls_score=rng.randn(2, ny, nx, 18) * 1.5 - 1.0,
+                 bbox_pred=rng.randn(2, ny, nx, 42) * 0.3,
+                 dir_pred=rng.randn(2, ny, nx, 12))
+    heads = {k: v.astype(np.float32) for k, v in heads.items()}
+    want = jax.jit(lambda o: jax_predict(o, jcfg))(
+        {k: jnp.asarray(v) for k, v in heads.items()})
+    got = dfm_predict({k: torch.from_numpy(v) for k, v in heads.items()},
+                      pcfg)
+    assert set(got) == set(want)
+    mask = np.asarray(want['mask'])
+    assert mask.sum() > 10
+    np.testing.assert_array_equal(got['mask'].numpy(), mask)
+    np.testing.assert_array_equal(got['labels'].numpy(),
+                                  np.asarray(want['labels']))
+    np.testing.assert_allclose(got['scores'].numpy(),
+                               np.asarray(want['scores']), atol=1e-6)
+    np.testing.assert_allclose(got['boxes3d'].numpy(),
+                               np.asarray(want['boxes3d']), atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.fixture(scope='module')
+def golden():
+    return np.load(GOLDEN)
+
+
+def _golden_inputs(z, tag):
+    return dict(
+        cur=z['cur'].transpose(0, 2, 3, 1), prev=z['prev'].transpose(
+            0, 2, 3, 1), depths=z['depths'], cam=z['cam2img'][None],
+        c2p=z['cur2prev'][None],
+        kw=dict(org_w=np.asarray([z[f'{tag}.org_w']], np.float32),
+                flip=np.asarray([z[f'{tag}.flip']], np.float32),
+                crop_offset=np.asarray(z[f'{tag}.crop_offset'],
+                                       np.float32)[None],
+                scale_factor=np.asarray([z[f'{tag}.scale_factor']],
+                                        np.float32)))
+
+
+@pytest.mark.parametrize('tag', ['id', 'aug'])
+def test_dfm_backbone_matches_golden_and_flax(golden, tag):
+    z = golden
+    g = _golden_inputs(z, tag)
+    sd = {k[3:]: torch.from_numpy(np.asarray(z[k], np.float32))
+          for k in z.files if k.startswith('sd.')}
+    port = DfMBackbone(in_channels=g['cur'].shape[-1], cv_channels=32,
+                       cost_sample_factor=4,
+                       num_depth_bins_out=len(g['depths']))
+    port.load_state_dict(sd, strict=True)
+    t = torch.from_numpy
+    with torch.inference_mode():
+        cost, stereo, mono = port(
+            t(g['cur']), t(g['prev']), t(g['depths']), t(g['cam']),
+            t(g['c2p']), **{k: t(v) for k, v in g['kw'].items()})
+    cost = cost[..., 0].numpy()[:, None]                    # (B,1,D,H,W)
+    stereo = stereo.numpy().transpose(0, 4, 1, 2, 3)
+    mono = mono.numpy().transpose(0, 4, 1, 2, 3)
+    np.testing.assert_allclose(stereo, z[f'{tag}.stereo'], atol=2e-3,
+                               rtol=2e-3)
+    np.testing.assert_allclose(mono, z[f'{tag}.mono'], atol=2e-3, rtol=2e-3)
+    np.testing.assert_allclose(cost, z[f'{tag}.cost'], atol=4e-3, rtol=4e-3)
+
+    # the flax module (its default banded form) on the same weights
+    mdl = JBackbone(in_channels=g['cur'].shape[-1], cv_channels=32,
+                    cost_sample_factor=4, feat_sample_factor=1,
+                    num_depth_bins_out=len(g['depths']), norm='gn')
+    args = [jnp.asarray(g[k]) for k in ('cur', 'prev', 'depths', 'cam',
+                                        'c2p')]
+    jkw = {k: jnp.asarray(v) for k, v in g['kw'].items()}
+    v = mdl.init(jax.random.PRNGKey(0), *args, **jkw)
+    km = [(k[len('backbone_stereo.'):], f[1:], kind)
+          for k, f, kind in jax_key_map()
+          if k.startswith('backbone_stereo.')]
+    filled = import_dfm_state_dict({k: v_.numpy() for k, v_ in sd.items()},
+                                   {'params': v['params']}, key_map=km)
+    jc, js, jm = mdl.apply({'params': filled['params']}, *args, **jkw)
+    np.testing.assert_allclose(cost[:, 0], np.asarray(jc[..., 0]),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(stereo, np.asarray(js).transpose(0, 4, 1, 2, 3),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(mono, np.asarray(jm).transpose(0, 4, 1, 2, 3),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_init_dfm_model_needs_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default device works')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        init_dfm_model(DfMConfig(**TINY))
+    h = init_dfm_model(DfMConfig(**TINY), dtype=torch.float32, device='cpu')
+    assert next(h['model'].parameters()).device.type == 'cpu'
+
+
+def test_port_runs_without_jax():
+    """A fresh process imports the port and runs a tiny CPU forward
+    without loading JAX."""
+    code = (
+        'import sys, numpy as np, torch\n'
+        'from dfm_tpu_torch.apis import init_dfm_model\n'
+        'from dfm_tpu_torch.models.detectors.dfm import BatchMeta, '
+        'DfMConfig\n'
+        f'cfg = DfMConfig(**{TINY!r})\n'
+        "h = init_dfm_model(cfg, dtype=torch.float32, device='cpu')\n"
+        f'img = torch.randn(1, 2, {H}, {W_}, 3, '
+        'generator=torch.Generator().manual_seed(0))\n'
+        'cam = np.eye(4, dtype=np.float32); cam[0, 0] = cam[1, 1] = 200.\n'
+        f'cam[0, 2], cam[1, 2] = {W_ / 2}, {H / 2}\n'
+        "det = h['infer'](img, BatchMeta.identity(1, cam[None]))\n"
+        "assert torch.isfinite(det['boxes3d']).all()\n"
+        "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
+        "assert not any(m.split('.')[0] == 'dfm_tpu' for m in sys.modules)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith('ok')
+
+
+def test_no_jax_import_in_port_sources():
+    pat = re.compile(r'^\s*(import|from)\s+(jax|flax|dfm_tpu)(\.|\s|$)',
+                     re.M)
+    files = [os.path.join(ROOT, 'chip_smoke.py')]
+    for d, _, names in os.walk(os.path.join(ROOT, 'dfm_tpu_torch')):
+        files += [os.path.join(d, n) for n in names if n.endswith('.py')]
+    assert len(files) > 20
+    bad = [f for f in files if pat.search(open(f).read())]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_greedy_suppress_matches_jax(seed):
+    """The fixed-point form of greedy NMS == the JAX sequential loop, on
+    dense random overlaps (long suppression chains) and dead entries."""
+    from dfm_tpu.core.nms import _greedy_suppress as jax_greedy
+    from dfm_tpu_torch.core.nms import _greedy_suppress
+    rng = np.random.RandomState(seed)
+    n = 96
+    iou = rng.rand(n, n).astype(np.float32)
+    iou = (iou + iou.T) / 2
+    scores = rng.rand(3, n).astype(np.float32)
+    scores[rng.rand(3, n) < 0.2] = -np.inf
+    want = np.stack([np.asarray(jax_greedy(jnp.asarray(iou),
+                                           jnp.asarray(s), 0.5))
+                     for s in scores])
+    got = _greedy_suppress(torch.from_numpy(iou), torch.from_numpy(scores),
+                           0.5).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_nms_bev_matches_jax():
+    from dfm_tpu.core.nms import nms_bev as jax_nms_bev
+    from dfm_tpu_torch.core.nms import nms_bev
+    rng = np.random.RandomState(3)
+    n = 64
+    boxes = np.concatenate([rng.rand(n, 2) * 8, rng.rand(n, 2) * 3 + 1,
+                            rng.rand(n, 1) * np.pi], 1).astype(np.float32)
+    scores = rng.rand(n).astype(np.float32)
+    valid = rng.rand(n) > 0.1
+    want = jax_nms_bev(jnp.asarray(boxes), jnp.asarray(scores), 0.25,
+                       jnp.asarray(valid))
+    got = nms_bev(torch.from_numpy(boxes), torch.from_numpy(scores), 0.25,
+                  torch.from_numpy(valid))
+    assert 0 < int(got.sum()) < n
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -1,0 +1,277 @@
+"""Port kernels K1-K3 (dfm_tpu_torch/ops) against the JAX package.
+
+The plain PyTorch versions are held against
+* the JAX XLA references in float32 (atol 1e-5: the same f32 products,
+  summed in another order), and
+* the Pallas TPU kernels in interpret mode in bf16 (atol/rtol 6e-2, the
+  JAX package's own tolerance for these kernels: they round their
+  interpolation weights to bf16).
+The CUDA kernels themselves run only on the card (`cuda` marker); here
+those cases report as skipped.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import dfm_tpu.ops.frustum_separable as FS
+from dfm_tpu.ops.cost_volume import plane_sweep_grids as jax_grids
+from dfm_tpu.ops.packed_sample import pack_taps_2d, packed_bilinear_sample
+from dfm_tpu_torch.ops import cost_volume as PCV
+from dfm_tpu_torch.ops import frustum_separable as PFS
+from dfm_tpu_torch.ops.cuda import sampling as K
+
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_TOL = dict(atol=6e-2, rtol=6e-2)
+
+
+def _interpret(fn, *args, **kw):
+    """Run a Pallas wrapper with pallas_call in interpret mode (as the
+    JAX package's tests do)."""
+    from unittest import mock
+    from jax.experimental import pallas as pl
+    orig = pl.pallas_call
+
+    def call(*a, **k):
+        k['interpret'] = True
+        k.pop('compiler_params', None)
+        return orig(*a, **k)
+
+    with mock.patch.object(pl, 'pallas_call', call):
+        return fn(*args, **kw)
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(dtype)
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x, jnp.float32)) if not \
+        isinstance(x, torch.Tensor) else x.float().numpy()
+
+
+# ---------------------------------------------------------------- K1
+
+@pytest.fixture
+def warp_data():
+    rng = np.random.RandomState(0)
+    b, h, w, c = 2, 24, 64, 32
+    d, hq, wq = 3, 6, 16
+    prev = rng.randn(b, h, w, c).astype(np.float32)
+    base_v = rng.rand(b, d, hq, 1) * (h - 2)
+    v = (base_v + rng.rand(b, d, hq, wq) * 1.5).astype(np.float32)
+    u = (np.linspace(-2, w + 1, wq)[None, None, None, :] +
+         rng.rand(b, d, hq, wq)).astype(np.float32)
+    return prev, u, v
+
+
+def _jax_gather(prev, u, v):
+    grid = jnp.stack([jnp.asarray(u), jnp.asarray(v)], axis=-1)
+    c = prev.shape[-1]
+    return jax.vmap(lambda f, g: packed_bilinear_sample(
+        pack_taps_2d(f), g, c))(jnp.asarray(prev), grid)
+
+
+@pytest.mark.parametrize('case', ['in_band', 'band_violated', 'far_oob'])
+def test_warp_plain_matches_xla_gather(warp_data, case):
+    from dfm_tpu.ops.pallas.cost_warp import band_ok
+    prev, u, v = warp_data
+    if case == 'band_violated':
+        # rows whose taps span far more than the TPU kernel's 4-row
+        # band: the JAX package takes its gather path there
+        v = v.copy()
+        v[0, 0, 0, 0], v[0, 0, 0, 1] = 2.0, 20.0
+        v[1, 2] = np.random.RandomState(1).rand(6, 16) * 30 - 3
+        assert not bool(band_ok(jnp.asarray(v), prev.shape[1]))
+    elif case == 'far_oob':
+        v = v + 1000.0
+    want = np.asarray(_jax_gather(prev, u, v))
+    got = PCV.warp_prev_plain(_t(prev), _t(u), _t(v)).numpy()
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    if case == 'far_oob':
+        assert np.abs(got).max() == 0.0
+
+
+def test_warp_plain_matches_pallas_interpret(warp_data):
+    import dfm_tpu.ops.pallas.cost_warp as cw
+    prev, u, v = warp_data
+    prev_b = jnp.asarray(prev).astype(jnp.bfloat16)
+    want = _interpret(cw.warp_prev_band.__wrapped__, prev_b,
+                      jnp.asarray(u), jnp.asarray(v))
+    got = PCV.warp_prev_plain(_t(prev, torch.bfloat16), _t(u), _t(v))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), _f32(want), **BF16_TOL)
+
+
+@pytest.mark.parametrize('tag', ['id', 'aug'])
+def test_plane_sweep_grids_match(tag):
+    """Identity aug and a flip + crop + scale aug (the golden fixture's
+    `id` / `aug` tags), with ego-motion."""
+    depths = np.linspace(2.5, 40.0, 5).astype(np.float32)
+    cam = np.array([[700., 0, 310, 12], [0, 700., 95, 0.3],
+                    [0, 0, 1, 0.004], [0, 0, 0, 1]], np.float32)
+    c2p = np.eye(4, dtype=np.float32)
+    c2p[:3, 3] = (0.3, -0.05, -0.9)
+    c, s = np.cos(0.02), np.sin(0.02)
+    c2p[0, 0], c2p[0, 2], c2p[2, 0], c2p[2, 2] = c, s, -s, c
+    aug = dict(id=(640.0, 0.0, (0.0, 0.0), 1.0),
+               aug=(1242.0, 1.0, (6.0, 2.0), 0.5))[tag]
+    org_w, flip, crop, sf = aug
+    feat_shape = (48, 160)
+    want_c, want_p = jax_grids(
+        jnp.asarray(depths), jnp.asarray(cam), jnp.asarray(c2p), feat_shape,
+        4, 1, jnp.float32(org_w), jnp.float32(flip), jnp.asarray(crop),
+        jnp.float32(sf))
+    got_c, got_p = PCV.plane_sweep_grids(
+        _t(depths), _t(cam)[None], _t(c2p)[None], feat_shape, 4, 1,
+        _t([org_w]), _t([flip]), _t([crop]), _t([sf]))
+    for got, want in ((got_c, want_c), (got_p, want_p)):
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want),
+                                   atol=2e-3, rtol=1e-5)
+
+
+# ------------------------------------------------------------ K2, K3
+
+def _frustum_data(seed, table_shape):
+    rng = np.random.RandomState(seed)
+    nx, ny, nz = 10, 12, 5
+    table = rng.randn(*table_shape).astype(np.float32)
+    u = (rng.rand(nx, ny) * 70 - 3).astype(np.float32)
+    v = (rng.rand(nx, nz) * 36 - 2).astype(np.float32)
+    xs = np.linspace(2.0, 30.0, nx)
+    return table, u, v, xs, (32, 64)
+
+
+def test_stereo_sample_plain_matches_xla():
+    vol, u, v, xs, pad = _frustum_data(0, (6, 8, 16, 4))
+    ds = FS.slab_depth_static(xs, 2.0, 30.0, vol.shape[0])
+    want, valid_w = FS.separable_stereo_sample(
+        jnp.asarray(vol), jnp.asarray(u), jnp.asarray(v), ds, pad)
+    got, valid_g = PFS.stereo_sample_plain(
+        _t(vol)[None], _t(u)[None], _t(v)[None],
+        *PFS.depth_tables(PFS.slab_depth_static(xs, 2.0, 30.0, 6), 'cpu'),
+        pad)
+    np.testing.assert_array_equal(valid_g[0].numpy(), np.asarray(valid_w))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), **F32_TOL)
+
+
+def test_stereo_sample_plain_matches_pallas_interpret():
+    from dfm_tpu.ops.pallas.frustum_sample import (
+        frustum_stereo_sample_pallas)
+    vol, u, v, xs, pad = _frustum_data(0, (6, 8, 16, 4))
+    ds = FS.slab_depth_static(xs, 2.0, 30.0, vol.shape[0])
+    groups = FS._group_slabs(ds['z0'])
+    want, valid_w = _interpret(
+        frustum_stereo_sample_pallas, jnp.asarray(vol).astype(jnp.bfloat16),
+        jnp.asarray(u), jnp.asarray(v), ds, pad,
+        (groups[0], groups[1], groups[2], FS._runs(ds['z0'])))
+    got, valid_g = K.frustum_stereo_sample(
+        _t(vol, torch.bfloat16)[None], _t(u)[None], _t(v)[None],
+        PFS.slab_depth_static(xs, 2.0, 30.0, 6), pad)
+    np.testing.assert_array_equal(valid_g[0].numpy(), np.asarray(valid_w))
+    np.testing.assert_allclose(got[0].float().numpy(), _f32(want),
+                               **BF16_TOL)
+
+
+def test_attention_plain_matches_xla():
+    sm, u, v, xs, pad = _frustum_data(1, (12, 16, 32))
+    sm = np.abs(sm)
+    dsf = FS.slab_depth_static(xs, 2.0, 30.0, sm.shape[0])
+    want = FS.separable_softmax_attention(
+        jnp.asarray(sm), jnp.asarray(u), jnp.asarray(v), dsf, pad)
+    got = PFS.attention_sample_plain(
+        _t(sm)[None], _t(u)[None], _t(v)[None],
+        *PFS.depth_tables(PFS.slab_depth_static(xs, 2.0, 30.0, 12), 'cpu'),
+        pad)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), **F32_TOL)
+
+
+def test_attention_plain_matches_pallas_interpret():
+    from dfm_tpu.ops.pallas.frustum_sample import attention_sample_pallas
+    sm, u, v, xs, pad = _frustum_data(1, (12, 16, 32))
+    sm = np.abs(sm)
+    dsf = FS.slab_depth_static(xs, 2.0, 30.0, sm.shape[0])
+    want, _ = _interpret(attention_sample_pallas,
+                         jnp.asarray(sm).astype(jnp.bfloat16),
+                         jnp.asarray(u), jnp.asarray(v), dsf, pad)
+    got = K.attention_sample(_t(sm, torch.bfloat16)[None], _t(u)[None],
+                             _t(v)[None],
+                             PFS.slab_depth_static(xs, 2.0, 30.0, 12), pad)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), **BF16_TOL)
+
+
+def test_fine_softmax_volume_matches_xla():
+    cost = np.random.RandomState(2).randn(6, 4, 8).astype(np.float32)
+    want = FS.build_fine_softmax_volume(jnp.asarray(cost), 4, (16, 32),
+                                        dtype=jnp.float32)
+    got = PFS.build_fine_softmax_volume(_t(cost)[None], 4, (16, 32),
+                                        torch.float32)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), atol=1e-6,
+                               rtol=1e-5)
+
+
+def test_sem_sample_matches_xla():
+    sem, u, v, xs, pad = _frustum_data(3, (8, 16, 5))
+    ds = FS.slab_depth_static(xs, 2.0, 30.0, 6)
+    _, valid = FS.separable_stereo_sample(
+        jnp.zeros((6, 8, 16, 1)), jnp.asarray(u), jnp.asarray(v), ds, pad)
+    want = FS.separable_sem_sample(jnp.asarray(sem), jnp.asarray(u),
+                                   jnp.asarray(v), pad, valid)
+    got = PFS.sem_sample(_t(sem)[None], _t(u)[None], _t(v)[None], pad,
+                         torch.from_numpy(np.array(valid))[None])
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), **F32_TOL)
+
+
+def test_wrappers_take_plain_version_on_cpu(warp_data):
+    """On CPU tensors the wrappers return the plain versions and launch
+    nothing."""
+    prev, u, v = warp_data
+    K.reset_launch_counts()
+    got = K.warp_prev(_t(prev), _t(u), _t(v))
+    want = PCV.warp_prev_plain(_t(prev), _t(u), _t(v))
+    assert torch.equal(got, want)
+    assert K.LAUNCHES == {k: 0 for k in K.LAUNCHES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_cuda_kernels_match_plain(dtype):
+    """Each CUDA kernel against its plain version on the card (f32:
+    atol 1e-5; bf16: one bf16 rounding of the output)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    dt = getattr(torch, dtype)
+    tol = F32_TOL if dt == torch.float32 else dict(atol=2e-2, rtol=1e-2)
+    dev = 'cuda'
+    rng = np.random.RandomState(0)
+    prev = _t(rng.randn(2, 24, 64, 32), dt).to(dev)
+    u = _t(rng.rand(2, 3, 6, 16) * 70 - 3).to(dev)
+    v = _t(rng.rand(2, 3, 6, 16) * 30 - 3).to(dev)
+    K.reset_launch_counts()
+    for table in (prev, prev[..., :6].contiguous()):   # 16-byte / scalar rows
+        np.testing.assert_allclose(
+            K.warp_prev(table, u, v).float().cpu().numpy(),
+            PCV.warp_prev_plain(table, u, v).float().cpu().numpy(), **tol)
+    vol, u2, v2, xs, pad = _frustum_data(0, (2, 6, 8, 16, 40))
+    ds = PFS.slab_depth_static(xs, 2.0, 30.0, 6)
+    vol_t = _t(vol, dt).to(dev)
+    u2 = _t(np.stack([u2, u2 + 3])).to(dev)
+    v2 = _t(np.stack([v2, v2 - 2])).to(dev)
+    for table in (vol_t, vol_t[..., :5].contiguous()):
+        got, valid = K.frustum_stereo_sample(table, u2, v2, ds, pad)
+        want, valid_w = PFS.stereo_sample_plain(
+            table, u2, v2, *PFS.depth_tables(ds, dev), pad)
+        assert torch.equal(valid, valid_w)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol)
+    sm = _t(np.abs(rng.randn(2, 12, 16, 32)), dt).to(dev)
+    dsf = PFS.slab_depth_static(xs, 2.0, 30.0, 12)
+    np.testing.assert_allclose(
+        K.attention_sample(sm, u2, v2, dsf, pad).cpu().numpy(),
+        PFS.attention_sample_plain(sm, u2, v2, *PFS.depth_tables(dsf, dev),
+                                   pad).cpu().numpy(), **F32_TOL)
+    assert K.LAUNCHES == dict(warp_prev=2, frustum_stereo_sample=2,
+                             attention_sample=1)
