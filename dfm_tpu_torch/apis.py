@@ -4,6 +4,12 @@ They run on the CUDA card by default and raise when there is none; the
 CPU is used only when the caller passes device='cpu'. Weights are
 random from seed 0 (`utils/weights.py:init_weights`) until a checkpoint
 is loaded into `handle['model']` with `load_state_dict`.
+
+`use_band` and `packed` select the form of the 3D trunks
+(`models/backbones/dfm_backbone.py`): by default the banded stems and the
+reduced-depth mono trunk, with the stereo stem and pred ConvNorm on the
+conv chain (kernels K4, K7a, K8a) for bfloat16; `use_band=False,
+packed=False` is the dense form. One state dict loads into every form.
 """
 
 import torch
@@ -23,22 +29,23 @@ def _device(device):
     return torch.device(device)
 
 
-def _build(cfg, dtype, device):
+def _build(cfg, dtype, device, use_band, packed):
     cfg = cfg or DfMConfig()
     device = _device(device)
     with torch.device('meta'):
-        model = DfM(cfg, dtype=dtype)
+        model = DfM(cfg, dtype=dtype, use_band=use_band, packed=packed)
     model = init_weights(model.to_empty(device=device)).eval()
     return cfg, device, model
 
 
-def init_dfm_model(cfg=None, dtype=torch.bfloat16, device=None):
+def init_dfm_model(cfg=None, dtype=torch.bfloat16, device=None,
+                   use_band=True, packed=None):
     """Build a DfM model and its inference function.
 
     Returns dict(model, cfg, device, infer) with
     infer(img (B, 2, H, W, 3), meta) -> padded detections dict.
     """
-    cfg, device, model = _build(cfg, dtype, device)
+    cfg, device, model = _build(cfg, dtype, device, use_band, packed)
 
     @torch.inference_mode()
     def infer(img, meta):
@@ -47,7 +54,8 @@ def init_dfm_model(cfg=None, dtype=torch.bfloat16, device=None):
     return dict(model=model, cfg=cfg, device=device, infer=infer)
 
 
-def init_dfm_stream(cfg=None, dtype=torch.bfloat16, device=None):
+def init_dfm_stream(cfg=None, dtype=torch.bfloat16, device=None,
+                    use_band=True, packed=None):
     """Streaming video inference with prev-frame feature reuse: the first
     frame of a sequence runs the two-frame path, every later step one
     backbone + neck pass on the new frame and the cached stereo features
@@ -58,7 +66,7 @@ def init_dfm_stream(cfg=None, dtype=torch.bfloat16, device=None):
         infer_first(img2 (B, 2, H, W, 3), meta) -> (dets, cache)
         infer_stream(img1 (B, H, W, 3), meta, cache) -> (dets, cache)
     """
-    cfg, device, model = _build(cfg, dtype, device)
+    cfg, device, model = _build(cfg, dtype, device, use_band, packed)
 
     @torch.inference_mode()
     def infer_first(img, meta):

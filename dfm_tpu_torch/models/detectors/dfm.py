@@ -10,8 +10,9 @@ Port of `dfm_tpu/models/detectors/dfm.py:45-253, 305-314`:
 Inputs and outputs keep the JAX package's layouts (images
 (B, 2, H, W, 3), channels-last volumes and head maps) so the two can be
 compared directly. Each stage runs in a `record_function` span
-(`dfm.image_trunk`, `dfm.stereo_backbone`, `dfm.frustum_to_voxel`,
-`dfm.bev_head`, `dfm.predict`) that `dfm_tpu_torch/trace_main.py` reads.
+(`dfm.image_trunk`, `dfm.stereo_backbone` with the backbone's own spans
+inside it, `dfm.frustum_to_voxel`, `dfm.bev_head`, `dfm.predict`) that
+`dfm_tpu_torch/trace_main.py` reads.
 """
 
 import dataclasses
@@ -131,9 +132,11 @@ class DfMConfig:
 
 class DfM(nn.Module):
     """Forward producing head outputs and intermediate volumes; the
-    inference post-processing is `dfm_predict`."""
+    inference post-processing is `dfm_predict`. `use_band` and `packed`
+    select the form of `DfMBackbone` (same parameters in every form)."""
 
-    def __init__(self, cfg: DfMConfig = DfMConfig(), dtype=torch.float32):
+    def __init__(self, cfg: DfMConfig = DfMConfig(), dtype=torch.float32,
+                 use_band=True, packed=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -145,7 +148,8 @@ class DfM(nn.Module):
         self.backbone_stereo = DfMBackbone(
             in_channels=cfg.stereo_channels[1], cv_channels=cfg.cv_channels,
             cost_sample_factor=cfg.cost_sample_factor,
-            num_depth_bins_out=cfg.num_downsampled_bins)
+            num_depth_bins_out=cfg.num_downsampled_bins,
+            use_band=use_band, packed=packed)
         self.feature_transformation = FrustumToVoxel(
             in_channels=cfg.cv_channels + cfg.sem_channels[1],
             out_channels=cfg.cv_channels, depth_min=cfg.depth_min,

@@ -22,8 +22,10 @@ from .build import load
 __all__ = ['LAUNCHES', 'reset_launch_counts', 'warp_prev',
            'frustum_stereo_sample', 'attention_sample']
 
+# one table for every kernel of the port (K4, K7a, K8a: `conv_chain.py`)
 LAUNCHES = {'warp_prev': 0, 'frustum_stereo_sample': 0,
-            'attention_sample': 0}
+            'attention_sample': 0, 'pack_vol': 0, 'conv_p2p': 0,
+            'unpack_affine_res': 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

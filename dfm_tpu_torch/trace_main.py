@@ -1,17 +1,23 @@
 """Where the time goes on the main path, from a torch.profiler trace.
 
     python -m dfm_tpu_torch.trace_main [--requests 3] [--out build/trace]
+                                       [--dense]
 
 Runs DfM-R34 KITTI inference (full DfMConfig, 1x2x320x1280, bf16,
-seeded random weights) on the CUDA card: two warm-up requests, then
-`--requests` two-frame requests (`init_dfm_model`) and as many stream
-steps (`init_dfm_stream`) under the profiler. Prints, per path, the
-host ms per request, the device busy time (kernels and copies) per
-request and the idle share; for each stage span of `DfM.forward` /
-`dfm_predict` its extent on the device timeline, the kernel time inside
-it and its host time; and the kernels that take the most device time.
-Writes the same as JSON, plus a Chrome trace of the two-frame requests,
-to `--out`. Needs a CUDA device.
+seeded random weights) on the CUDA card, in the default form (banded
+stems, reduced-depth mono trunk, conv chain) or with `--dense` in the
+dense form: two warm-up requests, then `--requests` two-frame requests
+(`init_dfm_model`) and as many stream steps (`init_dfm_stream`) under
+the profiler. Prints, per path, the host ms per request, the device busy
+time (kernels and copies) per request and the idle share; for each stage
+span of `DfM.forward` / `dfm_predict` (and, inside
+`dfm.stereo_backbone`, the backbone's cost_volume / stem / hourglass /
+mono / pred spans) its extent on the device timeline, the kernel time
+inside it and its host time; the device time and launches of each of
+the port's own kernels; and the kernels that take the most device time.
+Writes the same as JSON (`trace_main.json`, or `trace_main_dense.json`),
+plus a Chrome trace of the two-frame requests, to `--out`. Needs a CUDA
+device.
 """
 
 import argparse
@@ -28,6 +34,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from .apis import init_dfm_model, init_dfm_stream
 from .models.detectors.dfm import BatchMeta, DfMConfig
+
+# device functions of the port's hand-written kernels (csrc/*.cu)
+PORT_KERNELS = ('warp_prev_kernel', 'stereo_sample_kernel',
+                'attention_sample_kernel', 'pack_vol_kernel',
+                'conv_p2p_kernel', 'zero_border_kernel',
+                'unpack_affine_kernel')
 
 
 def _inputs(dev):
@@ -49,8 +61,13 @@ def _summary(prof, n, wall_ms, top):
     kernels = [e for e in dev if not e.name.startswith('dfm.')]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name = collections.Counter()
+    ours = {k: [0.0, 0.0] for k in PORT_KERNELS}
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        for k in PORT_KERNELS:
+            if k in e.name:
+                ours[k][0] += e.time_range.elapsed_us() / 1e3 / n
+                ours[k][1] += 1 / n
     stages = collections.defaultdict(lambda: [0.0, 0.0, 0.0])
     for a in spans:
         r = a.time_range
@@ -60,8 +77,14 @@ def _summary(prof, n, wall_ms, top):
         stages[a.name][0] += r.elapsed_us() / 1e3 / n
         stages[a.name][1] += inside / 1e3 / n
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in stages:
+        if e.device_type == DeviceType.CPU and e.name.startswith('dfm.'):
             stages[e.name][2] += e.cpu_time_total / 1e3 / n
+    # the profiler gives a span with spans inside it no device range that
+    # covers them: such a span takes the sum of its children
+    for name, v in stages.items():
+        kids = [c for k, c in stages.items() if k.startswith(name + '.')]
+        if kids and v[0] < sum(c[0] for c in kids):
+            v[0], v[1] = (sum(c[i] for c in kids) for i in (0, 1))
     return dict(
         host_ms_per_request=wall_ms / n,
         device_busy_ms_per_request=busy / n,
@@ -69,6 +92,8 @@ def _summary(prof, n, wall_ms, top):
         stages_ms_per_request={
             k: dict(device_span=v[0], kernels=v[1], host=v[2])
             for k, v in stages.items()},
+        port_kernels_per_request={
+            k: dict(ms=v[0], launches=v[1]) for k, v in ours.items()},
         top_kernels_ms_per_request=[
             (name[:90], ms / n) for name, ms in by_name.most_common(top)])
 
@@ -94,6 +119,8 @@ def main():
     ap.add_argument('--requests', type=int, default=3)
     ap.add_argument('--top', type=int, default=12)
     ap.add_argument('--out', default='build/trace')
+    ap.add_argument('--dense', action='store_true',
+                    help='the dense form (use_band=False, packed=False)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('trace_main: needs a CUDA device')
@@ -106,16 +133,19 @@ def main():
     cfg = DfMConfig()
     frames, meta = _inputs(dev)
     n = args.requests
-    result = dict(card=card, torch=torch.__version__)
+    form = dict(use_band=False, packed=False) if args.dense else {}
+    tag = '_dense' if args.dense else ''
+    result = dict(card=card, torch=torch.__version__,
+                  form='dense' if args.dense else 'banded + conv chain')
 
-    model = init_dfm_model(cfg)
+    model = init_dfm_model(cfg, **form)
     prof, wall = _profiled(
         lambda i: model['infer'](frames[None, i:i + 2], meta), n,
-        os.path.join(args.out, 'trace_model.json'))
+        os.path.join(args.out, f'trace_model{tag}.json'))
     result['model'] = _summary(prof, n, wall, args.top)
     del model, prof
 
-    stream = init_dfm_stream(cfg)
+    stream = init_dfm_stream(cfg, **form)
     _, cache = stream['infer_first'](frames[None, 0:2], meta)
 
     def step(i):
@@ -125,7 +155,7 @@ def main():
     prof, wall = _profiled(step, n, None)
     result['stream'] = _summary(prof, n, wall, args.top)
 
-    with open(os.path.join(args.out, 'trace_main.json'), 'w') as f:
+    with open(os.path.join(args.out, f'trace_main{tag}.json'), 'w') as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result, indent=1))
 

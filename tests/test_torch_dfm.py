@@ -1,13 +1,16 @@
 """The port's DfM slice (dfm_tpu_torch) against the JAX package.
 
-* DfMBackbone (dense form) against the flax module and against the
-  reference's own torch activations (tests/data/golden_dfm_backbone.npz,
-  golden tolerances 2e-3 / 4e-3 of tests/test_golden_parity.py).
+* DfMBackbone (its default form: banded stems, reduced-depth mono)
+  against the flax module and against the reference's own torch
+  activations (tests/data/golden_dfm_backbone.npz, golden tolerances
+  2e-3 / 4e-3 of tests/test_golden_parity.py).
 * The whole slice at the tiny config of tests/test_dfm_model.py: every
   head output and depth_cost / volume_feat / bev_feat against
   `DfM.apply` in float32, atol/rtol 3e-4 (dozens of stacked f32 convs
   and GroupNorms summed in other orders; measured max abs err 5e-5 on
-  outputs up to 7). The JAX neck builds its fine
+  outputs up to 7), in the default form, in the dense form and with the
+  conv chain on (its plain versions, on the CPU), all from one state
+  dict. The JAX neck builds its fine
   depth-softmax volume in bf16 even in an f32 model; the test makes it
   build that volume in f32 (the port's f32 behaviour), so the
   comparison is f32 throughout.
@@ -36,7 +39,7 @@ from dfm_tpu.models import dfm_predict as jax_predict
 from dfm_tpu.models.backbones.dfm_backbone import DfMBackbone as JBackbone
 from dfm_tpu.utils.checkpoint_import import (dfm_key_map as jax_key_map,
                                              import_dfm_state_dict)
-from dfm_tpu_torch.apis import init_dfm_model
+from dfm_tpu_torch.apis import init_dfm_model, init_dfm_stream
 from dfm_tpu_torch.models.backbones.dfm_backbone import DfMBackbone
 from dfm_tpu_torch.models.detectors.dfm import BatchMeta, DfM, DfMConfig, \
     dfm_predict
@@ -93,14 +96,33 @@ def tiny():
                 port=port.eval(), meta=meta)
 
 
-@pytest.mark.parametrize('key', ['depth_cost', 'volume_feat', 'bev_feat',
-                                 'cls_score', 'bbox_pred', 'dir_pred'])
-def test_slice_matches_jax(tiny, key):
-    if 'port_out' not in tiny:
+KEYS = ['depth_cost', 'volume_feat', 'bev_feat', 'cls_score', 'bbox_pred',
+        'dir_pred']
+FORMS = dict(default={}, dense=dict(use_band=False, packed=False),
+             chain=dict(use_band=True, packed=True))
+
+
+def _form(tiny, form):
+    """The port model of `tiny` in another form of the 3D trunks, from
+    the same state dict."""
+    if form == 'default':
+        return tiny['port']
+    port = DfM(DfMConfig(**TINY), **FORMS[form])
+    port.load_state_dict(tiny['port'].state_dict(), strict=True)
+    return port.eval()
+
+
+@pytest.mark.parametrize(
+    'form,key', [pytest.param('default', k, id=k) for k in KEYS]
+    + [pytest.param(f, k, id=f'{f}-{k}') for f in ('dense', 'chain')
+       for k in KEYS])
+def test_slice_matches_jax(tiny, form, key):
+    cached = f'port_out_{form}'
+    if cached not in tiny:
         with torch.inference_mode():
-            tiny['port_out'] = tiny['port'](torch.from_numpy(tiny['img']),
-                                            tiny['meta'])
-    got = tiny['port_out'][key].numpy()
+            tiny[cached] = _form(tiny, form)(torch.from_numpy(tiny['img']),
+                                             tiny['meta'])
+    got = tiny[cached][key].numpy()
     want = tiny['jax_out'][key]
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, **SLICE_TOL)
@@ -119,6 +141,27 @@ def test_stream_step_matches_two_frame_jax(tiny):
     for key in ('cls_score', 'bbox_pred', 'dir_pred'):
         np.testing.assert_allclose(out[key].numpy(), tiny['jax_out'][key],
                                    **SLICE_TOL)
+
+
+def test_init_dfm_stream_chain_form_matches_two_frame(tiny):
+    """`init_dfm_stream` with the conv chain on: a stream step equals
+    the two-frame request of `init_dfm_model` in the same form (same
+    seeded weights), and the dense form's detections."""
+    cfg = DfMConfig(**TINY)
+    kw = dict(dtype=torch.float32, device='cpu')
+    img = torch.from_numpy(tiny['img'])
+    f1, f0 = img[:, 0], img[:, 1]
+    stream = init_dfm_stream(cfg, packed=True, **kw)
+    assert stream['model'].backbone_stereo.packed is True
+    _, cache = stream['infer_first'](torch.stack([f0, f0], 1), tiny['meta'])
+    got, _ = stream['infer_stream'](f1, tiny['meta'], cache)
+    for form in (dict(packed=True), dict(use_band=False, packed=False)):
+        want = init_dfm_model(cfg, **form, **kw)['infer'](img, tiny['meta'])
+        assert set(got) == set(want)
+        for key in want:
+            np.testing.assert_allclose(
+                got[key].float().numpy(), want[key].float().numpy(),
+                atol=1e-3, rtol=0)
 
 
 def test_full_tree_round_trip(tiny):
@@ -246,7 +289,8 @@ def test_port_runs_without_jax():
         'from dfm_tpu_torch.models.detectors.dfm import BatchMeta, '
         'DfMConfig\n'
         f'cfg = DfMConfig(**{TINY!r})\n'
-        "h = init_dfm_model(cfg, dtype=torch.float32, device='cpu')\n"
+        "h = init_dfm_model(cfg, dtype=torch.float32, device='cpu', "
+        'packed=True)\n'
         f'img = torch.randn(1, 2, {H}, {W_}, 3, '
         'generator=torch.Generator().manual_seed(0))\n'
         'cam = np.eye(4, dtype=np.float32); cam[0, 0] = cam[1, 1] = 200.\n'

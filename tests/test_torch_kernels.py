@@ -1,4 +1,5 @@
-"""Port kernels K1-K3 (dfm_tpu_torch/ops) against the JAX package.
+"""Port kernels K1-K3 (dfm_tpu_torch/ops) against the JAX package, and
+every CUDA kernel of the port against its plain version on the card.
 
 The plain PyTorch versions are held against
 * the JAX XLA references in float32 (atol 1e-5: the same f32 products,
@@ -6,8 +7,11 @@ The plain PyTorch versions are held against
 * the Pallas TPU kernels in interpret mode in bf16 (atol/rtol 6e-2, the
   JAX package's own tolerance for these kernels: they round their
   interpolation weights to bf16).
-The CUDA kernels themselves run only on the card (`cuda` marker); here
-those cases report as skipped.
+The CUDA kernels themselves (K1-K3 and the conv chain's K4, K7a, K8a,
+whose plain versions `tests/test_torch_conv_chain.py` holds against the
+JAX package) run only on the card (`cuda` marker); here those cases
+report as skipped. This file imports no flax, so it also collects on a
+machine that has JAX without it.
 """
 
 import jax
@@ -19,8 +23,10 @@ import torch
 import dfm_tpu.ops.frustum_separable as FS
 from dfm_tpu.ops.cost_volume import plane_sweep_grids as jax_grids
 from dfm_tpu.ops.packed_sample import pack_taps_2d, packed_bilinear_sample
+from dfm_tpu_torch.ops import conv_chain as CC
 from dfm_tpu_torch.ops import cost_volume as PCV
 from dfm_tpu_torch.ops import frustum_separable as PFS
+from dfm_tpu_torch.ops.cuda import conv_chain as KC
 from dfm_tpu_torch.ops.cuda import sampling as K
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -274,4 +280,54 @@ def test_cuda_kernels_match_plain(dtype):
         PFS.attention_sample_plain(sm, u2, v2, *PFS.depth_tables(dsf, dev),
                                    pad).cpu().numpy(), **F32_TOL)
     assert K.LAUNCHES == dict(warp_prev=2, frustum_stereo_sample=2,
-                             attention_sample=1)
+                             attention_sample=1, pack_vol=0, conv_p2p=0,
+                             unpack_affine_res=0)
+
+
+@pytest.mark.cuda
+def test_cuda_chain_kernels_match_plain():
+    """K8a, K4 (both residual modes) and K7a (both exits) against their
+    plain versions on the card, at shapes with ragged and whole tiles:
+    outputs to one bf16 rounding (atol 1e-2 + rtol 1e-2), moments rtol
+    1e-4 (+ atol 1e-3: sums of a few hundred signed terms), borders zero,
+    K4 bit-identical across two runs. cuDNN's TF32 is off for the plain
+    f32 conv."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    dev = 'cuda'
+    rng = np.random.RandomState(0)
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for shape in ((5, 20, 40, 32), (3, 16, 32, 32), (2, 1, 1, 32)):
+            x = _t(rng.randn(*shape), torch.bfloat16).to(dev)
+            k = _t(rng.randn(32, 32, 3, 3, 3) * 0.1).to(dev)
+            sc, bs = _t(rng.rand(32) + 0.5).to(dev), _t(rng.randn(32)).to(dev)
+            K.reset_launch_counts()
+            cv = KC.pack_vol(x)
+            assert torch.equal(cv.data, CC.pack_vol_plain(x).data)
+            for residual in (False, True):
+                out, ps = KC.conv_p2p(cv, k, residual)
+                out2, ps2 = KC.conv_p2p(cv, k, residual)
+                assert torch.equal(out.data, out2.data)
+                assert torch.equal(ps, ps2)
+                want, wps = CC.conv_p2p_plain(cv, k, residual)
+                assert out.border_is_zero()
+                torch.testing.assert_close(out.data.float(),
+                                           want.data.float(), atol=1e-2,
+                                           rtol=1e-2)
+                torch.testing.assert_close(ps.sum(1), wps.sum(1), rtol=1e-4,
+                                           atol=1e-3)
+            for res, relu in ((cv, False), (None, True)):
+                got = KC.unpack_affine(out, sc, bs, res, relu)
+                ref = CC.unpack_affine_plain(out, sc, bs, res, relu)
+                torch.testing.assert_close(got.float(), ref.float(),
+                                           atol=1e-2, rtol=1e-2)
+            assert (K.LAUNCHES['pack_vol'], K.LAUNCHES['conv_p2p'],
+                    K.LAUNCHES['unpack_affine_res']) == (1, 4, 2)
+        with pytest.raises(TypeError):
+            KC.pack_vol(x.float())
+        with pytest.raises(ValueError):
+            KC.pack_vol(x[..., :16].contiguous())
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
