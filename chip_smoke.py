@@ -6,35 +6,42 @@
 Phases, one line each; any failure raises and no result is printed:
   1. device   card name and power limit (nvidia-smi), torch / CUDA
   2. build    nvcc for every kernel source, all at once
-  3. kernels  K1 warp_prev, K2 frustum_stereo_sample, K3 attention_sample,
-              K8a pack_vol, K4 conv_p2p (with and without the residual),
-              K7a unpack_affine_res (stem exit and pred exit) at the
-              DfM-KITTI main-path shapes: each kernel against its plain
+  3. kernels  K1 warp_prev, K2 frustum_stereo_sample, K3 attention_sample
+              at the DfM-KITTI main-path shapes; K8a pack_vol, K8b
+              unpack_vol, K4 conv_p2p (with and without the residual),
+              K7a unpack_affine_res (stem exit and pred exit), K7b
+              gn_affine_res_packed (with and without residual and relu),
+              K5 conv_s2_p2d and K6 pack_parity8 at both volumes the main
+              path gives them, the stereo trunk's 72 depth slices and the
+              reduced mono trunk's 44: each kernel against its plain
               PyTorch version on the same inputs (stated tolerance), the
-              zero border of every chain tensor a kernel writes, K4 run
-              twice and compared bit for bit, kernel / plain / one-call
-              library times (CUDA events, median of 20 after warmup),
-              and the bound: the bytes the function needs (rows of a
-              gathered table it touches, coordinates, volumes in and
-              out) over 3.35 TB/s, against its operations over the peak
-              for their type (f32 67 TFLOP/s; K4's bf16 products on the
-              tensor cores 989 TFLOP/s, dense)
+              zero border of every chain tensor a kernel writes, K4, K5
+              and K6 run twice and compared bit for bit, kernel / plain /
+              one-call library times (CUDA events, median of 20 after
+              warmup), and the bound: the bytes the function needs (rows
+              of a gathered table it touches, coordinates, volumes in
+              and out) over 3.35 TB/s, against its operations over the
+              peak for their type (f32 67 TFLOP/s; K4's and K5's bf16
+              products on the tensor cores 989 TFLOP/s, dense)
   4. main     full DfMConfig, 1x2x320x1280, bf16, seeded random weights,
               the default form (banded stems, reduced-depth mono trunk,
-              stereo stem and pred ConvNorm on the conv chain):
-              `init_dfm_model` (3 requests) and `init_dfm_stream` (first
-              frame + 2 stream steps), each run with the launch counts
-              set to 0 just before and read just after, every kernel
-              launched on both; then the dense form (`use_band=False,
-              packed=False`) for 2 timed requests after a warm-up, so
-              that both forms' ms/frame and peak memory come from one
-              run; plus decode + NMS on full-shape head outputs with
-              live scores
+              both trunks on the conv chain from the cost volume to the
+              pred exit): `init_dfm_model` (3 requests) and
+              `init_dfm_stream` (first frame + 2 stream steps), each run
+              with the launch counts set to 0 just before and read just
+              after, all ten kernels launched on both, the counts of
+              each request checked; then the form with only the stereo
+              stem and pred ConvNorm on the chain (`packed='stem'`) and
+              the dense form (`use_band=False, packed=False`), 2 timed
+              requests after a warm-up each, so that the three forms'
+              ms/frame and peak memory come from one run; plus decode +
+              NMS on full-shape head outputs with live scores
   5. parity   tiny config in float32 with TF32 off, dense form: the same
               weights on the CPU (plain versions) and on the card
-              (K1-K3); and bf16 on the card, default form against dense
-              form from the same weights and inputs, at the tiny config
-              and at full width
+              (K1-K3); and bf16 on the card, default form against the
+              dense form and against the `packed='stem'` form from the
+              same weights and inputs, at the tiny config and at full
+              width, the form that ran checked by its launch counts
 Then the kernels JSON line, the card line, and the result line.
 Exits non-zero without a result when there is no CUDA device or the
 package is not beside the script.
@@ -53,6 +60,36 @@ F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 BF16_TENSOR_FLOPS = 989e12    # H100 SXM bf16 on the tensor cores, dense
 REPS = 20
 IMG_HW = (320, 1280)
+MONO_DEPTH = 44               # slices of the reduced mono volume of 72 planes
+
+# kernel launches of one request (one backbone pass) at full width, by form
+SAMPLING = dict(warp_prev=1, frustum_stereo_sample=1, attention_sample=1)
+NO_CHAIN = dict(pack_vol=0, conv_p2p=0, unpack_affine_res=0, conv_s2_p2d=0,
+                pack_parity8=0, gn_affine_res_packed=0, unpack_vol=0)
+LAUNCHES_OF = {
+    'dense': {**SAMPLING, **NO_CHAIN},
+    # K8a prev + pred, K4 dres0 + dres1 + pred, K7a stem + pred exit
+    'stem': {**SAMPLING, **NO_CHAIN, 'pack_vol': 2, 'conv_p2p': 3,
+             'unpack_affine_res': 2},
+    # stereo: K8a, K4 x3, K5, K6, K7b x2 (stem + hourglass exit), K7a, K8b;
+    # mono: K8a, K5, K6, K7b (hourglass exit), K4, K7a, K8b
+    'chain': {**SAMPLING, 'pack_vol': 2, 'conv_p2p': 4,
+              'unpack_affine_res': 2, 'conv_s2_p2d': 2, 'pack_parity8': 2,
+              'gn_affine_res_packed': 3, 'unpack_vol': 2},
+    # 12 depth planes have no reduced-depth plan: the mono trunk is dense
+    'chain, stereo trunk only': {
+        **SAMPLING, 'pack_vol': 1, 'conv_p2p': 3, 'unpack_affine_res': 1,
+        'conv_s2_p2d': 1, 'pack_parity8': 1, 'gn_affine_res_packed': 2,
+        'unpack_vol': 1},
+}
+FORM_ARGS = {'chain': {}, 'stem': dict(packed='stem'),
+             'dense': dict(use_band=False, packed=False)}
+
+
+def check_launches(got, form, requests, what):
+    want = {k: n * requests for k, n in LAUNCHES_OF[form].items()}
+    check(dict(got) == want, f'{what}: launched {dict(got)}, the {form} '
+          f'form launches {want} in {requests} request(s)')
 
 
 def check(cond, msg):
@@ -244,96 +281,246 @@ def kernel_phase(cfg, dev):
     return results
 
 
+def moments_agree(name, ps, want_ps, n):
+    """Per-slice moments (summed over tiles) against the plain version's:
+    sums of squares rtol 1e-4; sums rtol 1e-4 + atol 1e-6 * sqrt(n * sum
+    of squares), n values per sum."""
+    got_z, want_z = ps.sum(1).double(), want_ps.sum(1).double()
+    lim = 1e-4 * want_z.abs()
+    lim[:, 0] += 1e-6 * (n * want_z[:, 1]).sqrt()
+    check(bool(((got_z - want_z).abs() <= lim).all()),
+          f'{name}: moments disagree')
+
+
 def chain_kernel_phase(x, gen, agree, report):
-    """K8a, K4, K7a at (72, 80, 320, 32) bf16. Outputs agree with the
-    plain versions to one bf16 rounding (atol 1e-2 + rtol 1e-2: the f32
-    sums of 864 products are taken in another order, so a result near a
-    rounding boundary may round the other way). Moments: sums of squares
-    rtol 1e-4; sums rtol 1e-4 + atol 1e-6 * sqrt(N * sum of squares), N
-    values per sum (a sum of signed terms cancels, so its error scales
-    with the terms, not with the sum). The plain K4 convolves in f32
-    with cuDNN's TF32 off (bf16-valued operands are exact either way)."""
+    """K8a, K8b, K4, K7a, K7b, K5, K6 at the two volumes the main path
+    gives them: the stereo trunk's (72, 80, 320, 32) bf16 and the reduced
+    mono trunk's (44, 80, 320, 32), where K4 splits the depth in other
+    chunks and K7a's scale and bias come from moments weighted by the
+    slice multiplicities. The copies (K8a, K8b, K6) and K7b against their
+    plain versions' bits (K7a within a rounding); the convs agree with
+    the plain versions to one bf16 rounding (atol 1e-2 + rtol 1e-2: the
+    f32 sums of 864 products are taken in another order, so a result near
+    a rounding boundary may round the other way). Moments: sums of
+    squares rtol 1e-4; sums rtol 1e-4 + atol 1e-6 * sqrt(N * sum of
+    squares), N values per sum (a sum of signed terms cancels, so its
+    error scales with the terms, not with the sum). The plain K4 and K5
+    convolve in f32 with cuDNN's TF32 off (bf16-valued operands are exact
+    either way). Kernel times at both depths; plain and library times,
+    and the bound, at depth 72."""
     import torch.nn.functional as F
     from dfm_tpu_torch.ops import conv_chain as CC
     from dfm_tpu_torch.ops.cuda import conv_chain as KC
+    from dfm_tpu_torch.ops.reduced_depth import make_reduced_plan
     src = 'dfm_tpu_torch/csrc/conv_chain.cu'
+    src_hg = 'dfm_tpu_torch/csrc/hourglass_chain.cu'
     jax_src = 'dfm_tpu/ops/pallas/conv_chain.py'
     tol = (1e-2, 1e-2)
     dev = x.device
     d, h, w, c = x.shape
-    nvox = d * h * w
-    dense_bytes = x.numel() * 2
+    plan = make_reduced_plan(d)
+    check(plan is not None and plan.dr == MONO_DEPTH,
+          f'the reduced mono depth of {d} planes is not {MONO_DEPTH}')
     weight = torch.randn(c, c, 3, 3, 3, generator=gen, device=dev) \
         / (27 * c) ** 0.5
-    sc = torch.rand(c, generator=gen, device=dev) + 0.5
-    bs = torch.randn(c, generator=gen, device=dev)
+    w64 = torch.randn(2 * c, c, 3, 3, 3, generator=gen, device=dev) \
+        / (27 * c) ** 0.5
+    gamma = torch.rand(c, generator=gen, device=dev) + 0.5
+    beta = torch.randn(c, generator=gen, device=dev)
 
-    # K8a
-    cv = KC.pack_vol(x)
-    check(torch.equal(cv.data, CC.pack_vol_plain(x).data),
-          'pack_vol: kernel differs from its plain version')
-    check(cv.border_is_zero(), 'pack_vol: border not zero')
-    check(torch.equal(CC.unpack_vol(cv), x), 'pack_vol: round trip')
-    chain_bytes = cv.data.numel() * 2
-    report('pack_vol', src, jax_src + ':444', 0.0, (0, 0),
-           cuda_ms(lambda: KC.pack_vol(x)),
-           cuda_ms(lambda: CC.pack_vol_plain(x)),
-           cuda_ms(lambda: F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))),
-           dense_bytes + chain_bytes, 0)
+    def at_depth(depth):
+        """Every check of the seven kernels on `depth` slices; the kernel
+        times, and what the depth-72 report needs besides."""
+        xd = x if depth == d else x[:depth].contiguous()
+        zw = None if depth == d else plan.mult(0)
+        at = f'(D={depth})'
+        m = dict(err={}, ms={})
 
-    # K4, both residual modes
-    flag = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        errs, outs = [], {}
-        for residual in (False, True):
-            out, ps = KC.conv_p2p(cv, weight, residual)
-            out2, ps2 = KC.conv_p2p(cv, weight, residual)
-            check(torch.equal(out.data, out2.data) and torch.equal(ps, ps2),
-                  'conv_p2p: two runs differ')
-            check(out.border_is_zero(), 'conv_p2p: border not zero')
-            want, wps = CC.conv_p2p_plain(cv, weight, residual)
-            errs.append(agree('conv_p2p', out.data, want.data, tol))
-            got_z, want_z = ps.sum(1).double(), wps.sum(1).double()
-            n = h * w
-            lim = 1e-4 * want_z.abs()
-            lim[:, 0] += 1e-6 * (n * want_z[:, 1]).sqrt()
-            check(bool(((got_z - want_z).abs() <= lim).all()),
-                  f'conv_p2p: moments disagree (residual={residual})')
-            outs[residual] = out
-            ps_bytes = ps.numel() * 4
-        plain_ms = cuda_ms(lambda: CC.conv_p2p_plain(cv, weight))
-    finally:
-        torch.backends.cudnn.allow_tf32 = flag
+        # K8a
+        cv = KC.pack_vol(xd)
+        check(torch.equal(cv.data, CC.pack_vol_plain(xd).data),
+              f'pack_vol: kernel differs from its plain version {at}')
+        check(cv.border_is_zero(), f'pack_vol: border not zero {at}')
+        m['ms']['pack_vol'] = cuda_ms(lambda: KC.pack_vol(xd))
+
+        # K8b: bit for bit the copy of the interior, which is also the
+        # one PyTorch call of the same function
+        got = KC.unpack_vol(cv)
+        check(torch.equal(got, CC.unpack_vol_plain(cv)),
+              f'unpack_vol: kernel differs from its plain version {at}')
+        check(torch.equal(got, xd), f'pack_vol, unpack_vol: round trip {at}')
+        m['ms']['unpack_vol'] = cuda_ms(lambda: KC.unpack_vol(cv))
+
+        # K4, both residual modes, and K5
+        flag = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            errs = []
+            for residual in (False, True):
+                out, ps = KC.conv_p2p(cv, weight, residual)
+                out2, ps2 = KC.conv_p2p(cv, weight, residual)
+                check(torch.equal(out.data, out2.data)
+                      and torch.equal(ps, ps2),
+                      f'conv_p2p: two runs differ {at}')
+                check(out.border_is_zero(), f'conv_p2p: border not zero {at}')
+                want, wps = CC.conv_p2p_plain(cv, weight, residual)
+                errs.append(agree('conv_p2p', out.data, want.data, tol))
+                moments_agree(f'conv_p2p (residual={residual}) {at}', ps,
+                              wps, h * w)
+                if not residual:
+                    u, ups = out, ps
+            m['err']['conv_p2p'] = max(errs)
+
+            y, ps = KC.conv_s2_p2d(cv, w64)
+            y2, ps2 = KC.conv_s2_p2d(cv, w64)
+            check(torch.equal(y, y2) and torch.equal(ps, ps2),
+                  f'conv_s2_p2d: two runs differ {at}')
+            check(tuple(y.shape) == (depth // 2, h // 2, w // 2, 2 * c),
+                  f'conv_s2_p2d: shape {tuple(y.shape)}')
+            want, wps = CC.conv_s2_plain(cv, w64)
+            m['err']['conv_s2_p2d'] = agree('conv_s2_p2d', y, want, tol)
+            moments_agree(f'conv_s2_p2d {at}', ps, wps, h * w // 4)
+            m['s2_bytes'] = (cv.data.numel() * 2 + y.numel() * 2
+                             + w64.numel() * 2 + ps.numel() * 4)
+            if depth == d:
+                m['p2p_plain_ms'] = cuda_ms(
+                    lambda: CC.conv_p2p_plain(cv, weight))
+                m['s2_plain_ms'] = cuda_ms(lambda: CC.conv_s2_plain(cv, w64))
+        finally:
+            torch.backends.cudnn.allow_tf32 = flag
+        m['ms']['conv_p2p'] = cuda_ms(lambda: KC.conv_p2p(cv, weight))
+        m['ms']['conv_p2p residual'] = cuda_ms(
+            lambda: KC.conv_p2p(cv, weight, True))
+        m['ms']['conv_s2_p2d'] = cuda_ms(lambda: KC.conv_s2_p2d(cv, w64))
+
+        # the scale and bias as the main path makes them: GroupNorm of
+        # K4's result from its moments, the slices of the reduced volume
+        # weighted by their multiplicities
+        sc, bs = CC.gn_scale_bias(ups, u.shape, gamma, beta, c, zw)
+
+        # K7a: stem exit (residual, no relu) and pred exit (relu)
+        m['err']['unpack_affine_res'] = max(
+            agree('unpack_affine_res', KC.unpack_affine(u, sc, bs, res, relu),
+                  CC.unpack_affine_plain(u, sc, bs, res, relu), tol)
+            for res, relu in ((cv, False), (None, True)))
+        m['ms']['unpack_affine_res'] = cuda_ms(
+            lambda: KC.unpack_affine(u, sc, bs, cv, False))
+        m['ms']['unpack_affine_res relu'] = cuda_ms(
+            lambda: KC.unpack_affine(u, sc, bs, None, True))
+
+        # K7b: the stem and hourglass exits (residual, no relu) and the
+        # other three modes, bit for bit (separate f32 multiply and add
+        # in both)
+        for res, relu in ((cv, False), (None, True), (cv, True),
+                          (None, False)):
+            got = KC.affine_chain(u, sc, bs, res, relu)
+            check(torch.equal(got.data,
+                              CC.affine_mask(u, sc, bs, relu, res).data),
+                  f'gn_affine_res_packed: kernel differs from its plain '
+                  f'version (residual={res is not None}, relu={relu}) {at}')
+            check(got.border_is_zero(),
+                  f'gn_affine_res_packed: border not zero {at}')
+        m['ms']['gn_affine_res_packed'] = cuda_ms(
+            lambda: KC.affine_chain(u, sc, bs, cv, False))
+        m['ms']['gn_affine_res_packed relu'] = cuda_ms(
+            lambda: KC.affine_chain(u, sc, bs, None, True))
+
+        # K6 on sub-volumes laid out as `convt1_parity` leaves them (a
+        # strided view, the eight parities of a voxel side by side) and
+        # contiguous: the interleave bit for bit, the moments of the
+        # stored values, twice
+        buf = torch.randn(depth // 2 + 1, h // 2 + 1, w // 2 + 1, 8, c,
+                          generator=gen, device=dev).to(x.dtype)
+        par = buf[:depth // 2, :h // 2, :w // 2].permute(3, 0, 1, 2, 4)
+        got, ps = KC.pack_parity8(par)
+        for again in (par, par.contiguous()):
+            got2, ps2 = KC.pack_parity8(again)
+            check(torch.equal(got.data, got2.data) and torch.equal(ps, ps2),
+                  f'pack_parity8: two runs differ {at}')
+        want, wps = CC.pack_parity8_plain(par)
+        check(torch.equal(got.data, want.data),
+              f'pack_parity8: kernel differs from its plain version {at}')
+        check(got.border_is_zero(), f'pack_parity8: border not zero {at}')
+        moments_agree(f'pack_parity8 {at}', ps, wps, h * w)
+        m['ms']['pack_parity8'] = cuda_ms(lambda: KC.pack_parity8(par))
+        m['p8_bytes'] = (par.numel() * 2 + got.data.numel() * 2
+                         + ps.numel() * 4)
+        if depth == d:
+            m['p8_plain_ms'] = cuda_ms(lambda: CC.pack_parity8_plain(par))
+            m['ps_bytes'] = ups.numel() * 4
+            m['tensors'] = (cv, u, sc, bs)
+        return m
+
+    mono, full = at_depth(MONO_DEPTH), at_depth(d)
+    cv, u, sc, bs = full['tensors']
+    nvox = d * h * w
+    dense_bytes, chain_bytes = x.numel() * 2, cv.data.numel() * 2
     x5 = x.permute(3, 0, 1, 2)[None]               # NCDHW view, NDHWC memory
-    w5 = weight.to(x.dtype)
+    w5, x64 = weight.to(x.dtype), w64.to(x.dtype)
 
-    def lib_moments():
-        y = F.conv3d(x5, w5, padding=1).float()
+    def lib_moments(wt, stride):
+        y = F.conv3d(x5, wt, stride=stride, padding=1).float()
         return y.sum((0, 2, 3, 4)), (y * y).sum((0, 2, 3, 4))
 
-    out = outs[False]
-    report('conv_p2p', src, jax_src + ':233', max(errs), tol,
-           cuda_ms(lambda: KC.conv_p2p(cv, weight)), plain_ms,
-           cuda_ms(lambda: F.conv3d(x5, w5, padding=1)),
-           2 * chain_bytes + weight.numel() * 2 + ps_bytes,
-           2 * 27 * c * c * nvox, peak=BF16_TENSOR_FLOPS,
-           ms_residual=cuda_ms(lambda: KC.conv_p2p(cv, weight, True)),
-           library_with_moments_ms=cuda_ms(lib_moments))
+    def rep(name, source, line, plain_ms, lib_ms, nbytes, flops, modes=(),
+            **kw):
+        """One kernel's line: exact copies have tolerance 0; `modes` are
+        the kernel's other timed modes."""
+        exact = name not in full['err']
+        extra = {f'ms_{mode}': full['ms'][f'{name} {mode}'] for mode in modes}
+        extra[f'ms_depth{MONO_DEPTH}'] = mono['ms'][name]
+        for mode in modes:
+            extra[f'ms_{mode}_depth{MONO_DEPTH}'] = mono['ms'][f'{name} {mode}']
+        extra.update(kw.pop('extra', {}))
+        report(name, source, jax_src + line,
+               0.0 if exact else max(full['err'][name], mono['err'][name]),
+               (0, 0) if exact else tol, full['ms'][name], plain_ms, lib_ms,
+               nbytes, flops, **kw, **extra)
 
-    # K7a: stem exit (residual, no relu) and pred exit (relu)
-    errs = []
-    for res, relu in ((cv, False), (None, True)):
-        got = KC.unpack_affine(out, sc, bs, res, relu)
-        errs.append(agree('unpack_affine_res', got,
-                          CC.unpack_affine_plain(out, sc, bs, res, relu),
-                          tol))
-    # no single PyTorch call computes it: no library time
-    report('unpack_affine_res', src, jax_src + ':624', max(errs), tol,
-           cuda_ms(lambda: KC.unpack_affine(out, sc, bs, cv, False)),
-           cuda_ms(lambda: CC.unpack_affine_plain(out, sc, bs, cv, False)),
-           None, 3 * dense_bytes + 2 * c * 4, 3 * x.numel(),
-           ms_relu=cuda_ms(lambda: KC.unpack_affine(out, sc, bs, None, True)))
+    rep('pack_vol', src, ':444', cuda_ms(lambda: CC.pack_vol_plain(x)),
+        cuda_ms(lambda: F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))),
+        dense_bytes + chain_bytes, 0)
+    rep('unpack_vol', src, ':515', cuda_ms(lambda: CC.unpack_vol_plain(cv)),
+        cuda_ms(lambda: cv.interior().contiguous()),
+        dense_bytes + chain_bytes, 0)
+    rep('conv_p2p', src, ':233', full['p2p_plain_ms'],
+        cuda_ms(lambda: F.conv3d(x5, w5, padding=1)),
+        2 * chain_bytes + weight.numel() * 2 + full['ps_bytes'],
+        2 * 27 * c * c * nvox, modes=('residual',), peak=BF16_TENSOR_FLOPS,
+        extra=dict(library_with_moments_ms=cuda_ms(
+            lambda: lib_moments(w5, 1))))
+    # no single PyTorch call computes K7a, K7b or K6: no library time
+    rep('unpack_affine_res', src, ':624',
+        cuda_ms(lambda: CC.unpack_affine_plain(u, sc, bs, cv, False)), None,
+        3 * dense_bytes + 2 * c * 4, 3 * x.numel(), modes=('relu',))
+    rep('gn_affine_res_packed', src, ':935',
+        cuda_ms(lambda: CC.affine_mask(u, sc, bs, False, cv)), None,
+        3 * chain_bytes + 2 * c * 4, 3 * x.numel(), modes=('relu',))
+    rep('conv_s2_p2d', src_hg, ':814', full['s2_plain_ms'],
+        cuda_ms(lambda: F.conv3d(x5, x64, stride=2, padding=1)),
+        full['s2_bytes'], 2 * 27 * c * 2 * c * nvox // 8,
+        peak=BF16_TENSOR_FLOPS,
+        extra=dict(library_with_moments_ms=cuda_ms(
+            lambda: lib_moments(x64, 2))))
+    rep('pack_parity8', src_hg, ':1033', full['p8_plain_ms'], None,
+        full['p8_bytes'], 3 * x.numel())
+
+    # the tap products that feed K6 (plain matrix products, no kernel of
+    # the port): with K6 they are the transposed conv, to one bf16 rounding
+    post = torch.randn(d // 2, h // 2, w // 2, 2 * c, generator=gen,
+                       device=dev).to(x.dtype)
+    wt = torch.randn(2 * c, c, 3, 3, 3, generator=gen, device=dev) \
+        / (8 * c) ** 0.5
+    post5, wt5 = post.permute(3, 0, 1, 2)[None], wt.to(x.dtype)
+    up = KC.pack_parity8(CC.convt1_parity(post, wt))[0].interior()
+    ref = F.conv_transpose3d(post5, wt5, None, 2, 1, 1)[0].permute(1, 2, 3, 0)
+    err = agree('convt1_parity + pack_parity8', up, ref, tol)
+    print(f'convt1_parity + pack_parity8 vs F.conv_transpose3d: max_abs_err '
+          f'{err:.3g} (tol atol {tol[0]} + rtol {tol[1]}) convt1_parity ms '
+          f'{cuda_ms(lambda: CC.convt1_parity(post, wt)):.4f} '
+          f'conv_transpose3d ms '
+          f'{cuda_ms(lambda: F.conv_transpose3d(post5, wt5, None, 2, 1, 1)):.4f}',
+          flush=True)
 
 
 def _finite_dets(det, what):
@@ -364,7 +551,7 @@ def main_phase(cfg, dev):
             kept = _finite_dets(det, what)
         return ms, kept
 
-    # the default form: bf16 on the card, banded + conv chain
+    # the default form: bf16 on the card, banded + the full conv chain
     handle = init_dfm_model(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -397,24 +584,25 @@ def main_phase(cfg, dev):
     for path, c in counts.items():
         for name, n in c.items():
             check(n > 0, f'{name} never launched on the {path} path')
+        check_launches(c, 'chain', 3, f'the {path} path')
     del stream, cache
 
-    # the dense form in the same run, for comparison, and the default
-    # form once more after it (the first requests above also pay the
-    # warm-up of cuDNN and of the allocator)
-    dense = init_dfm_model(cfg, use_band=False, packed=False)
-    requests(dense, [0], 'dense warm-up')
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    ms, _ = requests(dense, (1, 2), 'dense form')
-    check(K.LAUNCHES['conv_p2p'] == 0 and K.LAUNCHES['warp_prev'] == 2,
-          f'dense form launched {K.LAUNCHES}')
-    print(f'main dense form (use_band=False, packed=False): ms/frame '
-          f'{[round(x, 3) for x in ms]} peak_mem_bytes '
-          f'{torch.cuda.max_memory_allocated()}', flush=True)
-    del dense
+    # the two earlier forms in the same run, for comparison, and the
+    # default form once more after them (the first requests above also
+    # pay the warm-up of cuDNN and of the allocator)
+    for form in ('stem', 'dense'):
+        other = init_dfm_model(cfg, **FORM_ARGS[form])
+        requests(other, [0], f'{form} warm-up')
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        ms, _ = requests(other, (1, 2), f'{form} form')
+        check_launches(K.LAUNCHES, form, 2, f'the {form} form')
+        print(f'main {form} form ({FORM_ARGS[form]}): ms/frame '
+              f'{[round(x, 3) for x in ms]} peak_mem_bytes '
+              f'{torch.cuda.max_memory_allocated()}', flush=True)
+        del other
     ms, _ = requests(handle, (1, 2), 'default form again')
-    print(f'main default form again, after the dense form: ms/frame '
+    print(f'main default form again, after the other forms: ms/frame '
           f'{[round(x, 3) for x in ms]}', flush=True)
     del handle
 
@@ -474,10 +662,7 @@ def parity_phase(full_cfg, dev):
                                    packed=False)['model']
             with torch.inference_mode():
                 outs[d] = model(img.to(d), meta.to(d))
-        want = dict(warp_prev=1, frustum_stereo_sample=1, attention_sample=1,
-                    pack_vol=0, conv_p2p=0, unpack_affine_res=0)
-        check(K.LAUNCHES == want, f'f32 dense parity run launched '
-              f'{K.LAUNCHES}, expected {want}')
+        check_launches(K.LAUNCHES, 'dense', 1, 'f32 dense parity run')
         tol = 2e-3
         worst = 0.0
         for key in OUT_KEYS:
@@ -492,48 +677,52 @@ def parity_phase(full_cfg, dev):
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
 
-    # bf16 on the card: the default form (banded + conv chain, all six
-    # kernels) against the dense form, same weights (seed 0) and inputs.
-    # The two compute the same function with bf16 roundings at other
+    # bf16 on the card: the default form (banded + the full conv chain, all
+    # ten kernels) against the dense form and against the form with only
+    # the stem and pred ConvNorm on the chain, same weights (seed 0) and
+    # inputs. They compute the same function with bf16 roundings at other
     # places, so they are held together by the error's size against the
     # output's: ||a - b|| <= 0.05 ||b|| for every output (bf16 keeps 3
     # digits; dozens of layers lie between the trunks and the heads), and
     # for the trunk's own output, depth_cost, also elementwise within
     # atol 0.15 + rtol 0.15 (the JAX package's bf16 tolerance for it).
+    # The tiny config's 12 depth planes have no reduced-depth plan, so
+    # only the full-width run takes the mono trunk through the chain: the
+    # launch counts show which form each run took.
     rng = np.random.RandomState(0)
     full_img = torch.from_numpy(rng.randn(1, 2, *IMG_HW, 3).astype(
         np.float32))
-    for name, c, im, mt in (('tiny', cfg, img, meta),
-                            ('full width', full_cfg, full_img,
-                             kitti_meta(1, dev))):
+    for name, c, im, mt, chain_runs in (
+            ('tiny', cfg, img, meta, 'chain, stereo trunk only'),
+            ('full width', full_cfg, full_img, kitti_meta(1, dev), 'chain')):
         outs = {}
-        K.reset_launch_counts()
-        for form, kw in (('chain', {}),
-                         ('dense', dict(use_band=False, packed=False))):
+        for form, kw in FORM_ARGS.items():
             model = init_dfm_model(c, **kw)['model']
+            K.reset_launch_counts()
             with torch.inference_mode():
                 outs[form] = model(im.to(dev), mt.to(dev))
+            check_launches(K.LAUNCHES, chain_runs if form == 'chain'
+                           else form, 1, f'bf16 parity {name}, {form} form')
             del model
-        check(K.LAUNCHES['conv_p2p'] == 3 and K.LAUNCHES['pack_vol'] == 2
-              and K.LAUNCHES['unpack_affine_res'] == 2,
-              f'bf16 parity {name}: chain form launched {K.LAUNCHES}')
-        worst = 0.0
-        for key in OUT_KEYS:
-            a, b = outs['chain'][key].float(), outs['dense'][key].float()
-            check(bool(torch.isfinite(a).all()), f'{name} {key} not finite')
-            rel = float((a - b).norm() / b.norm().clamp(min=1e-6))
-            worst = max(worst, rel)
-            check(rel <= 0.05, f'bf16 chain vs dense form, {name} {key}: '
-                  f'relative L2 error {rel}')
-        a, b = (outs[f]['depth_cost'].float() for f in ('chain', 'dense'))
-        err = float((a - b).abs().max())
-        check(bool(((a - b).abs() <= 0.15 + 0.15 * b.abs()).all()),
-              f'bf16 chain vs dense form, {name} depth_cost: max abs err '
-              f'{err}')
-        print(f'parity {name} bf16 on the card, default form vs dense '
-              f'form: worst relative L2 error {worst:.3g} (tol 0.05), '
-              f'depth_cost max abs err {err:.3g} (tol atol 0.15 + rtol '
-              f'0.15)', flush=True)
+        for other in ('dense', 'stem'):
+            worst = 0.0
+            for key in OUT_KEYS:
+                a, b = outs['chain'][key].float(), outs[other][key].float()
+                check(bool(torch.isfinite(a).all()),
+                      f'{name} {key} not finite')
+                rel = float((a - b).norm() / b.norm().clamp(min=1e-6))
+                worst = max(worst, rel)
+                check(rel <= 0.05, f'bf16 default vs {other} form, {name} '
+                      f'{key}: relative L2 error {rel}')
+            a, b = (outs[f]['depth_cost'].float() for f in ('chain', other))
+            err = float((a - b).abs().max())
+            check(bool(((a - b).abs() <= 0.15 + 0.15 * b.abs()).all()),
+                  f'bf16 default vs {other} form, {name} depth_cost: max '
+                  f'abs err {err}')
+            print(f'parity {name} bf16 on the card, default form vs {other} '
+                  f'form: worst relative L2 error {worst:.3g} (tol 0.05), '
+                  f'depth_cost max abs err {err:.3g} (tol atol 0.15 + rtol '
+                  f'0.15)', flush=True)
 
 
 def main():

@@ -6,10 +6,15 @@ random from seed 0 (`utils/weights.py:init_weights`) until a checkpoint
 is loaded into `handle['model']` with `load_state_dict`.
 
 `use_band` and `packed` select the form of the 3D trunks
-(`models/backbones/dfm_backbone.py`): by default the banded stems and the
-reduced-depth mono trunk, with the stereo stem and pred ConvNorm on the
-conv chain (kernels K4, K7a, K8a) for bfloat16; `use_band=False,
-packed=False` is the dense form. One state dict loads into every form.
+(`models/backbones/dfm_backbone.py`). The default (`packed=None`) is, for
+bfloat16, the full conv chain: banded stems, reduced-depth mono trunk,
+and both trunks in the chain format from the cost volume to the pred
+exit (kernels K4-K8b), where the shapes allow it; `packed=True` asks for
+it in any dtype (float32 on the CPU only) and warns when a trunk's
+shapes send it to the `'stem'` form. `packed='stem'` keeps only
+the stereo stem and pred ConvNorm on the chain (K4, K7a, K8a),
+`packed=False` is the banded form without the chain, `use_band=False,
+packed=False` the dense form. One state dict loads into every form.
 """
 
 import torch

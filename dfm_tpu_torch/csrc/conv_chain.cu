@@ -1,10 +1,14 @@
-// K4 conv_p2p, K7a unpack_affine_res, K8a pack_vol: the 3x3x3 conv chain
-// of the DfM trunk on its storage format.
+// K4 conv_p2p, K7a unpack_affine_res, K7b gn_affine_res_packed, K8a
+// pack_vol, K8b unpack_vol: the 3x3x3 conv chain of the DfM trunk on its
+// storage format. (K5 conv_s2_p2d and K6 pack_parity8, the ends of the
+// hourglass on the chain, are in hourglass_chain.cu.)
 //
 // Replace the TPU kernels of dfm_tpu/ops/pallas/conv_chain.py:
-//   conv_p2p          -> _conv_p2p_call   (_conv_kernel)
-//   unpack_affine_res -> _unpack_ar_call  (_unpack_ar_kernel)
-//   pack_vol          -> _pack_call       (_pack_kernel0 / _pack_kernel2)
+//   conv_p2p             -> _conv_p2p_call   (_conv_kernel)
+//   unpack_affine_res    -> _unpack_ar_call  (_unpack_ar_kernel)
+//   gn_affine_res_packed -> _affine_res_call (_affine_res_kernel)
+//   pack_vol             -> _pack_call       (_pack_kernel0 / _pack_kernel2)
+//   unpack_vol           -> _unpack_call     (_unpack_kernel)
 // Plain versions and the format: dfm_tpu_torch/ops/conv_chain.py.
 //
 // The chain format: a (D, H, W, 32) bf16 volume stored as
@@ -13,9 +17,12 @@
 // weight pairs, one-hot placement matmuls) exists for a 128-lane matrix
 // unit and is not carried over.
 //
-// K8a / K7a are bound by bytes (one read and one write of the volume, a
-// second read with a residual): one thread per 16 bytes, neighbouring
-// threads on neighbouring addresses, a 3D grid so that no thread divides.
+// K8a / K8b / K7a / K7b are bound by bytes (one read and one write of the
+// volume, a second read with a residual): one thread per 16 bytes,
+// neighbouring threads on neighbouring addresses, a 3D grid so that no
+// thread divides. K7a and K7b share their arithmetic (affine8) and differ
+// in the store: K7a writes the dense volume, K7b the chain format with
+// its zero border.
 //
 // K4 is bound by operations (101.9 GFLOP at 72x80x320 against ~250 MB):
 // an implicit-GEMM convolution on the tensor cores. M = output voxels,
@@ -67,6 +74,23 @@ __global__ void pack_vol_kernel(const uint4* __restrict__ dense,
   chain[(((long long)pz * (H + 2) + py) * (W + 2) + px) * kChunks + q] = v;
 }
 
+// ---------------------------------------------------------------- K8b
+
+// grid (ceil(W*4 / 256), H, D): one thread per 16 bytes of the dense
+// output, the mirror of pack_vol_kernel.
+__global__ void unpack_vol_kernel(const uint4* __restrict__ chain,
+                                  uint4* __restrict__ dense, int H, int W) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  const int x = t / kChunks, q = t % kChunks;
+  const int y = blockIdx.y, z = blockIdx.z;
+  if (x >= W) return;
+  dense[(((long long)z * H + y) * W + x) * kChunks + q] = __ldg(
+      chain +
+      (((long long)(z + 1) * (H + 2) + (y + 1)) * (W + 2) + (x + 1)) *
+          kChunks +
+      q);
+}
+
 // Zero border of a chain tensor whose interior another kernel writes.
 // grid (H+2, D+2), one block per stored row.
 __global__ void zero_border_kernel(uint4* __restrict__ chain, int D, int H,
@@ -83,24 +107,17 @@ __global__ void zero_border_kernel(uint4* __restrict__ chain, int D, int H,
   }
 }
 
-// ---------------------------------------------------------------- K7a
+// ---------------------------------------------------------- K7a, K7b
 
-// grid (ceil(W*4 / 256), H, D): one thread per 16 bytes of the dense
-// output. y = u * sc + bs, relu, + res, each a separate f32 rounding (no
-// fused multiply-add), as the plain version computes it.
+// Eight channels (chunk q of a voxel): y = u * sc + bs, relu, + res, each
+// a separate f32 rounding (no fused multiply-add), as the plain version
+// computes it.
 template <bool RELU, bool RES>
-__global__ void unpack_affine_kernel(const uint4* __restrict__ u,
-                                     const uint4* __restrict__ res,
-                                     const float* __restrict__ sc,
-                                     const float* __restrict__ bs,
-                                     uint4* __restrict__ out, int H, int W) {
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  const int x = t / kChunks, q = t % kChunks;
-  const int y = blockIdx.y, z = blockIdx.z;
-  if (x >= W) return;
-  const long long src =
-      (((long long)(z + 1) * (H + 2) + (y + 1)) * (W + 2) + (x + 1)) *
-          kChunks + q;
+__device__ __forceinline__ uint4 affine8(const uint4* __restrict__ u,
+                                         const uint4* __restrict__ res,
+                                         const float* __restrict__ sc,
+                                         const float* __restrict__ bs,
+                                         long long src, int q) {
   const uint4 raw = __ldg(u + src);
   const bf16* e = reinterpret_cast<const bf16*>(&raw);
   uint4 rraw = make_uint4(0u, 0u, 0u, 0u);
@@ -117,7 +134,48 @@ __global__ void unpack_affine_kernel(const uint4* __restrict__ u,
     if (RES) f = __fadd_rn(f, __bfloat162float(r[j]));
     o[j] = __float2bfloat16(f);
   }
-  out[(((long long)z * H + y) * W + x) * kChunks + q] = oraw;
+  return oraw;
+}
+
+// K7a. grid (ceil(W*4 / 256), H, D): one thread per 16 bytes of the dense
+// output.
+template <bool RELU, bool RES>
+__global__ void unpack_affine_kernel(const uint4* __restrict__ u,
+                                     const uint4* __restrict__ res,
+                                     const float* __restrict__ sc,
+                                     const float* __restrict__ bs,
+                                     uint4* __restrict__ out, int H, int W) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  const int x = t / kChunks, q = t % kChunks;
+  const int y = blockIdx.y, z = blockIdx.z;
+  if (x >= W) return;
+  const long long src =
+      (((long long)(z + 1) * (H + 2) + (y + 1)) * (W + 2) + (x + 1)) *
+          kChunks + q;
+  out[(((long long)z * H + y) * W + x) * kChunks + q] =
+      affine8<RELU, RES>(u, res, sc, bs, src, q);
+}
+
+// K7b. grid (ceil((W+2)*4 / 256), H+2, D+2): one thread per 16 bytes of
+// the stored output, written at the address it was read from; the border
+// is written as zeros.
+template <bool RELU, bool RES>
+__global__ void affine_chain_kernel(const uint4* __restrict__ u,
+                                    const uint4* __restrict__ res,
+                                    const float* __restrict__ sc,
+                                    const float* __restrict__ bs,
+                                    uint4* __restrict__ out, int D, int H,
+                                    int W) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  const int px = t / kChunks, q = t % kChunks;
+  const int py = blockIdx.y, pz = blockIdx.z;
+  if (px >= W + 2) return;
+  const long long at =
+      (((long long)pz * (H + 2) + py) * (W + 2) + px) * kChunks + q;
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (pz >= 1 && pz <= D && py >= 1 && py <= H && px >= 1 && px <= W)
+    v = affine8<RELU, RES>(u, res, sc, bs, at, q);
+  out[at] = v;
 }
 
 // ----------------------------------------------------------------- K4
@@ -311,6 +369,15 @@ extern "C" int dfm_pack_vol(const void* dense, void* chain, int D, int H,
   return (int)cudaGetLastError();
 }
 
+// chain (D+2, H+2, W+2, 32) bf16 -> dense (D, H, W, 32) bf16.
+extern "C" int dfm_unpack_vol(const void* chain, void* dense, int D, int H,
+                              int W, void* stream) {
+  const dim3 grid((W * kChunks + kThreads - 1) / kThreads, H, D);
+  unpack_vol_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(chain), static_cast<uint4*>(dense), H, W);
+  return (int)cudaGetLastError();
+}
+
 // chain u (+ chain res, may be null) -> dense (D, H, W, 32) bf16;
 // sc, bs: (32,) f32.
 extern "C" int dfm_unpack_affine(const void* u, const void* res,
@@ -333,6 +400,32 @@ extern "C" int dfm_unpack_affine(const void* u, const void* res,
   else
     unpack_affine_kernel<false, false><<<grid, kThreads, 0, s>>>(pu, pr, sc,
                                                                 bs, po, H, W);
+  return (int)cudaGetLastError();
+}
+
+// chain u (+ chain res, may be null) -> chain out (border zeroed here),
+// all (D+2, H+2, W+2, 32) bf16; sc, bs: (32,) f32.
+extern "C" int dfm_affine_chain(const void* u, const void* res,
+                                const float* sc, const float* bs, void* out,
+                                int D, int H, int W, int relu, void* stream) {
+  const dim3 grid(((W + 2) * kChunks + kThreads - 1) / kThreads, H + 2, D + 2);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint4* pu = static_cast<const uint4*>(u);
+  const uint4* pr = static_cast<const uint4*>(res);
+  uint4* po = static_cast<uint4*>(out);
+  if (relu && res)
+    affine_chain_kernel<true, true><<<grid, kThreads, 0, s>>>(pu, pr, sc, bs,
+                                                             po, D, H, W);
+  else if (relu)
+    affine_chain_kernel<true, false><<<grid, kThreads, 0, s>>>(pu, pr, sc, bs,
+                                                              po, D, H, W);
+  else if (res)
+    affine_chain_kernel<false, true><<<grid, kThreads, 0, s>>>(pu, pr, sc, bs,
+                                                              po, D, H, W);
+  else
+    affine_chain_kernel<false, false><<<grid, kThreads, 0, s>>>(pu, pr, sc,
+                                                               bs, po, D, H,
+                                                               W);
   return (int)cudaGetLastError();
 }
 

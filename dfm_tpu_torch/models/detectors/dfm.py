@@ -133,7 +133,8 @@ class DfMConfig:
 class DfM(nn.Module):
     """Forward producing head outputs and intermediate volumes; the
     inference post-processing is `dfm_predict`. `use_band` and `packed`
-    select the form of `DfMBackbone` (same parameters in every form)."""
+    (None, True, 'stem' or False) select the form of `DfMBackbone` (same
+    parameters in every form)."""
 
     def __init__(self, cfg: DfMConfig = DfMConfig(), dtype=torch.float32,
                  use_band=True, packed=None):

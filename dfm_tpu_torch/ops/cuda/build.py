@@ -25,21 +25,26 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # library -> (source, {C function: argtypes}); every function returns
 # cudaGetLastError() after its launch
 SOURCES = {
     'warp_prev': ('warp_prev.cu', {
-        'dfm_warp_prev': [_P, _P, _P, _P, _I, _I, _I, _I,
-                          ctypes.c_longlong, _I, _P]}),
+        'dfm_warp_prev': [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P]}),
     'frustum_sample': ('frustum_sample.cu', {
         'dfm_frustum_stereo_sample': [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
         'dfm_attention_sample': [_P] * 9 + [_I] * 7 + [_F, _F, _I, _P]}),
     'conv_chain': ('conv_chain.cu', {
         'dfm_pack_vol': [_P, _P, _I, _I, _I, _P],
+        'dfm_unpack_vol': [_P, _P, _I, _I, _I, _P],
         'dfm_conv_p2p': [_P] * 4 + [_I] * 6 + [_P],
-        'dfm_unpack_affine': [_P] * 5 + [_I] * 4 + [_P]}),
+        'dfm_unpack_affine': [_P] * 5 + [_I] * 4 + [_P],
+        'dfm_affine_chain': [_P] * 5 + [_I] * 4 + [_P]}),
+    'hourglass_chain': ('hourglass_chain.cu', {
+        'dfm_conv_s2': [_P] * 4 + [_I] * 5 + [_P],
+        'dfm_pack_parity8': [_P] * 3 + [_I] * 3 + [_L] * 4 + [_P]}),
 }
 
 _LIBS = {}

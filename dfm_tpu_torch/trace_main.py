@@ -1,12 +1,14 @@
 """Where the time goes on the main path, from a torch.profiler trace.
 
     python -m dfm_tpu_torch.trace_main [--requests 3] [--out build/trace]
-                                       [--dense]
+                                       [--dense | --stem]
 
 Runs DfM-R34 KITTI inference (full DfMConfig, 1x2x320x1280, bf16,
 seeded random weights) on the CUDA card, in the default form (banded
-stems, reduced-depth mono trunk, conv chain) or with `--dense` in the
-dense form: two warm-up requests, then `--requests` two-frame requests
+stems, reduced-depth mono trunk, both trunks on the conv chain), with
+`--stem` in the form that keeps only the stereo stem and pred ConvNorm
+on the chain (`packed='stem'`), or with `--dense` in the dense form:
+two warm-up requests, then `--requests` two-frame requests
 (`init_dfm_model`) and as many stream steps (`init_dfm_stream`) under
 the profiler. Prints, per path, the host ms per request, the device busy
 time (kernels and copies) per request and the idle share; for each stage
@@ -15,8 +17,8 @@ span of `DfM.forward` / `dfm_predict` (and, inside
 mono / pred spans) its extent on the device timeline, the kernel time
 inside it and its host time; the device time and launches of each of
 the port's own kernels; and the kernels that take the most device time.
-Writes the same as JSON (`trace_main.json`, or `trace_main_dense.json`),
-plus a Chrome trace of the two-frame requests, to `--out`. Needs a CUDA
+Writes the same as JSON (`trace_main.json`, `trace_main_stem.json` or
+`trace_main_dense.json`), plus a Chrome trace of the two-frame requests, to `--out`. Needs a CUDA
 device.
 """
 
@@ -37,9 +39,10 @@ from .models.detectors.dfm import BatchMeta, DfMConfig
 
 # device functions of the port's hand-written kernels (csrc/*.cu)
 PORT_KERNELS = ('warp_prev_kernel', 'stereo_sample_kernel',
-                'attention_sample_kernel', 'pack_vol_kernel',
-                'conv_p2p_kernel', 'zero_border_kernel',
-                'unpack_affine_kernel')
+                'attention_sample_kernel', 'unpack_vol_kernel',
+                'pack_vol_kernel', 'conv_p2p_kernel', 'zero_border_kernel',
+                'unpack_affine_kernel', 'conv_s2_kernel',
+                'pack_parity8_kernel', 'affine_chain_kernel')
 
 
 def _inputs(dev):
@@ -64,10 +67,11 @@ def _summary(prof, n, wall_ms, top):
     ours = {k: [0.0, 0.0] for k in PORT_KERNELS}
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
-        for k in PORT_KERNELS:
+        for k in PORT_KERNELS:       # first match: unpack_vol before pack_vol
             if k in e.name:
                 ours[k][0] += e.time_range.elapsed_us() / 1e3 / n
                 ours[k][1] += 1 / n
+                break
     stages = collections.defaultdict(lambda: [0.0, 0.0, 0.0])
     for a in spans:
         r = a.time_range
@@ -119,8 +123,12 @@ def main():
     ap.add_argument('--requests', type=int, default=3)
     ap.add_argument('--top', type=int, default=12)
     ap.add_argument('--out', default='build/trace')
-    ap.add_argument('--dense', action='store_true',
-                    help='the dense form (use_band=False, packed=False)')
+    form = ap.add_mutually_exclusive_group()
+    form.add_argument('--dense', action='store_true',
+                      help='the dense form (use_band=False, packed=False)')
+    form.add_argument('--stem', action='store_true',
+                      help="stem and pred ConvNorm on the chain only "
+                           "(packed='stem')")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('trace_main: needs a CUDA device')
@@ -133,10 +141,13 @@ def main():
     cfg = DfMConfig()
     frames, meta = _inputs(dev)
     n = args.requests
-    form = dict(use_band=False, packed=False) if args.dense else {}
-    tag = '_dense' if args.dense else ''
-    result = dict(card=card, torch=torch.__version__,
-                  form='dense' if args.dense else 'banded + conv chain')
+    if args.dense:
+        form, tag, name = dict(use_band=False, packed=False), '_dense', 'dense'
+    elif args.stem:
+        form, tag, name = dict(packed='stem'), '_stem', 'banded + chain stem'
+    else:
+        form, tag, name = {}, '', 'banded + full conv chain'
+    result = dict(card=card, torch=torch.__version__, form=name)
 
     model = init_dfm_model(cfg, **form)
     prof, wall = _profiled(

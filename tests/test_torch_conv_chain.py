@@ -1,9 +1,11 @@
 """The port's conv chain, banded stems and reduced-depth mono trunk
 (dfm_tpu_torch) against the JAX package.
 
-* `ops/conv_chain.py` (plain versions of K4 `conv_p2p`, K7a
-  `unpack_affine_res`, K8a `pack_vol`, and the GroupNorm finishers)
-  against `dfm_tpu/ops/pallas/conv_chain.py` with the Pallas kernels in
+* `ops/conv_chain.py` (plain versions of K4 `conv_p2p`, K5
+  `conv_s2_p2d`, K6 `pack_parity8`, K7a `unpack_affine_res`, K7b
+  `gn_affine_res_packed`, K8a `pack_vol`, K8b `unpack_vol`, the
+  GroupNorm finishers and `convt1_parity`) against
+  `dfm_tpu/ops/pallas/conv_chain.py` with the Pallas kernels in
   interpret mode, in BOTH of the JAX layout's phases: the port has one
   format and must agree with either. float32 data, atol 1e-4 (the JAX
   tests' own tolerance: the same f32 products summed in another order);
@@ -16,11 +18,14 @@
   `DFM_PACKED=interpret DFM_PACKED_HG=0 DFM_PACKED_MONO=0
   DFM_PACKED_PRED=1` in bfloat16, atol 0.15 + rtol 0.15 (the JAX test's
   tolerance for bf16: identical math up to rounding places and
-  accumulation order), and in float32 against the port's dense and
-  banded forms from one state dict, atol 1e-3.
-The CUDA kernels themselves run only on the card: their case is
-`tests/test_torch_kernels.py::test_cuda_chain_kernels_match_plain`
-(`cuda` marker, skipped here), in the file that needs no flax.
+  accumulation order), and in float32 the port's four forms (dense,
+  banded, chain stem, full chain) from one state dict, atol 1e-3. The
+  hourglass on the chain and the backbone against the JAX full chain
+  are in `tests/test_torch_packed_hg.py`.
+The CUDA kernels themselves run only on the card: their cases are
+`tests/test_torch_kernels.py::test_cuda_chain_kernels_match_plain` and
+`::test_cuda_hourglass_kernels_match_plain` (`cuda` marker, skipped
+here), in the file that needs no flax.
 """
 
 import jax
@@ -322,8 +327,26 @@ def test_wrappers_take_plain_versions_on_cpu(data):
     sc, bs = torch.rand(32), torch.rand(32)
     assert torch.equal(KC.unpack_affine(out, sc, bs, cv, True),
                        CC.unpack_affine_plain(out, sc, bs, cv, True))
+    assert torch.equal(KC.affine_chain(out, sc, bs, cv, True).data,
+                       CC.affine_mask(out, sc, bs, True, cv).data)
+    dense = KC.unpack_vol(out)
+    assert dense.is_contiguous() and torch.equal(dense, out.interior())
+    assert torch.equal(CC.unpack_vol(out), dense)
+    k64 = torch.randn(64, 32, 3, 3, 3,
+                      generator=torch.Generator().manual_seed(0)) * 0.1
+    half, hps = KC.conv_s2_p2d(cv, k64)
+    want, wps = CC.conv_s2_plain(cv, k64)
+    assert torch.equal(half, want) and torch.equal(hps, wps)
+    par = torch.randn(8, 2, 3, 4, 32,
+                      generator=torch.Generator().manual_seed(1))
+    got, gps = KC.pack_parity8(par)
+    want, wps = CC.pack_parity8_plain(par)
+    assert torch.equal(got.data, want.data) and torch.equal(gps, wps)
     assert K.LAUNCHES == {name: 0 for name in K.LAUNCHES}
-    assert {'pack_vol', 'conv_p2p', 'unpack_affine_res'} <= set(K.LAUNCHES)
+    assert set(K.LAUNCHES) == {
+        'warp_prev', 'frustum_stereo_sample', 'attention_sample', 'pack_vol',
+        'conv_p2p', 'unpack_affine_res', 'conv_s2_p2d', 'pack_parity8',
+        'gn_affine_res_packed', 'unpack_vol'}
 
 
 def test_blocked_weight_layout():
@@ -337,12 +360,169 @@ def test_blocked_weight_layout():
         assert b[tap, k // 16, n // 16, k % 16, n % 16] == w[n, k, dz, dy, dx]
 
 
+def test_blocked_weight_layout_cout64():
+    """K5's weights: four n blocks of 16 output channels."""
+    w = torch.arange(64 * 32 * 27, dtype=torch.float32).reshape(
+        64, 32, 3, 3, 3)
+    b = KC.blocked_weight(w, torch.float32)
+    assert b.shape == (27, 2, 4, 16, 16) and b.is_contiguous()
+    for tap, k, n in ((0, 0, 0), (13, 17, 3), (26, 31, 63), (5, 2, 52)):
+        dz, dy, dx = tap // 9, tap // 3 % 3, tap % 3
+        assert b[tap, k // 16, n // 16, k % 16, n % 16] == w[n, k, dz, dy, dx]
+
+
 def test_z_chunk_covers_depth():
     for d, tiles, sms in ((72, 50, 132), (12, 1, 132), (1, 1, 132),
                           (44, 50, 4)):
         zc = KC._z_chunk(d, tiles, sms)
         assert 1 <= zc <= d
     assert KC._z_chunk(72, 50, 132) == 15          # 250 blocks: two rounds
+
+
+# ------------------------------------------------- K5, K6, K7b, K8b
+
+def jax_ps_s2_per_z(ps, d2):
+    """JAX moments of the stride-2 conv (NB2, NH2, 2, 128) -> (D2, 2, 64):
+    lane l of block k2 holds output slice 2 k2 + l // 64, channel
+    l % 64."""
+    p = np.asarray(ps).sum(axis=1)
+    nb2 = p.shape[0]
+    p = p.reshape(nb2, 2, 2, 64).transpose(0, 2, 1, 3)
+    return p.reshape(nb2 * 2, 2, 64)[:d2]
+
+
+@pytest.mark.parametrize('phase', PHASES)
+def test_conv_s2_matches_jax(data, phase):
+    x = data[0]
+    k64 = (np.random.RandomState(7).randn(3, 3, 3, 32, 64) * 0.1).astype(
+        np.float32)
+    want, ps = JCC.conv_s2_p2d(jax_pack(x, phase), jnp.asarray(k64), th2=4,
+                               interpret=True)
+    got, gps = CC.conv_s2_plain(CC.pack_vol_plain(t(x)), tw(k64))
+    assert got.shape == (D // 2, H // 2, Wd // 2, 64)
+    assert gps.shape == (D // 2, 1, 2, 64) and gps.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(gps.sum(1).numpy(),
+                               jax_ps_s2_per_z(ps, D // 2), rtol=1e-4,
+                               atol=1e-2)
+    # the stored border is the padding of the dense strided conv
+    ref = torch.nn.functional.conv3d(t(x).permute(3, 0, 1, 2)[None],
+                                     tw(k64), stride=2, padding=1)[0]
+    np.testing.assert_allclose(got.numpy(),
+                               ref.permute(1, 2, 3, 0).numpy(), **TOL)
+    dense = got.double()
+    np.testing.assert_allclose(gps[:, 0, 1].numpy(),
+                               (dense * dense).sum((1, 2)).numpy(),
+                               rtol=1e-4, atol=1e-2)
+
+
+def test_conv_s2_rejects_odd_shapes():
+    with pytest.raises(ValueError, match='even'):
+        CC.conv_s2_plain(CC.pack_vol_plain(torch.zeros(3, 4, 4, 32)),
+                         torch.zeros(64, 32, 3, 3, 3))
+    with pytest.raises(ValueError, match='even'):
+        KC.conv_s2_p2d(CC.pack_vol_plain(torch.zeros(4, 4, 5, 32)),
+                       torch.zeros(64, 32, 3, 3, 3))
+
+
+def test_convt1_parity_pack8_matches_jax_and_conv_transpose():
+    """Tap products + interleave == the JAX pair (flax kernel, no flip)
+    == torch's transposed conv on the imported (flipped) weight."""
+    rng = np.random.RandomState(9)
+    d2, h2, w2 = D // 2, H // 2, Wd // 2
+    x = rng.randn(d2, h2, w2, 64).astype(np.float32)
+    kf = (rng.randn(3, 3, 3, 64, 32) * 0.1).astype(np.float32)
+    jpar = JCC.convt1_parity(jnp.asarray(x), jnp.asarray(kf))
+    jpv, jps = JCC.pack_parity8(jpar, th=TH, interpret=True)
+    wt = torch.from_numpy(np.ascontiguousarray(W._conv_weight(kf, 'convt3d')))
+    par = CC.convt1_parity(t(x), wt)
+    assert par.shape == (8, d2, h2, w2, 32)
+    np.testing.assert_allclose(par.numpy(), np.asarray(jpar), **TOL)
+    got, ps = CC.pack_parity8_plain(par)
+    assert got.border_is_zero() and got.shape == (D, H, Wd, 32)
+    assert ps.shape == (D, 1, 2, 32)
+    np.testing.assert_allclose(got.interior().numpy(), jax_dense(jpv), **TOL)
+    np.testing.assert_allclose(ps.sum(1).numpy(), jax_ps_per_z(jps, jpv),
+                               rtol=1e-4, atol=1e-2)
+    ref = torch.nn.functional.conv_transpose3d(
+        t(x).permute(3, 0, 1, 2)[None], wt, None, 2, 1, 1)[0]
+    np.testing.assert_allclose(got.interior().numpy(),
+                               ref.permute(1, 2, 3, 0).numpy(), **TOL)
+    # the moments are those of the values as stored
+    stored = got.interior().double()
+    np.testing.assert_allclose(ps[:, 0, 0].numpy(),
+                               stored.sum((1, 2)).numpy(), rtol=1e-4,
+                               atol=1e-2)
+
+
+def test_pack_parity8_places_every_parity():
+    """par[4 rz + 2 ry + rx, m, n, t] lands on (2m + rz, 2n + ry,
+    2t + rx), bit for bit."""
+    par = torch.arange(8 * 2 * 3 * 4 * 32, dtype=torch.float32).reshape(
+        8, 2, 3, 4, 32)
+    full = CC.pack_parity8_plain(par)[0].interior()
+    for p, m, n, tt in ((0, 0, 0, 0), (5, 1, 2, 3), (7, 1, 0, 2),
+                        (2, 0, 1, 1)):
+        rz, ry, rx = p // 4, p // 2 % 2, p % 2
+        assert torch.equal(full[2 * m + rz, 2 * n + ry, 2 * tt + rx],
+                           par[p, m, n, tt])
+
+
+@pytest.mark.parametrize('mode', ['res', 'relu', 'plain'])
+def test_gn_affine_res_packed_matches_jax(data, mode):
+    """The stem exit that stays in the format (K7b's function)."""
+    x, k, scale, bias = data
+    jy = jax_pack(x, 2)
+    ju, jps = JCC.conv_p2p(jy, jnp.asarray(k), interpret=True)
+    want = JCC.gn_affine_res_packed(
+        ju, jps, scale, bias, 32, res_pv=jy if mode == 'res' else None,
+        relu=mode == 'relu', interpret=True)
+    y = CC.pack_vol_plain(t(x))
+    u, ps = CC.conv_p2p_plain(y, tw(k))
+    K.reset_launch_counts()
+    got = CC.gn_affine_res_packed(u, ps, t(scale), t(bias), 32,
+                                  res=y if mode == 'res' else None,
+                                  relu=mode == 'relu')
+    assert K.LAUNCHES['gn_affine_res_packed'] == 0     # CPU: plain version
+    assert got.border_is_zero()                        # exactly zero
+    np.testing.assert_allclose(got.interior().numpy(), jax_dense(want),
+                               atol=1e-5)
+    # the same function as the chain exit, without leaving the format
+    dense = CC.unpack_affine_res(u, ps, t(scale), t(bias), 32,
+                                 res=y if mode == 'res' else None,
+                                 relu=mode == 'relu')
+    assert torch.equal(got.interior(), dense)
+
+
+@pytest.mark.parametrize('weighted', [False, True])
+def test_gn_dense_from_partials_matches_jax(data, weighted):
+    x = data[0]
+    rng = np.random.RandomState(12)
+    k64 = (rng.randn(3, 3, 3, 32, 64) * 0.1).astype(np.float32)
+    scale = (1 + 0.3 * rng.randn(64)).astype(np.float32)
+    bias = (0.3 * rng.randn(64)).astype(np.float32)
+    d2 = D // 2
+    zw = (np.arange(d2) % 3 + 1).astype(np.float32) if weighted else None
+    ju, jps = JCC.conv_s2_p2d(jax_pack(x, 0), jnp.asarray(k64), th2=4,
+                              interpret=True)
+    cnt = (float(zw.sum()) if weighted else d2) * (H // 2) * (Wd // 2)
+    want = JCC.gn_dense_from_partials(ju, jps, cnt, scale, bias, 32,
+                                      relu=True, cout=64, zw=zw, d=d2)
+    u, ps = CC.conv_s2_plain(CC.pack_vol_plain(t(x)), tw(k64))
+    got = CC.gn_dense_from_partials(u, ps, t(scale), t(bias), 32, zw=zw,
+                                    relu=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if not weighted:                   # == GroupNorm of the dense result
+        gn = PL.GroupNorm(64)
+        gn.load_state_dict({'weight': t(scale), 'bias': t(bias)})
+        with torch.inference_mode():
+            ref = torch.relu(gn(u.permute(3, 0, 1, 2)[None]))[0]
+        np.testing.assert_allclose(got.numpy(),
+                                   ref.permute(1, 2, 3, 0).numpy(), **TOL)
+    no_relu = CC.gn_dense_from_partials(u, ps, t(scale), t(bias), 32, zw=zw,
+                                        relu=False)
+    assert float(no_relu.min()) < 0
+    assert torch.equal(torch.relu(no_relu), got)
 
 
 # ------------------------------------------- banded volumes, reduced depth
@@ -565,11 +745,14 @@ def test_backbone_chain_form_matches_jax_packed(monkeypatch, d):
 
 @pytest.mark.parametrize('d,b', [(8, 2), (48, 1)])
 def test_backbone_forms_agree_from_one_state_dict(d, b):
-    """float32: dense, banded and chain forms of the port from one state
-    dict, atol 1e-3 (measured ~3e-5)."""
+    """float32: dense, banded, chain-stem and full-chain forms of the
+    port from one state dict, atol 1e-3 (measured ~3e-5). At D = 48 the
+    full chain takes the mono trunk too; at D = 8 (no reduced-depth plan)
+    only the stereo trunk."""
     args = [t(a) for a in _backbone_inputs(d, 32, 64, b)]
     forms = dict(dense=dict(use_band=False, packed=False),
                  banded=dict(use_band=True, packed=False),
+                 stem=dict(use_band=True, packed='stem'),
                  chain=dict(use_band=True, packed=True))
     outs, sd = {}, None
     for name, kw in forms.items():
@@ -585,7 +768,13 @@ def test_backbone_forms_agree_from_one_state_dict(d, b):
         with torch.inference_mode():
             outs[name] = m.eval()(*args)
     assert not PB.DfMBackbone()._packed(args[1])      # f32: off by default
-    for name in ('banded', 'chain'):
+    stem, chain = (PB.DfMBackbone(**forms[f]) for f in ('stem', 'chain'))
+    plan = make_reduced_plan(d, e=2)
+    assert stem._packed(args[1]) and not stem._packed_hg(args[1])
+    assert not stem._packed_mono(args[1], plan)
+    assert chain._packed_hg(args[1])
+    assert chain._packed_mono(args[1], plan) == (d == 48)
+    for name in ('banded', 'stem', 'chain'):
         for got, want in zip(outs[name], outs['dense']):
             np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-3,
                                        rtol=0)
@@ -596,3 +785,7 @@ def test_backbone_rejects_chain_without_band():
         PB.DfMBackbone(use_band=False, packed=True)
     with pytest.raises(ValueError, match='32 channels'):
         PB.DfMBackbone(in_channels=16, cv_channels=16, packed=True)
+    with pytest.raises(ValueError, match='use_band'):
+        PB.DfMBackbone(use_band=False, packed='stem')
+    with pytest.raises(ValueError, match="'stem'"):
+        PB.DfMBackbone(packed='hourglass')

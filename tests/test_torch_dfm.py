@@ -99,6 +99,7 @@ def tiny():
 KEYS = ['depth_cost', 'volume_feat', 'bev_feat', 'cls_score', 'bbox_pred',
         'dir_pred']
 FORMS = dict(default={}, dense=dict(use_band=False, packed=False),
+             stem=dict(use_band=True, packed='stem'),
              chain=dict(use_band=True, packed=True))
 
 
@@ -114,7 +115,7 @@ def _form(tiny, form):
 
 @pytest.mark.parametrize(
     'form,key', [pytest.param('default', k, id=k) for k in KEYS]
-    + [pytest.param(f, k, id=f'{f}-{k}') for f in ('dense', 'chain')
+    + [pytest.param(f, k, id=f'{f}-{k}') for f in ('dense', 'chain', 'stem')
        for k in KEYS])
 def test_slice_matches_jax(tiny, form, key):
     cached = f'port_out_{form}'
@@ -281,8 +282,8 @@ def test_init_dfm_model_needs_cuda_unless_asked_for_cpu():
 
 
 def test_port_runs_without_jax():
-    """A fresh process imports the port and runs a tiny CPU forward
-    without loading JAX."""
+    """A fresh process imports the port and runs a tiny CPU forward in
+    the full-chain form without loading JAX."""
     code = (
         'import sys, numpy as np, torch\n'
         'from dfm_tpu_torch.apis import init_dfm_model\n'
@@ -295,8 +296,13 @@ def test_port_runs_without_jax():
         'generator=torch.Generator().manual_seed(0))\n'
         'cam = np.eye(4, dtype=np.float32); cam[0, 0] = cam[1, 1] = 200.\n'
         f'cam[0, 2], cam[1, 2] = {W_ / 2}, {H / 2}\n'
+        "bb = h['model'].backbone_stereo\n"
+        'took = []\n'
+        'hg = bb._packed_hg\n'
+        'bb._packed_hg = lambda x: took.append(hg(x)) or took[-1]\n'
         "det = h['infer'](img, BatchMeta.identity(1, cam[None]))\n"
         "assert torch.isfinite(det['boxes3d']).all()\n"
+        'assert took == [True]          # the hourglass ran on the chain\n'
         "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
         "assert not any(m.split('.')[0] == 'dfm_tpu' for m in sys.modules)\n"
         "print('ok')\n")

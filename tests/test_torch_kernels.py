@@ -279,9 +279,9 @@ def test_cuda_kernels_match_plain(dtype):
         K.attention_sample(sm, u2, v2, dsf, pad).cpu().numpy(),
         PFS.attention_sample_plain(sm, u2, v2, *PFS.depth_tables(dsf, dev),
                                    pad).cpu().numpy(), **F32_TOL)
-    assert K.LAUNCHES == dict(warp_prev=2, frustum_stereo_sample=2,
-                             attention_sample=1, pack_vol=0, conv_p2p=0,
-                             unpack_affine_res=0)
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    want.update(warp_prev=2, frustum_stereo_sample=2, attention_sample=1)
+    assert K.LAUNCHES == want
 
 
 @pytest.mark.cuda
@@ -329,5 +329,69 @@ def test_cuda_chain_kernels_match_plain():
             KC.pack_vol(x.float())
         with pytest.raises(ValueError):
             KC.pack_vol(x[..., :16].contiguous())
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+
+
+@pytest.mark.cuda
+def test_cuda_hourglass_kernels_match_plain():
+    """K5, K6, K7b and K8b against their plain versions on the card, at
+    shapes with ragged and whole tiles: K5 to one bf16 rounding (atol 1e-2
+    + rtol 1e-2) with moments rtol 1e-4 (+ atol 1e-3: sums of a few
+    hundred signed terms) and bit-identical across two runs; K6 (on
+    contiguous sub-volumes and on the strided view `convt1_parity`
+    returns), K7b (all four modes) and K8b bit for bit, borders zero.
+    cuDNN's TF32 is off for the plain f32 conv."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    dev = 'cuda'
+    rng = np.random.RandomState(0)
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for shape in ((4, 20, 40, 32), (8, 16, 32, 32), (2, 2, 2, 32)):
+            d, h, w, _ = shape
+            x = _t(rng.randn(*shape), torch.bfloat16).to(dev)
+            k64 = _t(rng.randn(64, 32, 3, 3, 3) * 0.1).to(dev)
+            sc, bs = _t(rng.rand(32) + 0.5).to(dev), _t(rng.randn(32)).to(dev)
+            K.reset_launch_counts()
+            cv = KC.pack_vol(x)
+            assert torch.equal(KC.unpack_vol(cv), x)
+            out, ps = KC.conv_s2_p2d(cv, k64)
+            out2, ps2 = KC.conv_s2_p2d(cv, k64)
+            assert torch.equal(out, out2) and torch.equal(ps, ps2)
+            want, wps = CC.conv_s2_plain(cv, k64)
+            torch.testing.assert_close(out.float(), want.float(), atol=1e-2,
+                                       rtol=1e-2)
+            torch.testing.assert_close(ps.sum(1), wps.sum(1), rtol=1e-4,
+                                       atol=1e-3)
+            post = _t(rng.randn(d // 2, h // 2, w // 2, 64),
+                      torch.bfloat16).to(dev)
+            wt = _t(rng.randn(64, 32, 3, 3, 3) * 0.1).to(dev)
+            par = CC.convt1_parity(post, wt)
+            assert par.stride(0) == 32       # parities side by side
+            for p in (par, par.contiguous()):
+                got, gps = KC.pack_parity8(p)
+                want, wps = CC.pack_parity8_plain(p)
+                assert torch.equal(got.data, want.data)
+                assert got.border_is_zero()
+                torch.testing.assert_close(gps.sum(1), wps.sum(1), rtol=1e-4,
+                                           atol=1e-3)
+            for res, relu in ((cv, False), (None, True), (cv, True),
+                              (None, False)):
+                got = KC.affine_chain(got, sc, bs, res, relu)
+                assert got.border_is_zero()
+            assert torch.equal(
+                KC.affine_chain(cv, sc, bs, cv, True).data,
+                CC.affine_mask(cv, sc, bs, True, cv).data)
+            assert (K.LAUNCHES['unpack_vol'], K.LAUNCHES['conv_s2_p2d'],
+                    K.LAUNCHES['pack_parity8'],
+                    K.LAUNCHES['gn_affine_res_packed']) == (1, 2, 2, 5)
+        with pytest.raises(ValueError):
+            KC.conv_s2_p2d(KC.pack_vol(x[:1]), k64)           # odd depth
+        with pytest.raises(ValueError):
+            KC.pack_parity8(par[..., :16])                    # 16 channels
+        with pytest.raises(TypeError):
+            KC.pack_parity8(par.float())
     finally:
         torch.backends.cudnn.allow_tf32 = flag
