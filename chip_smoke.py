@@ -22,15 +22,26 @@ Phases, one line each; any failure raises and no result is printed:
               of a gathered table it touches, coordinates, volumes in
               and out) over 3.35 TB/s, against its operations over the
               peak for their type (f32 67 TFLOP/s; K4's and K5's bf16
-              products on the tensor cores 989 TFLOP/s, dense)
+              products on the tensor cores 989 TFLOP/s, dense). Then
+              the K9 block: K9a conv3d_zpack and K9b conv3d_pallas, on no
+              model path, at the DfM trunk width (72, 80, 320, 32) bf16,
+              in float32 at a smaller shape, K9b 16 -> 8 and 42 -> 42 and
+              K9a 8 -> 32 (the direct kernel), each against its plain
+              version, K9a's partials and `conv3d_gn` with residual and
+              relu, twice bit for bit, with times, bound and the
+              `F.conv3d` time; then their own path: the entry points
+              `convgn.conv3d_zpack`, `convgn.conv3d_gn` and
+              `cuda.conv3d.conv3d` once each with the launch counts set to 0
+              just before and read just after
   4. main     full DfMConfig, 1x2x320x1280, bf16, seeded random weights,
               the default form (banded stems, reduced-depth mono trunk,
               both trunks on the conv chain from the cost volume to the
               pred exit): `init_dfm_model` (3 requests) and
               `init_dfm_stream` (first frame + 2 stream steps), each run
               with the launch counts set to 0 just before and read just
-              after, all ten kernels launched on both, the counts of
-              each request checked; then the form with only the stereo
+              after, all ten main-path kernels launched on both (K9a,
+              K9b on neither), the counts of each request checked;
+              then the form with only the stereo
               stem and pred ConvNorm on the chain (`packed='stem'`) and
               the dense form (`use_band=False, packed=False`), 2 timed
               requests after a warm-up each, so that the three forms'
@@ -66,22 +77,29 @@ MONO_DEPTH = 44               # slices of the reduced mono volume of 72 planes
 SAMPLING = dict(warp_prev=1, frustum_stereo_sample=1, attention_sample=1)
 NO_CHAIN = dict(pack_vol=0, conv_p2p=0, unpack_affine_res=0, conv_s2_p2d=0,
                 pack_parity8=0, gn_affine_res_packed=0, unpack_vol=0)
+# K9a, K9b: on no model path (their path is their own entry points)
+OFF_PATH = dict(conv3d_zpack=0, conv3d_pallas=0)
 LAUNCHES_OF = {
-    'dense': {**SAMPLING, **NO_CHAIN},
+    'dense': {**SAMPLING, **NO_CHAIN, **OFF_PATH},
     # K8a prev + pred, K4 dres0 + dres1 + pred, K7a stem + pred exit
-    'stem': {**SAMPLING, **NO_CHAIN, 'pack_vol': 2, 'conv_p2p': 3,
-             'unpack_affine_res': 2},
+    'stem': {**SAMPLING, **NO_CHAIN, **OFF_PATH, 'pack_vol': 2,
+             'conv_p2p': 3, 'unpack_affine_res': 2},
     # stereo: K8a, K4 x3, K5, K6, K7b x2 (stem + hourglass exit), K7a, K8b;
     # mono: K8a, K5, K6, K7b (hourglass exit), K4, K7a, K8b
-    'chain': {**SAMPLING, 'pack_vol': 2, 'conv_p2p': 4,
+    'chain': {**SAMPLING, **OFF_PATH, 'pack_vol': 2, 'conv_p2p': 4,
               'unpack_affine_res': 2, 'conv_s2_p2d': 2, 'pack_parity8': 2,
               'gn_affine_res_packed': 3, 'unpack_vol': 2},
     # 12 depth planes have no reduced-depth plan: the mono trunk is dense
     'chain, stereo trunk only': {
-        **SAMPLING, 'pack_vol': 1, 'conv_p2p': 3, 'unpack_affine_res': 1,
-        'conv_s2_p2d': 1, 'pack_parity8': 1, 'gn_affine_res_packed': 2,
-        'unpack_vol': 1},
+        **SAMPLING, **OFF_PATH, 'pack_vol': 1, 'conv_p2p': 3,
+        'unpack_affine_res': 1, 'conv_s2_p2d': 1, 'pack_parity8': 1,
+        'gn_affine_res_packed': 2, 'unpack_vol': 1},
 }
+# the ten kernels of the main path
+MAIN_PATH = [k for k, n in LAUNCHES_OF['chain'].items() if n]
+# K9's path: conv3d_zpack and conv3d_gn (K9a), conv3d (K9b), once each
+K9_PATH = {**dict.fromkeys(LAUNCHES_OF['chain'], 0), 'conv3d_zpack': 2,
+           'conv3d_pallas': 1}
 FORM_ARGS = {'chain': {}, 'stem': dict(packed='stem'),
              'dense': dict(use_band=False, packed=False)}
 
@@ -278,6 +296,8 @@ def kernel_phase(cfg, dev):
            + (u.numel() + v.numel()) * 4 + got.numel() * 4,
            16 * got.numel())
     chain_kernel_phase(vol[0], gen, agree, report)
+    for name, n in conv3d_kernel_phase(vol[0], gen, agree, report).items():
+        results[name]['launches'] = n
     return results
 
 
@@ -523,6 +543,142 @@ def chain_kernel_phase(x, gen, agree, report):
           flush=True)
 
 
+def conv3d_kernel_phase(x, gen, agree, report):
+    """K9a (`ops/cuda/conv3d.py:conv3d_stats`: K4's tensor-core code at
+    bf16 C = C_out = 32, the direct kernel elsewhere) and K9b (`conv3d`,
+    the direct kernel) at the DfM trunk width (72, 80, 320, 32) bf16, in
+    float32 at (16, 40, 96, 32), K9b 16 -> 8 (bf16, f32) and 42 -> 42
+    (f32: weights chunked over C_out), K9a 8 -> 32 (bf16): outputs against
+    the plain versions, bf16 to one rounding (atol 1e-2 + rtol 1e-2), f32
+    atol 1e-4 + rtol 1e-4 (the same f32 products summed in another order;
+    cuDNN's TF32 off for the plain convs); K9a's partials in the JAX layout
+    as the chain's moments (sums of squares rtol 1e-4, sums rtol 1e-4 +
+    atol 1e-6 * sqrt(n * sum of squares)); `conv3d_gn` with residual and
+    relu to one rounding more; every kernel run twice, bit for bit. Times
+    at the DfM width. Then K9's own path, the entry points once each with
+    the launch counts set to 0 just before; returns those counts."""
+    import torch.nn.functional as F
+    from dfm_tpu_torch.ops import conv3d as C3
+    from dfm_tpu_torch.ops import convgn as G
+    from dfm_tpu_torch.ops.cuda import conv3d as KC3
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    src = 'dfm_tpu_torch/csrc/conv3d.cu'
+    dev = x.device
+    d, h, w, c = x.shape
+    th = 8
+
+    def weights(c_in, c_out):
+        return torch.randn(c_out, c_in, 3, 3, 3, generator=gen,
+                           device=dev) / (27 * c_in) ** 0.5
+
+    def volume(shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def partials_agree(name, ps, want, n):
+        got, want = ps.double(), want.double()
+        lim = 1e-4 * want.abs()
+        lim[..., 0, :] += 1e-6 * (n * want[..., 1, :]).sqrt()
+        check(bool(((got - want).abs() <= lim).all()),
+              f'{name}: partials disagree')
+
+    w32 = weights(c, c)
+    small = (16, 40, 96)
+    # (volume, weights, tolerance) of each case; the DfM width first
+    cases = [(x, w32, (1e-2, 1e-2)),
+             (volume(small + (c,), torch.float32), w32, (1e-4, 1e-4))]
+    zpack_cases = cases + [(volume(small + (8,), x.dtype), weights(8, c),
+                            (1e-2, 1e-2))]
+    conv_cases = cases + [
+        (volume(small + (16,), x.dtype), weights(16, 8), (1e-2, 1e-2)),
+        (volume(small + (16,), torch.float32), weights(16, 8), (1e-4, 1e-4)),
+        (volume((8,) + small[1:] + (42,), torch.float32), weights(42, 42),
+         (1e-4, 1e-4))]
+    err = {'conv3d_zpack': 0.0, 'conv3d_pallas': 0.0}
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for xx, ww, tol in zpack_cases:
+            at = f'{tuple(xx.shape)} -> {ww.shape[0]} {xx.dtype}'
+            out, ps = KC3.conv3d_stats(xx, ww, th)
+            out2, ps2 = KC3.conv3d_stats(xx, ww, th)
+            check(torch.equal(out, out2) and torch.equal(ps, ps2),
+                  f'conv3d_zpack: two runs differ {at}')
+            want, wps = G.conv3d_zpack_plain(xx, ww, th)
+            err['conv3d_zpack'] = max(err['conv3d_zpack'],
+                                      agree('conv3d_zpack', out, want, tol))
+            partials_agree(f'conv3d_zpack {at}', ps, wps, th * xx.shape[2])
+            co = ww.shape[0]
+            gamma = torch.rand(co, generator=gen, device=dev) + 0.5
+            beta = torch.randn(co, generator=gen, device=dev)
+            res = volume(xx.shape[:3] + (co,), xx.dtype)
+            gn = [f(xx, ww, gamma, beta, 8, residual=res, relu=True, th=th)
+                  for f in (G.conv3d_gn, G.conv3d_gn_plain)]
+            agree(f'conv3d_gn {at}', *gn, tuple(2 * t for t in tol))
+            check(bool((gn[0] >= 0).all()), f'conv3d_gn: relu {at}')
+        for xx, ww, tol in conv_cases:
+            at = f'{tuple(xx.shape)} -> {ww.shape[0]} {xx.dtype}'
+            out = KC3.conv3d(xx, ww)
+            check(torch.equal(out, KC3.conv3d(xx, ww)),
+                  f'conv3d_pallas: two runs differ {at}')
+            err['conv3d_pallas'] = max(
+                err['conv3d_pallas'],
+                agree('conv3d_pallas', out, C3.conv3d_plain(xx, ww), tol))
+        plain_ms = {'conv3d_zpack': cuda_ms(
+                        lambda: G.conv3d_zpack_plain(x, w32, th)),
+                    'conv3d_pallas': cuda_ms(
+                        lambda: C3.conv3d_plain(x, w32))}
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+
+    x5, w5 = x.permute(3, 0, 1, 2)[None], w32.to(x.dtype)
+
+    def lib_moments():
+        y = F.conv3d(x5, w5, padding=1).float()
+        return y.sum((0, 2, 3, 4)), (y * y).sum((0, 2, 3, 4))
+
+    xf, cf = cases[1][0], conv_cases[2][0]
+    w16 = conv_cases[2][1]
+    lib_ms = cuda_ms(lambda: F.conv3d(x5, w5, padding=1))
+    flops = 2 * 27 * c * c * d * h * w
+    vol_bytes = 2 * x.numel() * x.element_size() + w32.numel() * 4
+    gamma, beta = torch.rand(c, device=dev) + 0.5, torch.randn(c, device=dev)
+    report('conv3d_zpack', src, 'dfm_tpu/ops/pallas/convgn.py:162',
+           err['conv3d_zpack'], (1e-2, 1e-2),
+           cuda_ms(lambda: KC3.conv3d_stats(x, w32, th)),
+           plain_ms['conv3d_zpack'], lib_ms,
+           vol_bytes + (d // 4) * (h // th) * 2 * 4 * c * 4, flops,
+           peak=BF16_TENSOR_FLOPS, library_with_moments_ms=cuda_ms(
+               lib_moments),
+           ms_conv3d_gn_residual_relu=cuda_ms(
+               lambda: G.conv3d_gn(x, w32, gamma, beta, 8, residual=x,
+                                   relu=True, th=th)),
+           ms_f32_16x40x96=cuda_ms(lambda: KC3.conv3d_stats(xf, w32, th)))
+    report('conv3d_pallas', src, 'dfm_tpu/ops/pallas/conv3d.py:119',
+           err['conv3d_pallas'], (1e-2, 1e-2),
+           cuda_ms(lambda: KC3.conv3d(x, w32)), plain_ms['conv3d_pallas'],
+           lib_ms, vol_bytes, flops, peak=BF16_TENSOR_FLOPS,
+           ms_f32_16x40x96=cuda_ms(lambda: KC3.conv3d(xf, w32)),
+           ms_f32_16x40x96_c16_to_8=cuda_ms(lambda: KC3.conv3d(cf, w16)))
+
+    # K9's path: the entry points a caller uses, at the DfM width
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out, ps = G.conv3d_zpack(x, G.pack_weights(w32), th)
+    y = G.conv3d_gn(x, w32, gamma, beta, 8, residual=x, relu=True, th=th)
+    z = KC3.conv3d(x, w32)
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    check(counts == K9_PATH, f'K9 path: launched {counts}, want {K9_PATH}')
+    for t in (out, ps, y, z):
+        check(bool(torch.isfinite(t).all()), 'K9 path: non-finite output')
+    check(tuple(ps.shape) == (d // 4, h // th, 2, 4 * c)
+          and y.shape == z.shape == out.shape == x.shape,
+          f'K9 path: shapes {tuple(out.shape)} {tuple(ps.shape)}')
+    print(f'K9 path (conv3d_zpack, conv3d_gn, conv3d at {tuple(x.shape)}): '
+          f'launches {counts}', flush=True)
+    return {k: counts[k] for k in OFF_PATH}
+
+
 def _finite_dets(det, what):
     for k in ('boxes3d', 'scores'):
         check(bool(torch.isfinite(det[k]).all()), f'{what}: non-finite {k}')
@@ -582,8 +738,8 @@ def main_phase(cfg, dev):
     print(f'main init_dfm_stream: ms/frame {[round(x, 3) for x in ms]} '
           f'launches {counts["stream"]}', flush=True)
     for path, c in counts.items():
-        for name, n in c.items():
-            check(n > 0, f'{name} never launched on the {path} path')
+        for name in MAIN_PATH:
+            check(c[name] > 0, f'{name} never launched on the {path} path')
         check_launches(c, 'chain', 3, f'the {path} path')
     del stream, cache
 
@@ -748,7 +904,8 @@ def main():
     results = kernel_phase(cfg, dev)
     launches = main_phase(cfg, dev)
     for name, n in launches.items():
-        results[name]['launches'] = n
+        results[name]['main_path_launches' if name in OFF_PATH
+                      else 'launches'] = n
     parity_phase(cfg, dev)
 
     print(json.dumps({'kernels': list(results.values())}))

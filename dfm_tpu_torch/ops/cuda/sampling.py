@@ -22,12 +22,13 @@ from .build import load
 __all__ = ['LAUNCHES', 'reset_launch_counts', 'warp_prev',
            'frustum_stereo_sample', 'attention_sample']
 
-# one table for every kernel of the port (K4-K8b: `conv_chain.py`), under
-# the names of the JAX functions they replace
+# one table for every kernel of the port (K4-K8b: `conv_chain.py`, K9a /
+# K9b: `conv3d.py`), under the names of the JAX functions they replace
 LAUNCHES = {'warp_prev': 0, 'frustum_stereo_sample': 0,
             'attention_sample': 0, 'pack_vol': 0, 'conv_p2p': 0,
             'unpack_affine_res': 0, 'conv_s2_p2d': 0, 'pack_parity8': 0,
-            'gn_affine_res_packed': 0, 'unpack_vol': 0}
+            'gn_affine_res_packed': 0, 'unpack_vol': 0, 'conv3d_zpack': 0,
+            'conv3d_pallas': 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

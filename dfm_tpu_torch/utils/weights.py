@@ -19,7 +19,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ['dfm_key_map', 'state_dict_from_jax', 'init_weights']
+__all__ = ['dfm_key_map', 'state_dict_from_jax', 'torch_conv_weight',
+           'init_weights']
 
 
 def _norm_mod(norm):
@@ -132,6 +133,14 @@ def _conv_weight(kernel, kind):
         w = k.transpose((nsp, nsp + 1) + tuple(range(nsp)))
         return w[(slice(None), slice(None)) + (slice(None, None, -1),) * nsp]
     return k.transpose((nsp + 1, nsp) + tuple(range(nsp)))
+
+
+def torch_conv_weight(kernel):
+    """One flax Conv kernel (k..., I, O), e.g. the JAX (3, 3, 3, C, C_out)
+    conv3d weights, -> the port's float32 tensor (O, I, k...), the layout
+    of `state_dict_from_jax` and of every conv of the port."""
+    return torch.from_numpy(np.ascontiguousarray(_conv_weight(kernel,
+                                                              'conv')))
 
 
 def state_dict_from_jax(variables, key_map=None):

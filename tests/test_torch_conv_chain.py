@@ -346,7 +346,8 @@ def test_wrappers_take_plain_versions_on_cpu(data):
     assert set(K.LAUNCHES) == {
         'warp_prev', 'frustum_stereo_sample', 'attention_sample', 'pack_vol',
         'conv_p2p', 'unpack_affine_res', 'conv_s2_p2d', 'pack_parity8',
-        'gn_affine_res_packed', 'unpack_vol'}
+        'gn_affine_res_packed', 'unpack_vol', 'conv3d_zpack',
+        'conv3d_pallas'}
 
 
 def test_blocked_weight_layout():

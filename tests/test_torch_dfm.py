@@ -282,11 +282,14 @@ def test_init_dfm_model_needs_cuda_unless_asked_for_cpu():
 
 
 def test_port_runs_without_jax():
-    """A fresh process imports the port and runs a tiny CPU forward in
-    the full-chain form without loading JAX."""
+    """A fresh process imports the port (with the K9a / K9b modules) and
+    runs a tiny CPU forward in the full-chain form without loading
+    JAX."""
     code = (
         'import sys, numpy as np, torch\n'
         'from dfm_tpu_torch.apis import init_dfm_model\n'
+        'import dfm_tpu_torch.ops.convgn, dfm_tpu_torch.ops.conv3d\n'
+        'import dfm_tpu_torch.ops.cuda.conv3d\n'
         'from dfm_tpu_torch.models.detectors.dfm import BatchMeta, '
         'DfMConfig\n'
         f'cfg = DfMConfig(**{TINY!r})\n'

@@ -7,11 +7,12 @@ The plain PyTorch versions are held against
 * the Pallas TPU kernels in interpret mode in bf16 (atol/rtol 6e-2, the
   JAX package's own tolerance for these kernels: they round their
   interpolation weights to bf16).
-The CUDA kernels themselves (K1-K3 and the conv chain's K4, K7a, K8a,
-whose plain versions `tests/test_torch_conv_chain.py` holds against the
-JAX package) run only on the card (`cuda` marker); here those cases
-report as skipped. This file imports no flax, so it also collects on a
-machine that has JAX without it.
+The CUDA kernels themselves (K1-K3, the conv chain's K4-K8b, whose plain
+versions `tests/test_torch_conv_chain.py` and `test_torch_packed_hg.py`
+hold against the JAX package, and K9a / K9b, held there by
+`tests/test_torch_conv3d.py`) run only on the card (`cuda` marker); here
+those cases report as skipped. This file imports no flax, so it also
+collects on a machine that has JAX without it.
 """
 
 import jax
@@ -393,5 +394,74 @@ def test_cuda_hourglass_kernels_match_plain():
             KC.pack_parity8(par[..., :16])                    # 16 channels
         with pytest.raises(TypeError):
             KC.pack_parity8(par.float())
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+
+
+@pytest.mark.cuda
+def test_cuda_conv3d_kernels_match_plain():
+    """K9a (`conv3d_stats`: the tensor-core code at bf16 C = C_out = 32,
+    the direct kernel elsewhere) and K9b (`conv3d`, the direct kernel)
+    against their plain versions on the card, at shapes with ragged and
+    whole tiles, C = 42 (weights chunked over C_out) included: float32
+    atol 1e-4 + rtol 1e-4 (the same f32 products summed in another
+    order), bf16 one rounding (atol 1e-2 + rtol 1e-2); partials rtol 1e-4
+    (+ atol 1e-3: sums of a few hundred signed terms); K9a bit-identical
+    across two runs; `conv3d_gn` with residual and relu to one rounding
+    more. cuDNN's TF32 is off for the plain f32 convs."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    from dfm_tpu_torch.ops import conv3d as C3
+    from dfm_tpu_torch.ops import convgn as G
+    from dfm_tpu_torch.ops.cuda import conv3d as KC3
+    dev = 'cuda'
+    rng = np.random.RandomState(0)
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        K.reset_launch_counts()
+        for shape, c_out, dt in (((8, 8, 16, 8), 8, torch.float32),
+                                 ((8, 4, 24, 16), 8, torch.bfloat16),
+                                 ((5, 7, 40, 42), 42, torch.float32),
+                                 ((4, 20, 40, 32), 32, torch.bfloat16)):
+            x = _t(rng.randn(*shape), dt).to(dev)
+            k = _t(rng.randn(c_out, shape[-1], 3, 3, 3) * 0.1).to(dev)
+            tol = F32_TOL if dt == torch.float32 else dict(atol=1e-2,
+                                                           rtol=1e-2)
+            torch.testing.assert_close(KC3.conv3d(x, k).float(),
+                                       C3.conv3d_plain(x, k).float(),
+                                       atol=max(tol['atol'], 1e-4),
+                                       rtol=max(tol['rtol'], 1e-4))
+        for shape, c_out, dt, th in (((8, 20, 40, 32), 32, torch.bfloat16, 5),
+                                     ((4, 16, 64, 32), 32, torch.bfloat16, 8),
+                                     ((8, 8, 16, 8), 32, torch.float32, 4),
+                                     ((4, 6, 40, 8), 32, torch.bfloat16, 3)):
+            x = _t(rng.randn(*shape), dt).to(dev)
+            k = _t(rng.randn(c_out, shape[-1], 3, 3, 3) * 0.1).to(dev)
+            out, ps = KC3.conv3d_stats(x, k, th)
+            out2, ps2 = KC3.conv3d_stats(x, k, th)
+            assert torch.equal(out, out2) and torch.equal(ps, ps2)
+            want, wps = G.conv3d_zpack_plain(x, k, th)
+            atol = 1e-4 if dt == torch.float32 else 1e-2
+            torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                                       rtol=atol)
+            torch.testing.assert_close(ps, wps, rtol=1e-4, atol=1e-3)
+            sc = _t(rng.rand(c_out) + 0.5).to(dev)
+            bs = _t(rng.randn(c_out)).to(dev)
+            res = _t(rng.randn(*shape[:3], c_out), dt).to(dev)
+            torch.testing.assert_close(
+                G.conv3d_gn(x, k, sc, bs, 8, residual=res, relu=True,
+                            th=th).float(),
+                G.conv3d_gn_plain(x, k, sc, bs, 8, residual=res, relu=True,
+                                  th=th).float(), atol=2 * atol, rtol=2 * atol)
+        want = dict.fromkeys(K.LAUNCHES, 0)
+        want.update(conv3d_pallas=4, conv3d_zpack=12)
+        assert K.LAUNCHES == want
+        with pytest.raises(TypeError):
+            KC3.conv3d(x.half(), k)
+        with pytest.raises(ValueError):
+            KC3.conv3d_stats(x[:3].contiguous(), k, 3)     # D % 4
+        with pytest.raises(ValueError):
+            KC3.conv3d(x[..., :4], k)                      # not contiguous
     finally:
         torch.backends.cudnn.allow_tf32 = flag
