@@ -22,7 +22,11 @@ Phases, one line each; any failure raises and no result is printed:
               of a gathered table it touches, coordinates, volumes in
               and out) over 3.35 TB/s, against its operations over the
               peak for their type (f32 67 TFLOP/s; K4's and K5's bf16
-              products on the tensor cores 989 TFLOP/s, dense). Then
+              products on the tensor cores 989 TFLOP/s, dense); K4's
+              achieved TFLOP/s and share of that peak, K3's time over
+              `F.grid_sample`'s; for K3 and K4 also the device time of
+              the kernels of one call (torch.profiler), without the
+              host time around them. Then
               the K9 block: K9a conv3d_zpack and K9b conv3d_pallas, on no
               model path, at the DfM trunk width (72, 80, 320, 32) bf16,
               in float32 at a smaller shape, K9b 16 -> 8 and 42 -> 42 and
@@ -130,6 +134,23 @@ def cuda_ms(fn, reps=REPS, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps=5):
+    """Device time of the kernels one call of `fn` launches (their sum,
+    torch.profiler), without the host time around them that `cuda_ms`
+    also sees."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def card_line():
@@ -284,17 +305,23 @@ def kernel_phase(cfg, dev):
     want = FS.attention_sample_plain(sm, u, v, *tabf, IMG_HW)
     sm_ncdhw = sm[:, None]
     g3 = lib_grid(df, h, w).to(bf)
+    k3_ms = cuda_ms(lambda: K.attention_sample(sm, u, v, dsf, IMG_HW))
+    k3_lib = cuda_ms(lambda: F.grid_sample(sm_ncdhw, g3, align_corners=True))
     report('attention_sample', 'dfm_tpu_torch/csrc/frustum_sample.cu',
            'dfm_tpu/ops/pallas/frustum_sample.py:233',
            agree('attention_sample', got, want, (1e-5, 1e-5)), (1e-5, 1e-5),
-           cuda_ms(lambda: K.attention_sample(sm, u, v, dsf, IMG_HW)),
+           k3_ms,
            cuda_ms(lambda: FS.attention_sample_plain(sm, u, v, *tabf,
                                                      IMG_HW)),
-           cuda_ms(lambda: F.grid_sample(sm_ncdhw, g3, align_corners=True)),
+           k3_lib,
            needed_bytes(FS.attention_sample_plain, sm, 1, u, v, *tabf,
                         IMG_HW)
            + (u.numel() + v.numel()) * 4 + got.numel() * 4,
-           16 * got.numel())
+           16 * got.numel(), ratio_to_grid_sample=k3_ms / k3_lib,
+           device_ms=device_ms(
+               lambda: K.attention_sample(sm, u, v, dsf, IMG_HW)),
+           library_device_ms=device_ms(
+               lambda: F.grid_sample(sm_ncdhw, g3, align_corners=True)))
     chain_kernel_phase(vol[0], gen, agree, report)
     for name, n in conv3d_kernel_phase(vol[0], gen, agree, report).items():
         results[name]['launches'] = n
@@ -333,6 +360,7 @@ def chain_kernel_phase(x, gen, agree, report):
     from dfm_tpu_torch.ops.cuda import conv_chain as KC
     from dfm_tpu_torch.ops.reduced_depth import make_reduced_plan
     src = 'dfm_tpu_torch/csrc/conv_chain.cu'
+    src_p2p = 'dfm_tpu_torch/csrc/conv_p2p.cuh'
     src_hg = 'dfm_tpu_torch/csrc/hourglass_chain.cu'
     jax_src = 'dfm_tpu/ops/pallas/conv_chain.py'
     tol = (1e-2, 1e-2)
@@ -503,12 +531,16 @@ def chain_kernel_phase(x, gen, agree, report):
     rep('unpack_vol', src, ':515', cuda_ms(lambda: CC.unpack_vol_plain(cv)),
         cuda_ms(lambda: cv.interior().contiguous()),
         dense_bytes + chain_bytes, 0)
-    rep('conv_p2p', src, ':233', full['p2p_plain_ms'],
+    p2p_flops = 2 * 27 * c * c * nvox
+    p2p_tflops = p2p_flops / full['ms']['conv_p2p'] / 1e9
+    rep('conv_p2p', src_p2p, ':233', full['p2p_plain_ms'],
         cuda_ms(lambda: F.conv3d(x5, w5, padding=1)),
         2 * chain_bytes + weight.numel() * 2 + full['ps_bytes'],
-        2 * 27 * c * c * nvox, modes=('residual',), peak=BF16_TENSOR_FLOPS,
+        p2p_flops, modes=('residual',), peak=BF16_TENSOR_FLOPS,
         extra=dict(library_with_moments_ms=cuda_ms(
-            lambda: lib_moments(w5, 1))))
+            lambda: lib_moments(w5, 1)), tflops=p2p_tflops,
+            bf16_peak_share=p2p_tflops * 1e12 / BF16_TENSOR_FLOPS,
+            device_ms=device_ms(lambda: KC.conv_p2p(cv, weight))))
     # no single PyTorch call computes K7a, K7b or K6: no library time
     rep('unpack_affine_res', src, ':624',
         cuda_ms(lambda: CC.unpack_affine_plain(u, sc, bs, cv, False)), None,

@@ -12,9 +12,10 @@
 // unit and are not carried over.
 //
 // Two device codes:
-//   dfm_conv3d_tc: bf16, C = C_out = 32 (the DfM trunk width), K4's
-//     tensor-core convolution (conv_p2p.cuh) on dense tensors; bound by
-//     operations (101.9 GFLOP at 72x80x320 against ~120 MB).
+//   dfm_conv3d_tc: bf16, C = C_out = 32 (the DfM trunk width), the wmma
+//     tensor-core convolution of conv_wmma.cuh (K4's first design) on
+//     dense tensors; bound by operations (101.9 GFLOP at 72x80x320
+//     against ~120 MB).
 //   dfm_conv3d_direct: every other width and type, and K9b: a direct
 //     convolution on the CUDA cores, f32 fused multiply-adds (exact f32
 //     products for f32 inputs; bf16 inputs and weights are exact in f32),
@@ -34,7 +35,7 @@
 // identical bits on every run.
 #include <stdint.h>
 
-#include "conv_p2p.cuh"
+#include "conv_wmma.cuh"
 
 namespace {
 
@@ -191,7 +192,7 @@ static_assert(kDTX == TX, "both kernels write moments per 32-column tile");
 }  // namespace
 
 // dense in (D, H, W, 32) bf16 -> dense out (D, H, W, 32) bf16 + ps
-// (D, H, tiles_x, 2, 32) f32, tiles_x = ceil(W/32); wt blocked as K4's;
+// (D, H, tiles_x, 2, 32) f32, tiles_x = ceil(W/32); wt blocked as K5's;
 // tiles = ceil(H/16) * tiles_x, refused (cudaErrorInvalidValue) when the
 // caller counted otherwise; zc = depth slices per block.
 extern "C" int dfm_conv3d_tc(const void* in, const void* wt, void* out,
@@ -200,14 +201,14 @@ extern "C" int dfm_conv3d_tc(const void* in, const void* wt, void* out,
   const int tiles_x = (W + TX - 1) / TX, tiles_y = (H + TY - 1) / TY;
   if (tiles != tiles_x * tiles_y || zc < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_p2p_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv_wmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kConvSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(tiles, (D + zc - 1) / zc);
-  conv_p2p_kernel<true><<<grid, kThreads, kConvSmem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  conv_wmma_kernel<<<grid, kThreads, kConvSmem,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(in), static_cast<const bf16*>(wt),
-      static_cast<bf16*>(out), ps, D, H, W, tiles_x, zc, 0);
+      static_cast<bf16*>(out), ps, D, H, W, tiles_x, zc);
   return (int)cudaGetLastError();
 }
 

@@ -24,13 +24,18 @@
 // in the store: K7a writes the dense volume, K7b the chain format with
 // its zero border.
 //
-// K4 is bound by operations: the tensor-core convolution of conv_p2p.cuh
-// on chain tensors (conv_p2p_kernel<false>), which K9a shares (conv3d.cu).
+// K4 is bound by operations: the Hopper convolution of conv_p2p.cuh
+// (wgmma + TMA, a persistent grid of one block per SM).
 #include <stdint.h>
 
 #include "conv_p2p.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kChunks = 4;             // 16-byte chunks of a 32-channel voxel
+constexpr int kThreads = 256;
 
 // ---------------------------------------------------------------- K8a
 
@@ -66,22 +71,6 @@ __global__ void unpack_vol_kernel(const uint4* __restrict__ chain,
       (((long long)(z + 1) * (H + 2) + (y + 1)) * (W + 2) + (x + 1)) *
           kChunks +
       q);
-}
-
-// Zero border of a chain tensor whose interior another kernel writes.
-// grid (H+2, D+2), one block per stored row.
-__global__ void zero_border_kernel(uint4* __restrict__ chain, int D, int H,
-                                   int W) {
-  const int py = blockIdx.x, pz = blockIdx.y;
-  uint4* row = chain + ((long long)pz * (H + 2) + py) * (W + 2) * kChunks;
-  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-  if (pz == 0 || pz == D + 1 || py == 0 || py == H + 1) {
-    for (int i = threadIdx.x; i < (W + 2) * kChunks; i += blockDim.x)
-      row[i] = z;
-  } else if (threadIdx.x < 2 * kChunks) {
-    const int side = threadIdx.x / kChunks, q = threadIdx.x % kChunks;
-    row[(side ? W + 1 : 0) * kChunks + q] = z;
-  }
 }
 
 // ---------------------------------------------------------- K7a, K7b
@@ -226,26 +215,29 @@ extern "C" int dfm_affine_chain(const void* u, const void* res,
   return (int)cudaGetLastError();
 }
 
-// chain in -> chain out (border zeroed here) + ps (D, tiles, 2, 32) f32,
-// tiles = ceil(H/16) * ceil(W/32), refused (cudaErrorInvalidValue) when
-// the caller sized ps for another count; zc = depth slices per block.
+// chain in -> chain out (border zeroed by the kernel) + ps (D, tiles, 2,
+// 32) f32, tiles = ceil(H/8) * ceil(W/64), refused (cudaErrorInvalidValue)
+// when the caller sized ps for another count; blocks = the persistent
+// grid (one block per SM). `in` and `wt` start on 16 bytes.
 extern "C" int dfm_conv_p2p(const void* in, const void* wt, void* out,
                             float* ps, int D, int H, int W, int tiles,
-                            int zc, int residual, void* stream) {
+                            int blocks, int residual, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles_x = (W + TX - 1) / TX, tiles_y = (H + TY - 1) / TY;
-  if (tiles != tiles_x * tiles_y || zc < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_p2p_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kConvSmem);
+  const int tiles_x = (W + k4::TX - 1) / k4::TX;
+  const int tiles_y = (H + k4::TY - 1) / k4::TY;
+  if (tiles != tiles_x * tiles_y || blocks < 1 ||
+      (long long)tiles * D > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (!k4::chain_tensor_map(&map, in, D, H, W))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      k4::conv_p2p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k4::kSmem);
   if (err != cudaSuccess) return (int)err;
-  zero_border_kernel<<<dim3(H + 2, D + 2), 128, 0, s>>>(
-      static_cast<uint4*>(out), D, H, W);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiles_x * tiles_y, (D + zc - 1) / zc);
-  conv_p2p_kernel<false><<<grid, kThreads, kConvSmem, s>>>(
-      static_cast<const bf16*>(in), static_cast<const bf16*>(wt),
-      static_cast<bf16*>(out), ps, D, H, W, tiles_x, zc, residual);
+  const int units = tiles * D;
+  k4::conv_p2p_kernel<<<min(blocks, units), k4::kThreads, k4::kSmem, s>>>(
+      map, static_cast<const bf16*>(wt), static_cast<bf16*>(out), ps, D, H,
+      W, tiles_x, units, residual);
   return (int)cudaGetLastError();
 }

@@ -1,273 +1,454 @@
-// The 3x3x3 stride-1 C32 -> C32 bf16 convolution on the tensor cores, with
-// f32 GroupNorm moments of the unrounded result in its epilogue. One
-// device code, two storage formats:
-//   conv_p2p_kernel<false>: K4 conv_p2p (conv_chain.cu), chain tensors in
-//     and out, the chain format of dfm_tpu_torch/ops/conv_chain.py: a
-//     (D, H, W, 32) volume stored as (D+2, H+2, W+2, 32), channels
-//     innermost, with a border of stored zeros. Moments per (depth slice,
-//     tile), an optional residual (the input) added to the result.
-//   conv_p2p_kernel<true>: K9a conv3d_zpack at the DfM trunk width
-//     (conv3d.cu), dense (D, H, W, 32) in and out: a tap outside the
-//     volume is a zero written to shared memory at load, in place of the
-//     chain's stored border. Moments per (depth slice, row, 32-column
-//     tile), a granularity that folds exactly into any row band.
+// K4 conv_p2p on Hopper: the 3x3x3 stride-1 C32 -> C32 bf16 convolution of
+// a chain tensor (conv_chain.cu, dfm_conv_p2p), with an optional residual
+// (the input) and the f32 GroupNorm moments of the unrounded result per
+// (depth slice, tile). Replaces dfm_tpu/ops/pallas/conv_chain.py:
+// conv_p2p -> _conv_p2p_call. (K9a keeps K4's first design, the wmma code
+// of conv_wmma.cuh.)
 //
-// Bound by operations (101.9 GFLOP at 72x80x320 against ~250 MB): an
-// implicit-GEMM convolution. M = output voxels, N = 32 output channels,
-// K = 27 taps x 32 input channels; bf16 operands, f32 accumulators
-// (nvcuda::wmma m16n16k16). A block owns a 16x32 (y, x) tile and walks a
-// chunk of depth slices: the 27x32x32 weights stay in shared memory, the
-// input slices with their halo sit in a ring of four (three in use, the
-// next arriving by cp.async while the tensor cores work), so a voxel is
-// read from device memory ~1.2 times and not 27. Each warp computes 2 rows
-// x 32 voxels x 32 channels (4 x 2 accumulator tiles), so a weight tile
-// read from shared memory feeds four products. Shared-memory tiles have
-// 32-byte rows (16 channels): every wmma pointer is 32-byte aligned for
-// any tap shift. The epilogue goes through a per-warp f32 staging tile:
-// residual from the centre tap's input, f32 moments of the unrounded
-// result, bf16 store of 16 bytes a lane. Moments are reduced in a fixed
-// order (lane -> warp, then warp -> block for the chain's per-tile sums)
-// with no atomics: identical bits on every run.
+// Bound by operations: an implicit GEMM, M = output voxels, N = 32 output
+// channels, K = 27 taps x 32 input channels (101.9 GFLOP at 72x80x320).
+// Design for sm_90a:
+//   - wgmma.mma_async m64n32k16, bf16 operands, f32 accumulators, A and B
+//     both read from shared memory through no-swizzle K-major descriptors.
+//     A slice is stored channel-octet-major, [octet 4][row][column][8 ch],
+//     so the 8 voxels x 16 bytes of a core matrix are contiguous (SBO 128)
+//     and the next 8 channels lie one octet plane further (LBO). A tap
+//     shift (dy, dx) only moves the descriptor's start address, by
+//     (dy * SX + dx) * 16 bytes: the 27 taps need no register reload and
+//     no ldmatrix. The weights, [tap 27][octet 4][n 32][8 k] (55 KB), are
+//     loaded once per block in the B canonical layout (LBO 512, SBO 128).
+//   - TMA (cp.async.bulk.tensor, tiled mode, one tensor map per call over
+//     the (D+2, H+2, W+2, 32) chain tensor): a slice of the 8 x 64 output
+//     tile with its halo (10 x 66 voxels) arrives as four boxes of 8
+//     channels, one per octet plane, into a ring of four slots guarded by
+//     mbarriers (full: the bytes have landed; empty: every consumer is done
+//     with the slice). Outside the stored tensor (a ragged last tile) TMA
+//     writes zeros. One producer warp issues the copies; two consumer
+//     warpgroups own four output rows each (four m64 tiles, 64 f32
+//     accumulators a thread).
+//   - Epilogue in registers: the residual from the centre slice in shared
+//     memory, the moments of the unrounded f32 result, a 4x4 transpose of
+//     bf16 pairs among the four lanes of a quad (two xor-shuffle stages),
+//     so each lane stores one 16-byte channel octet of a voxel and a warp
+//     writes 512 contiguous bytes. No f32 staging tile. The producer
+//     warp's 31 idle lanes write the output's zero border.
+//   - Moments: per thread over its voxels, a fixed lane xor tree per warp,
+//     then the eight warps summed in a fixed order by 64 threads: no
+//     atomics, identical bits on every run.
+//   - A persistent grid of one block per SM walks an equal share of the
+//     (tile, depth slice) work items, tile-major: no partial last wave.
+//     Each new tile in a block's share costs two extra halo slices.
 #pragma once
 
-#include <cuda_pipeline.h>
-#include <mma.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
-namespace {
+namespace k4 {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
-constexpr int kC = 32;                 // channels in and out
-constexpr int kChunks = kC / 8;        // 16-byte chunks of a voxel
-constexpr int kThreads = 256;
-
-constexpr int TY = 16, TX = 32;              // output tile (rows, columns)
-constexpr int SY = TY + 2, SX = TX + 2;      // input tile with its halo
-constexpr int kWarps = kThreads / 32;        // warp w: rows 2w, 2w+1
-constexpr int kHalf = SY * SX * 16;          // elements of one channel half
-constexpr int kSlice = 2 * kHalf;            // elements of one input slice
+constexpr int kC = 32;                       // channels in and out
+constexpr int TY = 8, TX = 64;               // output tile (rows, columns)
+constexpr int SY = TY + 2, SX = TX + 2;      // input slice with its halo
+constexpr int kBox = SY * SX * 16;           // bytes of one octet plane
+constexpr int kOct = (kBox + 127) / 128 * 128;   // plane stride, 128-aligned
+constexpr int kSlice = 4 * kOct;             // bytes of one ring slot
 constexpr int kRing = 4;
-constexpr int kWElems = 27 * kC * kC;
-constexpr int kStageLd = 36;                 // floats; 16-byte reads of 8
-                                             // lanes hit 32 distinct banks
-constexpr int kStage = 16 * kStageLd;        // floats per warp
-constexpr int kConvSmem =
-    (kWElems + kRing * kSlice) * (int)sizeof(bf16) +
-    kWarps * kStage * (int)sizeof(float);    // 230,400 bytes
+constexpr int kTapBytes = kC * kC * 2;       // weights of one tap
+constexpr int kWBytes = 27 * kTapBytes;
+constexpr int kConsumers = 256;              // two warpgroups
+constexpr int kThreads = kConsumers + 32;    // and one producer warp
+constexpr int kRedFloats = 2 * 8 * 2 * kC;   // [buffer 2][warp 8][s, s2][32]
+constexpr int kSmem = kRing * kSlice + kWBytes + kRedFloats * 4 +
+                      (2 * kRing + 1) * 8;   // 229,448 bytes
+static_assert(kSmem <= 232448, "more shared memory than a block may have");
 
-// Input slice pz, rows py0.., columns px0.. in the coordinates of the
-// chain format (the dense volume shifted by one voxel on each axis) ->
-// shared memory as [channel half][row][column][16 channels]. Chain: what
-// lies outside the stored tensor (a ragged last tile) is written as zeros.
-// Dense: what lies outside the volume is written as zeros.
-template <bool DENSE>
-__device__ __forceinline__ void load_slice(bf16* __restrict__ dst,
-                                           const bf16* __restrict__ in,
-                                           int pz, int py0, int px0, int D,
-                                           int H, int W) {
-  for (int i = threadIdx.x; i < SY * SX * kChunks; i += kThreads) {
-    const int q = i % kChunks, v = i / kChunks;
-    const int xx = v % SX, yy = v / SX;
-    const int py = py0 + yy, px = px0 + xx;
-    bf16* d = dst + (q >> 1) * kHalf + (yy * SX + xx) * 16 + (q & 1) * 8;
-    bool inside;
-    long long at;
-    if constexpr (DENSE) {
-      inside = pz >= 1 && pz <= D && py >= 1 && py <= H && px >= 1 &&
-               px <= W;
-      at = (((long long)(pz - 1) * H + (py - 1)) * W + (px - 1)) * kC;
-    } else {
-      inside = py < H + 2 && px < W + 2;
-      at = (((long long)pz * (H + 2) + py) * (W + 2) + px) * kC;
-    }
-    if (inside)
-      __pipeline_memcpy_async(d, in + at + q * 8, 16);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 4D box of the tensor map -> shared memory, completion on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Contiguous bytes -> shared memory, completion on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// No-swizzle K-major shared-memory matrix descriptor: start address, LBO
+// (next 8 k), SBO (next 8 rows), all in 16-byte units; layout type 0.
+__host__ __device__ constexpr uint64_t desc_hi(uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32;
+}
+
+// d (+)= A (64 x 16, desc a) * B (16 x 32, desc b); scale_d 0 overwrites.
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a,
+                                                uint64_t b,
+                                                uint32_t scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// Keeps the compiler from moving accumulator reads across the wgmma wait.
+__device__ __forceinline__ void fence_regs(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Lane q of a quad holds p[j] = channels (8j + 2q, +1) of a voxel; after
+// the transpose it holds channels (8q + 2j, +1) in p[j], i.e. octet q.
+// Stage 1 swaps the off-diagonal 2x2 blocks (lanes q ^ 2), stage 2 the
+// off-diagonal elements of each block (lanes q ^ 1).
+__device__ __forceinline__ void quad_transpose(uint32_t (&p)[4], int q) {
+  const bool hi = q & 2, odd = q & 1;
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, hi ? p[0] : p[2], 2);
+  uint32_t r1 = __shfl_xor_sync(0xffffffffu, hi ? p[1] : p[3], 2);
+  if (hi) {
+    p[0] = r0;
+    p[1] = r1;
+  } else {
+    p[2] = r0;
+    p[3] = r1;
+  }
+  r0 = __shfl_xor_sync(0xffffffffu, odd ? p[0] : p[1], 1);
+  r1 = __shfl_xor_sync(0xffffffffu, odd ? p[2] : p[3], 1);
+  if (odd) {
+    p[0] = r0;
+    p[2] = r1;
+  } else {
+    p[1] = r0;
+    p[3] = r1;
   }
 }
 
-// wt: the weights as [tap 27][k half 2][n half 2][k 16][n 16] bf16 (k =
-// input channel, n = output channel). grid (tiles, z chunks), block 256; a
-// block computes slices [blockIdx.y * zc, +zc) of its tile.
-//   chain (DENSE false): in / out (D+2, H+2, W+2, 32), out's border is
-//     written by another kernel; ps (D, tiles, 2, 32); `residual` adds the
-//     input.
-//   dense (DENSE true): in / out (D, H, W, 32); ps (D, H, tiles_x, 2, 32);
-//     `residual` must be 0.
-template <bool DENSE>
+// This block's share of the zero border of the chain tensor `out`, by the
+// producer warp's idle lanes (lane `lane` of `lanes` >= 8): an equal
+// share of the stored rows; a row of an end slice, and the first and last
+// row of an inner slice, whole, other rows their first and last voxel.
+__device__ __forceinline__ void zero_border_share(uint4* __restrict__ out,
+                                                  int D, int H, int W,
+                                                  int lane, int lanes) {
+  const int HP = H + 2, WP = W + 2, rows = (D + 2) * HP;
+  const int lo = (int)((long long)blockIdx.x * rows / gridDim.x);
+  const int hi = (int)((long long)(blockIdx.x + 1) * rows / gridDim.x);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int row = lo; row < hi; ++row) {
+    const int pz = row / HP, py = row - pz * HP;
+    uint4* r = out + (long long)row * WP * 4;
+    if (pz == 0 || pz == D + 1 || py == 0 || py == H + 1) {
+      for (int i = lane; i < WP * 4; i += lanes) r[i] = zero;
+    } else if (lane < 8) {
+      r[(lane < 4 ? 0 : (W + 1) * 4) + (lane & 3)] = zero;
+    }
+  }
+}
+
+// One block per SM. tmap: the chain tensor `in` (D+2, H+2, W+2, 32) as
+// dims (32 ch, W+2, H+2, D+2), box (8, SX, SY, 1). wt: [tap 27][octet
+// 4][n 32][8 k] bf16. out: chain tensor, interior and border written
+// here; ps (D, tiles, 2, 32). Work item u = tile * D + z; block b takes
+// [b * units / grid, (b + 1) * units / grid).
 __global__ void __launch_bounds__(kThreads, 1)
-conv_p2p_kernel(const bf16* __restrict__ in, const bf16* __restrict__ wt,
-               bf16* __restrict__ out, float* __restrict__ ps, int D, int H,
-               int W, int tiles_x, int zc, int residual) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sw = reinterpret_cast<bf16*>(smem);
-  bf16* ss = sw + kWElems;
-  float* stage_all = reinterpret_cast<float*>(ss + kRing * kSlice);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* stage = stage_all + warp * kStage;
-  const int tile = blockIdx.x, ntiles = gridDim.x;
-  const int tx = tile % tiles_x;
-  const int y0 = (tile / tiles_x) * TY, x0 = tx * TX;
-  const int z0 = blockIdx.y * zc;
-  const int z1 = min(z0 + zc, D);
-  const int HP = H + 2, WP = W + 2;
-
-  for (int i = threadIdx.x; i < kWElems / 8; i += kThreads)
-    __pipeline_memcpy_async(sw + i * 8, wt + i * 8, 16);
-  // output slice z reads input slices z, z+1, z+2 (chain coordinates);
-  // slice s lives in ring slot s & 3
-  for (int s = z0; s < z0 + 3; ++s)
-    load_slice<DENSE>(ss + (s & 3) * kSlice, in, s, y0, x0, D, H, W);
-  __pipeline_commit();
-
-  const int q = lane & 3, vl = lane >> 2;
-  for (int z = z0; z < z1; ++z) {
-    __pipeline_wait_prior(0);
-    __syncthreads();  // slices z..z+2 have landed; slice z-1 is free
-    if (z + 1 < z1)
-      load_slice<DENSE>(ss + ((z + 3) & 3) * kSlice, in, z + 3, y0, x0, D,
-                        H, W);
-    __pipeline_commit();
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      wmma::fill_fragment(acc[m][0], 0.f);
-      wmma::fill_fragment(acc[m][1], 0.f);
+conv_p2p_kernel(const __grid_constant__ CUtensorMap tmap,
+                const bf16* __restrict__ wt, bf16* __restrict__ out,
+                float* __restrict__ ps, int D, int H, int W, int tiles_x,
+                int units, int residual) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* red = reinterpret_cast<float*>(smem + kRing * kSlice + kWBytes);
+  const uint32_t ring_a = smem_u32(ring);
+  const uint32_t w_a = ring_a + kRing * kSlice;
+  const uint32_t bar_a = smem_u32(red + kRedFloats);
+  // full[i] = bar_a + 8 i, empty[i] = bar_a + 8 (kRing + i), weights
+  const uint32_t wbar = bar_a + 16 * kRing;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRing; ++i) {
+      mbar_init(bar_a + 8 * i, 1);
+      mbar_init(bar_a + 8 * (kRing + i), kConsumers);
     }
-    for (int dz = 0; dz < 3; ++dz) {
-      const bf16* sl = ss + ((z + dz) & 3) * kSlice;
-      for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const bf16* wtap = sw + ((dz * 3 + dy) * 3 + dx) * (kC * kC);
-#pragma unroll
-          for (int kh = 0; kh < 2; ++kh) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-                b0, b1;
-            wmma::load_matrix_sync(b0, wtap + (kh * 2 + 0) * 256, 16);
-            wmma::load_matrix_sync(b1, wtap + (kh * 2 + 1) * 256, 16);
-#pragma unroll
-            for (int m = 0; m < 4; ++m) {
-              const int r = 2 * warp + (m >> 1), xm = (m & 1) * 16;
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major> a;
-              wmma::load_matrix_sync(
-                  a, sl + kh * kHalf + ((r + dy) * SX + xm + dx) * 16, 16);
-              wmma::mma_sync(acc[m][0], a, b0, acc[m][0]);
-              wmma::mma_sync(acc[m][1], a, b1, acc[m][1]);
-            }
-          }
-        }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int ntiles = units / D;
+  const int begin = (int)((long long)blockIdx.x * units / gridDim.x);
+  const int end = (int)((long long)(blockIdx.x + 1) * units / gridDim.x);
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x != kConsumers) {
+      zero_border_share(reinterpret_cast<uint4*>(out), D, H, W,
+                        threadIdx.x - kConsumers - 1, 31);
+      return;
+    }
+    // producer: the weights once, then every slice of every segment of
+    // this block's share, in the order the consumers use them
+    mbar_expect_tx(wbar, kWBytes);
+    for (int t = 0; t < 27; ++t)
+      bulk_load(w_a + t * kTapBytes,
+                reinterpret_cast<const unsigned char*>(wt) + t * kTapBytes,
+                kTapBytes, wbar);
+    int load = 0;
+    for (int u = begin; u < end;) {
+      const int tile = u / D, z0 = u - tile * D, n = min(D - z0, end - u);
+      const int ty = tile / tiles_x;
+      const int y0 = ty * TY, x0 = (tile - ty * tiles_x) * TX;
+      for (int s = z0; s < z0 + n + 2; ++s, ++load) {
+        const int slot = load % kRing, round = load / kRing;
+        if (round > 0) mbar_wait(bar_a + 8 * (kRing + slot), (round - 1) & 1);
+        const uint32_t full = bar_a + 8 * slot;
+        mbar_expect_tx(full, 4 * kBox);
+        for (int c8 = 0; c8 < 4; ++c8)
+          tma_load_4d(ring_a + slot * kSlice + c8 * kOct, &tmap, full, c8 * 8,
+                      x0, y0, s);
       }
+      u += n;
     }
+    return;
+  }
 
-    // epilogue: lane = (voxel vl of 8, channels 8q..8q+7)
-    float s[8], s2[8];
+  // consumers: warpgroup wg owns tile rows 4 wg .. 4 wg + 3; in each m64
+  // tile (one row, 64 columns) warp wq owns columns 16 wq .. 16 wq + 15
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5;
+  const int wq = warp & 3, lane = tid & 31, q = lane & 3, g8 = lane >> 2;
+  const int HP = H + 2, WP = W + 2;
+  constexpr uint64_t kAHi = desc_hi(kOct, 128);
+  const uint64_t bdesc = desc_hi(512, 128) | (w_a >> 4);
+  float acc[4][16];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j] = s2[j] = 0.f;
-    const bf16* centre = ss + ((z + 1) & 3) * kSlice;
+  for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int r = 2 * warp + (m >> 1), xm = (m & 1) * 16;
-      wmma::store_matrix_sync(stage, acc[m][0], kStageLd,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(stage + 16, acc[m][1], kStageLd,
-                              wmma::mem_row_major);
+    for (int i = 0; i < 16; ++i) acc[m][i] = 0.f;
+  int load = 0, buf = 0;
+  mbar_wait(wbar, 0);
+  for (int u = begin; u < end;) {
+    const int tile = u / D, z0 = u - tile * D, n = min(D - z0, end - u);
+    const int ty = tile / tiles_x;
+    const int y0 = ty * TY, x0 = (tile - ty * tiles_x) * TX;
+    for (int i = 0; i < n; ++i) {
+      // output slice o = z0 + i reads chain slices o, o+1, o+2: loads
+      // l0, l0 + 1, l0 + 2 of the ring
+      const int o = z0 + i, l0 = load + i;
+      for (int dz = 0; dz < 3; ++dz)
+        mbar_wait(bar_a + 8 * ((l0 + dz) % kRing), ((l0 + dz) / kRing) & 1);
       __syncwarp();
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int vx = vl + 8 * i;
-        const int y = y0 + r, x = x0 + xm + vx;
-        const float4 lo =
-            *reinterpret_cast<const float4*>(stage + vx * kStageLd + q * 8);
-        const float4 hi = *reinterpret_cast<const float4*>(
-            stage + vx * kStageLd + q * 8 + 4);
-        float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-        if (residual) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(
-              centre + (q >> 1) * kHalf + ((r + 1) * SX + xm + vx + 1) * 16 +
-              (q & 1) * 8);
-          const bf16* e = reinterpret_cast<const bf16*>(&raw);
+      for (int m = 0; m < 4; ++m) fence_regs(acc[m]);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      for (int dz = 0; dz < 3; ++dz) {
+        const uint32_t sa = ring_a + ((l0 + dz) % kRing) * kSlice;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] += __bfloat162float(e[j]);
-        }
-        if (y < H && x < W) {
-          uint4 oraw;
-          bf16* o = reinterpret_cast<bf16*>(&oraw);
+        for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            s[j] += v[j];
-            s2[j] += v[j] * v[j];
-            o[j] = __float2bfloat16(v[j]);
-          }
-          const long long at =
-              DENSE ? (((long long)z * H + y) * W + x) * kC
-                    : (((long long)(z + 1) * HP + y + 1) * WP + x + 1) * kC;
-          *reinterpret_cast<uint4*>(out + at + q * 8) = oraw;
-        }
+          for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks) {
+              const int tap = (dz * 3 + dy) * 3 + dx;
+              const uint64_t b = bdesc + ((tap * kTapBytes + ks * 1024) >> 4);
+              const uint32_t scale = (dz | dy | dx | ks) ? 1u : 0u;
+#pragma unroll
+              for (int m = 0; m < 4; ++m) {
+                const uint32_t a = sa + ks * 2 * kOct +
+                                   ((wg * 4 + m + dy) * SX + dx) * 16;
+                wgmma_m64n32k16(acc[m], kAHi | (a >> 4), b, scale);
+              }
+            }
       }
-      __syncwarp();  // the staging tile is overwritten by the next m
-      if constexpr (DENSE) {
-        if (m & 1) {
-          // row r is complete (both 16-column halves): lanes with the same
-          // q hold the same channels, fixed-order tree, one write per
-          // (slice, row, tile)
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+      for (int m = 0; m < 4; ++m) fence_regs(acc[m]);
+      mbar_arrive(bar_a + 8 * (kRing + l0 % kRing));   // slice o is done
+
+      // epilogue: accumulator i of row m is voxel column 16 wq + g8 +
+      // 8 ((i >> 1) & 1), channel 8 (i >> 2) + 2 q + (i & 1)
+      const bf16* centre =
+          reinterpret_cast<const bf16*>(ring + ((l0 + 1) % kRing) * kSlice);
+      float s[8], s2[8];
 #pragma unroll
-            for (int off = 4; off < 32; off <<= 1) {
-              s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
-              s2[j] += __shfl_xor_sync(0xffffffffu, s2[j], off);
+      for (int c = 0; c < 8; ++c) s[c] = s2[c] = 0.f;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int r = wg * 4 + m, y = y0 + r;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = 16 * wq + g8 + 8 * h, x = x0 + col;
+          float v[8];      // channel 8j + 2q + e at v[2j + e]
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            v[2 * j] = acc[m][4 * j + 2 * h];
+            v[2 * j + 1] = acc[m][4 * j + 2 * h + 1];
+          }
+          if (residual) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const __nv_bfloat162 e = *reinterpret_cast<const __nv_bfloat162*>(
+                  centre + j * (kOct / 2) + ((r + 1) * SX + col + 1) * 8 +
+                  2 * q);
+              v[2 * j] += __low2float(e);
+              v[2 * j + 1] += __high2float(e);
             }
           }
-          const int y = y0 + r;
-          if (vl == 0 && y < H) {
-            float* p = ps + (((long long)z * H + y) * tiles_x + tx) * (2 * kC);
+          const bool ok = y < H && x < W;
+          uint32_t p[4];
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              p[q * 8 + j] = s[j];
-              p[kC + q * 8 + j] = s2[j];
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float f = ok ? v[2 * j + e] : 0.f;
+              s[2 * j + e] += f;
+              s2[2 * j + e] += f * f;
             }
+            p[j] = pack_bf16x2(v[2 * j], v[2 * j + 1]);
           }
-#pragma unroll
-          for (int j = 0; j < 8; ++j) s[j] = s2[j] = 0.f;
+          quad_transpose(p, q);
+          if (ok)
+            *reinterpret_cast<uint4*>(
+                out + ((long long)((o + 1) * HP + y + 1) * WP + x + 1) * kC +
+                q * 8) = make_uint4(p[0], p[1], p[2], p[3]);
         }
       }
-    }
-    if constexpr (!DENSE) {
-      // lanes with the same q hold the same channels: fixed-order tree
+      if (i == n - 1) {   // the segment's last two halo slices are done
+        mbar_arrive(bar_a + 8 * (kRing + (l0 + 1) % kRing));
+        mbar_arrive(bar_a + 8 * (kRing + (l0 + 2) % kRing));
+      }
+
+      // moments of (o, tile): lanes with the same q hold the same
+      // channels; fixed-order trees, no atomics
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int c = 0; c < 8; ++c) {
 #pragma unroll
         for (int off = 4; off < 32; off <<= 1) {
-          s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
-          s2[j] += __shfl_xor_sync(0xffffffffu, s2[j], off);
+          s[c] += __shfl_xor_sync(0xffffffffu, s[c], off);
+          s2[c] += __shfl_xor_sync(0xffffffffu, s2[c], off);
         }
       }
-      if (vl == 0) {
+      float* rb = red + buf * (8 * 2 * kC);
+      if (g8 == 0) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          stage[q * 8 + j] = s[j];
-          stage[kC + q * 8 + j] = s2[j];
-        }
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            rb[warp * 2 * kC + 8 * j + 2 * q + e] = s[2 * j + e];
+            rb[warp * 2 * kC + kC + 8 * j + 2 * q + e] = s2[2 * j + e];
+          }
       }
-      __syncthreads();
-      if (threadIdx.x < 2 * kC) {
+      // the two buffers alternate: a buffer is written again only after
+      // the next slice's barrier, which its readers pass after reading
+      asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+      if (tid < 2 * kC) {
         float t = 0.f;
-        for (int w = 0; w < kWarps; ++w)
-          t += stage_all[w * kStage + threadIdx.x];
-        ps[((long long)z * ntiles + tile) * (2 * kC) + threadIdx.x] = t;
+        for (int w = 0; w < 8; ++w) t += rb[w * 2 * kC + tid];
+        ps[((long long)o * ntiles + tile) * (2 * kC) + tid] = t;
       }
-      // the barrier at the top of the next slice keeps these reads ahead
-      // of the next writes to the staging tiles
+      buf ^= 1;
     }
+    load += n + 2;
+    u += n;
   }
 }
 
-}  // namespace
+// cuTensorMapEncodeTiled through the runtime's driver entry point (the
+// library links no libcuda).
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The chain tensor (D+2, H+2, W+2, 32) bf16 as K4's tensor map.
+inline bool chain_tensor_map(CUtensorMap* map, const void* in, int D, int H,
+                             int W) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)kC, (cuuint64_t)W + 2,
+                              (cuuint64_t)H + 2, (cuuint64_t)D + 2};
+  const cuuint64_t voxel = kC * 2;
+  const cuuint64_t strides[3] = {voxel, voxel * (W + 2),
+                                 voxel * (W + 2) * (H + 2)};
+  const cuuint32_t box[4] = {8, SX, SY, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(in), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace k4

@@ -35,7 +35,7 @@ SOURCES = {
         'dfm_warp_prev': [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P]}),
     'frustum_sample': ('frustum_sample.cu', {
         'dfm_frustum_stereo_sample': [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
-        'dfm_attention_sample': [_P] * 9 + [_I] * 7 + [_F, _F, _I, _P]}),
+        'dfm_attention_sample': [_P] * 5 + [_I] * 7 + [_F, _F, _I, _P]}),
     'conv_chain': ('conv_chain.cu', {
         'dfm_pack_vol': [_P, _P, _I, _I, _I, _P],
         'dfm_unpack_vol': [_P, _P, _I, _I, _I, _P],

@@ -4,8 +4,9 @@
 | `conv3d_stats` | csrc/conv3d.cu | ops/pallas/convgn.py:conv3d_zpack (:162) |
 | `conv3d`       | csrc/conv3d.cu | ops/pallas/conv3d.py:conv3d_pallas (:119) |
 
-`conv3d_stats` launches `dfm_conv3d_tc` (K4's tensor-core code,
-csrc/conv_p2p.cuh, on dense tensors) for bfloat16 with C = C_out = 32,
+`conv3d_stats` launches `dfm_conv3d_tc` (the wmma tensor-core code of
+csrc/conv_wmma.cuh, K4's first design, on dense tensors) for bfloat16
+with C = C_out = 32,
 the DfM trunk width, and `dfm_conv3d_direct` with moments for every other
 width and type; `conv3d` always launches `dfm_conv3d_direct`.
 
@@ -27,11 +28,12 @@ import torch.nn.functional as F
 from ..conv3d import conv3d_plain
 from ..convgn import check_zpack_shape, conv3d_zpack_plain, fold_row_partials
 from .build import load
-from .conv_chain import TILE, _z_chunk, blocked_weight
+from .conv_chain import _z_chunk, blocked_weight
 from .sampling import _DTYPES, LAUNCHES, _check, _on_cpu, _raise_on, _stream
 
 __all__ = ['conv3d_stats', 'conv3d']
 
+WMMA_TILE = (16, 32)   # (rows, columns) a block of dfm_conv3d_tc owns
 ROW_TILE = 32     # columns per moment tile of both kernels (csrc TX, kDTX)
 CHUNK_IN = 8      # input channels per shared-memory chunk (csrc kCK)
 
@@ -96,7 +98,7 @@ def conv3d_stats(x, weight, th=8):
     if x.dtype == torch.bfloat16 and c == c_out == 32:
         if x.data_ptr() % 16:
             raise ValueError('x must start on 16 bytes')
-        tiles = math.ceil(h / TILE[0]) * tiles_x
+        tiles = math.ceil(h / WMMA_TILE[0]) * tiles_x
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         out = torch.empty_like(x)
         wt = blocked_weight(weight)

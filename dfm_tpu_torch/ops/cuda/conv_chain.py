@@ -30,10 +30,11 @@ from .build import load
 from .sampling import LAUNCHES, _check, _on_cpu, _raise_on, _stream
 
 __all__ = ['pack_vol', 'unpack_vol', 'conv_p2p', 'conv_s2_p2d',
-           'pack_parity8', 'unpack_affine', 'affine_chain']
+           'pack_parity8', 'unpack_affine', 'affine_chain', 'blocked_weight',
+           'wgmma_weight']
 
 CHANNELS = 32
-TILE = (16, 32)        # (rows, columns) a block of K4 owns; csrc TY, TX
+TILE = (8, 64)         # (rows, columns) of K4's output tile; csrc k4::TY, TX
 TILE_S2 = (8, 16)      # output (rows, columns) a block of K5 owns
 _BF16 = (torch.bfloat16,)
 
@@ -93,6 +94,46 @@ def blocked_weight(weight, dtype=torch.bfloat16):
     return w.permute(0, 1, 3, 2, 4).contiguous()
 
 
+def wgmma_weight(weight, dtype=torch.bfloat16):
+    """(Cout, 32, 3, 3, 3) -> [tap 27][k octet 4][n Cout][k 8] in `dtype`:
+    K4's B operand as it lies in shared memory, the no-swizzle K-major
+    layout of `wgmma` (k = input channel 8 * octet + k, n = output
+    channel, tap = (dz * 3 + dy) * 3 + dx). One copy kernel."""
+    cout, cin = weight.shape[:2]
+    w = weight.permute(2, 3, 4, 1, 0).reshape(27, cin // 8, 8, cout)
+    w = w.permute(0, 1, 3, 2)
+    return torch.empty(w.shape, dtype=dtype, device=weight.device).copy_(w)
+
+
+_WGMMA_WEIGHTS = {}    # K4's laid-out weights, by the weight they came from
+_SMS = {}
+
+
+def _k4_weight(weight):
+    """`wgmma_weight(weight)`, laid out once per weight: keyed by its
+    address, shape and strides (a view of a parameter, as the model
+    slices one, finds the same entry), and valid while its version
+    counter, which every in-place update through torch bumps, is
+    unchanged. The entry holds `weight`, so its memory is not reused
+    while the entry lives."""
+    key = (weight.data_ptr(), tuple(weight.shape), weight.stride(),
+           weight.dtype, weight.device)
+    hit = _WGMMA_WEIGHTS.get(key)
+    if hit is not None and hit[1] == weight._version:
+        return hit[2]
+    wt = wgmma_weight(weight)
+    if len(_WGMMA_WEIGHTS) >= 64:
+        _WGMMA_WEIGHTS.clear()
+    _WGMMA_WEIGHTS[key] = (weight, weight._version, wt)
+    return wt
+
+
+def _sm_count(dev):
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
 def _z_chunk(d, tiles, sms):
     """Depth slices per block: the fewest rounds of `sms` blocks, each
     block paying about one slice of start-up (weights and halo)."""
@@ -113,16 +154,17 @@ def conv_p2p(cv, weight, residual=False):
     if tuple(weight.shape) != (CHANNELS, CHANNELS, 3, 3, 3):
         raise ValueError(f'weight: expected (32, 32, 3, 3, 3), got '
                          f'{tuple(weight.shape)}')
+    if cv.data.data_ptr() % 16:
+        raise ValueError('cv must start on 16 bytes (a TMA tensor map)')
     d, h, w, c = cv.shape
     tiles = math.ceil(h / TILE[0]) * math.ceil(w / TILE[1])
     dev = cv.data.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty_like(cv.data)
     ps = torch.empty((d, tiles, 2, c), dtype=torch.float32, device=dev)
-    wt = blocked_weight(weight)
+    wt = _k4_weight(weight)
     rc = load('conv_chain').dfm_conv_p2p(
         cv.data.data_ptr(), wt.data_ptr(), out.data_ptr(), ps.data_ptr(), d,
-        h, w, tiles, _z_chunk(d, tiles, sms), int(bool(residual)), _stream())
+        h, w, tiles, _sm_count(dev), int(bool(residual)), _stream())
     _raise_on(rc, 'conv_p2p')
     LAUNCHES['conv_p2p'] += 1
     return ChainVol(out), ps

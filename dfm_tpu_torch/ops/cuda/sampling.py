@@ -12,6 +12,7 @@ launches on the current stream, raises if the launch reports an error,
 and adds one to its count in `LAUNCHES`. There is no fallback.
 """
 
+import numpy as np
 import torch
 
 from ..cost_volume import warp_prev_plain
@@ -20,7 +21,7 @@ from ..frustum_separable import (attention_sample_plain, depth_tables,
 from .build import load
 
 __all__ = ['LAUNCHES', 'reset_launch_counts', 'warp_prev',
-           'frustum_stereo_sample', 'attention_sample']
+           'frustum_stereo_sample', 'attention_sample', 'attention_xtab']
 
 # one table for every kernel of the port (K4-K8b: `conv_chain.py`, K9a /
 # K9b: `conv3d.py`), under the names of the JAX functions they replace
@@ -134,25 +135,64 @@ def frustum_stereo_sample(vol, u, v, ds, pad_shape):
     return out, valid2d
 
 
+_XTABS = {}           # attention_xtab's tables on the device, by content
+_INT32 = 2 ** 31
+
+
+def attention_xtab(ds, d, device):
+    """K3's per-slab depth table: (nx, 4) float32 rows (z0, z1, w0, w1)
+    of `ds` = `slab_depth_static(num_bins=d)`, both weights zero where
+    the slab is out of the depth range (the kernel then drops its voxels,
+    as the plain version's `in_range` mask does). Checked and copied to
+    `device` once per table, then cached by content: a call of the kernel
+    makes no host-to-device copy."""
+    key = (device, d) + tuple(ds[k].tobytes() for k in
+                              ('z0', 'z1', 'w0', 'w1', 'in_range'))
+    tab = _XTABS.get(key)
+    if tab is None:
+        z0, z1 = ds['z0'], ds['z1']
+        if min(z0.min(), z1.min()) < 0 or max(z0.max(), z1.max()) >= d:
+            raise ValueError(f'attention_sample: depth taps do not fit a '
+                             f'{d}-bin table')
+        keep = ds['in_range'].astype(np.float32)
+        tab = np.stack([z0.astype(np.float32), z1.astype(np.float32),
+                        ds['w0'].astype(np.float32) * keep,
+                        ds['w1'].astype(np.float32) * keep], axis=1)
+        tab = torch.from_numpy(np.ascontiguousarray(tab)).to(device)
+        if len(_XTABS) >= 16:
+            _XTABS.clear()
+        _XTABS[key] = tab
+    return tab
+
+
 def attention_sample(sm, u, v, ds, pad_shape):
     """K3. sm (B, D_f, H_f, W_f) float32/bf16 fine softmax volume; u, v
     as K2; ds the taps of `slab_depth_static(num_bins=D_f)`. Returns
     (B, nz, ny, nx) float32 attention, zero where not valid2d &
-    in_range."""
+    in_range. The kernel indexes in 32 bits: D_f * H_f * W_f and the
+    sizes of u, v and the output stay below 2^31."""
     if _on_cpu(sm, u, v):
         return attention_sample_plain(sm, u, v,
                                       *depth_tables(ds, sm.device),
                                       pad_shape)
     _check(sm, 'sm', 4, _DTYPES)
-    z0, z1, w0, w1, inr = _frustum_args(sm, u, v, ds, 'attention_sample')
+    _check(u, 'u', 3, (torch.float32,))
+    _check(v, 'v', 3, (torch.float32,))
     b, d, h, w = sm.shape
     nx, ny = u.shape[1:]
     nz = v.shape[2]
+    if u.shape[0] != b or v.shape[:2] != (b, nx) or len(ds['z0']) != nx:
+        raise ValueError(f'attention_sample: u {tuple(u.shape)} / v '
+                         f'{tuple(v.shape)} / {len(ds["z0"])} depth taps do '
+                         f'not match the table {tuple(sm.shape)}')
+    if max(d * h * w, u.numel(), v.numel(), b * nz * ny * nx) >= _INT32:
+        raise ValueError(f'attention_sample: sizes beyond 32-bit indices, '
+                         f'table {tuple(sm.shape)}, grid {(nz, ny, nx)}')
+    xtab = attention_xtab(ds, d, sm.device)
     out = torch.empty((b, nz, ny, nx), dtype=torch.float32,
                       device=sm.device)
     rc = load('frustum_sample').dfm_attention_sample(
-        sm.data_ptr(), u.data_ptr(), v.data_ptr(), z0.data_ptr(),
-        z1.data_ptr(), w0.data_ptr(), w1.data_ptr(), inr.data_ptr(),
+        sm.data_ptr(), u.data_ptr(), v.data_ptr(), xtab.data_ptr(),
         out.data_ptr(), b, d, h, w, nz, ny, nx, float(pad_shape[0]),
         float(pad_shape[1]), _DTYPES[sm.dtype], _stream())
     _raise_on(rc, 'attention_sample')

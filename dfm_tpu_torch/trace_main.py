@@ -40,8 +40,8 @@ from .models.detectors.dfm import BatchMeta, DfMConfig
 # device functions of the port's hand-written kernels (csrc/*.cu)
 PORT_KERNELS = ('warp_prev_kernel', 'stereo_sample_kernel',
                 'attention_sample_kernel', 'unpack_vol_kernel',
-                'pack_vol_kernel', 'conv_p2p_kernel', 'zero_border_kernel',
-                'unpack_affine_kernel', 'conv_s2_kernel',
+                'pack_vol_kernel', 'conv_p2p_kernel', 'unpack_affine_kernel',
+                'conv_s2_kernel',
                 'pack_parity8_kernel', 'affine_chain_kernel')
 
 

@@ -1,0 +1,386 @@
+"""The host-side helpers and the index arithmetic of the Hopper designs
+of K3 `attention_sample` and K4 `conv_p2p`, on the CPU.
+
+The CUDA kernels run only on the card (`tests/test_torch_kernels.py`,
+`cuda` marker). Here numpy models replay what each kernel does with its
+shared-memory images, descriptors, tables and registers, step for step
+as the sources describe it, and are held against the plain versions:
+
+* K4 (`csrc/conv_p2p.cuh`): the ring slot a TMA box fills
+  ([octet][row][column][8 ch], zeros outside the stored tensor, 128-byte
+  plane stride), the no-swizzle K-major descriptor walk over 27 taps x 2
+  k-steps for A (slices) and B (`wgmma_weight`), the accumulator
+  fragment of m64n32, the residual from the centre slot, the quad
+  transpose before the 16-byte stores, the persistent grid's shares and
+  the ring's load / release protocol. float64 sums of bf16-valued
+  operands against the plain version in float32: atol 1e-4.
+* K3 (`csrc/frustum_sample.cu`): `attention_xtab`, the per-block row
+  tables it stages (against `_voxel_taps` and the depth tables) and the
+  separable gather in float32, rounded as the kernel rounds: the plain
+  version's bits.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dfm_tpu_torch.ops import conv_chain as CC
+from dfm_tpu_torch.ops import frustum_separable as PFS
+from dfm_tpu_torch.ops.cuda import conv_chain as KC
+from dfm_tpu_torch.ops.cuda import sampling as K
+
+# K4's constants (csrc/conv_p2p.cuh)
+TY, TX = KC.TILE
+SY, SX = TY + 2, TX + 2
+OCT = -(-SY * SX * 16 // 128) * 128      # bytes of an octet plane, padded
+RING = 4
+
+
+# ---------------------------------------------------------------- K4
+
+def test_wgmma_weight_layout():
+    """[tap][k octet][n][k 8] of weight[n, k, dz, dy, dx], and the same
+    values as `blocked_weight` (K5's and K9a's layout)."""
+    w = torch.arange(32 * 32 * 27, dtype=torch.float32).reshape(
+        32, 32, 3, 3, 3)
+    g = KC.wgmma_weight(w, torch.float32)
+    assert g.shape == (27, 4, 32, 8) and g.is_contiguous()
+    taps = torch.arange(27)
+    for k in range(32):
+        for n in (0, 5, 31):
+            assert torch.equal(g[:, k // 8, n, k % 8],
+                               w[n, k].reshape(27)[taps])
+    b = KC.blocked_weight(w, torch.float32)          # [tap][kh][nb][k][n]
+    re = b.permute(0, 1, 3, 2, 4).reshape(27, 2, 16, 32)    # [tap][kh][k][n]
+    assert torch.equal(
+        re.reshape(27, 2, 2, 8, 32).permute(0, 1, 2, 4, 3).reshape(
+            27, 4, 32, 8), g)
+    wb = torch.randn(32, 32, 3, 3, 3)
+    assert KC.wgmma_weight(wb).dtype == torch.bfloat16
+    assert torch.equal(KC.wgmma_weight(wb).float(),
+                       KC.wgmma_weight(wb.to(torch.bfloat16).float(),
+                                       torch.float32))
+
+
+def _slot(chain, s, y0, x0):
+    """The ring slot the producer's four TMA boxes fill for stored slice
+    s of the tile at (y0, x0): octet plane c8 at c8 * OCT bytes, each
+    [row SY][column SX][8 channels]; zeros outside the stored tensor."""
+    _, hp, wp, _ = chain.shape
+    box = np.zeros((SY, SX, 32))
+    ny, nx = min(SY, hp - y0), min(SX, wp - x0)
+    box[:ny, :nx] = chain[s, y0:y0 + ny, x0:x0 + nx]
+    img = np.zeros(4 * OCT // 2)
+    for c8 in range(4):
+        plane = box[..., 8 * c8:8 * c8 + 8].reshape(-1)
+        img[c8 * OCT // 2:c8 * OCT // 2 + plane.size] = plane
+    return img
+
+
+def _kmajor(img, start, lbo, sbo, rows):
+    """rows x 16 operand that a no-swizzle K-major descriptor (byte start,
+    LBO, SBO) gives wgmma: core matrices of 8 rows x 16 bytes."""
+    i = np.arange(rows)[:, None]
+    j = np.arange(16)[None, :]
+    addr = start + (i // 8) * sbo + (i % 8) * 16 + (j // 8) * lbo \
+        + (j % 8) * 2
+    return img[addr // 2]
+
+
+def _quad_transpose(p):
+    """csrc quad_transpose on the 32 lanes of a warp: p (32, 4)."""
+    p = p.copy()
+    lane = np.arange(32)
+    q = lane & 3
+    hi, odd = (q & 2) > 0, (q & 1) > 0
+
+    def shfl(v, k):
+        return v[lane ^ k]
+
+    r0 = shfl(np.where(hi, p[:, 0], p[:, 2]), 2)
+    r1 = shfl(np.where(hi, p[:, 1], p[:, 3]), 2)
+    p[:, 0] = np.where(hi, r0, p[:, 0])
+    p[:, 1] = np.where(hi, r1, p[:, 1])
+    p[:, 2] = np.where(hi, p[:, 2], r0)
+    p[:, 3] = np.where(hi, p[:, 3], r1)
+    r0 = shfl(np.where(odd, p[:, 0], p[:, 1]), 1)
+    r1 = shfl(np.where(odd, p[:, 2], p[:, 3]), 1)
+    p[:, 0] = np.where(odd, r0, p[:, 0])
+    p[:, 2] = np.where(odd, r1, p[:, 2])
+    p[:, 1] = np.where(odd, p[:, 1], r0)
+    p[:, 3] = np.where(odd, p[:, 3], r1)
+    return p
+
+
+def test_quad_transpose_gives_each_lane_its_octet():
+    """Before: lane (g8, q) holds pair j = channels (8j + 2q, +1) of its
+    voxel; after: pair j = channels (8q + 2j, +1), i.e. octet q."""
+    lane = np.arange(32)
+    g8, q = lane >> 2, lane & 3
+    j = np.arange(4)
+    before = (g8[:, None] * 100 + 8 * j[None] + 2 * q[:, None])
+    after = _quad_transpose(before)
+    assert np.array_equal(after,
+                          g8[:, None] * 100 + 8 * q[:, None] + 2 * j[None])
+
+
+def _emulate_k4(chain, wimg, residual):
+    """K4 on a chain tensor (float64 numpy), one (tile, slice) work item
+    after the other: returns the stored chain tensor and ps (D, T, 2,
+    32)."""
+    dp, hp, wp, _ = chain.shape
+    d, h, w = dp - 2, hp - 2, wp - 2
+    tiles_x, tiles_y = -(-w // TX), -(-h // TY)
+    out = np.zeros_like(chain)
+    ps = np.zeros((d, tiles_x * tiles_y, 2, 32))
+    lane = np.arange(32)
+    q, g8 = lane & 3, lane >> 2
+    for tile in range(tiles_x * tiles_y):
+        y0, x0 = tile // tiles_x * TY, tile % tiles_x * TX
+        for o in range(d):
+            slots = [_slot(chain, o + dz, y0, x0) for dz in range(3)]
+            for wg in range(2):
+                for m in range(4):
+                    r = 4 * wg + m
+                    acc = np.zeros((64, 32))
+                    for tap in range(27):
+                        dz, dy, dx = tap // 9, tap // 3 % 3, tap % 3
+                        for ks in range(2):
+                            a = _kmajor(slots[dz], ks * 2 * OCT
+                                        + ((r + dy) * SX + dx) * 16,
+                                        OCT, 128, 64)
+                            b = _kmajor(wimg, tap * 2048 + ks * 1024, 512,
+                                        128, 32)
+                            acc += a @ b.T
+                    for wq in range(4):
+                        # the m64n32 accumulator fragment of warp wq
+                        i = np.arange(16)[None]
+                        row = 16 * wq + g8[:, None] + 8 * ((i >> 1) & 1)
+                        ch = 8 * (i >> 2) + 2 * q[:, None] + (i & 1)
+                        reg = acc[row, ch]                       # (32, 16)
+                        for hh in range(2):
+                            col = 16 * wq + g8 + 8 * hh
+                            # v[:, 2j + e]: channel 8j + 2q + e
+                            v = np.stack([reg[:, 4 * (jj // 2) + 2 * hh
+                                              + jj % 2]
+                                          for jj in range(8)], 1)
+                            if residual:
+                                cen = slots[1].reshape(4, -1)[
+                                    :, :SY * SX * 8].reshape(4, SY, SX, 8)
+                                v = v + np.stack([
+                                    cen[jj // 2, r + 1, col + 1,
+                                        2 * q + jj % 2]
+                                    for jj in range(8)], 1)
+                            y, x = y0 + r, x0 + col
+                            ok = (y < h) & (x < w)
+                            for jj in range(8):
+                                c = 8 * (jj // 2) + 2 * q + jj % 2
+                                np.add.at(ps[o, tile, 0], c, v[:, jj] * ok)
+                                np.add.at(ps[o, tile, 1], c,
+                                          v[:, jj] ** 2 * ok)
+                            # bf16 pairs by id (lane, j), transposed, and
+                            # each lane's 16 bytes stored at octet q
+                            pairs = v.reshape(32 * 4, 2)
+                            ids = _quad_transpose(
+                                np.arange(32)[:, None] * 4 + np.arange(4))
+                            for ln in np.nonzero(ok)[0]:
+                                out[o + 1, y + 1, x[ln] + 1,
+                                    8 * q[ln]:8 * q[ln] + 8] = \
+                                    pairs[ids[ln]].reshape(8)
+    return out, ps
+
+
+@pytest.mark.parametrize('residual', [False, True])
+def test_k4_descriptor_walk_is_the_conv(residual):
+    """The emulated kernel (slots, descriptors, fragment, epilogue) on a
+    volume with ragged tiles in H and W against `conv_p2p_plain`."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 9, 66, 32).astype(np.float32))
+    x = x.to(torch.bfloat16).float()
+    k = torch.from_numpy((rng.randn(32, 32, 3, 3, 3) * 0.1).astype(
+        np.float32)).to(torch.bfloat16).float()
+    cv = CC.pack_vol_plain(x)
+    wimg = KC.wgmma_weight(k, torch.float32).reshape(-1).double().numpy()
+    out, ps = _emulate_k4(cv.data.double().numpy(), wimg, residual)
+    want, wps = CC.conv_p2p_plain(cv, k, residual)
+    np.testing.assert_allclose(out, want.data.numpy(), atol=1e-4, rtol=0)
+    assert ps.shape == (2, 4, 2, 32)
+    np.testing.assert_allclose(ps.sum(1), wps.sum(1).numpy(), rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize('d,tiles,grid', [(72, 50, 132), (44, 50, 132),
+                                          (7, 4, 132), (13, 12, 132),
+                                          (5, 3, 2)])
+def test_k4_shares_and_ring_protocol(d, tiles, grid):
+    """The persistent grid's shares cover every (tile, slice) once; in
+    each block the producer's loads and the consumers' waits and
+    releases follow the ring: every load released once, after its last
+    use, and no slot refilled while a consumer may still read it."""
+    units = tiles * d
+    grid = min(grid, units)
+    seen = np.zeros(units, int)
+    for blk in range(grid):
+        begin, end = blk * units // grid, (blk + 1) * units // grid
+        loads = []                       # (tile, stored slice) per load
+        uses, releases = [], []          # per output slice / load index
+        u, load = begin, 0
+        while u < end:
+            tile, z0 = divmod(u, d)
+            n = min(d - z0, end - u)
+            loads += [(tile, s) for s in range(z0, z0 + n + 2)]
+            for i in range(n):
+                o, l0 = z0 + i, load + i
+                seen[tile * d + o] += 1
+                assert [loads[l0 + dz] for dz in range(3)] == [
+                    (tile, o + dz) for dz in range(3)]
+                uses.append((l0, l0 + 2))
+                releases.append(l0)
+                if i == n - 1:
+                    releases += [l0 + 1, l0 + 2]
+            load += n + 2
+            u += n
+        assert sorted(releases) == list(range(len(loads)))
+        # load L may only be issued once load L - RING was released, and
+        # that release must come after every use of L - RING
+        order = {l: i for i, l in enumerate(releases)}
+        for first, last in uses:
+            for l in range(first, last + 1):
+                if l >= RING:
+                    assert order[l - RING] <= order.get(l, len(releases))
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize('d,h,w,grid', [(3, 5, 7, 4), (7, 13, 70, 28),
+                                        (2, 1, 1, 2), (4, 6, 9, 132)])
+def test_k4_border_shares_cover_the_border(d, h, w, grid):
+    """zero_border_share: the idle producer lanes of all blocks (31 a
+    block) write every 16-byte chunk of the output's zero border once,
+    and nothing of its interior."""
+    hp, wp = h + 2, w + 2
+    rows, lanes = (d + 2) * hp, 31
+    hits = np.zeros((d + 2, hp, wp * 4), int)
+    for blk in range(grid):
+        for row in range(blk * rows // grid, (blk + 1) * rows // grid):
+            pz, py = divmod(row, hp)
+            for lane in range(lanes):
+                if pz in (0, d + 1) or py in (0, h + 1):
+                    hits[pz, py, lane:wp * 4:lanes] += 1
+                elif lane < 8:
+                    hits[pz, py, (0 if lane < 4 else (w + 1) * 4)
+                         + (lane & 3)] += 1
+    hits = hits.reshape(d + 2, hp, wp, 4)
+    border = np.ones((d + 2, hp, wp), bool)
+    border[1:-1, 1:-1, 1:-1] = False
+    assert (hits[border] == 1).all() and (hits[~border] == 0).all()
+
+
+# ---------------------------------------------------------------- K3
+
+def _ds(nx, d):
+    return PFS.slab_depth_static(np.linspace(1.0, 32.0, nx), 2.0, 30.0, d)
+
+
+def test_attention_xtab_rows_and_cache():
+    """(z0, z1, w0, w1) per slab, the weights zero out of the depth range;
+    one device table per content; taps beyond the table raise."""
+    ds = _ds(11, 12)
+    tab = K.attention_xtab(ds, 12, torch.device('cpu'))
+    assert tab.shape == (11, 4) and tab.dtype == torch.float32
+    keep = ds['in_range'].astype(np.float32)
+    np.testing.assert_array_equal(tab.numpy(), np.stack(
+        [ds['z0'], ds['z1'], ds['w0'] * keep, ds['w1'] * keep], 1))
+    assert not ds['in_range'].all() and (tab[~torch.from_numpy(
+        ds['in_range'])][:, 2:] == 0).all()
+    again = {k: v.copy() for k, v in _ds(11, 12).items()}
+    assert K.attention_xtab(again, 12, torch.device('cpu')) is tab
+    assert K.attention_xtab(_ds(11, 24), 24, torch.device('cpu')) is not tab
+    with pytest.raises(ValueError):
+        K.attention_xtab(ds, 8, torch.device('cpu'))
+
+
+def _emulate_k3(sm, u, v, xtab, pad):
+    """attention_sample_kernel in float32 numpy: per (b, z) and x the
+    staged rows and weights, per (x, y) the column taps, products and
+    sums rounded one by one. Returns (out, rows, wzy) with the staged
+    tables (B, nz, nx, 4)."""
+    f = np.float32
+    b_, d, h, w = sm.shape
+    _, nx, ny = u.shape
+    nz = v.shape[2]
+    pad_h, pad_w = f(pad[0]), f(pad[1])
+    flat = sm.reshape(b_, -1)
+
+    def taps(idx, n):
+        i0 = np.floor(idx)
+        fr = f(idx - i0)
+        out = []
+        for dd, wt in ((0, f(1) - fr), (1, fr)):
+            ii = i0 + dd
+            ok = (ii >= 0) & (ii <= n - 1)
+            out.append((np.clip(ii, 0, n - 1).astype(np.int64),
+                        np.where(ok, wt, f(0))))
+        return out
+
+    rows = np.zeros((b_, nz, nx, 4), np.int64)
+    wzy = np.zeros((b_, nz, nx, 4), f)
+    vv = v.transpose(0, 2, 1)                                # (B, nz, nx)
+    yt = taps(vv / (pad_h - f(1)) * f(h - 1), h)
+    valid_v = (vv >= 0) & (vv <= pad_h)
+    for dz in range(2):
+        zi = xtab[:, dz].astype(np.int64)
+        wz = xtab[:, 2 + dz]
+        for dy in range(2):
+            yi, wy = yt[dy]
+            rows[..., 2 * dz + dy] = (zi * h + yi) * w
+            wzy[..., 2 * dz + dy] = np.where(valid_v, f(wz * wy), f(0))
+    uu = u.transpose(0, 2, 1)[:, None]                       # (B,1,ny,nx)
+    xt = taps(uu / (pad_w - f(1)) * f(w - 1), w)
+    valid_u = (uu >= 0) & (uu <= pad_w)
+    acc = np.zeros((b_, nz, ny, nx), f)
+    bi = np.arange(b_)[:, None, None, None]
+    for k in range(4):
+        wk = wzy[:, :, None, :, k]
+        base = rows[:, :, None, :, k]
+        for dx in range(2):
+            xi, wx = xt[dx]
+            term = f(flat[bi, base + xi] * f(wk * wx))
+            acc = np.where(valid_u & (wk != 0), f(acc + term), acc)
+    return acc, rows, wzy
+
+
+@pytest.mark.parametrize('w', [33, 64])
+def test_k3_block_tables_and_gather(w):
+    """The staged per-(x, z) rows and weights against `_voxel_taps` and
+    the depth tables, and the separable gather against
+    `attention_sample_plain` bit for bit, at B = 2 with voxels outside
+    validity and out of the depth range, and taps on the last row and
+    column."""
+    rng = np.random.RandomState(3)
+    b, d, h = 2, 12, 16
+    nz, ny, nx = 5, 40, 37
+    pad = (2 * h, 2 * w)
+    sm = np.abs(rng.randn(b, d, h, w)).astype(np.float32)
+    u = (rng.rand(b, nx, ny) * (pad[1] + 8) - 4).astype(np.float32)
+    v = (rng.rand(b, nx, nz) * (pad[0] + 8) - 4).astype(np.float32)
+    u[0, :, :3] = [pad[1] - 1, pad[1], 0.0]
+    v[1, :, :2] = [pad[0] - 1, pad[0]]
+    ds = _ds(nx, d)
+    xtab = K.attention_xtab(ds, d, torch.device('cpu')).numpy()
+    got, rows, wzy = _emulate_k3(sm, u, v, xtab, pad)
+
+    tu, tv = torch.from_numpy(u), torch.from_numpy(v)
+    z0, z1, w0, w1, inr = PFS.depth_tables(ds, 'cpu')
+    ys, _ = PFS._voxel_taps(tu, tv, pad, h, w)               # (B,nz,1,nx)
+    vmask = ((tv >= 0) & (tv <= pad[0])).transpose(1, 2).numpy()
+    for dz, (zi, wz) in enumerate(((z0, w0), (z1, w1))):
+        for dy, (yi, wy) in enumerate(ys):
+            k = 2 * dz + dy
+            np.testing.assert_array_equal(
+                rows[..., k], ((zi.long() * h + yi[:, :, 0]) * w).numpy())
+            want = (wz * wy[:, :, 0]).numpy() * vmask * inr.numpy()
+            np.testing.assert_array_equal(wzy[..., k], want)
+    want = PFS.attention_sample_plain(torch.from_numpy(sm), tu, tv, z0, z1,
+                                      w0, w1, inr, pad).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (want != 0).mean() > 0.3

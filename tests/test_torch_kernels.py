@@ -286,13 +286,53 @@ def test_cuda_kernels_match_plain(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_cuda_attention_sample_edges(dtype):
+    """K3 against its plain version at B = 2 (atol 1e-5 + rtol 1e-5; the
+    kernel rounds each product and sum as the plain version does): voxels
+    outside validity on both axes and out of the depth range, taps on the
+    table's last row and column (u = pad_w - 1, v = pad_h - 1) and just
+    inside the inclusive edge (u = pad_w, v = pad_h), an odd table width
+    (unaligned column pairs) and grids that leave ragged 32 x 32 tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    dt = getattr(torch, dtype)
+    dev = 'cuda'
+    rng = np.random.RandomState(5)
+    for (d, h, w), (nz, ny, nx) in (((12, 16, 33), (5, 40, 37)),
+                                    ((24, 20, 64), (3, 33, 70))):
+        pad = (2 * h, 2 * w)
+        sm = _t(np.abs(rng.randn(2, d, h, w)), dt).to(dev)
+        u = rng.rand(2, nx, ny) * (pad[1] + 8) - 4
+        v = rng.rand(2, nx, nz) * (pad[0] + 8) - 4
+        u[0, :, :4] = [0.0, pad[1] - 1, pad[1], pad[1] + 1e-3]
+        v[1, :, :3] = [0.0, pad[0] - 1, pad[0]]
+        u, v = _t(u).to(dev), _t(v).to(dev)
+        xs = np.linspace(1.0, 32.0, nx)          # some slabs out of range
+        ds = PFS.slab_depth_static(xs, 2.0, 30.0, d)
+        assert not ds['in_range'].all()
+        K.reset_launch_counts()
+        got = K.attention_sample(sm, u, v, ds, pad)
+        want = PFS.attention_sample_plain(sm, u, v,
+                                          *PFS.depth_tables(ds, dev), pad)
+        assert K.LAUNCHES['attention_sample'] == 1
+        assert got.shape == (2, nz, ny, nx) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **F32_TOL)
+        assert float((want != 0).float().mean()) > 0.3
+        assert bool((got[want == 0] == 0).all())
+
+
+@pytest.mark.cuda
 def test_cuda_chain_kernels_match_plain():
     """K8a, K4 (both residual modes) and K7a (both exits) against their
-    plain versions on the card, at shapes with ragged and whole tiles:
-    outputs to one bf16 rounding (atol 1e-2 + rtol 1e-2), moments rtol
-    1e-4 (+ atol 1e-3: sums of a few hundred signed terms), borders zero,
-    K4 bit-identical across two runs. cuDNN's TF32 is off for the plain
-    f32 conv."""
+    plain versions on the card, at shapes with ragged and whole tiles
+    (K4's are 8 x 64; H and W of 13 x 70 and 24 x 200 are multiples of
+    neither, and 13 or 7 slices of 12 or 4 tiles split the persistent
+    grid's shares in the middle of a tile): outputs to one bf16 rounding
+    (atol 1e-2 + rtol 1e-2), moments rtol 1e-4 (+ atol 1e-3: sums of a
+    few hundred signed terms), borders zero, K4 bit-identical across two
+    runs. cuDNN's TF32 is off for the plain f32 conv."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels have no CPU mode')
     dev = 'cuda'
@@ -300,7 +340,8 @@ def test_cuda_chain_kernels_match_plain():
     flag = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        for shape in ((5, 20, 40, 32), (3, 16, 32, 32), (2, 1, 1, 32)):
+        for shape in ((5, 20, 40, 32), (3, 16, 32, 32), (2, 1, 1, 32),
+                      (13, 24, 200, 32), (7, 13, 70, 32)):
             x = _t(rng.randn(*shape), torch.bfloat16).to(dev)
             k = _t(rng.randn(32, 32, 3, 3, 3) * 0.1).to(dev)
             sc, bs = _t(rng.rand(32) + 0.5).to(dev), _t(rng.randn(32)).to(dev)
