@@ -24,16 +24,18 @@ Phases, one line each; any failure raises and no result is printed:
               peak for their type (f32 67 TFLOP/s; K4's and K5's bf16
               products on the tensor cores 989 TFLOP/s, dense); K4's
               achieved TFLOP/s and share of that peak, K3's time over
-              `F.grid_sample`'s; for K3 and K4 also the device time of
-              the kernels of one call (torch.profiler), without the
-              host time around them. Then
+              `F.grid_sample`'s; for K3, K4, K5 (both depths) and K9b
+              also the device time of the kernels of one call
+              (torch.profiler), without the host time around them. Then
               the K9 block: K9a conv3d_zpack and K9b conv3d_pallas, on no
               model path, at the DfM trunk width (72, 80, 320, 32) bf16,
-              in float32 at a smaller shape, K9b 16 -> 8 and 42 -> 42 and
-              K9a 8 -> 32 (the direct kernel), each against its plain
-              version, K9a's partials and `conv3d_gn` with residual and
-              relu, twice bit for bit, with times, bound and the
-              `F.conv3d` time; then their own path: the entry points
+              in float32 at a smaller shape, K9b 16 -> 8 (bf16, f32) and
+              42 -> 42 and K9a 8 -> 32 (the direct kernel), each against
+              its plain version, K9a's partials and `conv3d_gn` with
+              residual and relu, twice bit for bit, with times, bound and
+              the `F.conv3d` time (K9b: its ratio to it, its share of the
+              bf16 peak, the device code each case ran); then their own
+              path: the entry points
               `convgn.conv3d_zpack`, `convgn.conv3d_gn` and
               `cuda.conv3d.conv3d` once each with the launch counts set to 0
               just before and read just after
@@ -227,7 +229,8 @@ def kernel_phase(cfg, dev):
             bound_by='bytes' if t_bytes >= t_ops else 'operations',
             library_ms=lib_ms, **extra)
         lib = 'none' if lib_ms is None else f'{lib_ms:.4f}'
-        more = ''.join(f' {k} {v:.4f}' for k, v in extra.items())
+        more = ''.join(f' {k} {v:.4f}' if isinstance(v, float) else
+                       f' {k} {v}' for k, v in extra.items())
         print(f'kernel {name}: max_abs_err {err:.3g} '
               f'(tol atol {tol[0]} + rtol {tol[1]}) ms {ms:.4f} '
               f'plain_ms {plain_ms:.4f} library_ms {lib}{more} '
@@ -440,6 +443,7 @@ def chain_kernel_phase(x, gen, agree, report):
         m['ms']['conv_p2p residual'] = cuda_ms(
             lambda: KC.conv_p2p(cv, weight, True))
         m['ms']['conv_s2_p2d'] = cuda_ms(lambda: KC.conv_s2_p2d(cv, w64))
+        m['s2_device_ms'] = device_ms(lambda: KC.conv_s2_p2d(cv, w64))
 
         # the scale and bias as the main path makes them: GroupNorm of
         # K4's result from its moments, the slices of the reduced volume
@@ -553,7 +557,8 @@ def chain_kernel_phase(x, gen, agree, report):
         full['s2_bytes'], 2 * 27 * c * 2 * c * nvox // 8,
         peak=BF16_TENSOR_FLOPS,
         extra=dict(library_with_moments_ms=cuda_ms(
-            lambda: lib_moments(x64, 2))))
+            lambda: lib_moments(x64, 2)), device_ms=full['s2_device_ms'],
+            **{f'device_ms_depth{MONO_DEPTH}': mono['s2_device_ms']}))
     rep('pack_parity8', src_hg, ':1033', full['p8_plain_ms'], None,
         full['p8_bytes'], 3 * x.numel())
 
@@ -576,9 +581,10 @@ def chain_kernel_phase(x, gen, agree, report):
 
 
 def conv3d_kernel_phase(x, gen, agree, report):
-    """K9a (`ops/cuda/conv3d.py:conv3d_stats`: K4's tensor-core code at
-    bf16 C = C_out = 32, the direct kernel elsewhere) and K9b (`conv3d`,
-    the direct kernel) at the DfM trunk width (72, 80, 320, 32) bf16, in
+    """K9a (`ops/cuda/conv3d.py:conv3d_stats`: K4's first tensor-core code
+    at bf16 C = C_out = 32, the direct kernel elsewhere) and K9b
+    (`conv3d`: the `wgmma` code for bf16 with C, C_out % 8 == 0, the
+    direct kernel elsewhere) at the DfM trunk width (72, 80, 320, 32) bf16, in
     float32 at (16, 40, 96, 32), K9b 16 -> 8 (bf16, f32) and 42 -> 42
     (f32: weights chunked over C_out), K9a 8 -> 32 (bf16): outputs against
     the plain versions, bf16 to one rounding (atol 1e-2 + rtol 1e-2), f32
@@ -626,6 +632,7 @@ def conv3d_kernel_phase(x, gen, agree, report):
         (volume((8,) + small[1:] + (42,), torch.float32), weights(42, 42),
          (1e-4, 1e-4))]
     err = {'conv3d_zpack': 0.0, 'conv3d_pallas': 0.0}
+    codes = []            # the device code each K9b case ran
     flag = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -655,6 +662,10 @@ def conv3d_kernel_phase(x, gen, agree, report):
             err['conv3d_pallas'] = max(
                 err['conv3d_pallas'],
                 agree('conv3d_pallas', out, C3.conv3d_plain(xx, ww), tol))
+            route = KC3.tensor_core_chunks(xx.dtype, xx.shape[-1],
+                                           ww.shape[0])
+            codes.append(f'{at}: ' + ('direct' if route is None else
+                                      f'wgmma {route}'))
         plain_ms = {'conv3d_zpack': cuda_ms(
                         lambda: G.conv3d_zpack_plain(x, w32, th)),
                     'conv3d_pallas': cuda_ms(
@@ -668,8 +679,8 @@ def conv3d_kernel_phase(x, gen, agree, report):
         y = F.conv3d(x5, w5, padding=1).float()
         return y.sum((0, 2, 3, 4)), (y * y).sum((0, 2, 3, 4))
 
-    xf, cf = cases[1][0], conv_cases[2][0]
-    w16 = conv_cases[2][1]
+    xf = cases[1][0]
+    (cb, wb), (cf, wf) = (case[:2] for case in conv_cases[2:4])
     lib_ms = cuda_ms(lambda: F.conv3d(x5, w5, padding=1))
     flops = 2 * 27 * c * c * d * h * w
     vol_bytes = 2 * x.numel() * x.element_size() + w32.numel() * 4
@@ -685,12 +696,23 @@ def conv3d_kernel_phase(x, gen, agree, report):
                lambda: G.conv3d_gn(x, w32, gamma, beta, 8, residual=x,
                                    relu=True, th=th)),
            ms_f32_16x40x96=cuda_ms(lambda: KC3.conv3d_stats(xf, w32, th)))
-    report('conv3d_pallas', src, 'dfm_tpu/ops/pallas/conv3d.py:119',
-           err['conv3d_pallas'], (1e-2, 1e-2),
-           cuda_ms(lambda: KC3.conv3d(x, w32)), plain_ms['conv3d_pallas'],
-           lib_ms, vol_bytes, flops, peak=BF16_TENSOR_FLOPS,
+    k9b_ms = cuda_ms(lambda: KC3.conv3d(x, w32))
+    k9b_dev = device_ms(lambda: KC3.conv3d(x, w32))
+    report('conv3d_pallas', 'dfm_tpu_torch/csrc/conv_dense.cuh (from '
+           'conv3d.cu; the direct kernel of conv3d.cu for other routes)',
+           'dfm_tpu/ops/pallas/conv3d.py:119',
+           err['conv3d_pallas'], (1e-2, 1e-2), k9b_ms,
+           plain_ms['conv3d_pallas'], lib_ms, vol_bytes, flops,
+           peak=BF16_TENSOR_FLOPS, device_ms=k9b_dev,
+           library_device_ms=device_ms(
+               lambda: F.conv3d(x5, w5, padding=1)),
+           ratio_to_conv3d=k9b_ms / lib_ms,
+           bf16_peak_share=flops / k9b_ms * 1e3 / BF16_TENSOR_FLOPS,
+           device_bf16_peak_share=flops / k9b_dev * 1e3 / BF16_TENSOR_FLOPS,
            ms_f32_16x40x96=cuda_ms(lambda: KC3.conv3d(xf, w32)),
-           ms_f32_16x40x96_c16_to_8=cuda_ms(lambda: KC3.conv3d(cf, w16)))
+           ms_f32_16x40x96_c16_to_8=cuda_ms(lambda: KC3.conv3d(cf, wf)),
+           ms_bf16_16x40x96_c16_to_8=cuda_ms(lambda: KC3.conv3d(cb, wb)),
+           codes=codes)
 
     # K9's path: the entry points a caller uses, at the DfM width
     torch.cuda.synchronize()
@@ -928,7 +950,8 @@ def main():
     print(f'build: {secs:.1f} s for {len(build.SOURCES)} sources', flush=True)
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if 'registers' in line or 'spill' in line:
+            if 'registers' in line or 'spill' in line \
+                    or 'Performance' in line:
                 print(f'build {name}: {line.strip()}')
 
     dev = 'cuda'

@@ -35,6 +35,7 @@
 // identical bits on every run.
 #include <stdint.h>
 
+#include "conv_dense.cuh"
 #include "conv_wmma.cuh"
 
 namespace {
@@ -227,4 +228,31 @@ extern "C" int dfm_conv3d_direct(const void* in, const float* wt, void* out,
     return launch_direct_coc<bf16>(in, wt, out, ps, D, H, W, C, Cout, coc,
                                    s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K9b on the tensor cores: dense in (D, H, W, C) bf16, C % 8 == 0, on 16
+// bytes -> channels [co0, co0 + n) of dense out (D, H, W, cout) bf16; wt
+// (27, koct, n, 8) bf16, koct = C / 8 rounded up to even, zeros in the
+// padding octet; n = 8, 16 or 32; blocks = the persistent grid (one
+// block per SM). Refused (cudaErrorInvalidValue) for another n, C > 48,
+// or when the weights leave no room for a ring of three slices.
+extern "C" int dfm_conv3d_wgmma(const void* in, const void* wt, void* out,
+                                int D, int H, int W, int C, int cout,
+                                int co0, int n, int blocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C % 8 || cout % 8 || co0 % 8 || co0 + n > cout)
+    return (int)cudaErrorInvalidValue;
+  switch (n) {
+    case 8:
+      return k9::launch_dense_c<8>(in, wt, out, D, H, W, C, cout, co0, blocks,
+                                 s);
+    case 16:
+      return k9::launch_dense_c<16>(in, wt, out, D, H, W, C, cout, co0,
+                                  blocks, s);
+    case 32:
+      return k9::launch_dense_c<32>(in, wt, out, D, H, W, C, cout, co0,
+                                  blocks, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

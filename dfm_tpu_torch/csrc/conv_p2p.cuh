@@ -40,13 +40,13 @@
 //     Each new tile in a block's share costs two extra halo slices.
 #pragma once
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace k4 {
+
+using namespace hop;
 
 using bf16 = __nv_bfloat16;
 
@@ -65,129 +65,6 @@ constexpr int kRedFloats = 2 * 8 * 2 * kC;   // [buffer 2][warp 8][s, s2][32]
 constexpr int kSmem = kRing * kSlice + kWBytes + kRedFloats * 4 +
                       (2 * kRing + 1) * 8;   // 229,448 bytes
 static_assert(kSmem <= 232448, "more shared memory than a block may have");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// 4D box of the tensor map -> shared memory, completion on `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Contiguous bytes -> shared memory, completion on `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// No-swizzle K-major shared-memory matrix descriptor: start address, LBO
-// (next 8 k), SBO (next 8 rows), all in 16-byte units; layout type 0.
-__host__ __device__ constexpr uint64_t desc_hi(uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32;
-}
-
-// d (+)= A (64 x 16, desc a) * B (16 x 32, desc b); scale_d 0 overwrites.
-__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a,
-                                                uint64_t b,
-                                                uint32_t scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// Keeps the compiler from moving accumulator reads across the wgmma wait.
-__device__ __forceinline__ void fence_regs(float (&d)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// Lane q of a quad holds p[j] = channels (8j + 2q, +1) of a voxel; after
-// the transpose it holds channels (8q + 2j, +1) in p[j], i.e. octet q.
-// Stage 1 swaps the off-diagonal 2x2 blocks (lanes q ^ 2), stage 2 the
-// off-diagonal elements of each block (lanes q ^ 1).
-__device__ __forceinline__ void quad_transpose(uint32_t (&p)[4], int q) {
-  const bool hi = q & 2, odd = q & 1;
-  uint32_t r0 = __shfl_xor_sync(0xffffffffu, hi ? p[0] : p[2], 2);
-  uint32_t r1 = __shfl_xor_sync(0xffffffffu, hi ? p[1] : p[3], 2);
-  if (hi) {
-    p[0] = r0;
-    p[1] = r1;
-  } else {
-    p[2] = r0;
-    p[3] = r1;
-  }
-  r0 = __shfl_xor_sync(0xffffffffu, odd ? p[0] : p[1], 1);
-  r1 = __shfl_xor_sync(0xffffffffu, odd ? p[2] : p[3], 1);
-  if (odd) {
-    p[0] = r0;
-    p[2] = r1;
-  } else {
-    p[1] = r0;
-    p[3] = r1;
-  }
-}
 
 // This block's share of the zero border of the chain tensor `out`, by the
 // producer warp's idle lanes (lane `lane` of `lanes` >= 8): an equal
@@ -319,7 +196,7 @@ conv_p2p_kernel(const __grid_constant__ CUtensorMap tmap,
               for (int m = 0; m < 4; ++m) {
                 const uint32_t a = sa + ks * 2 * kOct +
                                    ((wg * 4 + m + dy) * SX + dx) * 16;
-                wgmma_m64n32k16(acc[m], kAHi | (a >> 4), b, scale);
+                wgmma<32>(acc[m], kAHi | (a >> 4), b, scale);
               }
             }
       }
@@ -417,38 +294,10 @@ conv_p2p_kernel(const __grid_constant__ CUtensorMap tmap,
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point (the
-// library links no libcuda).
-inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 // The chain tensor (D+2, H+2, W+2, 32) bf16 as K4's tensor map.
 inline bool chain_tensor_map(CUtensorMap* map, const void* in, int D, int H,
                              int W) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kC, (cuuint64_t)W + 2,
-                              (cuuint64_t)H + 2, (cuuint64_t)D + 2};
-  const cuuint64_t voxel = kC * 2;
-  const cuuint64_t strides[3] = {voxel, voxel * (W + 2),
-                                 voxel * (W + 2) * (H + 2)};
-  const cuuint32_t box[4] = {8, SX, SY, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(in), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return volume_tensor_map(map, in, D + 2, H + 2, W + 2, kC, 8, SX, SY, 1);
 }
 
 }  // namespace k4

@@ -12,29 +12,43 @@
 // then-subsample trick and the one-hot placement matmuls exist for a
 // 128-lane matrix unit without strided selects and are not carried over.
 //
-// K5 is bound by operations at the card's peak only barely (25.5 GFLOP at
-// 72x80x320 against ~155 MB, 0.026 ms against 0.046 ms): an implicit-GEMM
-// convolution on the tensor cores. M = output voxels, N = 64 output
-// channels, K = 27 taps x 32 input channels; bf16 operands, f32
-// accumulators (nvcuda::wmma m16n16k16). The stored zero border is the
-// conv's padding: output (m, n, t) reads stored [2m .. 2m+2] of each axis
-// with no bounds test. A block owns an 8x16 (y, x) output tile and walks
-// a chunk of output depth slices; the 27x32x64 weights (110 KB) stay in
-// shared memory, so the input can keep only a ring of two stored slices.
-// That is enough because the stored slices are consumed in order: an odd
-// stored slice 2m+1 feeds output slice m through the taps dz = 1, an even
-// one 2m feeds m-1 through dz = 2 (which completes it: epilogue) and then
-// m through dz = 0. The next slice arrives by cp.async while the tensor
-// cores work on this one. A slice is split by column parity on its way
-// into shared memory, [channel half][row][column parity][column / 2][16
-// channels], so that the stride-2 column walk of every tap is a stride-1
-// walk of 32-byte rows: every wmma pointer is 32-byte aligned and the A
-// tiles are read as in K4. Warp w computes output row w of the tile: 16
-// voxels x 64 channels (four accumulator tiles). The epilogue goes
-// through a per-warp f32 staging tile: f32 moments of the unrounded
-// result, bf16 store of 16 bytes a lane. Moments are reduced lane -> warp
-// -> block in a fixed order and written per (output slice, tile): no
-// atomics, identical bits on every run.
+// K5 (namespace k5) is bound by bytes at the card's peaks (25.5 GFLOP
+// at 72x80x320 against ~155 MB, 0.026 ms against 0.046 ms): an implicit
+// GEMM, M = output voxels, N = 64 output channels, K = 27 taps x 32 input
+// channels, on the Hopper machinery of K4 (wgmma.cuh):
+//   - wgmma m64n64k16, bf16 operands, f32 accumulators, A and B read from
+//     shared memory through K-major descriptors (A 64-byte swizzled, B
+//     not). The stored zero border is the conv's padding: output
+//     (m, n, t) reads stored [2m .. 2m+2] of each axis.
+//   - The stride-2 column walk: a slice arrives split by column parity,
+//     as two TMA boxes with element stride 2 along W (65 stored columns
+//     of all 32 channels each, starting at column 2 x0 for parity 0 and
+//     2 x0 + 1 for parity 1), so tap dx reads parity dx & 1 at column
+//     t + (dx >> 1): a stride-1 walk of 64-byte rows, and a tap only
+//     moves A's start address. The boxes are 64 bytes wide with TMA's
+//     64-byte swizzle, which the A descriptor reads back (desc_hi_sw64):
+//     boxes of 8 channels (16 bytes) take the card about twice as long
+//     to load (`python -m dfm_tpu_torch.probe_k5`, PERF.md).
+//   - A 2 x 64 output tile (one m64 tile for each of two consumer
+//     warpgroups) needs 5 stored rows. The weights (110.6 KB) stay in
+//     shared memory, so a ring slot holds one parity of a stored slice
+//     ([row 5][column 65][32 ch], 21 KB), and the ring has five: the
+//     producer warp keeps 1.5 slices in flight while the tensor cores
+//     work on one.
+//   - Stored slices are consumed in order, each once: an odd slice 2m+1
+//     feeds output m through dz = 1; an even slice 2m feeds m-1 through
+//     dz = 2, which completes it, and m through dz = 0, into the other of
+//     two accumulator sets. The epilogue of m-1 then runs in registers
+//     while the tensor cores work on m's first taps (a slice's products
+//     are waited for one group later, so its slots are released then):
+//     f32 moments of the unrounded result, the quad transpose, 16-byte
+//     stores of the dense (D/2, H/2, W/2, 64) output.
+//   - Moments per (output slice, tile): lanes, then warps, then the eight
+//     warps summed in a fixed order, no atomics: identical bits on every
+//     run.
+//   - A persistent grid of one block per SM walks an equal share of the
+//     (tile, output slice) work items, tile-major; each new tile in a
+//     block's share costs one extra stored slice.
 //
 // K6 is bound by bytes (one read of the eight sub-volumes, one write of
 // the chain tensor): one block per stored row, one thread per 16 bytes,
@@ -45,205 +59,311 @@
 // A thread's chunk index within a voxel never changes along the row, so
 // it keeps the sums of its eight channels in registers; they are reduced
 // lane -> warp -> block in a fixed order and written per (slice, row).
-#include <cuda_pipeline.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "wgmma.cuh"
+
+namespace k5 {
+
+using namespace hop;
+using bf16 = __nv_bfloat16;
+
+constexpr int kC = 32, kN = 64;              // channels in, out
+constexpr int TY = 2, TX = 64;               // output tile (rows, columns)
+constexpr int SY = 2 * TY + 1;               // stored rows of a tile
+constexpr int SXP = TX + 1;                  // stored columns of a parity
+constexpr int kBox = SY * SXP * kC * 2;      // bytes of one parity's box
+constexpr int kSlot = (kBox + 1023) / 1024 * 1024;   // a ring slot, aligned
+constexpr int kRing = 5;
+constexpr int kTapBytes = kC * kN * 2;       // weights of one tap
+constexpr int kWBytes = 27 * kTapBytes;
+constexpr int kConsumers = 256;              // two warpgroups
+constexpr int kThreads = kConsumers + 32;    // and one producer warp
+constexpr int kRedFloats = 2 * 8 * 2 * kN;   // [buffer 2][warp 8][s, s2][64]
+constexpr int kSmem = kRing * kSlot + kWBytes + kRedFloats * 4 +
+                      (2 * kRing + 1) * 8;   // 226,392 bytes
+static_assert(kSmem <= 232448, "more shared memory than a block may have");
+
+// The taps dz of one stored slice (its two ring slots, p0: even stored
+// columns, p1: odd ones) into acc, for output row wg of the tile;
+// `fresh`: the first product overwrites acc.
+__device__ __forceinline__ void taps(float (&acc)[32], uint32_t p0,
+                                     uint32_t p1, uint64_t bdesc, int dz,
+                                     int wg, bool fresh) {
+  constexpr uint64_t kAHi = desc_hi_sw64();
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int tap = (dz * 3 + dy) * 3 + dx;
+        const uint64_t b = bdesc + ((tap * kTapBytes + ks * 2 * kN * 16) >> 4);
+        // output column t reads stored column 2 (x0 + t) + dx: parity
+        // dx & 1, column t + (dx >> 1) of that parity's box; channels
+        // 16 ks .. 16 ks + 15 are bytes 32 ks .. of its 64-byte row
+        const uint32_t a = ((dx & 1) ? p1 : p0) +
+                           ((2 * wg + dy) * SXP + (dx >> 1)) * 64 + ks * 32;
+        const uint32_t scale = (fresh && (dy | dx | ks) == 0) ? 0u : 1u;
+        wgmma<64>(acc, kAHi | (a >> 4), b, scale);
+      }
+}
+
+// Epilogue of output slice m, row y of the tile at x0, from its complete
+// accumulators (the warpgroup's m64 tile): accumulator i is voxel column
+// 16 wq + g8 + 8 ((i >> 1) & 1), channel 8 (i >> 2) + 2 q + (i & 1).
+// Stores the rounded result (16 bytes a lane, after the quad transpose)
+// and the f32 moments of the unrounded one for (m, tile); `rb` is this
+// slice's half of the moment buffers.
+__device__ __forceinline__ void epilogue(const float (&acc)[32],
+                                         bf16* __restrict__ out,
+                                         float* __restrict__ ps, float* rb,
+                                         int m, int tile, int ntiles, int y,
+                                         int x0, int H2, int W2, int tid) {
+  const int warp = tid >> 5, wq = warp & 3, lane = tid & 31;
+  const int q = lane & 3, g8 = lane >> 2;
+  bool ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) ok[h] = y < H2 && x0 + 16 * wq + g8 + 8 * h < W2;
+  // group g: chunks k = 2 h + e, octet jj = 2 g + e of column 16 wq + g8
+  // + 8 h, through the quad transpose; then the moments of its two
+  // octets are complete
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    float s[4], s2[4];    // channel 8 (2 g + (c >> 1)) + 2 q + (c & 1) at c
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[c] = s2[c] = 0.f;
+    uint32_t p[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int h = k >> 1, e = k & 1, jj = 2 * g + e;
+      const float v0 = acc[4 * jj + 2 * h], v1 = acc[4 * jj + 2 * h + 1];
+      const float f0 = ok[h] ? v0 : 0.f, f1 = ok[h] ? v1 : 0.f;
+      s[2 * e] += f0;
+      s2[2 * e] += f0 * f0;
+      s[2 * e + 1] += f1;
+      s2[2 * e + 1] += f1 * f1;
+      p[k] = pack_bf16x2(v0, v1);
+    }
+    quad_transpose(p, q);
+    const int h = q >> 1, jj = 2 * g + (q & 1);
+    const int x = x0 + 16 * wq + g8 + 8 * h;
+    if (y < H2 && x < W2)
+      *reinterpret_cast<uint4*>(
+          out + (((long long)m * H2 + y) * W2 + x) * kN + 8 * jj) =
+          make_uint4(p[0], p[1], p[2], p[3]);
+    // lanes with the same q hold the same channels; fixed-order trees,
+    // no atomics
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s[c] += __shfl_xor_sync(0xffffffffu, s[c], off);
+        s2[c] += __shfl_xor_sync(0xffffffffu, s2[c], off);
+      }
+    }
+    if (g8 == 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int ch = 8 * (2 * g + (c >> 1)) + 2 * q + (c & 1);
+        rb[warp * 2 * kN + ch] = s[c];
+        rb[warp * 2 * kN + kN + ch] = s2[c];
+      }
+    }
+  }
+  // the two buffers alternate: a buffer is written again only after the
+  // next epilogue's barrier, which its readers pass after reading
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+  if (tid < 2 * kN) {
+    float t = 0.f;
+    for (int w = 0; w < 8; ++w) t += rb[w * 2 * kN + tid];
+    ps[((long long)m * ntiles + tile) * (2 * kN) + tid] = t;
+  }
+}
+
+// The ring slots (its two column parities) of stored slice j of a segment
+// whose first load is `load`.
+struct Slots {
+  uint32_t p0, p1, full0, full1, empty0, empty1, par0, par1;
+  __device__ __forceinline__ Slots(uint32_t ring_a, uint32_t bar_a,
+                                   int load, int j) {
+    const int l = load + 2 * j, s0 = l % kRing, s1 = (l + 1) % kRing;
+    p0 = ring_a + s0 * kSlot;
+    p1 = ring_a + s1 * kSlot;
+    full0 = bar_a + 8 * s0;
+    full1 = bar_a + 8 * s1;
+    empty0 = bar_a + 8 * (kRing + s0);
+    empty1 = bar_a + 8 * (kRing + s1);
+    par0 = (l / kRing) & 1;
+    par1 = ((l + 1) / kRing) & 1;
+  }
+  __device__ __forceinline__ void wait() const {
+    mbar_wait(full0, par0);
+    mbar_wait(full1, par1);
+  }
+  __device__ __forceinline__ void release() const {
+    mbar_arrive(empty0);
+    mbar_arrive(empty1);
+  }
+};
+
+// Output slice m0 + i of a segment: its odd stored slice 2 i + 1 (dz =
+// 1) and its even stored slice 2 i + 2 (dz = 2, which completes it, and
+// dz = 0 of the next output, into `b`), then its epilogue from `a` while
+// the tensor cores work on `b`. On entry at most one group is running
+// (on `a`, reading slice 2 i, which is released here); on return at most
+// one (on `b`, reading slice 2 i + 2), none after the segment's last.
+__device__ __forceinline__ void output_slice(
+    float (&a)[32], float (&b)[32], uint32_t ring_a, uint32_t bar_a,
+    uint64_t bdesc, int load, int i, int n, int wg, bf16* __restrict__ out,
+    float* __restrict__ ps, float* rb, int m, int tile, int ntiles, int y,
+    int x0, int H2, int W2, int tid) {
+  const Slots prev(ring_a, bar_a, load, 2 * i);
+  const Slots odd(ring_a, bar_a, load, 2 * i + 1);
+  const Slots even(ring_a, bar_a, load, 2 * i + 2);
+  odd.wait();
+  __syncwarp();
+  fence_regs(a);
+  wgmma_fence();
+  taps(a, odd.p0, odd.p1, bdesc, 1, wg, false);
+  wgmma_commit();
+  wgmma_wait<1>();
+  prev.release();
+
+  even.wait();
+  __syncwarp();
+  fence_regs(a);
+  fence_regs(b);
+  wgmma_fence();
+  taps(a, even.p0, even.p1, bdesc, 2, wg, false);
+  wgmma_commit();
+  const bool last = i == n - 1;
+  if (!last) {
+    taps(b, even.p0, even.p1, bdesc, 0, wg, true);
+    wgmma_commit();
+    wgmma_wait<1>();
+  } else {
+    wgmma_wait<0>();
+  }
+  fence_regs(a);
+  odd.release();
+  if (last) even.release();
+  epilogue(a, out, ps, rb, m, tile, ntiles, y, x0, H2, W2, tid);
+}
+
+// One block per SM. tmap: the chain tensor (D+2, H+2, W+2, 32) as dims
+// (32 ch, W+2, H+2, D+2), box (32, 2 SXP, SY, 1), element stride 2 on W,
+// 64-byte swizzle.
+// wt: [tap 27][octet 4][n 64][8 k] bf16. out: dense (D2, H2, W2, 64);
+// ps (D2, tiles, 2, 64). Work item u = tile * D2 + m; block b takes
+// [b * units / grid, (b + 1) * units / grid).
+__global__ void __launch_bounds__(kThreads, 1)
+conv_s2_kernel(const __grid_constant__ CUtensorMap tmap,
+               const bf16* __restrict__ wt, bf16* __restrict__ out,
+               float* __restrict__ ps, int D2, int H2, int W2, int tiles_x,
+               int units) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem + kRing * kSlot + kWBytes);
+  const uint32_t ring_a = smem_u32(smem);
+  const uint32_t w_a = ring_a + kRing * kSlot;
+  const uint32_t bar_a = smem_u32(red + kRedFloats);
+  // full[i] = bar_a + 8 i, empty[i] = bar_a + 8 (kRing + i), weights
+  const uint32_t wbar = bar_a + 16 * kRing;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRing; ++i) {
+      mbar_init(bar_a + 8 * i, 1);
+      mbar_init(bar_a + 8 * (kRing + i), kConsumers);
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int ntiles = units / D2;
+  const int begin = (int)((long long)blockIdx.x * units / gridDim.x);
+  const int end = (int)((long long)(blockIdx.x + 1) * units / gridDim.x);
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x != kConsumers) return;
+    // producer: the weights once, then the two column parities of every
+    // stored slice of every segment of this block's share, in the order
+    // the consumers use them
+    mbar_expect_tx(wbar, kWBytes);
+    for (int t = 0; t < 27; ++t)
+      bulk_load(w_a + t * kTapBytes,
+                reinterpret_cast<const unsigned char*>(wt) + t * kTapBytes,
+                kTapBytes, wbar);
+    int load = 0;
+    for (int u = begin; u < end;) {
+      const int tile = u / D2, m0 = u - tile * D2, n = min(D2 - m0, end - u);
+      const int ty = tile / tiles_x;
+      const int y0 = ty * TY, x0 = (tile - ty * tiles_x) * TX;
+      // outputs m0 .. m0 + n - 1 read stored slices 2 m0 .. 2 (m0 + n)
+      for (int s = 2 * m0; s <= 2 * (m0 + n); ++s) {
+        for (int p = 0; p < 2; ++p, ++load) {
+          const int slot = load % kRing, round = load / kRing;
+          if (round > 0)
+            mbar_wait(bar_a + 8 * (kRing + slot), (round - 1) & 1);
+          const uint32_t full = bar_a + 8 * slot;
+          mbar_expect_tx(full, kBox);
+          tma_load_4d(ring_a + slot * kSlot, &tmap, full, 0, 2 * x0 + p,
+                      2 * y0, s);
+        }
+      }
+      u += n;
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output row wg of the tile (one m64
+  // tile of 64 columns); warp wq owns columns 16 wq .. 16 wq + 15. Two
+  // accumulator sets take turns: output slice m0 + i of a segment
+  // completes in set i & 1 while the next one starts in the other.
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const uint64_t bdesc = desc_hi(kN * 16, 128) | (w_a >> 4);
+  float acc0[32], acc1[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+  int load = 0, buf = 0;
+  mbar_wait(wbar, 0);
+  for (int u = begin; u < end;) {
+    const int tile = u / D2, m0 = u - tile * D2, n = min(D2 - m0, end - u);
+    const int ty = tile / tiles_x;
+    const int y0 = ty * TY, x0 = (tile - ty * tiles_x) * TX;
+    const int y = y0 + wg;
+    // stored slice 2 m0 starts output m0 (dz = 0)
+    const Slots first(ring_a, bar_a, load, 0);
+    first.wait();
+    __syncwarp();
+    fence_regs(acc0);
+    wgmma_fence();
+    taps(acc0, first.p0, first.p1, bdesc, 0, wg, true);
+    wgmma_commit();
+    for (int i = 0; i < n; ++i, buf ^= 1) {
+      float* rb = red + buf * (8 * 2 * kN);
+      if (i & 1)
+        output_slice(acc1, acc0, ring_a, bar_a, bdesc, load, i, n, wg, out,
+                     ps, rb, m0 + i, tile, ntiles, y, x0, H2, W2, tid);
+      else
+        output_slice(acc0, acc1, ring_a, bar_a, bdesc, load, i, n, wg, out,
+                     ps, rb, m0 + i, tile, ntiles, y, x0, H2, W2, tid);
+    }
+    load += 2 * (2 * n + 1);
+    u += n;
+  }
+}
+
+}  // namespace k5
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr int kC = 32;                 // channels of the chain
 constexpr int kChunks = kC / 8;        // 16-byte chunks of a chain voxel
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-// ----------------------------------------------------------------- K5
-
-constexpr int kN = 64;                       // output channels
-constexpr int TY = 8, TX = 16;               // output tile (rows, columns)
-constexpr int SY = 2 * TY + 1;               // input rows of a tile
-constexpr int SXH = TX + 1;                  // input columns of one parity
-constexpr int kHalf = SY * 2 * SXH * 16;     // elements of one channel half
-constexpr int kSlice = 2 * kHalf;            // elements of one input slice
-constexpr int kWElems = 27 * kC * kN;
-constexpr int kStageLd = kN + 4;             // floats; rows stay 16-byte
-                                             // aligned and shift banks
-constexpr int kStage = 16 * kStageLd;        // floats per warp
-constexpr int kConvSmem =
-    (kWElems + 2 * kSlice) * (int)sizeof(bf16) +
-    kWarps * kStage * (int)sizeof(float);    // 219,392 bytes
-
-// Stored slice pz of the input, rows py0 .. py0 + 16, columns px0 ..
-// px0 + 32 -> shared memory as [channel half][row][column parity]
-// [column / 2][16 channels]. What lies outside the stored tensor (a
-// ragged last tile) is written as zeros.
-__device__ __forceinline__ void load_slice_s2(bf16* __restrict__ dst,
-                                              const bf16* __restrict__ in,
-                                              int pz, int py0, int px0,
-                                              int HP, int WP) {
-  constexpr int kCols = 2 * TX + 1;
-  for (int i = threadIdx.x; i < SY * kCols * kChunks; i += kThreads) {
-    const int q = i % kChunks, v = i / kChunks;
-    const int xx = v % kCols, yy = v / kCols;
-    const int py = py0 + yy, px = px0 + xx;
-    bf16* d = dst + (q >> 1) * kHalf +
-              ((yy * 2 + (xx & 1)) * SXH + (xx >> 1)) * 16 + (q & 1) * 8;
-    if (py < HP && px < WP) {
-      const bf16* s =
-          in + (((long long)pz * HP + py) * WP + px) * kC + q * 8;
-      __pipeline_memcpy_async(d, s, 16);
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
-
-// acc[n] += A(slice sl, taps (dz, *, *)) x W for the warp's output row.
-__device__ __forceinline__ void conv_s2_taps(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[4],
-    const bf16* __restrict__ sl, const bf16* __restrict__ sw, int dz,
-    int row) {
-  for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const bf16* wtap = sw + ((dz * 3 + dy) * 3 + dx) * (kC * kN);
-      // output column t reads input column 2t + dx: parity dx & 1,
-      // index t + (dx >> 1)
-      const bf16* arow =
-          sl + (((2 * row + dy) * 2 + (dx & 1)) * SXH + (dx >> 1)) * 16;
-#pragma unroll
-      for (int kh = 0; kh < 2; ++kh) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, arow + kh * kHalf, 16);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, wtap + (kh * 4 + n) * 256, 16);
-          wmma::mma_sync(acc[n], a, b, acc[n]);
-        }
-      }
-    }
-  }
-}
-
-// in: chain tensor (D+2, H+2, W+2, 32) bf16, D, H, W even. wt: the
-// weights as [tap 27][k half 2][n quarter 4][k 16][n 16] bf16 (k = input
-// channel, n = output channel). out: dense (D/2, H/2, W/2, 64) bf16. ps:
-// (D/2, tiles, 2, 64) f32. grid (tiles, z chunks), block 256; a block
-// computes output slices [blockIdx.y * zc, +zc) of its tile.
-__global__ void __launch_bounds__(kThreads, 1)
-conv_s2_kernel(const bf16* __restrict__ in, const bf16* __restrict__ wt,
-               bf16* __restrict__ out, float* __restrict__ ps, int D2, int H2,
-               int W2, int tiles_x, int zc) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sw = reinterpret_cast<bf16*>(smem);
-  bf16* ss = sw + kWElems;
-  float* stage_all = reinterpret_cast<float*>(ss + 2 * kSlice);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* stage = stage_all + warp * kStage;
-  const int tile = blockIdx.x, ntiles = gridDim.x;
-  const int y0 = (tile / tiles_x) * TY, x0 = (tile % tiles_x) * TX;
-  const int m0 = blockIdx.y * zc;
-  const int m1 = min(m0 + zc, D2);
-  const int HP = 2 * H2 + 2, WP = 2 * W2 + 2;
-  // output slice m reads stored slices 2m, 2m+1, 2m+2: the block walks
-  // stored slices s0 .. s1, slice s in ring slot s & 1
-  const int s0 = 2 * m0, s1 = 2 * m1;
-
-  for (int i = threadIdx.x; i < kWElems / 8; i += kThreads)
-    __pipeline_memcpy_async(sw + i * 8, wt + i * 8, 16);
-  load_slice_s2(ss + (s0 & 1) * kSlice, in, s0, 2 * y0, 2 * x0, HP, WP);
-  __pipeline_commit();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-  const int q = lane & 7, vl = lane >> 3;
-  for (int s = s0; s <= s1; ++s) {
-    __pipeline_wait_prior(0);
-    __syncthreads();  // slice s has landed; the other slot is free
-    if (s < s1)
-      load_slice_s2(ss + ((s + 1) & 1) * kSlice, in, s + 1, 2 * y0, 2 * x0,
-                    HP, WP);
-    __pipeline_commit();
-    const bf16* sl = ss + (s & 1) * kSlice;
-
-    if (s & 1) {
-      conv_s2_taps(acc, sl, sw, 1, warp);
-      continue;
-    }
-    if (s > s0) {
-      conv_s2_taps(acc, sl, sw, 2, warp);
-      // epilogue of output slice m: lane = (voxel vl of 4, channels
-      // 8q .. 8q+7)
-      const int m = s / 2 - 1;
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-        wmma::store_matrix_sync(stage + n * 16, acc[n], kStageLd,
-                                wmma::mem_row_major);
-      __syncwarp();
-      float sum[8], sq[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sum[j] = sq[j] = 0.f;
-      const int y = y0 + warp;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int vx = vl + 4 * i;
-        const int x = x0 + vx;
-        const float4 lo =
-            *reinterpret_cast<const float4*>(stage + vx * kStageLd + q * 8);
-        const float4 hi = *reinterpret_cast<const float4*>(
-            stage + vx * kStageLd + q * 8 + 4);
-        const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-        if (y < H2 && x < W2) {
-          uint4 oraw;
-          bf16* o = reinterpret_cast<bf16*>(&oraw);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            sum[j] += v[j];
-            sq[j] += v[j] * v[j];
-            o[j] = __float2bfloat16(v[j]);
-          }
-          *reinterpret_cast<uint4*>(
-              out + (((long long)m * H2 + y) * W2 + x) * kN + q * 8) = oraw;
-        }
-      }
-      // lanes with the same q hold the same channels: fixed-order tree
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int off = 8; off < 32; off <<= 1) {
-          sum[j] += __shfl_xor_sync(0xffffffffu, sum[j], off);
-          sq[j] += __shfl_xor_sync(0xffffffffu, sq[j], off);
-        }
-      }
-      __syncwarp();  // every lane has read its voxels of the staging tile
-      if (vl == 0) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          stage[q * 8 + j] = sum[j];
-          stage[kN + q * 8 + j] = sq[j];
-        }
-      }
-      __syncthreads();
-      if (threadIdx.x < 2 * kN) {
-        // [0, 64): sums (row 0 of each warp's tile); [64, 128): squares
-        float t = 0.f;
-        for (int w = 0; w < kWarps; ++w)
-          t += stage_all[w * kStage + threadIdx.x];
-        ps[((long long)m * ntiles + tile) * (2 * kN) + threadIdx.x] = t;
-      }
-      // the staging tiles are next written two block barriers from here
-    }
-    if (s < s1) {
-#pragma unroll
-      for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-      conv_s2_taps(acc, sl, sw, 0, warp);
-    }
-  }
-}
 
 // ----------------------------------------------------------------- K6
 
@@ -316,23 +436,33 @@ pack_parity8_kernel(const uint4* __restrict__ par, uint4* __restrict__ chain,
 
 }  // namespace
 
-// chain in (2 D2 + 2, 2 H2 + 2, 2 W2 + 2, 32) -> dense out (D2, H2, W2, 64)
-// + ps (D2, tiles, 2, 64) f32, tiles = ceil(H2/8) * ceil(W2/16), refused
-// (cudaErrorInvalidValue) when the caller sized ps for another count;
-// zc = output depth slices per block.
+// chain in (2 D2 + 2, 2 H2 + 2, 2 W2 + 2, 32) bf16, on 16 bytes -> dense
+// out (D2, H2, W2, 64) + ps (D2, tiles, 2, 64) f32, tiles = ceil(H2/2) *
+// ceil(W2/64), refused (cudaErrorInvalidValue) when the caller sized ps
+// for another count; wt: [tap 27][octet 4][n 64][8 k] bf16; blocks = the
+// persistent grid (one block per SM).
 extern "C" int dfm_conv_s2(const void* in, const void* wt, void* out,
                            float* ps, int D2, int H2, int W2, int tiles,
-                           int zc, void* stream) {
+                           int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles_x = (W2 + TX - 1) / TX, tiles_y = (H2 + TY - 1) / TY;
-  if (tiles != tiles_x * tiles_y || zc < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_s2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kConvSmem);
+  const int tiles_x = (W2 + k5::TX - 1) / k5::TX;
+  const int tiles_y = (H2 + k5::TY - 1) / k5::TY;
+  if (tiles != tiles_x * tiles_y || blocks < 1 ||
+      (long long)tiles * D2 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (!hop::volume_tensor_map(&map, in, 2 * D2 + 2, 2 * H2 + 2, 2 * W2 + 2,
+                              k5::kC, k5::kC, 2 * k5::SXP, k5::SY, 2,
+                              CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      k5::conv_s2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k5::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiles_x * tiles_y, (D2 + zc - 1) / zc);
-  conv_s2_kernel<<<grid, kThreads, kConvSmem, s>>>(
-      static_cast<const bf16*>(in), static_cast<const bf16*>(wt),
-      static_cast<bf16*>(out), ps, D2, H2, W2, tiles_x, zc);
+  const int units = tiles * D2;
+  k5::conv_s2_kernel<<<min(blocks, units), k5::kThreads, k5::kSmem, s>>>(
+      map, static_cast<const bf16*>(wt), static_cast<bf16*>(out), ps, D2, H2,
+      W2, tiles_x, units);
   return (int)cudaGetLastError();
 }
 

@@ -47,7 +47,8 @@ SOURCES = {
         'dfm_pack_parity8': [_P] * 3 + [_I] * 3 + [_L] * 4 + [_P]}),
     'conv3d': ('conv3d.cu', {
         'dfm_conv3d_tc': [_P] * 4 + [_I] * 5 + [_P],
-        'dfm_conv3d_direct': [_P] * 4 + [_I] * 7 + [_P]}),
+        'dfm_conv3d_direct': [_P] * 4 + [_I] * 7 + [_P],
+        'dfm_conv3d_wgmma': [_P] * 3 + [_I] * 8 + [_P]}),
 }
 
 _LIBS = {}

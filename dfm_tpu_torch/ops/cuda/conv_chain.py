@@ -31,11 +31,11 @@ from .sampling import LAUNCHES, _check, _on_cpu, _raise_on, _stream
 
 __all__ = ['pack_vol', 'unpack_vol', 'conv_p2p', 'conv_s2_p2d',
            'pack_parity8', 'unpack_affine', 'affine_chain', 'blocked_weight',
-           'wgmma_weight']
+           'wgmma_weight', 'cached_wgmma_weight']
 
 CHANNELS = 32
 TILE = (8, 64)         # (rows, columns) of K4's output tile; csrc k4::TY, TX
-TILE_S2 = (8, 16)      # output (rows, columns) a block of K5 owns
+TILE_S2 = (2, 64)      # output (rows, columns) of K5's tile; csrc k5::TY, TX
 _BF16 = (torch.bfloat16,)
 
 
@@ -85,8 +85,8 @@ def unpack_vol(cv):
 
 def blocked_weight(weight, dtype=torch.bfloat16):
     """(Cout, 32, 3, 3, 3) -> [tap 27][k half][n block][k 16][n 16] in
-    `dtype`, the tiles K4 (Cout 32, two n blocks) and K5 (Cout 64, four)
-    read from shared memory (k = input channel, n = output channel,
+    `dtype`, the tiles K9a's `wmma` code (Cout 32, two n blocks) reads
+    from shared memory (k = input channel, n = output channel,
     tap = (dz * 3 + dy) * 3 + dx)."""
     cout = weight.shape[0]
     w = weight.to(dtype).permute(2, 3, 4, 1, 0).reshape(27, 2, 16,
@@ -94,34 +94,39 @@ def blocked_weight(weight, dtype=torch.bfloat16):
     return w.permute(0, 1, 3, 2, 4).contiguous()
 
 
-def wgmma_weight(weight, dtype=torch.bfloat16):
-    """(Cout, 32, 3, 3, 3) -> [tap 27][k octet 4][n Cout][k 8] in `dtype`:
-    K4's B operand as it lies in shared memory, the no-swizzle K-major
-    layout of `wgmma` (k = input channel 8 * octet + k, n = output
-    channel, tap = (dz * 3 + dy) * 3 + dx). One copy kernel."""
+def wgmma_weight(weight, dtype=torch.bfloat16, koct=None):
+    """(Cout, C, 3, 3, 3) -> [tap 27][k octet koct][n Cout][k 8] in
+    `dtype`: the B operand of the `wgmma` convolutions (K4, K5, K9b) as
+    it lies in shared memory, the no-swizzle K-major layout (k = input
+    channel 8 * octet + k, n = output channel, tap = (dz * 3 + dy) * 3 +
+    dx). `koct` (default C / 8) may exceed C / 8: the extra octets are
+    zeros. C % 8 == 0."""
     cout, cin = weight.shape[:2]
+    koct = cin // 8 if koct is None else koct
     w = weight.permute(2, 3, 4, 1, 0).reshape(27, cin // 8, 8, cout)
     w = w.permute(0, 1, 3, 2)
-    return torch.empty(w.shape, dtype=dtype, device=weight.device).copy_(w)
+    out = torch.zeros((27, koct, cout, 8), dtype=dtype, device=weight.device)
+    out[:, :cin // 8].copy_(w)
+    return out
 
 
-_WGMMA_WEIGHTS = {}    # K4's laid-out weights, by the weight they came from
+_WGMMA_WEIGHTS = {}    # laid-out weights, by the weight they came from
 _SMS = {}
 
 
-def _k4_weight(weight):
-    """`wgmma_weight(weight)`, laid out once per weight: keyed by its
-    address, shape and strides (a view of a parameter, as the model
-    slices one, finds the same entry), and valid while its version
-    counter, which every in-place update through torch bumps, is
-    unchanged. The entry holds `weight`, so its memory is not reused
-    while the entry lives."""
+def cached_wgmma_weight(weight, koct=None):
+    """`wgmma_weight(weight, koct=koct)`, laid out once per weight: keyed
+    by its address, shape and strides (a view of a parameter, as the
+    model slices one, finds the same entry) and `koct`, and valid while
+    its version counter, which every in-place update through torch
+    bumps, is unchanged. The entry holds `weight`, so its memory is not
+    reused while the entry lives."""
     key = (weight.data_ptr(), tuple(weight.shape), weight.stride(),
-           weight.dtype, weight.device)
+           weight.dtype, weight.device, koct)
     hit = _WGMMA_WEIGHTS.get(key)
     if hit is not None and hit[1] == weight._version:
         return hit[2]
-    wt = wgmma_weight(weight)
+    wt = wgmma_weight(weight, koct=koct)
     if len(_WGMMA_WEIGHTS) >= 64:
         _WGMMA_WEIGHTS.clear()
     _WGMMA_WEIGHTS[key] = (weight, weight._version, wt)
@@ -161,7 +166,7 @@ def conv_p2p(cv, weight, residual=False):
     dev = cv.data.device
     out = torch.empty_like(cv.data)
     ps = torch.empty((d, tiles, 2, c), dtype=torch.float32, device=dev)
-    wt = _k4_weight(weight)
+    wt = cached_wgmma_weight(weight)
     rc = load('conv_chain').dfm_conv_p2p(
         cv.data.data_ptr(), wt.data_ptr(), out.data_ptr(), ps.data_ptr(), d,
         h, w, tiles, _sm_count(dev), int(bool(residual)), _stream())
@@ -186,18 +191,19 @@ def conv_s2_p2d(cv, weight):
     d, h, w, _ = cv.shape
     if d % 2 or h % 2 or w % 2:
         raise ValueError(f'conv_s2_p2d needs even D, H, W, got {cv.shape}')
+    if cv.data.data_ptr() % 16:
+        raise ValueError('cv must start on 16 bytes (a TMA tensor map)')
     d2, h2, w2 = d // 2, h // 2, w // 2
     tiles = math.ceil(h2 / TILE_S2[0]) * math.ceil(w2 / TILE_S2[1])
     dev = cv.data.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty((d2, h2, w2, 2 * CHANNELS), dtype=cv.data.dtype,
                       device=dev)
     ps = torch.empty((d2, tiles, 2, 2 * CHANNELS), dtype=torch.float32,
                      device=dev)
-    wt = blocked_weight(weight)
+    wt = cached_wgmma_weight(weight)
     rc = load('hourglass_chain').dfm_conv_s2(
         cv.data.data_ptr(), wt.data_ptr(), out.data_ptr(), ps.data_ptr(),
-        d2, h2, w2, tiles, _z_chunk(d2, tiles, sms), _stream())
+        d2, h2, w2, tiles, _sm_count(dev), _stream())
     _raise_on(rc, 'conv_s2_p2d')
     LAUNCHES['conv_s2_p2d'] += 1
     return out, ps

@@ -1,5 +1,6 @@
 """The host-side helpers and the index arithmetic of the Hopper designs
-of K3 `attention_sample` and K4 `conv_p2p`, on the CPU.
+of K3 `attention_sample`, K4 `conv_p2p`, K5 `conv_s2_p2d` and K9b
+`conv3d`, on the CPU.
 
 The CUDA kernels run only on the card (`tests/test_torch_kernels.py`,
 `cuda` marker). Here numpy models replay what each kernel does with its
@@ -14,6 +15,18 @@ as the sources describe it, and are held against the plain versions:
   transpose before the 16-byte stores, the persistent grid's shares and
   the ring's load / release protocol. float64 sums of bf16-valued
   operands against the plain version in float32: atol 1e-4.
+* K5 (`csrc/hourglass_chain.cu`, namespace k5): the parity-split boxes
+  (element stride 2 on W, 65 columns from 2 x0 + parity, 32 channels,
+  TMA's 64-byte swizzle read back through the swizzled descriptor), the
+  descriptor start of every (dy, dx) tap, the odd / even
+  order of the stored slices with its two accumulator sets, the m64n64
+  fragment, the epilogue's chunks and stores, the per-(slice, tile)
+  moments, and the ring protocol: against `conv_s2_plain`.
+* K9b (`csrc/conv_dense.cuh`): dense boxes that start at -1 with TMA's
+  zero fill (a padding octet for an odd number of octets), the N-generic
+  B layout and m64nN fragment, the epilogue's chunk enumeration over
+  the quad transpose, ragged last tiles and output-channel chunks:
+  against `conv3d_plain`; and the route (`tensor_core_chunks`).
 * K3 (`csrc/frustum_sample.cu`): `attention_xtab`, the per-block row
   tables it stages (against `_voxel_taps` and the depth tables) and the
   separable gather in float32, rounded as the kernel rounds: the plain
@@ -24,8 +37,10 @@ import numpy as np
 import pytest
 import torch
 
+from dfm_tpu_torch.ops import conv3d as C3
 from dfm_tpu_torch.ops import conv_chain as CC
 from dfm_tpu_torch.ops import frustum_separable as PFS
+from dfm_tpu_torch.ops.cuda import conv3d as KC3
 from dfm_tpu_torch.ops.cuda import conv_chain as KC
 from dfm_tpu_torch.ops.cuda import sampling as K
 
@@ -273,6 +288,357 @@ def test_k4_border_shares_cover_the_border(d, h, w, grid):
     border = np.ones((d + 2, hp, wp), bool)
     border[1:-1, 1:-1, 1:-1] = False
     assert (hits[border] == 1).all() and (hits[~border] == 0).all()
+
+
+def _fragment(acc, wq):
+    """The m64nN accumulator fragment of warp wq (rows 16 wq ..): (32
+    lanes, N / 2) with accumulator i at row 16 wq + g8 + 8 ((i >> 1) &
+    1), column 8 (i >> 2) + 2 q + (i & 1)."""
+    n = acc.shape[1]
+    lane = np.arange(32)
+    q, g8 = lane & 3, lane >> 2
+    i = np.arange(n // 2)[None]
+    row = 16 * wq + g8[:, None] + 8 * ((i >> 1) & 1)
+    ch = 8 * (i >> 2) + 2 * q[:, None] + (i & 1)
+    return acc[row, ch]
+
+
+def _chunk_stores(groups):
+    """The quad transpose of the epilogues: `groups` (G, 32, 4, 2) holds
+    per group of four chunks, per lane, the bf16 pair of chunk k at
+    [g, lane, k]. Returns (G, 32, 8): the 16-byte chunk lane (g8, q)
+    stores, chunk 4 g + q of its thread group."""
+    ids = _quad_transpose(np.arange(32)[:, None] * 4 + np.arange(4))
+    out = []
+    for grp in groups:
+        pairs = grp.reshape(32 * 4, 2)
+        out.append(pairs[ids].reshape(32, 8))
+    return np.stack(out)
+
+
+# ---------------------------------------------------------------- K5
+
+S2_TY, S2_TX = KC.TILE_S2
+S2_SY, S2_SXP = 2 * S2_TY + 1, S2_TX + 1
+S2_BOX = S2_SY * S2_SXP * 64                       # bytes of a parity's box
+S2_SLOT = -(-S2_BOX // 1024) * 1024
+S2_RING = 5
+
+
+def _sw64(addr):
+    """TMA's and wgmma's 64-byte swizzle of a shared-memory byte address:
+    bits 4-5 XOR bits 7-8."""
+    return addr ^ (((addr >> 7) & 3) << 4)
+
+
+def _s2_slot(chain, s, p, y0, x0):
+    """The ring slot of column parity p of stored slice s: one TMA box of
+    all 32 channels, stored rows 2 y0 .. 2 y0 + 4, columns 2 x0 + p + 2 t
+    (element stride 2 on W), [row][column][64 bytes] with the 64-byte
+    swizzle (the slot starts on 1024 bytes); zeros outside the tensor."""
+    _, hp, wp, _ = chain.shape
+    rows = 2 * y0 + np.arange(S2_SY)
+    cols = 2 * x0 + p + 2 * np.arange(S2_SXP)
+    box = np.zeros((S2_SY, S2_SXP, 32))
+    ry, rx = rows < hp, cols < wp
+    box[np.ix_(ry, rx)] = chain[s][np.ix_(rows[ry], cols[rx])]
+    logical = np.arange(S2_BOX // 2) * 2                   # byte addresses
+    img = np.zeros(S2_SLOT // 2)
+    img[_sw64(logical) // 2] = box.reshape(-1)
+    return img
+
+
+def _kmajor_sw64(img, start, rows):
+    """rows x 16 operand of a 64-byte-swizzle K-major descriptor at byte
+    `start`: row i at start + 64 i, k at 2 k, each address swizzled."""
+    i = np.arange(rows)[:, None]
+    j = np.arange(16)[None, :]
+    return img[_sw64(start + i * 64 + j * 2) // 2]
+
+
+def _emulate_k5(chain, wimg):
+    """K5 on a chain tensor (float64): per (tile, segment of all output
+    slices) the stored slices in order, each from its two parity slots,
+    dz = 1 (odd) or dz = 2 then dz = 0 into the second accumulator set
+    (even), then the epilogue of the completed slice. Returns the dense
+    output and ps (D2, T, 2, 64)."""
+    dp, hp, wp, _ = chain.shape
+    d2, h2, w2 = (dp - 2) // 2, (hp - 2) // 2, (wp - 2) // 2
+    tiles_x, tiles_y = -(-w2 // S2_TX), -(-h2 // S2_TY)
+    out = np.zeros((d2, h2, w2, 64))
+    ps = np.zeros((d2, tiles_x * tiles_y, 2, 64))
+    lane = np.arange(32)
+    q, g8 = lane & 3, lane >> 2
+
+    def taps(acc, parities, dz, wg, fresh):
+        for dy in range(3):
+            for dx in range(3):
+                for ks in range(2):
+                    tap = (dz * 3 + dy) * 3 + dx
+                    a = _kmajor_sw64(parities[dx & 1], (
+                        (2 * wg + dy) * S2_SXP + (dx >> 1)) * 64 + ks * 32,
+                        64)
+                    b = _kmajor(wimg, tap * 4096 + ks * 2048, 1024, 128, 64)
+                    if fresh and dy == dx == ks == 0:
+                        acc[:] = 0
+                    acc += a @ b.T
+
+    for tile in range(tiles_x * tiles_y):
+        y0, x0 = tile // tiles_x * S2_TY, tile % tiles_x * S2_TX
+        acc = np.zeros((2, 64, 64))          # [warpgroup] m64 x n64
+        nxt = np.zeros((2, 64, 64))
+        for j in range(2 * d2 + 1):          # stored slice j, m0 = 0
+            halves = [_s2_slot(chain, j, p, y0, x0) for p in range(2)]
+            for wg in range(2):
+                if j & 1:
+                    taps(acc[wg], halves, 1, wg, False)
+                else:
+                    if j > 0:
+                        taps(acc[wg], halves, 2, wg, False)
+                    if j < 2 * d2:
+                        taps(nxt[wg], halves, 0, wg, True)
+            if j & 1:
+                continue
+            if j > 0:
+                m = j // 2 - 1
+                for wg in range(2):
+                    y = y0 + wg
+                    for wq in range(4):
+                        reg = _fragment(acc[wg], wq)          # (32, 32)
+                        groups = np.zeros((4, 32, 4, 2))
+                        for g in range(4):
+                            for k in range(4):     # chunk k: h, octet jj
+                                h, jj = k >> 1, 2 * g + (k & 1)
+                                v = reg[:, [4 * jj + 2 * h,
+                                            4 * jj + 2 * h + 1]]
+                                ok = (y < h2) & (x0 + 16 * wq + g8 + 8 * h
+                                                 < w2)
+                                for e in range(2):
+                                    ch = 8 * jj + 2 * q + e
+                                    np.add.at(ps[m, tile, 0], ch,
+                                              v[:, e] * ok)
+                                    np.add.at(ps[m, tile, 1], ch,
+                                              v[:, e] ** 2 * ok)
+                                groups[g, :, k] = v
+                        st = _chunk_stores(groups)            # (4, 32, 8)
+                        for g in range(4):
+                            h, jj = q >> 1, 2 * g + (q & 1)
+                            x = x0 + 16 * wq + g8 + 8 * h
+                            for ln in np.nonzero((y < h2) & (x < w2))[0]:
+                                out[m, y, x[ln], 8 * jj[ln]:8 * jj[ln] + 8] \
+                                    = st[g, ln]
+            acc = nxt.copy()
+    return out, ps
+
+
+def test_k5_parity_boxes_and_descriptor_walk_are_the_conv():
+    """The emulated K5 (element-stride-2 swizzled boxes, parity slots,
+    descriptor starts, slice order, fragment, epilogue) on a chain volume
+    whose
+    H / 2 and W / 2 are multiples of neither tile side, against
+    `conv_s2_plain`; the per-tile moments fold into the plain version's
+    per-slice moments."""
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(4, 6, 132, 32).astype(np.float32))
+    x = x.to(torch.bfloat16).float()
+    k = torch.from_numpy((rng.randn(64, 32, 3, 3, 3) * 0.1).astype(
+        np.float32)).to(torch.bfloat16).float()
+    cv = CC.pack_vol_plain(x)
+    wimg = KC.wgmma_weight(k, torch.float32).reshape(-1).double().numpy()
+    out, ps = _emulate_k5(cv.data.double().numpy(), wimg)
+    want, wps = CC.conv_s2_plain(cv, k)
+    np.testing.assert_allclose(out, want.numpy(), atol=1e-4, rtol=0)
+    assert ps.shape == (2, 2 * 2, 2, 64)
+    np.testing.assert_allclose(ps.sum(1), wps.sum(1).numpy(), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_k5_box_and_slot_sizes():
+    """A slot is one parity's box of 5 rows x 65 columns x 64 bytes (what
+    TMA counts for a box of 130 columns at element stride 2), on 1024
+    bytes; five slots, the weights and the moment buffers fit a block's
+    shared memory; the swizzle is a permutation of the 16-byte chunks of
+    each 512-byte atom."""
+    assert (S2_SY, S2_SXP) == (5, 65) and -(-2 * S2_SXP // 2) == 65
+    assert S2_BOX == 20800 and S2_SLOT == 21504
+    smem = S2_RING * S2_SLOT + 27 * 32 * 64 * 2 + 2 * 8 * 2 * 64 * 4 \
+        + (2 * S2_RING + 1) * 8
+    assert smem == 226392 and smem <= 232448
+    addr = np.arange(0, 2048, 16)
+    assert sorted(_sw64(addr)) == list(addr)
+    assert (_sw64(addr) // 512 == addr // 512).all()
+
+
+@pytest.mark.parametrize('d2,tiles,grid', [(36, 60, 132), (22, 60, 132),
+                                           (3, 4, 132), (7, 5, 3),
+                                           (2, 1, 1)])
+def test_k5_shares_and_ring_protocol(d2, tiles, grid):
+    """The persistent grid's shares cover every (tile, output slice)
+    once; per block the producer's loads (one column parity of a stored
+    slice each) and the consumers' waits and releases follow the ring: a
+    segment's stored slices 2 m0 .. 2 (m0 + n) are loaded as two
+    parities each; the consumers wait for slice 0, then per output i for
+    slice 2 i + 1, release 2 i (its last products have finished), wait
+    for 2 i + 2, release 2 i + 1, and after the segment's last output
+    2 n. Every load is released once, after its wait, and load L, which
+    needs the release of L - RING, never waits on a release that comes
+    after the consumers' wait for L."""
+    units = tiles * d2
+    grid = min(grid, units)
+    seen = np.zeros(units, int)
+    for blk in range(grid):
+        begin, end = blk * units // grid, (blk + 1) * units // grid
+        loads, events = [], []        # consumer events: ('wait' | 'rel', L)
+        u, load = begin, 0
+        while u < end:
+            tile, m0 = divmod(u, d2)
+            n = min(d2 - m0, end - u)
+            loads += [(tile, s, p) for s in range(2 * m0, 2 * (m0 + n) + 1)
+                      for p in range(2)]
+
+            def ev(kind, j):
+                events.extend([(kind, load + 2 * j), (kind, load + 2 * j + 1)])
+                assert loads[load + 2 * j][:2] == (tile, 2 * m0 + j)
+
+            ev('wait', 0)
+            for i in range(n):
+                ev('wait', 2 * i + 1)
+                ev('rel', 2 * i)
+                ev('wait', 2 * i + 2)
+                ev('rel', 2 * i + 1)
+                if i == n - 1:
+                    ev('rel', 2 * i + 2)
+                seen[tile * d2 + m0 + i] += 1
+            load += 2 * (2 * n + 1)
+            u += n
+        pos = {e: k for k, e in enumerate(events)}
+        assert sorted(l for kind, l in events if kind == 'rel') == \
+            list(range(len(loads)))
+        for l in range(len(loads)):
+            assert pos[('wait', l)] < pos[('rel', l)]
+            if l >= S2_RING:
+                assert pos[('rel', l - S2_RING)] < pos[('wait', l)]
+    assert (seen == 1).all()
+
+
+# ---------------------------------------------------------------- K9b
+
+def _dense_slot(x, s, y0, x0, koct):
+    """The ring slot of input slice s for the tile at (y0, x0): koct TMA
+    boxes of 8 channels from coordinates (8 c8, x0 - 1, y0 - 1, s), each
+    [row SY][column SX][8 ch] at c8 * OCT bytes; zeros outside the tensor
+    (slices -1 and D, rows and columns outside, channels >= C)."""
+    d, h, w, c = x.shape
+    img = np.zeros(koct * OCT // 2)
+    rows, cols = y0 - 1 + np.arange(SY), x0 - 1 + np.arange(SX)
+    ry, rx = (rows >= 0) & (rows < h), (cols >= 0) & (cols < w)
+    for c8 in range(koct):
+        box = np.zeros((SY, SX, 8))
+        if 0 <= s < d and 8 * c8 < c:
+            box[np.ix_(ry, rx)] = x[s][np.ix_(rows[ry], cols[rx])][
+                ..., 8 * c8:8 * c8 + 8]
+        img[c8 * OCT // 2:c8 * OCT // 2 + box.size] = box.reshape(-1)
+    return img
+
+
+def _emulate_k9(x, wimgs, chunks):
+    """K9b on a dense volume (float64), one launch per output-channel
+    chunk n of `chunks` with its laid-out weights: per (tile, slice) the
+    three input slots, the descriptor walk over 27 taps x koct / 2
+    k-steps, the m64nN fragment, the epilogue's chunks through the quad
+    transpose into channels co0 + 8 j. Returns (D, H, W, sum(chunks))."""
+    d, h, w, c = x.shape
+    koct = -(-c // 16) * 2
+    cout = sum(chunks)
+    tiles_x, tiles_y = -(-w // TX), -(-h // TY)
+    out = np.full((d, h, w, cout), np.nan)
+    lane = np.arange(32)
+    q, g8 = lane & 3, lane >> 2
+    co0 = 0
+    for n, wimg in zip(chunks, wimgs):
+        nj = n // 8
+        for tile in range(tiles_x * tiles_y):
+            y0, x0 = tile // tiles_x * TY, tile % tiles_x * TX
+            for o in range(d):
+                slots = [_dense_slot(x, o - 1 + dz, y0, x0, koct)
+                         for dz in range(3)]
+                acc = np.zeros((4 * 2, 64, n))       # [wg * 4 + m]
+                for r in range(8):
+                    for tap in range(27):
+                        dz, dy, dx = tap // 9, tap // 3 % 3, tap % 3
+                        for ks in range(koct // 2):
+                            a = _kmajor(slots[dz], ks * 2 * OCT
+                                        + ((r + dy) * SX + dx) * 16,
+                                        OCT, 128, 64)
+                            b = _kmajor(wimg, tap * koct * n * 16
+                                        + ks * 2 * n * 16, n * 16, 128, n)
+                            acc[r] += a @ b.T
+                for wg in range(2):
+                    for wq in range(4):
+                        regs = [_fragment(acc[4 * wg + m], wq)
+                                for m in range(4)]          # (32, n / 2)
+                        groups = np.zeros((2 * nj, 32, 4, 2))
+                        for cc in range(8 * nj):
+                            m, hh, j = cc // (2 * nj), cc // nj % 2, cc % nj
+                            groups[cc // 4, :, cc % 4] = regs[m][
+                                :, [4 * j + 2 * hh, 4 * j + 2 * hh + 1]]
+                        st = _chunk_stores(groups)
+                        for g in range(2 * nj):
+                            cc = 4 * g + q
+                            m, hh, j = cc // (2 * nj), cc // nj % 2, cc % nj
+                            yy = y0 + wg * 4 + m
+                            xx = x0 + 16 * wq + g8 + 8 * hh
+                            for ln in np.nonzero((yy < h) & (xx < w))[0]:
+                                ch = co0 + 8 * j[ln]
+                                out[o, yy[ln], xx[ln], ch:ch + 8] = st[g, ln]
+        co0 += n
+    return out
+
+
+@pytest.mark.parametrize('c,chunks', [(8, [8]), (16, [16]), (32, [32]),
+                                      (8, [32]), (32, [8]), (16, [16, 8])])
+def test_k9b_dense_boxes_and_descriptor_walk_are_the_conv(c, chunks):
+    """The emulated K9b (boxes at -1 with zero fill, a padding octet for
+    C = 8, the N-generic B layout, the m64nN fragment, the epilogue's
+    chunks, output-channel chunks) on a volume with ragged last tiles in
+    H and W (9 x 66 against 8 x 64) against `conv3d_plain`."""
+    rng = np.random.RandomState(c + len(chunks))
+    x = torch.from_numpy(rng.randn(3, 9, 66, c).astype(np.float32))
+    x = x.to(torch.bfloat16).float()
+    k = torch.from_numpy((rng.randn(sum(chunks), c, 3, 3, 3) * 0.1).astype(
+        np.float32)).to(torch.bfloat16).float()
+    koct = -(-c // 16) * 2
+    wimgs, co0 = [], 0
+    for n in chunks:
+        wt = KC.wgmma_weight(k[co0:co0 + n], torch.float32, koct)
+        assert wt.shape == (27, koct, n, 8)
+        assert not wt[:, c // 8:].any()                # the padding octet
+        wimgs.append(wt.reshape(-1).double().numpy())
+        co0 += n
+    out = _emulate_k9(x.double().numpy(), wimgs, chunks)
+    np.testing.assert_allclose(out, C3.conv3d_plain(x, k).numpy(),
+                               atol=1e-4, rtol=0)
+
+
+def test_k9b_route():
+    """bf16 with C % 8 == 0 and C_out % 8 == 0 takes the tensor-core code
+    in chunks that fit shared memory beside a ring of at least 3 slices;
+    float32, C = 42 and other widths the direct kernel."""
+    chunks = KC3.tensor_core_chunks
+    bf = torch.bfloat16
+    assert chunks(bf, 32, 32) == [32]                  # the DfM width
+    assert chunks(bf, 16, 8) == [8]                    # chip_smoke's case
+    assert chunks(bf, 8, 64) == [32, 32] == chunks(bf, 32, 64)
+    assert chunks(bf, 48, 16) == [8, 8]       # three k16 steps: n 8 fits
+    assert chunks(bf, 16, 24) == [16, 8]
+    assert chunks(bf, 8, 8) == [8]
+    for dt, c, co in ((torch.float32, 32, 32), (torch.float32, 16, 8),
+                      (torch.float32, 42, 42), (bf, 42, 42), (bf, 32, 20),
+                      (bf, 12, 32), (bf, 64, 64), (bf, 128, 8)):
+        assert chunks(dt, c, co) is None, (dt, c, co)
+    assert KC3._wgmma_ring(4, 32) == 4 and KC3._wgmma_ring(6, 32) == 2
+    # csrc k9::smem_bytes of the DfM width: four slots, the weights, bars
+    assert 4 * 4 * OCT + 27 * 4 * 32 * 16 + 9 * 8 == 225352
 
 
 # ---------------------------------------------------------------- K3

@@ -378,7 +378,9 @@ def test_cuda_chain_kernels_match_plain():
 @pytest.mark.cuda
 def test_cuda_hourglass_kernels_match_plain():
     """K5, K6, K7b and K8b against their plain versions on the card, at
-    shapes with ragged and whole tiles: K5 to one bf16 rounding (atol 1e-2
+    shapes with ragged and whole tiles (K5's are 2 x 64 output voxels:
+    H / 2 = 13, 5, 3 and W / 2 = 70, 66, 100 are ragged, depth 44 is the
+    reduced mono trunk's): K5 to one bf16 rounding (atol 1e-2
     + rtol 1e-2) with moments rtol 1e-4 (+ atol 1e-3: sums of a few
     hundred signed terms) and bit-identical across two runs; K6 (on
     contiguous sub-volumes and on the strided view `convt1_parity`
@@ -391,7 +393,8 @@ def test_cuda_hourglass_kernels_match_plain():
     flag = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        for shape in ((4, 20, 40, 32), (8, 16, 32, 32), (2, 2, 2, 32)):
+        for shape in ((4, 20, 40, 32), (8, 16, 32, 32), (2, 2, 2, 32),
+                      (44, 26, 140, 32), (6, 10, 132, 32), (4, 6, 200, 32)):
             d, h, w, _ = shape
             x = _t(rng.randn(*shape), torch.bfloat16).to(dev)
             k64 = _t(rng.randn(64, 32, 3, 3, 3) * 0.1).to(dev)
@@ -442,9 +445,12 @@ def test_cuda_hourglass_kernels_match_plain():
 @pytest.mark.cuda
 def test_cuda_conv3d_kernels_match_plain():
     """K9a (`conv3d_stats`: the tensor-core code at bf16 C = C_out = 32,
-    the direct kernel elsewhere) and K9b (`conv3d`, the direct kernel)
-    against their plain versions on the card, at shapes with ragged and
-    whole tiles, C = 42 (weights chunked over C_out) included: float32
+    the direct kernel elsewhere) and K9b (`conv3d`: the `wgmma` code for
+    bf16 with C, C_out % 8 == 0, the direct kernel elsewhere) against
+    their plain versions on the card, at shapes with ragged and whole
+    tiles (K9b's `wgmma` tile is 8 x 64: ragged D, H, W at C = 8 and 16,
+    C_out = 8, 64 and 24 (two chunks), 32 -> 64 (two launches of 32)),
+    C = 42 (weights chunked over C_out) included: float32
     atol 1e-4 + rtol 1e-4 (the same f32 products summed in another
     order), bf16 one rounding (atol 1e-2 + rtol 1e-2); partials rtol 1e-4
     (+ atol 1e-3: sums of a few hundred signed terms); K9a bit-identical
@@ -473,6 +479,17 @@ def test_cuda_conv3d_kernels_match_plain():
                                        C3.conv3d_plain(x, k).float(),
                                        atol=max(tol['atol'], 1e-4),
                                        rtol=max(tol['rtol'], 1e-4))
+        for shape, c_out in (((5, 9, 70, 8), 8), ((3, 13, 66, 16), 64),
+                             ((7, 17, 130, 16), 24), ((4, 20, 40, 32), 64),
+                             ((2, 1, 1, 8), 8)):
+            x = _t(rng.randn(*shape), torch.bfloat16).to(dev)
+            k = _t(rng.randn(c_out, shape[-1], 3, 3, 3) * 0.1).to(dev)
+            assert KC3.tensor_core_chunks(x.dtype, shape[-1], c_out)
+            out = KC3.conv3d(x, k)
+            assert torch.equal(out, KC3.conv3d(x, k))
+            torch.testing.assert_close(out.float(),
+                                       C3.conv3d_plain(x, k).float(),
+                                       atol=1e-2, rtol=1e-2)
         for shape, c_out, dt, th in (((8, 20, 40, 32), 32, torch.bfloat16, 5),
                                      ((4, 16, 64, 32), 32, torch.bfloat16, 8),
                                      ((8, 8, 16, 8), 32, torch.float32, 4),
@@ -496,7 +513,7 @@ def test_cuda_conv3d_kernels_match_plain():
                 G.conv3d_gn_plain(x, k, sc, bs, 8, residual=res, relu=True,
                                   th=th).float(), atol=2 * atol, rtol=2 * atol)
         want = dict.fromkeys(K.LAUNCHES, 0)
-        want.update(conv3d_pallas=4, conv3d_zpack=12)
+        want.update(conv3d_pallas=14, conv3d_zpack=12)
         assert K.LAUNCHES == want
         with pytest.raises(TypeError):
             KC3.conv3d(x.half(), k)
