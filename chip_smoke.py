@@ -6,8 +6,15 @@
 Phases, one line each; any failure raises and no result is printed:
   1. device   card name and power limit (nvidia-smi), torch / CUDA
   2. build    nvcc for every kernel source, all at once
-  3. kernels  K1 warp_prev, K2 frustum_stereo_sample, K3 attention_sample
-              at the DfM-KITTI main-path shapes; K8a pack_vol, K8b
+  3. kernels  K1 warp_prev (the sweep, its points computed in the
+              kernel, at the KITTI meta and a flip + crop + scale meta, its
+              points also held against plane_sweep_grids, 2e-3 px; and
+              with the points read from memory), K3 attention_sample, K2
+              frustum_stereo_sample (fused: stereo + sem samples x K3's
+              attention + concat, the two halves held apart, the sem
+              half, ~1/288 of the stereo half's size, to one bf16
+              rounding of its own size; and its Cs = 0 instance) at the
+              DfM-KITTI main-path shapes; K8a pack_vol, K8b
               unpack_vol, K4 conv_p2p (with and without the residual),
               K7a unpack_affine_res (stem exit and pred exit), K7b
               gn_affine_res_packed (with and without residual and relu),
@@ -24,8 +31,8 @@ Phases, one line each; any failure raises and no result is printed:
               peak for their type (f32 67 TFLOP/s; K4's and K5's bf16
               products on the tensor cores 989 TFLOP/s, dense); K4's
               achieved TFLOP/s and share of that peak, K3's time over
-              `F.grid_sample`'s; for K3, K4, K5 (both depths) and K9b
-              also the device time of the kernels of one call
+              `F.grid_sample`'s; for K1, K2, K3, K4, K5 (both depths) and
+              K9b also the device time of the kernels of one call
               (torch.profiler), without the host time around them. Then
               the K9 block: K9a conv3d_zpack and K9b conv3d_pallas, on no
               model path, at the DfM trunk width (72, 80, 320, 32) bf16,
@@ -229,7 +236,8 @@ def kernel_phase(cfg, dev):
             bound_by='bytes' if t_bytes >= t_ops else 'operations',
             library_ms=lib_ms, **extra)
         lib = 'none' if lib_ms is None else f'{lib_ms:.4f}'
-        more = ''.join(f' {k} {v:.4f}' if isinstance(v, float) else
+        more = ''.join(f' {k} {v:.3g}' if k.startswith('max_abs_err') else
+                       f' {k} {v:.4f}' if isinstance(v, float) else
                        f' {k} {v}' for k, v in extra.items())
         print(f'kernel {name}: max_abs_err {err:.3g} '
               f'(tol atol {tol[0]} + rtol {tol[1]}) ms {ms:.4f} '
@@ -237,38 +245,69 @@ def kernel_phase(cfg, dev):
               f'bytes {nbytes} flops {flops} '
               f'bound_ms {max(t_bytes, t_ops):.4f}', flush=True)
 
-    # K1 at (1, 320, 1280, 32) -> (1, 72, 80, 320, 32)
+    # K1 at (1, 320, 1280, 32) -> (1, 72, 80, 320, 32): the sweep (grid
+    # computed in the kernel, the main path) at the KITTI meta and at a
+    # flip + crop + scale meta, and the kernel with the grid read from
+    # memory
     prev = torch.randn(1, h, w, cfg.stereo_channels[1], generator=gen,
                        device=dev).to(bf)
+    step = cfg.cost_sample_factor
+
+    def sweep_inputs(m):
+        return CV.sweep_params(m.ori_cam2img, m.cur2prev, m.org_w, m.flip,
+                               m.crop_offset, m.scale_factor, 1)
+
+    params = sweep_inputs(meta)
+    aug = kitti_meta(1, dev)
+    aug.flip = torch.ones(1, device=dev)
+    aug.crop_offset = torch.tensor([[24.0, 8.0]], device=dev)
+    aug.scale_factor = torch.full((1,), 1.1, device=dev)
+    tol1 = (1e-2, 1e-2)
+    err1 = 0.0
+    for m in (meta, aug):
+        pm = sweep_inputs(m)
+        got = K.warp_prev_sweep(prev, pm, depths, hq, wq, step)
+        want = CV.warp_prev_plain(prev, *CV.sweep_coords_plain(
+            pm, depths, hq, wq, step))
+        err1 = max(err1, agree('warp_prev_sweep', got, want, tol1))
+        # the sweep's points against the grids of plane_sweep_grids
+        _, grid = CV.plane_sweep_grids(
+            depths, m.ori_cam2img, m.cur2prev, (h, w), step, 1, m.org_w,
+            m.flip, m.crop_offset, m.scale_factor)
+        pu, pv = CV.sweep_coords_plain(pm, depths, hq, wq, step)
+        gap = max(float((pu - grid[..., 0]).abs().max()),
+                  float((pv - grid[..., 1]).abs().max()))
+        check(gap <= 2e-3, f'sweep points {gap} px from plane_sweep_grids')
     _, grid = CV.plane_sweep_grids(
-        depths, meta.ori_cam2img, meta.cur2prev, (h, w),
-        cfg.cost_sample_factor, 1, meta.org_w, meta.flip, meta.crop_offset,
-        meta.scale_factor)
+        depths, meta.ori_cam2img, meta.cur2prev, (h, w), step, 1,
+        meta.org_w, meta.flip, meta.crop_offset, meta.scale_factor)
     gu, gv = grid[..., 0].contiguous(), grid[..., 1].contiguous()
     got = K.warp_prev(prev, gu, gv)
-    want = CV.warp_prev_plain(prev, gu, gv)
+    err1 = max(err1, agree('warp_prev', got, CV.warp_prev_plain(prev, gu, gv),
+                           tol1))
     prev_nchw = prev.permute(0, 3, 1, 2).contiguous()
     norm = torch.stack([gu / (w - 1) * 2 - 1, gv / (h - 1) * 2 - 1],
                        -1).reshape(1, d * hq, wq, 2).to(bf)
+    sweep = lambda: K.warp_prev_sweep(prev, params, depths, hq, wq,  # noqa
+                                      step)
     report('warp_prev', 'dfm_tpu_torch/csrc/warp_prev.cu',
-           'dfm_tpu/ops/pallas/cost_warp.py:142',
-           agree('warp_prev', got, want, (1e-2, 1e-2)), (1e-2, 1e-2),
-           cuda_ms(lambda: K.warp_prev(prev, gu, gv)),
-           cuda_ms(lambda: CV.warp_prev_plain(prev, gu, gv)),
+           'dfm_tpu/ops/pallas/cost_warp.py:142', err1, tol1,
+           cuda_ms(sweep),
+           cuda_ms(lambda: CV.warp_prev_plain(prev, *CV.sweep_coords_plain(
+               params, depths, hq, wq, step))),
            cuda_ms(lambda: F.grid_sample(prev_nchw, norm,
                                          align_corners=True)),
            needed_bytes(CV.warp_prev_plain, prev, prev.shape[-1], gu, gv)
-           + 2 * gu.numel() * 4 + got.numel() * got.element_size(),
-           8 * got.numel())
-
-    # K2 at (1, 72, 80, 320, 32) -> (1, 20, 304, 288, 32) + mask
-    vol = torch.randn(1, d, hq, wq, cfg.cv_channels, generator=gen,
-                      device=dev).to(bf)
-    ds = FS.slab_depth_static(xs, cfg.depth_min, cfg.depth_max, d)
-    got, valid = K.frustum_stereo_sample(vol, u, v, ds, IMG_HW)
-    tabs = FS.depth_tables(ds, dev)
-    want, valid_w = FS.stereo_sample_plain(vol, u, v, *tabs, IMG_HW)
-    check(torch.equal(valid, valid_w), 'frustum_stereo_sample: valid2d')
+           + params.numel() * 4 + d * 4 + got.numel() * got.element_size(),
+           8 * got.numel(), device_ms=device_ms(sweep),
+           ms_read_coords=cuda_ms(lambda: K.warp_prev(prev, gu, gv)),
+           device_ms_read_coords=device_ms(lambda: K.warp_prev(prev, gu, gv)),
+           ms_sweep_params=cuda_ms(lambda: sweep_inputs(meta)),
+           ms_plane_sweep_grids=cuda_ms(lambda: CV.plane_sweep_grids(
+               depths, meta.ori_cam2img, meta.cur2prev, (h, w), step, 1,
+               meta.org_w, meta.flip, meta.crop_offset, meta.scale_factor)),
+           library_device_ms=device_ms(
+               lambda: F.grid_sample(prev_nchw, norm, align_corners=True)))
 
     def lib_grid(depth_bins, hh, ww):
         """grid_sample coords (x, y, z) in [-1, 1] of every voxel."""
@@ -281,30 +320,15 @@ def kernel_phase(cfg, dev):
             (zi / (depth_bins - 1) * 2 - 1).view(1, 1, 1, -1)), -1)
         return g.reshape(1, nz, ny, nx, 3)
 
-    vol_ncdhw = vol.permute(0, 4, 1, 2, 3).contiguous()
-    g2 = lib_grid(d, hq, wq).to(bf)
-    report('frustum_stereo_sample', 'dfm_tpu_torch/csrc/frustum_sample.cu',
-           'dfm_tpu/ops/pallas/frustum_sample.py:92',
-           agree('frustum_stereo_sample', got, want, (1e-2, 1e-2)),
-           (1e-2, 1e-2),
-           cuda_ms(lambda: K.frustum_stereo_sample(vol, u, v, ds, IMG_HW)),
-           cuda_ms(lambda: FS.stereo_sample_plain(vol, u, v, *tabs,
-                                                  IMG_HW)),
-           cuda_ms(lambda: F.grid_sample(vol_ncdhw, g2,
-                                         align_corners=True)),
-           needed_bytes(FS.stereo_sample_plain, vol, vol.shape[-1], u, v,
-                        *tabs, IMG_HW)
-           + (u.numel() + v.numel()) * 4 + got.numel() * 2 + valid.numel(),
-           16 * got.numel())
-
-    # K3 at (1, 288, 320, 1280) -> (1, 20, 304, 288) f32
+    # K3 at (1, 288, 320, 1280) -> (1, 20, 304, 288) f32; its output is
+    # the attention the fused K2 takes
     cost = torch.randn(1, d, hq, wq, generator=gen, device=dev)
     sm = FS.build_fine_softmax_volume(cost, cfg.depth_downsample, IMG_HW,
                                       bf)
     df = d * cfg.depth_downsample
     dsf = FS.slab_depth_static(xs, cfg.depth_min, cfg.depth_max, df)
     tabf = FS.depth_tables(dsf, dev)
-    got = K.attention_sample(sm, u, v, dsf, IMG_HW)
+    att = K.attention_sample(sm, u, v, dsf, IMG_HW)
     want = FS.attention_sample_plain(sm, u, v, *tabf, IMG_HW)
     sm_ncdhw = sm[:, None]
     g3 = lib_grid(df, h, w).to(bf)
@@ -312,19 +336,87 @@ def kernel_phase(cfg, dev):
     k3_lib = cuda_ms(lambda: F.grid_sample(sm_ncdhw, g3, align_corners=True))
     report('attention_sample', 'dfm_tpu_torch/csrc/frustum_sample.cu',
            'dfm_tpu/ops/pallas/frustum_sample.py:233',
-           agree('attention_sample', got, want, (1e-5, 1e-5)), (1e-5, 1e-5),
+           agree('attention_sample', att, want, (1e-5, 1e-5)), (1e-5, 1e-5),
            k3_ms,
            cuda_ms(lambda: FS.attention_sample_plain(sm, u, v, *tabf,
                                                      IMG_HW)),
            k3_lib,
            needed_bytes(FS.attention_sample_plain, sm, 1, u, v, *tabf,
                         IMG_HW)
-           + (u.numel() + v.numel()) * 4 + got.numel() * 4,
-           16 * got.numel(), ratio_to_grid_sample=k3_ms / k3_lib,
+           + (u.numel() + v.numel()) * 4 + att.numel() * 4,
+           16 * att.numel(), ratio_to_grid_sample=k3_ms / k3_lib,
            device_ms=device_ms(
                lambda: K.attention_sample(sm, u, v, dsf, IMG_HW)),
            library_device_ms=device_ms(
                lambda: F.grid_sample(sm_ncdhw, g3, align_corners=True)))
+    del sm, sm_ncdhw, g3
+
+    # K2 fused at (1, 72, 80, 320, 32) + sem (1, 80, 320, 32) + K3's
+    # attention -> (1, 20, 304, 288, 64); and its Cs = 0 instance
+    # (frustum_stereo_sample, + valid2d)
+    vol = torch.randn(1, d, hq, wq, cfg.cv_channels, generator=gen,
+                      device=dev).to(bf)
+    sem = torch.randn(1, hq, wq, cfg.sem_channels[1], generator=gen,
+                      device=dev).to(bf)
+    ds = FS.slab_depth_static(xs, cfg.depth_min, cfg.depth_max, d)
+    tabs = FS.depth_tables(ds, dev)
+    fused = lambda: K.frustum_voxel_features(vol, sem, att, u, v,  # noqa
+                                             ds, IMG_HW)
+    got = fused()
+    want = FS.frustum_voxel_features_plain(vol, sem, att, u, v, *tabs,
+                                           IMG_HW)
+    check(got.shape == (1, nz, ny, nx, vol.shape[-1] + sem.shape[-1]),
+          f'frustum_voxel_features: shape {tuple(got.shape)}')
+    # the halves apart: the sem half is the sem sample times K3's
+    # attention (~1/288 here), so the stereo half's bound would not see it
+    c = vol.shape[-1]
+    sem_tol = (1e-5, 2.0 ** -8)       # one bf16 rounding of its own size
+    err_stereo = agree('frustum_voxel_features stereo half', got[..., :c],
+                       want[..., :c], (1e-2, 1e-2))
+    err_sem = agree('frustum_voxel_features sem half', got[..., c:],
+                    want[..., c:], sem_tol)
+    check(bool((want[..., c:] != 0).any()),
+          'frustum_voxel_features: the sem half is all zero')
+    stereo = lambda: K.frustum_stereo_sample(vol, u, v, ds,  # noqa: E731
+                                             IMG_HW)
+    got0, valid = stereo()
+    want0, valid_w = FS.stereo_sample_plain(vol, u, v, *tabs, IMG_HW)
+    check(torch.equal(valid, valid_w), 'frustum_stereo_sample: valid2d')
+    err_stereo_only = agree('frustum_stereo_sample', got0, want0,
+                            (1e-2, 1e-2))
+    vol_ncdhw = vol.permute(0, 4, 1, 2, 3).contiguous()
+    g2 = lib_grid(d, hq, wq).to(bf)
+    sem_rows = needed_bytes(
+        lambda s, *a: FS.frustum_voxel_features_plain(vol.float(), s, att,
+                                                      *a),
+        sem, sem.shape[-1], u, v, *tabs, IMG_HW)
+    vol_rows = needed_bytes(FS.stereo_sample_plain, vol, vol.shape[-1], u,
+                            v, *tabs, IMG_HW)
+    report('frustum_stereo_sample', 'dfm_tpu_torch/csrc/frustum_sample.cu',
+           'dfm_tpu/ops/pallas/frustum_sample.py:92',
+           max(err_stereo, err_sem, err_stereo_only), (1e-2, 1e-2),
+           cuda_ms(fused),
+           cuda_ms(lambda: FS.frustum_voxel_features_plain(
+               vol, sem, att, u, v, *tabs, IMG_HW)),
+           cuda_ms(lambda: F.grid_sample(vol_ncdhw, g2,
+                                         align_corners=True)),
+           vol_rows + sem_rows + att.numel() * 4
+           + (u.numel() + v.numel()) * 4 + got.numel() * 2,
+           16 * got0.numel() + 9 * (got.numel() - got0.numel()),
+           max_abs_err_stereo=err_stereo, max_abs_err_sem=err_sem,
+           sem_tol=f'atol {sem_tol[0]} + rtol {sem_tol[1]}',
+           max_abs_err_stereo_only=err_stereo_only,
+           device_ms=device_ms(fused),
+           library_device_ms=device_ms(
+               lambda: F.grid_sample(vol_ncdhw, g2, align_corners=True)),
+           ms_stereo_only=cuda_ms(stereo),
+           device_ms_stereo_only=device_ms(stereo),
+           plain_ms_stereo_only=cuda_ms(lambda: FS.stereo_sample_plain(
+               vol, u, v, *tabs, IMG_HW)),
+           bound_ms_stereo_only=(vol_rows + (u.numel() + v.numel()) * 4
+                                 + got0.numel() * 2 + valid.numel())
+           / HBM_BYTES_PER_S * 1e3)
+    del g2, vol_ncdhw
     chain_kernel_phase(vol[0], gen, agree, report)
     for name, n in conv3d_kernel_phase(vol[0], gen, agree, report).items():
         results[name]['launches'] = n

@@ -5,6 +5,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
 template <>
@@ -74,3 +76,33 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p,
 // Elements of T in one 16-byte vector.
 template <typename T>
 constexpr int vec16() { return 16 / (int)sizeof(T); }
+
+// The weighted sums of the sampling kernels K1 and K2: each product and
+// sum rounded alone (no fused multiply-add), in the plain versions'
+// order, so that the kernels return the plain versions' bits.
+__device__ __forceinline__ float madd(float f, float w, float acc) {
+  return __fadd_rn(acc, __fmul_rn(f, w));
+}
+
+// VEC consecutive elements kept as they were loaded (one 16-byte vector
+// or one element), so that a kernel can keep many loads in flight in
+// few registers and convert each element where it uses it.
+template <typename T, int VEC>
+using raw_t = typename std::conditional<VEC * sizeof(T) == 16, uint4, T>::type;
+
+template <typename T, int VEC>
+__device__ __forceinline__ raw_t<T, VEC> load_raw(const T* __restrict__ p) {
+  static_assert(VEC * sizeof(T) == 16 || VEC == 1, "16 bytes or 1 element");
+  if constexpr (VEC * sizeof(T) == 16)
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  else
+    return __ldg(p);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ float raw_elem(const raw_t<T, VEC>& r, int i) {
+  if constexpr (VEC * sizeof(T) == 16)
+    return to_f<T>(reinterpret_cast<const T*>(&r)[i]);
+  else
+    return to_f<T>(r);
+}

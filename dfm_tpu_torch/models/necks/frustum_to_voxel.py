@@ -1,9 +1,13 @@
 """FrustumToVoxel neck, KITTI (separable-camera) path.
 
 Port of `dfm_tpu/models/necks/frustum_to_voxel.py:72-146, 248-277`:
-lift the stereo volume into the pseudo-lidar voxel grid (K2), weight the
-sampled 2D semantic features by the depth-softmax attention (K3), concat
-along channels, then the voxel ConvNorm and an average pool over z.
+lift the stereo volume into the pseudo-lidar voxel grid, weight the
+sampled 2D semantic features by the depth-softmax attention (K3) and
+concat them along channels, all three in one kernel (K2 fused, as the
+JAX package's `_fused` cond computes them), then the voxel ConvNorm and
+an average pool over z. The stages run in `record_function` spans
+`dfm.frustum_to_voxel.{uv, softmax_volume, attention, voxel_features,
+voxel_convnorm, pool}`.
 
 Only the configuration DfM-KITTI uses is ported (sem_atten_feat,
 cat_img_feature, no stereo attention, one voxel conv). The generic
@@ -14,10 +18,12 @@ gather path for arbitrary projections (multi-view Waymo,
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from ..layers import ConvNorm
 from ...ops import frustum_separable as FS
-from ...ops.cuda.sampling import attention_sample, frustum_stereo_sample
+from ...ops.cuda.sampling import attention_sample, \
+    frustum_voxel_features
 
 
 class FrustumToVoxel(nn.Module):
@@ -46,26 +52,34 @@ class FrustumToVoxel(nn.Module):
         Returns:
             (B, Nz / pool_z, Ny, Nx, C_out) voxel features.
         """
-        coors_3d = np.asarray(coors_3d)
-        xs = coors_3d[0, 0, :, 0]
-        ys = coors_3d[0, :, 0, 1]
-        zs = coors_3d[:, 0, 0, 2]
-        u, v = FS.slab_uv(cam2img, xs, ys, zs)
-        d = stereo_vol.shape[1]
-        ds = FS.slab_depth_static(xs, self.depth_min, self.depth_max, d)
-        voxel, valid2d = frustum_stereo_sample(
-            stereo_vol.contiguous(), u, v, ds, pad_shape)
-        sm = FS.build_fine_softmax_volume(depth_cost, self.up_factor,
-                                          pad_shape, stereo_vol.dtype)
-        dsf = FS.slab_depth_static(xs, self.depth_min, self.depth_max,
-                                   d * self.up_factor)
-        att = attention_sample(sm, u, v, dsf, pad_shape)
-        sem = FS.sem_sample(sem_feat, u, v, pad_shape, valid2d)
-        sem = sem * att.to(sem.dtype)[..., None]
-        vol = torch.cat([voxel, sem], dim=-1)        # (B, Nz, Ny, Nx, C)
-        x = vol.permute(0, 4, 1, 2, 3)
-        for conv in self.voxel_convs:
-            x = conv(x)
-        b, c, nz, ny, nx = x.shape
-        x = x.reshape(b, c, nz // self.pool_z, self.pool_z, ny, nx).mean(3)
-        return x.permute(0, 2, 3, 4, 1)
+        span = 'dfm.frustum_to_voxel.'
+        with record_function(span + 'uv'):
+            coors_3d = np.asarray(coors_3d)
+            xs = coors_3d[0, 0, :, 0]
+            ys = coors_3d[0, :, 0, 1]
+            zs = coors_3d[:, 0, 0, 2]
+            u, v = FS.slab_uv(cam2img, xs, ys, zs)
+            d = stereo_vol.shape[1]
+            ds = FS.slab_depth_static(xs, self.depth_min, self.depth_max, d)
+            dsf = FS.slab_depth_static(xs, self.depth_min, self.depth_max,
+                                       d * self.up_factor)
+        with record_function(span + 'softmax_volume'):
+            sm = FS.build_fine_softmax_volume(depth_cost, self.up_factor,
+                                              pad_shape, stereo_vol.dtype)
+        with record_function(span + 'attention'):
+            att = attention_sample(sm, u, v, dsf, pad_shape)
+            del sm                                   # 236 MB at DfM-KITTI
+        with record_function(span + 'voxel_features'):
+            # K2 fused: stereo sample, sem sample x attention, concat
+            vol = frustum_voxel_features(
+                stereo_vol.contiguous(), sem_feat.contiguous(), att, u, v,
+                ds, pad_shape)                       # (B, Nz, Ny, Nx, C)
+        with record_function(span + 'voxel_convnorm'):
+            x = vol.permute(0, 4, 1, 2, 3)
+            for conv in self.voxel_convs:
+                x = conv(x)
+        with record_function(span + 'pool'):
+            b, c, nz, ny, nx = x.shape
+            x = x.reshape(b, c, nz // self.pool_z, self.pool_z, ny,
+                          nx).mean(3)
+            return x.permute(0, 2, 3, 4, 1)

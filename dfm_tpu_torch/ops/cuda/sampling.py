@@ -1,27 +1,41 @@
 """Wrappers of the three sampling kernels (K1-K3), CUDA C++ for sm_90a.
 
-| wrapper                 | kernel source            | replaces (TPU)                                  |
-| `warp_prev`             | csrc/warp_prev.cu        | ops/pallas/cost_warp.py:warp_prev_band          |
-| `frustum_stereo_sample` | csrc/frustum_sample.cu   | ops/pallas/frustum_sample.py:_call (+_batched)  |
-| `attention_sample`      | csrc/frustum_sample.cu   | ops/pallas/frustum_sample.py:_att_call          |
+| wrapper                  | source            | replaces (TPU, under dfm_tpu/ops/) |
+| `warp_prev_sweep`        | warp_prev.cu      | pallas/cost_warp.py:warp_prev_band |
+|                          |                   | + cost_volume.py:plane_sweep_grids |
+| `warp_prev`              | warp_prev.cu      | pallas/cost_warp.py:warp_prev_band |
+| `frustum_voxel_features` | frustum_sample.cu | pallas/frustum_sample.py:_call +   |
+|                          |                   | the neck's `_fused` glue           |
+| `frustum_stereo_sample`  | frustum_sample.cu | pallas/frustum_sample.py:_call     |
+| `attention_sample`       | frustum_sample.cu | pallas/frustum_sample.py:_att_call |
+
+(sources under `dfm_tpu_torch/csrc/`).
+`warp_prev_sweep` and `warp_prev` run one kernel and count as K1;
+`frustum_voxel_features` and `frustum_stereo_sample` (its Cs = 0
+instance) run one kernel and count as K2.
 
 On a CPU tensor a wrapper returns its plain PyTorch version
 (`ops/cost_volume.py`, `ops/frustum_separable.py`). On a CUDA tensor it
 checks device, dtype, shape and contiguity, allocates the outputs,
 launches on the current stream, raises if the launch reports an error,
-and adds one to its count in `LAUNCHES`. There is no fallback.
+and adds one to its count in `LAUNCHES`. There is no fallback. The
+kernels index in 32 bits: every tensor they touch stays below 2^31
+elements, which the wrappers check.
 """
 
 import numpy as np
 import torch
 
-from ..cost_volume import warp_prev_plain
+from ..cost_volume import (SWEEP_PARAMS, sweep_coords_plain,
+                           warp_prev_plain)
 from ..frustum_separable import (attention_sample_plain, depth_tables,
+                                 frustum_voxel_features_plain,
                                  stereo_sample_plain)
 from .build import load
 
-__all__ = ['LAUNCHES', 'reset_launch_counts', 'warp_prev',
-           'frustum_stereo_sample', 'attention_sample', 'attention_xtab']
+__all__ = ['LAUNCHES', 'reset_launch_counts', 'warp_prev_sweep',
+           'warp_prev', 'frustum_voxel_features', 'frustum_stereo_sample',
+           'attention_sample', 'depth_xtab']
 
 # one table for every kernel of the port (K4-K8b: `conv_chain.py`, K9a /
 # K9b: `conv3d.py`), under the names of the JAX functions they replace
@@ -32,6 +46,7 @@ LAUNCHES = {'warp_prev': 0, 'frustum_stereo_sample': 0,
             'conv3d_pallas': 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT32 = 2 ** 31
 
 
 def reset_launch_counts():
@@ -68,6 +83,51 @@ def _raise_on(rc, name):
                            f'{rc}')
 
 
+def _fits_int32(name, *tensors_or_sizes):
+    for t in tensors_or_sizes:
+        n = t.numel() if isinstance(t, torch.Tensor) else int(t)
+        if n >= _INT32:
+            raise ValueError(f'{name}: {n} elements, beyond the kernel\'s '
+                             f'32-bit indices')
+
+
+def _k1_grid(name, b, d):
+    if max(b, d) >= 65536:      # grid (Hq / rows, D, B)
+        raise ValueError(f'{name}: B = {b} or D = {d} beyond the grid')
+
+
+def warp_prev_sweep(prev, params, depths, hq, wq, step):
+    """K1 with its grid computed in the kernel. prev (B, H, W, C)
+    float32/bf16; params (B, 18) float32 rows of
+    `cost_volume.sweep_params`; depths (D,). Output pixel (d, h, w)
+    samples prev at the prev-frame point of feature position
+    (w * step, h * step) at depths[d] -> (B, D, hq, wq, C) in prev's
+    dtype. Plain version: `sweep_coords_plain` + `warp_prev_plain`."""
+    depths = depths.float()
+    if _on_cpu(prev, params, depths):
+        return warp_prev_plain(prev, *sweep_coords_plain(params, depths, hq,
+                                                         wq, step))
+    _check(prev, 'prev', 4, _DTYPES)
+    _check(params, 'params', 2, (torch.float32,))
+    _check(depths, 'depths', 1, (torch.float32,))
+    b, h, w, c = prev.shape
+    d = depths.shape[0]
+    if tuple(params.shape) != (b, SWEEP_PARAMS):
+        raise ValueError(f'params {tuple(params.shape)}: want ({b}, '
+                         f'{SWEEP_PARAMS})')
+    out = torch.empty((b, d, hq, wq, c), dtype=prev.dtype,
+                      device=prev.device)
+    _fits_int32('warp_prev_sweep', prev, out)
+    _k1_grid('warp_prev_sweep', b, d)
+    rc = load('warp_prev').dfm_warp_prev_sweep(
+        prev.data_ptr(), params.data_ptr(), depths.data_ptr(),
+        out.data_ptr(), b, h, w, c, d, hq, wq, float(step),
+        _DTYPES[prev.dtype], _stream())
+    _raise_on(rc, 'warp_prev_sweep')
+    LAUNCHES['warp_prev'] += 1
+    return out
+
+
 def warp_prev(prev, u, v):
     """K1. prev (B, H, W, C) float32/bf16; u, v (B, D, Hq, Wq) float32
     align-corners pixel coords -> (B, D, Hq, Wq, C) in prev's dtype."""
@@ -82,78 +142,104 @@ def warp_prev(prev, u, v):
                          f'match prev {tuple(prev.shape)}')
     out = torch.empty(tuple(u.shape) + (c,), dtype=prev.dtype,
                       device=prev.device)
-    per_b = u[0].numel()
+    _fits_int32('warp_prev', prev, out)
+    _k1_grid('warp_prev', b, u.shape[1])
     rc = load('warp_prev').dfm_warp_prev(
         prev.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-        w, c, per_b, _DTYPES[prev.dtype], _stream())
+        w, c, *u.shape[1:], _DTYPES[prev.dtype], _stream())
     _raise_on(rc, 'warp_prev')
     LAUNCHES['warp_prev'] += 1
     return out
 
 
-def _frustum_args(table, u, v, ds, name):
-    """Shared checks of K2/K3; returns the depth tables on the device."""
+def _voxel_features(vol, sem, att, u, v, ds, pad_shape, with_valid):
+    """Checks and the launch of K2; sem and att None for Cs = 0."""
+    _check(vol, 'vol', 5, _DTYPES)
     _check(u, 'u', 3, (torch.float32,))
     _check(v, 'v', 3, (torch.float32,))
-    b, d = table.shape[:2]
-    nx = u.shape[1]
-    if u.shape[0] != b or v.shape[:2] != (b, nx):
-        raise ValueError(f'{name}: u {tuple(u.shape)} / v {tuple(v.shape)} '
-                         f'do not match the table {tuple(table.shape)}')
-    if len(ds['z0']) != nx or max(ds['z0'].max(), ds['z1'].max()) >= d:
-        raise ValueError(f'{name}: depth taps do not fit {nx} slabs of a '
-                         f'{d}-bin table')
-    return depth_tables(ds, table.device)
-
-
-def frustum_stereo_sample(vol, u, v, ds, pad_shape):
-    """K2. vol (B, D, H, W, C) float32/bf16; u (B, nx, ny), v (B, nx, nz)
-    float32; ds the numpy taps of `slab_depth_static(num_bins=D)`.
-    Returns (B, nz, ny, nx, C) in vol's dtype, zero where not
-    valid2d & in_range, and valid2d (B, nz, ny, nx) bool."""
-    if _on_cpu(vol, u, v):
-        return stereo_sample_plain(vol, u, v,
-                                   *depth_tables(ds, vol.device), pad_shape)
-    _check(vol, 'vol', 5, _DTYPES)
-    z0, z1, w0, w1, inr = _frustum_args(vol, u, v, ds,
-                                        'frustum_stereo_sample')
     b, d, h, w, c = vol.shape
     nx, ny = u.shape[1:]
     nz = v.shape[2]
-    out = torch.empty((b, nz, ny, nx, c), dtype=vol.dtype,
+    if u.shape[0] != b or v.shape[:2] != (b, nx) or len(ds['z0']) != nx:
+        raise ValueError(f'frustum_voxel_features: u {tuple(u.shape)} / v '
+                         f'{tuple(v.shape)} / {len(ds["z0"])} depth taps do '
+                         f'not match the volume {tuple(vol.shape)}')
+    hs = ws = cs = 0
+    if sem is not None:
+        _check(sem, 'sem', 4, (vol.dtype,))
+        _check(att, 'att', 4, (torch.float32,))
+        hs, ws, cs = sem.shape[1:]
+        if sem.shape[0] != b or tuple(att.shape) != (b, nz, ny, nx):
+            raise ValueError(f'frustum_voxel_features: sem '
+                             f'{tuple(sem.shape)} / att {tuple(att.shape)} '
+                             f'do not match the grid {(b, nz, ny, nx)}')
+    if b * nz >= 65536:
+        raise ValueError(f'frustum_voxel_features: B * nz = {b * nz} '
+                         f'beyond the grid\'s z extent')
+    xtab = depth_xtab(ds, d, vol.device)
+    out = torch.empty((b, nz, ny, nx, c + cs), dtype=vol.dtype,
                       device=vol.device)
+    _fits_int32('frustum_voxel_features', vol, u, v, out,
+                b * hs * ws * cs)
     valid2d = torch.empty((b, nz, ny, nx), dtype=torch.bool,
-                          device=vol.device)
-    rc = load('frustum_sample').dfm_frustum_stereo_sample(
-        vol.data_ptr(), u.data_ptr(), v.data_ptr(), z0.data_ptr(),
-        z1.data_ptr(), w0.data_ptr(), w1.data_ptr(), inr.data_ptr(),
-        out.data_ptr(), valid2d.data_ptr(), b, d, h, w, c, nz, ny, nx,
-        float(pad_shape[0]), float(pad_shape[1]), _DTYPES[vol.dtype],
-        _stream())
-    _raise_on(rc, 'frustum_stereo_sample')
+                          device=vol.device) if with_valid else None
+    rc = load('frustum_sample').dfm_voxel_features(
+        vol.data_ptr(), None if sem is None else sem.data_ptr(),
+        None if att is None else att.data_ptr(), u.data_ptr(), v.data_ptr(),
+        xtab.data_ptr(), out.data_ptr(),
+        None if valid2d is None else valid2d.data_ptr(), b, d, h, w, c, hs,
+        ws, cs, nz, ny, nx, float(pad_shape[0]), float(pad_shape[1]),
+        _DTYPES[vol.dtype], _stream())
+    _raise_on(rc, 'frustum_voxel_features')
     LAUNCHES['frustum_stereo_sample'] += 1
     return out, valid2d
 
 
-_XTABS = {}           # attention_xtab's tables on the device, by content
-_INT32 = 2 ** 31
+def frustum_voxel_features(vol, sem, att, u, v, ds, pad_shape):
+    """K2 with the neck's glue fused: the voxel feature volume.
+
+    vol (B, D, H, W, C) float32/bf16; sem (B, Hs, Ws, Cs) in vol's dtype
+    (Cs may be 0); att (B, nz, ny, nx) float32 (K3's output); u, v and
+    ds as `frustum_stereo_sample`. Returns (B, nz, ny, nx, C + Cs) in
+    vol's dtype: the stereo sample, then the sem sample times att (see
+    `frustum_voxel_features_plain`); valid2d is not materialised."""
+    if _on_cpu(vol, sem, att, u, v):
+        return frustum_voxel_features_plain(
+            vol, sem, att, u, v, *depth_tables(ds, vol.device), pad_shape)
+    if sem.shape[-1] == 0:
+        sem = att = None
+    return _voxel_features(vol, sem, att, u, v, ds, pad_shape, False)[0]
 
 
-def attention_xtab(ds, d, device):
-    """K3's per-slab depth table: (nx, 4) float32 rows (z0, z1, w0, w1)
-    of `ds` = `slab_depth_static(num_bins=d)`, both weights zero where
-    the slab is out of the depth range (the kernel then drops its voxels,
-    as the plain version's `in_range` mask does). Checked and copied to
-    `device` once per table, then cached by content: a call of the kernel
-    makes no host-to-device copy."""
+def frustum_stereo_sample(vol, u, v, ds, pad_shape):
+    """K2's Cs = 0 instance. vol (B, D, H, W, C) float32/bf16; u
+    (B, nx, ny), v (B, nx, nz) float32; ds the numpy taps of
+    `slab_depth_static(num_bins=D)`. Returns (B, nz, ny, nx, C) in vol's
+    dtype, zero where not valid2d & in_range, and valid2d
+    (B, nz, ny, nx) bool."""
+    if _on_cpu(vol, u, v):
+        return stereo_sample_plain(vol, u, v,
+                                   *depth_tables(ds, vol.device), pad_shape)
+    return _voxel_features(vol, None, None, u, v, ds, pad_shape, True)
+
+
+_XTABS = {}           # depth_xtab's tables on the device, by content
+
+
+def depth_xtab(ds, d, device):
+    """K2's and K3's per-slab depth table: (nx, 4) float32 rows
+    (z0, z1, w0, w1) of `ds` = `slab_depth_static(num_bins=d)`, both
+    weights zero where the slab is out of the depth range (the kernel
+    then drops its voxels, as the plain version's `in_range` mask does).
+    Checked and copied to `device` once per table, then cached by
+    content: a call of the kernel makes no host-to-device copy."""
     key = (device, d) + tuple(ds[k].tobytes() for k in
                               ('z0', 'z1', 'w0', 'w1', 'in_range'))
     tab = _XTABS.get(key)
     if tab is None:
         z0, z1 = ds['z0'], ds['z1']
         if min(z0.min(), z1.min()) < 0 or max(z0.max(), z1.max()) >= d:
-            raise ValueError(f'attention_sample: depth taps do not fit a '
-                             f'{d}-bin table')
+            raise ValueError(f'depth taps do not fit a {d}-bin table')
         keep = ds['in_range'].astype(np.float32)
         tab = np.stack([z0.astype(np.float32), z1.astype(np.float32),
                         ds['w0'].astype(np.float32) * keep,
@@ -188,7 +274,7 @@ def attention_sample(sm, u, v, ds, pad_shape):
     if max(d * h * w, u.numel(), v.numel(), b * nz * ny * nx) >= _INT32:
         raise ValueError(f'attention_sample: sizes beyond 32-bit indices, '
                          f'table {tuple(sm.shape)}, grid {(nz, ny, nx)}')
-    xtab = attention_xtab(ds, d, sm.device)
+    xtab = depth_xtab(ds, d, sm.device)
     out = torch.empty((b, nz, ny, nx), dtype=torch.float32,
                       device=sm.device)
     rc = load('frustum_sample').dfm_attention_sample(

@@ -14,7 +14,11 @@ direct gathers:
   the x4 fine depth-softmax volume) — kernel
   `ops/cuda/sampling.py:attention_sample`;
 * `sem_sample` — bilinear gather of the 2D semantic features (left to
-  XLA in the JAX package as well).
+  XLA in the JAX package as well);
+* `frustum_voxel_features_plain` — plain version of the fused K2: the
+  stereo sample, the sem sample times the attention, and their concat,
+  the composition of the JAX neck's `_fused` cond — kernel
+  `ops/cuda/sampling.py:frustum_voxel_features`.
 
 Index convention (all three): x_idx = u / (pad_w - 1) * (w - 1), the
 same for y; taps outside the table weigh zero; validity
@@ -29,7 +33,8 @@ from .resize import interp_matrix
 
 __all__ = ['slab_uv', 'slab_depth_static', 'depth_tables',
            'build_fine_softmax_volume', 'stereo_sample_plain',
-           'attention_sample_plain', 'sem_sample', 'valid_2d']
+           'attention_sample_plain', 'sem_sample', 'valid_2d',
+           'frustum_voxel_features_plain']
 
 
 def slab_uv(cam2img, xs, ys, zs):
@@ -129,10 +134,14 @@ def _axis_taps(idx, n):
 
 
 def _voxel_taps(u, v, pad_shape, h, w):
-    """Per-voxel (y, x) tap lists broadcast to (B, nz, ny, nx)."""
-    pad_h, pad_w = pad_shape
-    x_idx = (u.float() / (pad_w - 1) * (w - 1)).transpose(1, 2)[:, None]
-    y_idx = (v.float() / (pad_h - 1) * (h - 1)).transpose(1, 2)[:, :, None]
+    """Per-voxel (y, x) tap lists broadcast to (B, nz, ny, nx). The
+    divisors are tensors so that the divisions are true ones on every
+    device, as in the kernels: torch multiplies a CUDA tensor divided by
+    a Python number by the number's reciprocal, which rounds otherwise."""
+    last_h, last_w = (torch.tensor(p - 1., dtype=torch.float32,
+                                   device=u.device) for p in pad_shape)
+    x_idx = (u.float() / last_w * (w - 1)).transpose(1, 2)[:, None]
+    y_idx = (v.float() / last_h * (h - 1)).transpose(1, 2)[:, :, None]
     return _axis_taps(y_idx, h), _axis_taps(x_idx, w)
 
 
@@ -199,3 +208,29 @@ def sem_sample(sem, u, v, pad_shape, valid2d):
             idx = (bidx * hs + yi) * ws + xi
             out = out + flat[idx].float() * (wy * wx)[..., None]
     return out.to(sem.dtype) * valid2d[..., None].to(sem.dtype)
+
+
+def frustum_voxel_features_plain(vol, sem, att, u, v, z0, z1, w0, w1,
+                                 in_range, pad_shape):
+    """Plain version of the fused K2: the voxel feature volume the voxel
+    ConvNorm reads.
+
+    Args:
+        vol: (B, D, H, W, C) stereo volume; sem: (B, Hs, Ws, Cs) semantic
+            features in vol's dtype (Cs may be 0); att: (B, nz, ny, nx)
+            float32 attention (K3's output).
+        u, v, z0, z1, w0, w1, in_range, pad_shape: as
+            `stereo_sample_plain`.
+
+    Returns:
+        (B, nz, ny, nx, C + Cs) in vol's dtype: the stereo sample, then
+        the sem sample (zero where not valid2d) times att cast to the
+        dtype.
+    """
+    voxel, valid2d = stereo_sample_plain(vol, u, v, z0, z1, w0, w1,
+                                         in_range, pad_shape)
+    if sem.shape[-1] == 0:
+        return voxel
+    sem = sem_sample(sem, u, v, pad_shape, valid2d)
+    sem = sem * att.to(sem.dtype)[..., None]
+    return torch.cat([voxel, sem], dim=-1)

@@ -14,7 +14,10 @@ the profiler. Prints, per path, the host ms per request, the device busy
 time (kernels and copies) per request and the idle share; for each stage
 span of `DfM.forward` / `dfm_predict` (and, inside
 `dfm.stereo_backbone`, the backbone's cost_volume / stem / hourglass /
-mono / pred spans) its extent on the device timeline, the kernel time
+mono / pred spans, inside `.cost_volume` its grid / warp spans, and
+inside `dfm.frustum_to_voxel` the neck's uv / softmax_volume /
+attention / voxel_features / voxel_convnorm / pool spans) its extent on
+the device timeline, the kernel time
 inside it and its host time; the device time and launches of each of
 the port's own kernels; and the kernels that take the most device time.
 Writes the same as JSON (`trace_main.json`, `trace_main_stem.json` or
@@ -38,7 +41,7 @@ from .apis import init_dfm_model, init_dfm_stream
 from .models.detectors.dfm import BatchMeta, DfMConfig
 
 # device functions of the port's hand-written kernels (csrc/*.cu)
-PORT_KERNELS = ('warp_prev_kernel', 'stereo_sample_kernel',
+PORT_KERNELS = ('warp_prev_kernel', 'voxel_features',
                 'attention_sample_kernel', 'unpack_vol_kernel',
                 'pack_vol_kernel', 'conv_p2p_kernel', 'unpack_affine_kernel',
                 'conv_s2_kernel',
@@ -84,9 +87,12 @@ def _summary(prof, n, wall_ms, top):
         if e.device_type == DeviceType.CPU and e.name.startswith('dfm.'):
             stages[e.name][2] += e.cpu_time_total / 1e3 / n
     # the profiler gives a span with spans inside it no device range that
-    # covers them: such a span takes the sum of its children
-    for name, v in stages.items():
-        kids = [c for k, c in stages.items() if k.startswith(name + '.')]
+    # covers them: such a span takes the sum of its direct children (the
+    # deepest spans first, so that a child already holds its own sum)
+    for name in sorted(stages, key=lambda k: -k.count('.')):
+        v = stages[name]
+        kids = [c for k, c in stages.items() if k.startswith(name + '.')
+                and '.' not in k[len(name) + 1:]]
         if kids and v[0] < sum(c[0] for c in kids):
             v[0], v[1] = (sum(c[i] for c in kids) for i in (0, 1))
     return dict(

@@ -352,14 +352,18 @@ def test_init_dfm_model_needs_cuda_unless_asked_for_cpu():
 
 
 def test_port_runs_without_jax():
-    """A fresh process imports the port (with the K9a / K9b modules) and
-    runs a tiny CPU forward in the full-chain form without loading
-    JAX."""
+    """A fresh process imports the port (with the K9a / K9b modules and
+    the card-only scripts) and runs a tiny CPU forward in the full-chain
+    form, whose neck runs the fused K2's plain version, and K1's sweep
+    on the CPU without loading JAX."""
     code = (
         'import sys, numpy as np, torch\n'
         'from dfm_tpu_torch.apis import init_dfm_model\n'
         'import dfm_tpu_torch.ops.convgn, dfm_tpu_torch.ops.conv3d\n'
         'import dfm_tpu_torch.ops.cuda.conv3d\n'
+        'import dfm_tpu_torch.trace_main, dfm_tpu_torch.probe_k5\n'
+        'from dfm_tpu_torch.ops import cost_volume as CV\n'
+        'from dfm_tpu_torch.ops.cuda.sampling import warp_prev_sweep\n'
         'from dfm_tpu_torch.models.detectors.dfm import BatchMeta, '
         'DfMConfig\n'
         f'cfg = DfMConfig(**{TINY!r})\n'
@@ -376,6 +380,11 @@ def test_port_runs_without_jax():
         "det = h['infer'](img, BatchMeta.identity(1, cam[None]))\n"
         "assert torch.isfinite(det['boxes3d']).all()\n"
         'assert took == [True]          # the hourglass ran on the chain\n'
+        'p = CV.sweep_params(torch.eye(4)[None], torch.eye(4)[None], '
+        'torch.ones(1), torch.zeros(1), torch.zeros(1, 2), torch.ones(1))\n'
+        'out = warp_prev_sweep(torch.randn(1, 8, 16, 4), p, '
+        'torch.tensor([2., 4.]), 4, 8, 2)\n'
+        'assert out.shape == (1, 2, 4, 8, 4) and torch.isfinite(out).all()\n'
         "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
         "assert not any(m.split('.')[0] == 'dfm_tpu' for m in sys.modules)\n"
         "print('ok')\n")

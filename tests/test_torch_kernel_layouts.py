@@ -27,10 +27,20 @@ as the sources describe it, and are held against the plain versions:
   B layout and m64nN fragment, the epilogue's chunk enumeration over
   the quad transpose, ragged last tiles and output-channel chunks:
   against `conv3d_plain`; and the route (`tensor_core_chunks`).
-* K3 (`csrc/frustum_sample.cu`): `attention_xtab`, the per-block row
+* K3 (`csrc/frustum_sample.cu`): `depth_xtab`, the per-block row
   tables it stages (against `_voxel_taps` and the depth tables) and the
   separable gather in float32, rounded as the kernel rounds: the plain
   version's bits.
+* K2 fused (`csrc/frustum_sample.cu`, `voxel_features_kernel`): the
+  per-x stereo and sem row tables it stages and the per-(x, y) column
+  taps (against `_voxel_taps` and the depth tables), the gather rounded
+  as the kernel rounds (float32 and bf16, Cs = 32 and 0: the plain
+  version's bits), the warp roles and the lane-to-chunk map of a voxel's
+  output row, and the coverage of ragged tiles.
+* K1 sweep (`csrc/warp_prev.cu`): the blocks' pixels, the points each
+  lane computes from the block's parameter row and passes by shuffle,
+  rounded as the kernel rounds (against `sweep_coords_plain`, bit for
+  bit), and the bilinear sum (against `warp_prev_plain`, bit for bit).
 """
 
 import numpy as np
@@ -39,6 +49,7 @@ import torch
 
 from dfm_tpu_torch.ops import conv3d as C3
 from dfm_tpu_torch.ops import conv_chain as CC
+from dfm_tpu_torch.ops import cost_volume as PCV
 from dfm_tpu_torch.ops import frustum_separable as PFS
 from dfm_tpu_torch.ops.cuda import conv3d as KC3
 from dfm_tpu_torch.ops.cuda import conv_chain as KC
@@ -651,7 +662,7 @@ def test_attention_xtab_rows_and_cache():
     """(z0, z1, w0, w1) per slab, the weights zero out of the depth range;
     one device table per content; taps beyond the table raise."""
     ds = _ds(11, 12)
-    tab = K.attention_xtab(ds, 12, torch.device('cpu'))
+    tab = K.depth_xtab(ds, 12, torch.device('cpu'))
     assert tab.shape == (11, 4) and tab.dtype == torch.float32
     keep = ds['in_range'].astype(np.float32)
     np.testing.assert_array_equal(tab.numpy(), np.stack(
@@ -659,10 +670,10 @@ def test_attention_xtab_rows_and_cache():
     assert not ds['in_range'].all() and (tab[~torch.from_numpy(
         ds['in_range'])][:, 2:] == 0).all()
     again = {k: v.copy() for k, v in _ds(11, 12).items()}
-    assert K.attention_xtab(again, 12, torch.device('cpu')) is tab
-    assert K.attention_xtab(_ds(11, 24), 24, torch.device('cpu')) is not tab
+    assert K.depth_xtab(again, 12, torch.device('cpu')) is tab
+    assert K.depth_xtab(_ds(11, 24), 24, torch.device('cpu')) is not tab
     with pytest.raises(ValueError):
-        K.attention_xtab(ds, 8, torch.device('cpu'))
+        K.depth_xtab(ds, 8, torch.device('cpu'))
 
 
 def _emulate_k3(sm, u, v, xtab, pad):
@@ -732,7 +743,7 @@ def test_k3_block_tables_and_gather(w):
     u[0, :, :3] = [pad[1] - 1, pad[1], 0.0]
     v[1, :, :2] = [pad[0] - 1, pad[0]]
     ds = _ds(nx, d)
-    xtab = K.attention_xtab(ds, d, torch.device('cpu')).numpy()
+    xtab = K.depth_xtab(ds, d, torch.device('cpu')).numpy()
     got, rows, wzy = _emulate_k3(sm, u, v, xtab, pad)
 
     tu, tv = torch.from_numpy(u), torch.from_numpy(v)
@@ -750,3 +761,308 @@ def test_k3_block_tables_and_gather(w):
                                       w0, w1, inr, pad).numpy()
     np.testing.assert_array_equal(got, want)
     assert (want != 0).mean() > 0.3
+
+
+# ---------------------------------------------------------------- K2
+
+VOX_X, VOX_Y, QUAD = 8, 32, 4          # csrc/frustum_sample.cu
+
+
+def _bf16(x):
+    """float32 -> nearest-even bf16, kept in float32 (finite values)."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return b.astype(np.uint32).view(np.float32)
+
+
+def _madd(f, w, acc):
+    """csrc/common.cuh:madd: the product and the sum rounded alone."""
+    return np.float32(acc + np.float32(f * w))
+
+
+def _taps(idx, n):
+    """axis_taps (csrc/common.cuh) in float32 numpy."""
+    f = np.float32
+    i0 = np.floor(idx)
+    fr = f(idx - i0)
+    out = []
+    for dd, wt in ((0, f(1) - fr), (1, fr)):
+        ii = i0 + dd
+        ok = (ii >= 0) & (ii <= n - 1)
+        out.append((np.clip(ii, 0, n - 1).astype(np.int64),
+                    np.where(ok, wt, f(0)).astype(f)))
+    return out
+
+
+def _emulate_k2(vol, sem, att, u, v, xtab, pad, rnd):
+    """voxel_features_kernel in float32 numpy, `rnd` the element type's
+    rounding: per (b, z) and x the staged stereo and sem rows and weights,
+    per (x, y) the column taps and validity, the 8 + 4 taps summed in the
+    kernel's order by `_madd` (Cs = 0: the stereo half alone). Returns
+    the output and the staged tables (B, nz, nx, .)."""
+    f = np.float32
+    b_, d, h, w, c = vol.shape
+    _, hs, ws, cs = sem.shape
+    _, nx, ny = u.shape
+    nz = v.shape[2]
+    pad_h, pad_w = f(pad[0]), f(pad[1])
+    vv = v.transpose(0, 2, 1)                                # (B, nz, nx)
+    vok = (vv >= 0) & (vv <= pad_h)
+    yt = _taps(vv / (pad_h - f(1)) * f(h - 1), h)
+    mt = _taps(vv / (pad_h - f(1)) * f(hs - 1), hs)
+    srow = np.zeros((b_, nz, nx, 4), np.int64)
+    swt = np.zeros((b_, nz, nx, 4), f)
+    for dz in range(2):
+        zi = xtab[:, dz].astype(np.int64)
+        wz = xtab[:, 2 + dz]
+        for dy in range(2):
+            yi, wy = yt[dy]
+            srow[..., 2 * dz + dy] = (zi * h + yi) * w
+            swt[..., 2 * dz + dy] = np.where(vok, f(wz * wy), f(0))
+    mrow = np.stack([mt[dy][0] * ws for dy in range(2)], -1)
+    mwt = np.stack([np.where(vok, mt[dy][1], f(0)) for dy in range(2)], -1)
+    uu = u.transpose(0, 2, 1)[:, None]                       # (B,1,ny,nx)
+    xt = _taps(uu / (pad_w - f(1)) * f(w - 1), w)
+    mx = _taps(uu / (pad_w - f(1)) * f(ws - 1), ws)
+    valid = vok[:, :, None, :] & (uu >= 0) & (uu <= pad_w)   # (B,nz,ny,nx)
+    bi = np.arange(b_)[:, None, None, None]
+    flat = vol.reshape(b_, -1, c)
+    acc = np.zeros(valid.shape + (c,), f)
+    for k in range(8):
+        wt = f(swt[:, :, None, :, k >> 1] * xt[k & 1][1])
+        tap = flat[bi, srow[:, :, None, :, k >> 1] + xt[k & 1][0]]
+        use = (valid & (wt != 0))[..., None]
+        acc = np.where(use, _madd(tap, wt[..., None], acc), acc)
+    if cs == 0:
+        return rnd(acc), srow, swt, mrow, mwt
+    a = rnd(att)
+    flat = sem.reshape(b_, -1, cs)
+    sacc = np.zeros(valid.shape + (cs,), f)
+    for k in range(4):
+        wt = f(mwt[:, :, None, :, k >> 1] * mx[k & 1][1])
+        tap = flat[bi, mrow[:, :, None, :, k >> 1] + mx[k & 1][0]]
+        use = (valid & (a != 0) & (wt != 0))[..., None]
+        sacc = np.where(use, _madd(tap, wt[..., None], sacc), sacc)
+    sout = rnd(f(rnd(sacc) * a[..., None]))
+    return np.concatenate([rnd(acc), sout], -1), srow, swt, mrow, mwt
+
+
+@pytest.mark.parametrize('cs', [32, 0])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_k2_staging_and_gather(dtype, cs):
+    """The fused K2's staged per-(x, z) stereo and sem rows and weights
+    against `_voxel_taps` and the depth tables, and its gather, rounded as
+    the kernel rounds, against `frustum_voxel_features_plain`, at B = 2
+    with voxels outside validity, slabs out of the depth range, taps on
+    the last row and column and zeros in the attention, with a sem map
+    (Cs = 32) and without (Cs = 0, `frustum_stereo_sample`'s instance):
+    the plain version's bits (each product and sum rounded alone)."""
+    rng = np.random.RandomState(4)
+    dt = getattr(torch, dtype)
+    rnd = _bf16 if dt == torch.bfloat16 else np.float32
+    b, d, h, w, c = 2, 6, 8, 16, 32
+    hs, ws = 10, 20
+    nz, ny, nx = 5, 40, 37
+    pad = (32, 64)
+    vol = torch.from_numpy(rng.randn(b, d, h, w, c).astype(np.float32)).to(dt)
+    sem = torch.from_numpy(rng.randn(b, hs, ws, cs).astype(np.float32)).to(dt)
+    att = (rng.rand(b, nz, ny, nx) * (rng.rand(b, nz, ny, nx) > 0.2)
+           ).astype(np.float32)
+    u = (rng.rand(b, nx, ny) * (pad[1] + 8) - 4).astype(np.float32)
+    v = (rng.rand(b, nx, nz) * (pad[0] + 8) - 4).astype(np.float32)
+    u[0, :, :3] = [pad[1] - 1, pad[1], 0.0]
+    v[1, :, :2] = [pad[0] - 1, pad[0]]
+    ds = _ds(nx, d)
+    xtab = K.depth_xtab(ds, d, torch.device('cpu')).numpy()
+    got, srow, swt, mrow, mwt = _emulate_k2(
+        vol.float().numpy(), sem.float().numpy(), att, u, v, xtab, pad, rnd)
+
+    tu, tv = torch.from_numpy(u), torch.from_numpy(v)
+    z0, z1, w0, w1, inr = PFS.depth_tables(ds, 'cpu')
+    ys, _ = PFS._voxel_taps(tu, tv, pad, h, w)               # (B,nz,1,nx)
+    vmask = ((tv >= 0) & (tv <= pad[0])).transpose(1, 2).numpy()
+    for dz, (zi, wz) in enumerate(((z0, w0), (z1, w1))):
+        for dy, (yi, wy) in enumerate(ys):
+            k = 2 * dz + dy
+            np.testing.assert_array_equal(
+                srow[..., k], ((zi.long() * h + yi[:, :, 0]) * w).numpy())
+            want = (wz * wy[:, :, 0]).numpy() * vmask * inr.numpy()
+            np.testing.assert_array_equal(swt[..., k], want)
+    ms, _ = PFS._voxel_taps(tu, tv, pad, hs, ws)
+    for dy, (yi, wy) in enumerate(ms if cs else ()):
+        np.testing.assert_array_equal(mrow[..., dy],
+                                      (yi[:, :, 0] * ws).numpy())
+        np.testing.assert_array_equal(mwt[..., dy],
+                                      wy[:, :, 0].numpy() * vmask)
+    want = PFS.frustum_voxel_features_plain(
+        vol, sem, torch.from_numpy(att), tu, tv, z0, z1, w0, w1, inr,
+        pad).float().numpy()
+    assert got.shape == want.shape == (b, nz, ny, nx, c + cs)
+    np.testing.assert_array_equal(got, want)
+    assert (want[..., :c] != 0).mean() > 0.2
+    assert cs == 0 or (want[..., c:] != 0).mean() > 0.2
+
+
+def _k2_threads(cs):
+    """(thread, pass) -> (role, voxel slot of the pass, quad lane) of
+    `voxel_features_kernel`: threads 0-127 (warps 0-3) the stereo role,
+    128-255 (warps 4-7) the sem role; with Cs = 0 both stereo, on
+    alternate passes."""
+    for t in range(256):
+        role, rest = divmod(t, 128)
+        slot, q = divmod(rest, QUAD)
+        for p in range(VOX_X):
+            if cs == 0 and p % 2 != role:
+                continue
+            yield t, p, ('sem' if cs and role else 'stereo'), slot, q
+
+
+@pytest.mark.parametrize('c,cs,vec', [(32, 32, 8), (32, 32, 4), (32, 0, 8),
+                                      (5, 3, 1)])
+def test_k2_lanes_write_each_row_once(c, cs, vec):
+    """The lane-to-chunk map of `voxel_features_kernel`: a warp holds one
+    role, so no warp runs both instruction streams; quad lane q of a
+    voxel's stereo (sem) role takes chunks q, q + 4, ... of VEC elements
+    of the row's first C (last Cs) elements; together they write the
+    row's C + Cs elements once. At the DfM width (bf16, C = Cs = 32) each
+    lane makes one 16-byte store: the stereo quad bytes 0-63, the sem
+    quad bytes 64-127 of the 128-byte row."""
+    owner = {}
+    roles = {}
+    for t, p, role, slot, q in _k2_threads(cs):
+        roles.setdefault(t // 32, set()).add(role)
+        if (p, slot) != (0, 0):
+            continue       # one voxel's row is enough for the map
+        first, count = (0, c) if role == 'stereo' else (c, cs)
+        for j in range(q, count // vec, QUAD):
+            for e in range(first + j * vec, first + (j + 1) * vec):
+                assert e not in owner
+                owner[e] = (role, q)
+    assert all(len(r) == 1 for r in roles.values())
+    if cs:
+        assert roles[0] == {'stereo'} and roles[7] == {'sem'}
+    assert sorted(owner) == list(range(c + cs))
+    assert all((e < c) == (r == 'stereo') for e, (r, _) in owner.items())
+    if (c, cs, vec) == (32, 32, 8):
+        for e, (role, q) in owner.items():
+            assert e // 8 == q + (4 if role == 'sem' else 0)   # 16 bytes
+
+
+@pytest.mark.parametrize('cs', [32, 0])
+@pytest.mark.parametrize('b,nz,ny,nx', [(2, 3, 33, 19), (1, 2, 32, 8),
+                                        (1, 1, 5, 70)])
+def test_k2_ragged_tiles_cover_every_voxel_once(b, nz, ny, nx, cs):
+    """The grid (ceil(ny / 32), ceil(nx / 8), B * nz) of 256 threads, each
+    on voxel (x0 + pass, y0 + slot) of its passes, skipping what lies
+    outside the grid: every voxel is taken by each quad lane of each role
+    exactly once, in one block."""
+    roles = ('stereo', 'sem') if cs else ('stereo',)
+    seen = np.zeros((b, nz, ny, nx, len(roles), QUAD), np.int64)
+    threads = list(_k2_threads(cs))
+    for bz in range(b * nz):
+        bb, z = divmod(bz, nz)
+        for by in range(-(-nx // VOX_X)):
+            for bx in range(-(-ny // VOX_Y)):
+                x0, y0 = by * VOX_X, bx * VOX_Y
+                for _, p, role, slot, q in threads:
+                    x, y = x0 + p, y0 + slot
+                    if x < nx and y < ny:
+                        seen[bb, z, y, x, roles.index(role), q] += 1
+    assert (seen == 1).all()
+
+
+# ---------------------------------------------------------------- K1
+
+K1_ROWS = 4                           # csrc/warp_prev.cu
+
+
+def _sweep_point(p, dd, h, w, step):
+    """sweep_point (csrc/warp_prev.cu) in float32 numpy, for pixel
+    arrays h, w."""
+    f = np.float32
+    org_w, flip, cox, coy, sf, inv = p[12], p[13] > 0, p[14], p[15], \
+        p[16], p[17]
+    u = f(f(f(w.astype(f) * f(step)) + cox) / sf)
+    v = f(f(f(h.astype(f) * f(step)) + coy) / sf)
+    if flip:
+        u = f(org_w - u)
+    r = []
+    for i in range(3):
+        m = p[4 * i:4 * i + 4]
+        s_ = f(f(f(m[0] * u) + f(m[1] * v)) + m[2])
+        r.append(f(f(dd * s_) + m[3]))
+    pu, pv = f(r[0] / r[2]), f(r[1] / r[2])
+    if flip:
+        pu = f(org_w - pu)
+    return f(f(f(pu * sf) - cox) * inv), f(f(f(pv * sf) - coy) * inv)
+
+
+@pytest.mark.parametrize('hq', [10, 8])
+@pytest.mark.parametrize('lanes', [4, 8])
+def test_k1_sweep_blocks_points_and_sum(lanes, hq):
+    """K1's sweep replayed per block (b, d) of 4 output rows: lane j of a
+    warp's 32-pixel group computes pixel j's point from the block's
+    parameter row and depth, step by step as the kernel rounds, and
+    lane l of shuffle step s takes pixel s * (32 / LANES) + l / LANES.
+    Every (pixel, sub-lane) is taken once; the points are
+    `sweep_coords_plain`'s bits, and the bilinear sum with the kernel's
+    rounding is `warp_prev_plain`'s bits, at B = 2 with flip + crop +
+    scale on one sample, with a ragged last row block (hq = 10) and
+    without (hq = 8)."""
+    f = np.float32
+    cam = np.array([[700., 0, 310, 12], [0, 700., 95, 0.3],
+                    [0, 0, 1, 0.004], [0, 0, 0, 1]], np.float32)
+    c2p = np.repeat(np.eye(4, dtype=np.float32)[None], 2, 0)
+    c2p[:, :3, 3] = [(0.3, -0.05, -0.9), (-0.1, 0.02, 1.2)]
+    c2p[0, 0, 2], c2p[0, 2, 0] = 0.02, -0.02
+    params = PCV.sweep_params(
+        torch.from_numpy(np.repeat(cam[None], 2, 0)), torch.from_numpy(c2p),
+        torch.tensor([1242.0, 640.0]), torch.tensor([1.0, 0.0]),
+        torch.tensor([[6.0, 2.0], [0.0, 0.0]]), torch.tensor([0.5, 1.0]), 4)
+    depths = torch.linspace(2.5, 40.0, 3)
+    wq, step = 40, 16
+    want_u, want_v = PCV.sweep_coords_plain(params, depths, hq, wq, step)
+    pn, dn = params.numpy(), depths.numpy()
+    b, d = pn.shape[0], len(dn)
+    got_u = np.full((b, d, hq, wq), np.nan, f)
+    got_v = np.full((b, d, hq, wq), np.nan, f)
+    taken = np.zeros((b, d, hq, wq, lanes), np.int64)
+    kpix = 32 // lanes
+    lane = np.arange(32)
+    for bd in range(b * d):
+        bb, dd = divmod(bd, d)
+        for blk in range(-(-hq // K1_ROWS)):
+            h0 = blk * K1_ROWS
+            npix = min(K1_ROWS, hq - h0) * wq
+            for warp in range(8):
+                for g in range(warp * 32, npix, 256):
+                    p = g + lane
+                    hl = p // wq
+                    pu, pv = _sweep_point(pn[bb], dn[dd], h0 + hl,
+                                          p - hl * wq, step)
+                    for s_ in range(lanes):
+                        q = s_ * kpix + lane // lanes
+                        ok = g + q < npix
+                        pix = g + q[ok]
+                        hh, ww = h0 + pix // wq, pix % wq
+                        np.add.at(taken, (bb, dd, hh, ww, lane[ok] % lanes), 1)
+                        got_u[bb, dd, hh, ww] = pu[q[ok]]
+                        got_v[bb, dd, hh, ww] = pv[q[ok]]
+    assert (taken == 1).all()
+    np.testing.assert_array_equal(got_u, want_u.numpy())
+    np.testing.assert_array_equal(got_v, want_v.numpy())
+
+    rng = np.random.RandomState(6)
+    prev = rng.randn(b, 48, 160, 8).astype(np.float32)
+    h, w = prev.shape[1:3]
+    yt, xt = _taps(got_v, h), _taps(got_u, w)
+    acc = np.zeros(got_u.shape + (8,), f)
+    bi = np.arange(b)[:, None, None, None]
+    for k in range(4):
+        (yi, wy), (xi, wx) = yt[k >> 1], xt[k & 1]
+        wt = f(wx * wy)
+        acc = np.where((wt != 0)[..., None],
+                       _madd(prev[bi, yi, xi], wt[..., None], acc), acc)
+    want = PCV.warp_prev_plain(torch.from_numpy(prev), want_u, want_v)
+    np.testing.assert_array_equal(acc, want.numpy())
+    assert (want.numpy() != 0).mean() > 0.5

@@ -3,7 +3,9 @@ every CUDA kernel of the port against its plain version on the card.
 
 The plain PyTorch versions are held against
 * the JAX XLA references in float32 (atol 1e-5: the same f32 products,
-  summed in another order), and
+  summed in another order; for the fused K2, the composition of the JAX
+  neck's `_fused` cond: stereo sample, sem sample x attention, concat;
+  for K1's in-kernel grid, `plane_sweep_grids` at 2e-3 px), and
 * the Pallas TPU kernels in interpret mode in bf16 (atol/rtol 6e-2, the
   JAX package's own tolerance for these kernels: they round their
   interpolation weights to bf16).
@@ -232,14 +234,190 @@ def test_sem_sample_matches_xla():
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want), **F32_TOL)
 
 
+def _voxel_data(seed, b=2, vol_shape=(6, 8, 16, 4), sem_shape=(10, 20, 3),
+                grid=(5, 12, 10)):
+    """Inputs of the fused K2 at B = 2: voxels outside the image on both
+    axes, slabs out of the depth range (xs from 1 to 32 against 2-30),
+    taps on the tables' last row and column (u = pad_w - 1, v = pad_h - 1)
+    and on the inclusive edge (u = pad_w, v = pad_h), an attention with
+    zeros."""
+    rng = np.random.RandomState(seed)
+    nz, ny, nx = grid
+    pad = (32, 64)
+    vol = rng.randn(b, *vol_shape).astype(np.float32)
+    sem = rng.randn(b, *sem_shape).astype(np.float32)
+    att = (rng.rand(b, nz, ny, nx) * (rng.rand(b, nz, ny, nx) > 0.2)
+           ).astype(np.float32)
+    u = (rng.rand(b, nx, ny) * (pad[1] + 8) - 4).astype(np.float32)
+    v = (rng.rand(b, nx, nz) * (pad[0] + 8) - 4).astype(np.float32)
+    u[0, :, :3] = [pad[1] - 1, pad[1], 0.0]
+    v[1, :, :2] = [pad[0] - 1, pad[0]]
+    xs = np.linspace(1.0, 32.0, nx)
+    return vol, sem, att, u, v, xs, pad
+
+
+def _jax_voxel_features(vol, sem, att, u, v, ds, pad):
+    """The JAX neck's `_fused` composition per sample, in float32:
+    separable_stereo_sample, separable_sem_sample x att, concat."""
+    outs = []
+    for i in range(vol.shape[0]):
+        voxel, valid = FS.separable_stereo_sample(
+            jnp.asarray(vol[i]), jnp.asarray(u[i]), jnp.asarray(v[i]), ds,
+            pad)
+        s2d = FS.separable_sem_sample(jnp.asarray(sem[i]), jnp.asarray(u[i]),
+                                      jnp.asarray(v[i]), pad, valid)
+        s2d = s2d * jnp.asarray(att[i])[..., None]
+        outs.append(np.asarray(jnp.concatenate([voxel, s2d], axis=-1)))
+    return np.stack(outs)
+
+
+def test_voxel_features_plain_matches_jax():
+    """The fused K2's plain version against the JAX composition in float32
+    (atol 1e-5 + rtol 1e-5) at B = 2, with invalid voxels, slabs out of
+    the depth range and taps on the table edges."""
+    vol, sem, att, u, v, xs, pad = _voxel_data(0)
+    ds = FS.slab_depth_static(xs, 2.0, 30.0, vol.shape[1])
+    assert not ds['in_range'].all()
+    want = _jax_voxel_features(vol, sem, att, u, v, ds, pad)
+    got = PFS.frustum_voxel_features_plain(
+        _t(vol), _t(sem), _t(att), _t(u), _t(v),
+        *PFS.depth_tables(PFS.slab_depth_static(xs, 2.0, 30.0, 6), 'cpu'),
+        pad)
+    assert got.shape == vol.shape[:1] + att.shape[1:] + (4 + 3,)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    assert (want[..., :4] != 0).mean() > 0.2
+    assert (want[..., 4:] != 0).mean() > 0.2
+
+
+def test_voxel_features_stereo_half_matches_pallas_interpret():
+    """The stereo half of the fused K2 (bf16, on the CPU: the plain
+    version) against the Pallas K2 in interpret mode (BF16_TOL)."""
+    from dfm_tpu.ops.pallas.frustum_sample import (
+        frustum_stereo_sample_pallas)
+    vol, sem, att, u, v, xs, pad = _voxel_data(1)
+    ds = FS.slab_depth_static(xs, 2.0, 30.0, vol.shape[1])
+    groups = FS._group_slabs(ds['z0'])
+    got = K.frustum_voxel_features(
+        _t(vol, torch.bfloat16), _t(sem, torch.bfloat16), _t(att), _t(u),
+        _t(v), PFS.slab_depth_static(xs, 2.0, 30.0, 6), pad)
+    assert got.dtype == torch.bfloat16
+    for i in range(vol.shape[0]):
+        want, _ = _interpret(
+            frustum_stereo_sample_pallas,
+            jnp.asarray(vol[i]).astype(jnp.bfloat16), jnp.asarray(u[i]),
+            jnp.asarray(v[i]), ds, pad,
+            (groups[0], groups[1], groups[2], FS._runs(ds['z0'])))
+        np.testing.assert_allclose(got[i, ..., :4].float().numpy(),
+                                   _f32(want), **BF16_TOL)
+
+
+def test_voxel_features_plain_is_the_neck_composition_bf16():
+    """In bf16 the fused plain version is, bit for bit, the neck's unfused
+    composition (stereo sample; sem sample, masked by valid2d, times the
+    attention cast to bf16; concat); with Cs = 0 it is the stereo
+    sample."""
+    vol, sem, att, u, v, xs, pad = _voxel_data(2)
+    tabs = PFS.depth_tables(PFS.slab_depth_static(xs, 2.0, 30.0, 6), 'cpu')
+    vb, sb = _t(vol, torch.bfloat16), _t(sem, torch.bfloat16)
+    tu, tv, ta = _t(u), _t(v), _t(att)
+    voxel, valid = PFS.stereo_sample_plain(vb, tu, tv, *tabs, pad)
+    s2d = PFS.sem_sample(sb, tu, tv, pad, valid)
+    s2d = s2d * ta.to(s2d.dtype)[..., None]
+    want = torch.cat([voxel, s2d], dim=-1)
+    got = PFS.frustum_voxel_features_plain(vb, sb, ta, tu, tv, *tabs, pad)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert torch.equal(PFS.frustum_voxel_features_plain(
+        vb, sb[..., :0], ta, tu, tv, *tabs, pad), voxel)
+
+
+def _sweep_meta(tag):
+    """Plane-sweep inputs: depths, and per sample cam2img, cur2prev (ego
+    motion with a small yaw), org_w, flip, crop_offset, scale_factor.
+    `id`: identity aug; `aug`: flip + crop + scale; `b2`, `aug_b2`: B = 2,
+    `id` or `aug` beside another aug and ego-motion."""
+    depths = np.linspace(2.5, 40.0, 5).astype(np.float32)
+    cam = np.array([[700., 0, 310, 12], [0, 700., 95, 0.3],
+                    [0, 0, 1, 0.004], [0, 0, 0, 1]], np.float32)
+
+    def ego(t, yaw):
+        c2p = np.eye(4, dtype=np.float32)
+        c2p[:3, 3] = t
+        c, s = np.cos(yaw), np.sin(yaw)
+        c2p[0, 0], c2p[0, 2], c2p[2, 0], c2p[2, 2] = c, s, -s, c
+        return c2p
+
+    metas = dict(id=(ego((0.3, -0.05, -0.9), 0.02), 640.0, 0.0, (0.0, 0.0),
+                     1.0),
+                 aug=(ego((0.3, -0.05, -0.9), 0.02), 1242.0, 1.0, (6.0, 2.0),
+                      0.5),
+                 other=(ego((-0.1, 0.02, 1.2), -0.03), 700.0, 0.0,
+                        (3.0, 1.0), 0.8))
+    rows = [metas[k] for k in dict(b2=('id', 'other'),
+                                   aug_b2=('aug', 'other')).get(tag, (tag,))]
+    cols = [np.stack([np.asarray(r[i], np.float32) for r in rows])
+            for i in range(5)]
+    return depths, np.repeat(cam[None], len(rows), 0), cols
+
+
+@pytest.mark.parametrize('tag', ['id', 'aug', 'b2'])
+@pytest.mark.parametrize('fsf', [1, 4])
+def test_sweep_coords_match_grids(tag, fsf):
+    """K1's in-kernel sample points (`sweep_coords_plain` of
+    `sweep_params`) against the prev grid of the port's
+    `plane_sweep_grids` and of the JAX package's, atol 2e-3 px (the
+    tolerance of `test_plane_sweep_grids_match`; the composed map is
+    rounded once from float64, the grids solve in float32)."""
+    depths, cam, (c2p, org_w, flip, crop, sf) = _sweep_meta(tag)
+    feat_shape, csf = (48, 160), 4
+    hq, wq = 12, 40
+    meta = [_t(x) for x in (org_w, flip, crop, sf)]
+    params = PCV.sweep_params(_t(cam), _t(c2p), *meta, fsf)
+    assert params.shape == (len(cam), PCV.SWEEP_PARAMS)
+    u, v = PCV.sweep_coords_plain(params, _t(depths), hq, wq, fsf * csf)
+    _, grid = PCV.plane_sweep_grids(_t(depths), _t(cam), _t(c2p),
+                                    feat_shape, csf, fsf, *meta)
+    tol = dict(atol=2e-3, rtol=1e-5)
+    np.testing.assert_allclose(u.numpy(), grid[..., 0].numpy(), **tol)
+    np.testing.assert_allclose(v.numpy(), grid[..., 1].numpy(), **tol)
+    for i in range(len(cam)):
+        _, want = jax_grids(
+            jnp.asarray(depths), jnp.asarray(cam[i]), jnp.asarray(c2p[i]),
+            feat_shape, csf, fsf, jnp.float32(org_w[i]),
+            jnp.float32(flip[i]), jnp.asarray(crop[i]), jnp.float32(sf[i]))
+        np.testing.assert_allclose(u[i].numpy(), np.asarray(want[..., 0]),
+                                   **tol)
+        np.testing.assert_allclose(v[i].numpy(), np.asarray(want[..., 1]),
+                                   **tol)
+
+
 def test_wrappers_take_plain_version_on_cpu(warp_data):
     """On CPU tensors the wrappers return the plain versions and launch
-    nothing."""
+    nothing: K1 (coordinates read and the sweep), K2 (fused and its
+    Cs = 0 instance), K3."""
     prev, u, v = warp_data
     K.reset_launch_counts()
     got = K.warp_prev(_t(prev), _t(u), _t(v))
     want = PCV.warp_prev_plain(_t(prev), _t(u), _t(v))
     assert torch.equal(got, want)
+    depths, cam, (c2p, *meta) = _sweep_meta('b2')
+    params = PCV.sweep_params(_t(cam), _t(c2p), *(_t(x) for x in meta))
+    got = K.warp_prev_sweep(_t(prev), params, _t(depths), 6, 16, 4)
+    want = PCV.warp_prev_plain(_t(prev), *PCV.sweep_coords_plain(
+        params, _t(depths), 6, 16, 4))
+    assert got.shape == (2, 5, 6, 16, 32) and torch.equal(got, want)
+    vol, sem, att, u2, v2, xs, pad = _voxel_data(3)
+    ds = PFS.slab_depth_static(xs, 2.0, 30.0, 6)
+    tabs = PFS.depth_tables(ds, 'cpu')
+    args = (_t(u2), _t(v2))
+    got = K.frustum_voxel_features(_t(vol), _t(sem), _t(att), *args, ds, pad)
+    assert torch.equal(got, PFS.frustum_voxel_features_plain(
+        _t(vol), _t(sem), _t(att), *args, *tabs, pad))
+    got, valid = K.frustum_stereo_sample(_t(vol), *args, ds, pad)
+    want, valid_w = PFS.stereo_sample_plain(_t(vol), *args, *tabs, pad)
+    assert torch.equal(got, want) and torch.equal(valid, valid_w)
+    sm = _t(np.abs(vol[:, :, :, :, 0]))
+    assert torch.equal(K.attention_sample(sm, *args, ds, pad),
+                       PFS.attention_sample_plain(sm, *args, *tabs, pad))
     assert K.LAUNCHES == {k: 0 for k in K.LAUNCHES}
 
 
@@ -321,6 +499,88 @@ def test_cuda_attention_sample_edges(dtype):
                                    **F32_TOL)
         assert float((want != 0).float().mean()) > 0.3
         assert bool((got[want == 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_cuda_voxel_features_match_plain(dtype):
+    """The fused K2 against its plain version on the card at B = 2, with
+    grids that leave ragged 8 x 32 (x, y) tiles, invalid voxels, slabs out
+    of the depth range, edge taps and zeros in the attention: Cs = 32
+    (16-byte chunks: one per lane in bf16, two in float32), Cs = 0 (also
+    through `frustum_stereo_sample`, with valid2d) and channel counts
+    that take one element per lane (C = 5, Cs = 3). f32: atol 1e-5 +
+    rtol 1e-5; bf16: one bf16 rounding (atol 2e-2 + rtol 1e-2); and, as
+    the kernel rounds as the plain version does, its bits."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    dt = getattr(torch, dtype)
+    tol = F32_TOL if dt == torch.float32 else dict(atol=2e-2, rtol=1e-2)
+    dev = 'cuda'
+    for c, cs, grid in ((32, 32, (5, 40, 37)), (32, 32, (3, 33, 70)),
+                        (32, 0, (5, 40, 37)), (5, 3, (4, 35, 19))):
+        vol, sem, att, u, v, xs, pad = _voxel_data(
+            7, vol_shape=(6, 8, 16, c), sem_shape=(10, 20, cs), grid=grid)
+        ds = PFS.slab_depth_static(xs, 2.0, 30.0, 6)
+        tabs = PFS.depth_tables(ds, dev)
+        vb, sb = _t(vol, dt).to(dev), _t(sem, dt).to(dev)
+        tu, tv, ta = _t(u).to(dev), _t(v).to(dev), _t(att).to(dev)
+        K.reset_launch_counts()
+        got = K.frustum_voxel_features(vb, sb, ta, tu, tv, ds, pad)
+        want = PFS.frustum_voxel_features_plain(vb, sb, ta, tu, tv, *tabs,
+                                                pad)
+        assert got.shape == want.shape == (2,) + grid + (c + cs,)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol)
+        assert torch.equal(got, want)
+        assert bool((got[want == 0] == 0).all())
+        assert float((want != 0).float().mean()) > 0.2
+        got, valid = K.frustum_stereo_sample(vb, tu, tv, ds, pad)
+        want, valid_w = PFS.stereo_sample_plain(vb, tu, tv, *tabs, pad)
+        assert torch.equal(valid, valid_w)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol)
+        assert torch.equal(got, want)
+        assert K.LAUNCHES['frustum_stereo_sample'] == 2
+    with pytest.raises(TypeError):      # sem in another dtype
+        K.frustum_voxel_features(vb, sb.float() if dt != torch.float32
+                                 else sb.to(torch.bfloat16), ta, tu, tv, ds,
+                                 pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tag', ['id', 'aug'])
+def test_cuda_warp_prev_sweep_matches_plain(tag):
+    """K1 with its grid computed in the kernel against
+    `sweep_coords_plain` + `warp_prev_plain` on the card (f32: atol 1e-5 +
+    rtol 1e-5; bf16: one bf16 rounding; and, as the kernel rounds as
+    they do, their bits), `id`: one sample with identity
+    aug; `aug`: B = 2, flip + crop + scale beside another meta and
+    ego-motion; 16-byte rows and one element per lane (C = 6), an output
+    of 12 rows (three blocks of 4) x 40 columns."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    dev = 'cuda'
+    depths, cam, (c2p, *meta) = _sweep_meta(dict(aug='aug_b2').get(tag,
+                                                                   tag))
+    params = PCV.sweep_params(_t(cam).to(dev), _t(c2p).to(dev),
+                              *(_t(x).to(dev) for x in meta), 4)
+    dd = _t(depths).to(dev)
+    rng = np.random.RandomState(4)
+    for dt in (torch.float32, torch.bfloat16):
+        tol = F32_TOL if dt == torch.float32 else dict(atol=2e-2, rtol=1e-2)
+        prev = _t(rng.randn(len(cam), 48, 160, 32), dt).to(dev)
+        for table in (prev, prev[..., :6].contiguous()):
+            K.reset_launch_counts()
+            got = K.warp_prev_sweep(table, params, dd, 12, 40, 16)
+            assert K.LAUNCHES['warp_prev'] == 1
+            want = PCV.warp_prev_plain(table, *PCV.sweep_coords_plain(
+                params, dd, 12, 40, 16))
+            assert got.shape == (len(cam), 5, 12, 40, table.shape[-1])
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(), **tol)
+            assert torch.equal(got, want)
+            assert float((want != 0).float().mean()) > 0.5
 
 
 @pytest.mark.cuda
