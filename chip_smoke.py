@@ -8,13 +8,12 @@ Phases, one line each; any failure raises and no result is printed:
   2. build    nvcc for every kernel source, all at once
   3. kernels  K1 warp_prev (the sweep, its points computed in the
               kernel, at the KITTI meta and a flip + crop + scale meta, its
-              points also held against plane_sweep_grids, 2e-3 px; and
-              with the points read from memory), K3 attention_sample, K2
-              frustum_stereo_sample (fused: stereo + sem samples x K3's
-              attention + concat, the two halves held apart, the sem
-              half, ~1/288 of the stereo half's size, to one bf16
-              rounding of its own size; and its Cs = 0 instance) at the
-              DfM-KITTI main-path shapes; K8a pack_vol, K8b
+              points also held against plane_sweep_grids, 2e-3 px), K3
+              attention_sample, K2 frustum_stereo_sample (fused: stereo +
+              sem samples x K3's attention + concat, the two halves held
+              apart, the sem half, ~1/288 of the stereo half's size, to
+              one bf16 rounding of its own size) at the DfM-KITTI
+              main-path shapes; K8a pack_vol, K8b
               unpack_vol, K4 conv_p2p (with and without the residual),
               K7a unpack_affine_res (stem exit and pred exit), K7b
               gn_affine_res_packed (with and without residual and relu),
@@ -32,17 +31,21 @@ Phases, one line each; any failure raises and no result is printed:
               products on the tensor cores 989 TFLOP/s, dense); K4's
               achieved TFLOP/s and share of that peak, K3's time over
               `F.grid_sample`'s; for K1, K2, K3, K4, K5 (both depths) and
-              K9b also the device time of the kernels of one call
-              (torch.profiler), without the host time around them. Then
-              the K9 block: K9a conv3d_zpack and K9b conv3d_pallas, on no
-              model path, at the DfM trunk width (72, 80, 320, 32) bf16,
-              in float32 at a smaller shape, K9b 16 -> 8 (bf16, f32) and
-              42 -> 42 and K9a 8 -> 32 (the direct kernel), each against
-              its plain version, K9a's partials and `conv3d_gn` with
+              K9a, K9b also the device time of the kernels of one call
+              (torch.profiler), without the host time around them (K9a:
+              also of its conv kernel alone, without the fold of its
+              partials). Then
+              the K9 block: K9a conv3d_zpack (with its GroupNorm finish
+              kernel) and K9b conv3d_pallas, on no model path, at the DfM
+              trunk width (72, 80, 320, 32) bf16, in float32 at a smaller
+              shape, K9b 16 -> 8 (bf16, f32) and 42 -> 42 and K9a 8 -> 32
+              and 16 -> 24 (bf16, the `wgmma` code), each against its
+              plain version, K9a's partials, its finish against the
+              plain apply step (bit for bit) and `conv3d_gn` with
               residual and relu, twice bit for bit, with times, bound and
-              the `F.conv3d` time (K9b: its ratio to it, its share of the
-              bf16 peak, the device code each case ran); then their own
-              path: the entry points
+              the `F.conv3d` time (K9a, K9b: the ratio to it, the share
+              of the bf16 peak, the device code each case ran); then
+              their own path: the entry points
               `convgn.conv3d_zpack`, `convgn.conv3d_gn` and
               `cuda.conv3d.conv3d` once each with the launch counts set to 0
               just before and read just after
@@ -90,8 +93,9 @@ MONO_DEPTH = 44               # slices of the reduced mono volume of 72 planes
 SAMPLING = dict(warp_prev=1, frustum_stereo_sample=1, attention_sample=1)
 NO_CHAIN = dict(pack_vol=0, conv_p2p=0, unpack_affine_res=0, conv_s2_p2d=0,
                 pack_parity8=0, gn_affine_res_packed=0, unpack_vol=0)
-# K9a, K9b: on no model path (their path is their own entry points)
-OFF_PATH = dict(conv3d_zpack=0, conv3d_pallas=0)
+# K9a (with its GroupNorm finish), K9b: on no model path (their path is
+# their own entry points)
+OFF_PATH = dict(conv3d_zpack=0, conv3d_gn_finish=0, conv3d_pallas=0)
 LAUNCHES_OF = {
     'dense': {**SAMPLING, **NO_CHAIN, **OFF_PATH},
     # K8a prev + pred, K4 dres0 + dres1 + pred, K7a stem + pred exit
@@ -110,9 +114,10 @@ LAUNCHES_OF = {
 }
 # the ten kernels of the main path
 MAIN_PATH = [k for k, n in LAUNCHES_OF['chain'].items() if n]
-# K9's path: conv3d_zpack and conv3d_gn (K9a), conv3d (K9b), once each
+# K9's path: conv3d_zpack and conv3d_gn (K9a, + the finish), conv3d
+# (K9b), once each
 K9_PATH = {**dict.fromkeys(LAUNCHES_OF['chain'], 0), 'conv3d_zpack': 2,
-           'conv3d_pallas': 1}
+           'conv3d_gn_finish': 1, 'conv3d_pallas': 1}
 FORM_ARGS = {'chain': {}, 'stem': dict(packed='stem'),
              'dense': dict(use_band=False, packed=False)}
 
@@ -145,10 +150,10 @@ def cuda_ms(fn, reps=REPS, warmup=3):
     return float(np.median(times))
 
 
-def device_ms(fn, reps=5):
+def device_ms(fn, reps=5, kernel=None):
     """Device time of the kernels one call of `fn` launches (their sum,
-    torch.profiler), without the host time around them that `cuda_ms`
-    also sees."""
+    torch.profiler; of those whose name holds `kernel`, if given),
+    without the host time around them that `cuda_ms` also sees."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -159,7 +164,8 @@ def device_ms(fn, reps=5):
             fn()
         torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+               if e.device_type == DeviceType.CUDA
+               and (kernel is None or kernel in e.name)) / 1e3 / reps
 
 
 def card_line():
@@ -246,9 +252,8 @@ def kernel_phase(cfg, dev):
               f'bound_ms {max(t_bytes, t_ops):.4f}', flush=True)
 
     # K1 at (1, 320, 1280, 32) -> (1, 72, 80, 320, 32): the sweep (grid
-    # computed in the kernel, the main path) at the KITTI meta and at a
-    # flip + crop + scale meta, and the kernel with the grid read from
-    # memory
+    # computed in the kernel) at the KITTI meta and at a flip + crop +
+    # scale meta
     prev = torch.randn(1, h, w, cfg.stereo_channels[1], generator=gen,
                        device=dev).to(bf)
     step = cfg.cost_sample_factor
@@ -282,9 +287,6 @@ def kernel_phase(cfg, dev):
         depths, meta.ori_cam2img, meta.cur2prev, (h, w), step, 1,
         meta.org_w, meta.flip, meta.crop_offset, meta.scale_factor)
     gu, gv = grid[..., 0].contiguous(), grid[..., 1].contiguous()
-    got = K.warp_prev(prev, gu, gv)
-    err1 = max(err1, agree('warp_prev', got, CV.warp_prev_plain(prev, gu, gv),
-                           tol1))
     prev_nchw = prev.permute(0, 3, 1, 2).contiguous()
     norm = torch.stack([gu / (w - 1) * 2 - 1, gv / (h - 1) * 2 - 1],
                        -1).reshape(1, d * hq, wq, 2).to(bf)
@@ -300,8 +302,6 @@ def kernel_phase(cfg, dev):
            needed_bytes(CV.warp_prev_plain, prev, prev.shape[-1], gu, gv)
            + params.numel() * 4 + d * 4 + got.numel() * got.element_size(),
            8 * got.numel(), device_ms=device_ms(sweep),
-           ms_read_coords=cuda_ms(lambda: K.warp_prev(prev, gu, gv)),
-           device_ms_read_coords=device_ms(lambda: K.warp_prev(prev, gu, gv)),
            ms_sweep_params=cuda_ms(lambda: sweep_inputs(meta)),
            ms_plane_sweep_grids=cuda_ms(lambda: CV.plane_sweep_grids(
                depths, meta.ori_cam2img, meta.cur2prev, (h, w), step, 1,
@@ -352,8 +352,7 @@ def kernel_phase(cfg, dev):
     del sm, sm_ncdhw, g3
 
     # K2 fused at (1, 72, 80, 320, 32) + sem (1, 80, 320, 32) + K3's
-    # attention -> (1, 20, 304, 288, 64); and its Cs = 0 instance
-    # (frustum_stereo_sample, + valid2d)
+    # attention -> (1, 20, 304, 288, 64)
     vol = torch.randn(1, d, hq, wq, cfg.cv_channels, generator=gen,
                       device=dev).to(bf)
     sem = torch.randn(1, hq, wq, cfg.sem_channels[1], generator=gen,
@@ -377,13 +376,6 @@ def kernel_phase(cfg, dev):
                     want[..., c:], sem_tol)
     check(bool((want[..., c:] != 0).any()),
           'frustum_voxel_features: the sem half is all zero')
-    stereo = lambda: K.frustum_stereo_sample(vol, u, v, ds,  # noqa: E731
-                                             IMG_HW)
-    got0, valid = stereo()
-    want0, valid_w = FS.stereo_sample_plain(vol, u, v, *tabs, IMG_HW)
-    check(torch.equal(valid, valid_w), 'frustum_stereo_sample: valid2d')
-    err_stereo_only = agree('frustum_stereo_sample', got0, want0,
-                            (1e-2, 1e-2))
     vol_ncdhw = vol.permute(0, 4, 1, 2, 3).contiguous()
     g2 = lib_grid(d, hq, wq).to(bf)
     sem_rows = needed_bytes(
@@ -394,7 +386,7 @@ def kernel_phase(cfg, dev):
                             v, *tabs, IMG_HW)
     report('frustum_stereo_sample', 'dfm_tpu_torch/csrc/frustum_sample.cu',
            'dfm_tpu/ops/pallas/frustum_sample.py:92',
-           max(err_stereo, err_sem, err_stereo_only), (1e-2, 1e-2),
+           max(err_stereo, err_sem), (1e-2, 1e-2),
            cuda_ms(fused),
            cuda_ms(lambda: FS.frustum_voxel_features_plain(
                vol, sem, att, u, v, *tabs, IMG_HW)),
@@ -402,20 +394,12 @@ def kernel_phase(cfg, dev):
                                          align_corners=True)),
            vol_rows + sem_rows + att.numel() * 4
            + (u.numel() + v.numel()) * 4 + got.numel() * 2,
-           16 * got0.numel() + 9 * (got.numel() - got0.numel()),
+           16 * got[..., :c].numel() + 9 * got[..., c:].numel(),
            max_abs_err_stereo=err_stereo, max_abs_err_sem=err_sem,
            sem_tol=f'atol {sem_tol[0]} + rtol {sem_tol[1]}',
-           max_abs_err_stereo_only=err_stereo_only,
            device_ms=device_ms(fused),
            library_device_ms=device_ms(
-               lambda: F.grid_sample(vol_ncdhw, g2, align_corners=True)),
-           ms_stereo_only=cuda_ms(stereo),
-           device_ms_stereo_only=device_ms(stereo),
-           plain_ms_stereo_only=cuda_ms(lambda: FS.stereo_sample_plain(
-               vol, u, v, *tabs, IMG_HW)),
-           bound_ms_stereo_only=(vol_rows + (u.numel() + v.numel()) * 4
-                                 + got0.numel() * 2 + valid.numel())
-           / HBM_BYTES_PER_S * 1e3)
+               lambda: F.grid_sample(vol_ncdhw, g2, align_corners=True)))
     del g2, vol_ncdhw
     chain_kernel_phase(vol[0], gen, agree, report)
     for name, n in conv3d_kernel_phase(vol[0], gen, agree, report).items():
@@ -673,17 +657,19 @@ def chain_kernel_phase(x, gen, agree, report):
 
 
 def conv3d_kernel_phase(x, gen, agree, report):
-    """K9a (`ops/cuda/conv3d.py:conv3d_stats`: K4's first tensor-core code
-    at bf16 C = C_out = 32, the direct kernel elsewhere) and K9b
-    (`conv3d`: the `wgmma` code for bf16 with C, C_out % 8 == 0, the
-    direct kernel elsewhere) at the DfM trunk width (72, 80, 320, 32) bf16, in
-    float32 at (16, 40, 96, 32), K9b 16 -> 8 (bf16, f32) and 42 -> 42
-    (f32: weights chunked over C_out), K9a 8 -> 32 (bf16): outputs against
+    """K9a (`ops/cuda/conv3d.py:conv3d_stats`: the moment instance of the
+    `wgmma` code for bf16 with C, C_out % 8 == 0, the direct kernel
+    elsewhere; and its finish `gn_finish`) and K9b (`conv3d`: the `wgmma`
+    code for bf16 with C, C_out % 8 == 0, the direct kernel elsewhere) at
+    the DfM trunk width (72, 80, 320, 32) bf16, in float32 at (16, 40, 96,
+    32), K9b 16 -> 8 (bf16, f32) and 42 -> 42 (f32: weights chunked over
+    C_out), K9a 8 -> 32 and 16 -> 24 (bf16, two chunks): outputs against
     the plain versions, bf16 to one rounding (atol 1e-2 + rtol 1e-2), f32
     atol 1e-4 + rtol 1e-4 (the same f32 products summed in another order;
     cuDNN's TF32 off for the plain convs); K9a's partials in the JAX layout
     as the chain's moments (sums of squares rtol 1e-4, sums rtol 1e-4 +
-    atol 1e-6 * sqrt(n * sum of squares)); `conv3d_gn` with residual and
+    atol 1e-6 * sqrt(n * sum of squares)); the finish kernel bit for bit
+    its plain apply step on the same inputs; `conv3d_gn` with residual and
     relu to one rounding more; every kernel run twice, bit for bit. Times
     at the DfM width. Then K9's own path, the entry points once each with
     the launch counts set to 0 just before; returns those counts."""
@@ -711,20 +697,25 @@ def conv3d_kernel_phase(x, gen, agree, report):
         check(bool(((got - want).abs() <= lim).all()),
               f'{name}: partials disagree')
 
+    def code(xx, ww, route):
+        return (f'{tuple(xx.shape)} -> {ww.shape[0]} {xx.dtype}: '
+                + ('direct' if route is None else f'wgmma {route}'))
+
     w32 = weights(c, c)
     small = (16, 40, 96)
     # (volume, weights, tolerance) of each case; the DfM width first
     cases = [(x, w32, (1e-2, 1e-2)),
              (volume(small + (c,), torch.float32), w32, (1e-4, 1e-4))]
-    zpack_cases = cases + [(volume(small + (8,), x.dtype), weights(8, c),
-                            (1e-2, 1e-2))]
+    zpack_cases = cases + [
+        (volume(small + (8,), x.dtype), weights(8, c), (1e-2, 1e-2)),
+        (volume(small + (16,), x.dtype), weights(16, 24), (1e-2, 1e-2))]
     conv_cases = cases + [
         (volume(small + (16,), x.dtype), weights(16, 8), (1e-2, 1e-2)),
         (volume(small + (16,), torch.float32), weights(16, 8), (1e-4, 1e-4)),
         (volume((8,) + small[1:] + (42,), torch.float32), weights(42, 42),
          (1e-4, 1e-4))]
     err = {'conv3d_zpack': 0.0, 'conv3d_pallas': 0.0}
-    codes = []            # the device code each K9b case ran
+    codes = {'conv3d_zpack': [], 'conv3d_pallas': []}
     flag = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -742,10 +733,19 @@ def conv3d_kernel_phase(x, gen, agree, report):
             gamma = torch.rand(co, generator=gen, device=dev) + 0.5
             beta = torch.randn(co, generator=gen, device=dev)
             res = volume(xx.shape[:3] + (co,), xx.dtype)
+            sc, bs = G.gn_partials_affine(ps, out.shape, gamma, beta, 8)
+            for r, relu in ((res, True), (None, False)):
+                check(torch.equal(KC3.gn_finish(out, sc, bs, r, relu),
+                                  G.gn_finish_plain(out, sc, bs, r, relu)),
+                      f'conv3d_gn_finish: kernel differs from its plain '
+                      f'version {at} (residual={r is not None}, '
+                      f'relu={relu})')
             gn = [f(xx, ww, gamma, beta, 8, residual=res, relu=True, th=th)
                   for f in (G.conv3d_gn, G.conv3d_gn_plain)]
             agree(f'conv3d_gn {at}', *gn, tuple(2 * t for t in tol))
             check(bool((gn[0] >= 0).all()), f'conv3d_gn: relu {at}')
+            codes['conv3d_zpack'].append(code(xx, ww, KC3.stats_route(
+                xx.dtype, xx.shape[-1], co)[0]))
         for xx, ww, tol in conv_cases:
             at = f'{tuple(xx.shape)} -> {ww.shape[0]} {xx.dtype}'
             out = KC3.conv3d(xx, ww)
@@ -754,10 +754,8 @@ def conv3d_kernel_phase(x, gen, agree, report):
             err['conv3d_pallas'] = max(
                 err['conv3d_pallas'],
                 agree('conv3d_pallas', out, C3.conv3d_plain(xx, ww), tol))
-            route = KC3.tensor_core_chunks(xx.dtype, xx.shape[-1],
-                                           ww.shape[0])
-            codes.append(f'{at}: ' + ('direct' if route is None else
-                                      f'wgmma {route}'))
+            codes['conv3d_pallas'].append(code(xx, ww, KC3.tensor_core_chunks(
+                xx.dtype, xx.shape[-1], ww.shape[0])))
         plain_ms = {'conv3d_zpack': cuda_ms(
                         lambda: G.conv3d_zpack_plain(x, w32, th)),
                     'conv3d_pallas': cuda_ms(
@@ -774,20 +772,48 @@ def conv3d_kernel_phase(x, gen, agree, report):
     xf = cases[1][0]
     (cb, wb), (cf, wf) = (case[:2] for case in conv_cases[2:4])
     lib_ms = cuda_ms(lambda: F.conv3d(x5, w5, padding=1))
+    lib_dev = device_ms(lambda: F.conv3d(x5, w5, padding=1))
     flops = 2 * 27 * c * c * d * h * w
     vol_bytes = 2 * x.numel() * x.element_size() + w32.numel() * 4
     gamma, beta = torch.rand(c, device=dev) + 0.5, torch.randn(c, device=dev)
-    report('conv3d_zpack', src, 'dfm_tpu/ops/pallas/convgn.py:162',
-           err['conv3d_zpack'], (1e-2, 1e-2),
-           cuda_ms(lambda: KC3.conv3d_stats(x, w32, th)),
+
+    # the finish at the DfM width: GroupNorm of K9a's result with the
+    # residual x and relu, as conv3d_gn applies it
+    out, ps = KC3.conv3d_stats(x, w32, th)
+    sc, bs = G.gn_partials_affine(ps, out.shape, gamma, beta, 8)
+    fin = lambda: KC3.gn_finish(out, sc, bs, x, True)       # noqa: E731
+    fin_bytes = 3 * out.numel() * out.element_size() + 2 * c * 4
+    fin_dev = device_ms(fin)
+    report('conv3d_gn_finish', src, 'dfm_tpu/ops/pallas/convgn.py:216',
+           agree('conv3d_gn_finish', fin(),
+                 G.gn_finish_plain(out, sc, bs, x, True), (0, 0)), (0, 0),
+           cuda_ms(fin),
+           cuda_ms(lambda: G.gn_finish_plain(out, sc, bs, x, True)), None,
+           fin_bytes, 4 * out.numel(), device_ms=fin_dev)
+
+    stats = lambda: KC3.conv3d_stats(x, w32, th)              # noqa: E731
+    gn = lambda: G.conv3d_gn(x, w32, gamma, beta, 8,          # noqa: E731
+                             residual=x, relu=True, th=th)
+    k9a_ms, k9a_dev = cuda_ms(stats), device_ms(stats)
+    report('conv3d_zpack', 'dfm_tpu_torch/csrc/conv_dense.cuh (its moment '
+           'instance, from conv3d.cu; the direct kernel of conv3d.cu for '
+           'other routes)', 'dfm_tpu/ops/pallas/convgn.py:162',
+           err['conv3d_zpack'], (1e-2, 1e-2), k9a_ms,
            plain_ms['conv3d_zpack'], lib_ms,
            vol_bytes + (d // 4) * (h // th) * 2 * 4 * c * 4, flops,
-           peak=BF16_TENSOR_FLOPS, library_with_moments_ms=cuda_ms(
-               lib_moments),
-           ms_conv3d_gn_residual_relu=cuda_ms(
-               lambda: G.conv3d_gn(x, w32, gamma, beta, 8, residual=x,
-                                   relu=True, th=th)),
-           ms_f32_16x40x96=cuda_ms(lambda: KC3.conv3d_stats(xf, w32, th)))
+           peak=BF16_TENSOR_FLOPS, device_ms=k9a_dev,
+           kernel_device_ms=device_ms(stats, kernel='conv_dense_kernel'),
+           library_device_ms=lib_dev, ratio_to_conv3d=k9a_ms / lib_ms,
+           bf16_peak_share=flops / k9a_ms * 1e3 / BF16_TENSOR_FLOPS,
+           device_bf16_peak_share=flops / k9a_dev * 1e3 / BF16_TENSOR_FLOPS,
+           library_with_moments_ms=cuda_ms(lib_moments),
+           ms_conv3d_gn_residual_relu=cuda_ms(gn),
+           device_ms_conv3d_gn_residual_relu=device_ms(gn),
+           finish_device_ms=fin_dev,
+           finish_bound_ms=fin_bytes / HBM_BYTES_PER_S * 1e3,
+           ms_f32_16x40x96=cuda_ms(lambda: KC3.conv3d_stats(xf, w32, th)),
+           codes=codes['conv3d_zpack'])
+    del out, ps
     k9b_ms = cuda_ms(lambda: KC3.conv3d(x, w32))
     k9b_dev = device_ms(lambda: KC3.conv3d(x, w32))
     report('conv3d_pallas', 'dfm_tpu_torch/csrc/conv_dense.cuh (from '
@@ -796,15 +822,13 @@ def conv3d_kernel_phase(x, gen, agree, report):
            err['conv3d_pallas'], (1e-2, 1e-2), k9b_ms,
            plain_ms['conv3d_pallas'], lib_ms, vol_bytes, flops,
            peak=BF16_TENSOR_FLOPS, device_ms=k9b_dev,
-           library_device_ms=device_ms(
-               lambda: F.conv3d(x5, w5, padding=1)),
-           ratio_to_conv3d=k9b_ms / lib_ms,
+           library_device_ms=lib_dev, ratio_to_conv3d=k9b_ms / lib_ms,
            bf16_peak_share=flops / k9b_ms * 1e3 / BF16_TENSOR_FLOPS,
            device_bf16_peak_share=flops / k9b_dev * 1e3 / BF16_TENSOR_FLOPS,
            ms_f32_16x40x96=cuda_ms(lambda: KC3.conv3d(xf, w32)),
            ms_f32_16x40x96_c16_to_8=cuda_ms(lambda: KC3.conv3d(cf, wf)),
            ms_bf16_16x40x96_c16_to_8=cuda_ms(lambda: KC3.conv3d(cb, wb)),
-           codes=codes)
+           codes=codes['conv3d_pallas'])
 
     # K9's path: the entry points a caller uses, at the DfM width
     torch.cuda.synchronize()

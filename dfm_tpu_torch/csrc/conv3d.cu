@@ -1,22 +1,26 @@
 // K9a conv3d_zpack / conv3d_gn and K9b conv3d_pallas: the 3x3x3 stride-1
 // 'same' convolution of a dense (D, H, W, C) volume, channels innermost,
 // with (K9a) or without (K9b) the GroupNorm moments of its unrounded f32
-// result.
+// result, and K9a's GroupNorm finish.
 //
 // Replace the TPU kernels of
 //   dfm_tpu/ops/pallas/convgn.py:conv3d_zpack (pallas_call at :162) and
-//   dfm_tpu/ops/pallas/conv3d.py:conv3d_pallas (pallas_call at :119).
+//   dfm_tpu/ops/pallas/conv3d.py:conv3d_pallas (pallas_call at :119),
+// and the finish of dfm_tpu/ops/pallas/convgn.py:conv3d_gn (:210-221,
+// which XLA fuses into one pass).
 // Plain versions: dfm_tpu_torch/ops/convgn.py, ops/conv3d.py. The TPU
 // kernels' z-in-lanes packing with a banded weight (2x the products, to
 // fill 128 MXU lanes) and dx-in-lanes packing exist for a 128-lane matrix
 // unit and are not carried over.
 //
-// Two device codes:
-//   dfm_conv3d_tc: bf16, C = C_out = 32 (the DfM trunk width), the wmma
-//     tensor-core convolution of conv_wmma.cuh (K4's first design) on
-//     dense tensors; bound by operations (101.9 GFLOP at 72x80x320
-//     against ~120 MB).
-//   dfm_conv3d_direct: every other width and type, and K9b: a direct
+// Three device codes:
+//   dfm_conv3d_wgmma: bf16 with C % 8 == 0 and Cout % 8 == 0, the wgmma +
+//     TMA convolution of conv_dense.cuh, one launch per chunk of output
+//     channels; with a moment tensor (K9a) its kMoments instance, which
+//     writes the moments per (depth slice, row, 64-column tile). Bound by
+//     operations (101.9 GFLOP at 72x80x320, C = Cout = 32, against
+//     ~120 MB).
+//   dfm_conv3d_direct: float32 and every other width: a direct
 //     convolution on the CUDA cores, f32 fused multiply-adds (exact f32
 //     products for f32 inputs; bf16 inputs and weights are exact in f32),
 //     bound by operations. A block owns a 16x32 (y, x) output tile of one
@@ -29,19 +33,26 @@
 //     (the weights of a 42 -> 42 f32 conv alone are 190 KB): the output
 //     channels are cut into chunks of COC = 8, 16 or 32 over the grid.
 //     A weight read is one broadcast float4 that feeds 8 products.
-// Moments (K9a): per (depth slice, row, 32-column tile), a granularity
-// that folds exactly into the JAX layout for any row band th dividing H.
-// Each warp reduces its rows in a fixed order (xor tree), no atomics:
-// identical bits on every run.
+//     Moments (K9a) per (depth slice, row, 32-column tile); each warp
+//     reduces its rows in a fixed order (xor tree), no atomics: identical
+//     bits on every run.
+//   dfm_conv3d_gn_finish: y = [relu](out * sc[c] + bs[c] [+ residual]) in
+//     out's type, the product, each sum and the one rounding in the plain
+//     version's order (ops/convgn.py:gn_finish_plain), so it returns its
+//     bits. Bound by bytes: out and the residual read once, y written
+//     once (354 MB at 72x80x320x32 bf16); 16-byte vectors, a grid-stride
+//     loop.
 #include <stdint.h>
 
 #include "conv_dense.cuh"
-#include "conv_wmma.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;                // direct and finish kernels
 constexpr int kDTY = 16, kDTX = 32;          // direct output tile (rows,
-                                             // columns); kDTX == TX
+                                             // columns)
 constexpr int kDSY = kDTY + 2, kDSX = kDTX + 2;
 constexpr int kCK = 8;                       // input channels per chunk
 constexpr int kXTile = kCK * 3 * kDSY * kDSX;   // floats of an input chunk
@@ -188,30 +199,69 @@ int launch_direct_coc(const void* in, const float* wt, void* out, float* ps,
   }
 }
 
-static_assert(kDTX == TX, "both kernels write moments per 32-column tile");
+// y = [relu](out * sc + bs [+ res]) over n / VEC vectors of VEC
+// channels, C % VEC == 0 (a vector's channels are c0 .. c0 + VEC - 1).
+template <typename T, int VEC, bool kRes, bool kRelu>
+__global__ void __launch_bounds__(kThreads)
+gn_finish_kernel(const T* __restrict__ out, const float* __restrict__ sc,
+                 const float* __restrict__ bs, const T* __restrict__ res,
+                 T* __restrict__ y, long long nvec, int C) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < nvec; i += stride) {
+    const int c0 = (int)(i * VEC % C);
+    float f[VEC], r[VEC];
+    load_vec<T, VEC>(out + i * VEC, f);
+    if constexpr (kRes) load_vec<T, VEC>(res + i * VEC, r);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      float v = __fadd_rn(__fmul_rn(f[k], __ldg(sc + c0 + k)),
+                          __ldg(bs + c0 + k));
+      if constexpr (kRes) v = __fadd_rn(v, r[k]);
+      if constexpr (kRelu) v = v < 0.f ? 0.f : v;   // NaN stays NaN
+      f[k] = v;
+    }
+    store_vec<T, VEC>(y + i * VEC, f);
+  }
+}
 
-}  // namespace
-
-// dense in (D, H, W, 32) bf16 -> dense out (D, H, W, 32) bf16 + ps
-// (D, H, tiles_x, 2, 32) f32, tiles_x = ceil(W/32); wt blocked as K5's;
-// tiles = ceil(H/16) * tiles_x, refused (cudaErrorInvalidValue) when the
-// caller counted otherwise; zc = depth slices per block.
-extern "C" int dfm_conv3d_tc(const void* in, const void* wt, void* out,
-                             float* ps, int D, int H, int W, int tiles,
-                             int zc, void* stream) {
-  const int tiles_x = (W + TX - 1) / TX, tiles_y = (H + TY - 1) / TY;
-  if (tiles != tiles_x * tiles_y || zc < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_wmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kConvSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiles, (D + zc - 1) / zc);
-  conv_wmma_kernel<<<grid, kThreads, kConvSmem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(in), static_cast<const bf16*>(wt),
-      static_cast<bf16*>(out), ps, D, H, W, tiles_x, zc);
+template <typename T, int VEC>
+int launch_finish(const void* out, const float* sc, const float* bs,
+                  const void* res, void* y, long long n, int C, int relu,
+                  cudaStream_t s) {
+  const long long nvec = n / VEC;
+  const long long need = (nvec + kThreads - 1) / kThreads;
+  const int blocks = (int)(need < (1 << 20) ? need : (1 << 20));
+  const T* o = static_cast<const T*>(out);
+  const T* r = static_cast<const T*>(res);
+  T* d = static_cast<T*>(y);
+  if (res != nullptr && relu)
+    gn_finish_kernel<T, VEC, true, true><<<blocks, kThreads, 0, s>>>(
+        o, sc, bs, r, d, nvec, C);
+  else if (res != nullptr)
+    gn_finish_kernel<T, VEC, true, false><<<blocks, kThreads, 0, s>>>(
+        o, sc, bs, r, d, nvec, C);
+  else if (relu)
+    gn_finish_kernel<T, VEC, false, true><<<blocks, kThreads, 0, s>>>(
+        o, sc, bs, r, d, nvec, C);
+  else
+    gn_finish_kernel<T, VEC, false, false><<<blocks, kThreads, 0, s>>>(
+        o, sc, bs, r, d, nvec, C);
   return (int)cudaGetLastError();
 }
+
+template <typename T>
+int launch_finish_vec(const void* out, const float* sc, const float* bs,
+                      const void* res, void* y, long long n, int C, int vec,
+                      int relu, cudaStream_t s) {
+  if (vec == vec16<T>())
+    return launch_finish<T, vec16<T>()>(out, sc, bs, res, y, n, C, relu, s);
+  if (vec == 1)
+    return launch_finish<T, 1>(out, sc, bs, res, y, n, C, relu, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 // dense in (D, H, W, C) -> dense out (D, H, W, Cout), both float32
 // (dtype 0) or bf16 (dtype 1); wt as conv3d_direct_kernel's with COC =
@@ -230,29 +280,66 @@ extern "C" int dfm_conv3d_direct(const void* in, const float* wt, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// K9b on the tensor cores: dense in (D, H, W, C) bf16, C % 8 == 0, on 16
-// bytes -> channels [co0, co0 + n) of dense out (D, H, W, cout) bf16; wt
-// (27, koct, n, 8) bf16, koct = C / 8 rounded up to even, zeros in the
-// padding octet; n = 8, 16 or 32; blocks = the persistent grid (one
-// block per SM). Refused (cudaErrorInvalidValue) for another n, C > 48,
-// or when the weights leave no room for a ring of three slices.
+// K9b / K9a on the tensor cores: dense in (D, H, W, C) bf16, C % 8 == 0,
+// on 16 bytes -> channels [co0, co0 + n) of dense out (D, H, W, cout)
+// bf16 and, when ps is given (K9a), of its moments ps (D, H, ceil(W /
+// 64), 2, cout) f32; wt (27, koct, n, 8) bf16, koct = C / 8 rounded up
+// to even, zeros in the padding octet; n = 8, 16 or 32; blocks = the
+// persistent grid (one block per SM). Refused (cudaErrorInvalidValue) for
+// another n, C > 48, or when the weights leave no room for a ring of
+// three slices.
 extern "C" int dfm_conv3d_wgmma(const void* in, const void* wt, void* out,
-                                int D, int H, int W, int C, int cout,
-                                int co0, int n, int blocks, void* stream) {
+                                float* ps, int D, int H, int W, int C,
+                                int cout, int co0, int n, int blocks,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C % 8 || cout % 8 || co0 % 8 || co0 + n > cout)
     return (int)cudaErrorInvalidValue;
+  if (ps != nullptr) {
+    switch (n) {
+      case 8:
+        return k9::launch_dense_c<8, true>(in, wt, out, ps, D, H, W, C, cout,
+                                           co0, blocks, s);
+      case 16:
+        return k9::launch_dense_c<16, true>(in, wt, out, ps, D, H, W, C,
+                                            cout, co0, blocks, s);
+      case 32:
+        return k9::launch_dense_c<32, true>(in, wt, out, ps, D, H, W, C,
+                                            cout, co0, blocks, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (n) {
     case 8:
-      return k9::launch_dense_c<8>(in, wt, out, D, H, W, C, cout, co0, blocks,
-                                 s);
+      return k9::launch_dense_c<8, false>(in, wt, out, ps, D, H, W, C, cout,
+                                          co0, blocks, s);
     case 16:
-      return k9::launch_dense_c<16>(in, wt, out, D, H, W, C, cout, co0,
-                                  blocks, s);
+      return k9::launch_dense_c<16, false>(in, wt, out, ps, D, H, W, C, cout,
+                                           co0, blocks, s);
     case 32:
-      return k9::launch_dense_c<32>(in, wt, out, D, H, W, C, cout, co0,
-                                  blocks, s);
+      return k9::launch_dense_c<32, false>(in, wt, out, ps, D, H, W, C, cout,
+                                           co0, blocks, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The GroupNorm finish: out and res (null for none) (n / C, C) of
+// dtype 0 (float32) or 1 (bf16), sc, bs (C,) f32 -> y of out's type;
+// vec = 16-byte vectors (8 bf16 or 4 floats, C % vec == 0, every pointer
+// on 16 bytes) or 1; relu 0 or 1.
+extern "C" int dfm_conv3d_gn_finish(const void* out, const float* sc,
+                                    const float* bs, const void* res,
+                                    void* y, long long n, int C, int vec,
+                                    int relu, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C < 1 || vec < 1 || n % C || C % vec)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  if (dtype == 0)
+    return launch_finish_vec<float>(out, sc, bs, res, y, n, C, vec, relu, s);
+  if (dtype == 1)
+    return launch_finish_vec<bf16>(out, sc, bs, res, y, n, C, vec, relu, s);
+  return (int)cudaErrorInvalidValue;
 }

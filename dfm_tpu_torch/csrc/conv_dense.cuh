@@ -1,10 +1,13 @@
-// K9b conv3d_pallas on Hopper (conv3d.cu, dfm_conv3d_wgmma): the 3x3x3
-// stride-1 'same' bf16 convolution of a dense (D, H, W, C) volume,
-// channels innermost, into N output channels of a dense (D, H, W, Cout)
-// volume (a chunk [co0, co0 + N) of them), f32 accumulation, no moments.
-// Replaces dfm_tpu/ops/pallas/conv3d.py:conv3d_pallas (pallas_call at
-// :119) for bf16 with C % 8 == 0 and Cout % 8 == 0 (the wrapper routes
-// every other type and width to the direct kernel of conv3d.cu).
+// K9b conv3d_pallas and K9a conv3d_zpack on Hopper (conv3d.cu,
+// dfm_conv3d_wgmma): the 3x3x3 stride-1 'same' bf16 convolution of a
+// dense (D, H, W, C) volume, channels innermost, into N output channels
+// of a dense (D, H, W, Cout) volume (a chunk [co0, co0 + N) of them),
+// f32 accumulation; the kMoments instance (K9a) also writes the GroupNorm
+// moments of the unrounded result. Replaces
+// dfm_tpu/ops/pallas/conv3d.py:conv3d_pallas (pallas_call at :119) and
+// dfm_tpu/ops/pallas/convgn.py:conv3d_zpack (pallas_call at :162) for
+// bf16 with C % 8 == 0 and Cout % 8 == 0 (the wrappers route every other
+// type and width to the direct kernel of conv3d.cu).
 //
 // Bound by operations: an implicit GEMM, M = output voxels, N = output
 // channels, K = 27 taps x C input channels (101.9 GFLOP at 72x80x320,
@@ -29,6 +32,17 @@
 //   - A persistent grid of one block per SM walks an equal share of the
 //     (tile, depth slice) work items, tile-major; each new tile in a
 //     block's share costs two extra halo slices.
+//   - Moments (kMoments, K9a): per (depth slice, row, 64-column tile) and
+//     channel the f32 sum and sum of squares of the unrounded
+//     accumulators, columns past W adding nothing: a granularity that
+//     folds into the JAX layout for any row band th dividing H. One m64
+//     tile (one row) at a time, so the sums stay transient: each thread
+//     sums its two columns, a lane reduce-scatter over g8 sums the warp's
+//     16 columns, and the four warps of the warpgroup are summed in a
+//     fixed order through a double-buffered shared-memory area behind a
+//     named barrier of that warpgroup's 128 threads (the other warpgroup
+//     and the producer do not wait). Every product and sum rounded alone,
+//     no atomics: identical bits on every run.
 #pragma once
 
 #include <stdint.h>
@@ -48,39 +62,129 @@ constexpr int kConsumers = 256;              // two warpgroups
 constexpr int kThreads = kConsumers + 32;    // and one producer warp
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxRing = 4;
+// moment buffer bytes per output channel: [warpgroup 2][buffer 2][warp 4]
+// [sum, sum of squares] f32
+constexpr int kRedBytes = 2 * 2 * 4 * 2 * 4;
 
-// Shared memory of a block: the ring, the weights, the barriers.
-__host__ __device__ constexpr int smem_bytes(int koct, int n, int ring) {
-  return ring * koct * kOct + 27 * koct * n * 16 + (2 * ring + 1) * 8;
+// Shared memory of a block: the ring, the weights, the moment buffer
+// (kMoments), the barriers.
+__host__ __device__ constexpr int smem_bytes(int koct, int n, int ring,
+                                             bool moments) {
+  return ring * koct * kOct + 27 * koct * n * 16 + moments * kRedBytes * n +
+         (2 * ring + 1) * 8;
 }
 
 // The deepest ring (at most kMaxRing slots) that fits beside the weights
 // of `koct` octets x n output channels; below 3 the kernel cannot run
 // (an output slice reads three input slices at once).
-__host__ __device__ constexpr int ring_slots(int koct, int n) {
+__host__ __device__ constexpr int ring_slots(int koct, int n, bool moments) {
   int r = kMaxRing;
-  while (r > 0 && smem_bytes(koct, n, r) > kMaxSmem) --r;
+  while (r > 0 && smem_bytes(koct, n, r, moments) > kMaxSmem) --r;
   return r;
+}
+
+// One step of the reduce-scatter of `moments`: lanes `off` apart swap
+// halves of their first LEN values, each keeps the half of its lane bit
+// summed with its partner's copy.
+template <int V, int LEN>
+__device__ __forceinline__ void halve(float (&v)[V], int off) {
+  const bool hi = threadIdx.x & off;
+#pragma unroll
+  for (int i = 0; i < LEN / 2; ++i) {
+    const float send = hi ? v[i] : v[LEN / 2 + i];
+    const float keep = hi ? v[LEN / 2 + i] : v[i];
+    v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, off));
+  }
+}
+
+// The moments of one output slice o of a tile (kMoments): row y0w + m of
+// the warpgroup's four, for m = 0..3; this thread's columns x and x + 8
+// (accumulator 4 j + 2 h + e: column x + 8 h, channel 8 j + 2 q + e).
+// Per m: the thread's V = N / 2 values (the sums of its N / 4 channels,
+// then their sums of squares) over its two columns; a reduce-scatter
+// over g8 (lane offsets 16, 8, 4: the tree of a butterfly in that order)
+// leaves lane g8 with values R g8 .. R g8 + R - 1 (R = V / 8; for N = 8
+// the last step is a butterfly, lane pairs hold value g8 / 2); the lanes
+// put them into buffer m & 1 of the warpgroup, and after the
+// warpgroup's barrier its first 2 N threads add the four warps' sums in
+// order 0..3 and write them. A buffer is written again two barriers
+// later, which its readers pass only after reading it.
+template <int N>
+__device__ __forceinline__ void moments(float (&acc)[4][N / 2],
+                                        float* __restrict__ red,
+                                        float* __restrict__ ps, int o,
+                                        int y0w, int x, int tx, int H, int W,
+                                        int tiles_x, int cout, int co0) {
+  constexpr int V = N / 2, R = V >= 8 ? V / 8 : 1;
+  const int tid = threadIdx.x, wg = tid >> 7, wq = (tid >> 5) & 3;
+  const int t = tid & 127, q = tid & 3, g8 = (tid & 31) >> 2;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    float v[V];   // [k] sum of channel 8 (k >> 1) + 2 q + (k & 1), [V/2 + k]
+                  // its sum of squares
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool ok = x + 8 * h < W;
+#pragma unroll
+      for (int k = 0; k < V / 2; ++k) {
+        const float f = ok ? acc[m][2 * k + 2 * h - (k & 1)] : 0.f;
+        v[k] = __fadd_rn(v[k], f);
+        v[V / 2 + k] = madd(f, f, v[V / 2 + k]);
+      }
+    }
+    halve<V, V>(v, 16);
+    halve<V, V / 2>(v, 8);
+    if constexpr (V >= 8)
+      halve<V, V / 4>(v, 4);
+    else
+      v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], 4));
+    float* rb = red + (wg * 2 + (m & 1)) * 4 * 2 * N;
+    if (V >= 8 || (g8 & 1) == 0) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int idx = V >= 8 ? R * g8 + i : g8 >> 1;
+        const int k = idx % (V / 2), sel = idx / (V / 2);
+        rb[wq * 2 * N + sel * N + 8 * (k >> 1) + 2 * q + (k & 1)] = v[i];
+      }
+    }
+    if (wg == 0)   // named barriers 1 and 2, one per warpgroup
+      asm volatile("bar.sync 1, 128;" ::: "memory");
+    else
+      asm volatile("bar.sync 2, 128;" ::: "memory");
+    const int y = y0w + m;
+    if (t < 2 * N && y < H) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) sum = __fadd_rn(sum, rb[w * 2 * N + t]);
+      ps[(((long long)o * H + y) * tiles_x + tx) * (2 * cout) +
+         (t >= N) * cout + co0 + (t & (N - 1))] = sum;
+    }
+  }
 }
 
 // One block per SM. tmap: the dense input (D, H, W, C) as dims (C, W, H,
 // D), box (8, SX, SY, 1). wt: [tap 27][octet 2 KS][n N][8 k] bf16 (KS
 // k16 steps). out: (D, H, W, cout) bf16, this launch writes channels
-// [co0, co0 + N). Work item u = tile * D + z; block b takes [b * units /
-// grid, (b + 1) * units / grid).
-template <int N, int KS>
+// [co0, co0 + N); ps (kMoments; D, H, tiles_x, 2, cout) f32, the same
+// channels. Work item u = tile * D + z; block b takes [b * units / grid,
+// (b + 1) * units / grid).
+template <int N, int KS, bool kMoments>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_dense_kernel(const __grid_constant__ CUtensorMap tmap,
-                  const bf16* __restrict__ wt, bf16* __restrict__ out, int D,
-                  int H, int W, int ring, int tiles_x, int units, int cout,
-                  int co0) {
+                  const bf16* __restrict__ wt, bf16* __restrict__ out,
+                  float* __restrict__ ps, int D, int H, int W, int ring,
+                  int tiles_x, int units, int cout, int co0) {
   extern __shared__ __align__(1024) unsigned char smem[];
   constexpr int koct = 2 * KS;
   constexpr int slot_bytes = koct * kOct;
   constexpr int tap_bytes = koct * N * 16;
   const uint32_t ring_a = smem_u32(smem);
   const uint32_t w_a = ring_a + ring * slot_bytes;
-  const uint32_t bar_a = w_a + 27 * tap_bytes;
+  // after the weights the moment buffer (kMoments), [warpgroup][buffer]
+  // [warp][sum, sum of squares][N] f32, then the barriers
+  const uint32_t bar_a = w_a + 27 * tap_bytes + kMoments * kRedBytes * N;
   // full[i] = bar_a + 8 i, empty[i] = bar_a + 8 (ring + i), weights
   const uint32_t wbar = bar_a + 16 * ring;
   if (threadIdx.x == 0) {
@@ -143,8 +247,8 @@ conv_dense_kernel(const __grid_constant__ CUtensorMap tmap,
   mbar_wait(wbar, 0);
   for (int u = begin; u < end;) {
     const int tile = u / D, z0 = u - tile * D, n = min(D - z0, end - u);
-    const int ty = tile / tiles_x;
-    const int y0 = ty * TY, x0 = (tile - ty * tiles_x) * TX;
+    const int ty = tile / tiles_x, tx = tile - ty * tiles_x;
+    const int y0 = ty * TY, x0 = tx * TX;
     for (int i = 0; i < n; ++i) {
       // output slice o = z0 + i reads input slices o - 1, o, o + 1:
       // loads l0, l0 + 1, l0 + 2 of the ring
@@ -207,6 +311,12 @@ conv_dense_kernel(const __grid_constant__ CUtensorMap tmap,
               out + (((long long)o * H + y) * W + x) * cout + co0 + 8 * j) =
               make_uint4(p[0], p[1], p[2], p[3]);
       }
+      if constexpr (kMoments)
+        moments<N>(acc,
+                   reinterpret_cast<float*>(smem + ring * slot_bytes +
+                                            27 * tap_bytes),
+                   ps, o, y0 + wg * 4, x0 + 16 * wq + g8, tx, H, W, tiles_x,
+                   cout, co0);
     }
     load += n + 2;
     u += n;
@@ -215,13 +325,13 @@ conv_dense_kernel(const __grid_constant__ CUtensorMap tmap,
 
 // Launch one chunk of N output channels: in (D, H, W, C) bf16, C % 8 ==
 // 0, C <= 16 KS, starting on 16 bytes; wt as the kernel's; out (D, H, W,
-// cout).
-template <int N, int KS>
-int launch_dense(const void* in, const void* wt, void* out, int D, int H,
-                 int W, int C, int cout, int co0, int blocks,
+// cout); ps (D, H, ceil(W / TX), 2, cout) f32 for kMoments, else unused.
+template <int N, int KS, bool kMoments>
+int launch_dense(const void* in, const void* wt, void* out, float* ps,
+                 int D, int H, int W, int C, int cout, int co0, int blocks,
                  cudaStream_t s) {
   constexpr int koct = 2 * KS;
-  const int ring = ring_slots(koct, N);
+  const int ring = ring_slots(koct, N, kMoments);
   const int tiles_x = (W + TX - 1) / TX, tiles_y = (H + TY - 1) / TY;
   if (ring < 3 || blocks < 1 ||
       (long long)tiles_x * tiles_y * D > 0x7fffffffLL)
@@ -229,34 +339,35 @@ int launch_dense(const void* in, const void* wt, void* out, int D, int H,
   CUtensorMap map;
   if (!volume_tensor_map(&map, in, D, H, W, C, 8, SX, SY, 1))
     return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(koct, N, ring);
+  const int smem = smem_bytes(koct, N, ring, kMoments);
   const cudaError_t err = cudaFuncSetAttribute(
-      conv_dense_kernel<N, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      conv_dense_kernel<N, KS, kMoments>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int units = tiles_x * tiles_y * D;
-  conv_dense_kernel<N, KS><<<min(blocks, units), kThreads, smem, s>>>(
-      map, static_cast<const bf16*>(wt), static_cast<bf16*>(out), D, H, W,
-      ring, tiles_x, units, cout, co0);
+  conv_dense_kernel<N, KS, kMoments>
+      <<<min(blocks, units), kThreads, smem, s>>>(
+          map, static_cast<const bf16*>(wt), static_cast<bf16*>(out), ps, D,
+          H, W, ring, tiles_x, units, cout, co0);
   return (int)cudaGetLastError();
 }
 
 // The kernel for C input channels: KS = ceil(C / 16) k16 steps, 1 to 3
 // (C <= 48; wider inputs leave no room for three slots).
-template <int N>
-int launch_dense_c(const void* in, const void* wt, void* out, int D, int H,
-                   int W, int C, int cout, int co0, int blocks,
+template <int N, bool kMoments>
+int launch_dense_c(const void* in, const void* wt, void* out, float* ps,
+                   int D, int H, int W, int C, int cout, int co0, int blocks,
                    cudaStream_t s) {
   switch ((C + 15) / 16) {
     case 1:
-      return launch_dense<N, 1>(in, wt, out, D, H, W, C, cout, co0, blocks,
-                                s);
+      return launch_dense<N, 1, kMoments>(in, wt, out, ps, D, H, W, C, cout,
+                                          co0, blocks, s);
     case 2:
-      return launch_dense<N, 2>(in, wt, out, D, H, W, C, cout, co0, blocks,
-                                s);
+      return launch_dense<N, 2, kMoments>(in, wt, out, ps, D, H, W, C, cout,
+                                          co0, blocks, s);
     case 3:
-      return launch_dense<N, 3>(in, wt, out, D, H, W, C, cout, co0, blocks,
-                                s);
+      return launch_dense<N, 3, kMoments>(in, wt, out, ps, D, H, W, C, cout,
+                                          co0, blocks, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,8 +2,8 @@
 // a chain tensor (conv_chain.cu, dfm_conv_p2p), with an optional residual
 // (the input) and the f32 GroupNorm moments of the unrounded result per
 // (depth slice, tile). Replaces dfm_tpu/ops/pallas/conv_chain.py:
-// conv_p2p -> _conv_p2p_call. (K9a keeps K4's first design, the wmma code
-// of conv_wmma.cuh.)
+// conv_p2p -> _conv_p2p_call. K9a / K9b (conv_dense.cuh) are this
+// design on a dense tensor.
 //
 // Bound by operations: an implicit GEMM, M = output voxels, N = 32 output
 // channels, K = 27 taps x 32 input channels (101.9 GFLOP at 72x80x320).

@@ -1,6 +1,5 @@
-// K2 frustum_voxel_features / frustum_stereo_sample and K3
-// attention_sample: the samples of the frustum -> voxel lifting (DfM
-// FrustumToVoxel).
+// K2 frustum_voxel_features and K3 attention_sample: the samples of the
+// frustum -> voxel lifting (DfM FrustumToVoxel).
 //
 // Voxel (b, z, y, x) of the pseudo-lidar grid projects to
 // u[b, x, y], v[b, x, z] (KITTI-form camera: u depends on (x, y), v on
@@ -13,8 +12,8 @@
 // xtab (nx,) of (z0, z1, w0, w1), both weights zero where the slab is
 // out of the depth range, one device tensor per table content
 // (ops/cuda/sampling.py:depth_xtab). Plain versions:
-// dfm_tpu_torch/ops/frustum_separable.py:frustum_voxel_features_plain,
-// :stereo_sample_plain and :attention_sample_plain.
+// dfm_tpu_torch/ops/frustum_separable.py:frustum_voxel_features_plain
+// and :attention_sample_plain.
 //
 // K2 replaces dfm_tpu/ops/pallas/frustum_sample.py:_call (and the
 // _batched glue) together with the glue of the JAX neck's `_fused` cond
@@ -26,11 +25,10 @@
 // sem map (B, Hs, Ws, Cs), summed in float32, rounded to the element
 // type, zero unless valid2d, times att[b, z, y, x] rounded to the
 // element type, the product rounded (sem_sample, then the neck's
-// multiply). With Cs = 0 it is frustum_stereo_sample and also writes
-// valid2d. Bound on the H100: bytes. At DfM-KITTI shapes it writes a
-// 224 MB bf16 volume (1x20x304x288x64) and reads the rows of the 118 MB
-// stereo volume (1x72x80x320x32) its taps touch, the 1.6 MB sem map
-// (1x80x320x32) and 7 MB of float32 attention; the sem gather, its
+// multiply); Cs > 0. Bound on the H100: bytes. At DfM-KITTI shapes it
+// writes a 224 MB bf16 volume (1x20x304x288x64) and reads the rows of
+// the 118 MB stereo volume (1x72x80x320x32) its taps touch, the 1.6 MB
+// sem map (1x80x320x32) and 7 MB of float32 attention; the sem gather, its
 // float32 temporaries, the attention multiply and the 224 MB concat of
 // the unfused neck are gone. Design (voxel_features_kernel), K3's
 // separable staging: a block owns one (b, z) from blockIdx.z (blocks
@@ -53,8 +51,9 @@
 // the sem chunks of a voxel whose attention is zero (outside the depth
 // range). Products and sums are rounded one by one in the plain
 // version's order (csrc/common.cuh:madd) and the index divisions are
-// true ones, as the plain version's, so the kernel returns its bits. Channel counts that do not fill 16-byte vectors
-// take one element per lane. What holds it back: PERF.md.
+// true ones, as the plain version's, so the kernel returns its bits.
+// Channel counts that do not fill 16-byte vectors take one element per
+// lane. What holds it back: PERF.md.
 //
 // K3 replaces dfm_tpu/ops/pallas/frustum_sample.py:_att_call (and the
 // attention_sample_pallas glue). Bound on the H100: bytes. It gathers 8
@@ -96,9 +95,8 @@ static_assert(kVoxX <= kThreads && kVoxX % 2 == 0 &&
               "K2 tile");
 
 // grid (ceil(ny / kVoxY), ceil(nx / kVoxX), B * nz), block kThreads.
-// sem and att are null when Cs = 0; valid2d (B, nz, ny, nx) is written
-// when given. The caller keeps every tensor below 2^31 elements and
-// C, Cs multiples of VEC.
+// The caller keeps every tensor below 2^31 elements and C, Cs (> 0)
+// multiples of VEC.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads, 3)
 voxel_features_kernel(const T* __restrict__ vol, const T* __restrict__ sem,
@@ -106,9 +104,8 @@ voxel_features_kernel(const T* __restrict__ vol, const T* __restrict__ sem,
                       const float* __restrict__ u,
                       const float* __restrict__ v,
                       const float4* __restrict__ xtab, T* __restrict__ out,
-                      uint8_t* __restrict__ valid2d, int D, int H, int W,
-                      int C, int Hs, int Ws, int Cs, int nz, int ny, int nx,
-                      float pad_h, float pad_w) {
+                      int D, int H, int W, int C, int Hs, int Ws, int Cs,
+                      int nz, int ny, int nx, float pad_h, float pad_w) {
   // per x of the tile:
   __shared__ int srow[4][kVoxX];       // stereo row (dz, dy), pixels
   __shared__ float swt[4][kVoxX];      // its weight wz * wy, 0 if dropped
@@ -142,13 +139,11 @@ voxel_features_kernel(const T* __restrict__ vol, const T* __restrict__ sem,
             r[dz * 2 + dy] = (zi[dz] * H + yi[dy]) * W;
             w[dz * 2 + dy] = __fmul_rn(wz[dz], wy[dy]);
           }
-        if (Cs > 0) {
-          axis_taps(vv / (pad_h - 1.f) * (float)(Hs - 1), Hs, yi, wy);
+        axis_taps(vv / (pad_h - 1.f) * (float)(Hs - 1), Hs, yi, wy);
 #pragma unroll
-          for (int dy = 0; dy < 2; ++dy) {
-            mr[dy] = yi[dy] * Ws;
-            mw[dy] = wy[dy];
-          }
+        for (int dy = 0; dy < 2; ++dy) {
+          mr[dy] = yi[dy] * Ws;
+          mw[dy] = wy[dy];
         }
       }
     }
@@ -168,14 +163,13 @@ voxel_features_kernel(const T* __restrict__ vol, const T* __restrict__ sem,
 
   // warps 0-3 take the stereo halves of a pass's 32 voxels, warps 4-7 the
   // sem halves (a role per warp, so that no warp runs both instruction
-  // streams); with Cs = 0 both take stereo halves, of alternate passes
-  const int role = threadIdx.x / (kThreads / 2);
+  // streams)
+  const bool is_sem = threadIdx.x >= kThreads / 2;
   const int t = threadIdx.x % (kThreads / 2);
   const int slot = t / kQuad, q = t % kQuad;
-  const bool is_sem = Cs > 0 && role == 1;
   const int cst = C / VEC, csm = Cs / VEC;
 #pragma unroll 1
-  for (int e = Cs > 0 ? 0 : role; e < kVoxX; e += Cs > 0 ? 1 : 2) {
+  for (int e = 0; e < kVoxX; ++e) {
     const int x = x0 + e, y = y0 + slot;
     if (x >= nx || y >= ny) continue;
     const float un = __ldg(u + (b * nx + x) * ny + y);
@@ -183,7 +177,6 @@ voxel_features_kernel(const T* __restrict__ vol, const T* __restrict__ sem,
     const bool valid = vok[e] && un >= 0.f && un <= pad_w;
     T* dst = out + (size_t)vox * (C + Cs);
     if (!is_sem) {             // the stereo half: 8 taps
-      if (valid2d != nullptr && q == 0) valid2d[vox] = valid ? 1 : 0;
       int xi[2];
       float wx[2], wt[8];
       axis_taps(un / (pad_w - 1.f) * (float)(W - 1), W, xi, wx);
@@ -245,9 +238,9 @@ voxel_features_kernel(const T* __restrict__ vol, const T* __restrict__ sem,
 template <typename T>
 int launch_voxel(const void* vol, const void* sem, const float* att,
                  const float* u, const float* v, const float4* xtab,
-                 void* out, uint8_t* valid2d, int B, int D, int H, int W,
-                 int C, int Hs, int Ws, int Cs, int nz, int ny, int nx,
-                 float pad_h, float pad_w, cudaStream_t s) {
+                 void* out, int B, int D, int H, int W, int C, int Hs,
+                 int Ws, int Cs, int nz, int ny, int nx, float pad_h,
+                 float pad_w, cudaStream_t s) {
   const dim3 grid((ny + kVoxY - 1) / kVoxY, (nx + kVoxX - 1) / kVoxX,
                   B * nz);
   const T* vt = static_cast<const T*>(vol);
@@ -255,12 +248,12 @@ int launch_voxel(const void* vol, const void* sem, const float* att,
   T* o = static_cast<T*>(out);
   if (C % vec16<T>() == 0 && Cs % vec16<T>() == 0)   // 16-byte chunks
     voxel_features_kernel<T, vec16<T>()><<<grid, kThreads, 0, s>>>(
-        vt, st, att, u, v, xtab, o, valid2d, D, H, W, C, Hs, Ws, Cs, nz, ny,
-        nx, pad_h, pad_w);
+        vt, st, att, u, v, xtab, o, D, H, W, C, Hs, Ws, Cs, nz, ny, nx, pad_h,
+        pad_w);
   else
     voxel_features_kernel<T, 1><<<grid, kThreads, 0, s>>>(
-        vt, st, att, u, v, xtab, o, valid2d, D, H, W, C, Hs, Ws, Cs, nz, ny,
-        nx, pad_h, pad_w);
+        vt, st, att, u, v, xtab, o, D, H, W, C, Hs, Ws, Cs, nz, ny, nx, pad_h,
+        pad_w);
   return (int)cudaGetLastError();
 }
 
@@ -378,24 +371,24 @@ attention_sample_kernel(const T* __restrict__ sm, const float* __restrict__ u,
 
 }  // namespace
 
-// vol (B, D, H, W, C); sem (B, Hs, Ws, Cs) and att (B, nz, ny, nx)
-// float32, both null when Cs = 0; u (B, nx, ny); v (B, nx, nz); xtab
-// (nx,) float4 (z0, z1, w0, w1); out (B, nz, ny, nx, C + Cs); valid2d
-// (B, nz, ny, nx) or null.
+// vol (B, D, H, W, C); sem (B, Hs, Ws, Cs), Cs > 0; att (B, nz, ny, nx)
+// float32; u (B, nx, ny); v (B, nx, nz); xtab (nx,) float4 (z0, z1, w0,
+// w1); out (B, nz, ny, nx, C + Cs).
 extern "C" int dfm_voxel_features(
     const void* vol, const void* sem, const float* att, const float* u,
-    const float* v, const void* xtab, void* out, uint8_t* valid2d, int B,
-    int D, int H, int W, int C, int Hs, int Ws, int Cs, int nz, int ny,
-    int nx, float pad_h, float pad_w, int is_bf16, void* stream) {
+    const float* v, const void* xtab, void* out, int B, int D, int H, int W,
+    int C, int Hs, int Ws, int Cs, int nz, int ny, int nx, float pad_h,
+    float pad_w, int is_bf16, void* stream) {
+  if (Cs < 1) return (int)cudaErrorInvalidValue;
   if ((long long)B * nz * ny * nx == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* xt = static_cast<const float4*>(xtab);
   if (is_bf16)
-    return launch_voxel<__nv_bfloat16>(vol, sem, att, u, v, xt, out,
-                                       valid2d, B, D, H, W, C, Hs, Ws, Cs,
-                                       nz, ny, nx, pad_h, pad_w, s);
-  return launch_voxel<float>(vol, sem, att, u, v, xt, out, valid2d, B, D, H,
-                             W, C, Hs, Ws, Cs, nz, ny, nx, pad_h, pad_w, s);
+    return launch_voxel<__nv_bfloat16>(vol, sem, att, u, v, xt, out, B, D,
+                                       H, W, C, Hs, Ws, Cs, nz, ny, nx,
+                                       pad_h, pad_w, s);
+  return launch_voxel<float>(vol, sem, att, u, v, xt, out, B, D, H, W, C, Hs,
+                             Ws, Cs, nz, ny, nx, pad_h, pad_w, s);
 }
 
 // sm (B, D, H, W); xtab (nx,) float4 (z0, z1, w0, w1); out (B, nz, ny,

@@ -7,9 +7,8 @@
 // Semantics: bilinear sample of prev (B, H, W, C) at (u, v) in
 // align-corners pixel index space, taps outside the map weigh zero, f32
 // accumulation; out (B, D, Hq, Wq, C) in the input type. The sample
-// point of output pixel (b, d, h, w) is either read from u, v
-// (B, D, Hq, Wq) float32 (`dfm_warp_prev`) or computed here from the
-// parameter row of sample b and the depth d (`dfm_warp_prev_sweep`):
+// point of output pixel (b, d, h, w) is computed here from the parameter
+// row of sample b and the depth d (`dfm_warp_prev_sweep`):
 //   x = w * step, y = h * step
 //   u = (x + crop_x) / scale, v = (y + crop_y) / scale, u = org_w - u if
 //   flipped (the augmentation undone)
@@ -23,18 +22,17 @@
 // (no fused multiply-add), and the bilinear sum in warp_prev_plain's
 // order (csrc/common.cuh:madd), so on the card the kernel returns the
 // plain versions' bits.
-// Plain versions: sweep_coords_plain + warp_prev_plain (sweep) and
-// warp_prev_plain (coordinates read).
+// Plain version: sweep_coords_plain + warp_prev_plain.
 //
 // Bound on the H100: bytes. At the DfM-KITTI shapes (prev 1x320x1280x32
 // bf16, 72x80x320 samples) it writes 118 MB and reads the ~26 MB of prev
 // rows the taps touch; the coordinates (15 MB of float32, and ~1.8 ms of
-// PyTorch kernels to make them) are gone from the sweep. Design: a block
-// owns one (b, d) and kRows output rows; it loads the parameter row and
-// the depth once into shared memory. A warp walks groups of 32 pixels:
-// lane j computes (or reads, coalesced) the sample point of pixel j of
-// the group once, then the point is passed by __shfl_sync to the LANES
-// lanes that work on each pixel, LANES of 16 bytes of channels each
+// PyTorch kernels to make them) are never made. Design: a block owns one
+// (b, d) and kRows output rows; it loads the parameter row and the depth
+// once into shared memory. A warp walks groups of 32 pixels: lane j
+// computes the sample point of pixel j of the group once, then the point
+// is passed by __shfl_sync to the LANES lanes that work on each pixel,
+// LANES of 16 bytes of channels each
 // (C = 32 bf16: 4 lanes, 8 pixels per warp step), which read the 4 tap
 // rows of the NHWC map with 16-byte loads and write the pixel's output
 // row with 16-byte stores. The taps of an output row lie in a narrow
@@ -81,14 +79,11 @@ __device__ __forceinline__ void sweep_point(const float* __restrict__ p,
   pv = __fmul_rn(__fsub_rn(__fmul_rn(pv, sf), coy), p[17]);
 }
 
-// grid (ceil(Hq / kRows), D, B), block kThreads. Sweep
-// when `params` (B, kParams) and `depths` (D,) are given, else the
-// points come from u, v (B, D, Hq, Wq). The caller keeps every tensor
-// below 2^31 elements.
+// grid (ceil(Hq / kRows), D, B), block kThreads; params (B, kParams),
+// depths (D,). The caller keeps every tensor below 2^31 elements.
 template <typename T, int VEC, int LANES>
 __global__ void __launch_bounds__(kThreads, 4)
-warp_prev_kernel(const T* __restrict__ prev, const float* __restrict__ u,
-                 const float* __restrict__ v,
+warp_prev_kernel(const T* __restrict__ prev,
                  const float* __restrict__ params,
                  const float* __restrict__ depths, T* __restrict__ out,
                  int H, int W, int C, int D, int Hq, int Wq, float step) {
@@ -98,14 +93,11 @@ warp_prev_kernel(const T* __restrict__ prev, const float* __restrict__ u,
   const int h0 = blockIdx.x * kRows;
   const int npix = min(kRows, Hq - h0) * Wq;
   const int first = ((b * D + d) * Hq + h0) * Wq;   // block's first pixel
-  const bool sweep = params != nullptr;
-  if (sweep) {
-    if (threadIdx.x < kParams)
-      prm[threadIdx.x] = params[b * kParams + threadIdx.x];
-    else if (threadIdx.x == kParams)
-      prm[kParams] = depths[d];
-    __syncthreads();
-  }
+  if (threadIdx.x < kParams)
+    prm[threadIdx.x] = params[b * kParams + threadIdx.x];
+  else if (threadIdx.x == kParams)
+    prm[kParams] = depths[d];
+  __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane % LANES, chunks = C / VEC;
   const T* base = prev + (size_t)b * H * W * C;
@@ -113,14 +105,8 @@ warp_prev_kernel(const T* __restrict__ prev, const float* __restrict__ u,
     const int p = g + lane;
     const int hl = p / Wq;
     float pu = 0.f, pv = 0.f;
-    if (p < npix) {
-      if (sweep) {
-        sweep_point(prm, prm[kParams], h0 + hl, p - hl * Wq, step, pu, pv);
-      } else {
-        pu = __ldg(u + first + p);
-        pv = __ldg(v + first + p);
-      }
-    }
+    if (p < npix)
+      sweep_point(prm, prm[kParams], h0 + hl, p - hl * Wq, step, pu, pv);
 #pragma unroll
     for (int s = 0; s < LANES; ++s) {
       const int q = s * kPix + lane / LANES;     // pixel of the group
@@ -162,53 +148,39 @@ warp_prev_kernel(const T* __restrict__ prev, const float* __restrict__ u,
 }
 
 template <typename T, int VEC>
-int launch_vec(const void* prev, const float* u, const float* v,
-               const float* params, const float* depths, void* out, int B,
-               int H, int W, int C, int D, int Hq, int Wq, float step,
-               cudaStream_t s) {
+int launch_vec(const void* prev, const float* params, const float* depths,
+               void* out, int B, int H, int W, int C, int D, int Hq, int Wq,
+               float step, cudaStream_t s) {
   const dim3 grid((Hq + kRows - 1) / kRows, D, B);
   const T* p = static_cast<const T*>(prev);
   T* o = static_cast<T*>(out);
   if (C / VEC <= 4)
     warp_prev_kernel<T, VEC, 4><<<grid, kThreads, 0, s>>>(
-        p, u, v, params, depths, o, H, W, C, D, Hq, Wq, step);
+        p, params, depths, o, H, W, C, D, Hq, Wq, step);
   else
     warp_prev_kernel<T, VEC, 8><<<grid, kThreads, 0, s>>>(
-        p, u, v, params, depths, o, H, W, C, D, Hq, Wq, step);
+        p, params, depths, o, H, W, C, D, Hq, Wq, step);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* prev, const float* u, const float* v,
-           const float* params, const float* depths, void* out, int B, int H,
-           int W, int C, int D, int Hq, int Wq, float step, cudaStream_t s) {
+int launch(const void* prev, const float* params, const float* depths,
+           void* out, int B, int H, int W, int C, int D, int Hq, int Wq,
+           float step, cudaStream_t s) {
   if ((long long)B * D * Hq * Wq == 0) return 0;
   if (C % vec16<T>() == 0)      // 16-byte rows: vector loads and stores
-    return launch_vec<T, vec16<T>()>(prev, u, v, params, depths, out, B, H,
-                                     W, C, D, Hq, Wq, step, s);
-  return launch_vec<T, 1>(prev, u, v, params, depths, out, B, H, W, C, D, Hq,
-                          Wq, step, s);
+    return launch_vec<T, vec16<T>()>(prev, params, depths, out, B, H, W, C,
+                                     D, Hq, Wq, step, s);
+  return launch_vec<T, 1>(prev, params, depths, out, B, H, W, C, D, Hq, Wq,
+                          step, s);
 }
 
 }  // namespace
 
-// prev (B, H, W, C); u, v (B, D, Hq, Wq) float32; out (B, D, Hq, Wq, C).
-// is_bf16 selects the element type (bf16 or float). Returns
-// cudaGetLastError() after the launch.
-extern "C" int dfm_warp_prev(const void* prev, const float* u,
-                             const float* v, void* out, int B, int H, int W,
-                             int C, int D, int Hq, int Wq, int is_bf16,
-                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(prev, u, v, nullptr, nullptr, out, B, H, W,
-                                 C, D, Hq, Wq, 0.f, s);
-  return launch<float>(prev, u, v, nullptr, nullptr, out, B, H, W, C, D, Hq,
-                       Wq, 0.f, s);
-}
-
-// The sweep: params (B, 18) float32 rows of sweep_params, depths (D,)
-// float32, output pixel (h, w) at feature position (w, h) * step.
+// prev (B, H, W, C), params (B, 18) float32 rows of sweep_params, depths
+// (D,) float32 -> out (B, D, Hq, Wq, C), output pixel (h, w) at feature
+// position (w, h) * step; is_bf16 selects the element type (bf16 or
+// float). Returns cudaGetLastError() after the launch.
 extern "C" int dfm_warp_prev_sweep(const void* prev, const float* params,
                                    const float* depths, void* out, int B,
                                    int H, int W, int C, int D, int Hq,
@@ -216,8 +188,8 @@ extern "C" int dfm_warp_prev_sweep(const void* prev, const float* params,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(prev, nullptr, nullptr, params, depths, out,
-                                 B, H, W, C, D, Hq, Wq, step, s);
-  return launch<float>(prev, nullptr, nullptr, params, depths, out, B, H, W,
-                       C, D, Hq, Wq, step, s);
+    return launch<__nv_bfloat16>(prev, params, depths, out, B, H, W, C, D,
+                                 Hq, Wq, step, s);
+  return launch<float>(prev, params, depths, out, B, H, W, C, D, Hq, Wq,
+                       step, s);
 }

@@ -11,17 +11,22 @@ float32 result over each band of th rows and four depth slices:
         = sum / sum of squares over rows hi*th .. hi*th + th - 1, all W,
           slice 4k + j, channel co                (D % 4 == 0, H % th == 0)
 
-`conv3d_gn` finishes GroupNorm from those moments and applies it to the
-stored (rounded) conv output, then adds the residual, then the relu, in
-that order (K7a's order, affine -> relu -> residual, is another).
+`conv3d_gn` finishes GroupNorm from those moments (`gn_partials_affine`:
+the per-channel scale and bias, a few PyTorch ops over 2 x C_out
+values, as the JAX package computes them) and applies it to the stored
+(rounded) conv output, then adds the residual, then the relu, in that
+order, rounded once (`gn_finish_plain`; K7a's order, affine -> relu ->
+residual, is another). On the card that apply step is one pass of its
+own kernel (`ops/cuda/conv3d.py:gn_finish`), as XLA fuses it into one
+pass in the JAX package.
 
 The JAX kernel takes its weights as a banded (9, 6 C, 4 C_out) matrix
 (`pack_weights`) that computes four depth slices per 128-lane matmul at
 twice the products; the port keeps `pack_weights` and its inverse
 `band_taps` for callers that hold such weights, and its kernels take the
 taps in the port's (C_out, C, 3, 3, 3) layout. The kernels
-(`ops/cuda/conv3d.py:conv3d_stats`) run on CUDA tensors, the plain
-versions below on CPU tensors.
+(`ops/cuda/conv3d.py:conv3d_stats`, `gn_finish`) run on CUDA tensors,
+the plain versions below on CPU tensors.
 """
 
 import torch
@@ -30,8 +35,9 @@ from .conv3d import conv3d_f32
 from .conv_chain import gn_scale_bias
 
 __all__ = ['pack_weights', 'band_taps', 'check_zpack_shape',
-           'fold_row_partials', 'conv3d_zpack_plain', 'conv3d_gn_plain',
-           'conv3d_zpack', 'conv3d_gn']
+           'fold_row_partials', 'conv3d_zpack_plain', 'gn_partials_affine',
+           'gn_finish_plain', 'conv3d_gn_plain', 'conv3d_zpack',
+           'conv3d_gn']
 
 ZB = 4           # depth slices per partial (the JAX kernel's z-block)
 
@@ -88,13 +94,20 @@ def conv3d_zpack_plain(x, weight, th=8):
     return af.to(x.dtype).contiguous(), fold_row_partials(rows, th)
 
 
-def _gn_finish(out, ps, scale, bias, num_groups, eps, residual, relu):
-    """GroupNorm from the partials (f32, var = E[x^2] - E[x]^2), applied
-    to the stored conv output: affine, + residual, relu; in out's type."""
-    c_out = out.shape[-1]
+def gn_partials_affine(ps, shape, scale, bias, num_groups, eps=1e-5):
+    """GroupNorm from the partials (D//4, H//th, 2, 4 C_out) of a conv
+    output of `shape` (D, H, W, C_out): f32, var = E[x^2] - E[x]^2 ->
+    the per-channel (C_out,) float32 scale and bias of the folded
+    affine."""
+    c_out = shape[-1]
     per_c = ps.reshape(-1, 1, 2, ZB, c_out).sum(3)         # (N, 1, 2, C_out)
-    sc, bs = gn_scale_bias(per_c, out.shape, scale, bias, num_groups,
-                           eps=eps)
+    return gn_scale_bias(per_c, shape, scale, bias, num_groups, eps=eps)
+
+
+def gn_finish_plain(out, sc, bs, residual=None, relu=False):
+    """Plain version of the finish kernel: [relu](out * sc + bs
+    [+ residual]) in float32, each product and sum rounded alone, in
+    out's type (one rounding)."""
     y = out.float() * sc + bs
     if residual is not None:
         y = y + residual.float()
@@ -107,7 +120,8 @@ def conv3d_gn_plain(x, weight, scale, bias, num_groups, eps=1e-5,
                     residual=None, relu=False, th=8):
     """Plain version of `conv3d_gn`."""
     out, ps = conv3d_zpack_plain(x, weight, th)
-    return _gn_finish(out, ps, scale, bias, num_groups, eps, residual, relu)
+    sc, bs = gn_partials_affine(ps, out.shape, scale, bias, num_groups, eps)
+    return gn_finish_plain(out, sc, bs, residual, relu)
 
 
 def conv3d_zpack(x, w_big, th=8):
@@ -123,8 +137,10 @@ def conv3d_gn(x, weight, scale, bias, num_groups, eps=1e-5, residual=None,
               relu=False, th=8):
     """Fused ConvNorm: [relu](GN(conv(x)) + residual). weight (C_out, C,
     3, 3, 3); scale, bias (C_out,); residual (D, H, W, C_out) or None.
-    The conv and its moments are K9a; the finish is a few PyTorch ops, as
-    the JAX package leaves it to XLA."""
-    from .cuda.conv3d import conv3d_stats
+    The conv and its moments are K9a; the scale and bias a few PyTorch
+    ops on the moments; the finish one pass of its kernel (on the CPU
+    the plain versions)."""
+    from .cuda.conv3d import conv3d_stats, gn_finish
     out, ps = conv3d_stats(x, weight, th)
-    return _gn_finish(out, ps, scale, bias, num_groups, eps, residual, relu)
+    sc, bs = gn_partials_affine(ps, out.shape, scale, bias, num_groups, eps)
+    return gn_finish(out, sc, bs, residual, relu)

@@ -5,14 +5,15 @@ Port of `dfm_tpu/ops/cost_volume.py` (`plane_sweep_grids` :31-91 and
 align-corners pixel index space (no [-1, 1] normalisation). The cur
 half of the volume is a strided slice of the cur features (constant
 along depth); the prev half is a bilinear warp, kernel K1, whose plain
-version is `warp_prev_plain` below. On the card the kernel computes each
-sample point itself from a parameter row per sample (`sweep_params`:
-the composed projective map and the augmentation) and the depth
+version is `warp_prev_plain` below. The kernel computes each sample
+point itself from a parameter row per sample (`sweep_params`: the
+composed projective map and the augmentation) and the depth
 (`ops/cuda/sampling.py:warp_prev_sweep`, plain version
-`sweep_coords_plain` + `warp_prev_plain`), so the grids are never
-materialised; on the CPU the grids come from `plane_sweep_grids`, as in
-the JAX package. The kernel has no band limit, so the JAX package's
-`band_ok` / `lax.cond` gather fallback has no counterpart.
+`sweep_coords_plain` + `warp_prev_plain`, which it takes on the CPU), so
+the grids are never materialised. `plane_sweep_grids`, the JAX
+package's grids, stays as the tests' reference for those points. The
+kernel has no band limit, so the JAX package's `band_ok` / `lax.cond`
+gather fallback has no counterpart.
 """
 
 import torch
@@ -180,7 +181,7 @@ def build_plane_sweep_cost(cur_feats, prev_feats, depths, cam2img, cur2prev,
         cur2d (B, H', W', C) — the cur half, constant along depth — and
         prev (B, D, H', W', C), the prev half warped by K1.
     """
-    from .cuda.sampling import warp_prev, warp_prev_sweep
+    from .cuda.sampling import warp_prev_sweep
     csf = cost_sample_factor
     if float(csf) != float(int(csf)):
         raise ValueError('the cur half must be a pure slice: '
@@ -200,21 +201,9 @@ def build_plane_sweep_cost(cur_feats, prev_feats, depths, cam2img, cur2prev,
     w_out = round(w_in / csf)
     cur2d = cur_feats[:, :h_out * csf:csf, :w_out * csf:csf]
     span = 'dfm.stereo_backbone.cost_volume.'
-    if prev_feats.device.type == 'cuda':
-        with record_function(span + 'grid'):
-            params = sweep_params(cam2img, cur2prev, org_w, flip,
-                                  crop_offset, scale_factor,
-                                  feat_sample_factor)
-        with record_function(span + 'warp'):
-            return cur2d, warp_prev_sweep(
-                prev_feats.contiguous(), params, depths, h_out, w_out,
-                feat_sample_factor * csf)
     with record_function(span + 'grid'):
-        _, prev_grid = plane_sweep_grids(
-            depths, cam2img, cur2prev, (h_in, w_in), csf, feat_sample_factor,
-            org_w, flip, crop_offset, scale_factor)
+        params = sweep_params(cam2img, cur2prev, org_w, flip, crop_offset,
+                              scale_factor, feat_sample_factor)
     with record_function(span + 'warp'):
-        prev_s = warp_prev(prev_feats.contiguous(),
-                           prev_grid[..., 0].contiguous(),
-                           prev_grid[..., 1].contiguous())
-    return cur2d, prev_s
+        return cur2d, warp_prev_sweep(prev_feats.contiguous(), params, depths,
+                                      h_out, w_out, feat_sample_factor * csf)

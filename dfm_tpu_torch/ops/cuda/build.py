@@ -32,10 +32,9 @@ _F = ctypes.c_float
 # cudaGetLastError() after its launch
 SOURCES = {
     'warp_prev': ('warp_prev.cu', {
-        'dfm_warp_prev': [_P] * 4 + [_I] * 8 + [_P],
         'dfm_warp_prev_sweep': [_P] * 4 + [_I] * 7 + [_F, _I, _P]}),
     'frustum_sample': ('frustum_sample.cu', {
-        'dfm_voxel_features': [_P] * 8 + [_I] * 11 + [_F, _F, _I, _P],
+        'dfm_voxel_features': [_P] * 7 + [_I] * 11 + [_F, _F, _I, _P],
         'dfm_attention_sample': [_P] * 5 + [_I] * 7 + [_F, _F, _I, _P]}),
     'conv_chain': ('conv_chain.cu', {
         'dfm_pack_vol': [_P, _P, _I, _I, _I, _P],
@@ -47,9 +46,9 @@ SOURCES = {
         'dfm_conv_s2': [_P] * 4 + [_I] * 5 + [_P],
         'dfm_pack_parity8': [_P] * 3 + [_I] * 3 + [_L] * 4 + [_P]}),
     'conv3d': ('conv3d.cu', {
-        'dfm_conv3d_tc': [_P] * 4 + [_I] * 5 + [_P],
         'dfm_conv3d_direct': [_P] * 4 + [_I] * 7 + [_P],
-        'dfm_conv3d_wgmma': [_P] * 3 + [_I] * 8 + [_P]}),
+        'dfm_conv3d_wgmma': [_P] * 4 + [_I] * 8 + [_P],
+        'dfm_conv3d_gn_finish': [_P] * 5 + [_L] + [_I] * 4 + [_P]}),
 }
 
 _LIBS = {}

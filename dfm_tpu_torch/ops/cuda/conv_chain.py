@@ -30,7 +30,7 @@ from .build import load
 from .sampling import LAUNCHES, _check, _on_cpu, _raise_on, _stream
 
 __all__ = ['pack_vol', 'unpack_vol', 'conv_p2p', 'conv_s2_p2d',
-           'pack_parity8', 'unpack_affine', 'affine_chain', 'blocked_weight',
+           'pack_parity8', 'unpack_affine', 'affine_chain',
            'wgmma_weight', 'cached_wgmma_weight']
 
 CHANNELS = 32
@@ -83,17 +83,6 @@ def unpack_vol(cv):
     return out
 
 
-def blocked_weight(weight, dtype=torch.bfloat16):
-    """(Cout, 32, 3, 3, 3) -> [tap 27][k half][n block][k 16][n 16] in
-    `dtype`, the tiles K9a's `wmma` code (Cout 32, two n blocks) reads
-    from shared memory (k = input channel, n = output channel,
-    tap = (dz * 3 + dy) * 3 + dx)."""
-    cout = weight.shape[0]
-    w = weight.to(dtype).permute(2, 3, 4, 1, 0).reshape(27, 2, 16,
-                                                        cout // 16, 16)
-    return w.permute(0, 1, 3, 2, 4).contiguous()
-
-
 def wgmma_weight(weight, dtype=torch.bfloat16, koct=None):
     """(Cout, C, 3, 3, 3) -> [tap 27][k octet koct][n Cout][k 8] in
     `dtype`: the B operand of the `wgmma` convolutions (K4, K5, K9b) as
@@ -137,13 +126,6 @@ def _sm_count(dev):
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     return _SMS[dev]
-
-
-def _z_chunk(d, tiles, sms):
-    """Depth slices per block: the fewest rounds of `sms` blocks, each
-    block paying about one slice of start-up (weights and halo)."""
-    return min(range(1, d + 1), key=lambda zc: (
-        math.ceil(tiles * math.ceil(d / zc) / sms) * (zc + 1), -zc))
 
 
 def conv_p2p(cv, weight, residual=False):

@@ -3,16 +3,13 @@
 | wrapper                  | source            | replaces (TPU, under dfm_tpu/ops/) |
 | `warp_prev_sweep`        | warp_prev.cu      | pallas/cost_warp.py:warp_prev_band |
 |                          |                   | + cost_volume.py:plane_sweep_grids |
-| `warp_prev`              | warp_prev.cu      | pallas/cost_warp.py:warp_prev_band |
 | `frustum_voxel_features` | frustum_sample.cu | pallas/frustum_sample.py:_call +   |
 |                          |                   | the neck's `_fused` glue           |
-| `frustum_stereo_sample`  | frustum_sample.cu | pallas/frustum_sample.py:_call     |
 | `attention_sample`       | frustum_sample.cu | pallas/frustum_sample.py:_att_call |
 
-(sources under `dfm_tpu_torch/csrc/`).
-`warp_prev_sweep` and `warp_prev` run one kernel and count as K1;
-`frustum_voxel_features` and `frustum_stereo_sample` (its Cs = 0
-instance) run one kernel and count as K2.
+(sources under `dfm_tpu_torch/csrc/`). Their launches count under the
+names of the TPU functions: K1 `warp_prev`, K2 `frustum_stereo_sample`,
+K3 `attention_sample`.
 
 On a CPU tensor a wrapper returns its plain PyTorch version
 (`ops/cost_volume.py`, `ops/frustum_separable.py`). On a CUDA tensor it
@@ -29,21 +26,20 @@ import torch
 from ..cost_volume import (SWEEP_PARAMS, sweep_coords_plain,
                            warp_prev_plain)
 from ..frustum_separable import (attention_sample_plain, depth_tables,
-                                 frustum_voxel_features_plain,
-                                 stereo_sample_plain)
+                                 frustum_voxel_features_plain)
 from .build import load
 
 __all__ = ['LAUNCHES', 'reset_launch_counts', 'warp_prev_sweep',
-           'warp_prev', 'frustum_voxel_features', 'frustum_stereo_sample',
-           'attention_sample', 'depth_xtab']
+           'frustum_voxel_features', 'attention_sample', 'depth_xtab']
 
 # one table for every kernel of the port (K4-K8b: `conv_chain.py`, K9a /
 # K9b: `conv3d.py`), under the names of the JAX functions they replace
+# (`conv3d_gn_finish`: K9a's GroupNorm finish, which XLA fuses in JAX)
 LAUNCHES = {'warp_prev': 0, 'frustum_stereo_sample': 0,
             'attention_sample': 0, 'pack_vol': 0, 'conv_p2p': 0,
             'unpack_affine_res': 0, 'conv_s2_p2d': 0, 'pack_parity8': 0,
             'gn_affine_res_packed': 0, 'unpack_vol': 0, 'conv3d_zpack': 0,
-            'conv3d_pallas': 0}
+            'conv3d_gn_finish': 0, 'conv3d_pallas': 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32 = 2 ** 31
@@ -128,99 +124,51 @@ def warp_prev_sweep(prev, params, depths, hq, wq, step):
     return out
 
 
-def warp_prev(prev, u, v):
-    """K1. prev (B, H, W, C) float32/bf16; u, v (B, D, Hq, Wq) float32
-    align-corners pixel coords -> (B, D, Hq, Wq, C) in prev's dtype."""
-    if _on_cpu(prev, u, v):
-        return warp_prev_plain(prev, u, v)
-    _check(prev, 'prev', 4, _DTYPES)
-    _check(u, 'u', 4, (torch.float32,))
-    _check(v, 'v', 4, (torch.float32,))
-    b, h, w, c = prev.shape
-    if u.shape != v.shape or u.shape[0] != b:
-        raise ValueError(f'u {tuple(u.shape)} / v {tuple(v.shape)} do not '
-                         f'match prev {tuple(prev.shape)}')
-    out = torch.empty(tuple(u.shape) + (c,), dtype=prev.dtype,
-                      device=prev.device)
-    _fits_int32('warp_prev', prev, out)
-    _k1_grid('warp_prev', b, u.shape[1])
-    rc = load('warp_prev').dfm_warp_prev(
-        prev.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-        w, c, *u.shape[1:], _DTYPES[prev.dtype], _stream())
-    _raise_on(rc, 'warp_prev')
-    LAUNCHES['warp_prev'] += 1
-    return out
+def frustum_voxel_features(vol, sem, att, u, v, ds, pad_shape):
+    """K2 with the neck's glue fused: the voxel feature volume.
 
-
-def _voxel_features(vol, sem, att, u, v, ds, pad_shape, with_valid):
-    """Checks and the launch of K2; sem and att None for Cs = 0."""
+    vol (B, D, H, W, C) float32/bf16; sem (B, Hs, Ws, Cs) in vol's dtype
+    (on the card Cs > 0; the plain version also takes Cs = 0); att
+    (B, nz, ny, nx) float32 (K3's output); u (B, nx, ny), v (B, nx, nz)
+    float32; ds the numpy taps of `slab_depth_static(num_bins=D)`.
+    Returns (B, nz, ny, nx, C + Cs) in vol's dtype: the stereo sample,
+    then the sem sample times att (see `frustum_voxel_features_plain`),
+    zero where not valid2d & in_range; valid2d is not materialised."""
+    if _on_cpu(vol, sem, att, u, v):
+        return frustum_voxel_features_plain(
+            vol, sem, att, u, v, *depth_tables(ds, vol.device), pad_shape)
     _check(vol, 'vol', 5, _DTYPES)
+    _check(sem, 'sem', 4, (vol.dtype,))
+    _check(att, 'att', 4, (torch.float32,))
     _check(u, 'u', 3, (torch.float32,))
     _check(v, 'v', 3, (torch.float32,))
     b, d, h, w, c = vol.shape
     nx, ny = u.shape[1:]
     nz = v.shape[2]
+    hs, ws, cs = sem.shape[1:]
     if u.shape[0] != b or v.shape[:2] != (b, nx) or len(ds['z0']) != nx:
         raise ValueError(f'frustum_voxel_features: u {tuple(u.shape)} / v '
                          f'{tuple(v.shape)} / {len(ds["z0"])} depth taps do '
                          f'not match the volume {tuple(vol.shape)}')
-    hs = ws = cs = 0
-    if sem is not None:
-        _check(sem, 'sem', 4, (vol.dtype,))
-        _check(att, 'att', 4, (torch.float32,))
-        hs, ws, cs = sem.shape[1:]
-        if sem.shape[0] != b or tuple(att.shape) != (b, nz, ny, nx):
-            raise ValueError(f'frustum_voxel_features: sem '
-                             f'{tuple(sem.shape)} / att {tuple(att.shape)} '
-                             f'do not match the grid {(b, nz, ny, nx)}')
+    if sem.shape[0] != b or cs == 0 or tuple(att.shape) != (b, nz, ny, nx):
+        raise ValueError(f'frustum_voxel_features: sem {tuple(sem.shape)} / '
+                         f'att {tuple(att.shape)} do not match the grid '
+                         f'{(b, nz, ny, nx)} (the kernel takes Cs > 0)')
     if b * nz >= 65536:
         raise ValueError(f'frustum_voxel_features: B * nz = {b * nz} '
                          f'beyond the grid\'s z extent')
     xtab = depth_xtab(ds, d, vol.device)
     out = torch.empty((b, nz, ny, nx, c + cs), dtype=vol.dtype,
                       device=vol.device)
-    _fits_int32('frustum_voxel_features', vol, u, v, out,
-                b * hs * ws * cs)
-    valid2d = torch.empty((b, nz, ny, nx), dtype=torch.bool,
-                          device=vol.device) if with_valid else None
+    _fits_int32('frustum_voxel_features', vol, sem, u, v, out)
     rc = load('frustum_sample').dfm_voxel_features(
-        vol.data_ptr(), None if sem is None else sem.data_ptr(),
-        None if att is None else att.data_ptr(), u.data_ptr(), v.data_ptr(),
-        xtab.data_ptr(), out.data_ptr(),
-        None if valid2d is None else valid2d.data_ptr(), b, d, h, w, c, hs,
+        vol.data_ptr(), sem.data_ptr(), att.data_ptr(), u.data_ptr(),
+        v.data_ptr(), xtab.data_ptr(), out.data_ptr(), b, d, h, w, c, hs,
         ws, cs, nz, ny, nx, float(pad_shape[0]), float(pad_shape[1]),
         _DTYPES[vol.dtype], _stream())
     _raise_on(rc, 'frustum_voxel_features')
     LAUNCHES['frustum_stereo_sample'] += 1
-    return out, valid2d
-
-
-def frustum_voxel_features(vol, sem, att, u, v, ds, pad_shape):
-    """K2 with the neck's glue fused: the voxel feature volume.
-
-    vol (B, D, H, W, C) float32/bf16; sem (B, Hs, Ws, Cs) in vol's dtype
-    (Cs may be 0); att (B, nz, ny, nx) float32 (K3's output); u, v and
-    ds as `frustum_stereo_sample`. Returns (B, nz, ny, nx, C + Cs) in
-    vol's dtype: the stereo sample, then the sem sample times att (see
-    `frustum_voxel_features_plain`); valid2d is not materialised."""
-    if _on_cpu(vol, sem, att, u, v):
-        return frustum_voxel_features_plain(
-            vol, sem, att, u, v, *depth_tables(ds, vol.device), pad_shape)
-    if sem.shape[-1] == 0:
-        sem = att = None
-    return _voxel_features(vol, sem, att, u, v, ds, pad_shape, False)[0]
-
-
-def frustum_stereo_sample(vol, u, v, ds, pad_shape):
-    """K2's Cs = 0 instance. vol (B, D, H, W, C) float32/bf16; u
-    (B, nx, ny), v (B, nx, nz) float32; ds the numpy taps of
-    `slab_depth_static(num_bins=D)`. Returns (B, nz, ny, nx, C) in vol's
-    dtype, zero where not valid2d & in_range, and valid2d
-    (B, nz, ny, nx) bool."""
-    if _on_cpu(vol, u, v):
-        return stereo_sample_plain(vol, u, v,
-                                   *depth_tables(ds, vol.device), pad_shape)
-    return _voxel_features(vol, None, None, u, v, ds, pad_shape, True)
+    return out
 
 
 _XTABS = {}           # depth_xtab's tables on the device, by content

@@ -7,9 +7,8 @@ bin on x alone (static). The JAX package turns this into hat-matrix
 matmuls for the TPU's matrix unit; on the GPU the three samples are
 direct gathers:
 
-* `stereo_sample_plain` — plain version of K2 (trilinear sample of the
-  stereo volume, masked by validity) — kernel in
-  `ops/cuda/sampling.py:frustum_stereo_sample`;
+* `stereo_sample_plain` — the stereo half of K2 (trilinear sample of
+  the stereo volume, masked by validity), the TPU kernel's function;
 * `attention_sample_plain` — plain version of K3 (trilinear sample of
   the x4 fine depth-softmax volume) — kernel
   `ops/cuda/sampling.py:attention_sample`;
@@ -146,7 +145,7 @@ def _voxel_taps(u, v, pad_shape, h, w):
 
 
 def stereo_sample_plain(vol, u, v, z0, z1, w0, w1, in_range, pad_shape):
-    """Plain version of K2.
+    """The stereo half of K2, the TPU kernel's function (and valid2d).
 
     Args:
         vol: (B, D, H, W, C) stereo volume.

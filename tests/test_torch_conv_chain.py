@@ -347,37 +347,7 @@ def test_wrappers_take_plain_versions_on_cpu(data):
         'warp_prev', 'frustum_stereo_sample', 'attention_sample', 'pack_vol',
         'conv_p2p', 'unpack_affine_res', 'conv_s2_p2d', 'pack_parity8',
         'gn_affine_res_packed', 'unpack_vol', 'conv3d_zpack',
-        'conv3d_pallas'}
-
-
-def test_blocked_weight_layout():
-    """[tap][k half][n half][k 16][n 16] of weight[n, k, dz, dy, dx]."""
-    w = torch.arange(32 * 32 * 27, dtype=torch.float32).reshape(
-        32, 32, 3, 3, 3)
-    b = KC.blocked_weight(w, torch.float32)
-    assert b.shape == (27, 2, 2, 16, 16) and b.is_contiguous()
-    for tap, k, n in ((0, 0, 0), (13, 17, 3), (26, 31, 31), (5, 2, 20)):
-        dz, dy, dx = tap // 9, tap // 3 % 3, tap % 3
-        assert b[tap, k // 16, n // 16, k % 16, n % 16] == w[n, k, dz, dy, dx]
-
-
-def test_blocked_weight_layout_cout64():
-    """K5's weights: four n blocks of 16 output channels."""
-    w = torch.arange(64 * 32 * 27, dtype=torch.float32).reshape(
-        64, 32, 3, 3, 3)
-    b = KC.blocked_weight(w, torch.float32)
-    assert b.shape == (27, 2, 4, 16, 16) and b.is_contiguous()
-    for tap, k, n in ((0, 0, 0), (13, 17, 3), (26, 31, 63), (5, 2, 52)):
-        dz, dy, dx = tap // 9, tap // 3 % 3, tap % 3
-        assert b[tap, k // 16, n // 16, k % 16, n % 16] == w[n, k, dz, dy, dx]
-
-
-def test_z_chunk_covers_depth():
-    for d, tiles, sms in ((72, 50, 132), (12, 1, 132), (1, 1, 132),
-                          (44, 50, 4)):
-        zc = KC._z_chunk(d, tiles, sms)
-        assert 1 <= zc <= d
-    assert KC._z_chunk(72, 50, 132) == 15          # 250 blocks: two rounds
+        'conv3d_gn_finish', 'conv3d_pallas'}
 
 
 # ------------------------------------------------- K5, K6, K7b, K8b

@@ -176,9 +176,10 @@ def test_stereo_sample_plain_matches_pallas_interpret():
         frustum_stereo_sample_pallas, jnp.asarray(vol).astype(jnp.bfloat16),
         jnp.asarray(u), jnp.asarray(v), ds, pad,
         (groups[0], groups[1], groups[2], FS._runs(ds['z0'])))
-    got, valid_g = K.frustum_stereo_sample(
+    got, valid_g = PFS.stereo_sample_plain(
         _t(vol, torch.bfloat16)[None], _t(u)[None], _t(v)[None],
-        PFS.slab_depth_static(xs, 2.0, 30.0, 6), pad)
+        *PFS.depth_tables(PFS.slab_depth_static(xs, 2.0, 30.0, 6), 'cpu'),
+        pad)
     np.testing.assert_array_equal(valid_g[0].numpy(), np.asarray(valid_w))
     np.testing.assert_allclose(got[0].float().numpy(), _f32(want),
                                **BF16_TOL)
@@ -392,19 +393,23 @@ def test_sweep_coords_match_grids(tag, fsf):
 
 def test_wrappers_take_plain_version_on_cpu(warp_data):
     """On CPU tensors the wrappers return the plain versions and launch
-    nothing: K1 (coordinates read and the sweep), K2 (fused and its
-    Cs = 0 instance), K3."""
+    nothing: K1 (the sweep), K2 (fused, with a sem map and without), K3;
+    and `build_plane_sweep_cost` takes K1's sweep on the CPU too."""
     prev, u, v = warp_data
     K.reset_launch_counts()
-    got = K.warp_prev(_t(prev), _t(u), _t(v))
-    want = PCV.warp_prev_plain(_t(prev), _t(u), _t(v))
-    assert torch.equal(got, want)
     depths, cam, (c2p, *meta) = _sweep_meta('b2')
     params = PCV.sweep_params(_t(cam), _t(c2p), *(_t(x) for x in meta))
     got = K.warp_prev_sweep(_t(prev), params, _t(depths), 6, 16, 4)
     want = PCV.warp_prev_plain(_t(prev), *PCV.sweep_coords_plain(
         params, _t(depths), 6, 16, 4))
     assert got.shape == (2, 5, 6, 16, 32) and torch.equal(got, want)
+    meta = [_t(x) for x in meta]
+    cur2d, warped = PCV.build_plane_sweep_cost(
+        _t(prev), _t(prev), _t(depths), _t(cam), _t(c2p), 4, 1, *meta)
+    params = PCV.sweep_params(_t(cam), _t(c2p), *meta, 1)
+    assert torch.equal(warped, PCV.warp_prev_plain(
+        _t(prev), *PCV.sweep_coords_plain(params, _t(depths), 6, 16, 4)))
+    assert torch.equal(cur2d, _t(prev)[:, ::4, ::4])
     vol, sem, att, u2, v2, xs, pad = _voxel_data(3)
     ds = PFS.slab_depth_static(xs, 2.0, 30.0, 6)
     tabs = PFS.depth_tables(ds, 'cpu')
@@ -412,9 +417,10 @@ def test_wrappers_take_plain_version_on_cpu(warp_data):
     got = K.frustum_voxel_features(_t(vol), _t(sem), _t(att), *args, ds, pad)
     assert torch.equal(got, PFS.frustum_voxel_features_plain(
         _t(vol), _t(sem), _t(att), *args, *tabs, pad))
-    got, valid = K.frustum_stereo_sample(_t(vol), *args, ds, pad)
-    want, valid_w = PFS.stereo_sample_plain(_t(vol), *args, *tabs, pad)
-    assert torch.equal(got, want) and torch.equal(valid, valid_w)
+    got = K.frustum_voxel_features(_t(vol), _t(sem)[..., :0], _t(att),
+                                   *args, ds, pad)
+    assert torch.equal(got, PFS.stereo_sample_plain(_t(vol), *args, *tabs,
+                                                    pad)[0])
     sm = _t(np.abs(vol[:, :, :, :, 0]))
     assert torch.equal(K.attention_sample(sm, *args, ds, pad),
                        PFS.attention_sample_plain(sm, *args, *tabs, pad))
@@ -424,8 +430,9 @@ def test_wrappers_take_plain_version_on_cpu(warp_data):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 def test_cuda_kernels_match_plain(dtype):
-    """Each CUDA kernel against its plain version on the card (f32:
-    atol 1e-5; bf16: one bf16 rounding of the output)."""
+    """Each sampling kernel against its plain version on the card (f32:
+    atol 1e-5; bf16: one bf16 rounding of the output): K1's sweep and K2
+    on 16-byte and on scalar rows, K3."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels have no CPU mode')
     dt = getattr(torch, dtype)
@@ -433,23 +440,28 @@ def test_cuda_kernels_match_plain(dtype):
     dev = 'cuda'
     rng = np.random.RandomState(0)
     prev = _t(rng.randn(2, 24, 64, 32), dt).to(dev)
-    u = _t(rng.rand(2, 3, 6, 16) * 70 - 3).to(dev)
-    v = _t(rng.rand(2, 3, 6, 16) * 30 - 3).to(dev)
+    depths, cam, (c2p, *meta) = _sweep_meta('b2')
+    params = PCV.sweep_params(_t(cam).to(dev), _t(c2p).to(dev),
+                              *(_t(x).to(dev) for x in meta))
+    dd = _t(depths).to(dev)
     K.reset_launch_counts()
     for table in (prev, prev[..., :6].contiguous()):   # 16-byte / scalar rows
         np.testing.assert_allclose(
-            K.warp_prev(table, u, v).float().cpu().numpy(),
-            PCV.warp_prev_plain(table, u, v).float().cpu().numpy(), **tol)
+            K.warp_prev_sweep(table, params, dd, 6, 16, 4).float().cpu()
+            .numpy(),
+            PCV.warp_prev_plain(table, *PCV.sweep_coords_plain(
+                params, dd, 6, 16, 4)).float().cpu().numpy(), **tol)
     vol, u2, v2, xs, pad = _frustum_data(0, (2, 6, 8, 16, 40))
     ds = PFS.slab_depth_static(xs, 2.0, 30.0, 6)
     vol_t = _t(vol, dt).to(dev)
     u2 = _t(np.stack([u2, u2 + 3])).to(dev)
     v2 = _t(np.stack([v2, v2 - 2])).to(dev)
-    for table in (vol_t, vol_t[..., :5].contiguous()):
-        got, valid = K.frustum_stereo_sample(table, u2, v2, ds, pad)
-        want, valid_w = PFS.stereo_sample_plain(
-            table, u2, v2, *PFS.depth_tables(ds, dev), pad)
-        assert torch.equal(valid, valid_w)
+    att = _t(rng.rand(2, 5, 12, 10)).to(dev)    # (B, nz, ny, nx)
+    for table, cs in ((vol_t, 16), (vol_t[..., :5].contiguous(), 3)):
+        sem = _t(rng.randn(2, 10, 20, cs), dt).to(dev)
+        got = K.frustum_voxel_features(table, sem, att, u2, v2, ds, pad)
+        want = PFS.frustum_voxel_features_plain(
+            table, sem, att, u2, v2, *PFS.depth_tables(ds, dev), pad)
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(), **tol)
     sm = _t(np.abs(rng.randn(2, 12, 16, 32)), dt).to(dev)
@@ -460,6 +472,8 @@ def test_cuda_kernels_match_plain(dtype):
                                    pad).cpu().numpy(), **F32_TOL)
     want = dict.fromkeys(K.LAUNCHES, 0)
     want.update(warp_prev=2, frustum_stereo_sample=2, attention_sample=1)
+    with pytest.raises(ValueError):        # the kernel takes Cs > 0
+        K.frustum_voxel_features(vol_t, sem[..., :0], att, u2, v2, ds, pad)
     assert K.LAUNCHES == want
 
 
@@ -507,9 +521,9 @@ def test_cuda_voxel_features_match_plain(dtype):
     """The fused K2 against its plain version on the card at B = 2, with
     grids that leave ragged 8 x 32 (x, y) tiles, invalid voxels, slabs out
     of the depth range, edge taps and zeros in the attention: Cs = 32
-    (16-byte chunks: one per lane in bf16, two in float32), Cs = 0 (also
-    through `frustum_stereo_sample`, with valid2d) and channel counts
-    that take one element per lane (C = 5, Cs = 3). f32: atol 1e-5 +
+    (16-byte chunks: one per lane in bf16, two in float32), Cs = 16 and
+    channel counts that take one element per lane (C = 5, Cs = 3), and
+    for each the stereo half against the stereo sample. f32: atol 1e-5 +
     rtol 1e-5; bf16: one bf16 rounding (atol 2e-2 + rtol 1e-2); and, as
     the kernel rounds as the plain version does, its bits."""
     if not torch.cuda.is_available():
@@ -518,7 +532,7 @@ def test_cuda_voxel_features_match_plain(dtype):
     tol = F32_TOL if dt == torch.float32 else dict(atol=2e-2, rtol=1e-2)
     dev = 'cuda'
     for c, cs, grid in ((32, 32, (5, 40, 37)), (32, 32, (3, 33, 70)),
-                        (32, 0, (5, 40, 37)), (5, 3, (4, 35, 19))):
+                        (32, 16, (5, 40, 37)), (5, 3, (4, 35, 19))):
         vol, sem, att, u, v, xs, pad = _voxel_data(
             7, vol_shape=(6, 8, 16, c), sem_shape=(10, 20, cs), grid=grid)
         ds = PFS.slab_depth_static(xs, 2.0, 30.0, 6)
@@ -535,13 +549,9 @@ def test_cuda_voxel_features_match_plain(dtype):
         assert torch.equal(got, want)
         assert bool((got[want == 0] == 0).all())
         assert float((want != 0).float().mean()) > 0.2
-        got, valid = K.frustum_stereo_sample(vb, tu, tv, ds, pad)
-        want, valid_w = PFS.stereo_sample_plain(vb, tu, tv, *tabs, pad)
-        assert torch.equal(valid, valid_w)
-        np.testing.assert_allclose(got.float().cpu().numpy(),
-                                   want.float().cpu().numpy(), **tol)
-        assert torch.equal(got, want)
-        assert K.LAUNCHES['frustum_stereo_sample'] == 2
+        stereo, _ = PFS.stereo_sample_plain(vb, tu, tv, *tabs, pad)
+        assert torch.equal(got[..., :c], stereo)
+        assert K.LAUNCHES['frustum_stereo_sample'] == 1
     with pytest.raises(TypeError):      # sem in another dtype
         K.frustum_voxel_features(vb, sb.float() if dt != torch.float32
                                  else sb.to(torch.bfloat16), ta, tu, tv, ds,
@@ -704,33 +714,36 @@ def test_cuda_hourglass_kernels_match_plain():
 
 @pytest.mark.cuda
 def test_cuda_conv3d_kernels_match_plain():
-    """K9a (`conv3d_stats`: the tensor-core code at bf16 C = C_out = 32,
-    the direct kernel elsewhere) and K9b (`conv3d`: the `wgmma` code for
-    bf16 with C, C_out % 8 == 0, the direct kernel elsewhere) against
-    their plain versions on the card, at shapes with ragged and whole
-    tiles (K9b's `wgmma` tile is 8 x 64: ragged D, H, W at C = 8 and 16,
-    C_out = 8, 64 and 24 (two chunks), 32 -> 64 (two launches of 32)),
-    C = 42 (weights chunked over C_out) included: float32
-    atol 1e-4 + rtol 1e-4 (the same f32 products summed in another
-    order), bf16 one rounding (atol 1e-2 + rtol 1e-2); partials rtol 1e-4
-    (+ atol 1e-3: sums of a few hundred signed terms); K9a bit-identical
-    across two runs; `conv3d_gn` with residual and relu to one rounding
-    more. cuDNN's TF32 is off for the plain f32 convs."""
+    """K9a (`conv3d_stats`) and K9b (`conv3d`), both on the `wgmma` code
+    for bf16 with C, C_out % 8 == 0 (K9a its moment instance) and on the
+    direct kernel elsewhere, against their plain versions on the card, at
+    shapes with ragged and whole tiles (the `wgmma` tile is 8 x 64:
+    ragged D shares, H and W at C = 8, 16 and 32, C_out = 8, 24 (two
+    chunks) and 64 (two launches of 32)), C = 42 (weights chunked over
+    C_out) included: float32 atol 1e-4 + rtol 1e-4 (the same f32
+    products summed in another order), bf16 one rounding (atol 1e-2 +
+    rtol 1e-2); K9a's partials within chip_smoke's bound (rtol 1e-4;
+    sums + 1e-6 * sqrt(N * sum of squares)) and bit-identical across two
+    runs; the finish kernel `torch.equal` to its plain apply step on the
+    same inputs (16-byte vectors and single elements, with and without
+    residual and relu); `conv3d_gn` with residual and relu to one
+    rounding more. cuDNN's TF32 is off for the plain f32 convs."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels have no CPU mode')
     from dfm_tpu_torch.ops import conv3d as C3
     from dfm_tpu_torch.ops import convgn as G
     from dfm_tpu_torch.ops.cuda import conv3d as KC3
     dev = 'cuda'
+    bf = torch.bfloat16
     rng = np.random.RandomState(0)
     flag = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         K.reset_launch_counts()
         for shape, c_out, dt in (((8, 8, 16, 8), 8, torch.float32),
-                                 ((8, 4, 24, 16), 8, torch.bfloat16),
+                                 ((8, 4, 24, 16), 8, bf),
                                  ((5, 7, 40, 42), 42, torch.float32),
-                                 ((4, 20, 40, 32), 32, torch.bfloat16)):
+                                 ((4, 20, 40, 32), 32, bf)):
             x = _t(rng.randn(*shape), dt).to(dev)
             k = _t(rng.randn(c_out, shape[-1], 3, 3, 3) * 0.1).to(dev)
             tol = F32_TOL if dt == torch.float32 else dict(atol=1e-2,
@@ -742,7 +755,7 @@ def test_cuda_conv3d_kernels_match_plain():
         for shape, c_out in (((5, 9, 70, 8), 8), ((3, 13, 66, 16), 64),
                              ((7, 17, 130, 16), 24), ((4, 20, 40, 32), 64),
                              ((2, 1, 1, 8), 8)):
-            x = _t(rng.randn(*shape), torch.bfloat16).to(dev)
+            x = _t(rng.randn(*shape), bf).to(dev)
             k = _t(rng.randn(c_out, shape[-1], 3, 3, 3) * 0.1).to(dev)
             assert KC3.tensor_core_chunks(x.dtype, shape[-1], c_out)
             out = KC3.conv3d(x, k)
@@ -750,12 +763,16 @@ def test_cuda_conv3d_kernels_match_plain():
             torch.testing.assert_close(out.float(),
                                        C3.conv3d_plain(x, k).float(),
                                        atol=1e-2, rtol=1e-2)
-        for shape, c_out, dt, th in (((8, 20, 40, 32), 32, torch.bfloat16, 5),
-                                     ((4, 16, 64, 32), 32, torch.bfloat16, 8),
-                                     ((8, 8, 16, 8), 32, torch.float32, 4),
-                                     ((4, 6, 40, 8), 32, torch.bfloat16, 3)):
+        zpack = (((8, 20, 40, 32), 32, bf, 5), ((4, 16, 64, 32), 32, bf, 8),
+                 ((12, 9, 70, 8), 8, bf, 3), ((4, 13, 130, 16), 24, bf, 13),
+                 ((8, 12, 66, 32), 64, bf, 4), ((4, 6, 40, 8), 32, bf, 3),
+                 ((8, 8, 16, 8), 32, torch.float32, 4),
+                 ((4, 6, 40, 12), 32, bf, 3))
+        for shape, c_out, dt, th in zpack:
             x = _t(rng.randn(*shape), dt).to(dev)
             k = _t(rng.randn(c_out, shape[-1], 3, 3, 3) * 0.1).to(dev)
+            wgmma = KC3.stats_route(dt, shape[-1], c_out)[0] is not None
+            assert wgmma == (dt == bf and shape[-1] % 8 == 0)
             out, ps = KC3.conv3d_stats(x, k, th)
             out2, ps2 = KC3.conv3d_stats(x, k, th)
             assert torch.equal(out, out2) and torch.equal(ps, ps2)
@@ -763,17 +780,30 @@ def test_cuda_conv3d_kernels_match_plain():
             atol = 1e-4 if dt == torch.float32 else 1e-2
             torch.testing.assert_close(out.float(), want.float(), atol=atol,
                                        rtol=atol)
-            torch.testing.assert_close(ps, wps, rtol=1e-4, atol=1e-3)
+            lim = 1e-4 * wps.double().abs()
+            lim[..., 0, :] += 1e-6 * (th * shape[2]
+                                      * wps[..., 1, :].double()).sqrt()
+            assert bool(((ps.double() - wps.double()).abs() <= lim).all())
             sc = _t(rng.rand(c_out) + 0.5).to(dev)
             bs = _t(rng.randn(c_out)).to(dev)
             res = _t(rng.randn(*shape[:3], c_out), dt).to(dev)
+            for r, relu in ((res, True), (None, False)):
+                assert torch.equal(KC3.gn_finish(out, sc, bs, r, relu),
+                                   G.gn_finish_plain(out, sc, bs, r, relu))
+            o6, r6 = out[..., :6].contiguous(), res[..., :6].contiguous()
+            assert torch.equal(KC3.gn_finish(o6, sc[:6], bs[:6], r6, True),
+                               G.gn_finish_plain(o6, sc[:6], bs[:6], r6,
+                                                 True))
             torch.testing.assert_close(
                 G.conv3d_gn(x, k, sc, bs, 8, residual=res, relu=True,
                             th=th).float(),
                 G.conv3d_gn_plain(x, k, sc, bs, 8, residual=res, relu=True,
                                   th=th).float(), atol=2 * atol, rtol=2 * atol)
         want = dict.fromkeys(K.LAUNCHES, 0)
-        want.update(conv3d_pallas=14, conv3d_zpack=12)
+        # per K9a case: conv3d_stats twice and once in conv3d_gn; three
+        # finishes and one in conv3d_gn
+        want.update(conv3d_pallas=14, conv3d_zpack=3 * len(zpack),
+                    conv3d_gn_finish=4 * len(zpack))
         assert K.LAUNCHES == want
         with pytest.raises(TypeError):
             KC3.conv3d(x.half(), k)
@@ -781,5 +811,7 @@ def test_cuda_conv3d_kernels_match_plain():
             KC3.conv3d_stats(x[:3].contiguous(), k, 3)     # D % 4
         with pytest.raises(ValueError):
             KC3.conv3d(x[..., :4], k)                      # not contiguous
+        with pytest.raises(ValueError):
+            KC3.gn_finish(out, sc[:5], bs, None, False)    # sc's length
     finally:
         torch.backends.cudnn.allow_tf32 = flag
