@@ -69,12 +69,37 @@ Phases, one line each; any failure raises and no result is printed:
               dense form and against the `packed='stem'` form from the
               same weights and inputs, at the tiny config and at full
               width, the form that ran checked by its launch counts
+  6. eval     a synthetic KITTI tree in a temporary directory (4 frames
+              of 375x1242 and 370x1224 PNGs written with the five row
+              filters in turn, KITTI's own P2 of two drives, poses with
+              0.8 m of forward motion, labels with Car, Pedestrian,
+              Cyclist, Van and DontCare rows, velodyne points; frame 2
+              without a prev image): `dfm_tpu_torch.tools.create_data`
+              and then the CLI `dfm_tpu_torch.tools.test` on
+              configs/dfm_r34_kitti_3class.py with a seeded checkpoint
+              (mmcv layout, with teacher and BatchNorm-counter keys), in
+              processes of their own, to 36 finite AP lines; in process
+              `dataset_inference` on the default form from that
+              checkpoint, with the launch counts set to 0 just before and
+              read just after (each main-path kernel at its per-request
+              count per frame, K9a / K9b none), the checkpoint round trip
+              (the loaded model's detections equal the saved model's bit
+              for bit, cuDNN deterministic), the GT echo (Car 3d easy AP
+              above 99), the tiny config's annos on the card against
+              the CPU's plain versions (f32, TF32 off, a 192x384 crop,
+              the same seeded live weights on both, names equal, scores
+              within 1e-3, boxes 2e-3, 2D boxes 0.1 px), and the
+              ms per frame split into PNG decode, pipeline, model
+              (synchronised) and annos, kitti_eval's ms and the peak
+              memory
 Then the kernels JSON line, the card line, and the result line.
 Exits non-zero without a result when there is no CUDA device or the
 package is not beside the script.
 """
 
+import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -189,6 +214,146 @@ def kitti_meta(batch, device):
     c2p[:, 2, 3] = 0.8
     meta.cur2prev = c2p
     return meta
+
+
+# --- a synthetic KITTI raw tree (phase 6; the port's tests use it too)
+
+# KITTI's P2 of two drives (a non-zero translation column), its R0_rect and
+# Tr_velo_to_cam (frame 000000 of the object split)
+KITTI_P2 = (
+    ((7.215377e+02, 0, 6.095593e+02, 4.485728e+01),
+     (0, 7.215377e+02, 1.728540e+02, 2.163791e-01),
+     (0, 0, 1, 2.745884e-03)),
+    ((7.070493e+02, 0, 6.040814e+02, 4.575831e+01),
+     (0, 7.070493e+02, 1.805066e+02, -3.454157e-01),
+     (0, 0, 1, 4.981016e-03)))
+KITTI_R0 = (9.999239e-01, 9.837760e-03, -7.445048e-03, -9.869795e-03,
+            9.999421e-01, -4.278459e-03, 7.402527e-03, 4.351614e-03,
+            9.999631e-01)
+KITTI_V2C = (7.533745e-03, -9.999714e-01, -6.166020e-04, -4.069766e-03,
+             1.480249e-02, 7.280733e-04, -9.998902e-01, -7.631618e-02,
+             9.998621e-01, 7.523790e-03, 1.480755e-02, -2.717806e-01)
+# (id, (H, W), P2, prev image): two widths, two intrinsics, one frame
+# whose prev image is absent (the pipeline then pairs the frame with
+# itself)
+KITTI_FRAMES = ((0, (375, 1242), 0, True), (1, (370, 1224), 1, True),
+                (2, (375, 1242), 0, False), (3, (370, 1224), 1, True))
+# camera-frame objects: name, (h, w, l), bottom centre (x, y, z), ry;
+# 11 cars a frame, so that four frames hold the 41 easy cars that the
+# 40-point AP needs to reach 100 on a perfect echo (n ground truths give
+# at most (n - 1) / 40 below that)
+KITTI_OBJECTS = tuple(
+    [('Car', (1.5, 1.6, 3.9), (x, 1.65, z), -1.57 + 0.05 * k)
+     for k, (x, z) in enumerate(((-3, 9), (3, 9), (-7, 14), (-3.5, 14),
+                                 (0, 14), (3.5, 14), (7, 14), (-8, 20),
+                                 (-4, 20), (4, 20), (8, 20)))]
+    + [('Pedestrian', (1.75, 0.6, 0.8), (0.0, 1.7, 9.0), -1.2),
+       ('Pedestrian', (1.75, 0.6, 0.8), (0.0, 1.7, 20.0), 0.4),
+       ('Cyclist', (1.7, 0.6, 1.8), (-1.5, 1.7, 24.0), 1.5),
+       ('Cyclist', (1.7, 0.6, 1.8), (6.0, 1.7, 24.0), -1.5),
+       ('Van', (2.1, 1.9, 4.8), (10.0, 1.7, 26.0), 0.3)])
+FORWARD_M = 0.8               # ego-motion from the prev frame to the frame
+
+
+def png_bytes(img_bgr):
+    """An 8-bit RGB PNG of (H, W, 3) uint8 BGR, row r stored with filter
+    r % 5 (None, Sub, Up, Average, Paeth), so a reader's five branches
+    all run."""
+    import zlib
+    h, w, _ = img_bgr.shape
+    raw = np.ascontiguousarray(img_bgr[..., ::-1]).reshape(h, w * 3)
+    raw = raw.astype(np.int16)
+    a = np.zeros_like(raw)
+    a[:, 3:] = raw[:, :-3]
+    b = np.zeros_like(raw)
+    b[1:] = raw[:-1]
+    c = np.zeros_like(raw)
+    c[1:, 3:] = raw[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kind = (np.arange(h) % 5)[:, None]
+    filtered = (raw - np.choose(kind, (0, a, b, (a + b) >> 1, paeth))) & 0xFF
+    data = np.concatenate([kind, filtered], 1).astype(np.uint8).tobytes()
+
+    def chunk(tag, body):
+        return (len(body).to_bytes(4, 'big') + tag + body
+                + zlib.crc32(tag + body).to_bytes(4, 'big'))
+    ihdr = w.to_bytes(4, 'big') + h.to_bytes(4, 'big') + bytes((8, 2, 0, 0, 0))
+    return (b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', ihdr)
+            + chunk(b'IDAT', zlib.compress(data, 6)) + chunk(b'IEND', b''))
+
+
+def _box_corners(dims, loc, ry):
+    """(8, 3) camera-frame corners of a KITTI box (bottom centre)."""
+    h, w, l = dims
+    x = np.array([1, 1, -1, -1, 1, 1, -1, -1]) * l / 2
+    y = np.array([0, 0, 0, 0, -1, -1, -1, -1]) * h
+    z = np.array([1, -1, -1, 1, 1, -1, -1, 1]) * w / 2
+    c, s = np.cos(ry), np.sin(ry)
+    return np.stack([c * x + s * z + loc[0], y + loc[1],
+                     -s * x + c * z + loc[2]], 1)
+
+
+def write_kitti_tree(root, seed=0, frames=KITTI_FRAMES):
+    """A KITTI object-split tree under `root`: training/{image_2,
+    prev_2, calib, poses, label_2, velodyne} and ImageSets/val.txt, the
+    images random from `seed`; returns the frame ids."""
+    import os
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, 'training')
+    for sub in ('image_2', 'prev_2', 'calib', 'poses', 'label_2',
+                'velodyne'):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, 'ImageSets'), exist_ok=True)
+    fmt = lambda v: ' '.join(f'{x:.12e}' for x in np.ravel(v))  # noqa: E731
+    for idx, (h, w), pi, with_prev in frames:
+        sid = f'{idx:06d}'
+        yy, xx = np.mgrid[0:h + 8, 0:w + 8]
+        scene = (np.sin(xx / 23.0 + idx)[..., None] * 60
+                 + np.cos(yy / 13.0)[..., None] * 40 + [90, 110, 130]
+                 + rng.normal(0, 12, (h + 8, w + 8, 3)))
+        scene = np.clip(scene, 0, 255).astype(np.uint8)
+        with open(os.path.join(base, 'image_2', sid + '.png'), 'wb') as f:
+            f.write(png_bytes(scene[4:4 + h, 4:4 + w]))
+        if with_prev:
+            with open(os.path.join(base, 'prev_2', sid + '_01.png'),
+                      'wb') as f:
+                f.write(png_bytes(scene[6:6 + h, 2:2 + w]))
+        p2 = np.asarray(KITTI_P2[pi])
+        with open(os.path.join(base, 'calib', sid + '.txt'), 'w') as f:
+            for k in range(4):
+                f.write(f'P{k}: {fmt(p2)}\n')
+            f.write(f'R0_rect: {fmt(KITTI_R0)}\nTr_velo_to_cam: '
+                    f'{fmt(KITTI_V2C)}\nTr_imu_to_velo: {fmt(np.eye(4)[:3])}\n')
+        cur = np.eye(4)
+        cur[:3, 3] = (0.3 * idx, 0.0, 5.0 * idx)
+        prev = cur.copy()
+        prev[2, 3] -= FORWARD_M
+        np.savetxt(os.path.join(base, 'poses', sid + '.txt'),
+                   np.stack([cur.ravel(), prev.ravel()]))
+        lines = []
+        for name, dims, loc, ry in KITTI_OBJECTS:
+            corners = _box_corners(dims, loc, ry)
+            uvw = np.concatenate([corners, np.ones((8, 1))], 1) @ p2.T
+            uv = uvw[:, :2] / uvw[:, 2:]
+            box = (max(uv[:, 0].min(), 0), max(uv[:, 1].min(), 0),
+                   min(uv[:, 0].max(), w - 1), min(uv[:, 1].max(), h - 1))
+            alpha = ry - np.arctan2(loc[0], loc[2])
+            lines.append(f'{name} 0.00 0 {alpha:.2f} {fmt(box)} '
+                         f'{fmt(dims)} {fmt(loc)} {ry:.2f}')
+        lines.append('DontCare -1 -1 -10 500.0 160.0 560.0 200.0 -1 -1 -1 '
+                     '-1000 -1000 -1000 -10')
+        with open(os.path.join(base, 'label_2', sid + '.txt'), 'w') as f:
+            f.write('\n'.join(lines) + '\n')
+        n = 4000          # velodyne points ahead of the car (x forward)
+        pts = np.stack([rng.uniform(4, 45, n), rng.uniform(-12, 12, n),
+                        rng.uniform(-1.7, 0.8, n), rng.uniform(0, 1, n)], 1)
+        pts.astype(np.float32).tofile(
+            os.path.join(base, 'velodyne', sid + '.bin'))
+    ids = [f[0] for f in frames]
+    with open(os.path.join(root, 'ImageSets', 'val.txt'), 'w') as f:
+        f.write('\n'.join(f'{i:06d}' for i in ids) + '\n')
+    return ids
 
 
 def needed_bytes(plain, table, row_elems, *args):
@@ -1051,6 +1216,253 @@ def parity_phase(full_cfg, dev):
                   f'0.15)', flush=True)
 
 
+EVAL_EXTRA_KEYS = ('lidar_model.backbone.compress_conv.conv.weight',
+                   'backbone.bn1.num_batches_tracked')
+AP_LINE = re.compile(r'^(Car|Pedestrian|Cyclist)_\w+: (\S+)$', re.M)
+
+
+def _live_weights(model, seed, cls_bias):
+    """Seeded noise (a CPU generator, so that every device gets the same
+    values) on every tensor of `model` (5 % of its mean magnitude, at
+    least 5e-4) and on every bias (std 0.1), and `cls_bias` added to the
+    classification bias: detections that depend on the image and pass
+    the score threshold."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            noise = torch.randn(t.shape, generator=g) * 0.05 * float(
+                t.float().abs().mean().clamp(min=0.01))
+            if name.endswith('.bias'):
+                noise += torch.randn(t.shape, generator=g) * 0.1
+            if name.endswith('conv_cls.bias'):
+                noise += cls_bias
+            t.add_(noise.to(t.device, t.dtype))
+    return model
+
+
+def _ref_checkpoint(cfg, path):
+    """A model of `init_dfm_model(cfg)` with `_live_weights(seed 1, +3)`,
+    saved as an mmcv checkpoint beside a DfMFull teacher key and a
+    BatchNorm counter; returns its handle."""
+    from dfm_tpu_torch.apis import init_dfm_model
+    handle = init_dfm_model(cfg)
+    _live_weights(handle['model'], 1, 3.0)
+    sd = {k: v.cpu() for k, v in handle['model'].state_dict().items()}
+    sd[EVAL_EXTRA_KEYS[0]] = torch.zeros(8, 4, 3, 3)
+    sd[EVAL_EXTRA_KEYS[1]] = torch.tensor(7)
+    torch.save({'meta': {'epoch': 60, 'CLASSES': ('Car', 'Pedestrian',
+                                                  'Cyclist')},
+                'state_dict': sd}, path)
+    return handle
+
+
+def _annos_agree(what, got, want, tol):
+    """Annos of two runs: names and counts equal; scores within tol[0],
+    location / dimensions / rotation_y / alpha within tol[1], 2D boxes
+    within tol[2] px. Returns the live annos and the worst errors."""
+    check(len(got) == len(want), f'{what}: {len(got)} vs {len(want)} frames')
+    worst = dict(score=0.0, box=0.0, bbox=0.0)
+    live = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(list(g['name']) == list(w['name']),
+              f'{what}, frame {i}: names {list(g["name"])} vs '
+              f'{list(w["name"])}')
+        live += len(w['name'])
+        if not len(w['name']):
+            continue
+        err = {k: float(np.abs(np.asarray(g[k], np.float64)
+                               - np.asarray(w[k], np.float64)).max())
+               for k in ('score', 'location', 'dimensions', 'rotation_y',
+                         'alpha', 'bbox')}
+        worst['score'] = max(worst['score'], err['score'])
+        worst['box'] = max(worst['box'], err['location'], err['dimensions'],
+                           err['rotation_y'], err['alpha'])
+        worst['bbox'] = max(worst['bbox'], err['bbox'])
+    for (k, v), t in zip(worst.items(), tol):
+        check(v <= t, f'{what}: {k} max abs err {v} over {t}')
+    return live, worst
+
+
+def eval_phase(cfg, dev):
+    """6. eval: a synthetic KITTI tree -> info pickle -> the CLI from a
+    config and a checkpoint to AP; in process `dataset_inference` with
+    its launches per frame, the checkpoint round trip, the GT echo, the
+    card's annos against the CPU's, and the per-frame time split."""
+    import os
+    import tempfile
+    from dfm_tpu_torch.apis import (dataset_inference, detect_sample,
+                                    init_dfm_model)
+    from dfm_tpu_torch.data import pipeline as PL
+    from dfm_tpu_torch.data.kitti import KittiDataset
+    from dfm_tpu_torch.data.png import read_png
+    from dfm_tpu_torch.evaluation.kitti_eval import kitti_eval
+    from dfm_tpu_torch.evaluation.results import detections_to_kitti_annos
+    from dfm_tpu_torch.models.detectors.dfm import DfMConfig
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    with tempfile.TemporaryDirectory() as root:
+        ids = write_kitti_tree(root)
+        first = os.path.join(root, 'training', 'image_2', '000000.png')
+        png_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = read_png(first)
+            png_ms.append((time.perf_counter() - t0) * 1e3)
+        check(img is not None and img.shape == (375, 1242, 3),
+              'read_png of a 375x1242 frame')
+        res = subprocess.run(
+            [sys.executable, '-m', 'dfm_tpu_torch.tools.create_data',
+             'kitti', '--root', root, '--splits', 'val'], cwd=here, env=env,
+            capture_output=True, text=True, timeout=300)
+        check(res.returncode == 0, f'create_data failed: {res.stderr}')
+        pkl = os.path.join(root, 'kitti_infos_val.pkl')
+        ckpt = os.path.join(root, 'ref.pth')
+        saved = _ref_checkpoint(cfg, ckpt)
+
+        # (b) the CLI, from the config and the checkpoint to AP
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, '-m', 'dfm_tpu_torch.tools.test',
+             os.path.join(here, 'configs', 'dfm_r34_kitti_3class.py'),
+             '--checkpoint', ckpt, '--cfg-options',
+             f'data.data_root={root}'], cwd=here, env=env,
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(res.returncode == 0, f'tools.test failed: {res.stderr[-3000:]}')
+        aps = [float(m.group(2)) for m in AP_LINE.finditer(res.stdout)]
+        check(len(aps) == 36 and all(np.isfinite(aps)),
+              f'tools.test printed {len(aps)} AP lines: {res.stdout[-2000:]}')
+        car = re.search(r'^Car_3d_moderate_strict: (\S+)$', res.stdout, re.M)
+        print(f'eval cli: {len(ids)} frames, {len(aps)} finite AP lines, '
+              f'Car_3d_moderate_strict {car.group(1)}, {cli_s:.1f} s in its '
+              'own process', flush=True)
+
+        # (c) in process: the default form from the checkpoint, launches
+        ds = KittiDataset(root, pkl, train=False, pipeline_kwargs=dict(
+            crop_size=IMG_HW, max_gt=32))
+        handle = init_dfm_model(cfg)
+        rest = handle['load_checkpoint'](ckpt)
+        check(rest == sorted(EVAL_EXTRA_KEYS), f'keys not taken: {rest}')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        annos = dataset_inference(handle, ds)
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(counts, 'chain', len(ids), 'dataset_inference')
+        live = sum(len(a['name']) for a in annos)
+        check(live > 0, 'dataset_inference: no live box from the checkpoint')
+        print(f'eval dataset_inference: {len(annos)} frames, {live} annos, '
+              f'peak_mem_bytes {peak}, launches per frame '
+              f'{ {k: n / len(ids) for k, n in counts.items() if n} }',
+              flush=True)
+
+        # the checkpoint round trip: the loaded model's detections are the
+        # saved model's, bit for bit (cuDNN deterministic for both runs)
+        sample = ds.get_sample(0, np.random.default_rng(0))
+        det_flag = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            a, b = detect_sample(saved, sample), detect_sample(handle, sample)
+        finally:
+            torch.backends.cudnn.deterministic = det_flag
+        check(all(np.array_equal(a[k], b[k]) for k in a) and a.keys() ==
+              b.keys(), 'the checkpoint round trip changed the detections')
+        check(int(a['mask'].sum()) > 0, 'round trip: no live detection')
+        del saved
+
+        # the GT echo: the labels' own boxes through converter + evaluator
+        echo = []
+        for info in ds.infos:
+            gt = info['annos']
+            n = len(gt['labels'])
+            echo.append(detections_to_kitti_annos(
+                dict(boxes3d=gt['gt_boxes_pl'], labels=gt['labels'],
+                     scores=np.full(n, 0.9, np.float32),
+                     mask=np.ones(n, bool)),
+                np.asarray(info['calib']['P2'])[:3], (375, 1242)))
+        ap = kitti_eval(ds.gt_annos(), echo)['Car_3d_easy_strict']
+        check(ap > 99, f'GT echo: Car 3d easy AP {ap}')
+        print(f'eval gt echo: Car_3d_easy_strict {ap:.4f} (> 99)', flush=True)
+
+        # (d) the per-frame split: decode, pipeline, model (synchronised),
+        # annos; then kitti_eval on the frames' annos
+        decode = [0.0]
+
+        def timed_read(path):
+            t = time.perf_counter()
+            try:
+                return read_png(path)
+            finally:
+                decode[0] += time.perf_counter() - t
+
+        split = []
+        rng = np.random.default_rng(0)
+        PL.read_png = timed_read
+        try:
+            for i in range(len(ds)):
+                decode[0] = 0.0
+                t0 = time.perf_counter()
+                s = ds.get_sample(i, rng)
+                t1 = time.perf_counter()
+                det = detect_sample(handle, s)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                annos[i] = detections_to_kitti_annos(
+                    det, np.asarray(ds.infos[i]['calib']['P2'])[:3],
+                    (375, 1242))
+                t3 = time.perf_counter()
+                split.append((decode[0], t1 - t0 - decode[0], t2 - t1,
+                              t3 - t2))
+        finally:
+            PL.read_png = read_png
+        t0 = time.perf_counter()
+        kitti_eval(ds.gt_annos(), annos)
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        ms = np.asarray(split) * 1e3
+        print('eval per frame ms (decode, pipeline, model, annos): '
+              + ' | '.join(', '.join(f'{x:.3f}' for x in row) for row in ms)
+              + f'; mean {", ".join(f"{x:.3f}" for x in ms.mean(0))}; '
+              f'kitti_eval {eval_ms:.3f} ms for {len(ds)} frames; png '
+              f'decode of one 375x1242 frame {min(png_ms):.3f} ms (best of '
+              f'3); peak_mem_bytes {peak}', flush=True)
+        del handle
+
+        # the card's annos against the CPU's plain versions: tiny config,
+        # float32, TF32 off, the same live weights on both sides, a crop
+        # of 192 x 384 that holds the horizon and the objects
+        tiny = DfMConfig(depth_num_bins=48, voxel_size=(3.6, 3.8, 0.5),
+                         nms_pre=128, max_num=8)
+        small = KittiDataset(root, pkl, train=False,
+                             pipeline_kwargs=dict(crop_size=(192, 384)))
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            outs = {}
+            for d in ('cpu', dev):
+                h = init_dfm_model(tiny, torch.float32, d)
+                _live_weights(h['model'], 2, 4.0)
+                outs[d] = dataset_inference(h, small)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+        tol = (1e-3, 2e-3, 0.1)
+        live, worst = _annos_agree('tiny f32 annos, card vs CPU',
+                                   outs[dev], outs['cpu'], tol)
+        check(live > 0, 'tiny f32 annos: no live box')
+        check(len({tuple(np.round(a['score'], 5)) for a in outs['cpu']}) > 1,
+              'tiny f32 annos: the same in every frame')
+        print(f'eval tiny f32 annos card vs cpu: {live} annos, names equal, '
+              f'max abs err score {worst["score"]:.3g} box '
+              f'{worst["box"]:.3g} bbox {worst["bbox"]:.3g} px (tol score '
+              f'{tol[0]}, box {tol[1]}, bbox {tol[2]} px)', flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1073,11 +1485,16 @@ def main():
     dev = 'cuda'
     cfg = DfMConfig()
     results = kernel_phase(cfg, dev)
+    from dfm_tpu_torch.ops.cuda import conv_chain as KC
+    gc.collect()
+    check(not KC._WGMMA_WEIGHTS, f'{len(KC._WGMMA_WEIGHTS)} weight layouts '
+          'outlived the kernel phase (the table keeps no weight alive)')
     launches = main_phase(cfg, dev)
     for name, n in launches.items():
         results[name]['main_path_launches' if name in OFF_PATH
                       else 'launches'] = n
     parity_phase(cfg, dev)
+    eval_phase(cfg, dev)
 
     print(json.dumps({'kernels': list(results.values())}))
     print(card)

@@ -1,9 +1,12 @@
-"""Inference entry points. Port of `dfm_tpu/apis.py:18-52, 182-217`.
+"""Inference entry points. Port of `dfm_tpu/apis.py:18-122, 182-217`.
 
 They run on the CUDA card by default and raise when there is none; the
 CPU is used only when the caller passes device='cpu'. Weights are
-random from seed 0 (`utils/weights.py:init_weights`) until a checkpoint
-is loaded into `handle['model']` with `load_state_dict`.
+random from seed 0 (`utils/weights.py:init_weights`) until a
+reference-layout checkpoint is loaded with the handle's
+`load_checkpoint(path)` (the counterpart of the JAX handle's `restore`).
+`inference_dfm` runs one pipeline sample (`data/pipeline.py`) to a KITTI
+anno dict, `dataset_inference` a whole dataset (`data/kitti.py`).
 
 `use_band` and `packed` select the form of the 3D trunks
 (`models/backbones/dfm_backbone.py`). The default (`packed=None`) is, for
@@ -17,12 +20,16 @@ the stereo stem and pred ConvNorm on the chain (K4, K7a, K8a),
 packed=False` the dense form. One state dict loads into every form.
 """
 
+import numpy as np
 import torch
 
+from .data.collate import build_batch
+from .evaluation.results import detections_to_kitti_annos
 from .models.detectors.dfm import DfM, DfMConfig, dfm_predict
-from .utils.weights import init_weights
+from .utils.weights import init_weights, load_reference_checkpoint
 
-__all__ = ['init_dfm_model', 'init_dfm_stream']
+__all__ = ['init_dfm_model', 'init_dfm_stream', 'detect_sample',
+           'inference_dfm', 'dataset_inference']
 
 
 def _device(device):
@@ -47,8 +54,10 @@ def init_dfm_model(cfg=None, dtype=torch.bfloat16, device=None,
                    use_band=True, packed=None):
     """Build a DfM model and its inference function.
 
-    Returns dict(model, cfg, device, infer) with
-    infer(img (B, 2, H, W, 3), meta) -> padded detections dict.
+    Returns dict(model, cfg, device, infer, load_checkpoint) with
+    infer(img (B, 2, H, W, 3), meta) -> padded detections dict and
+    load_checkpoint(path) -> the checkpoint keys it did not take
+    (`utils/weights.py:load_reference_checkpoint`).
     """
     cfg, device, model = _build(cfg, dtype, device, use_band, packed)
 
@@ -56,7 +65,9 @@ def init_dfm_model(cfg=None, dtype=torch.bfloat16, device=None,
     def infer(img, meta):
         return dfm_predict(model(img, meta), cfg)
 
-    return dict(model=model, cfg=cfg, device=device, infer=infer)
+    return dict(model=model, cfg=cfg, device=device, infer=infer,
+                load_checkpoint=lambda path: load_reference_checkpoint(
+                    model, path))
 
 
 def init_dfm_stream(cfg=None, dtype=torch.bfloat16, device=None,
@@ -67,9 +78,11 @@ def init_dfm_stream(cfg=None, dtype=torch.bfloat16, device=None,
     of the previous one (exact when consecutive frames share
     scale / flip).
 
-    Returns dict(model, cfg, device, infer_first, infer_stream):
+    Returns dict(model, cfg, device, infer_first, infer_stream,
+    load_checkpoint):
         infer_first(img2 (B, 2, H, W, 3), meta) -> (dets, cache)
         infer_stream(img1 (B, H, W, 3), meta, cache) -> (dets, cache)
+        load_checkpoint(path), as `init_dfm_model`'s
     """
     cfg, device, model = _build(cfg, dtype, device, use_band, packed)
 
@@ -85,4 +98,35 @@ def init_dfm_stream(cfg=None, dtype=torch.bfloat16, device=None,
         return dfm_predict(out, cfg), out['stereo_cache']
 
     return dict(model=model, cfg=cfg, device=device,
-                infer_first=infer_first, infer_stream=infer_stream)
+                infer_first=infer_first, infer_stream=infer_stream,
+                load_checkpoint=lambda path: load_reference_checkpoint(
+                    model, path))
+
+
+def detect_sample(handle, sample):
+    """One pipeline sample (`load_video_sample`'s dict) through an
+    `init_dfm_model` handle -> its padded detections as numpy arrays
+    (one move to the host, which waits for the device)."""
+    img, meta, _ = build_batch([sample], handle['device'])
+    det = handle['infer'](img, meta)
+    return {k: v[0].cpu().numpy() for k, v in det.items()}
+
+
+def inference_dfm(handle, sample):
+    """Run DfM on one pipeline sample -> a KITTI anno dict, boxes
+    projected with the original P2 and clipped to (0.3 org_w, org_w), as
+    `dfm_tpu/apis.py:55-75` clips them."""
+    org_w = sample['org_w']
+    return detections_to_kitti_annos(
+        detect_sample(handle, sample), np.asarray(sample['ori_cam2img'])[:3],
+        (int(org_w * 0.3), int(org_w)))
+
+
+def dataset_inference(handle, dataset, max_samples=None):
+    """Loop a dataset (`data/kitti.py:KittiDataset`) -> its KITTI annos,
+    one per frame, drawing the pipeline's crops from
+    `np.random.default_rng(0)` as the JAX package does."""
+    rng = np.random.default_rng(0)
+    n = min(len(dataset), max_samples or len(dataset))
+    return [inference_dfm(handle, dataset.get_sample(i, rng))
+            for i in range(n)]

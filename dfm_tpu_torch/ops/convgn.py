@@ -127,10 +127,12 @@ def conv3d_gn_plain(x, weight, scale, bias, num_groups, eps=1e-5,
 def conv3d_zpack(x, w_big, th=8):
     """K9a with the JAX signature: x (D, H, W, C), w_big the banded
     (9, 6 C, 4 C_out) weights of `pack_weights`. Returns (out, partials)
-    as `conv3d_zpack_plain`."""
+    as `conv3d_zpack_plain`. The taps are taken out of w_big on every
+    call, so their kernel layout is not kept."""
     from .cuda.conv3d import conv3d_stats
     c = x.shape[-1]
-    return conv3d_stats(x, band_taps(w_big, c, w_big.shape[-1] // ZB), th)
+    return conv3d_stats(x, band_taps(w_big, c, w_big.shape[-1] // ZB), th,
+                        cache_weight=False)
 
 
 def conv3d_gn(x, weight, scale, bias, num_groups, eps=1e-5, residual=None,

@@ -32,11 +32,11 @@ from ..conv3d import conv3d_plain
 from ..convgn import check_zpack_shape, conv3d_zpack_plain, \
     fold_row_partials, gn_finish_plain
 from .build import load
-from .conv_chain import _sm_count, cached_wgmma_weight
+from .conv_chain import _sm_count, cached_wgmma_weight, wgmma_weight
 from .sampling import _DTYPES, LAUNCHES, _check, _on_cpu, _raise_on, _stream
 
 __all__ = ['conv3d_stats', 'gn_finish', 'conv3d', 'tensor_core_chunks',
-           'stats_route']
+           'stats_route', 'chunk_weights']
 
 ROW_TILE = 32     # columns per moment tile of the direct kernel (csrc kDTX)
 CHUNK_IN = 8      # input channels per shared-memory chunk (csrc kCK)
@@ -144,7 +144,18 @@ def _direct(x, weight, ps):
     return out, rc
 
 
-def _wgmma(x, weight, chunks, ps):
+def chunk_weights(weight, chunks, koct, cache=True):
+    """The `wgmma` layouts of `weight`'s output-channel chunks, from
+    `cached_wgmma_weight`'s table, or with `cache=False` laid out for
+    this call only (a weight made for one call, which the table could
+    never find again)."""
+    lay = cached_wgmma_weight if cache else \
+        (lambda w, k: wgmma_weight(w, koct=k))
+    starts = [sum(chunks[:i]) for i in range(len(chunks))]
+    return [lay(weight[co0:co0 + n], koct) for co0, n in zip(starts, chunks)]
+
+
+def _wgmma(x, weight, chunks, ps, cache=True):
     """One launch of conv_dense.cuh per output-channel chunk; ps (the
     moments, K9a) or None (K9b). Returns (out, the first failing rc or
     0)."""
@@ -153,10 +164,8 @@ def _wgmma(x, weight, chunks, ps):
     d, h, w, c = x.shape
     c_out = weight.shape[0]
     out = torch.empty((d, h, w, c_out), dtype=x.dtype, device=x.device)
-    koct = _koct(c)
     co0 = 0
-    for n in chunks:
-        wt = cached_wgmma_weight(weight[co0:co0 + n], koct)
+    for n, wt in zip(chunks, chunk_weights(weight, chunks, _koct(c), cache)):
         rc = load('conv3d').dfm_conv3d_wgmma(
             x.data_ptr(), wt.data_ptr(), out.data_ptr(),
             None if ps is None else ps.data_ptr(), d, h, w, c, c_out, co0, n,
@@ -167,14 +176,16 @@ def _wgmma(x, weight, chunks, ps):
     return out, 0
 
 
-def conv3d_stats(x, weight, th=8):
+def conv3d_stats(x, weight, th=8, cache_weight=True):
     """K9a. 3x3x3 stride-1 'same' conv of x (D, H, W, C) float32/bf16,
     D % 4 == 0, H % th == 0, f32 accumulation. Returns (out (D, H, W,
     C_out) in x's type, partials (D//4, H//th, 2, 4 C_out) float32: per 4
     slices and th rows the per-channel sum and sum of squares of the
     unrounded result, lane j * C_out + co for slice 4k + j). The route
     is `stats_route`'s: the moment instance of the `wgmma` code for
-    bfloat16 with C, C_out % 8 == 0, else the direct kernel."""
+    bfloat16 with C, C_out % 8 == 0, else the direct kernel.
+    `cache_weight=False` lays a weight made for this call out without
+    keeping its layout (`chunk_weights`)."""
     if _on_cpu(x, weight):
         return conv3d_zpack_plain(x, weight, th)
     _check_conv(x, weight)
@@ -187,7 +198,7 @@ def conv3d_stats(x, weight, th=8):
     if chunks is None:
         out, rc = _direct(x, weight, rows)
     else:
-        out, rc = _wgmma(x, weight, chunks, rows)
+        out, rc = _wgmma(x, weight, chunks, rows, cache_weight)
     _raise_on(rc, 'conv3d_zpack')
     LAUNCHES['conv3d_zpack'] += 1
     return out, fold_row_partials(rows, th)

@@ -20,6 +20,7 @@ D, H, W >= 1 (K5: even D, H, W; its dense output has 64 channels).
 """
 
 import math
+import weakref
 
 import torch
 
@@ -103,22 +104,32 @@ _WGMMA_WEIGHTS = {}    # laid-out weights, by the weight they came from
 _SMS = {}
 
 
+def _owner(t):
+    """The tensor whose storage `t` views (t itself if it is no view)."""
+    while t._base is not None:
+        t = t._base
+    return t
+
+
 def cached_wgmma_weight(weight, koct=None):
     """`wgmma_weight(weight, koct=koct)`, laid out once per weight: keyed
-    by its address, shape and strides (a view of a parameter, as the
-    model slices one, finds the same entry) and `koct`, and valid while
-    its version counter, which every in-place update through torch
-    bumps, is unchanged. The entry holds `weight`, so its memory is not
-    reused while the entry lives."""
-    key = (weight.data_ptr(), tuple(weight.shape), weight.stride(),
-           weight.dtype, weight.device, koct)
+    by the tensor that owns its storage (a view of a parameter, as the
+    model slices one, finds the parameter's entry), its address, shape
+    and strides and `koct`, and valid while its version counter, which
+    every in-place update through torch bumps, is unchanged. The table
+    holds no reference to the weight: an entry is dropped when its owner
+    dies (`weakref.finalize`), so a reused address never finds a stale
+    layout and a weight made for one call leaves nothing behind."""
+    owner = _owner(weight)
+    key = (id(owner), weight.data_ptr(), tuple(weight.shape),
+           weight.stride(), weight.dtype, weight.device, koct)
     hit = _WGMMA_WEIGHTS.get(key)
-    if hit is not None and hit[1] == weight._version:
-        return hit[2]
-    wt = wgmma_weight(weight, koct=koct)
-    if len(_WGMMA_WEIGHTS) >= 64:
-        _WGMMA_WEIGHTS.clear()
-    _WGMMA_WEIGHTS[key] = (weight, weight._version, wt)
+    if hit is not None and hit[0] == weight._version:
+        return hit[1]
+    wt = wgmma_weight(weight.detach(), koct=koct)     # no graph to weight
+    if hit is None:
+        weakref.finalize(owner, _WGMMA_WEIGHTS.pop, key, None)
+    _WGMMA_WEIGHTS[key] = (weight._version, wt)
     return wt
 
 

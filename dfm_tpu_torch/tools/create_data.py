@@ -1,0 +1,51 @@
+"""KITTI info files for the port, on a machine without JAX.
+
+    python -m dfm_tpu_torch.tools.create_data kitti --root data/kitti \\
+        --splits train val
+
+Port of the kitti branch of `tools/create_data.py:111-127`: reads
+`ImageSets/{split}.txt` under the root (the frames of `training/image_2`
+when it is absent) and writes `kitti_infos_{split}.pkl` with
+`data/kitti.py:build_kitti_infos`, temporal sweeps from `prev_2/` and
+`poses/` included. The GT database (`--with-gt-db`) comes with
+training.
+"""
+
+import argparse
+import glob
+import os
+import pickle
+import sys
+
+from ..data.kitti import build_kitti_infos
+
+
+def split_ids(root, split):
+    ids_file = os.path.join(root, 'ImageSets', f'{split}.txt')
+    if os.path.exists(ids_file):
+        with open(ids_file) as f:
+            return [int(x) for x in f.read().split()]
+    imgs = sorted(glob.glob(os.path.join(root, 'training', 'image_2',
+                                         '*.png')))
+    ids = [int(os.path.basename(x)[:-4]) for x in imgs]
+    print(f'no ImageSets/{split}.txt; globbed {len(ids)} frames')
+    return ids
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument('dataset', choices=['kitti'])
+    p.add_argument('--root', default='data/kitti')
+    p.add_argument('--splits', nargs='*', default=['train', 'val'])
+    args = p.parse_args(argv)
+    for split in args.splits:
+        infos = build_kitti_infos(args.root, split_ids(args.root, split))
+        out = os.path.join(args.root, f'kitti_infos_{split}.pkl')
+        with open(out, 'wb') as f:
+            pickle.dump(infos, f)
+        print(f'wrote {len(infos)} infos -> {out}')
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

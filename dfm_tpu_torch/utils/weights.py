@@ -12,15 +12,21 @@ rules (:27-34, :59-72):
       kernel)
   GroupNorm / BatchNorm scale, bias      -> weight, bias
   BatchNorm batch_stats mean, var        -> running_mean, running_var
+
+`load_reference_state_dict` / `load_reference_checkpoint` load a
+reference-layout torch checkpoint (the counterpart of the JAX
+package's `import_dfm_state_dict`): its keys are already the port's.
 """
 
 import math
+import pickle
 
 import numpy as np
 import torch
 
 __all__ = ['dfm_key_map', 'state_dict_from_jax', 'torch_conv_weight',
-           'init_weights']
+           'init_weights', 'load_reference_state_dict',
+           'load_reference_checkpoint']
 
 
 def _norm_mod(norm):
@@ -196,3 +202,47 @@ def init_weights(model):
                 val = torch.full(t.shape, -math.log((1 - 0.01) / 0.01))
             t.copy_(val.to(t.dtype))
     return model
+
+
+def load_reference_state_dict(model, state_dict):
+    """Load a reference-layout DfM state dict (an mmcv checkpoint dict
+    {'meta', 'state_dict', ...} or a bare {key: tensor}) into `model`.
+
+    The keys of `model.state_dict()`, those of `dfm_key_map()`, are
+    taken; each must be present with the model's shape, else KeyError
+    (naming every missing key) or ValueError. Values are cast to the
+    model's types. Returns the sorted keys that were not taken: a DfMFull
+    checkpoint's teacher (`lidar_model.*`) and 2D ATSS head, and
+    BatchNorm's `num_batches_tracked`.
+    """
+    if 'state_dict' in state_dict and isinstance(state_dict['state_dict'],
+                                                 dict):
+        state_dict = state_dict['state_dict']
+    own = model.state_dict()
+    missing = sorted(k for k in own if k not in state_dict)
+    if missing:
+        raise KeyError(f'{len(missing)} keys of the model are not in the '
+                       f'checkpoint: {missing}')
+    for k, t in own.items():
+        got = tuple(state_dict[k].shape)
+        if got != tuple(t.shape):
+            raise ValueError(f'shape mismatch at {k}: the model has '
+                             f'{tuple(t.shape)}, the checkpoint {got}')
+    model.load_state_dict({k: state_dict[k] for k in own}, strict=True)
+    return sorted(k for k in state_dict if k not in own)
+
+
+def load_reference_checkpoint(model, path):
+    """`load_reference_state_dict(model, <the checkpoint at path>)`,
+    read with `torch.load(..., map_location='cpu', weights_only=True)`:
+    tensors and plain containers only, never arbitrary objects."""
+    try:
+        ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    except pickle.UnpicklingError as e:
+        raise RuntimeError(
+            f'{path} holds objects other than tensors and plain containers '
+            '(an mmcv meta entry, for example), which torch.load refuses '
+            'with weights_only=True; it is not unpickled. Save its '
+            "'state_dict' alone (torch.save(ckpt['state_dict'], path)) "
+            f'and load that. torch.load said: {e}') from e
+    return load_reference_state_dict(model, ckpt)

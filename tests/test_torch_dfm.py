@@ -351,17 +351,28 @@ def test_init_dfm_model_needs_cuda_unless_asked_for_cpu():
     assert next(h['model'].parameters()).device.type == 'cpu'
 
 
-def test_port_runs_without_jax():
-    """A fresh process imports the port (with the K9a / K9b modules and
-    the card-only scripts) and runs a tiny CPU forward in the full-chain
-    form, whose neck runs the fused K2's plain version, and K1's sweep
-    on the CPU without loading JAX."""
+def test_port_runs_without_jax(tmp_path):
+    """A fresh process imports the port (with the K9a / K9b modules, the
+    card-only scripts and the KITTI data, evaluation, config, builder
+    and tool modules) and runs a tiny CPU forward in the full-chain
+    form, whose neck runs the fused K2's plain version, K1's sweep on
+    the CPU, and a tiny `dataset_inference` on a synthetic KITTI tree in
+    `tmp_path` (PNG files), without loading JAX, cv2 or PIL."""
     code = (
         'import sys, numpy as np, torch\n'
-        'from dfm_tpu_torch.apis import init_dfm_model\n'
+        'from dfm_tpu_torch.apis import init_dfm_model, dataset_inference\n'
         'import dfm_tpu_torch.ops.convgn, dfm_tpu_torch.ops.conv3d\n'
         'import dfm_tpu_torch.ops.cuda.conv3d\n'
         'import dfm_tpu_torch.trace_main, dfm_tpu_torch.probe_k5\n'
+        'import dfm_tpu_torch.data.calibration, dfm_tpu_torch.data.png\n'
+        'import dfm_tpu_torch.data.pipeline, dfm_tpu_torch.data.collate\n'
+        'import dfm_tpu_torch.evaluation.kitti_eval\n'
+        'import dfm_tpu_torch.evaluation.results\n'
+        'import dfm_tpu_torch.runtime.config, dfm_tpu_torch.models.builder\n'
+        'import dfm_tpu_torch.tools.test, dfm_tpu_torch.tools.create_data\n'
+        'from dfm_tpu_torch.data.kitti import KittiDataset, '
+        'build_kitti_infos\n'
+        'import chip_smoke\n'
         'from dfm_tpu_torch.ops import cost_volume as CV\n'
         'from dfm_tpu_torch.ops.cuda.sampling import warp_prev_sweep\n'
         'from dfm_tpu_torch.models.detectors.dfm import BatchMeta, '
@@ -385,7 +396,15 @@ def test_port_runs_without_jax():
         'out = warp_prev_sweep(torch.randn(1, 8, 16, 4), p, '
         'torch.tensor([2., 4.]), 4, 8, 2)\n'
         'assert out.shape == (1, 2, 4, 8, 4) and torch.isfinite(out).all()\n'
+        f'ids = chip_smoke.write_kitti_tree({str(tmp_path)!r}, '
+        'frames=chip_smoke.KITTI_FRAMES[1:3])\n'
+        f'ds = KittiDataset({str(tmp_path)!r}, build_kitti_infos('
+        f'{str(tmp_path)!r}, ids), train=False, '
+        f'pipeline_kwargs=dict(crop_size=({H}, {W_})))\n'
+        'annos = dataset_inference(h, ds)\n'
+        "assert len(annos) == 2 and all('score' in a for a in annos)\n"
         "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
+        "assert 'cv2' not in sys.modules and 'PIL' not in sys.modules\n"
         "assert not any(m.split('.')[0] == 'dfm_tpu' for m in sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -396,8 +415,8 @@ def test_port_runs_without_jax():
 
 
 def test_no_jax_import_in_port_sources():
-    pat = re.compile(r'^\s*(import|from)\s+(jax|flax|dfm_tpu)(\.|\s|$)',
-                     re.M)
+    pat = re.compile(
+        r'^\s*(import|from)\s+(jax|flax|dfm_tpu|cv2|PIL)(\.|\s|$)', re.M)
     files = [os.path.join(ROOT, 'chip_smoke.py')]
     for d, _, names in os.walk(os.path.join(ROOT, 'dfm_tpu_torch')):
         files += [os.path.join(d, n) for n in names if n.endswith('.py')]

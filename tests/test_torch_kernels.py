@@ -815,3 +815,27 @@ def test_cuda_conv3d_kernels_match_plain():
             KC3.gn_finish(out, sc[:5], bs, None, False)    # sc's length
     finally:
         torch.backends.cudnn.allow_tf32 = flag
+
+
+@pytest.mark.cuda
+def test_cuda_conv3d_zpack_keeps_no_weight_layout():
+    """`conv3d_zpack` takes its taps out of the banded weights on every
+    call and lays them out for that call only: a loop of calls leaves
+    `cached_wgmma_weight`'s table as it found it, and its outputs equal
+    `conv3d_stats` on the same taps."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from dfm_tpu_torch.ops import convgn as G
+    from dfm_tpu_torch.ops.cuda import conv3d as KC3
+    rng = np.random.RandomState(3)
+    x = _t(rng.randn(8, 16, 64, 32), torch.bfloat16).cuda()
+    k = _t(rng.randn(32, 32, 3, 3, 3) * 0.1).cuda()
+    w_big = G.pack_weights(k)
+    before = len(KC._WGMMA_WEIGHTS)
+    for _ in range(10):
+        out, ps = G.conv3d_zpack(x, w_big, 8)
+    torch.cuda.synchronize()
+    assert len(KC._WGMMA_WEIGHTS) == before
+    want, wps = KC3.conv3d_stats(x, G.band_taps(w_big, 32, 32), 8,
+                                 cache_weight=False)
+    assert torch.equal(out, want) and torch.equal(ps, wps)
