@@ -92,6 +92,37 @@ Phases, one line each; any failure raises and no result is printed:
               ms per frame split into PNG decode, pipeline, model
               (synchronised) and annos, kitti_eval's ms and the peak
               memory
+  7. train    (a) the tiny config in float32, TF32 off, seeded live
+              weights, one training sample of the synthetic tree (flip,
+              scale, photometric distortion) and the same depth-loss
+              pixels on both: forward + backward on the card (K1, K2
+              forward and backward, K3 forward: launches checked) against
+              the CPU's plain versions, every loss term (rtol 1e-3) and
+              every parameter's gradient and the whole gradient by
+              relative L2 within 3x their own movement on the CPU under
+              one ulp of seeded weight noise (at least 1e-3), no
+              parameter with a CPU gradient left without one on the
+              card; (b) the backward kernels K1-bwd
+              (`warp_prev_sweep_bwd`) and K2-bwd
+              (`frustum_voxel_features_bwd`) at the full-width training
+              shapes in float32 against `torch.autograd.grad` of the plain
+              forwards, with times, bound and `F.grid_sample`'s backward
+              on the same taps; (c) the train CLI
+              `dfm_tpu_torch.tools.train` on configs/dfm_r34_kitti_3class.py
+              with `model.type=DfM` at full width on the tree (train and
+              val infos from `create_data`) in processes of their own: 4
+              steps (finite loss terms and grad_norm logged, a checkpoint
+              and the KITTI eval at the end of the epoch), a resume to
+              step 6 from the saved optimizer state (its sha1 checked),
+              `tools.test` on the step-6 checkpoint, and the DfMFull
+              config refused; (d) full-width training steps in process:
+              two warm-up steps, then three with the launch counts set
+              to 0 just before and read just after (a step: K1, K2 one
+              forward and one backward each, K3 one forward, no other
+              kernel), each split into data, forward, backward and
+              optimizer (synchronised), and the peak memory; (e) 30 steps at lr 1e-3 on one frame at the
+              tiny config (no augmentation): the mean loss of the last 5
+              below that of the first 5
 Then the kernels JSON line, the card line, and the result line.
 Exits non-zero without a result when there is no CUDA device or the
 package is not beside the script.
@@ -119,8 +150,10 @@ SAMPLING = dict(warp_prev=1, frustum_stereo_sample=1, attention_sample=1)
 NO_CHAIN = dict(pack_vol=0, conv_p2p=0, unpack_affine_res=0, conv_s2_p2d=0,
                 pack_parity8=0, gn_affine_res_packed=0, unpack_vol=0)
 # K9a (with its GroupNorm finish), K9b: on no model path (their path is
-# their own entry points)
-OFF_PATH = dict(conv3d_zpack=0, conv3d_gn_finish=0, conv3d_pallas=0)
+# their own entry points); the backward kernels of K1 and K2 run in
+# training only (phase 7)
+OFF_PATH = dict(conv3d_zpack=0, conv3d_gn_finish=0, conv3d_pallas=0,
+                warp_prev_bwd=0, frustum_stereo_sample_bwd=0)
 LAUNCHES_OF = {
     'dense': {**SAMPLING, **NO_CHAIN, **OFF_PATH},
     # K8a prev + pred, K4 dres0 + dres1 + pred, K7a stem + pred exit
@@ -137,8 +170,14 @@ LAUNCHES_OF = {
         'unpack_affine_res': 1, 'conv_s2_p2d': 1, 'pack_parity8': 1,
         'gn_affine_res_packed': 2, 'unpack_vol': 1},
 }
+# one training step (float32, the banded form): K1 and K2 forward and
+# backward, K3 forward, nothing of the conv chain or of K9
+LAUNCHES_OF['train'] = {**LAUNCHES_OF['dense'], 'warp_prev_bwd': 1,
+                        'frustum_stereo_sample_bwd': 1}
 # the ten kernels of the main path
 MAIN_PATH = [k for k, n in LAUNCHES_OF['chain'].items() if n]
+TRAIN_PATH = [k for k, n in LAUNCHES_OF['train'].items() if n]
+BWD_KERNELS = ('warp_prev_bwd', 'frustum_stereo_sample_bwd')
 # K9's path: conv3d_zpack and conv3d_gn (K9a, + the finish), conv3d
 # (K9b), once each
 K9_PATH = {**dict.fromkeys(LAUNCHES_OF['chain'], 0), 'conv3d_zpack': 2,
@@ -296,8 +335,9 @@ def _box_corners(dims, loc, ry):
 
 def write_kitti_tree(root, seed=0, frames=KITTI_FRAMES):
     """A KITTI object-split tree under `root`: training/{image_2,
-    prev_2, calib, poses, label_2, velodyne} and ImageSets/val.txt, the
-    images random from `seed`; returns the frame ids."""
+    prev_2, calib, poses, label_2, velodyne} and ImageSets/{train,val}.txt
+    (the same frames), the images random from `seed`; returns the frame
+    ids."""
     import os
     rng = np.random.default_rng(seed)
     base = os.path.join(root, 'training')
@@ -351,8 +391,9 @@ def write_kitti_tree(root, seed=0, frames=KITTI_FRAMES):
         pts.astype(np.float32).tofile(
             os.path.join(base, 'velodyne', sid + '.bin'))
     ids = [f[0] for f in frames]
-    with open(os.path.join(root, 'ImageSets', 'val.txt'), 'w') as f:
-        f.write('\n'.join(f'{i:06d}' for i in ids) + '\n')
+    for split in ('train', 'val'):
+        with open(os.path.join(root, 'ImageSets', f'{split}.txt'), 'w') as f:
+            f.write('\n'.join(f'{i:06d}' for i in ids) + '\n')
     return ids
 
 
@@ -369,24 +410,11 @@ def needed_bytes(plain, table, row_elems, *args):
     return int((rows != 0).any(1).sum()) * row_elems * table.element_size()
 
 
-def kernel_phase(cfg, dev):
-    import torch.nn.functional as F
-    from dfm_tpu_torch.ops import cost_volume as CV
-    from dfm_tpu_torch.ops import frustum_separable as FS
-    from dfm_tpu_torch.ops.cuda import sampling as K
-    gen = torch.Generator(device=dev).manual_seed(0)
-    bf = torch.bfloat16
-    h, w = IMG_HW
-    meta = kitti_meta(1, dev)
-    depths = torch.as_tensor(cfg.downsampled_depths(), device=dev)
-    d = len(depths)
-    hq, wq = h // cfg.cost_sample_factor, w // cfg.cost_sample_factor
-    coors = cfg.coordinates_3d()
-    xs, ys, zs = coors[0, 0, :, 0], coors[0, :, 0, 1], coors[:, 0, 0, 2]
-    u, v = FS.slab_uv(meta.cam2img, xs, ys, zs)
-    nz, ny, nx = cfg.voxel_grid_size()
-    results = {}
-
+def reporter(results):
+    """The (agree, report) pair of the kernel checks: agree holds a
+    kernel's result against its plain version's, report prints a
+    kernel's line and keeps its entry of the kernels JSON in
+    `results`."""
     def agree(name, got, want, tol):
         """Max abs err of kernel against plain, within atol + rtol."""
         err = (got.float() - want.float()).abs()
@@ -415,6 +443,28 @@ def kernel_phase(cfg, dev):
               f'plain_ms {plain_ms:.4f} library_ms {lib}{more} '
               f'bytes {nbytes} flops {flops} '
               f'bound_ms {max(t_bytes, t_ops):.4f}', flush=True)
+
+    return agree, report
+
+
+def kernel_phase(cfg, dev):
+    import torch.nn.functional as F
+    from dfm_tpu_torch.ops import cost_volume as CV
+    from dfm_tpu_torch.ops import frustum_separable as FS
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    h, w = IMG_HW
+    meta = kitti_meta(1, dev)
+    depths = torch.as_tensor(cfg.downsampled_depths(), device=dev)
+    d = len(depths)
+    hq, wq = h // cfg.cost_sample_factor, w // cfg.cost_sample_factor
+    coors = cfg.coordinates_3d()
+    xs, ys, zs = coors[0, 0, :, 0], coors[0, :, 0, 1], coors[:, 0, 0, 2]
+    u, v = FS.slab_uv(meta.cam2img, xs, ys, zs)
+    nz, ny, nx = cfg.voxel_grid_size()
+    results = {}
+    agree, report = reporter(results)
 
     # K1 at (1, 320, 1280, 32) -> (1, 72, 80, 320, 32): the sweep (grid
     # computed in the kernel) at the KITTI meta and at a flip + crop +
@@ -568,7 +618,8 @@ def kernel_phase(cfg, dev):
     del g2, vol_ncdhw
     chain_kernel_phase(vol[0], gen, agree, report)
     for name, n in conv3d_kernel_phase(vol[0], gen, agree, report).items():
-        results[name]['launches'] = n
+        if name in results:     # the backward kernels report in phase 7
+            results[name]['launches'] = n
     return results
 
 
@@ -1463,6 +1514,414 @@ def eval_phase(cfg, dev):
     return counts
 
 
+def _rel_l2(got, want):
+    """Relative L2 distance of each parameter's gradient and of the whole
+    gradient (name -> tensor of both, want's names)."""
+    rel, num, den = {}, 0.0, 0.0
+    for n, w in want.items():
+        d = float((got[n].cpu().double() - w.double()).norm())
+        nw = float(w.double().norm())
+        rel[n] = d / nw if nw > 0 else d
+        num += d * d
+        den += nw * nw
+    return rel, (num / den) ** 0.5
+
+
+def _grad_compare(what, got, want, noisy):
+    """Gradients of the card against the CPU's (name -> tensor or None),
+    held to the CPU's own rounding: `noisy` are the CPU's gradients with
+    one ulp of seeded relative noise on every weight. Every parameter
+    with a nonzero CPU gradient has a nonzero card one; each parameter's
+    relative L2 is within max(TRAIN_GRAD_FLOOR, TRAIN_GRAD_FACTOR x that
+    parameter's under the noise), the whole gradient's likewise. Returns
+    (worst relative L2, its parameter, whole, whole under the noise)."""
+    missing = [n for n, w in want.items() if w is not None and
+               bool(w.abs().sum() > 0) and (got[n] is None or
+                                            not bool(got[n].abs().sum() > 0))]
+    check(not missing, f'{what}: no gradient on the card for {missing}')
+    for n, w in want.items():
+        if w is None:
+            check(got[n] is None or not bool(got[n].abs().sum() > 0),
+                  f'{what}: {n} has a card gradient and no CPU one')
+    want = {n: w for n, w in want.items() if w is not None}
+    rel, whole = _rel_l2(got, want)
+    noise, whole_noise = _rel_l2(noisy, want)
+    bad = {n: (r, noise[n]) for n, r in rel.items()
+           if r > max(TRAIN_GRAD_FLOOR, TRAIN_GRAD_FACTOR * noise[n])}
+    check(not bad, f'{what}: gradients off beyond the rounding noise '
+          f'(relative L2, noise): {bad}')
+    check(whole <= max(TRAIN_GRAD_FLOOR, TRAIN_GRAD_FACTOR * whole_noise),
+          f'{what}: whole gradient relative L2 {whole}, under one ulp of '
+          f'weight noise {whole_noise}')
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst, whole, whole_noise
+
+
+# phase 7 (a): the card's float32 gradients against the CPU's at the tiny
+# config, TF32 off. The float32 gradients of the 2D trunk and the depth
+# predictors are ill-conditioned at this size (BatchNorm and GroupNorm
+# statistics over a few pixels): one ulp of relative noise on the
+# weights moves the CPU's own gradient of some parameters by 2e-2 and the
+# whole gradient by 1e-2 (relative L2). So each gradient is held to
+# TRAIN_GRAD_FACTOR times its own movement under that noise (measured in
+# the run, on the CPU), and at least to TRAIN_GRAD_FLOOR
+TRAIN_GRAD_FACTOR = 3.0
+TRAIN_GRAD_FLOOR = 1e-3
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_TINY = dict(depth_num_bins=48, voxel_size=(3.6, 3.8, 0.5), nms_pre=128,
+                  max_num=8, num_depth_sample_pixels=2048)
+TRAIN_TINY_CROP = (192, 384)
+# phase 7 (b): the backward kernels against torch.autograd.grad of the
+# plain forwards; atomics sum each gradient in another order (float32)
+BWD_TOL = (1e-3, 1e-4)
+TRAIN_TIMED_STEPS = 3         # phase 7 (d)
+def train_phase(cfg, dev, results):
+    """7. train: (a) the card's gradients against the CPU's, (b) the
+    backward kernels against their plain versions at full width, (c)
+    the train CLI at full width with a resume and an eval of its
+    checkpoint, (d) one full-width step in process with its launches,
+    time split and peak memory, (e) an overfit of one frame."""
+    import os
+    import tempfile
+    import torch.nn.functional as F
+    from dfm_tpu_torch.data.collate import build_batch
+    from dfm_tpu_torch.data.kitti import KittiDataset, build_kitti_infos
+    from dfm_tpu_torch.models.detectors.dfm import DfM, DfMConfig
+    from dfm_tpu_torch.models.heads.depth_head import sample_depth_pixels
+    from dfm_tpu_torch.ops import cost_volume as CV
+    from dfm_tpu_torch.ops import frustum_separable as FS
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.runtime.schedule import liga_schedule, step_schedule
+    from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
+    from dfm_tpu_torch.tools.train import optimizer_digest
+    from dfm_tpu_torch.utils.weights import init_weights
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    config = os.path.join(here, 'configs', 'dfm_r34_kitti_3class.py')
+    agree, report = reporter(results)
+    with tempfile.TemporaryDirectory() as root:
+        ids = write_kitti_tree(root)
+        infos = build_kitti_infos(root, ids)
+
+        # (a) gradients, card against CPU: the same live weights, one
+        # training sample (flip, scale, photometric) and the same depth
+        # pixels on both
+        tiny = DfMConfig(**TRAIN_TINY)
+        ds = KittiDataset(root, infos, train=True, pipeline_kwargs=dict(
+            crop_size=TRAIN_TINY_CROP, flip_ratio=0.5, max_gt=32))
+        sample = ds.get_sample(0, np.random.default_rng(3))
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            side = {}
+            pix = None
+            for d, noise in (('cpu', False), ('cpu', True), (dev, False)):
+                model = _live_weights(init_weights(DfM(tiny)), 4, 0.0)
+                if noise:         # one ulp of relative noise, seeded
+                    g = torch.Generator().manual_seed(1)
+                    with torch.no_grad():
+                        for p in model.parameters():
+                            p.mul_(1 + 1.2e-7 * torch.randn(p.shape,
+                                                            generator=g))
+                model = model.to(d)
+                img, meta, gt = build_batch([sample], d)
+                if pix is None:
+                    pix = sample_depth_pixels(
+                        gt['depth_img'], tiny.num_depth_sample_pixels,
+                        torch.Generator().manual_seed(0))
+                step = TrainStep(model, make_optimizer(model),
+                                 liga_schedule(1e-3))
+                K.reset_launch_counts()
+                total, losses = step.forward(img, meta, gt,
+                                             depth_pix_idx=pix.to(d))
+                step.backward(total)
+                if d != 'cpu':
+                    torch.cuda.synchronize()
+                side['cpu, ulp noise' if noise else d] = dict(
+                    losses={k: float(v.detach()) for k, v in
+                            dict(loss=total, **losses).items()},
+                    grads={n: (None if p.grad is None else
+                               p.grad.detach().cpu())
+                           for n, p in model.named_parameters()},
+                    launches=dict(K.LAUNCHES))
+                del model, step, total, losses
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+        for k, want in side['cpu']['losses'].items():
+            got = side[dev]['losses'][k]
+            check(np.isfinite(got) and abs(got - want) <= TRAIN_LOSS_RTOL * (
+                abs(want) + 1e-6), f'train tiny {k}: card {got} vs cpu {want}')
+        worst, name, whole, whole_noise = _grad_compare(
+            'train tiny', side[dev]['grads'], side['cpu']['grads'],
+            side['cpu, ulp noise']['grads'])
+        check_launches(side[dev]['launches'], 'train', 1, 'train tiny step')
+        print(f'train (a) tiny f32 card vs cpu: losses '
+              f'{ {k: round(v, 6) for k, v in side[dev]["losses"].items()} } '
+              f'(cpu { {k: round(v, 6) for k, v in side["cpu"]["losses"].items()} }, '
+              f'rtol {TRAIN_LOSS_RTOL}); gradients of '
+              f'{len(side["cpu"]["grads"])} parameters, worst relative L2 '
+              f'{worst:.3g} ({name}), whole {whole:.3g}; under one ulp of '
+              f'weight noise the CPU\'s whole gradient moves {whole_noise:.3g} '
+              f'(tol {TRAIN_GRAD_FACTOR} x each parameter\'s movement, at '
+              f'least {TRAIN_GRAD_FLOOR}); none missing; launches '
+              f'{ {k: n for k, n in side[dev]["launches"].items() if n} }',
+              flush=True)
+        del side
+
+        # (b) the backward kernels at the full-width training shapes
+        # (float32): K1's gradient of prev, K2's of vol and sem
+        gen = torch.Generator(device=dev).manual_seed(5)
+        h, w = IMG_HW
+        meta = kitti_meta(1, dev)
+        depths = torch.as_tensor(cfg.downsampled_depths(), device=dev)
+        d = len(depths)
+        step_px = cfg.cost_sample_factor
+        hq, wq = h // step_px, w // step_px
+        c = cfg.stereo_channels[1]
+        params = CV.sweep_params(meta.ori_cam2img, meta.cur2prev, meta.org_w,
+                                 meta.flip, meta.crop_offset,
+                                 meta.scale_factor, 1)
+        prev_shape = (1, h, w, c)
+        gout1 = torch.randn(1, d, hq, wq, c, generator=gen, device=dev)
+        bwd1 = lambda: K.warp_prev_sweep_bwd(  # noqa: E731
+            gout1, params, depths, prev_shape, step_px)
+        plain1 = lambda: K.warp_prev_sweep_bwd_plain(  # noqa: E731
+            gout1, params, depths, prev_shape, step_px)
+        got, want = bwd1(), plain1()
+        check(bool((want != 0).any()), 'warp_prev_bwd: the gradient is zero')
+        err1 = agree('warp_prev_sweep_bwd', got, want, BWD_TOL)
+        _, grid = CV.plane_sweep_grids(
+            depths, meta.ori_cam2img, meta.cur2prev, (h, w), step_px, 1,
+            meta.org_w, meta.flip, meta.crop_offset, meta.scale_factor)
+        norm = torch.stack([grid[..., 0] / (w - 1) * 2 - 1,
+                            grid[..., 1] / (h - 1) * 2 - 1],
+                           -1).reshape(1, d * hq, wq, 2)
+        lib_in = torch.zeros(1, c, h, w, device=dev, requires_grad=True)
+        lib_out = F.grid_sample(lib_in, norm, align_corners=True)
+        lib_g = torch.randn(lib_out.shape, generator=gen, device=dev)
+        lib1 = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, lib_in, lib_g, retain_graph=True)
+        report('warp_prev_bwd', 'dfm_tpu_torch/csrc/warp_prev.cu',
+               'dfm_tpu/ops/pallas/cost_warp.py:142', err1, BWD_TOL, cuda_ms(bwd1), cuda_ms(plain1, reps=5),
+               cuda_ms(lib1), (gout1.numel() + got.numel()) * 4
+               + params.numel() * 4 + d * 4, 8 * gout1.numel(),
+               device_ms=device_ms(bwd1), library_device_ms=device_ms(lib1),
+               note='backward of K1 (JAX: XLA autodiff of its f32 path)')
+        del got, want, lib_in, lib_out, lib_g, norm, grid, gout1
+
+        coors = cfg.coordinates_3d()
+        xs, ys, zs = coors[0, 0, :, 0], coors[0, :, 0, 1], coors[:, 0, 0, 2]
+        u, v = FS.slab_uv(meta.cam2img, xs, ys, zs)
+        nz, ny, nx = cfg.voxel_grid_size()
+        cost = torch.randn(1, d, hq, wq, generator=gen, device=dev)
+        df = d * cfg.depth_downsample
+        sm = FS.build_fine_softmax_volume(cost, cfg.depth_downsample, IMG_HW,
+                                          torch.float32)
+        dsf = FS.slab_depth_static(xs, cfg.depth_min, cfg.depth_max, df)
+        att = K.attention_sample(sm, u, v, dsf, IMG_HW)
+        del sm
+        ds2 = FS.slab_depth_static(xs, cfg.depth_min, cfg.depth_max, d)
+        cs = cfg.sem_channels[1]
+        vol_shape = (1, d, hq, wq, c)
+        sem_shape = (1, hq, wq, cs)
+        gout2 = torch.randn(1, nz, ny, nx, c + cs, generator=gen, device=dev)
+        bwd2 = lambda: K.frustum_voxel_features_bwd(  # noqa: E731
+            gout2, att, u, v, ds2, IMG_HW, vol_shape, sem_shape)
+        plain2 = lambda: K.frustum_voxel_features_bwd_plain(  # noqa: E731
+            gout2, att, u, v, ds2, IMG_HW, vol_shape, sem_shape)
+        (gv, gs), (wv, ws) = bwd2(), plain2()
+        check(bool((wv != 0).any()) and bool((ws != 0).any()),
+              'frustum_voxel_features_bwd: a gradient is zero')
+        err_vol = agree('frustum_voxel_features_bwd vol', gv, wv, BWD_TOL)
+        err_sem = agree('frustum_voxel_features_bwd sem', gs, ws, BWD_TOL)
+        zi = (torch.as_tensor(xs, device=dev) - cfg.depth_min) / (
+            cfg.depth_max - cfg.depth_min) * (d - 1)
+        gx = (u / (w - 1) * (wq - 1)).transpose(1, 2)[:, None]
+        gy = (v / (h - 1) * (hq - 1)).transpose(1, 2)[:, :, None]
+        g3 = torch.stack(torch.broadcast_tensors(
+            gx / (wq - 1) * 2 - 1, gy / (hq - 1) * 2 - 1,
+            (zi / (d - 1) * 2 - 1).view(1, 1, 1, -1)), -1).reshape(
+                1, nz, ny, nx, 3)
+        lib_in = torch.zeros(1, c, d, hq, wq, device=dev, requires_grad=True)
+        lib_out = F.grid_sample(lib_in, g3, align_corners=True)
+        lib_g = torch.randn(lib_out.shape, generator=gen, device=dev)
+        lib2 = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, lib_in, lib_g, retain_graph=True)
+        report('frustum_stereo_sample_bwd',
+               'dfm_tpu_torch/csrc/frustum_sample.cu',
+               'dfm_tpu/ops/pallas/frustum_sample.py:92',
+               max(err_vol, err_sem), BWD_TOL, cuda_ms(bwd2),
+               cuda_ms(plain2, reps=5), cuda_ms(lib2),
+               (gout2.numel() + att.numel() + u.numel() + v.numel()
+                + gv.numel() + gs.numel()) * 4,
+               2 * 8 * gout2[..., :c].numel() + 3 * 4 * gout2[..., c:].numel(),
+               max_abs_err_vol=err_vol, max_abs_err_sem=err_sem,
+               device_ms=device_ms(bwd2), library_device_ms=device_ms(lib2),
+               note='backward of K2 (JAX: XLA autodiff of its f32 path)')
+        del gv, gs, wv, ws, lib_in, lib_out, lib_g, g3, gout2, att, cost
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the train CLI at full width in processes of its own: 4 steps
+        # (one epoch of the 4 frames: a checkpoint and the KITTI eval),
+        # a resume to 6, the eval CLI on the last checkpoint, and the
+        # DfMFull config refused
+        res = subprocess.run(
+            [sys.executable, '-m', 'dfm_tpu_torch.tools.create_data',
+             'kitti', '--root', root, '--splits', 'train', 'val'], cwd=here,
+            env=env, capture_output=True, text=True, timeout=300)
+        check(res.returncode == 0, f'create_data failed: {res.stderr}')
+        work = os.path.join(root, 'w')
+        base = [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
+                '--cfg-options', 'model.type=DfM', f'data.data_root={root}',
+                '--work-dir', work]
+        t0 = time.perf_counter()
+        res = subprocess.run(base + ['--max-steps', '4'], cwd=here, env=env,
+                             capture_output=True, text=True, timeout=900)
+        cli_s = time.perf_counter() - t0
+        check(res.returncode == 0, f'tools.train failed: {res.stderr[-3000:]}')
+        with open(os.path.join(work, 'metrics.jsonl')) as f:
+            recs = [json.loads(line) for line in f]
+        keys = ('loss', 'loss_cls', 'loss_bbox', 'loss_dir', 'loss_iou',
+                'loss_dense_depth', 'grad_norm')
+        check([r['step'] for r in recs] == [1, 4], f'logged steps '
+              f'{[r["step"] for r in recs]}')
+        check(all(np.isfinite(r[f'train/{k}']) for r in recs for k in keys),
+              f'tools.train logged a non-finite term: {recs}')
+        evals = re.findall(r'^\[eval\] (\S+): (\S+)$', res.stdout, re.M)
+        check(len(evals) == 6 and all(np.isfinite(float(x)) for _, x in
+                                     evals), f'tools.train eval: {evals}')
+        ckpt4 = os.path.join(work, 'ckpts', 'step_4.pth')
+        digest = optimizer_digest(torch.load(
+            ckpt4, map_location='cpu', weights_only=True)['optimizer'])
+        print(f'train (c) cli: 4 steps at full width in {cli_s:.1f} s in its '
+              f'own process; logged '
+              + '; '.join(f'step {r["step"]} ' + ', '.join(
+                  f'{k} {r[f"train/{k}"]:.5g}' for k in keys) for r in recs)
+              + f'; eval {len(evals)} finite 3d-moderate APs', flush=True)
+        res = subprocess.run(base + ['--max-steps', '6', '--auto-resume'],
+                             cwd=here, env=env, capture_output=True,
+                             text=True, timeout=900)
+        check(res.returncode == 0, f'tools.train --auto-resume failed: '
+              f'{res.stderr[-3000:]}')
+        check(f'resumed from step 4 (optimizer state sha1 {digest})'
+              in res.stdout, f'resume: {res.stdout[-2000:]}')
+        with open(os.path.join(work, 'metrics.jsonl')) as f:
+            logged = [json.loads(line)['step'] for line in f]
+        check(logged == [1, 4, 6] and re.search(r'^step 6/6 ', res.stdout,
+                                                re.M) is not None,
+              f'resume did not end at step 6: logged {logged}')
+        last = os.path.join(work, 'ckpts', 'step_6.pth')
+        check(os.path.exists(last), 'no checkpoint at step 6')
+        res = subprocess.run(
+            [sys.executable, '-m', 'dfm_tpu_torch.tools.test', config,
+             '--checkpoint', last, '--cfg-options',
+             f'data.data_root={root}'], cwd=here, env=env,
+            capture_output=True, text=True, timeout=600)
+        check(res.returncode == 0, f'tools.test of the trained checkpoint '
+              f'failed: {res.stderr[-3000:]}')
+        aps = [float(m.group(2)) for m in AP_LINE.finditer(res.stdout)]
+        check(len(aps) == 36 and all(np.isfinite(aps)),
+              f'tools.test printed {len(aps)} AP lines')
+        res = subprocess.run(
+            [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
+             '--cfg-options', f'data.data_root={root}', '--work-dir',
+             os.path.join(root, 'full')], cwd=here, env=env,
+            capture_output=True, text=True, timeout=300)
+        check(res.returncode != 0 and 'not ported yet' in res.stderr,
+              f'the DfMFull config: rc {res.returncode} {res.stderr[-500:]}')
+        print(f'train (c) resume: from step 4 with the saved optimizer '
+              f'state (sha1 {digest}) to step 6; tools.test on step_6.pth: '
+              f'{len(aps)} finite AP lines; DfMFull refused (rc '
+              f'{res.returncode})', flush=True)
+
+        # (d) full-width training steps in process: two warm-up steps
+        # (cuDNN's and the allocator's first calls), then three steps
+        # with the launch counts set to 0 just before and read just
+        # after, each split into data, forward, backward and optimizer
+        full = DfMConfig()
+        model = init_weights(DfM(full)).to(dev)
+        step = TrainStep(model, make_optimizer(model), liga_schedule(1e-3))
+        train_ds = KittiDataset(root, infos, train=True, pipeline_kwargs=dict(
+            crop_size=IMG_HW, flip_ratio=0.5, max_gt=32))
+        rng = np.random.default_rng(0)
+        for i in range(2):
+            img, meta, gt = build_batch([train_ds.get_sample(i, rng)], dev)
+            step(img, meta, gt, torch.Generator(device=dev).manual_seed(i))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        splits = []
+        for i in range(TRAIN_TIMED_STEPS):
+            t0 = time.perf_counter()
+            img, meta, gt = build_batch(
+                [train_ds.get_sample((i + 2) % len(ids), rng)], dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            total, losses = step.forward(
+                img, meta, gt, torch.Generator(device=dev).manual_seed(i))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            step.backward(total)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            norm = step.update()
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            splits.append([(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+                           (t4 - t3) * 1e3])
+            vals = {k: float(v.detach())
+                    for k, v in dict(loss=total, **losses).items()}
+            check(all(np.isfinite(x) for x in vals.values())
+                  and np.isfinite(float(norm)), f'full-width step: {vals}')
+        counts = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(counts, 'train', TRAIN_TIMED_STEPS,
+                       'the full-width train steps')
+        for name in TRAIN_PATH:
+            check(counts[name] > 0, f'{name} never launched in the steps')
+        for name in BWD_KERNELS:
+            results[name]['launches'] = counts[name] // TRAIN_TIMED_STEPS
+        med = np.median(np.asarray(splits), axis=0)
+        print(f'train (d) full-width steps, f32, B = 1, after 2 warm-up '
+              f'steps, ms (data, forward, backward, optimizer): '
+              + ' | '.join(', '.join(f'{x:.3f}' for x in row)
+                           for row in splits)
+              + f'; median {", ".join(f"{x:.3f}" for x in med)}, total '
+              f'{float(np.median(np.sum(splits, 1))):.3f}; peak_mem_bytes '
+              f'{peak}; last losses { {k: round(x, 5) for k, x in vals.items()} }'
+              f' grad_norm {float(norm):.5g}; launches per step '
+              f'{ {k: n // TRAIN_TIMED_STEPS for k, n in counts.items() if n} }',
+              flush=True)
+        del model, step, total, losses, img, meta, gt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) overfit one frame at the tiny config: no flip, scale or
+        # photometric distortion (the evaluation pipeline), 30 steps at a
+        # constant lr 1e-3
+        frame = KittiDataset(root, infos, train=False, pipeline_kwargs=dict(
+            crop_size=TRAIN_TINY_CROP, max_gt=32)).get_sample(
+                0, np.random.default_rng(0))
+        model = init_weights(DfM(tiny)).to(dev)
+        step = TrainStep(model, make_optimizer(model), step_schedule(1e-3))
+        img, meta, gt = build_batch([frame], dev)
+        curve = []
+        for i in range(30):
+            m = step(img, meta, gt,
+                     torch.Generator(device=dev).manual_seed(i))
+            curve.append(float(m['loss']))
+        first, last = float(np.mean(curve[:5])), float(np.mean(curve[-5:]))
+        check(np.isfinite(curve).all() and last < first,
+              f'overfit: mean loss of the last 5 steps {last} not below the '
+              f'first 5 {first}: {curve}')
+        print(f'train (e) overfit one frame, tiny, 30 steps at lr 1e-3: mean '
+              f'loss first 5 {first:.5f}, last 5 {last:.5f}', flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1491,10 +1950,12 @@ def main():
           'outlived the kernel phase (the table keeps no weight alive)')
     launches = main_phase(cfg, dev)
     for name, n in launches.items():
-        results[name]['main_path_launches' if name in OFF_PATH
-                      else 'launches'] = n
+        if name in results:
+            results[name]['main_path_launches' if name in OFF_PATH
+                          else 'launches'] = n
     parity_phase(cfg, dev)
     eval_phase(cfg, dev)
+    train_phase(cfg, dev, results)
 
     print(json.dumps({'kernels': list(results.values())}))
     print(card)

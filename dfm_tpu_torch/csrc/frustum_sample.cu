@@ -55,6 +55,26 @@
 // Channel counts that do not fill 16-byte vectors take one element per
 // lane. What holds it back: PERF.md.
 //
+// K2 backward (`dfm_voxel_features_bwd`), the gradients of the stereo
+// volume and the sem map for training (none of att: the attention comes
+// from a detached cost). It is the exact transpose of K2's sampling:
+// grad_vol gets w * g of the stereo half's eight trilinear taps, grad_sem
+// w * att * g of the sem half's four bilinear taps, both float32 buffers
+// the wrapper zeroes (and casts to the volume's type), nothing outside
+// valid2d & in_range. A thread owns one voxel column (b, x, y) and one
+// 16-byte chunk of the C + Cs channels (stereo or sem) and walks z: the
+// column taps (from u[b, x, y]) and the depth taps (from x) stay fixed
+// along the column and only the row taps move with v[b, x, z], monotonic
+// in z, so the thread sums a run of voxels that share their row taps in
+// registers and issues the run's atomics once, when the rows change or
+// the column ends (a far slab's voxels share rows over several z). The
+// threads of a block take consecutive x at one y, so each z step reads
+// one contiguous stretch of grad_out. Atomic sums come in another order
+// from run to run: not bit-reproducible. Plain version: torch.autograd
+// .grad of frustum_voxel_features_plain. Bound on the H100: bytes, the
+// grad_out read (448 MB in float32 at DfM-KITTI) and the two gradient
+// writes (236 MB + 3.3 MB).
+//
 // K3 replaces dfm_tpu/ops/pallas/frustum_sample.py:_att_call (and the
 // attention_sample_pallas glue). Bound on the H100: bytes. It gathers 8
 // taps per voxel from the 236 MB bf16 fine softmax volume
@@ -77,6 +97,7 @@
 // materialised by the caller; sampling the coarse cost directly (the JAX
 // package's base27 idea, dfm_tpu/ops/frustum.py:108-215) would remove
 // those 236 MB and is left to a later change.
+#include <limits.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -257,6 +278,171 @@ int launch_voxel(const void* vol, const void* sem, const float* att,
   return (int)cudaGetLastError();
 }
 
+// The sums of one run of voxels of a column that share their row taps,
+// flushed to the float32 gradient by atomics. NT taps (8 stereo, 4 sem)
+// of VEC channels; off[k] the element offset of tap k's row chunk.
+template <int NT, int VEC>
+struct TapRun {
+  float acc[NT][VEC];
+  bool hit[NT];          // tap k had a nonzero weight in the run
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int k = 0; k < NT; ++k) {
+      hit[k] = false;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[k][i] = 0.f;
+    }
+  }
+  // acc[k] += wt[k] * g for every tap of nonzero weight
+  __device__ __forceinline__ void add(const float (&wt)[NT],
+                                      const float (&g)[VEC]) {
+#pragma unroll
+    for (int k = 0; k < NT; ++k) {
+      if (wt[k] == 0.f) continue;
+      hit[k] = true;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        acc[k][i] = __fadd_rn(acc[k][i], __fmul_rn(wt[k], g[i]));
+    }
+  }
+  __device__ __forceinline__ void flush(float* __restrict__ base,
+                                        const size_t (&off)[NT]) {
+#pragma unroll
+    for (int k = 0; k < NT; ++k)
+      if (hit[k])
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) atomicAdd(base + off[k] + i, acc[k][i]);
+    clear();
+  }
+};
+
+// grid (ceil(nx / cols), ny, B), block kThreads; cols = kThreads /
+// (C / VEC + Cs / VEC) columns of consecutive x a block, thread t the
+// chunk t % nchunk of column t / nchunk. The caller keeps every tensor
+// below 2^31 elements and C, Cs (> 0) multiples of VEC.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+voxel_features_bwd_kernel(const T* __restrict__ gout,
+                          const float* __restrict__ att,
+                          const float* __restrict__ u,
+                          const float* __restrict__ v,
+                          const float4* __restrict__ xtab,
+                          float* __restrict__ gvol, float* __restrict__ gsem,
+                          int D, int H, int W, int C, int Hs, int Ws, int Cs,
+                          int nz, int ny, int nx, float pad_h, float pad_w) {
+  const int cst = C / VEC, nchunk = cst + Cs / VEC;
+  const int cols = kThreads / nchunk;
+  const int col = threadIdx.x / nchunk, chunk = threadIdx.x % nchunk;
+  const int b = blockIdx.z, y = blockIdx.y, x = blockIdx.x * cols + col;
+  if (col >= cols || x >= nx) return;
+  const float un = __ldg(u + (b * nx + x) * ny + y);
+  if (!(un >= 0.f && un <= pad_w)) return;     // no valid voxel
+  const float* vcol = v + (b * nx + x) * nz;
+  const size_t row = (size_t)(C + Cs);
+  if (chunk < cst) {                           // the stereo half: 8 taps
+    const float4 t = __ldg(xtab + x);
+    if (t.z == 0.f && t.w == 0.f) return;      // out of the depth range
+    const int zi[2] = {(int)t.x, (int)t.y};
+    const float wz[2] = {t.z, t.w};
+    int xi[2];
+    float wx[2];
+    axis_taps(un / (pad_w - 1.f) * (float)(W - 1), W, xi, wx);
+    float* base = gvol + (size_t)b * D * H * W * C + chunk * VEC;
+    TapRun<8, VEC> run;
+    run.clear();
+    size_t off[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    int key = INT_MIN;
+    for (int z = 0; z < nz; ++z) {
+      const float vv = __ldg(vcol + z);
+      if (!(vv >= 0.f && vv <= pad_h)) continue;
+      const float yf = vv / (pad_h - 1.f) * (float)(H - 1);
+      const int k0 = (int)floorf(yf);
+      int yi[2];
+      float wy[2];
+      axis_taps(yf, H, yi, wy);
+      if (k0 != key) {                         // new row taps: flush
+        run.flush(base, off);
+        key = k0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          off[k] = ((size_t)(zi[k >> 2] * H + yi[(k >> 1) & 1]) * W +
+                    xi[k & 1]) * C;
+      }
+      float wt[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        wt[k] = __fmul_rn(__fmul_rn(wz[k >> 2], wy[(k >> 1) & 1]),
+                          wx[k & 1]);
+      float gv[VEC];
+      load_vec<T, VEC>(gout + (((size_t)(b * nz + z) * ny + y) * nx + x) *
+                                  row + chunk * VEC, gv);
+      run.add(wt, gv);
+    }
+    run.flush(base, off);
+  } else {                                     // the sem half: 4 taps
+    const int j = chunk - cst;
+    int xi[2];
+    float wx[2];
+    axis_taps(un / (pad_w - 1.f) * (float)(Ws - 1), Ws, xi, wx);
+    float* base = gsem + (size_t)b * Hs * Ws * Cs + j * VEC;
+    TapRun<4, VEC> run;
+    run.clear();
+    size_t off[4] = {0, 0, 0, 0};
+    int key = INT_MIN;
+    for (int z = 0; z < nz; ++z) {
+      const float vv = __ldg(vcol + z);
+      if (!(vv >= 0.f && vv <= pad_h)) continue;
+      const size_t vox = ((size_t)(b * nz + z) * ny + y) * nx + x;
+      const float a = to_f<T>(from_f<T>(__ldg(att + vox)));
+      if (a == 0.f) continue;                  // outside the depth range
+      const float yf = vv / (pad_h - 1.f) * (float)(Hs - 1);
+      const int k0 = (int)floorf(yf);
+      int yi[2];
+      float wy[2];
+      axis_taps(yf, Hs, yi, wy);
+      if (k0 != key) {
+        run.flush(base, off);
+        key = k0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          off[k] = ((size_t)yi[k >> 1] * Ws + xi[k & 1]) * Cs;
+      }
+      float wt[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wt[k] = __fmul_rn(wy[k >> 1], wx[k & 1]);
+      float gv[VEC];
+      load_vec<T, VEC>(gout + vox * row + C + j * VEC, gv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) gv[i] = __fmul_rn(a, gv[i]);
+      run.add(wt, gv);
+    }
+    run.flush(base, off);
+  }
+}
+
+template <typename T>
+int launch_voxel_bwd(const void* gout, const float* att, const float* u,
+                     const float* v, const float4* xtab, float* gvol,
+                     float* gsem, int B, int D, int H, int W, int C, int Hs,
+                     int Ws, int Cs, int nz, int ny, int nx, float pad_h,
+                     float pad_w, cudaStream_t s) {
+  const T* g = static_cast<const T*>(gout);
+  const bool vec = C % vec16<T>() == 0 && Cs % vec16<T>() == 0;
+  const int nchunk = vec ? (C + Cs) / vec16<T>() : C + Cs;
+  if (nchunk > kThreads) return (int)cudaErrorInvalidValue;
+  const int cols = kThreads / nchunk;
+  const dim3 grid((nx + cols - 1) / cols, ny, B);
+  if (vec)
+    voxel_features_bwd_kernel<T, vec16<T>()><<<grid, kThreads, 0, s>>>(
+        g, att, u, v, xtab, gvol, gsem, D, H, W, C, Hs, Ws, Cs, nz, ny, nx,
+        pad_h, pad_w);
+  else
+    voxel_features_bwd_kernel<T, 1><<<grid, kThreads, 0, s>>>(
+        g, att, u, v, xtab, gvol, gsem, D, H, W, C, Hs, Ws, Cs, nz, ny, nx,
+        pad_h, pad_w);
+  return (int)cudaGetLastError();
+}
+
 constexpr int kAtt = 32;           // x and y extent of a K3 block's tile
 
 // The two column taps of a table row as floats: one load of both where
@@ -410,4 +596,25 @@ extern "C" int dfm_attention_sample(
         static_cast<const float*>(sm), u, v, xt, out, D, H, W, nz, ny, nx,
         pad_h, pad_w);
   return (int)cudaGetLastError();
+}
+
+// grad_out (B, nz, ny, nx, C + Cs) of type bf16 / float (is_bf16); att,
+// u, v, xtab as dfm_voxel_features -> gvol (B, D, H, W, C) and gsem
+// (B, Hs, Ws, Cs) float32, which the caller zeroes first; the gradients
+// of dfm_voxel_features' vol and sem. Cs > 0.
+extern "C" int dfm_voxel_features_bwd(
+    const void* gout, const float* att, const float* u, const float* v,
+    const void* xtab, float* gvol, float* gsem, int B, int D, int H, int W,
+    int C, int Hs, int Ws, int Cs, int nz, int ny, int nx, float pad_h,
+    float pad_w, int is_bf16, void* stream) {
+  if (Cs < 1) return (int)cudaErrorInvalidValue;
+  if ((long long)B * nz * ny * nx == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* xt = static_cast<const float4*>(xtab);
+  if (is_bf16)
+    return launch_voxel_bwd<__nv_bfloat16>(gout, att, u, v, xt, gvol, gsem, B,
+                                           D, H, W, C, Hs, Ws, Cs, nz, ny, nx,
+                                           pad_h, pad_w, s);
+  return launch_voxel_bwd<float>(gout, att, u, v, xt, gvol, gsem, B, D, H, W,
+                                 C, Hs, Ws, Cs, nz, ny, nx, pad_h, pad_w, s);
 }

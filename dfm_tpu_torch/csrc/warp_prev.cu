@@ -42,6 +42,19 @@
 // Channel counts that do not fill 16-byte vectors take one element per
 // lane. There is no band limit, so the TPU kernel's band check and
 // gather fallback collapse into this kernel.
+//
+// K1 backward (`dfm_warp_prev_sweep_bwd`), the gradient of prev for
+// training: the exact transpose of the forward's sampling, with the same
+// sample points, taps and weights. Each output pixel's grad_out row is
+// read once (16-byte loads) and each of its nonzero taps adds w * g to
+// a float32 grad_prev (B, H, W, C) with atomicAdd (the wrapper zeroes it
+// and casts it to prev's type); the work is laid out as the forward's, a
+// warp per group of pixels, LANES lanes of 16 bytes each a pixel. The
+// order of the atomic sums changes from run to run, so the result is not
+// bit-reproducible. Plain version: torch.autograd.grad of warp_prev_plain.
+// Bound on the H100: bytes, the grad_out read (236 MB in float32 at
+// DfM-KITTI) and the grad_prev write; the atomics land in L2, where the
+// taps of neighbouring pixels and depths meet.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -147,6 +160,96 @@ warp_prev_kernel(const T* __restrict__ prev,
   }
 }
 
+// The transpose of warp_prev_kernel: grad_out (B, D, Hq, Wq, C) of type
+// T -> float32 grad_prev (B, H, W, C), zeroed by the caller, by atomics.
+template <typename T, int VEC, int LANES>
+__global__ void __launch_bounds__(kThreads, 4)
+warp_prev_bwd_kernel(const T* __restrict__ gout,
+                     const float* __restrict__ params,
+                     const float* __restrict__ depths,
+                     float* __restrict__ gprev, int H, int W, int C, int D,
+                     int Hq, int Wq, float step) {
+  constexpr int kPix = 32 / LANES;
+  __shared__ float prm[kParams + 1];
+  const int b = blockIdx.z, d = blockIdx.y;
+  const int h0 = blockIdx.x * kRows;
+  const int npix = min(kRows, Hq - h0) * Wq;
+  const int first = ((b * D + d) * Hq + h0) * Wq;
+  if (threadIdx.x < kParams)
+    prm[threadIdx.x] = params[b * kParams + threadIdx.x];
+  else if (threadIdx.x == kParams)
+    prm[kParams] = depths[d];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane % LANES, chunks = C / VEC;
+  float* base = gprev + (size_t)b * H * W * C;
+  for (int g = warp * 32; g < npix; g += kThreads) {
+    const int p = g + lane;
+    const int hl = p / Wq;
+    float pu = 0.f, pv = 0.f;
+    if (p < npix)
+      sweep_point(prm, prm[kParams], h0 + hl, p - hl * Wq, step, pu, pv);
+#pragma unroll
+    for (int s = 0; s < LANES; ++s) {
+      const int q = s * kPix + lane / LANES;
+      const float qu = __shfl_sync(0xffffffffu, pu, q);
+      const float qv = __shfl_sync(0xffffffffu, pv, q);
+      if (g + q >= npix) continue;
+      int yi[2], xi[2];
+      float wy[2], wx[2];
+      axis_taps(qv, H, yi, wy);
+      axis_taps(qu, W, xi, wx);
+      float wt[4];
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 2; ++dx)
+          wt[dy * 2 + dx] = __fmul_rn(wx[dx], wy[dy]);
+      const T* src = gout + (size_t)(first + g + q) * C;
+      for (int j = sub; j < chunks; j += LANES) {
+        float gv[VEC];
+        load_vec<T, VEC>(src + j * VEC, gv);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (wt[k] == 0.f) continue;   // out of the map: no tap
+          float* dst = base + ((size_t)yi[k >> 1] * W + xi[k & 1]) * C +
+                       j * VEC;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            atomicAdd(dst + i, __fmul_rn(wt[k], gv[i]));
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int VEC>
+int launch_bwd_vec(const void* gout, const float* params,
+                   const float* depths, float* gprev, int B, int H, int W,
+                   int C, int D, int Hq, int Wq, float step, cudaStream_t s) {
+  const dim3 grid((Hq + kRows - 1) / kRows, D, B);
+  const T* g = static_cast<const T*>(gout);
+  if (C / VEC <= 4)
+    warp_prev_bwd_kernel<T, VEC, 4><<<grid, kThreads, 0, s>>>(
+        g, params, depths, gprev, H, W, C, D, Hq, Wq, step);
+  else
+    warp_prev_bwd_kernel<T, VEC, 8><<<grid, kThreads, 0, s>>>(
+        g, params, depths, gprev, H, W, C, D, Hq, Wq, step);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* gout, const float* params, const float* depths,
+               float* gprev, int B, int H, int W, int C, int D, int Hq,
+               int Wq, float step, cudaStream_t s) {
+  if ((long long)B * D * Hq * Wq == 0) return 0;
+  if (C % vec16<T>() == 0)
+    return launch_bwd_vec<T, vec16<T>()>(gout, params, depths, gprev, B, H,
+                                         W, C, D, Hq, Wq, step, s);
+  return launch_bwd_vec<T, 1>(gout, params, depths, gprev, B, H, W, C, D, Hq,
+                              Wq, step, s);
+}
+
 template <typename T, int VEC>
 int launch_vec(const void* prev, const float* params, const float* depths,
                void* out, int B, int H, int W, int C, int D, int Hq, int Wq,
@@ -192,4 +295,20 @@ extern "C" int dfm_warp_prev_sweep(const void* prev, const float* params,
                                  Hq, Wq, step, s);
   return launch<float>(prev, params, depths, out, B, H, W, C, D, Hq, Wq,
                        step, s);
+}
+
+// grad_out (B, D, Hq, Wq, C) of type bf16 / float (is_bf16), params and
+// depths as dfm_warp_prev_sweep -> gprev (B, H, W, C) float32, which the
+// caller zeroes first; the gradient of dfm_warp_prev_sweep's prev.
+extern "C" int dfm_warp_prev_sweep_bwd(const void* gout, const float* params,
+                                       const float* depths, float* gprev,
+                                       int B, int H, int W, int C, int D,
+                                       int Hq, int Wq, float step,
+                                       int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_bwd<__nv_bfloat16>(gout, params, depths, gprev, B, H, W, C,
+                                     D, Hq, Wq, step, s);
+  return launch_bwd<float>(gout, params, depths, gprev, B, H, W, C, D, Hq, Wq,
+                           step, s);
 }

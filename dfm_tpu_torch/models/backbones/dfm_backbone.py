@@ -32,7 +32,9 @@ JAX package selects by environment variables and backend):
   K7b), pred ConvNorm (K4, K7a), and K8b for `stereo_feats`. The mono
   trunk runs its reduced-depth volume through the same functions with
   multiplicity-weighted GroupNorm (K8a, `packed_hourglass(mults)`, K4,
-  K7a, K8b). Inference only. A trunk whose shapes do not allow it takes
+  K7a, K8b). Inference only: a training call (train mode, gradients
+  recorded) of every form but the dense one runs banded
+  (`_chain_allowed`). A trunk whose shapes do not allow it takes
   the `'stem'` form, as in the JAX package: the hourglass on the chain
   needs D, H', W' divisible by 4 (two stride-2 stages), the mono chain
   also a reduced-depth plan (`_packed_hg`, `_packed_mono`); a model
@@ -259,8 +261,9 @@ class DfMBackbone(nn.Module):
                                    num_depth_bins_out, 1)
 
     def _packed(self, x):
-        """Whether the stereo stem and pred ConvNorm of this call (prev
-        volume x (B, D, H', W', C)) run on the conv chain."""
+        """Whether the stereo stem and pred ConvNorm of an inference call
+        (prev volume x (B, D, H', W', C)) run on the conv chain (a
+        training call never does: `_chain_allowed`)."""
         if self.packed is not None:
             return bool(self.packed)
         cv = self.dres1.conv.weight.shape[0]
@@ -280,6 +283,19 @@ class DfMBackbone(nn.Module):
                 and plan is not None and plan.dr % 4 == 0
                 and all(n % 4 == 0 for n in x.shape[2:4]))
 
+    def _chain_allowed(self):
+        """False for a training call, one in train mode that records
+        gradients: the conv chain's kernels have no backward, so it then
+        takes the banded form (the JAX package's `packed = banded and not
+        train`), and a model built with `packed=True` raises."""
+        if not (self.training and torch.is_grad_enabled()):
+            return True
+        if self.packed is True:
+            raise ValueError('DfMBackbone(packed=True) is inference only: '
+                             'the conv chain has no backward; train with '
+                             'packed=None, False or \'stem\'')
+        return False
+
     @staticmethod
     def _hg_stack(x, hgs):
         for hg in hgs:
@@ -294,10 +310,11 @@ class DfMBackbone(nn.Module):
                           f"packed='stem' form, {why}", RuntimeWarning,
                           stacklevel=2)
 
-    def _stereo(self, cur2d, prev_vol, span):
+    def _stereo(self, cur2d, prev_vol, span, chain=True):
         """The stereo trunk and its depth cost in the dense, banded and
-        `'stem'` forms: (feats NCDHW, cost (B, D, H', W'))."""
-        packed = self._packed(prev_vol)
+        `'stem'` forms (the banded one for `chain=False`): (feats NCDHW,
+        cost (B, D, H', W'))."""
+        packed = chain and self._packed(prev_vol)
         cn, scalar = self.pred_stereo[0]
         with record_function(span + 'stem'):
             if packed:
@@ -342,9 +359,9 @@ class DfMBackbone(nn.Module):
             feats = _ncdhw(_stack([unpack_vol(x_cv) for x_cv in xs]))
             return feats, scalar(feat)[:, 0]
 
-    def _mono(self, cur2d, prev_vol):
-        """The mono trunk and its depth cost: (feats NCDHW, cost
-        (B, D, H', W'))."""
+    def _mono(self, cur2d, prev_vol, chain=True):
+        """The mono trunk and its depth cost, off the chain for
+        `chain=False`: (feats NCDHW, cost (B, D, H', W'))."""
         d = prev_vol.shape[1]
         pred = self.pred_mono[0]
         if not self.use_band:
@@ -364,7 +381,7 @@ class DfMBackbone(nn.Module):
         red = assemble_reduced(band, plan)
         idx = torch.as_tensor(plan.expand_idx, dtype=torch.long,
                               device=red.device)
-        if self._packed_mono(prev_vol, plan):
+        if chain and self._packed_mono(prev_vol, plan):
             mults = tuple(plan.mult(s) for s in range(3))
             feats, pred_feats = [], []
             for red_i in _ndhwc(red).contiguous():
@@ -394,15 +411,17 @@ class DfMBackbone(nn.Module):
                 cur_stereo_feats, prev_stereo_feats, depths, cam2img,
                 cur2prev, self.cost_sample_factor, 1, org_w, flip,
                 crop_offset, scale_factor)
-        if self._packed_hg(prev_vol):
+        chain = self._chain_allowed()
+        if chain and self._packed_hg(prev_vol):
             stereo, stereo_cost = self._stereo_chain(cur2d, prev_vol, span)
         else:
-            self._warn_not_on_chain(
-                'stereo trunk', f"D, H', W' = {tuple(prev_vol.shape[1:4])} "
-                f'do not all divide by 4')
-            stereo, stereo_cost = self._stereo(cur2d, prev_vol, span)
+            if chain:
+                self._warn_not_on_chain(
+                    'stereo trunk', f"D, H', W' = "
+                    f'{tuple(prev_vol.shape[1:4])} do not all divide by 4')
+            stereo, stereo_cost = self._stereo(cur2d, prev_vol, span, chain)
         with record_function(span + 'mono'):
-            mono, mono_cost = self._mono(cur2d, prev_vol)
+            mono, mono_cost = self._mono(cur2d, prev_vol, chain)
         with record_function(span + 'pred'):
             weight = torch.sigmoid(self.aggregate_cost(
                 torch.cat([stereo_cost, mono_cost], dim=1)))

@@ -7,8 +7,7 @@ Port of `dfm_tpu/models/builder.py:28-62` (`_mk_cfg`, `_build_dfm`,
 a 2D ATSS head; its inference is the student alone, so both types build
 the same model. Keys that are no field of `DfMConfig` are ignored, as
 `_mk_cfg` ignores them; `unused_keys` names them (for the repo's DfM
-configs: the type, DfMFull's ATSS head and teacher, and training fields
-of the JAX package's `DfMConfig`).
+configs: the type and DfMFull's ATSS head and teacher checkpoint).
 """
 
 import dataclasses

@@ -1,11 +1,12 @@
 """DfM: monocular 3D detection with depth from motion.
 
-Port of `dfm_tpu/models/detectors/dfm.py:45-253, 305-314`:
+Port of `dfm_tpu/models/detectors/dfm.py:45-314`:
 
   imgs (cur + prev) -> shared LIGAResNet -> SPP-UNet neck
   -> plane-sweep cost volume (K1) + stereo / mono 3D trunks (DfMBackbone)
   -> frustum-to-voxel lifting (K2, K3) -> height compression
-  -> BEV hourglass -> LIGA anchor head;  `dfm_predict`: decode + NMS.
+  -> BEV hourglass -> LIGA anchor head;  `dfm_predict`: decode + NMS;
+  `dfm_loss`: the anchor head's losses + the dense depth loss.
 
 Inputs and outputs keep the JAX package's layouts (images
 (B, 2, H, W, 3), channels-last volumes and head maps) so the two can be
@@ -16,7 +17,7 @@ inside it, `dfm.frustum_to_voxel`, `dfm.bev_head`, `dfm.predict`) that
 """
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -27,11 +28,13 @@ from ...core.anchors import Anchor3DRangeGenerator
 from ..backbones.bev_hourglass import BEVHourglass
 from ..backbones.dfm_backbone import DfMBackbone
 from ..backbones.liga_resnet import LIGAResNet
-from ..heads.anchor3d_head import LIGAAnchor3DHead, anchor3d_head_get_bboxes
+from ..heads.anchor3d_head import (LIGAAnchor3DHead, anchor3d_head_get_bboxes,
+                                   anchor3d_head_loss)
+from ..heads.depth_head import depth_distribution_loss
 from ..necks.frustum_to_voxel import FrustumToVoxel
 from ..necks.spp_unet import SPPUNetNeck
 
-__all__ = ['BatchMeta', 'DfMConfig', 'DfM', 'dfm_predict']
+__all__ = ['BatchMeta', 'DfMConfig', 'DfM', 'dfm_predict', 'dfm_loss']
 
 
 @dataclasses.dataclass
@@ -65,7 +68,7 @@ class BatchMeta:
 @dataclasses.dataclass(frozen=True)
 class DfMConfig:
     """Static hyperparameters (KITTI defaults of the reference config
-    configs/dfm/dfm_r34_1x8_kitti-3d-3class.py; inference fields)."""
+    configs/dfm/dfm_r34_1x8_kitti-3d-3class.py)."""
     num_classes: int = 3
     depth_num_bins: int = 288
     depth_min: float = 2.0
@@ -88,6 +91,20 @@ class DfMConfig:
         (3.9, 1.6, 1.56), (0.8, 0.6, 1.73), (1.76, 0.6, 1.73))
     anchor_rotations: Tuple[float, ...] = (0.0, 1.5707963)
     dir_offset: float = 0.7854
+    # train
+    assigner_cfgs: Tuple[dict, ...] = (
+        dict(pos_iou_thr=0.6, neg_iou_thr=0.45, min_pos_iou=0.45),
+        dict(pos_iou_thr=0.5, neg_iou_thr=0.35, min_pos_iou=0.35),
+        dict(pos_iou_thr=0.5, neg_iou_thr=0.35, min_pos_iou=0.35))
+    normalizer_clamp_value: float = 10.0
+    # average the loss normalisers over the process group (JAX's pmean);
+    # False = local normalisation (reference *_wodistnorm.py config)
+    dist_norm: bool = True
+    depth_loss: Any = dataclasses.field(default_factory=lambda: dict(
+        type='balanced_focal', loss_weight=1.0, fg_weight=5, bg_weight=1,
+        alpha=1, gamma=2))
+    num_depth_sample_pixels: int = 8192
+    # test
     nms_pre: int = 1024
     score_thr: float = 0.1
     nms_thr: float = 0.25
@@ -103,6 +120,12 @@ class DfMConfig:
         i = np.arange(self.num_downsampled_bins, dtype=np.float32)
         return ((i + self.downsampled_depth_offset) * self.depth_downsample
                 * interval + self.depth_min)
+
+    def depth_samples(self):
+        """Full-resolution depth-bin centres (numpy float32)."""
+        interval = (self.depth_max - self.depth_min) / self.depth_num_bins
+        i = np.arange(self.depth_num_bins, dtype=np.float32)
+        return (i + 0.5) * interval + self.depth_min
 
     def voxel_grid_size(self):
         pcr = np.asarray(self.point_cloud_range, np.float32)
@@ -162,6 +185,20 @@ class DfM(nn.Module):
             num_classes=cfg.num_classes, in_channels=cfg.bev_channels,
             feat_channels=cfg.bev_channels,
             num_anchors=len(cfg.anchor_sizes) * len(cfg.anchor_rotations))
+        self._anchors = {}
+
+    def anchors_per_class(self, featmap_size, device):
+        """The (Ny * Nx * R, 7) anchors of each class, in the head's
+        (y, x, rot) order, on `device`; made once per feature size and
+        device, then kept (`dfm_tpu/models/detectors/dfm.py:256-264`)."""
+        key = (tuple(featmap_size), str(device))
+        if key not in self._anchors:
+            grid = self.cfg.anchor_generator().grid_anchors(featmap_size)
+            self._anchors[key] = [
+                torch.as_tensor(grid[0, :, :, c].reshape(-1, 7),
+                                device=device)
+                for c in range(len(self.cfg.anchor_sizes))]
+        return self._anchors[key]
 
     def _stereo_feats(self, img):
         """(B, H, W, 3) image -> stereo (B, H, W, Cs) channels-last and
@@ -221,6 +258,44 @@ class DfM(nn.Module):
                     volume_feat=volume_feat,
                     bev_feat=bev_feat.permute(0, 2, 3, 1),
                     sem_feat=cur_sem, stereo_cache=cur_stereo)
+
+
+def dfm_loss(outputs, gt, cfg: DfMConfig, anchors_per_class, generator=None,
+             depth_pix_idx=None, dist_norm=None):
+    """Total training loss (`dfm_tpu/models/detectors/dfm.py:267-302`).
+
+    Args:
+        outputs: `DfM.forward` outputs.
+        gt: dict with 'gt_boxes' (B, G, 7) pseudo-lidar, 'gt_labels'
+            (B, G), 'gt_mask' (B, G), optional 'depth_img' (B, H, W) and
+            'depth_fgmask_img' (`data/collate.py:build_batch`).
+        anchors_per_class: `DfM.anchors_per_class` at the head's size.
+        generator: torch.Generator of the depth-pixel draw.
+        depth_pix_idx: optional (B, P) depth-loss pixels instead of a draw.
+        dist_norm: average the normalisers over the process group; None
+            takes `cfg.dist_norm` (a no-op without a process group).
+
+    Returns:
+        (total, dict of scalar terms).
+    """
+    losses = anchor3d_head_loss(
+        (outputs['cls_score'], outputs['bbox_pred'], outputs['dir_pred']),
+        anchors_per_class, gt['gt_boxes'], gt['gt_labels'], gt['gt_mask'],
+        list(cfg.assigner_cfgs), num_classes=cfg.num_classes,
+        dir_offset=cfg.dir_offset,
+        normalizer_clamp_value=cfg.normalizer_clamp_value,
+        dist_norm=cfg.dist_norm if dist_norm is None else dist_norm)
+    if gt.get('depth_img') is not None:
+        losses['loss_dense_depth'] = depth_distribution_loss(
+            outputs['depth_cost'], gt['depth_img'],
+            gt.get('depth_fgmask_img'),
+            torch.as_tensor(cfg.depth_samples(),
+                            device=outputs['depth_cost'].device),
+            cfg.depth_loss, up_factor=cfg.depth_downsample,
+            num_sample_pixels=cfg.num_depth_sample_pixels,
+            depth_min=cfg.depth_min, depth_max=cfg.depth_max,
+            generator=generator, pix_idx=depth_pix_idx)
+    return sum(losses.values()), losses
 
 
 def dfm_predict(outputs, cfg: DfMConfig):

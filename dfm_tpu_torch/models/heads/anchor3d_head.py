@@ -1,17 +1,21 @@
-"""LIGA anchor head: forward and inference decode.
+"""LIGA anchor head: forward, training targets and loss, inference decode.
 
-Port of `dfm_tpu/models/heads/anchor3d_head.py:30-68` (forward) and
-`:225-273` (`anchor3d_head_get_bboxes`). Keys: cls_convs.i, reg_convs.i,
-conv_cls, conv_reg, conv_dir_cls. Head outputs are returned
-channels-last (B, Ny, Nx, A * X), as in the JAX package.
+Port of `dfm_tpu/models/heads/anchor3d_head.py:30-68` (forward),
+`:71-222` (`anchor3d_head_targets`, `anchor3d_head_loss`) and `:225-273`
+(`anchor3d_head_get_bboxes`). Keys: cls_convs.i, reg_convs.i, conv_cls,
+conv_reg, conv_dir_cls. Head outputs are returned channels-last
+(B, Ny, Nx, A * X), as in the JAX package.
 """
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from ..layers import Conv, ConvNorm
+from ...core import losses as L
 from ...core.coders import delta_xyzwlhr_decode
 from ...core.nms import box3d_multiclass_nms
+from ...core.targets import add_sin_difference, anchor_targets_single_class
 from ...core.transforms import limit_period
 
 
@@ -39,6 +43,136 @@ class LIGAAnchor3DHead(nn.Module):
         return (nhwc(self.conv_cls(cls_feats)),
                 nhwc(self.conv_reg(reg_feats)),
                 nhwc(self.conv_dir_cls(cls_feats)))
+
+
+def anchor3d_head_targets(anchors_per_class, gt_boxes, gt_labels, gt_mask,
+                          assigner_cfgs, num_classes, dir_offset=0.7854):
+    """Per-class assignment of one sample (reference `anchor_target_3d`
+    with assign_per_class=True).
+
+    Args:
+        anchors_per_class: list of (A_c, 7) per class.
+        gt_boxes: (G, 7) padded; gt_labels: (G,); gt_mask: (G,).
+        assigner_cfgs: per-class dicts (pos_iou_thr, neg_iou_thr,
+            min_pos_iou).
+
+    Returns:
+        per-class list of target dicts, the positive count.
+    """
+    out = []
+    total_pos = 0
+    for cls_id, (anchors, cfg) in enumerate(zip(anchors_per_class,
+                                                assigner_cfgs)):
+        t = anchor_targets_single_class(
+            anchors, gt_boxes, gt_mask & (gt_labels == cls_id),
+            cfg['pos_iou_thr'], cfg['neg_iou_thr'], cfg['min_pos_iou'],
+            class_id=cls_id, num_classes=num_classes, dir_offset=dir_offset)
+        total_pos = total_pos + t['pos_mask'].sum()
+        out.append(t)
+    return out, total_pos
+
+
+def _dist_mean(x):
+    """The mean of x over the default process group (JAX's pmean over the
+    data axis); x itself without one."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return x
+    x = x.clone()
+    dist.all_reduce(x)
+    return x / dist.get_world_size()
+
+
+def anchor3d_head_loss(preds, anchors_per_class, gt_boxes, gt_labels,
+                       gt_mask, assigner_cfgs, num_classes=3,
+                       dir_offset=0.7854, loss_weights=(1.0, 0.5, 0.2, 1.0),
+                       normalizer_clamp_value=10.0, use_iou_loss=True,
+                       dist_norm=False):
+    """LIGAAnchor3DHead.loss (reference liga_anchor3d_head.py:130-226),
+    batched, static shapes.
+
+    Args:
+        preds: (cls_score, bbox_pred, dir_pred), each (B, Ny, Nx,
+            num_anchors * X), anchor order (size, rot).
+        anchors_per_class: list of (A_c, 7) flat per-class anchors in the
+            head's (y, x, rot) order.
+        gt_boxes: (B, G, 7); gt_labels: (B, G); gt_mask: (B, G).
+        dist_norm: average the positive count over the default process
+            group when one exists (the JAX package's `axis_name`).
+
+    Returns:
+        dict of scalar losses loss_cls, loss_bbox, loss_dir, loss_iou.
+    """
+    cls_score, bbox_pred, dir_pred = preds
+    b = cls_score.shape[0]
+    num_rot = anchors_per_class[0].shape[0] // (cls_score.shape[1] *
+                                                cls_score.shape[2])
+
+    def per_class(x, per_anchor):
+        # (B, Ny, Nx, S*R*per) -> per-class (B, Ny*Nx*R, per)
+        x = x.float().reshape(b, -1, num_classes, num_rot, per_anchor)
+        return [x[:, :, c].reshape(b, -1, per_anchor)
+                for c in range(num_classes)]
+
+    cls_per = per_class(cls_score, num_classes)
+    box_per = per_class(bbox_pred, 7)
+    dir_per = per_class(dir_pred, 2)
+
+    targets, pos = [], 0
+    for i in range(b):
+        t, p = anchor3d_head_targets(anchors_per_class, gt_boxes[i],
+                                     gt_labels[i], gt_mask[i],
+                                     assigner_cfgs, num_classes, dir_offset)
+        targets.append(t)
+        pos = pos + p
+    # focal-loss heads normalise by the positives only (mmdet
+    # anchor3d_head.py:100, 380); LIGA adds the clamp for cls and clamps
+    # from below for reg / dir / iou (liga_anchor3d_head.py:142-223)
+    num_total = torch.as_tensor(pos, dtype=torch.float32,
+                                device=cls_score.device)
+    if dist_norm:
+        num_total = _dist_mean(num_total)
+    avg_cls = num_total + normalizer_clamp_value
+    avg_reg = torch.clamp(num_total, min=normalizer_clamp_value)
+
+    # per-class terms stacked and summed at the end, as the JAX package
+    terms = {'loss_cls': [], 'loss_bbox': [], 'loss_dir': [], 'loss_iou': []}
+    for c in range(num_classes):
+        t = {k: torch.stack([tb[c][k] for tb in targets])
+             for k in targets[0][c]}
+        anchors = anchors_per_class[c][None].expand(
+            (b,) + tuple(anchors_per_class[c].shape))
+        terms['loss_cls'].append(L.sigmoid_focal_loss(
+            cls_per[c], t['labels'], t['label_weights'], avg_factor=avg_cls))
+        pred_sin, target_sin = add_sin_difference(box_per[c],
+                                                  t['bbox_targets'])
+        terms['loss_bbox'].append(L.smooth_l1_loss(
+            pred_sin, target_sin, t['bbox_weights'][..., None],
+            beta=1.0 / 9.0, avg_factor=avg_reg))
+        terms['loss_dir'].append(L.softmax_cross_entropy(
+            dir_per[c], t['dir_targets'], t['dir_weights'],
+            avg_factor=avg_reg))
+        if use_iou_loss:
+            # non-positives get the anchor itself AND a zero weight: the
+            # rotated clip is degenerate on identical boxes
+            msk = t['pos_mask'][..., None]
+            dec_pred = torch.where(
+                msk, delta_xyzwlhr_decode(anchors, box_per[c]), anchors)
+            dec_tgt = torch.where(
+                msk, delta_xyzwlhr_decode(anchors, t['bbox_targets']),
+                anchors)
+            terms['loss_iou'].append(L.iou3d_loss(
+                dec_pred.reshape(-1, 7), dec_tgt.reshape(-1, 7),
+                weights=t['pos_mask'].reshape(-1).float(),
+                avg_factor=avg_reg))
+
+    out = {'loss_cls': loss_weights[0] * torch.stack(terms['loss_cls']).sum(),
+           'loss_bbox': loss_weights[1] *
+           torch.stack(terms['loss_bbox']).sum(),
+           'loss_dir': loss_weights[2] * torch.stack(terms['loss_dir']).sum()}
+    if use_iou_loss:
+        out['loss_iou'] = loss_weights[3] * \
+            torch.stack(terms['loss_iou']).sum()
+    return out
 
 
 def anchor3d_head_get_bboxes(preds, flat_anchors, num_classes=3,

@@ -97,8 +97,18 @@ class GroupNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm (running statistics), f32 math, cast back to
-    the input dtype. Inference only: the port has no train step yet."""
+    """BatchNorm as flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`,
+    f32 math, cast back to the input dtype.
+
+    Eval mode (`self.training` False) applies the running statistics.
+    Train mode normalises with the batch statistics over every axis but
+    the channel one: the mean and flax's "fast" biased variance
+    E[x^2] - E[x]^2 clipped at 0; then, outside the graph, it updates the
+    running buffers the flax way, ra = 0.9 * ra + 0.1 * batch, with that
+    biased variance (`F.batch_norm` would store the unbiased one).
+    """
+
+    momentum = 0.9
 
     def __init__(self, c):
         super().__init__()
@@ -109,10 +119,24 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        sc = self.weight.float() * torch.rsqrt(self.running_var.float()
-                                               + 1e-5)
-        bs = self.bias.float() - self.running_mean.float() * sc
-        return (x.float() * sc.view(shape) + bs.view(shape)).to(x.dtype)
+        if not self.training:
+            sc = self.weight.float() * torch.rsqrt(
+                self.running_var.float() + 1e-5)
+            bs = self.bias.float() - self.running_mean.float() * sc
+            return (x.float() * sc.view(shape) +
+                    bs.view(shape)).to(x.dtype)
+        xf = x.float()
+        dims = [0] + list(range(2, x.dim()))
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean +
+                                    (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + 1e-5) * self.weight.float()
+        return ((xf - mean.view(shape)) * mul.view(shape) +
+                self.bias.float().view(shape)).to(x.dtype)
 
 
 def _norm(norm, c):

@@ -63,9 +63,13 @@ class FrustumToVoxel(nn.Module):
             ds = FS.slab_depth_static(xs, self.depth_min, self.depth_max, d)
             dsf = FS.slab_depth_static(xs, self.depth_min, self.depth_max,
                                        d * self.up_factor)
-        with record_function(span + 'softmax_volume'):
-            sm = FS.build_fine_softmax_volume(depth_cost, self.up_factor,
-                                              pad_shape, stereo_vol.dtype)
+        with record_function(span + 'softmax_volume'), torch.no_grad():
+            # the attention takes no gradient to the cost: JAX's
+            # stop_gradient (`dfm_tpu/models/necks/frustum_to_voxel.py:95,
+            # 189`); built outside the graph, the volume is freed below
+            sm = FS.build_fine_softmax_volume(depth_cost.detach(),
+                                              self.up_factor, pad_shape,
+                                              stereo_vol.dtype)
         with record_function(span + 'attention'):
             att = attention_sample(sm, u, v, dsf, pad_shape)
             del sm                                   # 236 MB at DfM-KITTI

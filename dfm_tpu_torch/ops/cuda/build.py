@@ -32,9 +32,11 @@ _F = ctypes.c_float
 # cudaGetLastError() after its launch
 SOURCES = {
     'warp_prev': ('warp_prev.cu', {
-        'dfm_warp_prev_sweep': [_P] * 4 + [_I] * 7 + [_F, _I, _P]}),
+        'dfm_warp_prev_sweep': [_P] * 4 + [_I] * 7 + [_F, _I, _P],
+        'dfm_warp_prev_sweep_bwd': [_P] * 4 + [_I] * 7 + [_F, _I, _P]}),
     'frustum_sample': ('frustum_sample.cu', {
         'dfm_voxel_features': [_P] * 7 + [_I] * 11 + [_F, _F, _I, _P],
+        'dfm_voxel_features_bwd': [_P] * 7 + [_I] * 11 + [_F, _F, _I, _P],
         'dfm_attention_sample': [_P] * 5 + [_I] * 7 + [_F, _F, _I, _P]}),
     'conv_chain': ('conv_chain.cu', {
         'dfm_pack_vol': [_P, _P, _I, _I, _I, _P],

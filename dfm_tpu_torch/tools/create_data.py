@@ -7,8 +7,7 @@ Port of the kitti branch of `tools/create_data.py:111-127`: reads
 `ImageSets/{split}.txt` under the root (the frames of `training/image_2`
 when it is absent) and writes `kitti_infos_{split}.pkl` with
 `data/kitti.py:build_kitti_infos`, temporal sweeps from `prev_2/` and
-`poses/` included. The GT database (`--with-gt-db`) comes with
-training.
+`poses/` included. The GT database (`--with-gt-db`) is not ported yet.
 """
 
 import argparse

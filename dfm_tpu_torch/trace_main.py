@@ -1,7 +1,7 @@
 """Where the time goes on the main path, from a torch.profiler trace.
 
     python -m dfm_tpu_torch.trace_main [--requests 3] [--out build/trace]
-                                       [--dense | --stem]
+                                       [--dense | --stem | --train]
 
 Runs DfM-R34 KITTI inference (full DfMConfig, 1x2x320x1280, bf16,
 seeded random weights) on the CUDA card, in the default form (banded
@@ -23,6 +23,16 @@ the port's own kernels; and the kernels that take the most device time.
 Writes the same as JSON (`trace_main.json`, `trace_main_stem.json` or
 `trace_main_dense.json`), plus a Chrome trace of the two-frame requests, to `--out`. Needs a CUDA
 device.
+
+`--train` profiles training steps instead (`runtime/train.py:TrainStep`,
+full DfMConfig in float32, B = 1, the banded form, seeded weights, gt
+boxes on anchors and a sparse depth map made from a seed): two warm-up
+steps, then `--requests` steps, each in spans `dfm.train.forward` (the
+forward and the loss), `dfm.train.backward` and `dfm.train.update`, with
+the same summary per step (`trace_main_train.json`, `trace_train.json`).
+The backward's kernels are launched by autograd's own thread, so its
+span has no device range: its kernels count in the step's busy time and
+in the kernel tables.
 """
 
 import argparse
@@ -35,13 +45,16 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from .apis import init_dfm_model, init_dfm_stream
 from .models.detectors.dfm import BatchMeta, DfMConfig
 
-# device functions of the port's hand-written kernels (csrc/*.cu)
-PORT_KERNELS = ('warp_prev_kernel', 'voxel_features',
+# device functions of the port's hand-written kernels (csrc/*.cu); the
+# first name a kernel holds counts it (voxel_features_bwd before
+# voxel_features, unpack_vol before pack_vol)
+PORT_KERNELS = ('warp_prev_bwd_kernel', 'voxel_features_bwd_kernel',
+                'warp_prev_kernel', 'voxel_features',
                 'attention_sample_kernel', 'unpack_vol_kernel',
                 'pack_vol_kernel', 'conv_p2p_kernel', 'unpack_affine_kernel',
                 'conv_s2_kernel',
@@ -59,6 +72,45 @@ def _inputs(dev):
     meta.cur2prev = torch.eye(4, device=dev)[None].clone()
     meta.cur2prev[:, 2, 3] = 0.8
     return frames, meta
+
+
+def _train_step(cfg, frames, meta, dev):
+    """One profiled training step (i -> None) of a float32 DfM at `cfg`:
+    frames[i], frames[i + 1]; four cars on anchors, a sparse depth map."""
+    from .models.detectors.dfm import DfM
+    from .runtime.schedule import liga_schedule
+    from .runtime.train import TrainStep, make_optimizer
+    from .utils.weights import init_weights
+    model = init_weights(DfM(cfg)).to(dev)
+    st = TrainStep(model, make_optimizer(model), liga_schedule(1e-3))
+    _, ny, nx = cfg.voxel_grid_size()
+    anchors = cfg.anchor_generator().grid_anchors((ny, nx))
+    boxes = torch.zeros(1, 8, 7)
+    for g, (fy, fx) in enumerate(((0.5, 0.14), (0.56, 0.2), (0.4, 0.28),
+                                  (0.46, 0.42))):   # cars 10-26 m ahead
+        boxes[0, g] = torch.from_numpy(
+            anchors[0, int(fy * ny), int(fx * nx), 0, 0])
+    rng = np.random.RandomState(1)
+    h, w = frames.shape[1:3]
+    depth = np.where(rng.rand(1, h, w) < 0.05,
+                     rng.uniform(2, 60, (1, h, w)), 0).astype(np.float32)
+    gt = dict(gt_boxes=boxes.to(dev),
+              gt_labels=torch.zeros(1, 8, dtype=torch.long, device=dev),
+              gt_mask=(torch.arange(8) < 4)[None].to(dev),
+              depth_img=torch.from_numpy(depth).to(dev),
+              depth_fgmask_img=torch.zeros(1, h, w, dtype=torch.int32,
+                                           device=dev))
+
+    def step(i):
+        gen = torch.Generator(device=dev).manual_seed(i)
+        with record_function('dfm.train.forward'):
+            total, _ = st.forward(frames[None, i:i + 2], meta, gt, gen)
+        with record_function('dfm.train.backward'):
+            st.backward(total)
+        with record_function('dfm.train.update'):
+            st.update()
+
+    return step
 
 
 def _summary(prof, n, wall_ms, top):
@@ -135,6 +187,8 @@ def main():
     form.add_argument('--stem', action='store_true',
                       help="stem and pred ConvNorm on the chain only "
                            "(packed='stem')")
+    form.add_argument('--train', action='store_true',
+                      help='training steps (float32, the banded form)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('trace_main: needs a CUDA device')
@@ -147,6 +201,16 @@ def main():
     cfg = DfMConfig()
     frames, meta = _inputs(dev)
     n = args.requests
+    if args.train:
+        prof, wall = _profiled(_train_step(cfg, frames, meta, dev), n,
+                               os.path.join(args.out, 'trace_train.json'))
+        result = dict(card=card, torch=torch.__version__,
+                      form='training step, float32, banded',
+                      train=_summary(prof, n, wall, args.top))
+        with open(os.path.join(args.out, 'trace_main_train.json'), 'w') as f:
+            json.dump(result, f, indent=1)
+        print(json.dumps(result, indent=1))
+        return
     if args.dense:
         form, tag, name = dict(use_band=False, packed=False), '_dense', 'dense'
     elif args.stem:

@@ -177,14 +177,14 @@ def state_dict_from_jax(variables, key_map=None):
     return sd
 
 
-def init_weights(model):
+def init_weights(model, seed=0):
     """Fill every parameter and buffer of `model` from a `torch.Generator`
-    (CPU) seeded with 0: conv weights normal with std
+    (CPU) seeded with `seed`: conv weights normal with std
     1/sqrt(weight[0].numel()) (lecun-normal for a conv), conv biases 0,
     norms weight 1 / bias 0, BN running stats (0, 1),
     and the focal prior of the anchor head's cls conv (std 0.01, bias
     -log(99)). Touches no global RNG."""
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator().manual_seed(seed)
     for name, t in list(model.named_parameters()) + \
             list(model.named_buffers()):
         leaf = name.rsplit('.', 1)[-1]

@@ -347,7 +347,8 @@ def test_wrappers_take_plain_versions_on_cpu(data):
         'warp_prev', 'frustum_stereo_sample', 'attention_sample', 'pack_vol',
         'conv_p2p', 'unpack_affine_res', 'conv_s2_p2d', 'pack_parity8',
         'gn_affine_res_packed', 'unpack_vol', 'conv3d_zpack',
-        'conv3d_gn_finish', 'conv3d_pallas'}
+        'conv3d_gn_finish', 'conv3d_pallas', 'warp_prev_bwd',
+        'frustum_stereo_sample_bwd'}
 
 
 # ------------------------------------------------- K5, K6, K7b, K8b

@@ -199,6 +199,32 @@ def test_slice_b2_augmented_matches_jax(tiny, tiny_b2, form, key):
     np.testing.assert_allclose(got, want, **SLICE_TOL)
 
 
+def test_slice_matches_jax_bf16_fine_volume(tiny):
+    """The JAX neck builds its fine depth-softmax volume in bf16 even in
+    an f32 model (`dfm_tpu/models/necks/frustum_to_voxel.py:189-191`),
+    which the other slice tests patch away; the port builds it in the
+    model's dtype. Unpatched, JAX's f32 outputs still agree with the
+    port's at the slice tolerance (the bf16 volume moves JAX's own
+    outputs by at most 2.3e-4 at this config), so the port keeps f32."""
+    m = _np_meta(_tiny_cam())
+    m['cur2prev'][0, :3, 3] = (0.1, 0.0, -0.6)
+    jmeta = JMeta(**{k: jnp.asarray(v) for k, v in m.items()})
+    model = JDfM(cfg=JConfig(**TINY))
+    out = jax.jit(lambda v, i, mt: model.apply(v, i, mt, train=False))(
+        tiny['variables'], jnp.asarray(tiny['img']), jmeta)
+    if 'port_out_default' not in tiny:
+        with torch.inference_mode():
+            tiny['port_out_default'] = tiny['port'](
+                torch.from_numpy(tiny['img']), tiny['meta'])
+    moved = 0.0
+    for key in KEYS:
+        want = np.asarray(out[key])
+        moved = max(moved, float(np.abs(want - tiny['jax_out'][key]).max()))
+        np.testing.assert_allclose(tiny['port_out_default'][key].numpy(),
+                                   want, err_msg=key, **SLICE_TOL)
+    assert moved > 0, 'the bf16 volume changed nothing: not reached'
+
+
 def test_stream_step_matches_two_frame_jax(tiny):
     """Streaming: frame 0 as a self-pair, then frame 1 with the cached
     stereo features == the JAX two-frame forward on (frame 1, frame 0)."""
@@ -353,13 +379,16 @@ def test_init_dfm_model_needs_cuda_unless_asked_for_cpu():
 
 def test_port_runs_without_jax(tmp_path):
     """A fresh process imports the port (with the K9a / K9b modules, the
-    card-only scripts and the KITTI data, evaluation, config, builder
-    and tool modules) and runs a tiny CPU forward in the full-chain
-    form, whose neck runs the fused K2's plain version, K1's sweep on
-    the CPU, and a tiny `dataset_inference` on a synthetic KITTI tree in
-    `tmp_path` (PNG files), without loading JAX, cv2 or PIL."""
+    card-only scripts, the KITTI data, evaluation, config, builder and
+    tool modules, and the training modules) and runs a tiny CPU forward
+    in the full-chain form, whose neck runs the fused K2's plain
+    version, K1's sweep on the CPU, a tiny `dataset_inference` on a
+    synthetic KITTI tree in `tmp_path` (PNG files), and one CPU train
+    step on a training sample of that tree (flip, resize, photometric
+    distortion), without loading JAX, cv2, PIL or optax."""
     code = (
         'import sys, numpy as np, torch\n'
+        'torch.set_num_threads(1)    # small ops; workers share the cores\n'
         'from dfm_tpu_torch.apis import init_dfm_model, dataset_inference\n'
         'import dfm_tpu_torch.ops.convgn, dfm_tpu_torch.ops.conv3d\n'
         'import dfm_tpu_torch.ops.cuda.conv3d\n'
@@ -370,6 +399,14 @@ def test_port_runs_without_jax(tmp_path):
         'import dfm_tpu_torch.evaluation.results\n'
         'import dfm_tpu_torch.runtime.config, dfm_tpu_torch.models.builder\n'
         'import dfm_tpu_torch.tools.test, dfm_tpu_torch.tools.create_data\n'
+        'import dfm_tpu_torch.core.targets, dfm_tpu_torch.core.losses\n'
+        'import dfm_tpu_torch.models.heads.depth_head\n'
+        'import dfm_tpu_torch.runtime.schedule, dfm_tpu_torch.runtime.train\n'
+        'import dfm_tpu_torch.runtime.checkpoint\n'
+        'import dfm_tpu_torch.runtime.logging, dfm_tpu_torch.tools.train\n'
+        'from dfm_tpu_torch.data.collate import build_batch\n'
+        'from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer\n'
+        'from dfm_tpu_torch.runtime.schedule import liga_schedule\n'
         'from dfm_tpu_torch.data.kitti import KittiDataset, '
         'build_kitti_infos\n'
         'import chip_smoke\n'
@@ -403,8 +440,20 @@ def test_port_runs_without_jax(tmp_path):
         f'pipeline_kwargs=dict(crop_size=({H}, {W_})))\n'
         'annos = dataset_inference(h, ds)\n'
         "assert len(annos) == 2 and all('score' in a for a in annos)\n"
+        f'tr = KittiDataset({str(tmp_path)!r}, build_kitti_infos('
+        f'{str(tmp_path)!r}, ids), train=True, pipeline_kwargs=dict('
+        f'crop_size=({H}, {W_}), flip_ratio=1.0))\n'
+        "img, meta, gt = build_batch([tr.get_sample(0, "
+        "np.random.default_rng(1))], 'cpu')\n"
+        "m = init_dfm_model(cfg, dtype=torch.float32, device='cpu')"
+        "['model']\n"
+        'step = TrainStep(m, make_optimizer(m), liga_schedule(1e-3))\n'
+        'out = step(img, meta, gt, torch.Generator().manual_seed(0))\n'
+        "assert all(torch.isfinite(v) for v in out.values()), out\n"
+        "assert m.training and float(meta.flip[0]) == 1.0\n"
         "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
         "assert 'cv2' not in sys.modules and 'PIL' not in sys.modules\n"
+        "assert 'optax' not in sys.modules\n"
         "assert not any(m.split('.')[0] == 'dfm_tpu' for m in sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -416,7 +465,7 @@ def test_port_runs_without_jax(tmp_path):
 
 def test_no_jax_import_in_port_sources():
     pat = re.compile(
-        r'^\s*(import|from)\s+(jax|flax|dfm_tpu|cv2|PIL)(\.|\s|$)', re.M)
+        r'^\s*(import|from)\s+(jax|flax|optax|dfm_tpu|cv2|PIL)(\.|\s|$)', re.M)
     files = [os.path.join(ROOT, 'chip_smoke.py')]
     for d, _, names in os.walk(os.path.join(ROOT, 'dfm_tpu_torch')):
         files += [os.path.join(d, n) for n in names if n.endswith('.py')]

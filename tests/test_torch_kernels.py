@@ -593,6 +593,103 @@ def test_cuda_warp_prev_sweep_matches_plain(tag):
             assert float((want != 0).float().mean()) > 0.5
 
 
+def _bwd_cases(dev, dt=torch.float32):
+    """K1-bwd and K2-bwd inputs: (name, function of the kernel's inputs ->
+    (kernel result, plain result), requires-grad forward and its inputs)
+    at the `aug_b2` sweep meta and the `_voxel_data` grids."""
+    depths, cam, (c2p, *meta) = _sweep_meta('aug_b2')
+    params = PCV.sweep_params(_t(cam).to(dev), _t(c2p).to(dev),
+                              *(_t(x).to(dev) for x in meta), 4)
+    dd = _t(depths).to(dev)
+    rng = np.random.RandomState(9)
+    cases = []
+    for c in (32, 6):
+        g = _t(rng.randn(len(cam), 5, 12, 40, c), dt).to(dev)
+        shape = (len(cam), 48, 160, c)
+        cases.append(('warp_prev_sweep_bwd', lambda g=g, shape=shape: (
+            K.warp_prev_sweep_bwd(g, params, dd, shape, 16),
+            K.warp_prev_sweep_bwd_plain(g, params, dd, shape, 16)),
+            lambda x: K.warp_prev_sweep(x, params, dd, 12, 40, 16), shape,
+            g))
+    for c, cs, grid in ((32, 32, (5, 40, 37)), (5, 3, (4, 35, 19))):
+        vol, sem, att, u, v, xs, pad = _voxel_data(
+            7, vol_shape=(6, 8, 16, c), sem_shape=(10, 20, cs), grid=grid)
+        ds = PFS.slab_depth_static(xs, 2.0, 30.0, 6)
+        tu, tv, ta = _t(u).to(dev), _t(v).to(dev), _t(att).to(dev)
+        g = _t(rng.randn(2, *grid, c + cs), dt).to(dev)
+        args = (ta, tu, tv, ds, pad, vol.shape, sem.shape)
+        cases.append(('frustum_voxel_features_bwd', lambda g=g, a=args: (
+            K.frustum_voxel_features_bwd(g, *a),
+            K.frustum_voxel_features_bwd_plain(g, *a)), None, None, g))
+    return cases
+
+
+def test_backward_wrappers_take_plain_versions_on_cpu():
+    """On the CPU the backward wrappers are their plain versions, and
+    autograd through K1's and K2's wrappers gives those gradients (atol
+    1e-5 + rtol 1e-5: the CPU's accumulating index_put sums in the order
+    its threads take)."""
+    K.reset_launch_counts()
+    for name, run, fwd, shape, g in _bwd_cases('cpu'):
+        got, want = run()
+        for a, b in zip(*((got, want) if isinstance(got, tuple)
+                          else ((got,), (want,)))):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name,
+                                       **F32_TOL)
+            assert a.dtype == torch.float32 and bool((a != 0).any())
+        if fwd is not None:
+            x = torch.zeros(shape, requires_grad=True)
+            grad, = torch.autograd.grad(fwd(x), x, g)
+            np.testing.assert_allclose(grad.numpy(), want.numpy(),
+                                       **F32_TOL)
+    assert K.LAUNCHES == {n: 0 for n in K.LAUNCHES}
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernels_match_plain():
+    """K1-bwd and K2-bwd against `torch.autograd.grad` of the plain
+    forwards on the card, float32 at B = 2 (the `aug_b2` sweep, the
+    `_voxel_data` grids with invalid voxels, slabs out of range and edge
+    taps; 16-byte chunks and one element per lane): atol 1e-5 + rtol
+    1e-5 (the atomics add in another order); and a K1 / K2 step through
+    autograd launches each backward kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    dev = 'cuda'
+    for name, run, fwd, shape, g in _bwd_cases(dev):
+        K.reset_launch_counts()
+        got, want = run()
+        for a, b in zip(*((got, want) if isinstance(got, tuple)
+                          else ((got,), (want,)))):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       err_msg=name, **F32_TOL)
+            assert bool((b != 0).any()), name
+        bwd = 'warp_prev_bwd' if name == 'warp_prev_sweep_bwd' else \
+            'frustum_stereo_sample_bwd'
+        assert K.LAUNCHES[bwd] == 1
+        if fwd is not None:
+            x = torch.zeros(shape, device=dev, requires_grad=True)
+            grad, = torch.autograd.grad(fwd(x), x, g)
+            np.testing.assert_allclose(grad.cpu().numpy(),
+                                       want.cpu().numpy(), **F32_TOL)
+            assert K.LAUNCHES['warp_prev'] == 1 and K.LAUNCHES[bwd] == 2
+    vol, sem, att, u, v, xs, pad = _voxel_data(3)
+    ds = PFS.slab_depth_static(xs, 2.0, 30.0, 6)
+    vb = _t(vol).to(dev).requires_grad_()
+    sb = _t(sem).to(dev).requires_grad_()
+    K.reset_launch_counts()
+    out = K.frustum_voxel_features(vb, sb, _t(att).to(dev), _t(u).to(dev),
+                                   _t(v).to(dev), ds, pad)
+    gv, gs = torch.autograd.grad(out.square().sum(), (vb, sb))
+    assert K.LAUNCHES['frustum_stereo_sample_bwd'] == 1
+    cpu = [_t(x).requires_grad_() for x in (vol, sem)]
+    ref = PFS.frustum_voxel_features_plain(
+        *cpu, _t(att), _t(u), _t(v), *PFS.depth_tables(ds, 'cpu'), pad)
+    wv, ws = torch.autograd.grad(ref.square().sum(), cpu)
+    for a, b in ((gv, wv), (gs, ws)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), **F32_TOL)
+
+
 @pytest.mark.cuda
 def test_cuda_chain_kernels_match_plain():
     """K8a, K4 (both residual modes) and K7a (both exits) against their

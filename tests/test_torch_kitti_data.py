@@ -233,9 +233,3 @@ def test_get_sample_matches_jax(datasets, which, idx):
     assert got['crop_offset'][1] > 0 and got['cam2img'][0, 3] != 0
     if which == 1 or idx == 2:
         np.testing.assert_array_equal(got['img'][0], got['img'][1])
-
-
-def test_train_pipeline_not_ported(datasets):
-    port = PK.KittiDataset(datasets[0][0].data_root, datasets[0][0].infos)
-    with pytest.raises(NotImplementedError, match='Slice B'):
-        port.get_sample(0, np.random.default_rng(0))

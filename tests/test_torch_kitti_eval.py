@@ -61,12 +61,10 @@ DFM_CONFIGS = ['dfm_r34_kitti_3class.py', 'dfm_r34_kitti_3class_wophotodist.py',
                'dfm_r18_mini_overfit.py']
 TINY = dict(depth_num_bins=48, voxel_size=(3.6, 3.8, 0.5), nms_pre=128,
             max_num=8)
-# the keys of the DfM configs that configure training only: the type,
-# DfMFull's ATSS head and teacher, and the training fields of the JAX
-# package's DfMConfig
-TRAINING_KEYS = {'type', 'atss', 'teacher_checkpoint', 'assigner_cfgs',
-                 'depth_loss', 'dist_norm', 'normalizer_clamp_value',
-                 'num_depth_sample_pixels'}
+# the keys of the DfM configs that the builder ignores: the type and
+# DfMFull's ATSS head and teacher checkpoint (the training fields are
+# fields of the port's DfMConfig, as of the JAX package's)
+IGNORED_KEYS = {'type', 'atss', 'teacher_checkpoint'}
 
 
 def _detections(rng, m=40):
@@ -191,10 +189,9 @@ def test_config_and_builder_match_jax(name):
     for f in cfg.__dataclass_fields__:
         assert getattr(cfg, f) == getattr(jcfg, f), f
     assert cfg.score_thr == 0.2 and cfg.anchor_rotations == (0.0, 1.57)
-    assert set(B.unused_keys(got.model)) <= TRAINING_KEYS
-    assert set(JConfig.__dataclass_fields__) - set(
-        DfMConfig.__dataclass_fields__) == TRAINING_KEYS - {
-        'type', 'atss', 'teacher_checkpoint'}
+    assert set(B.unused_keys(got.model)) <= IGNORED_KEYS
+    assert set(JConfig.__dataclass_fields__) == set(
+        DfMConfig.__dataclass_fields__)
 
 
 def test_builder_refuses_unported_types():
