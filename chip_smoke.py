@@ -107,8 +107,11 @@ Phases, one line each; any failure raises and no result is printed:
               (`frustum_voxel_features_bwd`) at the full-width training
               shapes in float32 against `torch.autograd.grad` of the plain
               forwards, with times, bound and `F.grid_sample`'s backward
-              on the same taps; (c) the train CLI
-              `dfm_tpu_torch.tools.train` on configs/dfm_r34_kitti_3class.py
+              on the same taps, two calls of each bit for bit (the
+              gathers have no atomics); device times by `span_ms`: K1-bwd
+              at a quarter, half and all of the depths, K2-bwd whole and
+              each half's tiles alone (the other map given no rows); (c) the
+              train CLI `dfm_tpu_torch.tools.train` on configs/dfm_r34_kitti_3class.py
               with `model.type=DfM` at full width on the tree (train and
               val infos from `create_data`) in processes of their own: 4
               steps (finite loss terms and grad_norm logged, a checkpoint
@@ -217,19 +220,51 @@ def cuda_ms(fn, reps=REPS, warmup=3):
 def device_ms(fn, reps=5, kernel=None):
     """Device time of the kernels one call of `fn` launches (their sum,
     torch.profiler; of those whose name holds `kernel`, if given),
-    without the host time around them that `cuda_ms` also sees."""
+    without the host time around them that `cuda_ms` also sees. Every
+    kernel must show a multiple of `reps` events: a profile that lost
+    some is taken again once, then the phase fails."""
+    import collections
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and (kernel is None or kernel in e.name)) / 1e3 / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, kept = 0.0, collections.Counter()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and (kernel is None
+                                                      or kernel in e.name):
+                us += e.time_range.elapsed_us()
+                kept[e.name] += 1
+        if all(n % reps == 0 for n in kept.values()):
+            return us / 1e3 / reps
+    check(False, f'device_ms: the profiler kept {dict(kept)} events of '
+          f'{reps} calls')
+
+
+def span_ms(fn, reps=5):
+    """Device milliseconds of one call of `fn`: CUDA events around `reps`
+    calls queued behind a sleeping kernel, so that the card runs them back
+    to back with no host time between them (the kernels' own time and
+    their launch gaps of a few microseconds). Fails if the card reached
+    the calls before the host had queued them all."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)    # about 0.1 s of the card's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    check(not start.query(), 'span_ms: the card ran out of queued work '
+          'before the calls were queued')
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def card_line():
@@ -1572,7 +1607,7 @@ TRAIN_TINY = dict(depth_num_bins=48, voxel_size=(3.6, 3.8, 0.5), nms_pre=128,
                   max_num=8, num_depth_sample_pixels=2048)
 TRAIN_TINY_CROP = (192, 384)
 # phase 7 (b): the backward kernels against torch.autograd.grad of the
-# plain forwards; atomics sum each gradient in another order (float32)
+# plain forwards; the kernels sum each gradient in another order (float32)
 BWD_TOL = (1e-3, 1e-4)
 TRAIN_TIMED_STEPS = 3         # phase 7 (d)
 def train_phase(cfg, dev, results):
@@ -1693,6 +1728,8 @@ def train_phase(cfg, dev, results):
         got, want = bwd1(), plain1()
         check(bool((want != 0).any()), 'warp_prev_bwd: the gradient is zero')
         err1 = agree('warp_prev_sweep_bwd', got, want, BWD_TOL)
+        check(torch.equal(got, bwd1()), 'warp_prev_bwd: two calls differ '
+              '(the gather has no atomics)')
         _, grid = CV.plane_sweep_grids(
             depths, meta.ori_cam2img, meta.cur2prev, (h, w), step_px, 1,
             meta.org_w, meta.flip, meta.crop_offset, meta.scale_factor)
@@ -1704,12 +1741,22 @@ def train_phase(cfg, dev, results):
         lib_g = torch.randn(lib_out.shape, generator=gen, device=dev)
         lib1 = lambda: torch.autograd.grad(  # noqa: E731
             lib_out, lib_in, lib_g, retain_graph=True)
+        # device time against the depths: the first quarter and half of
+        # them, and all
+        by_depths = {}
+        for nd in (d // 4, d // 2, d):
+            part = gout1[:, :nd].contiguous()
+            by_depths[nd] = span_ms(lambda: K.warp_prev_sweep_bwd(
+                part, params, depths[:nd], prev_shape, step_px))
+        del part
         report('warp_prev_bwd', 'dfm_tpu_torch/csrc/warp_prev.cu',
                'dfm_tpu/ops/pallas/cost_warp.py:142', err1, BWD_TOL, cuda_ms(bwd1), cuda_ms(plain1, reps=5),
                cuda_ms(lib1), (gout1.numel() + got.numel()) * 4
                + params.numel() * 4 + d * 4, 8 * gout1.numel(),
-               device_ms=device_ms(bwd1), library_device_ms=device_ms(lib1),
-               note='backward of K1 (JAX: XLA autodiff of its f32 path)')
+               device_ms=by_depths[d], device_ms_by_depths=by_depths,
+               library_device_ms=span_ms(lib1),
+               note='backward of K1 (JAX: XLA autodiff of its f32 path); '
+                    'device ms: span_ms')
         del got, want, lib_in, lib_out, lib_g, norm, grid, gout1
 
         coors = cfg.coordinates_3d()
@@ -1737,6 +1784,17 @@ def train_phase(cfg, dev, results):
               'frustum_voxel_features_bwd: a gradient is zero')
         err_vol = agree('frustum_voxel_features_bwd vol', gv, wv, BWD_TOL)
         err_sem = agree('frustum_voxel_features_bwd sem', gs, ws, BWD_TOL)
+        check(all(torch.equal(a, b) for a, b in zip((gv, gs), bwd2())),
+              'frustum_stereo_sample_bwd: two calls differ (the gather has '
+              'no atomics)')
+        # the device split: each half's tiles alone, the other map given
+        # no rows (sem (1, 0, wq, cs): stereo tiles only; vol
+        # (1, d, 0, wq, c): sem tiles only)
+        split = dict(
+            stereo_device_ms=span_ms(lambda: K.frustum_voxel_features_bwd(
+                gout2, att, u, v, ds2, IMG_HW, vol_shape, (1, 0, wq, cs))),
+            sem_device_ms=span_ms(lambda: K.frustum_voxel_features_bwd(
+                gout2, att, u, v, ds2, IMG_HW, (1, d, 0, wq, c), sem_shape)))
         zi = (torch.as_tensor(xs, device=dev) - cfg.depth_min) / (
             cfg.depth_max - cfg.depth_min) * (d - 1)
         gx = (u / (w - 1) * (wq - 1)).transpose(1, 2)[:, None]
@@ -1759,8 +1817,10 @@ def train_phase(cfg, dev, results):
                 + gv.numel() + gs.numel()) * 4,
                2 * 8 * gout2[..., :c].numel() + 3 * 4 * gout2[..., c:].numel(),
                max_abs_err_vol=err_vol, max_abs_err_sem=err_sem,
-               device_ms=device_ms(bwd2), library_device_ms=device_ms(lib2),
-               note='backward of K2 (JAX: XLA autodiff of its f32 path)')
+               device_ms=span_ms(bwd2), **split,
+               library_device_ms=span_ms(lib2),
+               note='backward of K2 (JAX: XLA autodiff of its f32 path); '
+                    'device ms: span_ms')
         del gv, gs, wv, ws, lib_in, lib_out, lib_g, g3, gout2, att, cost
         gc.collect()
         torch.cuda.empty_cache()

@@ -41,6 +41,14 @@ __device__ __forceinline__ void axis_taps(float idx, int n, int i[2],
   }
 }
 
+// The floor tap of axis_taps unclamped, as an int limited to [-2, n + 1]
+// (a NaN gives -2): no index outside [-1, n - 1] has a tap of nonzero
+// weight in the map, so the limit changes no tap the caller keeps. The
+// backward kernels match taps against the cells of a tile with it.
+__device__ __forceinline__ int floor_tap(float idx, int n) {
+  return (int)fminf(fmaxf(floorf(idx), -2.f), (float)(n + 1));
+}
+
 // VEC consecutive elements <-> floats; one 16-byte access when VEC
 // elements fill 16 bytes (8 bf16 or 4 float), else element by element.
 // The caller keeps p 16-byte aligned in the vector case.

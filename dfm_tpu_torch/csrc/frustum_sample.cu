@@ -59,21 +59,36 @@
 // volume and the sem map for training (none of att: the attention comes
 // from a detached cost). It is the exact transpose of K2's sampling:
 // grad_vol gets w * g of the stereo half's eight trilinear taps, grad_sem
-// w * att * g of the sem half's four bilinear taps, both float32 buffers
-// the wrapper zeroes (and casts to the volume's type), nothing outside
-// valid2d & in_range. A thread owns one voxel column (b, x, y) and one
-// 16-byte chunk of the C + Cs channels (stereo or sem) and walks z: the
-// column taps (from u[b, x, y]) and the depth taps (from x) stay fixed
-// along the column and only the row taps move with v[b, x, z], monotonic
-// in z, so the thread sums a run of voxels that share their row taps in
-// registers and issues the run's atomics once, when the rows change or
-// the column ends (a far slab's voxels share rows over several z). The
-// threads of a block take consecutive x at one y, so each z step reads
-// one contiguous stretch of grad_out. Atomic sums come in another order
-// from run to run: not bit-reproducible. Plain version: torch.autograd
-// .grad of frustum_voxel_features_plain. Bound on the H100: bytes, the
-// grad_out read (448 MB in float32 at DfM-KITTI) and the two gradient
-// writes (236 MB + 3.3 MB).
+// w * att * g of the sem half's four bilinear taps (att rounded to the
+// element type, a zero att skipped), both float32, nothing outside
+// valid2d & in_range; the same taps and weights as the forward, each
+// product rounded alone in the forward's order. Bound on the H100:
+// bytes, the grad_out read (448 MB in float32 at DfM-KITTI) and the two
+// gradient writes (236 MB + 3.3 MB). Design (voxel_features_bwd_kernel):
+// a gather, with no atomics. A block of 16 warps owns a tile of one
+// gradient map and 32 of its channels (a lane a channel; wider maps take
+// one block for each 32 channels, any C and Cs) and writes each of its
+// elements once, by plain stores, zeros where no tap lands: a stereo tile
+// is 4 rows x 32 columns of one depth plane d (a warp a row and one of 4
+// groups of the plane's slabs), a sem tile 1 row x 32 columns of the sem
+// map (a warp one of 16 slab groups, x = 16 i + group). The depth taps
+// depend on x only, so plane d is read by the few slabs with z0[x] == d
+// or z1[x] == d (about 8 of 288 at DfM-KITTI), listed by the block from
+// xtab; the sem map by every slab. Each warp then works on its own, with no barrier: for each slab
+// of its group it takes the row taps of every z (from v[b, x, z], a lane
+// a z) and keeps the z with a tap in its row; it finds the y whose
+// column taps land in its columns, 32 at a time (u[b, x, y], a lane a y:
+// first a superset by a multiply, then the forward's division for the
+// words that may hold one); for each such z and y, in order, it loads
+// the voxel's grad_out row (a lane a channel, 4 voxels in flight) and
+// adds w * g to its row of accumulators in shared memory, the column
+// taps passed by shuffle. Every (voxel, tap) is found by the one warp
+// that owns its cell; nothing rests on u or v being monotonic. The sums
+// run in a fixed order (slab, 32-y word, z, y; the groups added in group
+// order at the end), so two calls return the same bits. What holds it
+// back: the horizon's rows gather most of the taps, and the walk is
+// latency-bound (PERF.md). Plain
+// version: torch.autograd.grad of frustum_voxel_features_plain.
 //
 // K3 replaces dfm_tpu/ops/pallas/frustum_sample.py:_att_call (and the
 // attention_sample_pallas glue). Bound on the H100: bytes. It gathers 8
@@ -278,145 +293,291 @@ int launch_voxel(const void* vol, const void* sem, const float* att,
   return (int)cudaGetLastError();
 }
 
-// The sums of one run of voxels of a column that share their row taps,
-// flushed to the float32 gradient by atomics. NT taps (8 stereo, 4 sem)
-// of VEC channels; off[k] the element offset of tap k's row chunk.
-template <int NT, int VEC>
-struct TapRun {
-  float acc[NT][VEC];
-  bool hit[NT];          // tap k had a nonzero weight in the run
-  __device__ __forceinline__ void clear() {
-#pragma unroll
-    for (int k = 0; k < NT; ++k) {
-      hit[k] = false;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[k][i] = 0.f;
-    }
-  }
-  // acc[k] += wt[k] * g for every tap of nonzero weight
-  __device__ __forceinline__ void add(const float (&wt)[NT],
-                                      const float (&g)[VEC]) {
-#pragma unroll
-    for (int k = 0; k < NT; ++k) {
-      if (wt[k] == 0.f) continue;
-      hit[k] = true;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        acc[k][i] = __fadd_rn(acc[k][i], __fmul_rn(wt[k], g[i]));
-    }
-  }
-  __device__ __forceinline__ void flush(float* __restrict__ base,
-                                        const size_t (&off)[NT]) {
-#pragma unroll
-    for (int k = 0; k < NT; ++k)
-      if (hit[k])
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) atomicAdd(base + off[k] + i, acc[k][i]);
-    clear();
-  }
-};
+// ---- K2 backward: tile gathers (see the header).
+constexpr int kBwdThreads = 512;
+constexpr int kBwdWarps = kBwdThreads / 32;   // a row of the tile and a
+                                              // slab group each
+constexpr int kBwdCols = 32;               // columns of a gradient tile
+constexpr int kBwdChunk = 32;              // channels of a block: a lane each
+constexpr int kBwdBatch = 4;               // items a warp loads, then adds
+constexpr int kBwdMinBlocks = 2;           // blocks an SM, for the registers
+constexpr int kYWords = 10;                // 32-y words a warp tests at once
+constexpr int kSemGroups = 16;             // sem tiles: slab groups
+constexpr int kSemRows = kBwdWarps / kSemGroups;   // sem tiles: rows
+constexpr int kStGroups = 4;               // stereo tiles: slab groups
+constexpr int kStRows = kBwdWarps / kStGroups;     // stereo tiles: rows
+static_assert(kBwdWarps % kSemGroups == 0 && kBwdWarps % kStGroups == 0,
+              "K2-bwd tiles");
 
-// grid (ceil(nx / cols), ny, B), block kThreads; cols = kThreads /
-// (C / VEC + Cs / VEC) columns of consecutive x a block, thread t the
-// chunk t % nchunk of column t / nchunk. The caller keeps every tensor
-// below 2^31 elements and C, Cs (> 0) multiples of VEC.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+// The taps of val (v of a z, u of a y) along a map axis of n, as the
+// forward takes them: the floor (floor_tap) and the two weights, zero
+// unless 0 <= val <= pad.
+__device__ __forceinline__ int slab_taps(float val, float pad, int n,
+                                         float (&w)[2]) {
+  w[0] = w[1] = 0.f;
+  if (!(val >= 0.f && val <= pad)) return -2;
+  const float idx = val / (pad - 1.f) * (float)(n - 1);
+  int i[2];
+  axis_taps(idx, n, i, w);
+  return floor_tap(idx, n);
+}
+
+// One launch, 1-D grid: first B x ceil(Cs / kBwdChunk) x sem tiles
+// (kSemRows x kBwdCols cells of the sem map, kSemGroups slab groups,
+// x = kSemGroups i + group), then B x D x ceil(C / kBwdChunk) x stereo
+// tiles (kStRows x kBwdCols cells of one depth plane, kStGroups groups of
+// the plane's slabs, listed from xtab); a block sums kBwdChunk channels of
+// its tile (a lane each). Warp g * rows + row walks its group's slabs for
+// its row on its own; shared memory holds the accumulators
+// [warp][kBwdCols][kBwdChunk] and the plane's (x, wz) list (2 nx entries)
+// with its flags. The caller keeps every tensor below 2^31 elements.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
 voxel_features_bwd_kernel(const T* __restrict__ gout,
                           const float* __restrict__ att,
                           const float* __restrict__ u,
                           const float* __restrict__ v,
                           const float4* __restrict__ xtab,
                           float* __restrict__ gvol, float* __restrict__ gsem,
-                          int D, int H, int W, int C, int Hs, int Ws, int Cs,
-                          int nz, int ny, int nx, float pad_h, float pad_w) {
-  const int cst = C / VEC, nchunk = cst + Cs / VEC;
-  const int cols = kThreads / nchunk;
-  const int col = threadIdx.x / nchunk, chunk = threadIdx.x % nchunk;
-  const int b = blockIdx.z, y = blockIdx.y, x = blockIdx.x * cols + col;
-  if (col >= cols || x >= nx) return;
-  const float un = __ldg(u + (b * nx + x) * ny + y);
-  if (!(un >= 0.f && un <= pad_w)) return;     // no valid voxel
-  const float* vcol = v + (b * nx + x) * nz;
-  const size_t row = (size_t)(C + Cs);
-  if (chunk < cst) {                           // the stereo half: 8 taps
-    const float4 t = __ldg(xtab + x);
-    if (t.z == 0.f && t.w == 0.f) return;      // out of the depth range
-    const int zi[2] = {(int)t.x, (int)t.y};
-    const float wz[2] = {t.z, t.w};
-    int xi[2];
-    float wx[2];
-    axis_taps(un / (pad_w - 1.f) * (float)(W - 1), W, xi, wx);
-    float* base = gvol + (size_t)b * D * H * W * C + chunk * VEC;
-    TapRun<8, VEC> run;
-    run.clear();
-    size_t off[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-    int key = INT_MIN;
-    for (int z = 0; z < nz; ++z) {
-      const float vv = __ldg(vcol + z);
-      if (!(vv >= 0.f && vv <= pad_h)) continue;
-      const float yf = vv / (pad_h - 1.f) * (float)(H - 1);
-      const int k0 = (int)floorf(yf);
-      int yi[2];
-      float wy[2];
-      axis_taps(yf, H, yi, wy);
-      if (k0 != key) {                         // new row taps: flush
-        run.flush(base, off);
-        key = k0;
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          off[k] = ((size_t)(zi[k >> 2] * H + yi[(k >> 1) & 1]) * W +
-                    xi[k & 1]) * C;
+                          int B, int D, int H, int W, int C, int Hs, int Ws,
+                          int Cs, int nz, int ny, int nx, float pad_h,
+                          float pad_w) {
+  extern __shared__ float4 smem4[];
+  __shared__ int nlist;
+  float* acc = reinterpret_cast<float*>(smem4);
+  int* list_x = reinterpret_cast<int*>(acc + kBwdWarps * kBwdCols * kBwdChunk);
+  float* list_w = reinterpret_cast<float*>(list_x + 2 * nx);
+  unsigned* flags = reinterpret_cast<unsigned*>(list_w + 2 * nx);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // the block's tile
+  const int sem_ct = (Ws + kBwdCols - 1) / kBwdCols;
+  const int nsem = (Hs + kSemRows - 1) / kSemRows * sem_ct;
+  const int sem_ch = (Cs + kBwdChunk - 1) / kBwdChunk;
+  const int st_rt = (H + kStRows - 1) / kStRows;
+  const int st_ct = (W + kBwdCols - 1) / kBwdCols;
+  const int st_ch = (C + kBwdChunk - 1) / kBwdChunk;
+  int t = blockIdx.x, b, d = 0, cc, r0, c0, hm, wm, ct, rows, groups;
+  const bool stereo = t >= B * sem_ch * nsem;
+  if (!stereo) {
+    b = t / (sem_ch * nsem);
+    t -= b * sem_ch * nsem;
+    cc = t / nsem;
+    t -= cc * nsem;
+    r0 = t / sem_ct * kSemRows;
+    c0 = t % sem_ct * kBwdCols;
+    hm = Hs, wm = Ws, ct = Cs, rows = kSemRows, groups = kSemGroups;
+  } else {
+    t -= B * sem_ch * nsem;
+    const int per = st_rt * st_ct;
+    b = t / (D * st_ch * per);
+    t -= b * D * st_ch * per;
+    d = t / (st_ch * per);
+    t -= d * st_ch * per;
+    cc = t / per;
+    t -= cc * per;
+    r0 = t / st_ct * kStRows;
+    c0 = t % st_ct * kBwdCols;
+    hm = H, wm = W, ct = C, rows = kStRows, groups = kStGroups;
+  }
+  const int nrows = min(rows, hm - r0), ncols = min(kBwdCols, wm - c0);
+  for (int e = threadIdx.x; e < kBwdWarps * kBwdCols * kBwdChunk / 4;
+       e += kBwdThreads)
+    smem4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the slabs: a stereo plane's (x, wz) entries from xtab in x order (both
+  // taps of a slab, tap 0 first), every x for the sem map
+  int nslab = nx;
+  if (stereo) {                    // every warp loads 32 slabs' taps at once
+    for (int xb = warp * 32; xb < nx; xb += kBwdThreads) {
+      const int x = xb + lane;
+      bool f0 = false, f1 = false;
+      if (x < nx) {
+        const float4 tb = __ldg(xtab + x);
+        f0 = (int)tb.x == d && tb.z != 0.f;
+        f1 = (int)tb.y == d && tb.w != 0.f;
       }
-      float wt[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        wt[k] = __fmul_rn(__fmul_rn(wz[k >> 2], wy[(k >> 1) & 1]),
-                          wx[k & 1]);
-      float gv[VEC];
-      load_vec<T, VEC>(gout + (((size_t)(b * nz + z) * ny + y) * nx + x) *
-                                  row + chunk * VEC, gv);
-      run.add(wt, gv);
-    }
-    run.flush(base, off);
-  } else {                                     // the sem half: 4 taps
-    const int j = chunk - cst;
-    int xi[2];
-    float wx[2];
-    axis_taps(un / (pad_w - 1.f) * (float)(Ws - 1), Ws, xi, wx);
-    float* base = gsem + (size_t)b * Hs * Ws * Cs + j * VEC;
-    TapRun<4, VEC> run;
-    run.clear();
-    size_t off[4] = {0, 0, 0, 0};
-    int key = INT_MIN;
-    for (int z = 0; z < nz; ++z) {
-      const float vv = __ldg(vcol + z);
-      if (!(vv >= 0.f && vv <= pad_h)) continue;
-      const size_t vox = ((size_t)(b * nz + z) * ny + y) * nx + x;
-      const float a = to_f<T>(from_f<T>(__ldg(att + vox)));
-      if (a == 0.f) continue;                  // outside the depth range
-      const float yf = vv / (pad_h - 1.f) * (float)(Hs - 1);
-      const int k0 = (int)floorf(yf);
-      int yi[2];
-      float wy[2];
-      axis_taps(yf, Hs, yi, wy);
-      if (k0 != key) {
-        run.flush(base, off);
-        key = k0;
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          off[k] = ((size_t)yi[k >> 1] * Ws + xi[k & 1]) * Cs;
+      const unsigned m0 = __ballot_sync(0xffffffffu, f0);
+      const unsigned m1 = __ballot_sync(0xffffffffu, f1);
+      if (lane == 0) {
+        flags[2 * (xb >> 5)] = m0;
+        flags[2 * (xb >> 5) + 1] = m1;
       }
-      float wt[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) wt[k] = __fmul_rn(wy[k >> 1], wx[k & 1]);
-      float gv[VEC];
-      load_vec<T, VEC>(gout + vox * row + C + j * VEC, gv);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) gv[i] = __fmul_rn(a, gv[i]);
-      run.add(wt, gv);
     }
-    run.flush(base, off);
+    __syncthreads();
+    if (warp == 0) {               // then warp 0 lists them in order
+      int n = 0;
+      for (int xb = 0; xb < nx; xb += 32) {
+        const unsigned m0 = flags[2 * (xb >> 5)], m1 = flags[2 * (xb >> 5) + 1];
+        if ((m0 | m1) == 0u) continue;
+        const int x = xb + lane;
+        const bool f0 = (m0 >> lane) & 1u, f1 = (m1 >> lane) & 1u;
+        const unsigned below = (1u << lane) - 1u;
+        const int pos = n + __popc(m0 & below) + __popc(m1 & below);
+        if (f0 || f1) {
+          const float4 tb = __ldg(xtab + x);
+          if (f0) {
+            list_x[pos] = x;
+            list_w[pos] = tb.z;
+          }
+          if (f1) {
+            list_x[pos + f0] = x;
+            list_w[pos + f0] = tb.w;
+          }
+        }
+        n += __popc(m0) + __popc(m1);
+      }
+      if (lane == 0) nlist = n;
+    }
+  }
+  __syncthreads();
+  if (stereo) nslab = nlist;
+
+  // each warp on its own: the slabs k = g, g + groups, ... of its group,
+  // for its row r
+  const int g = warp / rows, rr = warp - g * rows, r = r0 + rr;
+  const int ch = cc * kBwdChunk + lane;       // this lane's channel
+  const int choff = stereo ? 0 : C;
+  const size_t row_elems = (size_t)(C + Cs);
+  float* mine = acc + warp * kBwdCols * kBwdChunk + lane;   // warp's row
+  for (int k = g; rr < nrows && k < nslab; k += groups) {
+    const int x = stereo ? list_x[k] : k;
+    const float wz = stereo ? list_w[k] : 1.f;
+    const float* vcol = v + (size_t)(b * nx + x) * nz;
+    const float* urow = u + (size_t)(b * nx + x) * ny;
+    for (int zb = 0; zb < nz; zb += 32) {
+      // lane i: the weight of z = zb + i's row tap in row r (the stereo
+      // half's times wz, as the forward's wz * wy), zero if none
+      float wzy = 0.f;
+      if (zb + lane < nz) {
+        float w[2];
+        const int fr = slab_taps(__ldg(vcol + zb + lane), pad_h, hm, w);
+        const float wy = fr == r ? w[0] : fr + 1 == r ? w[1] : 0.f;
+        wzy = stereo ? __fmul_rn(wz, wy) : wy;
+      }
+      const unsigned zbits = __ballot_sync(0xffffffffu, wzy != 0.f);
+      if (zbits == 0u) continue;
+      for (int yb = 0; yb < ny; yb += 32 * kYWords) {
+        // first a superset of the y masks, 32 y a word: the column taps
+        // by a multiply (within one column of the forward's division),
+        // widened by a column; all loads in flight
+        const float scale = 1.f / (pad_w - 1.f) * (float)(wm - 1);
+        unsigned words = 0u;
+#pragma unroll
+        for (int c = 0; c < kYWords; ++c) {
+          const int y = yb + c * 32 + lane;
+          const float un = y < ny ? __ldg(urow + y) : -1.f;
+          const int jc = un >= 0.f && un <= pad_w
+                             ? (int)floorf(un * scale) - c0 : INT_MIN;
+          words |= (__ballot_sync(0xffffffffu, jc >= -2 && jc <= ncols)
+                        != 0u ? 1u : 0u) << c;
+        }
+        while (words) {              // then the exact taps of those words
+          const int c = __ffs(words) - 1;
+          words &= words - 1u;
+          const int y = yb + c * 32 + lane;
+          float wx[2];
+          const int jl = slab_taps(y < ny ? __ldg(urow + y) : -1.f, pad_w,
+                                   wm, wx) - c0;
+          const unsigned ym = __ballot_sync(
+              0xffffffffu, (jl >= 0 && jl < ncols && wx[0] != 0.f) ||
+                               (jl >= -1 && jl + 1 < ncols && wx[1] != 0.f));
+          if (ym == 0u) continue;
+          const int y0 = yb + c * 32;
+          unsigned zs = zbits;
+          while (zs) {                 // the walked z, in order
+            const int zl = __ffs(zs) - 1;
+            zs &= zs - 1u;
+            const float wzz = __shfl_sync(0xffffffffu, wzy, zl);
+            const size_t zrow0 = (size_t)(b * nz + zb + zl) * ny + y0;
+            unsigned m = ym;
+            while (m) {                // the masked y, kBwdBatch at a time
+              unsigned taken = 0u;
+#pragma unroll
+              for (int q = 0; q < kBwdBatch; ++q) {
+                const unsigned low = m & (0u - m);
+                taken |= low;
+                m ^= low;
+              }
+              float gv[kBwdBatch], a[kBwdBatch];
+              unsigned tk = taken;
+#pragma unroll
+              for (int q = 0; q < kBwdBatch; ++q) {   // all loads in flight
+                const bool ok = tk != 0u;
+                const size_t vox = (zrow0 + __ffs(tk) - 1) * nx + x;
+                tk &= tk - 1u;
+                a[q] = 1.f;              // the forward's att, in T
+                if (!stereo && ok)
+                  a[q] = to_f<T>(from_f<T>(__ldg(att + vox)));
+                gv[q] = ok && ch < ct
+                            ? to_f<T>(gout[vox * row_elems + choff + ch])
+                            : 0.f;
+              }
+              tk = taken;
+#pragma unroll
+              for (int q = 0; q < kBwdBatch; ++q) {
+                if (tk == 0u) break;
+                const int yl = __ffs(tk) - 1;
+                tk &= tk - 1u;
+                const int j = __shfl_sync(0xffffffffu, jl, yl);
+                const float w0 = __shfl_sync(0xffffffffu, wx[0], yl);
+                const float w1 = __shfl_sync(0xffffffffu, wx[1], yl);
+                if (ch >= ct || a[q] == 0.f) continue;
+                const float gq = stereo ? gv[q] : __fmul_rn(a[q], gv[q]);
+                if (j >= 0 && j < ncols) {
+                  const float wt = __fmul_rn(wzz, w0);
+                  if (wt != 0.f)
+                    mine[j * kBwdChunk] =
+                        __fadd_rn(mine[j * kBwdChunk], __fmul_rn(wt, gq));
+                }
+                if (j >= -1 && j + 1 < ncols) {
+                  const float wt = __fmul_rn(wzz, w1);
+                  if (wt != 0.f)
+                    mine[(j + 1) * kBwdChunk] = __fadd_rn(
+                        mine[(j + 1) * kBwdChunk], __fmul_rn(wt, gq));
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // every element of the tile's channels once, by plain stores: the
+  // groups' sums added in group order (zeros where no tap landed)
+  float* out = stereo ? gvol : gsem;
+  const size_t base =
+      (stereo ? (((size_t)(b * D + d) * H + r0) * W + c0) * C
+              : (((size_t)b * Hs + r0) * Ws + c0) * Cs) + cc * kBwdChunk;
+  const int cw = min(kBwdChunk, ct - cc * kBwdChunk);
+  if (ct % 4 == 0) {               // 16 bytes at a time
+    const int cw4 = cw / 4, per4 = ncols * cw4;
+    for (int e = threadIdx.x; e < nrows * per4; e += kBwdThreads) {
+      const int rw = e / per4, rest = e - rw * per4;
+      const int col = rest / cw4, k4 = rest - col * cw4;
+      const int at = col * kBwdChunk / 4 + k4;
+      float4 sum = smem4[rw * kBwdCols * kBwdChunk / 4 + at];
+      for (int gg = 1; gg < groups; ++gg) {
+        const float4 a = smem4[(gg * rows + rw) * kBwdCols * kBwdChunk / 4 + at];
+        sum = make_float4(__fadd_rn(sum.x, a.x), __fadd_rn(sum.y, a.y),
+                          __fadd_rn(sum.z, a.z), __fadd_rn(sum.w, a.w));
+      }
+      *reinterpret_cast<float4*>(out + base + ((size_t)rw * wm + col) * ct +
+                                 4 * k4) = sum;
+    }
+    return;
+  }
+  const int per_row = ncols * cw;
+  for (int e = threadIdx.x; e < nrows * per_row; e += kBwdThreads) {
+    const int rw = e / per_row, rest = e - rw * per_row;
+    const int col = rest / cw, k = rest - col * cw;
+    const int at = col * kBwdChunk + k;
+    float sum = acc[rw * kBwdCols * kBwdChunk + at];
+    for (int gg = 1; gg < groups; ++gg)
+      sum = __fadd_rn(sum, acc[(gg * rows + rw) * kBwdCols * kBwdChunk + at]);
+    out[base + ((size_t)rw * wm + col) * ct + k] = sum;
   }
 }
 
@@ -426,20 +587,27 @@ int launch_voxel_bwd(const void* gout, const float* att, const float* u,
                      float* gsem, int B, int D, int H, int W, int C, int Hs,
                      int Ws, int Cs, int nz, int ny, int nx, float pad_h,
                      float pad_w, cudaStream_t s) {
-  const T* g = static_cast<const T*>(gout);
-  const bool vec = C % vec16<T>() == 0 && Cs % vec16<T>() == 0;
-  const int nchunk = vec ? (C + Cs) / vec16<T>() : C + Cs;
-  if (nchunk > kThreads) return (int)cudaErrorInvalidValue;
-  const int cols = kThreads / nchunk;
-  const dim3 grid((nx + cols - 1) / cols, ny, B);
-  if (vec)
-    voxel_features_bwd_kernel<T, vec16<T>()><<<grid, kThreads, 0, s>>>(
-        g, att, u, v, xtab, gvol, gsem, D, H, W, C, Hs, Ws, Cs, nz, ny, nx,
-        pad_h, pad_w);
-  else
-    voxel_features_bwd_kernel<T, 1><<<grid, kThreads, 0, s>>>(
-        g, att, u, v, xtab, gvol, gsem, D, H, W, C, Hs, Ws, Cs, nz, ny, nx,
-        pad_h, pad_w);
+  const size_t smem = (size_t)kBwdWarps * kBwdCols * kBwdChunk * 4 +
+                      (size_t)nx * 16 + (size_t)(nx + 31) / 32 * 8;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        voxel_features_bwd_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long sem = (long long)(Hs + kSemRows - 1) / kSemRows *
+                        ((Ws + kBwdCols - 1) / kBwdCols) *
+                        ((Cs + kBwdChunk - 1) / kBwdChunk);
+  const long long st = (long long)D * ((H + kStRows - 1) / kStRows) *
+                       ((W + kBwdCols - 1) / kBwdCols) *
+                       ((C + kBwdChunk - 1) / kBwdChunk);
+  const long long blocks = B * (sem + st);
+  if (blocks == 0) return 0;
+  if (blocks >= INT_MAX) return (int)cudaErrorInvalidValue;
+  voxel_features_bwd_kernel<T><<<(unsigned)blocks, kBwdThreads, smem, s>>>(
+      static_cast<const T*>(gout), att, u, v, xtab, gvol, gsem, B, D, H, W,
+      C, Hs, Ws, Cs, nz, ny, nx, pad_h, pad_w);
   return (int)cudaGetLastError();
 }
 
@@ -600,17 +768,16 @@ extern "C" int dfm_attention_sample(
 
 // grad_out (B, nz, ny, nx, C + Cs) of type bf16 / float (is_bf16); att,
 // u, v, xtab as dfm_voxel_features -> gvol (B, D, H, W, C) and gsem
-// (B, Hs, Ws, Cs) float32, which the caller zeroes first; the gradients
-// of dfm_voxel_features' vol and sem. Cs > 0.
+// (B, Hs, Ws, Cs) float32, every element written; the gradients of
+// dfm_voxel_features' vol and sem. Cs > 0.
 extern "C" int dfm_voxel_features_bwd(
     const void* gout, const float* att, const float* u, const float* v,
     const void* xtab, float* gvol, float* gsem, int B, int D, int H, int W,
     int C, int Hs, int Ws, int Cs, int nz, int ny, int nx, float pad_h,
     float pad_w, int is_bf16, void* stream) {
   if (Cs < 1) return (int)cudaErrorInvalidValue;
-  if ((long long)B * nz * ny * nx == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* xt = static_cast<const float4*>(xtab);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);   // an empty grid
+  const float4* xt = static_cast<const float4*>(xtab);  // still writes 0s
   if (is_bf16)
     return launch_voxel_bwd<__nv_bfloat16>(gout, att, u, v, xt, gvol, gsem, B,
                                            D, H, W, C, Hs, Ws, Cs, nz, ny, nx,

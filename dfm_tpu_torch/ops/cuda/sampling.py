@@ -20,9 +20,11 @@ launches the backward kernel (the gradients of prev, and of vol and sem;
 none of the sample points, the parameters or the attention, which the
 model takes from a detached cost); on the CPU the plain versions run
 under autograd. K3's input is a constant of a training step (the neck
-detaches the cost), so it has no backward. The backward kernels sum with
-atomics: their results are not bit-reproducible from run to run. Their
-plain versions, `torch.autograd.grad` of the plain forwards, are
+detaches the cost), so it has no backward. The backward kernels are
+gathers: a block owns a tile of the gradient, sums its taps in shared
+memory in a fixed order and writes each element once, with no atomics,
+so two calls return the same bits and the gradients need no zeroing.
+Their plain versions, `torch.autograd.grad` of the plain forwards, are
 `warp_prev_sweep_bwd_plain` and `frustum_voxel_features_bwd_plain`.
 
 On a CPU tensor a wrapper returns its plain PyTorch version
@@ -185,7 +187,7 @@ def warp_prev_sweep_bwd(grad_out, params, depths, prev_shape, step):
         raise ValueError(f'grad_out {tuple(grad_out.shape)} does not match '
                          f'prev {tuple(prev_shape)} and {depths.shape[0]} '
                          f'depths')
-    grad = torch.zeros(prev_shape, dtype=torch.float32,
+    grad = torch.empty(prev_shape, dtype=torch.float32,
                        device=grad_out.device)
     _fits_int32('warp_prev_sweep_bwd', grad_out, grad)
     rc = load('warp_prev').dfm_warp_prev_sweep_bwd(
@@ -308,8 +310,8 @@ def frustum_voxel_features_bwd(grad_out, att, u, v, ds, pad_shape,
                          f'{(b, nz, ny, nx, c + cs)}')
     xtab = depth_xtab(ds, d, grad_out.device)
     f32 = dict(dtype=torch.float32, device=grad_out.device)
-    g_vol = torch.zeros(vol_shape, **f32)
-    g_sem = torch.zeros(sem_shape, **f32)
+    g_vol = torch.empty(vol_shape, **f32)
+    g_sem = torch.empty(sem_shape, **f32)
     _fits_int32('frustum_voxel_features_bwd', grad_out, g_vol, g_sem)
     rc = load('frustum_sample').dfm_voxel_features_bwd(
         grad_out.data_ptr(), att.data_ptr(), u.data_ptr(), v.data_ptr(),

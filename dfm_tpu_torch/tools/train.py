@@ -9,7 +9,8 @@ Port of the DfM branch of `tools/train.py:38-83, 159-200, 464-649`: the
 config (`runtime/config.py`) -> `kitti_infos_train.pkl` under
 `data.data_root` (`python -m dfm_tpu_torch.tools.create_data kitti
 --splits train val` writes it) -> `KittiDataset(train=True)` (flip,
-scale, crop and photometric distortion from `np.random.default_rng(seed)`)
+scale, crop and photometric distortion from `np.random.default_rng(seed)`,
+after one batch drawn and dropped, as JAX's CLI draws its init batch)
 -> the bare DfM student in float32, seeded random weights, in train mode
 (the banded form: the conv chain is inference-only) -> `TrainStep`
 (`dfm_loss`, the gradient clip at 35, AdamW under the LIGA schedule; the
@@ -112,7 +113,8 @@ class KittiDfMSource:
     def steps_per_epoch(self):
         return max(len(self.ds) // self.batch_size, 1)
 
-    def next_batch(self, rng, device):
+    def next_samples(self, rng):
+        """The next batch's pipeline samples, drawn from `rng`."""
         idxs = []
         while len(idxs) < self.batch_size:
             if self.order is None or self.cursor >= len(self.order):
@@ -120,8 +122,18 @@ class KittiDfMSource:
                 self.cursor = 0
             idxs.append(int(self.order[self.cursor]))
             self.cursor += 1
-        return build_batch([self.ds.get_sample(i, rng) for i in idxs],
-                           device)
+        return [self.ds.get_sample(i, rng) for i in idxs]
+
+    def next_batch(self, rng, device):
+        return build_batch(self.next_samples(rng), device)
+
+
+def discard_init_draw(source, rng):
+    """Draw one batch from `source` and `rng` and drop it. JAX's CLI draws
+    the batch it initialises the model on before its loop
+    (`tools/train.py:514-517`), on a resume too; the port draws it as well,
+    so that one seed trains both on the same samples and augmentations."""
+    source.next_samples(rng)
 
 
 def run_eval(cfg, mcfg, model, device, max_samples):
@@ -207,6 +219,7 @@ def main(argv=None):
     logger = MetricsLogger(args.work_dir, use_tensorboard=args.tensorboard)
 
     rng = np.random.default_rng(args.seed)
+    discard_init_draw(source, rng)
     max_steps = args.max_steps or total_steps
     ck_interval = ck.get('interval_epochs', 1) * steps_per_epoch
     eval_interval = sched_cfg.get('eval_interval', 1) * steps_per_epoch

@@ -41,6 +41,14 @@ as the sources describe it, and are held against the plain versions:
   lane computes from the block's parameter row and passes by shuffle,
   rounded as the kernel rounds (against `sweep_coords_plain`, bit for
   bit), and the bilinear sum (against `warp_prev_plain`, bit for bit).
+* K2-bwd and K1-bwd, the gathers of the training step: at chip_smoke.py
+  phase 7 (b)'s geometry, K2-bwd's plane lists (from the depth table), the
+  z each warp walks and the y masks of each tile (with the multiply's
+  superset of them) add every (voxel, tap) of nonzero weight exactly once,
+  and K1-bwd's candidate boxes (the homography inverted in float64) hold
+  every (pixel, tap) of nonzero weight of its tile; both walks emulated in
+  float32 (K2 on a camera-like grid, K1 at the `aug_b2` sweep with its
+  flip) against the plain gradients.
 """
 
 import numpy as np
@@ -1280,3 +1288,475 @@ def test_k1_sweep_blocks_points_and_sum(lanes, hq):
     want = PCV.warp_prev_plain(torch.from_numpy(prev), want_u, want_v)
     np.testing.assert_array_equal(acc, want.numpy())
     assert (want.numpy() != 0).mean() > 0.5
+
+
+# ------------------------------------------------- K2-bwd and K1-bwd gathers
+
+BWD_COLS = 32                           # both backward kernels' tiles
+BWD_WARPS = 8                           # K1-bwd: a warp a row
+K2_WARPS = 16                           # K2-bwd (csrc/frustum_sample.cu)
+SEM_GROUPS = 16
+SEM_ROWS = K2_WARPS // SEM_GROUPS
+ST_GROUPS = 4
+ST_ROWS = K2_WARPS // ST_GROUPS
+K1_CAND = 256                           # csrc/warp_prev.cu: kCand
+K1_MARGIN = 0.5                         # kBoxMargin
+
+
+def _floor_tap(idx, n):
+    """floor_tap (csrc/common.cuh)."""
+    return np.clip(np.floor(np.nan_to_num(idx, nan=-2.0)), -2,
+                   n + 1).astype(np.int64)
+
+
+def _stage_taps(vals, pad, n):
+    """stage_slab's taps of v (per z) or u (per y), float32 numpy: the
+    floor and the two weights, zero unless 0 <= val <= pad."""
+    f = np.float32
+    vals = np.asarray(vals, f)
+    ok = (vals >= 0) & (vals <= f(pad))
+    idx = f(f(vals / f(f(pad) - f(1))) * f(n - 1))
+    (_, w0), (_, w1) = _taps(idx, n)
+    return (np.where(ok, _floor_tap(idx, n), -2), np.where(ok, w0, f(0)),
+            np.where(ok, w1, f(0)))
+
+
+def _plane_lists(xtab, d):
+    """A stereo block's warp-0 compaction, 32 slabs a ballot: plane p's
+    (x, depth tap, wz) entries in x order, tap 0 first."""
+    nx = len(xtab)
+    lists = []
+    for p in range(d):
+        ent, n = {}, 0
+        for xb in range(0, nx, 32):
+            x = np.arange(xb, min(xb + 32, nx))
+            t = xtab[x]
+            f0 = (t[:, 0].astype(np.int64) == p) & (t[:, 2] != 0)
+            f1 = (t[:, 1].astype(np.int64) == p) & (t[:, 3] != 0)
+            pos = n + np.cumsum(f0) - f0 + np.cumsum(f1) - f1
+            for i in np.flatnonzero(f0):
+                ent[int(pos[i])] = (int(x[i]), 0, t[i, 2])
+            for i in np.flatnonzero(f1):
+                ent[int(pos[i] + f0[i])] = (int(x[i]), 1, t[i, 3])
+            n += int(f0.sum() + f1.sum())
+        assert sorted(ent) == list(range(n))
+        lists.append([ent[i] for i in range(n)])
+    return lists
+
+
+def _col_hits(ycol, yw0, yw1, w):
+    """Per column tile of a map of width w, for every staged y: whether the
+    block's y mask holds it (a column tap of nonzero weight in the tile)
+    and which of its two taps a warp adds to a tile column (its j range).
+    Arrays (..., tiles)."""
+    c0 = np.arange(0, w, BWD_COLS)
+    ncols = np.minimum(BWD_COLS, w - c0)
+    j = ycol[..., None] - c0
+    in0 = (j >= 0) & (j < ncols)
+    in1 = (j >= -1) & (j + 1 < ncols)
+    mask = (in0 & (yw0[..., None] != 0)) | (in1 & (yw1[..., None] != 0))
+    return mask, in0, in1
+
+
+def _row_hits(zrow, zw0, zw1, h):
+    """Per map row r, for every staged z: the warp of row r walks z when a
+    row tap of nonzero weight lands in r, and takes zw0 if the floor is r,
+    else zw1. Returns (walked (..., h), the weight taken (..., h))."""
+    r = np.arange(h)
+    at0 = zrow[..., None] == r
+    hz = (at0 & (zw0[..., None] != 0)) | ((zrow[..., None] + 1 == r)
+                                          & (zw1[..., None] != 0))
+    return hz, np.where(at0, zw0[..., None], zw1[..., None])
+
+
+def _k2_bwd_counts(u, v, xtab, att, pad, d, h, w, hs, ws):
+    """How often the tile walk of `voxel_features_bwd_kernel` adds each
+    (voxel, tap) (B = 1): stereo (nz, ny, nx, dz, dy, dx) and sem
+    (nz, ny, nx, dy, dx), beside the taps of nonzero weight of the
+    forward. A stereo tap is added by the block of its plane, row tile and
+    column tile, by the warp of its row, when the plane's list holds
+    (x, dz), the warp walks z with that tap's weight, the block's y mask
+    holds y and the y's tap lands in the tile; a sem tap likewise, with
+    every x in one group (x = 16 i + g) and att rounded nonzero."""
+    f = np.float32
+    u, v = u[0], v[0]                                   # (nx, ny), (nx, nz)
+    nx, nz = v.shape
+    listed = np.zeros((nx, 2), np.int64)
+    for p, ent in enumerate(_plane_lists(xtab, d)):
+        for x, tap, wz in ent:
+            assert int(xtab[x, tap]) == p and wz == xtab[x, 2 + tap]
+            listed[x, tap] += 1
+    wz = xtab[:, 2:4]
+    assert (listed == (wz != 0)).all()
+
+    def halves(hm, wm, zweight):
+        zrow, zw0, zw1 = _stage_taps(v, pad[0], hm)              # (nx, nz)
+        ycol, yw0, yw1 = _stage_taps(u, pad[1], wm)              # (nx, ny)
+        mask, in0, in1 = _col_hits(ycol, yw0, yw1, wm)           # (nx,ny,T)
+        # each y tap: in how many tiles the warp adds it to the tile column
+        # it lands on (the y masked, the j range, the column in the map)
+        yadd = np.stack([(mask & in0).sum(-1), (mask & in1).sum(-1)], -1)
+        out = {}
+        for key, wzk in zweight:
+            zw = [f(wzk[:, None] * zw0), f(wzk[:, None] * zw1)]
+            hz, wzy = _row_hits(zrow, zw[0], zw[1], hm)          # (nx,nz,h)
+            zadd = np.stack([(hz & (np.arange(hm) == zrow[..., None] + dy)
+                              & (wzy == zw[dy][..., None])).sum(-1)
+                             for dy in (0, 1)], -1)              # (nx,nz,2)
+            wt = np.stack([np.stack([f(zw[dy][:, :, None] * yw[:, None, :])
+                                     for yw in (yw0, yw1)], -1)
+                           for dy in (0, 1)], -2)         # (nx,nz,ny,dy,dx)
+            walk = zadd[:, :, None, :, None] * yadd[:, None, :, None, :]
+            out[key] = (np.where(wt != 0, walk, 0), wt)
+        return out
+
+    ones = np.ones(nx, f)
+    st = halves(h, w, [(dz, wz[:, dz]) for dz in (0, 1)])
+    sem = halves(hs, ws, [('sem', ones)])['sem']
+    a = (att[0] != 0).transpose(2, 0, 1)                         # (nx,nz,ny)
+    return ({dz: st[dz] for dz in (0, 1)},
+            (np.where(a[..., None, None], sem[0], 0), sem[1] * a[..., None,
+                                                                  None]))
+
+
+def _phase7b_k2():
+    """chip_smoke.py phase 7 (b)'s K2 geometry (full DfMConfig grid,
+    KITTI-like intrinsics) with a seeded attention, 20 % zeros."""
+    import chip_smoke
+    from dfm_tpu_torch.models.detectors.dfm import DfMConfig
+    cfg = DfMConfig()
+    meta = chip_smoke.kitti_meta(1, 'cpu')
+    coors = cfg.coordinates_3d()
+    xs, ys, zs = coors[0, 0, :, 0], coors[0, :, 0, 1], coors[:, 0, 0, 2]
+    u, v = PFS.slab_uv(meta.cam2img, xs, ys, zs)
+    d = len(cfg.downsampled_depths())
+    ds = PFS.slab_depth_static(xs, cfg.depth_min, cfg.depth_max, d)
+    xtab = K.depth_xtab(ds, d, torch.device('cpu')).numpy()
+    nz, ny, nx = cfg.voxel_grid_size()
+    rng = np.random.RandomState(2)
+    att = (rng.rand(1, nz, ny, nx) * (rng.rand(1, nz, ny, nx) > 0.2)
+           ).astype(np.float32)
+    h, w = chip_smoke.IMG_HW
+    s = cfg.cost_sample_factor
+    return u.numpy(), v.numpy(), xtab, att, chip_smoke.IMG_HW, d, h // s, \
+        w // s
+
+
+def test_k2_bwd_tiles_add_every_tap_once():
+    """K2-bwd's tile walk at phase 7 (b)'s geometry (72 planes of 80 x 320,
+    the sem map 80 x 320, the 20 x 304 x 288 grid): every plane's slab list
+    holds each (x, depth tap) of nonzero weight once, and every (voxel,
+    tap) of nonzero weight of the forward, stereo and sem, is added by
+    exactly one (block, warp, item, column) and nothing else is; each
+    stereo plane is read by a handful of slabs."""
+    u, v, xtab, att, pad, d, h, w = _phase7b_k2()
+    f = np.float32
+    for n, pd in ((w, pad[1]),):     # the multiply's mask holds the exact one
+        ycol, yw0, yw1 = _stage_taps(u[0], pd, n)
+        exact, _, _ = _col_hits(ycol, yw0, yw1, n)
+        scale = f(f(f(1) / f(f(pd) - f(1))) * f(n - 1))
+        ok = (u[0] >= 0) & (u[0] <= f(pd))
+        jc = np.floor(f(u[0] * scale)).astype(np.int64)[..., None] - \
+            np.arange(0, n, BWD_COLS)
+        ncols = np.minimum(BWD_COLS, n - np.arange(0, n, BWD_COLS))
+        may = ok[..., None] & (jc >= -2) & (jc <= ncols)
+        assert (may | ~exact).all() and exact.sum() > 5e4
+    lists = _plane_lists(xtab, d)
+    sizes = [len(x) for x in lists]
+    assert max(sizes) <= 12 and np.mean(sizes) > 6, sizes
+    st, (sem_walk, sem_wt) = _k2_bwd_counts(u, v, xtab, att, pad, d, h, w,
+                                            h, w)
+    for dz, (walk, wt) in st.items():
+        np.testing.assert_array_equal(walk, (wt != 0).astype(walk.dtype))
+    np.testing.assert_array_equal(sem_walk,
+                                  (sem_wt != 0).astype(sem_walk.dtype))
+    assert (st[0][1] != 0).sum() > 1e6 and (sem_wt != 0).sum() > 1e6
+
+
+def _emulate_k2_bwd(gout, att, u, v, xtab, pad, vol_shape, sem_shape):
+    """voxel_features_bwd_kernel in float32 numpy (float32 grad_out): per
+    block its tile (stereo 4 rows, sem 1 row, of 32 columns), per warp its
+    group's slabs (4 stereo groups, 16 sem groups) and for each, 32 y at a
+    time, the z it walks and the masked y in order, the weights and sums
+    rounded as the kernel rounds, and the groups added in group order;
+    every element written once."""
+    f = np.float32
+    b_, d, h, w, c = vol_shape
+    hs, ws, cs = sem_shape[1:]
+    nz, ny, nx = att.shape[1:]
+    gvol = np.full(vol_shape, np.nan, f)
+    gsem = np.full(sem_shape, np.nan, f)
+    lists = _plane_lists(xtab, d)
+    blocks = [('sem', b, 0, r0, c0) for b in range(b_)
+              for r0 in range(0, hs, SEM_ROWS)
+              for c0 in range(0, ws, BWD_COLS)]
+    blocks += [('st', b, p, r0, c0) for b in range(b_) for p in range(d)
+               for r0 in range(0, h, ST_ROWS)
+               for c0 in range(0, w, BWD_COLS)]
+    for kind, b, p, r0, c0 in blocks:
+        stereo = kind == 'st'
+        hm, wm, ct, rows, groups = (h, w, c, ST_ROWS, ST_GROUPS) if stereo \
+            else (hs, ws, cs, SEM_ROWS, SEM_GROUPS)
+        slabs = lists[p] if stereo else [(x, 0, f(1)) for x in range(nx)]
+        nrows, ncols = min(rows, hm - r0), min(BWD_COLS, wm - c0)
+        acc = np.zeros((K2_WARPS, BWD_COLS, ct), f)
+        for warp in range(K2_WARPS):
+            g, rr = divmod(warp, rows)
+            for k in range(g, len(slabs) if rr < nrows else 0, groups):
+                x, _, wz = slabs[k]
+                r = r0 + rr
+                zrow, zw0, zw1 = _stage_taps(v[b, x], pad[0], hm)
+                if stereo:
+                    zw0, zw1 = f(wz * zw0), f(wz * zw1)
+                ycol, yw0, yw1 = _stage_taps(u[b, x], pad[1], wm)
+                j = ycol - c0
+                ymask = ((j >= 0) & (j < ncols) & (yw0 != 0)) | \
+                    ((j >= -1) & (j + 1 < ncols) & (yw1 != 0))
+                walked = [z for z in range(nz)
+                          if (zrow[z] == r and zw0[z] != 0) or
+                          (zrow[z] + 1 == r and zw1[z] != 0)]
+                for z, y in [(z, y) for y0 in range(0, ny, 32)
+                             for z in walked for y in
+                             np.flatnonzero(ymask[y0:y0 + 32]) + y0]:
+                    wzy = zw0[z] if zrow[z] == r else zw1[z]
+                    gv = gout[b, z, y, x, :c] if stereo else \
+                        gout[b, z, y, x, c:]
+                    if not stereo:
+                        a = att[b, z, y, x]
+                        if a == 0:
+                            continue
+                        gv = f(a * gv)
+                    for jj, ok, yw in ((j[y], 0 <= j[y] < ncols, yw0[y]),
+                                       (j[y] + 1, -1 <= j[y] < ncols - 1,
+                                        yw1[y])):
+                        wt = f(wzy * yw)
+                        if ok and wt != 0:
+                            acc[warp, jj] = f(acc[warp, jj] + f(wt * gv))
+        tile = acc[:rows].copy()
+        for g in range(1, groups):
+            tile = f(tile + acc[g * rows:(g + 1) * rows])
+        out = gvol[b, p] if stereo else gsem[b]
+        out[r0:r0 + nrows, c0:c0 + ncols] = tile[:nrows, :ncols]
+    return gvol, gsem
+
+
+def test_k2_bwd_emulation_is_the_plain_gradient():
+    """The tile walk emulated in float32 numpy, rounded as the kernel
+    rounds, against `frustum_voxel_features_bwd_plain` (atol 1e-5 + rtol
+    1e-5: autograd sums in another order) on a camera-like grid at B = 2
+    (near slabs spanning columns, far slabs sharing rows, voxels outside
+    the image, slabs out of range, zeros in att, ragged tiles): every
+    element written once."""
+    rng = np.random.RandomState(4)
+    nz, ny, nx = 6, 44, 40
+    pad = (32, 64)
+    xs = np.linspace(1.0, 32.0, nx)
+    y = np.arange(ny) - (ny - 1) / 2
+    z = np.arange(nz) - (nz - 1) / 2
+    u = np.repeat((pad[1] / 2 + 24.0 * y / xs[:, None])[None], 2, 0)
+    v = np.repeat((pad[0] / 2 + 1.5 + 12.0 * z / xs[:, None])[None], 2, 0)
+    u, v = u.astype(np.float32), v.astype(np.float32)
+    att = (rng.rand(2, nz, ny, nx) * (rng.rand(2, nz, ny, nx) > 0.2)
+           ).astype(np.float32)
+    ds = PFS.slab_depth_static(xs, 2.0, 30.0, 6)
+    xtab = K.depth_xtab(ds, 6, torch.device('cpu')).numpy()
+    vol_shape, sem_shape = (2, 6, 11, 40, 3), (2, 10, 35, 2)
+    gout = rng.randn(2, nz, ny, nx, 5).astype(np.float32)
+    gv, gs = _emulate_k2_bwd(gout, att, u, v, xtab, pad, vol_shape,
+                             sem_shape)
+    wv, ws = K.frustum_voxel_features_bwd_plain(
+        torch.from_numpy(gout), torch.from_numpy(att), torch.from_numpy(u),
+        torch.from_numpy(v), ds, pad, vol_shape, sem_shape)
+    np.testing.assert_allclose(gv, wv.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(gs, ws.numpy(), atol=1e-5, rtol=1e-5)
+    assert (wv.numpy() != 0).mean() > 0.05 and (ws.numpy() != 0).mean() > 0.3
+
+
+def _k1_boxes(p, depth, hq, wq, h, w, step):
+    """candidate_box (csrc/warp_prev.cu) in float64 numpy for every tile of
+    an h x w prev map at one parameter row and depth: (h0, w0, width,
+    count) per (row tile, column tile)."""
+    p = p.astype(np.float64)
+    dd = np.float64(np.float32(depth))
+    org_w, flip, cox, coy, sf = p[12], p[13] > 0, p[14], p[15], p[16]
+    fsf = 1.0 / p[17]
+    m = np.array([[dd * p[4 * i], dd * p[4 * i + 1],
+                   dd * p[4 * i + 2] + p[4 * i + 3]] for i in range(3)])
+    adj = np.array([[m[1, 1] * m[2, 2] - m[1, 2] * m[2, 1],
+                     m[0, 2] * m[2, 1] - m[0, 1] * m[2, 2],
+                     m[0, 1] * m[1, 2] - m[0, 2] * m[1, 1]],
+                    [m[1, 2] * m[2, 0] - m[1, 0] * m[2, 2],
+                     m[0, 0] * m[2, 2] - m[0, 2] * m[2, 0],
+                     m[0, 2] * m[1, 0] - m[0, 0] * m[1, 2]],
+                    [m[1, 0] * m[2, 1] - m[1, 1] * m[2, 0],
+                     m[0, 1] * m[2, 0] - m[0, 0] * m[2, 1],
+                     m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]]])
+    det = m[0] @ adj[:, 0]
+    r0 = np.arange(0, h, BWD_WARPS)[:, None]
+    c0 = np.arange(0, w, BWD_COLS)[None, :]
+    nrows, ncols = np.minimum(BWD_WARPS, h - r0), np.minimum(BWD_COLS, w - c0)
+    ws_, hs_, q2s = [], [], []
+    for k in range(4):
+        px = c0 + ncols + K1_MARGIN if k & 1 else c0 - 1 - K1_MARGIN
+        py = r0 + nrows + K1_MARGIN if k & 2 else r0 - 1 - K1_MARGIN
+        pu = (px * fsf + cox) / sf + 0 * py
+        pv = (py * fsf + coy) / sf + 0 * px
+        if flip:
+            pu = org_w - pu
+        q = [adj[i, 0] * pu + adj[i, 1] * pv + adj[i, 2] for i in range(3)]
+        uu, vv = q[0] / q[2], q[1] / q[2]
+        if flip:
+            uu = org_w - uu
+        ws_.append((uu * sf - cox) / step)
+        hs_.append((vv * sf - coy) / step)
+        q2s.append(q[2])
+    ws_, hs_, q2s = np.stack(ws_), np.stack(hs_), np.stack(q2s)
+    ok = (det != 0) & np.isfinite(ws_).all(0) & np.isfinite(hs_).all(0) & (
+        (q2s > 0).all(0) | (q2s < 0).all(0))
+    h0 = np.where(ok, np.maximum(np.ceil(hs_.min(0)), 0), 0)
+    h1 = np.where(ok, np.minimum(np.floor(hs_.max(0)), hq - 1), hq - 1)
+    w0 = np.where(ok, np.maximum(np.ceil(ws_.min(0)), 0), 0)
+    w1 = np.where(ok, np.minimum(np.floor(ws_.max(0)), wq - 1), wq - 1)
+    empty = (h0 > h1) | (w0 > w1)
+    width = np.where(empty, 1, w1 - w0 + 1)
+    return np.stack([np.where(empty, 0, h0), np.where(empty, 0, w0), width,
+                     np.where(empty, 0, (h1 - h0 + 1) * width)],
+                    -1).astype(np.int64)
+
+
+def _k1_tap_owners_in_boxes(params, depths, hq, wq, h, w, step):
+    """For every (pixel, tap) of nonzero weight of K1's forward (points
+    from `sweep_coords_plain`, the kernel's bits), whether the box of the
+    tile that owns the tap's cell holds the pixel, per depth; and the
+    mean box size."""
+    pu, pv = PCV.sweep_coords_plain(torch.from_numpy(params),
+                                    torch.from_numpy(depths), hq, wq, step)
+    pu, pv = pu.numpy(), pv.numpy()
+    hh, ww = np.meshgrid(np.arange(hq), np.arange(wq), indexing='ij')
+    held, sizes = [], []
+    for b in range(len(params)):
+        for di, dep in enumerate(depths):
+            box = _k1_boxes(params[b], dep, hq, wq, h, w, step)
+            sizes.append(box[..., 3].mean())
+            (yi0, wy0), (yi1, wy1) = _taps(pv[b, di], h)
+            (xi0, wx0), (xi1, wx1) = _taps(pu[b, di], w)
+            for yi, wy in ((yi0, wy0), (yi1, wy1)):
+                for xi, wx in ((xi0, wx0), (xi1, wx1)):
+                    tap = np.float32(wx * wy) != 0
+                    bx = box[yi[tap] // BWD_WARPS, xi[tap] // BWD_COLS]
+                    hq_, wq_ = hh[tap], ww[tap]
+                    held.append((hq_ >= bx[:, 0]) & (wq_ >= bx[:, 1]) &
+                                (hq_ < bx[:, 0] + bx[:, 3] // bx[:, 2]) &
+                                (wq_ < bx[:, 1] + bx[:, 2]))
+    return np.concatenate(held), float(np.mean(sizes))
+
+
+def test_k1_bwd_boxes_hold_every_tap_at_phase7b():
+    """K1-bwd's candidate boxes at phase 7 (b)'s geometry (prev 320 x 1280,
+    72 depths of 80 x 320 samples, KITTI-like intrinsics, 0.8 m forward
+    ego-motion): the box of the tile that owns each (pixel, tap) of
+    nonzero weight holds the pixel, so the walk finds it; a box holds
+    about 21 pixels on average (the edge tiles' boxes clipped)."""
+    import chip_smoke
+    from dfm_tpu_torch.models.detectors.dfm import DfMConfig
+    cfg = DfMConfig()
+    meta = chip_smoke.kitti_meta(1, 'cpu')
+    params = PCV.sweep_params(meta.ori_cam2img, meta.cur2prev, meta.org_w,
+                              meta.flip, meta.crop_offset,
+                              meta.scale_factor, 1).numpy()
+    depths = np.asarray(cfg.downsampled_depths(), np.float32)
+    h, w = chip_smoke.IMG_HW
+    s = cfg.cost_sample_factor
+    held, size = _k1_tap_owners_in_boxes(params, depths, h // s, w // s, h,
+                                         w, s)
+    assert held.size > 5e6 and held.all()
+    assert 10 < size < 40, size
+
+
+def _emulate_k1_bwd(gout, params, depths, h, w, step):
+    """warp_prev_bwd_kernel in float32 numpy: per block (b, row tile,
+    column tile) the depths' boxes and their prefix sums, rounds of 256
+    candidates (the depth by binary search, the pixel row-major in its
+    box), the points from `sweep_coords_plain` (the kernel's bits), per
+    warp the candidates with a tap in its row in order, the weights and
+    sums rounded as the kernel rounds; every element written once, and
+    each box pixel staged once."""
+    f = np.float32
+    b_, d, hq, wq, c = gout.shape
+    pu, pv = PCV.sweep_coords_plain(torch.from_numpy(params),
+                                    torch.from_numpy(depths), hq, wq, step)
+    pu, pv = pu.numpy(), pv.numpy()
+    out = np.full((b_, h, w, c), np.nan, f)
+    for b in range(b_):
+        boxes = [_k1_boxes(params[b], dep, hq, wq, h, w, step)
+                 for dep in depths]
+        for rt, r0 in enumerate(range(0, h, BWD_WARPS)):
+            for ctile, c0 in enumerate(range(0, w, BWD_COLS)):
+                nrows, ncols = min(BWD_WARPS, h - r0), min(BWD_COLS, w - c0)
+                box = np.stack([bx[rt, ctile] for bx in boxes])
+                cum = np.concatenate([[0], np.cumsum(box[:, 3])])
+                acc = np.zeros((BWD_WARPS, BWD_COLS, c), f)
+                staged = set()
+                for k0 in range(0, cum[-1], K1_CAND):
+                    ks = np.arange(k0, min(k0 + K1_CAND, cum[-1]))
+                    dep = np.searchsorted(cum[:d], ks, side='right') - 1
+                    i = ks - cum[dep]
+                    hh = box[dep, 0] + i // box[dep, 2]
+                    ww = box[dep, 1] + i % box[dep, 2]
+                    staged |= set(zip(dep, hh, ww))
+                    cu, cv = pu[b, dep, hh, ww], pv[b, dep, hh, ww]
+                    (_, wy0), (_, wy1) = _taps(cv, h)
+                    (_, wx0), (_, wx1) = _taps(cu, w)
+                    crow, ccol = _floor_tap(cv, h), _floor_tap(cu, w)
+                    for warp in range(nrows):
+                        r = r0 + warp
+                        j = ccol - c0
+                        hit = ((crow == r) & (wy0 != 0) |
+                               (crow + 1 == r) & (wy1 != 0)) & (
+                            (j >= 0) & (j < ncols) & (wx0 != 0) |
+                            (j >= -1) & (j + 1 < ncols) & (wx1 != 0))
+                        for t in np.flatnonzero(hit):
+                            g = gout[b, dep[t], hh[t], ww[t]]
+                            wyr = wy0[t] if crow[t] == r else wy1[t]
+                            for jj, wx in ((j[t], wx0[t]),
+                                           (j[t] + 1, wx1[t])):
+                                wt = f(wx * wyr)
+                                if 0 <= jj < ncols and wt != 0:
+                                    acc[warp, jj] = f(acc[warp, jj] +
+                                                      f(wt * g))
+                assert len(staged) == cum[-1]
+                out[b, r0:r0 + nrows, c0:c0 + ncols] = acc[:nrows, :ncols]
+    return out
+
+
+@pytest.mark.parametrize('fsf', [4, 1])
+def test_k1_bwd_emulation_is_the_plain_gradient(fsf):
+    """The K1-bwd walk emulated in float32 numpy at the `aug_b2` sweep (B =
+    2, one sample flipped, cropped and scaled; prev 48 x 160 (fsf 4, step
+    16) or 36 x 100 (fsf 1, step 4, ragged tiles)), against
+    `warp_prev_sweep_bwd_plain` (atol 1e-5 + rtol 1e-5: autograd sums in
+    another order); every element written, and the boxes hold every
+    (pixel, tap) of nonzero weight."""
+    cam = np.array([[700., 0, 310, 12], [0, 700., 95, 0.3],
+                    [0, 0, 1, 0.004], [0, 0, 0, 1]], np.float32)
+    c2p = np.repeat(np.eye(4, dtype=np.float32)[None], 2, 0)
+    c2p[:, :3, 3] = [(0.3, -0.05, -0.9), (-0.1, 0.02, 1.2)]
+    c2p[0, 0, 2], c2p[0, 2, 0] = 0.02, -0.02
+    params = PCV.sweep_params(
+        torch.from_numpy(np.repeat(cam[None], 2, 0)), torch.from_numpy(c2p),
+        torch.tensor([1242.0, 640.0]), torch.tensor([1.0, 0.0]),
+        torch.tensor([[6.0, 2.0], [0.0, 0.0]]), torch.tensor([0.5, 1.0]),
+        fsf).numpy()
+    depths = np.linspace(2.5, 40.0, 5).astype(np.float32)
+    (h, w), step, hq, wq = ((48, 160), 16, 12, 40) if fsf == 4 else \
+        ((36, 100), 4, 9, 25)
+    held, _ = _k1_tap_owners_in_boxes(params, depths, hq, wq, h, w, step)
+    assert held.all()
+    rng = np.random.RandomState(8)
+    gout = rng.randn(2, len(depths), hq, wq, 3).astype(np.float32)
+    got = _emulate_k1_bwd(gout, params, depths, h, w, step)
+    want = K.warp_prev_sweep_bwd_plain(
+        torch.from_numpy(gout), torch.from_numpy(params),
+        torch.from_numpy(depths), (2, h, w, 3), step).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert (want != 0).mean() > 0.1

@@ -593,34 +593,69 @@ def test_cuda_warp_prev_sweep_matches_plain(tag):
             assert float((want != 0).float().mean()) > 0.5
 
 
+def _frustum_grid(b, vol_shape, sem_shape, grid, pad):
+    """K2 inputs on a camera-like grid at B = `b`: u affine in y and v in z
+    over each slab, both steps falling as 1 / depth (xs from 1 to 32), so
+    the near slabs' voxels lie several table columns apart and the far
+    slabs' share their rows over many z; some voxels fall outside the
+    image on both axes, and some slabs out of the depth range."""
+    rng = np.random.RandomState(12)
+    nz, ny, nx = grid
+    xs = np.linspace(1.0, 32.0, nx)
+    y = np.arange(ny) - (ny - 1) / 2
+    z = np.arange(nz) - (nz - 1) / 2
+    u = pad[1] / 2 + 24.0 * y[None, :] / xs[:, None]
+    v = pad[0] / 2 + 1.5 + 12.0 * z[None, :] / xs[:, None]
+    u = np.repeat(u[None], b, 0).astype(np.float32)
+    v = np.repeat(v[None], b, 0).astype(np.float32)
+    vol = rng.randn(b, *vol_shape).astype(np.float32)
+    sem = rng.randn(b, *sem_shape).astype(np.float32)
+    att = (rng.rand(b, nz, ny, nx) * (rng.rand(b, nz, ny, nx) > 0.2)
+           ).astype(np.float32)
+    return vol, sem, att, u, v, xs, pad
+
+
 def _bwd_cases(dev, dt=torch.float32):
     """K1-bwd and K2-bwd inputs: (name, function of the kernel's inputs ->
-    (kernel result, plain result), requires-grad forward and its inputs)
-    at the `aug_b2` sweep meta and the `_voxel_data` grids."""
+    (kernel result, plain result of the same grad_out in float32),
+    requires-grad forward and its inputs, grad_out) at the `aug_b2` sweep
+    meta, the `_voxel_data` grids and a `_frustum_grid`; grad_out in
+    `dt`."""
     depths, cam, (c2p, *meta) = _sweep_meta('aug_b2')
     params = PCV.sweep_params(_t(cam).to(dev), _t(c2p).to(dev),
                               *(_t(x).to(dev) for x in meta), 4)
     dd = _t(depths).to(dev)
     rng = np.random.RandomState(9)
     cases = []
-    for c in (32, 6):
+    for c in (32, 6, 72):
         g = _t(rng.randn(len(cam), 5, 12, 40, c), dt).to(dev)
         shape = (len(cam), 48, 160, c)
         cases.append(('warp_prev_sweep_bwd', lambda g=g, shape=shape: (
             K.warp_prev_sweep_bwd(g, params, dd, shape, 16),
-            K.warp_prev_sweep_bwd_plain(g, params, dd, shape, 16)),
+            K.warp_prev_sweep_bwd_plain(g.float(), params, dd, shape, 16)),
             lambda x: K.warp_prev_sweep(x, params, dd, 12, 40, 16), shape,
             g))
-    for c, cs, grid in ((32, 32, (5, 40, 37)), (5, 3, (4, 35, 19))):
-        vol, sem, att, u, v, xs, pad = _voxel_data(
-            7, vol_shape=(6, 8, 16, c), sem_shape=(10, 20, cs), grid=grid)
+    grids = [_voxel_data(7, vol_shape=(6, 8, 16, c), sem_shape=(10, 20, cs),
+                         grid=grid)
+             for c, cs, grid in ((32, 32, (5, 40, 37)), (5, 3, (4, 35, 19)),
+                                 (128, 128, (5, 40, 37)),
+                                 (40, 72, (4, 35, 19)))]
+    grids.append(_frustum_grid(2, (6, 8, 16, 32), (10, 20, 32), (6, 44, 40),
+                               (32, 64)))
+    for vol, sem, att, u, v, xs, pad in grids:
         ds = PFS.slab_depth_static(xs, 2.0, 30.0, 6)
         tu, tv, ta = _t(u).to(dev), _t(v).to(dev), _t(att).to(dev)
-        g = _t(rng.randn(2, *grid, c + cs), dt).to(dev)
-        args = (ta, tu, tv, ds, pad, vol.shape, sem.shape)
-        cases.append(('frustum_voxel_features_bwd', lambda g=g, a=args: (
-            K.frustum_voxel_features_bwd(g, *a),
-            K.frustum_voxel_features_bwd_plain(g, *a)), None, None, g))
+        g = _t(rng.randn(*att.shape, vol.shape[-1] + sem.shape[-1]),
+               dt).to(dev)
+        args = (tu, tv, ds, pad, vol.shape, sem.shape)
+        # the kernel rounds att to grad_out's type, as the forward rounds it
+        # to the volume's
+        cases.append(('frustum_voxel_features_bwd',
+                      lambda g=g, a=args, ta=ta: (
+                          K.frustum_voxel_features_bwd(g, ta, *a),
+                          K.frustum_voxel_features_bwd_plain(
+                              g.float(), ta.to(g.dtype).float(), *a)),
+                      None, None, g))
     return cases
 
 
@@ -646,33 +681,50 @@ def test_backward_wrappers_take_plain_versions_on_cpu():
 
 
 @pytest.mark.cuda
-def test_cuda_backward_kernels_match_plain():
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_cuda_backward_kernels_match_plain(dtype):
     """K1-bwd and K2-bwd against `torch.autograd.grad` of the plain
-    forwards on the card, float32 at B = 2 (the `aug_b2` sweep, the
-    `_voxel_data` grids with invalid voxels, slabs out of range and edge
-    taps; 16-byte chunks and one element per lane): atol 1e-5 + rtol
-    1e-5 (the atomics add in another order); and a K1 / K2 step through
-    autograd launches each backward kernel once."""
+    forwards on the card at B = 2 (the `aug_b2` sweep, the `_voxel_data`
+    grids with invalid voxels, slabs out of range and edge taps, and a
+    `_frustum_grid` whose near slabs span several columns per voxel and
+    whose far slabs share rows over many z; channel counts of 16-byte
+    rows and others, and wider than the kernels' 32-channel blocks: K1 at
+    72, K2 at C = Cs = 128 and at 40 / 72, the last block of a row
+    partial), grad_out in float32 and bfloat16, against the plain
+    version of the same grad_out values in float32: atol 1e-5 + rtol 1e-5
+    (the kernels sum in another order than autograd); two calls return the
+    same bits (no atomics); and a K1 / K2 step through autograd launches
+    each backward kernel once (the K1 step in grad_out's dtype, its
+    gradient rounded once to it)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels have no CPU mode')
     dev = 'cuda'
-    for name, run, fwd, shape, g in _bwd_cases(dev):
+    for name, run, fwd, shape, g in _bwd_cases(dev, dtype):
         K.reset_launch_counts()
         got, want = run()
-        for a, b in zip(*((got, want) if isinstance(got, tuple)
-                          else ((got,), (want,)))):
+        again, _ = run()
+        pairs = list(zip(*((got, want) if isinstance(got, tuple)
+                           else ((got,), (want,)))))
+        for a, b in pairs:
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                        err_msg=name, **F32_TOL)
             assert bool((b != 0).any()), name
+        for a, b in zip(*((got, again) if isinstance(got, tuple)
+                          else ((got,), (again,)))):
+            assert torch.equal(a, b), name
         bwd = 'warp_prev_bwd' if name == 'warp_prev_sweep_bwd' else \
             'frustum_stereo_sample_bwd'
-        assert K.LAUNCHES[bwd] == 1
+        assert K.LAUNCHES[bwd] == 2
         if fwd is not None:
-            x = torch.zeros(shape, device=dev, requires_grad=True)
+            x = torch.zeros(shape, dtype=dtype, device=dev,
+                            requires_grad=True)
             grad, = torch.autograd.grad(fwd(x), x, g)
-            np.testing.assert_allclose(grad.cpu().numpy(),
-                                       want.cpu().numpy(), **F32_TOL)
-            assert K.LAUNCHES['warp_prev'] == 1 and K.LAUNCHES[bwd] == 2
+            assert grad.dtype == dtype
+            tol = F32_TOL if dtype == torch.float32 else \
+                dict(atol=1e-5, rtol=2 ** -8)   # one bf16 rounding
+            np.testing.assert_allclose(grad.float().cpu().numpy(),
+                                       want.cpu().numpy(), **tol)
+            assert K.LAUNCHES['warp_prev'] == 1 and K.LAUNCHES[bwd] == 3
     vol, sem, att, u, v, xs, pad = _voxel_data(3)
     ds = PFS.slab_depth_static(xs, 2.0, 30.0, 6)
     vb = _t(vol).to(dev).requires_grad_()

@@ -228,3 +228,55 @@ def _train_cli_on_cpu(tree, tmp_path, capsys):
     assert train_cli.main([cfg, '--cfg-options', f'data.data_root={root}',
                            '--device', 'cpu']) == 2
     assert 'not ported yet' in capsys.readouterr().err
+
+
+def test_train_cli_trains_on_jax_draws_2_and_3(tree, tmp_path, monkeypatch):
+    """With one seed, the port's train CLI trains its steps 1 and 2 on the
+    batches of JAX's `KittiDfMSource` draws 2 and 3 (draw 1 is the batch
+    JAX's CLI initialises the model on, `tools/train.py:514-517`): images
+    within IMG_TOL on the 0-255 scale, meta and targets exact, at the tiny
+    config's crop. The training step is replaced by a recorder."""
+    pytest.importorskip('cv2')
+    from dfm_tpu.models import BatchMeta as JBatchMeta
+    from dfm_tpu.runtime.config import load_config as j_load_config
+    from dfm_tpu.runtime.config import merge_options as j_merge_options
+    from tools.train import KittiDfMSource as JKittiDfMSource
+    from dfm_tpu_torch.data.collate import GT_KEYS, META_KEYS
+    root, _ = tree
+    seen = []
+
+    class Recorder:
+        def __init__(self, *args, **kw):
+            pass
+
+        def __call__(self, img, meta, gt, generator):
+            seen.append((img, meta, gt))
+            return {'loss': torch.tensor(0.0)}
+
+    monkeypatch.setattr(train_cli, 'TrainStep', Recorder)
+    cfg = os.path.join(ROOT, 'configs', 'dfm_r34_kitti_3class.py')
+    opts = ['model.type=DfM', f'data.data_root={root}', *TINY_OPTS]
+    assert train_cli.main([cfg, '--cfg-options', *opts, '--work-dir',
+                           str(tmp_path / 'w'), '--device', 'cpu',
+                           '--max-steps', '2', '--seed', '3']) == 0
+    assert len(seen) == 2
+    jcfg = j_merge_options(j_load_config(cfg), opts)
+    source = JKittiDfMSource(jcfg, jcfg.data.get('batch_size_per_chip', 1))
+    rng = np.random.default_rng(3)
+    draws = [source.next_batch(step, rng) for step in range(3)]
+    assert issubclass(type(draws[0]['meta']), JBatchMeta)
+    unnorm = lambda a: a * PP.IMG_STD + PP.IMG_MEAN   # noqa: E731
+    for (img, meta, gt), want in zip(seen, draws[1:]):
+        np.testing.assert_allclose(unnorm(img.numpy()),
+                                   unnorm(np.asarray(want['img'])),
+                                   atol=IMG_TOL)
+        for k in META_KEYS:
+            np.testing.assert_array_equal(getattr(meta, k).numpy(),
+                                          np.asarray(getattr(want['meta'],
+                                                             k)), err_msg=k)
+        for k in GT_KEYS:
+            np.testing.assert_array_equal(gt[k].numpy(), np.asarray(want[k]),
+                                          err_msg=k)
+    # the draws differ: the test would see a shift of one
+    assert not np.array_equal(np.asarray(draws[1]['img']),
+                              np.asarray(draws[2]['img']))
