@@ -117,8 +117,9 @@ Phases, one line each; any failure raises and no result is printed:
               steps (finite loss terms and grad_norm logged, a checkpoint
               and the KITTI eval at the end of the epoch), a resume to
               step 6 from the saved optimizer state (its sha1 checked),
-              `tools.test` on the step-6 checkpoint, and the DfMFull
-              config refused; (d) full-width training steps in process:
+              `tools.test` on the step-6 checkpoint, and a type it does
+              not train (FCOSMono3D) refused; (d) full-width training
+              steps in process:
               two warm-up steps, then three with the launch counts set
               to 0 just before and read just after (a step: K1, K2 one
               forward and one backward each, K3 one forward, no other
@@ -126,6 +127,30 @@ Phases, one line each; any failure raises and no result is printed:
               optimizer (synchronised), and the peak memory; (e) 30 steps at lr 1e-3 on one frame at the
               tiny config (no augmentation): the mean loss of the last 5
               below that of the first 5
+  8. full     DfMFull training (the flagship config's type: FPN + ATSS 2D
+              head, the frozen dense LiDAR teacher, the imitation), on
+              phase 7's tree: (a) the tiny config in float32, TF32 off,
+              seeded live weights, a training sample with 4,096 teacher
+              points and 2D targets from its gt boxes, the same depth
+              pixels: every loss term on the card against the CPU (rtol
+              1e-3), the gradients by phase 7 (a)'s rule, launches
+              checked, and after the update the teacher's parameters
+              unchanged bit for bit and its running variances moved;
+              (b) the full DfMConfig, f32, phase 7's full-width
+              training samples + 16,384 teacher points uniform in the
+              point-cloud range + 2D targets (projected corners'
+              extent, projected 3D centre): 2 warm-up steps, then 3 with
+              the launch counts set to 0 just before and read just after
+              (K1, K2, K3, K1-bwd, K2-bwd once a step), every term
+              finite, the split into data / forward / backward /
+              optimizer beside phase 7 (d)'s, the peak memory, the ATSS
+              positives and the imitation cells of the last batch (> 0);
+              (c) the train CLI on configs/dfm_r34_kitti_3class.py with
+              `--synthetic` and a teacher file written here in flax's
+              msgpack format: 2 steps (the teacher restored, the four
+              new terms finite), a resume to 3 (the optimizer's sha1),
+              the teacher's parameters in the checkpoint equal to the
+              file's, and `tools.test` on that checkpoint to 36 AP lines
 Then the kernels JSON line, the card line, and the result line.
 Exits non-zero without a result when there is no CUDA device or the
 package is not beside the script.
@@ -134,6 +159,7 @@ package is not beside the script.
 import gc
 import json
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -430,6 +456,82 @@ def write_kitti_tree(root, seed=0, frames=KITTI_FRAMES):
         with open(os.path.join(root, 'ImageSets', f'{split}.txt'), 'w') as f:
             f.write('\n'.join(f'{i:06d}' for i in ids) + '\n')
     return ids
+
+
+def _msgpack_head(n, fix, fix_max, codes):
+    if n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt in codes:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f'msgpack: {n} items or bytes')
+
+
+def msgpack_tree_bytes(x):
+    """flax's msgpack of a tree (`flax.serialization.msgpack_serialize`;
+    arrays under its 1 GiB chunk size), written with the standard library
+    (the card's machine has no flax): dicts with str keys, lists, str,
+    bytes, ints >= 0, and numpy arrays as ext type 1 holding the msgpack of
+    (shape, dtype name, C-order bytes)."""
+    if isinstance(x, dict):
+        return _msgpack_head(len(x), 0x80, 15, ((0xde, '>H'), (0xdf, '>I'))) \
+            + b''.join(msgpack_tree_bytes(k) + msgpack_tree_bytes(v)
+                       for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        return _msgpack_head(len(x), 0x90, 15, ((0xdc, '>H'), (0xdd, '>I'))) \
+            + b''.join(map(msgpack_tree_bytes, x))
+    if isinstance(x, str):
+        b = x.encode()
+        return _msgpack_head(len(b), 0xa0, 31, ((0xd9, '>B'), (0xda, '>H'),
+                                                (0xdb, '>I'))) + b
+    if isinstance(x, bytes):
+        return _msgpack_head(len(x), 0, -1, ((0xc4, '>B'), (0xc5, '>H'),
+                                             (0xc6, '>I'))) + x
+    if isinstance(x, int) and 0 <= x < 1 << 32:
+        return bytes([x]) if x < 128 else b'\xce' + struct.pack('>I', x)
+    if isinstance(x, np.ndarray):
+        body = msgpack_tree_bytes([list(x.shape), x.dtype.name,
+                                   np.ascontiguousarray(x).tobytes()])
+        return _msgpack_head(len(body), 0, -1, ((0xc7, '>B'), (0xc8, '>H'),
+                                                (0xc9, '>I'))) + b'\x01' + body
+    raise TypeError(f'msgpack_tree_bytes: {type(x)}')
+
+
+def teacher_tree(teacher, seed):
+    """A seeded flax tree {'params', 'batch_stats'} in the layout of the JAX
+    teacher file for the port's `LidarTeacher` `teacher` (its shapes, by
+    `dfm_full_key_map`): kernels (k..., I, O) lecun-scaled, norm scales
+    near 1, biases and means small, variances in [0.5, 1.5)."""
+    from dfm_tpu_torch.utils.weights import dfm_full_key_map
+    rng = np.random.default_rng(seed)
+    sd = teacher.state_dict()
+    tree = {'params': {}, 'batch_stats': {}}
+
+    def put(group, path, leaf, value):
+        node = tree[group]
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = value.astype(np.float32)
+
+    for prefix, fpath, kind in dfm_full_key_map():
+        if fpath[0] != 'lidar_teacher':
+            continue
+        w = sd[prefix[len('lidar_teacher.'):] + '.weight']
+        path = fpath[1:]
+        if kind.startswith('conv'):
+            io = tuple(w.shape[:2]) if kind.startswith('convt') else \
+                (w.shape[1], w.shape[0])
+            shape = tuple(w.shape[2:]) + io
+            put('params', path, 'kernel', rng.standard_normal(shape)
+                / np.sqrt(np.prod(shape[:-1])))
+            continue
+        c = w.shape[0]
+        put('params', path, 'scale', 1 + 0.1 * rng.standard_normal(c))
+        put('params', path, 'bias', 0.1 * rng.standard_normal(c))
+        if kind == 'bn':
+            put('batch_stats', path, 'mean', 0.1 * rng.standard_normal(c))
+            put('batch_stats', path, 'var', 0.5 + rng.random(c))
+    return tree
 
 
 def needed_bytes(plain, table, row_elems, *args):
@@ -1615,7 +1717,8 @@ def train_phase(cfg, dev, results):
     backward kernels against their plain versions at full width, (c)
     the train CLI at full width with a resume and an eval of its
     checkpoint, (d) one full-width step in process with its launches,
-    time split and peak memory, (e) an overfit of one frame."""
+    time split and peak memory, (e) an overfit of one frame; then phase
+    8 (`full_train_phase`) on the same KITTI tree."""
     import os
     import tempfile
     import torch.nn.functional as F
@@ -1827,8 +1930,8 @@ def train_phase(cfg, dev, results):
 
         # (c) the train CLI at full width in processes of its own: 4 steps
         # (one epoch of the 4 frames: a checkpoint and the KITTI eval),
-        # a resume to 6, the eval CLI on the last checkpoint, and the
-        # DfMFull config refused
+        # a resume to 6, the eval CLI on the last checkpoint, and a type
+        # the port does not train refused
         res = subprocess.run(
             [sys.executable, '-m', 'dfm_tpu_torch.tools.create_data',
              'kitti', '--root', root, '--splits', 'train', 'val'], cwd=here,
@@ -1888,14 +1991,16 @@ def train_phase(cfg, dev, results):
               f'tools.test printed {len(aps)} AP lines')
         res = subprocess.run(
             [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
-             '--cfg-options', f'data.data_root={root}', '--work-dir',
-             os.path.join(root, 'full')], cwd=here, env=env,
+             '--cfg-options', 'model.type=FCOSMono3D',
+             f'data.data_root={root}', '--work-dir',
+             os.path.join(root, 'mono')], cwd=here, env=env,
             capture_output=True, text=True, timeout=300)
-        check(res.returncode != 0 and 'not ported yet' in res.stderr,
-              f'the DfMFull config: rc {res.returncode} {res.stderr[-500:]}')
+        check(res.returncode == 2 and 'not ported yet' in res.stderr,
+              f'the FCOSMono3D type: rc {res.returncode} '
+              f'{res.stderr[-500:]}')
         print(f'train (c) resume: from step 4 with the saved optimizer '
               f'state (sha1 {digest}) to step 6; tools.test on step_6.pth: '
-              f'{len(aps)} finite AP lines; DfMFull refused (rc '
+              f'{len(aps)} finite AP lines; FCOSMono3D refused (rc '
               f'{res.returncode})', flush=True)
 
         # (d) full-width training steps in process: two warm-up steps
@@ -1980,6 +2085,313 @@ def train_phase(cfg, dev, results):
               f'first 5 {first}: {curve}')
         print(f'train (e) overfit one frame, tiny, 30 steps at lr 1e-3: mean '
               f'loss first 5 {first:.5f}, last 5 {last:.5f}', flush=True)
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # phase 8 trains DfMFull on this tree, beside (d)'s median split
+        full_train_phase(cfg, dev, root, ids, infos, med)
+
+
+# phase 8: teacher points of a full-width sample, about as many as a KITTI
+# scan has in the camera's view; the tiny config's
+FULL_POINTS = 16384
+TINY_POINTS = 4096
+
+
+def full_targets(sample, cfg, rng, n_points):
+    """Add DfMFull's batch keys to a pipeline sample: `n_points` teacher
+    points uniform in the point-cloud range (as `_dfm_synth`), and 2D
+    targets from the sample's own gt boxes: the extent of the projected
+    corners clipped to the image and, as `centers2d`, the projected 3D
+    centre (the reference's append_3d_centers); padded gt rows get
+    zeros."""
+    from dfm_tpu_torch.evaluation.results import (_corners_cam,
+                                                  pseudo_lidar_boxes_to_cam)
+    pcr = np.asarray(cfg.point_cloud_range)
+    sample['points'] = (rng.random((n_points, 3)) * (pcr[3:] - pcr[:3])
+                        + pcr[:3]).astype(np.float32)
+    sample['point_mask'] = np.ones(n_points, bool)
+    boxes, mask = sample['gt_boxes'], sample['gt_mask']
+    k = np.asarray(sample['cam2img'], np.float64)
+    h, w = sample['img'].shape[1:3]
+
+    def project(p):                                     # (..., 3) -> (..., 2)
+        uvw = p @ k[:3, :3].T + k[:3, 3]
+        return uvw[..., :2] / uvw[..., 2:3]
+
+    loc, dims, ry = pseudo_lidar_boxes_to_cam(boxes.astype(np.float64))
+    uv = project(_corners_cam(loc, dims, ry))              # (G, 8, 2)
+    box2d = np.concatenate([uv.min(1), uv.max(1)], -1)
+    box2d = np.clip(box2d, 0, [w - 1, h - 1, w - 1, h - 1])
+    centre = loc - np.stack([np.zeros_like(ry), dims[:, 1] / 2,
+                             np.zeros_like(ry)], 1)     # bottom -> gravity
+    m = mask[:, None]
+    sample['gt_bboxes2d'] = np.where(m, box2d, 0).astype(np.float32)
+    sample['centers2d'] = np.where(m, project(centre), 0).astype(np.float32)
+    return sample
+
+
+def full_train_phase(cfg, dev, root, ids, infos, bare_med):
+    """8. DfMFull training: (a) the card's losses and gradients against
+    the CPU's, the teacher frozen, (b) full-width steps with their split,
+    peak memory, launches, ATSS positives and imitation cells, (c) the
+    train CLI on the flagship config with a teacher file, a resume, and
+    `tools.test` on its checkpoint. `root` holds phase 7's KITTI tree
+    (frames `ids`, `infos`) with its train and val info files."""
+    import os
+    from dfm_tpu_torch.data.collate import build_batch
+    from dfm_tpu_torch.data.kitti import KittiDataset
+    from dfm_tpu_torch.models.builder import atss_config
+    from dfm_tpu_torch.models.detectors.dfm import DfMConfig
+    from dfm_tpu_torch.models.detectors.dfm_full import (DfMFull,
+                                                         bev_cell_centers)
+    from dfm_tpu_torch.models.detectors.imitation import imitation_mask
+    from dfm_tpu_torch.models.detectors.teacher import LidarTeacher
+    from dfm_tpu_torch.models.heads.atss2d import (atss2d_anchors,
+                                                   atss2d_targets)
+    from dfm_tpu_torch.models.heads.depth_head import sample_depth_pixels
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.runtime.config import load_config
+    from dfm_tpu_torch.runtime.schedule import liga_schedule
+    from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
+    from dfm_tpu_torch.tools.train import optimizer_digest
+    from dfm_tpu_torch.utils.msgpack_tree import load_msgpack_tree
+    from dfm_tpu_torch.utils.weights import init_weights, teacher_state_dict
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    config = os.path.join(here, 'configs', 'dfm_r34_kitti_3class.py')
+    atss = atss_config(load_config(config).model)
+    frozen = ('lidar_teacher',)
+    t_phase = time.perf_counter()
+
+    # (a) card against CPU at the tiny config, TF32 off: the same live
+    # weights, one training sample with teacher points and 2D targets,
+    # the same depth pixels
+    tiny = DfMConfig(**TRAIN_TINY)
+    ds = KittiDataset(root, infos, train=True, pipeline_kwargs=dict(
+        crop_size=TRAIN_TINY_CROP, flip_ratio=0.5, max_gt=32))
+    sample = full_targets(ds.get_sample(0, np.random.default_rng(3)), tiny,
+                          np.random.default_rng(4), TINY_POINTS)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        side = {}
+        pix = None
+        for d, noise in (('cpu', False), ('cpu', True), (dev, False)):
+            model = _live_weights(init_weights(DfMFull(tiny, atss)), 4, 0.0)
+            if noise:             # one ulp of relative noise, seeded
+                g = torch.Generator().manual_seed(1)
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.mul_(1 + 1.2e-7 * torch.randn(p.shape, generator=g))
+            model = model.to(d)
+            img, meta, gt = build_batch([sample], d)
+            if pix is None:
+                pix = sample_depth_pixels(
+                    gt['depth_img'], tiny.num_depth_sample_pixels,
+                    torch.Generator().manual_seed(0))
+            step = TrainStep(model, make_optimizer(model,
+                                                   frozen_prefixes=frozen),
+                             liga_schedule(1e-3))
+            before = {k: v.clone() for k, v in
+                      model.lidar_teacher.state_dict().items()}
+            K.reset_launch_counts()
+            total, losses = step.forward(img, meta, gt,
+                                         depth_pix_idx=pix.to(d))
+            step.backward(total)
+            if d != 'cpu':
+                torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+            # copies: the update clips the gradients in place
+            grads = {n: (None if p.grad is None else
+                         p.grad.detach().cpu().clone())
+                     for n, p in model.named_parameters()}
+            step.update()
+            after = model.lidar_teacher.state_dict()
+            stats = [k for k in before if k.endswith('running_var')]
+            check(all(torch.equal(before[k], after[k]) for k in before
+                      if not k.endswith(('running_mean', 'running_var'))),
+                  f'{d}: the update changed a teacher parameter')
+            check(all(not torch.equal(before[k], after[k]) for k in stats),
+                  f'{d}: a teacher running variance did not move')
+            side['cpu, ulp noise' if noise else d] = dict(
+                losses={k: float(v.detach()) for k, v in
+                        dict(loss=total, **losses).items()},
+                grads=grads, launches=launches)
+            del model, step, total, losses
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    want = side['cpu']['losses']
+    check(set(want) >= {'loss_cls2d', 'loss_bbox2d', 'loss_centerness2d',
+                        'loss_imitation'}, f'terms {sorted(want)}')
+    for k, w in want.items():
+        got = side[dev]['losses'][k]
+        check(np.isfinite(got) and abs(got - w) <= TRAIN_LOSS_RTOL * (
+            abs(w) + 1e-6), f'full tiny {k}: card {got} vs cpu {w}')
+    worst, name, whole, whole_noise = _grad_compare(
+        'full tiny', side[dev]['grads'], side['cpu']['grads'],
+        side['cpu, ulp noise']['grads'])
+    check_launches(side[dev]['launches'], 'train', 1, 'full tiny step')
+    print(f'full (a) tiny f32 DfMFull card vs cpu: losses '
+          f'{ {k: round(v, 6) for k, v in side[dev]["losses"].items()} } '
+          f'(cpu { {k: round(v, 6) for k, v in want.items()} }, rtol '
+          f'{TRAIN_LOSS_RTOL}); gradients of {len(side["cpu"]["grads"])} '
+          f'parameters, worst relative L2 {worst:.3g} ({name}), whole '
+          f'{whole:.3g}, under one ulp of weight noise {whole_noise:.3g}; '
+          f'the update left the teacher\'s parameters bit for bit and moved '
+          f'its running statistics (card and cpu); launches '
+          f'{ {k: n for k, n in side[dev]["launches"].items() if n} }; '
+          f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+    del side
+
+    # (b) full-width f32 steps: two warm-ups, then three with the launch
+    # counts set to 0 just before and read just after
+    t_b = time.perf_counter()
+    full = DfMConfig()
+    model = init_weights(DfMFull(full, atss)).to(dev)
+    step = TrainStep(model, make_optimizer(model, frozen_prefixes=frozen),
+                     liga_schedule(1e-3))
+    train_ds = KittiDataset(root, infos, train=True, pipeline_kwargs=dict(
+        crop_size=IMG_HW, flip_ratio=0.5, max_gt=32))
+    rng = np.random.default_rng(0)
+
+    def batch(i):
+        return build_batch([full_targets(train_ds.get_sample(
+            i % len(ids), rng), full, rng, FULL_POINTS)], dev)
+
+    for i in range(2):
+        step(*batch(i), torch.Generator(device=dev).manual_seed(i))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    splits = []
+    for i in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        img, meta, gt = batch(i + 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        total, losses = step.forward(
+            img, meta, gt, torch.Generator(device=dev).manual_seed(i))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        step.backward(total)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        norm = step.update()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        splits.append([(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+                       (t4 - t3) * 1e3])
+        vals = {k: float(v.detach())
+                for k, v in dict(loss=total, **losses).items()}
+        check(len(vals) == 10 and all(np.isfinite(x) for x in vals.values())
+              and np.isfinite(float(norm)), f'full-width DfMFull step: {vals}')
+    counts = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(counts, 'train', TRAIN_TIMED_STEPS,
+                   'the full-width DfMFull steps')
+    # what the last batch reaches: ATSS positives, imitation cells
+    anchors, sizes = atss2d_anchors(IMG_HW, atss, dev)
+    positives = int(atss2d_targets(anchors, sizes, gt, atss)[2].sum())
+    with torch.no_grad():
+        im = model(img, meta, gt['points'], gt['point_mask'])['imitation']
+        centers = torch.as_tensor(bev_cell_centers(full), device=dev)
+        cells = {k: int(imitation_mask(im[f'{k}_target'], centers,
+                                       gt['gt_boxes'], gt['gt_mask']).sum())
+                 for k in ('bev', 'volume')}
+    check(positives > 0 and min(cells.values()) > 0,
+          f'full-width DfMFull: ATSS positives {positives}, imitation '
+          f'cells {cells}')
+    med = np.median(np.asarray(splits), axis=0)
+    print(f'full (b) full-width DfMFull steps, f32, B = 1, '
+          f'{FULL_POINTS} teacher points, after 2 warm-up steps, ms (data, '
+          f'forward, backward, optimizer): '
+          + ' | '.join(', '.join(f'{x:.3f}' for x in row) for row in splits)
+          + f'; median {", ".join(f"{x:.3f}" for x in med)}, total '
+          f'{float(np.median(np.sum(splits, 1))):.3f} (bare DfM, phase 7 '
+          f'(d): {", ".join(f"{x:.3f}" for x in bare_med)}); peak_mem_bytes '
+          f'{peak}; last losses { {k: round(x, 5) for k, x in vals.items()} }'
+          f' grad_norm {float(norm):.5g}; ATSS positives {positives}; '
+          f'imitation cells {cells}; launches per step '
+          f'{ {k: n // TRAIN_TIMED_STEPS for k, n in counts.items() if n} }; '
+          f'{time.perf_counter() - t_b:.1f} s', flush=True)
+    del model, step, total, losses, img, meta, gt, im
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the train CLI on the flagship config (DfMFull) with --synthetic
+    # and a teacher file in flax's msgpack format: 2 steps, a resume to 3,
+    # then tools.test on the checkpoint over the KITTI tree
+    teacher = os.path.join(root, 'teacher.msgpack')
+    tree = teacher_tree(LidarTeacher(
+        full.point_cloud_range, full.voxel_size,
+        volume_channels=full.cv_channels, bev_channels=full.bev_channels), 7)
+    with open(teacher, 'wb') as f:
+        f.write(msgpack_tree_bytes(tree))
+    work = os.path.join(root, 'full')
+    base = [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
+            '--synthetic', '--work-dir', work, '--cfg-options',
+            f'model.teacher_checkpoint={teacher}']
+    t0 = time.perf_counter()
+    res = subprocess.run(base + ['--max-steps', '2'], cwd=here, env=env,
+                         capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0, f'DfMFull tools.train failed: '
+          f'{res.stderr[-3000:]}')
+    check(f'[teacher] restored from {teacher}' in res.stdout,
+          f'no teacher restored: {res.stdout[-2000:]}')
+    with open(os.path.join(work, 'metrics.jsonl')) as f:
+        recs = [json.loads(line) for line in f]
+    keys = ('loss', 'loss_cls', 'loss_bbox', 'loss_dir', 'loss_iou',
+            'loss_dense_depth', 'loss_cls2d', 'loss_bbox2d',
+            'loss_centerness2d', 'loss_imitation', 'grad_norm')
+    check([r['step'] for r in recs] == [1, 2] and all(
+        np.isfinite(r.get(f'train/{k}', np.nan)) for r in recs for k in keys),
+        f'DfMFull tools.train logged {recs}')
+    ckpt2 = os.path.join(work, 'ckpts', 'step_2.pth')
+    digest = optimizer_digest(torch.load(
+        ckpt2, map_location='cpu', weights_only=True)['optimizer'])
+    t0 = time.perf_counter()
+    res = subprocess.run(base + ['--max-steps', '3', '--auto-resume'],
+                         cwd=here, env=env, capture_output=True, text=True,
+                         timeout=600)
+    resume_s = time.perf_counter() - t0
+    check(res.returncode == 0 and f'resumed from step 2 (optimizer state '
+          f'sha1 {digest})' in res.stdout, f'DfMFull resume: rc '
+          f'{res.returncode} {res.stdout[-2000:]} {res.stderr[-2000:]}')
+    last = os.path.join(work, 'ckpts', 'step_3.pth')
+    saved = torch.load(last, map_location='cpu', weights_only=True)
+    want = teacher_state_dict(load_msgpack_tree(teacher))
+    params = [k for k in want if not k.endswith(('running_mean',
+                                                 'running_var'))]
+    check(all(torch.equal(saved['state_dict'][f'lidar_teacher.{k}'],
+                          want[k]) for k in params),
+          "the teacher's parameters in step_3.pth differ from the file's")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-m', 'dfm_tpu_torch.tools.test', config,
+         '--checkpoint', last, '--cfg-options', f'data.data_root={root}'],
+        cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    test_s = time.perf_counter() - t0
+    check(res.returncode == 0, f'tools.test of the DfMFull checkpoint '
+          f'failed: {res.stderr[-3000:]}')
+    aps = [float(m.group(2)) for m in AP_LINE.finditer(res.stdout)]
+    check(len(aps) == 36 and all(np.isfinite(aps)),
+          f'tools.test printed {len(aps)} AP lines')
+    print(f'full (c) cli: DfMFull on configs/dfm_r34_kitti_3class.py '
+          f'--synthetic, 2 steps in {cli_s:.1f} s in its own process, the '
+          f'teacher restored from a flax msgpack file ({len(params)} '
+          f'parameters, equal in step_3.pth); logged '
+          + '; '.join(f'step {r["step"]} ' + ', '.join(
+              f'{k} {r[f"train/{k}"]:.5g}' for k in keys) for r in recs)
+          + f'; resume from step 2 (sha1 {digest}) to 3 in {resume_s:.1f} s; '
+          f'tools.test on step_3.pth: {len(aps)} finite AP lines in '
+          f'{test_s:.1f} s; phase 8 {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
 
 
 def main():

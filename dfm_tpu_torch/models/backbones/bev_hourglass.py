@@ -2,7 +2,8 @@
 
 Port of `dfm_tpu/models/backbones/bev_hourglass.py`: a 3x3 compress
 ConvNorm and one 2D hourglass; returns (pre-hourglass, post-hourglass)
-features, NCHW. Keys: compress_conv, bev_hourglass.
+features, NCHW. Keys: compress_conv, bev_hourglass. `norm` is the
+student's 'gn' or the LiDAR teacher's 'bn'.
 """
 
 import torch.nn as nn
@@ -11,10 +12,11 @@ from ..layers import ConvNorm, Hourglass
 
 
 class BEVHourglass(nn.Module):
-    def __init__(self, in_channels, out_channels=64):
+    def __init__(self, in_channels, out_channels=64, norm='gn'):
         super().__init__()
-        self.compress_conv = ConvNorm(in_channels, out_channels, 3)
-        self.bev_hourglass = Hourglass(out_channels, ndim=2)
+        self.compress_conv = ConvNorm(in_channels, out_channels, 3,
+                                      norm=norm)
+        self.bev_hourglass = Hourglass(out_channels, ndim=2, norm=norm)
 
     def forward(self, x):
         pre = self.compress_conv(x)

@@ -1,20 +1,24 @@
 """Detector builder: a config's `model = dict(type=..., ...)` -> the
-port's `DfMConfig`.
+port's `DfMConfig` (and DfMFull's `ATSS2DConfig`).
 
 Port of `dfm_tpu/models/builder.py:28-62` (`_mk_cfg`, `_build_dfm`,
 `_build_dfm_full`) for the two types the port runs, `DfM` and
-`DfMFull`. `DfMFull` trains the DfM student beside a LiDAR teacher and
-a 2D ATSS head; its inference is the student alone, so both types build
-the same model. Keys that are no field of `DfMConfig` are ignored, as
-`_mk_cfg` ignores them; `unused_keys` names them (for the repo's DfM
-configs: the type and DfMFull's ATSS head and teacher checkpoint).
+`DfMFull`. Both evaluate the DfM student alone, so `build_detector`
+gives the student's config for both; `atss_config` gives DfMFull's 2D
+head its config from the model's `atss` entry, and the train CLI
+(`tools/train.py`) builds `DfMFull` from the two and restores its teacher
+from `teacher_checkpoint`. Keys that are no field of `DfMConfig` are
+ignored by `build_detector`, as `_mk_cfg` ignores them; `unused_keys`
+names them (for the repo's DfM configs: the type and DfMFull's `atss`
+and `teacher_checkpoint`, which only training reads).
 """
 
 import dataclasses
 
 from .detectors.dfm import DfMConfig
+from .heads.atss2d import ATSS2DConfig
 
-__all__ = ['build_detector', 'unused_keys', 'PORTED_TYPES']
+__all__ = ['build_detector', 'atss_config', 'unused_keys', 'PORTED_TYPES']
 
 PORTED_TYPES = ('DfM', 'DfMFull')
 
@@ -56,3 +60,10 @@ def build_detector(model_cfg):
             f'model type {kind!r} is not ported to dfm_tpu_torch (ported: '
             f'{", ".join(PORTED_TYPES)})')
     return _mk_cfg(DfMConfig, d)
+
+
+def atss_config(model_cfg):
+    """DfMFull's `ATSS2DConfig` from the model config's `atss` dict
+    (the defaults where it has none)."""
+    atss = _as_dict(model_cfg).get('atss') or {}
+    return _mk_cfg(ATSS2DConfig, _as_dict(atss))

@@ -200,6 +200,21 @@ class DfM(nn.Module):
                 for c in range(len(self.cfg.anchor_sizes))]
         return self._anchors[key]
 
+    @property
+    def student(self):
+        """The model inference runs: the DfM itself (a `DfMFull`'s
+        `dfm`)."""
+        return self
+
+    def forward_train(self, img, meta, gt, generator=None,
+                      depth_pix_idx=None):
+        """The forward pass and `dfm_loss` (gt, generator and
+        depth_pix_idx as there) -> (total, dict of terms)."""
+        out = self(img, meta)
+        anchors = self.anchors_per_class(out['cls_score'].shape[1:3],
+                                         out['cls_score'].device)
+        return dfm_loss(out, gt, self.cfg, anchors, generator, depth_pix_idx)
+
     def _stereo_feats(self, img):
         """(B, H, W, 3) image -> stereo (B, H, W, Cs) channels-last and
         sem (B, H/4, W/4, Csem)."""

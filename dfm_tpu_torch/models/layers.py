@@ -171,19 +171,21 @@ def convbn(cin, cout, stride=1, ndim=2, norm='gn'):
 class Hourglass(nn.Module):
     """Two stride-2 encoders, two transposed-conv decoders, skip add at
     1/2 scale (`layers.py:404-443` with presqu = postsqu = None).
-    GroupNorm throughout. Returns the full-resolution output (the caller
-    adds its residual)."""
+    `norm` ('gn' or 'bn') throughout. Returns the full-resolution output
+    (the caller adds its residual)."""
 
-    def __init__(self, c, ndim=3):
+    def __init__(self, c, ndim=3, norm='gn'):
         super().__init__()
         c2 = 2 * c
-        self.conv1 = nn.Sequential(convbn(c, c2, 2, ndim), nn.ReLU())
-        self.conv2 = convbn(c2, c2, ndim=ndim)
-        self.conv3 = nn.Sequential(convbn(c2, c2, 2, ndim), nn.ReLU())
-        self.conv4 = nn.Sequential(convbn(c2, c2, ndim=ndim), nn.ReLU())
+        self.conv1 = nn.Sequential(convbn(c, c2, 2, ndim, norm), nn.ReLU())
+        self.conv2 = convbn(c2, c2, ndim=ndim, norm=norm)
+        self.conv3 = nn.Sequential(convbn(c2, c2, 2, ndim, norm), nn.ReLU())
+        self.conv4 = nn.Sequential(convbn(c2, c2, ndim=ndim, norm=norm),
+                                   nn.ReLU())
         self.conv5 = nn.Sequential(ConvTranspose(c2, c2, ndim),
-                                   GroupNorm(c2))
-        self.conv6 = nn.Sequential(ConvTranspose(c2, c, ndim), GroupNorm(c))
+                                   _norm(norm, c2))
+        self.conv6 = nn.Sequential(ConvTranspose(c2, c, ndim),
+                                   _norm(norm, c))
 
     def forward(self, x):
         pre = F.relu(self.conv2(self.conv1(x)))             # 1/2

@@ -16,12 +16,11 @@ OptimizerHook grad clip 35, AdamW, LR hooks). The JAX package chains
   them too, as `optax.global_norm(grads)` does.
 
 BatchNorm statistics update in the forward pass of a train-mode model
-(`models/layers.py:BatchNorm`).
+(`models/layers.py:BatchNorm`), the frozen LiDAR teacher's of a
+`DfMFull` too (JAX's train step calls it with `train`).
 """
 
 import torch
-
-from ..models.detectors.dfm import dfm_loss
 
 __all__ = ['make_optimizer', 'global_norm', 'clip_by_global_norm',
            'TrainStep']
@@ -54,14 +53,17 @@ def clip_by_global_norm(grads, max_norm, norm=None):
 
 
 class TrainStep:
-    """One optimizer update of a DfM model: `__call__(img, meta, gt,
-    generator)` -> metrics dict of scalar tensors (loss, each loss term,
-    grad_norm), as JAX's `train_step`. The three phases are methods of
-    their own (`forward`, `backward`, `update`) so that a caller can time
-    them apart.
+    """One optimizer update of a DfM or DfMFull model: `__call__(img,
+    meta, gt, generator)` -> metrics dict of scalar tensors (loss, each
+    loss term, grad_norm), as JAX's `train_step`. The three phases are
+    methods of their own (`forward`, `backward`, `update`) so that a
+    caller can time them apart. The model's `forward_train` gives the
+    loss: `dfm_loss`'s terms for a `DfM`; for a `DfMFull`
+    `dfm_full_loss`'s, + loss_cls2d, loss_bbox2d, loss_centerness2d where
+    gt has 2D targets, + loss_imitation where it has points.
 
     Args:
-        model: `DfM` (put in train mode here).
+        model: `DfM` or `DfMFull` (put in train mode here).
         optimizer: from `make_optimizer`.
         schedule: count -> learning rate.
         step: the number of updates already taken (a resumed run's).
@@ -81,11 +83,8 @@ class TrainStep:
         """Train-mode forward and loss -> (total, dict of terms)."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        out = self.model(img, meta)
-        anchors = self.model.anchors_per_class(out['cls_score'].shape[1:3],
-                                               out['cls_score'].device)
-        return dfm_loss(out, gt, self.model.cfg, anchors, generator,
-                        depth_pix_idx)
+        return self.model.forward_train(img, meta, gt, generator,
+                                        depth_pix_idx)
 
     def backward(self, total):
         total.backward()

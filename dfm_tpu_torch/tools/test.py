@@ -8,8 +8,9 @@ Port of `tools/test.py:163-231` (`kitti_dfm_eval`) and the DfM branch of
 its `main`: config -> `kitti_infos_val.pkl` under `data.data_root`
 (`python -m dfm_tpu_torch.tools.create_data kitti` writes it) ->
 `KittiDataset(train=False)` -> the port's model in its default form
-(bfloat16; seeded random weights, or a reference-layout checkpoint) ->
-KITTI annos per frame -> `kitti_eval`, printing the AP of every
+(bfloat16; seeded random weights, or a reference-layout checkpoint, or
+one the port's train CLI wrote for DfM or DfMFull: the student's weights,
+`student_state_dict`) -> KITTI annos per frame -> `kitti_eval`, printing the AP of every
 moderate and every 3d entry. It runs DfM and DfMFull on KITTI only;
 another model type, or a data root without the info file, exits with a
 message and code 2. Runs on the CUDA card unless `--device cpu`.
@@ -28,6 +29,7 @@ from ..evaluation.kitti_eval import kitti_eval
 from ..evaluation.results import detections_to_kitti_annos
 from ..models.builder import build_detector, unused_keys
 from ..runtime.config import load_config, merge_options
+from ..utils.weights import load_reference_state_dict, read_checkpoint
 
 INFO_FILE = 'kitti_infos_val.pkl'
 
@@ -36,8 +38,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('config')
     p.add_argument('--checkpoint', default=None,
-                   help='reference-layout torch checkpoint (.pth); seeded '
-                        'random weights if omitted')
+                   help='reference-layout torch checkpoint (.pth), or '
+                        "one of the port's train CLI; seeded random weights "
+                        'if omitted')
     p.add_argument('--cfg-options', nargs='*', default=None)
     p.add_argument('--eval', default='kitti', choices=['kitti', 'none'])
     p.add_argument('--max-samples', type=int, default=None)
@@ -48,6 +51,18 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def student_state_dict(ckpt):
+    """The weights to evaluate of a checkpoint dict: a DfMFull checkpoint
+    of the port's train CLI holds its student under 'dfm.', and those
+    keys are taken without the prefix (the others stay, to be reported
+    as not taken); any other checkpoint as it is."""
+    sd = ckpt.get('state_dict', ckpt)
+    if not any(k.startswith('dfm.') for k in sd):
+        return sd
+    return {k[len('dfm.'):] if k.startswith('dfm.') else k: v
+            for k, v in sd.items()}
+
+
 def kitti_dfm_eval(args, cfg):
     """Build -> load -> infer -> KITTI AP on the val split."""
     mcfg = build_detector(cfg.model)
@@ -55,7 +70,9 @@ def kitti_dfm_eval(args, cfg):
     print(f'[model] {cfg.model.type} on {handle["device"]}; config keys '
           f'not used at inference: {unused_keys(cfg.model)}', flush=True)
     if args.checkpoint:
-        rest = handle['load_checkpoint'](args.checkpoint)
+        rest = load_reference_state_dict(
+            handle['model'], student_state_dict(read_checkpoint(
+                args.checkpoint)))
         print(f'[checkpoint] {args.checkpoint}: {len(rest)} keys not '
               'taken (teacher, ATSS head, num_batches_tracked)', flush=True)
 

@@ -1,29 +1,36 @@
-"""Train DfM with the port.
+"""Train DfM or DfMFull with the port.
 
-    python -m dfm_tpu_torch.tools.train configs/dfm_r34_kitti_3class.py \\
-        --cfg-options model.type=DfM [--work-dir W] [--auto-resume] \\
-        [--max-steps N] [--eval-samples N] [--seed S] [--device cpu] \\
-        [--tensorboard]
+    python -m dfm_tpu_torch.tools.train configs/dfm_r34_kitti_3class.py \
+        [--cfg-options key=value ...] [--work-dir W] [--auto-resume] \
+        [--max-steps N] [--eval-samples N] [--seed S] [--synthetic] \
+        [--device cpu] [--tensorboard]
 
-Port of the DfM branch of `tools/train.py:38-83, 159-200, 464-649`: the
-config (`runtime/config.py`) -> `kitti_infos_train.pkl` under
-`data.data_root` (`python -m dfm_tpu_torch.tools.create_data kitti
---splits train val` writes it) -> `KittiDataset(train=True)` (flip,
-scale, crop and photometric distortion from `np.random.default_rng(seed)`,
-after one batch drawn and dropped, as JAX's CLI draws its init batch)
--> the bare DfM student in float32, seeded random weights, in train mode
-(the banded form: the conv chain is inference-only) -> `TrainStep`
-(`dfm_loss`, the gradient clip at 35, AdamW under the LIGA schedule; the
-depth loss's pixels from a device generator seeded from (seed, step)) ->
-`<work_dir>/ckpts/step_<n>.pth` every `checkpoint.interval_epochs` and at
-the end, `<work_dir>/metrics.jsonl`, and, where `kitti_infos_val.pkl`
-exists, the KITTI eval every `schedule.eval_interval` epochs on a float32
-model with the trained weights (`dataset_inference`, `kitti_eval`).
-`--auto-resume` continues from the newest checkpoint: weights, optimizer
-state and step. Only `model.type='DfM'` trains here; another type
-(DfMFull, with its LiDAR teacher and ATSS head, or another family) exits
-with a message and code 2, as does a data root without the train infos.
-Runs on the CUDA card unless `--device cpu`.
+Port of the DfM / DfMFull branch of `tools/train.py:38-99, 159-200,
+464-649`: the config (`runtime/config.py`) -> the data: with
+`--synthetic`, `SyntheticSource` (`runtime/adapters.py:dfm_synth`, the
+batch of step s drawn from seed + s, with teacher points and 2D targets
+for DfMFull); else `kitti_infos_train.pkl` under `data.data_root`
+(`python -m dfm_tpu_torch.tools.create_data kitti --splits train val`
+writes it) -> `KittiDataset(train=True)` (flip, scale, crop and
+photometric distortion from `np.random.default_rng(seed)`), after one
+batch drawn and dropped, as JAX's CLI draws its init batch -> the model
+of `model.type` in float32, seeded random weights, in train mode (the
+banded form: the conv chain is inference-only): `DfM`, or `DfMFull`
+(the student under `dfm.`, the FPN + ATSS 2D head from the config's
+`atss`, the dense LiDAR teacher restored from `model.teacher_checkpoint`,
+a flax msgpack tree read by `utils/msgpack_tree.py`, where that file
+exists, and left out of the optimizer) -> `TrainStep` (`dfm_loss` or
+`dfm_full_loss`, the gradient clip at 35, AdamW under the LIGA schedule;
+the depth loss's pixels from a device generator seeded from (seed,
+step)) -> `<work_dir>/ckpts/step_<n>.pth` every
+`checkpoint.interval_epochs` and at the end, `<work_dir>/metrics.jsonl`,
+and, on KITTI data with `kitti_infos_val.pkl`, the KITTI eval of the
+student every `schedule.eval_interval` epochs on a float32 model with the
+trained weights (`dataset_inference`, `kitti_eval`). `--auto-resume`
+continues from the newest checkpoint: weights, optimizer state and step.
+Another model type exits with a message and code 2, as does a data root
+without the train infos (without `--synthetic`). Runs on the CUDA card
+unless `--device cpu`.
 """
 
 import argparse
@@ -39,16 +46,19 @@ from ..apis import _device, dataset_inference, init_dfm_model
 from ..data.collate import build_batch
 from ..data.kitti import KittiDataset
 from ..evaluation.kitti_eval import kitti_eval
-from ..models.builder import build_detector
+from ..models.builder import atss_config, build_detector
 from ..models.detectors.dfm import DfM
+from ..models.detectors.dfm_full import DfMFull
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.config import load_config, merge_options
+from ..runtime.adapters import dfm_synth, to_device
 from ..runtime.logging import MetricsLogger
 from ..runtime.schedule import liga_schedule
 from ..runtime.train import TrainStep, make_optimizer
-from ..utils.weights import init_weights
+from ..utils.msgpack_tree import load_msgpack_tree
+from ..utils.weights import init_weights, teacher_state_dict
 
-TRAINED_TYPES = ('DfM',)
+TRAINED_TYPES = ('DfM', 'DfMFull')
 
 
 def parse_args(argv=None):
@@ -62,6 +72,8 @@ def parse_args(argv=None):
     p.add_argument('--eval-samples', type=int, default=None,
                    help='cap val samples per eval (debug)')
     p.add_argument('--seed', type=int, default=0)
+    p.add_argument('--synthetic', action='store_true',
+                   help='train on synthetic batches (no data needed)')
     p.add_argument('--device', default=None,
                    help="torch device; the CUDA card if omitted, 'cpu' to "
                         'run the plain versions on the CPU')
@@ -113,8 +125,9 @@ class KittiDfMSource:
     def steps_per_epoch(self):
         return max(len(self.ds) // self.batch_size, 1)
 
-    def next_samples(self, rng):
-        """The next batch's pipeline samples, drawn from `rng`."""
+    def next_samples(self, step, rng):
+        """The next batch's pipeline samples, drawn from `rng` (the step
+        is not used)."""
         idxs = []
         while len(idxs) < self.batch_size:
             if self.order is None or self.cursor >= len(self.order):
@@ -124,16 +137,50 @@ class KittiDfMSource:
             self.cursor += 1
         return [self.ds.get_sample(i, rng) for i in idxs]
 
-    def next_batch(self, rng, device):
-        return build_batch(self.next_samples(rng), device)
+    def next_batch(self, step, rng, device):
+        return build_batch(self.next_samples(step, rng), device)
+
+
+class SyntheticSource:
+    """`tools/train.py:SyntheticSource` for DfM and DfMFull: the batch of
+    step s is `dfm_synth(cfg, batch_size, seed + s, full)` (32x64 images,
+    as JAX's adapter makes them); `rng` is not drawn from. 16 steps an
+    epoch."""
+
+    steps_per_epoch = 16
+
+    def __init__(self, mcfg, batch_size, seed, full):
+        self.cfg, self.batch_size = mcfg, batch_size
+        self.seed, self.full = seed, full
+
+    def next_samples(self, step, rng):
+        return dfm_synth(self.cfg, self.batch_size, self.seed + step,
+                         full=self.full)
+
+    def next_batch(self, step, rng, device):
+        return to_device(self.next_samples(step, rng), device)
 
 
 def discard_init_draw(source, rng):
-    """Draw one batch from `source` and `rng` and drop it. JAX's CLI draws
+    """Draw batch 0 from `source` and `rng` and drop it. JAX's CLI draws
     the batch it initialises the model on before its loop
     (`tools/train.py:514-517`), on a resume too; the port draws it as well,
     so that one seed trains both on the same samples and augmentations."""
-    source.next_samples(rng)
+    source.next_samples(0, rng)
+
+
+def restore_teacher(model, path):
+    """JAX's teacher restore (`tools/train.py:521-537`): the flax msgpack
+    tree at `path` replaces the teacher's parameters, and its running
+    statistics where the tree has 'batch_stats'. Raises KeyError for a
+    tree that is not a dense `LidarTeacher`'s (`teacher_state_dict`)."""
+    sd = teacher_state_dict(load_msgpack_tree(path))
+    missing, unexpected = model.lidar_teacher.load_state_dict(sd,
+                                                              strict=False)
+    bad = unexpected + [k for k in missing
+                        if not k.endswith(('running_mean', 'running_var'))]
+    if bad:
+        raise KeyError(f'teacher file {path}: keys {bad}')
 
 
 def run_eval(cfg, mcfg, model, device, max_samples):
@@ -147,7 +194,7 @@ def run_eval(cfg, mcfg, model, device, max_samples):
                           pipeline_kwargs=dict(crop_size=tuple(d.crop_size),
                                                max_gt=d.max_gt))
     handle = init_dfm_model(mcfg, dtype=torch.float32, device=device)
-    handle['model'].load_state_dict(model.state_dict())
+    handle['model'].load_state_dict(model.student.state_dict())
     n = min(len(val_ds), max_samples or len(val_ds))
     dt_annos = dataset_inference(handle, val_ds, max_samples=n)
     gt_annos = []
@@ -173,26 +220,39 @@ def main(argv=None):
     kind = cfg.model.get('type', '')
     if kind not in TRAINED_TYPES:
         print(f'[model] training of model type {kind!r} is not ported yet '
-              f'to dfm_tpu_torch (trained here: {", ".join(TRAINED_TYPES)}; '
-              "pass --cfg-options model.type=DfM for the bare student)",
+              f'to dfm_tpu_torch (trained here: {", ".join(TRAINED_TYPES)})',
               file=sys.stderr)
         return 2
-    d = cfg.data
-    if d.get('type', '') != 'KittiDataset' or not os.path.exists(
-            os.path.join(d.get('data_root', ''), 'kitti_infos_train.pkl')):
-        print(f'[data] DfM trains on KITTI infos: no kitti_infos_train.pkl '
+    d = cfg.get('data', {}) or {}
+    if not args.synthetic and (
+            d.get('type', '') != 'KittiDataset' or not os.path.exists(
+                os.path.join(d.get('data_root', ''),
+                             'kitti_infos_train.pkl'))):
+        print(f'[data] {kind} trains on KITTI infos: no kitti_infos_train.pkl '
               f'under {d.get("data_root", "")!r} (dataset type '
-              f'{d.get("type", "")!r})', file=sys.stderr)
+              f'{d.get("type", "")!r}); --synthetic trains on synthetic '
+              'batches', file=sys.stderr)
         return 2
     os.makedirs(args.work_dir, exist_ok=True)
     cfg.dump(os.path.join(args.work_dir, 'config.json'))
     device = _device(args.device)
     mcfg = build_detector(cfg.model)
-    model = init_weights(DfM(mcfg, dtype=torch.float32), args.seed).to(
-        device)
+    full = kind == 'DfMFull'
+    model = DfMFull(mcfg, atss_config(cfg.model)) if full else DfM(mcfg)
+    model = init_weights(model, args.seed)
     print(f'[model] {kind}, float32, on {device}', flush=True)
+    tck = cfg.model.get('teacher_checkpoint', '') if full else ''
+    if tck and os.path.exists(tck):
+        restore_teacher(model, tck)
+        print(f'[teacher] restored from {tck}', flush=True)
+    elif tck:
+        print(f'[teacher] {tck!r} not found -> the frozen teacher keeps '
+              'its random init (set model.teacher_checkpoint)', flush=True)
+    model = model.to(device)
 
-    source = KittiDfMSource(cfg, d.get('batch_size_per_chip', 1))
+    batch_size = d.get('batch_size_per_chip', 1)
+    source = SyntheticSource(mcfg, batch_size, args.seed, full) \
+        if args.synthetic else KittiDfMSource(cfg, batch_size)
     steps_per_epoch = source.steps_per_epoch
     sched_cfg = cfg.get('schedule', {}) or {}
     total_steps = steps_per_epoch * sched_cfg.get('total_epochs', 1)
@@ -204,7 +264,10 @@ def main(argv=None):
         decay_steps=[e * steps_per_epoch
                      for e in opt.get('decay_epochs', (1000,))],
         gamma=opt.get('gamma', 0.1))
-    optimizer = make_optimizer(model, opt.get('weight_decay', 1e-4))
+    # the reference freezes the LiDAR teacher (dfm.py:72-75): no update
+    # and no decay
+    optimizer = make_optimizer(model, opt.get('weight_decay', 1e-4),
+                               ('lidar_teacher',) if full else ())
 
     ck = cfg.get('checkpoint', {}) or {}
     ckpt = CheckpointManager(os.path.join(args.work_dir, 'ckpts'),
@@ -227,7 +290,7 @@ def main(argv=None):
     t0 = time.time()
     try:
         while step < max_steps:
-            img, meta, gt = source.next_batch(rng, device)
+            img, meta, gt = source.next_batch(step, rng, device)
             metrics = train_step(img, meta, gt,
                                  step_generator(args.seed, step, device))
             step += 1
@@ -240,7 +303,7 @@ def main(argv=None):
                       flush=True)
             if step % ck_interval == 0:
                 ckpt.save(step, model, optimizer, cfg.to_dict())
-                if step % eval_interval == 0:
+                if step % eval_interval == 0 and not args.synthetic:
                     run_eval(cfg, mcfg, model, device, args.eval_samples)
         path = ckpt.save(step, model, optimizer, cfg.to_dict())
     finally:

@@ -24,9 +24,10 @@ import pickle
 import numpy as np
 import torch
 
-__all__ = ['dfm_key_map', 'state_dict_from_jax', 'torch_conv_weight',
+__all__ = ['dfm_key_map', 'dfm_full_key_map', 'state_dict_from_jax',
+           'teacher_state_dict', 'torch_conv_weight',
            'init_weights', 'load_reference_state_dict',
-           'load_reference_checkpoint']
+           'load_reference_checkpoint', 'read_checkpoint']
 
 
 def _norm_mod(norm):
@@ -125,6 +126,38 @@ def dfm_key_map(stage_blocks=(3, 4, 6, 3)):
     return m
 
 
+def dfm_full_key_map(stacked_convs=4):
+    """(torch_prefix, flax_path, kind) for the JAX `DfMFull` tree
+    (DfM-R34): the student's `dfm_key_map` under 'dfm', the FPN `neck_2d`
+    (one input, five outputs), the ATSS head `bbox_head_2d`
+    (`stacked_convs` per tower), the teacher `lidar_teacher` (enc0..2 and
+    its BEV hourglass, BatchNorm) and the adapters `imit_bev` (1x1) and
+    `imit_vol` (1x1x1)."""
+    m = [(f'dfm.{p}', ('dfm',) + f, k) for p, f, k in dfm_key_map()]
+    n = ('neck_2d',)
+    m += [('neck_2d.lateral0', n + ('lateral0',), 'conv2d'),
+          ('neck_2d.fpn_conv0', n + ('fpn_conv0',), 'conv2d')]
+    m += [(f'neck_2d.extra_conv{j}', n + (f'extra_conv{j}',), 'conv2d')
+          for j in range(1, 5)]
+    h = ('bbox_head_2d',)
+    for i in range(stacked_convs):
+        for tower in ('cls_tower', 'reg_tower'):
+            m += _convnorm(f'bbox_head_2d.{tower}{i}', h + (f'{tower}{i}',),
+                           2)
+    m += [(f'bbox_head_2d.{k}', h + (k,), 'conv2d')
+          for k in ('atss_cls', 'atss_reg', 'atss_centerness')]
+    t = ('lidar_teacher',)
+    for i in range(3):
+        m += _convnorm(f'lidar_teacher.enc{i}', t + (f'enc{i}',), 3, 'bn')
+    m += _convnorm('lidar_teacher.bev.compress_conv', t + ('bev', 'compress'),
+                   2, 'bn')
+    m += _hourglass('lidar_teacher.bev.bev_hourglass', t + ('bev', 'hg'), 2,
+                    'bn')
+    m += [('imit_bev', ('imit_bev', 'Conv_0'), 'conv2d'),
+          ('imit_vol', ('imit_vol', 'Conv_0'), 'conv3d')]
+    return m
+
+
 def _get(tree, path):
     for k in path:
         tree = tree[k]
@@ -151,15 +184,15 @@ def torch_conv_weight(kernel):
 
 def state_dict_from_jax(variables, key_map=None):
     """The port's state_dict from a flax {'params', 'batch_stats'} tree
-    of numpy arrays (every leaf of `key_map` must exist)."""
+    of numpy arrays (every leaf of `key_map` must exist; a tree without
+    'batch_stats' gives no BatchNorm running statistics)."""
     key_map = dfm_key_map() if key_map is None else key_map
     params = variables['params']
-    stats = variables.get('batch_stats', {})
+    stats = variables.get('batch_stats')
     sd = {}
 
     def put(key, value):
-        sd[key] = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(value, np.float32)))
+        sd[key] = torch.from_numpy(np.array(value, np.float32))
 
     for prefix, fpath, kind in key_map:
         node = _get(params, fpath)
@@ -170,11 +203,44 @@ def state_dict_from_jax(variables, key_map=None):
         else:
             put(f'{prefix}.weight', node['scale'])
             put(f'{prefix}.bias', node['bias'])
-            if kind == 'bn':
+            if kind == 'bn' and stats is not None:
                 st = _get(stats, fpath)
                 put(f'{prefix}.running_mean', st['mean'])
                 put(f'{prefix}.running_var', st['var'])
     return sd
+
+
+def teacher_state_dict(tree):
+    """The state dict of a `LidarTeacher` (keys relative to it) from a
+    teacher file's tree, JAX's restore (`tools/train.py:521-537`): its
+    'params' are the teacher's parameters, its 'batch_stats', when
+    present and not empty, the running statistics (else none are given).
+    Raises KeyError naming every parameter group the tree lacks: a tree
+    of another teacher (the sparse SECOND converter's 'middle_encoder')
+    has no enc0, enc1, enc2."""
+    entries = [(p[len('lidar_teacher.'):], f[1:], k)
+               for p, f, k in dfm_full_key_map() if f[0] == 'lidar_teacher']
+    params = tree.get('params') if isinstance(tree, dict) else None
+    if not isinstance(params, dict):
+        raise KeyError("the teacher file holds no 'params' tree")
+
+    def has(t, path):
+        for k in path:
+            if not isinstance(t, dict) or k not in t:
+                return False
+            t = t[k]
+        return True
+
+    missing = sorted({'/'.join(f) for _, f, _ in entries
+                      if not has(params, f)})
+    if missing:
+        raise KeyError(f'the teacher file is not a dense LidarTeacher tree: '
+                       f'{len(missing)} parameter groups missing: {missing} '
+                       f'(its params hold {sorted(params)})')
+    stats = tree.get('batch_stats') or None
+    return state_dict_from_jax(
+        {'params': params} if stats is None else
+        {'params': params, 'batch_stats': stats}, entries)
 
 
 def init_weights(model, seed=0):
@@ -233,9 +299,14 @@ def load_reference_state_dict(model, state_dict):
 
 
 def load_reference_checkpoint(model, path):
-    """`load_reference_state_dict(model, <the checkpoint at path>)`,
-    read with `torch.load(..., map_location='cpu', weights_only=True)`:
-    tensors and plain containers only, never arbitrary objects."""
+    """`load_reference_state_dict(model, read_checkpoint(path))`."""
+    return load_reference_state_dict(model, read_checkpoint(path))
+
+
+def read_checkpoint(path):
+    """The checkpoint at `path`, read with `torch.load(...,
+    map_location='cpu', weights_only=True)`: tensors and plain
+    containers only, never arbitrary objects."""
     try:
         ckpt = torch.load(path, map_location='cpu', weights_only=True)
     except pickle.UnpicklingError as e:
@@ -245,4 +316,4 @@ def load_reference_checkpoint(model, path):
             'with weights_only=True; it is not unpickled. Save its '
             "'state_dict' alone (torch.save(ckpt['state_dict'], path)) "
             f'and load that. torch.load said: {e}') from e
-    return load_reference_state_dict(model, ckpt)
+    return ckpt

@@ -385,7 +385,9 @@ def test_port_runs_without_jax(tmp_path):
     version, K1's sweep on the CPU, a tiny `dataset_inference` on a
     synthetic KITTI tree in `tmp_path` (PNG files), and one CPU train
     step on a training sample of that tree (flip, resize, photometric
-    distortion), without loading JAX, cv2, PIL or optax."""
+    distortion), and one DfMFull step on a synthetic batch with a teacher
+    file written and read back, without loading JAX, cv2, PIL, optax or
+    msgpack."""
     code = (
         'import sys, numpy as np, torch\n'
         'torch.set_num_threads(1)    # small ops; workers share the cores\n'
@@ -451,9 +453,22 @@ def test_port_runs_without_jax(tmp_path):
         'out = step(img, meta, gt, torch.Generator().manual_seed(0))\n'
         "assert all(torch.isfinite(v) for v in out.values()), out\n"
         "assert m.training and float(meta.flip[0]) == 1.0\n"
+        'from dfm_tpu_torch.models.detectors.dfm_full import DfMFull\n'
+        'from dfm_tpu_torch.runtime.adapters import dfm_synth, to_device\n'
+        'from dfm_tpu_torch.utils.msgpack_tree import load_msgpack_tree\n'
+        'from dfm_tpu_torch.utils.weights import init_weights\n'
+        'full = init_weights(DfMFull(cfg))\n'
+        "f = r'" + str(tmp_path / 'teacher.msgpack') + "'\n"
+        'open(f, "wb").write(chip_smoke.msgpack_tree_bytes('
+        'chip_smoke.teacher_tree(full.lidar_teacher, 0)))\n'
+        "assert 'enc0' in load_msgpack_tree(f)['params']\n"
+        'step = TrainStep(full, make_optimizer(full, frozen_prefixes=('
+        "'lidar_teacher',)), liga_schedule(1e-3))\n"
+        "out = step(*to_device(dfm_synth(cfg, 1, 0, full=True), 'cpu'))\n"
+        "assert torch.isfinite(out['loss_imitation'])\n"
         "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
         "assert 'cv2' not in sys.modules and 'PIL' not in sys.modules\n"
-        "assert 'optax' not in sys.modules\n"
+        "assert 'optax' not in sys.modules and 'msgpack' not in sys.modules\n"
         "assert not any(m.split('.')[0] == 'dfm_tpu' for m in sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -465,7 +480,8 @@ def test_port_runs_without_jax(tmp_path):
 
 def test_no_jax_import_in_port_sources():
     pat = re.compile(
-        r'^\s*(import|from)\s+(jax|flax|optax|dfm_tpu|cv2|PIL)(\.|\s|$)', re.M)
+        r'^\s*(import|from)\s+(jax|flax|optax|msgpack|dfm_tpu|cv2|PIL)'
+        r'(\.|\s|$)', re.M)
     files = [os.path.join(ROOT, 'chip_smoke.py')]
     for d, _, names in os.walk(os.path.join(ROOT, 'dfm_tpu_torch')):
         files += [os.path.join(d, n) for n in names if n.endswith('.py')]
