@@ -151,6 +151,28 @@ Phases, one line each; any failure raises and no result is printed:
               new terms finite), a resume to 3 (the optimizer's sha1),
               the teacher's parameters in the checkpoint equal to the
               file's, and `tools.test` on that checkpoint to 36 AP lines
+  9. mvdfm    MultiViewDfM (MV-FCOS3D++, configs/multiview_dfm_r101_
+              waymo_camsync.py), no port kernel on its path: (a) a tiny
+              config (ResNet-50, 3 views, 2 frames, 32x48, a 4x16x16
+              grid) in float32, TF32 off, seeded live weights, on the
+              card and on the CPU: trunk + FPN level 0, the sampled
+              volume, the BEV map and the head outputs within relative L2
+              1e-4, the detections' labels equal and scores / boxes
+              within 1e-3, no port-kernel launch; (b) a synthetic Waymo
+              kitti_format tree (2 frames, 5 PNG views at Waymo's camera
+              sizes, infos with lidar2img, annos, cam_sync_annos, context
+              and timestamps; PNG decode ms per view), then the full
+              camsync config on its first frame (1 x 5 x 640x960) in bf16
+              and f32: ms per request (host clock ending in a
+              synchronise, median of 3 after 2 warm-ups), ms per stage
+              (trunk + FPN, view sample, neck, head, predict), their
+              GFLOP and TFLOP/s, peak memory, 0 port-kernel launches,
+              finite detections; (c) `dfm_tpu_torch.tools.test` on the
+              camsync config in processes of their own: the full config
+              on the card with a seeded live checkpoint over the tree, to
+              15 finite LET lines from `python_fallback`, and a tiny
+              config on a tree at 1/20 of the sizes on the card and on
+              the CPU (f32, TF32 off), their detections equal within 1e-3
 Then the kernels JSON line, the card line, and the result line.
 Exits non-zero without a result when there is no CUDA device or the
 package is not beside the script.
@@ -456,6 +478,86 @@ def write_kitti_tree(root, seed=0, frames=KITTI_FRAMES):
         with open(os.path.join(root, 'ImageSets', f'{split}.txt'), 'w') as f:
             f.write('\n'.join(f'{i:06d}' for i in ids) + '\n')
     return ids
+
+
+# --- a synthetic Waymo kitti_format tree (phase 9; the port's tests use it
+# too): Waymo's five cameras at their sizes (H, W), yaw from the vehicle's x
+WAYMO_CAMERAS = (('FRONT', (1280, 1920), 0.0),
+                 ('FRONT_LEFT', (1280, 1920), 0.785),
+                 ('FRONT_RIGHT', (1280, 1920), -0.785),
+                 ('SIDE_LEFT', (886, 1920), 1.571),
+                 ('SIDE_RIGHT', (886, 1920), -1.571))
+WAYMO_FOCAL = 2055.0          # px at 1920 wide, about Waymo's front camera
+WAYMO_CAMERA_AT = (1.43, 0.0, 2.18)   # vehicle frame (the LET metric's)
+# vehicle-frame objects: label, bottom-centre box (x, y, z, l, w, h, yaw),
+# most visible camera
+WAYMO_OBJECTS = (
+    (0, (15.0, 0.0, 0.0, 4.5, 2.0, 1.6, 0.1), 'FRONT'),
+    (0, (25.0, -5.0, 0.0, 4.6, 2.0, 1.7, -0.2), 'FRONT'),
+    (0, (12.0, 10.0, 0.0, 4.4, 1.9, 1.5, 1.3), 'FRONT_LEFT'),
+    (0, (0.5, 12.0, 0.0, 4.5, 2.0, 1.6, 0.0), 'SIDE_LEFT'),
+    (1, (10.0, -3.0, 0.0, 0.8, 0.7, 1.75, 0.0), 'FRONT'),
+    (2, (18.0, 4.0, 0.0, 1.8, 0.7, 1.7, 0.5), 'FRONT'))
+
+
+def waymo_lidar2img(yaw, hw, scale=1.0):
+    """(4, 4) vehicle -> pixel projection of a camera at WAYMO_CAMERA_AT
+    looking along `yaw`, principal point at the image centre."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    rot = np.array([[s, -c, 0], [0, 0, -1], [c, s, 0]])   # right, down, fwd
+    ext = np.eye(4)
+    ext[:3, :3] = rot
+    ext[:3, 3] = -rot @ np.asarray(WAYMO_CAMERA_AT)
+    k = np.eye(4)
+    k[0, 0] = k[1, 1] = WAYMO_FOCAL * scale
+    k[0, 2], k[1, 2] = hw[1] / 2, hw[0] / 2
+    return k @ ext
+
+
+def write_waymo_tree(root, seed=0, frames=2, scale=1.0):
+    """A Waymo kitti_format tree under `root`: `frames` frames of one
+    context, five PNG views each at Waymo's camera sizes times `scale`
+    (training/image_{v}/{idx:07d}.png), and `waymo_infos_val.pkl` with
+    lidar2img, ego2global, the objects as 'annos' and 'cam_sync_annos'
+    (gt_boxes / gt_boxes_3d bottom-centre, labels, names, camera_names,
+    num_lidar_points), context_name and timestamp_micros; returns the
+    infos."""
+    import os
+    import pickle
+    rng = np.random.default_rng(seed)
+    names = ('Car', 'Pedestrian', 'Cyclist')
+    boxes = np.array([b for _, b, _ in WAYMO_OBJECTS])
+    labels = np.array([lb for lb, _, _ in WAYMO_OBJECTS])
+    annos = dict(gt_boxes=boxes, gt_boxes_3d=boxes, labels=labels,
+                 names=[names[lb] for lb in labels],
+                 camera_names=[c for _, _, c in WAYMO_OBJECTS],
+                 num_lidar_points=np.full(len(boxes), 50))
+    infos = []
+    for idx in range(frames):
+        views = []
+        for v, (_, (h, w), yaw) in enumerate(WAYMO_CAMERAS):
+            h, w = int(h * scale), int(w * scale)
+            path = f'training/image_{v}/{idx:07d}.png'
+            os.makedirs(os.path.join(root, os.path.dirname(path)),
+                        exist_ok=True)
+            yy, xx = np.mgrid[0:h, 0:w]
+            img = (np.sin(xx / 37.0 + idx + v)[..., None] * 50
+                   + np.cos(yy / 19.0)[..., None] * 40 + [100, 110, 120]
+                   + rng.normal(0, 10, (h, w, 3)))
+            with open(os.path.join(root, path), 'wb') as f:
+                f.write(png_bytes(np.clip(img, 0, 255).astype(np.uint8)))
+            l2i = waymo_lidar2img(yaw, (h, w), scale)
+            views.append(dict(image_path=path, lidar2img=l2i,
+                              cam2img=l2i, height=h, width=w))
+        e2g = np.eye(4)
+        e2g[0, 3] = 2.0 * idx
+        infos.append(dict(sample_idx=idx, context_name='synthetic_ctx',
+                          timestamp_micros=1_000_000 + 100_000 * idx,
+                          images=views, ego2global=e2g,
+                          annos=dict(annos), cam_sync_annos=dict(annos)))
+    with open(os.path.join(root, 'waymo_infos_val.pkl'), 'wb') as f:
+        pickle.dump(infos, f)
+    return infos
 
 
 def _msgpack_head(n, fix, fix_max, codes):
@@ -2394,6 +2496,301 @@ def full_train_phase(cfg, dev, root, ids, infos, bare_med):
           flush=True)
 
 
+# phase 9: MultiViewDfM (MV-FCOS3D++, the camsync config) on the card
+MV_TINY = dict(num_views=3, num_frames=2, feat_channels=16,
+               voxel_range=(-8, -8, -1, 8, 8, 3), voxel_grid=(4, 16, 16),
+               anchor_ranges=((-8, -8, 0.0, 8, 8, 0.0),) * 3,
+               backbone_depth=50, nms_pre=128, max_num=8)
+MV_TINY_HW = (32, 48)
+MV_HW = (640, 960)            # the camsync config's data.target_hw
+MV_STAGE_REL_L2 = 1e-4        # card vs CPU, float32 with TF32 off
+MV_DET_TOL = (1e-3, 1e-3)     # scores atol; boxes atol + rtol
+MV_WARMUP, MV_TIMED = 2, 3
+# the CLI's tiny MultiViewDfM (card vs CPU) on a tree at 1/20 of the sizes
+MV_CLI_TINY = ('data.target_hw=(32,48)', 'model.backbone_depth=18',
+               'model.feat_channels=16', 'model.voxel_grid=(4,24,30)',
+               'model.max_num=20')
+LET_LINE = re.compile(r'^(Vehicle|Pedestrian|Cyclist|Sign|Overall) '
+                      r'(mAP|mAPH|mAPL): (\S+)$', re.M)
+
+
+def _mv_inputs(cfg, hw, frames, seed):
+    """Seeded images (1, F, V, H, W, 3) and the synthetic Waymo cameras'
+    lidar2img (1, F, V, 4, 4) at (H, W), earlier frames moved 1.5 m back
+    along x (ego-motion)."""
+    v = cfg.num_views
+    imgs = np.random.RandomState(seed).randn(1, frames, v, *hw, 3)
+    l2i = np.zeros((1, frames, v, 4, 4), np.float32)
+    for f in range(frames):
+        move = np.eye(4)
+        move[0, 3] = 1.5 * f
+        for i in range(v):
+            yaw = WAYMO_CAMERAS[i][2]
+            l2i[0, f, i] = waymo_lidar2img(yaw, hw, hw[1] / 1920) @ move
+    return torch.from_numpy(imgs.astype(np.float32)), torch.from_numpy(l2i)
+
+
+def _mv_stages(model, imgs, l2i, cfg):
+    """The stages of one request, each ended by a synchronise on the
+    card: (outputs, ms of trunk + FPN, view sample, neck, head,
+    predict)."""
+    from dfm_tpu_torch.models.detectors.multiview_dfm import mvdfm_predict
+    sync = torch.cuda.synchronize if imgs.is_cuda else (lambda: None)
+    out, ms = {}, []
+    with torch.inference_mode():
+        for name, fn in (
+                ('feat0', lambda: model.image_features(imgs)),
+                ('volume', lambda: model.sample_volume(
+                    out['feat0'], l2i, tuple(imgs.shape[3:5]))),
+                ('bev', lambda: model.neck_3d(out['volume'])),
+                ('heads', lambda: model.bbox_head_3d(out['bev'])),
+                ('det', lambda: mvdfm_predict(dict(zip(
+                    ('cls_score', 'bbox_pred', 'dir_pred'), out['heads'])),
+                    cfg))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def _mv_dets_agree(what, got, want, tol):
+    """Kept detections of two runs (lists of 'boxes_3d' / 'scores_3d' /
+    'labels_3d' dicts): counts and labels equal, scores within tol[0],
+    boxes within tol[1] absolute + tol[1] relative. Returns the number of
+    detections and the worst score and box errors."""
+    check(len(got) == len(want), f'{what}: {len(got)} vs {len(want)} frames')
+    n, worst = 0, [0.0, 0.0]
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(np.array_equal(g['labels_3d'], w['labels_3d']),
+              f'{what}, frame {i}: labels {g["labels_3d"]} vs '
+              f'{w["labels_3d"]}')
+        n += len(w['labels_3d'])
+        if not len(w['labels_3d']):
+            continue
+        ds = np.abs(g['scores_3d'] - w['scores_3d'])
+        db = np.abs(g['boxes_3d'] - w['boxes_3d'])
+        worst[0] = max(worst[0], float(ds.max()))
+        worst[1] = max(worst[1], float(db.max()))
+        check(bool((ds <= tol[0]).all()), f'{what}, frame {i}: scores off '
+              f'by {ds.max()}')
+        check(bool((db <= tol[1] + tol[1] * np.abs(w['boxes_3d'])).all()),
+              f'{what}, frame {i}: boxes off by {db.max()}')
+    return n, worst
+
+
+def mvdfm_phase(dev):
+    """Phase 9: (a) the tiny config card vs CPU, (b) the full camsync
+    config in bf16 and f32, (c) the Waymo CLI on a synthetic tree."""
+    import os
+    import pickle
+    import tempfile
+    from dfm_tpu_torch.apis import init_mvdfm_model
+    from dfm_tpu_torch.data.png import read_png
+    from dfm_tpu_torch.data.waymo import WaymoDataset
+    from dfm_tpu_torch.models.builder import build_detector
+    from dfm_tpu_torch.models.detectors.multiview_dfm import MVDfMConfig
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.runtime.config import load_config, merge_options
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(here, 'configs',
+                          'multiview_dfm_r101_waymo_camsync.py')
+
+    # (a) tiny: every stage and the detections, card vs CPU, f32, TF32 off
+    tiny = MVDfMConfig(**MV_TINY)
+    imgs, l2i = _mv_inputs(tiny, MV_TINY_HW, tiny.num_frames, 3)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = {}
+        K.reset_launch_counts()
+        for d in ('cpu', dev):
+            h = init_mvdfm_model(tiny, torch.float32, d)
+            _live_weights(h['model'], 4, 2.0)
+            outs[d], _ = _mv_stages(h['model'], imgs.to(d), l2i.to(d), tiny)
+        check(not any(K.LAUNCHES.values()), f'tiny MultiViewDfM launched '
+              f'port kernels: {K.LAUNCHES}')
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    rel = {}
+    for key in ('feat0', 'volume', 'bev', 'heads'):
+        a = outs['cpu'][key]
+        b = outs[dev][key]
+        a, b = (torch.cat([t.flatten() for t in x]) if isinstance(x, tuple)
+                else x.flatten() for x in (a, b))
+        rel[key] = float((b.cpu().double() - a.double()).norm()
+                         / a.double().norm())
+        check(rel[key] <= MV_STAGE_REL_L2, f'tiny MultiViewDfM {key} card vs '
+              f'CPU: relative L2 {rel[key]}')
+    seen = float((outs['cpu']['volume'].abs().sum(1) > 0).float().mean())
+    check(0.05 < seen < 1, f'tiny MultiViewDfM: {seen} of the voxels seen')
+    dets = {}
+    for d in ('cpu', dev):
+        det = {k: v[0].cpu().numpy() for k, v in outs[d]['det'].items()}
+        m = det['mask'].astype(bool)
+        dets[d] = [dict(boxes_3d=det['boxes3d'][m], scores_3d=det['scores'][m],
+                        labels_3d=det['labels'][m])]
+    n, worst = _mv_dets_agree('tiny MultiViewDfM dets card vs CPU',
+                              dets[dev], dets['cpu'], MV_DET_TOL)
+    check(n > 0, 'tiny MultiViewDfM: no live detection')
+    print(f'mvdfm tiny f32 (TF32 off) card vs cpu: relative L2 '
+          f'{ {k: float(f"{v:.3g}") for k, v in rel.items()} } (tol '
+          f'{MV_STAGE_REL_L2}), {seen:.3f} of the voxels seen, {n} dets, '
+          f'max abs err score {worst[0]:.3g} box {worst[1]:.3g} (tol '
+          f'{MV_DET_TOL}), launches 0', flush=True)
+    del outs
+
+    with tempfile.TemporaryDirectory() as root, \
+            tempfile.TemporaryDirectory() as small:
+        t0 = time.perf_counter()
+        infos = write_waymo_tree(root)
+        write_waymo_tree(small, scale=0.05)
+        tree_s = time.perf_counter() - t0
+        full = MVDfMConfig()
+        ds = WaymoDataset(root, infos, target_hw=MV_HW, cam_sync=True)
+        png_ms = []
+        for cam in infos[0]['images']:
+            t0 = time.perf_counter()
+            read_png(os.path.join(root, cam['image_path']))
+            png_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        sample = ds.get_sample(0)
+        frame_ms = (time.perf_counter() - t0) * 1e3
+        imgs = torch.from_numpy(sample['imgs'])[None].to(dev)
+        l2i = torch.from_numpy(sample['lidar2img'])[None].to(dev)
+        print(f'mvdfm data: synthetic trees {tree_s:.1f} s; png decode '
+              f'ms per view {[round(x, 1) for x in png_ms]} (5 views '
+              f'{sum(png_ms):.1f}); assemble_multiview_sample of one frame '
+              f'{frame_ms:.1f} ms (decode, resize, normalise)', flush=True)
+
+        # (b) the full camsync config: bf16 (the default) and f32
+        for dtype in (torch.bfloat16, torch.float32):
+            h = init_mvdfm_model(full, dtype)
+            model = h['model']
+            with torch.no_grad():    # live scores: nms_pre boxes into NMS
+                model.bbox_head_3d.conv_cls.bias.fill_(-1.0)
+            for _ in range(MV_WARMUP):
+                h['infer'](imgs, l2i)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            ms = []
+            for _ in range(MV_TIMED):
+                t0 = time.perf_counter()
+                det = h['infer'](imgs, l2i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(K.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            check(not any(launches.values()), f'MultiViewDfM launched port '
+                  f'kernels: {launches}')
+            kept = _finite_dets(det, f'MultiViewDfM {dtype}')
+            check(kept > 0, f'MultiViewDfM {dtype}: no live detection')
+            runs = [_mv_stages(model, imgs, l2i, full)
+                    for _ in range(MV_TIMED)]
+            stages = np.median([r[1] for r in runs], 0)
+            out = runs[-1][0]
+            del runs
+            vol = out['volume']
+            check(tuple(vol.shape) == (1, full.feat_channels,
+                                       *full.voxel_grid) and
+                  bool(torch.isfinite(vol).all()), 'full volume')
+            check(tuple(out['bev'].shape) == (1, 256, *full.voxel_grid[1:])
+                  and bool(torch.isfinite(out['bev']).all()), 'full BEV')
+            seen = float((vol.abs().sum(1) > 0).float().mean())
+            trunk = _flops_of(model.image_features, imgs)
+            neck = _flops_of(model.neck_3d, vol)
+            names = ('trunk+fpn', 'view sample', 'neck', 'head', 'predict')
+            tf32 = (' (TF32 convs '
+                    f'{"on" if torch.backends.cudnn.allow_tf32 else "off"})'
+                    if dtype == torch.float32 else '')
+            print(f'mvdfm full {str(dtype)[6:]}{tf32}: ms/request '
+                  f'{[round(x, 3) for x in ms]} median '
+                  f'{float(np.median(ms)):.3f}; stages ms (median of '
+                  f'{MV_TIMED}) ' + ', '.join(
+                      f'{n} {x:.3f}' for n, x in zip(names, stages))
+                  + f'; GFLOP trunk+fpn {trunk / 1e9:.1f} neck '
+                  f'{neck / 1e9:.1f} (TFLOP/s {trunk / stages[0] / 1e9:.1f}, '
+                  f'{neck / stages[2] / 1e9:.1f}); peak_mem_bytes {peak}; '
+                  f'kept {kept}; {seen:.3f} of the voxels seen; port-kernel '
+                  f'launches {sum(launches.values())}', flush=True)
+            del h, model, out, vol
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # (c) the CLI on the trees: the full config on the card (bf16), and
+        # the tiny config on the card and on the CPU in f32 (TF32 off)
+        ckpt = os.path.join(root, 'live.pth')
+        h = init_mvdfm_model(full, torch.float32, 'cpu')
+        _live_weights(h['model'], 5, 4.0)
+        torch.save(h['model'].state_dict(), ckpt)
+        del h
+        env = dict(os.environ, PYTHONPATH=here, NVIDIA_TF32_OVERRIDE='0')
+
+        def cli(data_root, *extra, options=()):
+            return subprocess.Popen(
+                [sys.executable, '-m', 'dfm_tpu_torch.tools.test', config,
+                 *extra, '--cfg-options', f'data.data_root={data_root}',
+                 'data.cam_sync=True', *options], cwd=here, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        t0 = time.perf_counter()
+        tiny_pkl = {d: os.path.join(small, f'{d}.pkl') for d in ('cpu', dev)}
+        tiny_ckpt = os.path.join(small, 'tiny.pth')
+        h = init_mvdfm_model(build_detector(merge_options(
+            load_config(config), list(MV_CLI_TINY)).model), torch.float32,
+            'cpu')
+        _live_weights(h['model'], 6, 4.0)
+        torch.save(h['model'].state_dict(), tiny_ckpt)
+        del h
+        procs = {d: cli(small, '--dtype', 'float32', '--device', d,
+                        '--checkpoint', tiny_ckpt, '--out', tiny_pkl[d],
+                        options=MV_CLI_TINY) for d in ('cpu', dev)}
+        full_proc = cli(root, '--checkpoint', ckpt)
+        res = {}
+        for name, p in [*procs.items(), ('full', full_proc)]:
+            out, err = p.communicate(timeout=600)
+            check(p.returncode == 0, f'tools.test ({name}) failed: '
+                  f'{err[-3000:]}')
+            lets = LET_LINE.findall(out)
+            check(len(lets) == 15 and all(np.isfinite(float(v))
+                                         for _, _, v in lets) and
+                  '[metric] python_fallback' in out,
+                  f'tools.test ({name}) printed {len(lets)} LET lines: '
+                  f'{out[-2000:]}')
+            res[name] = out
+        cli_s = time.perf_counter() - t0
+        got = {}
+        for d in ('cpu', dev):
+            with open(tiny_pkl[d], 'rb') as f:
+                got[d] = pickle.load(f)
+        n, worst = _mv_dets_agree('tools.test tiny card vs CPU', got[dev],
+                                  got['cpu'], MV_DET_TOL)
+        check(n > 0, 'tools.test tiny: no live detection')
+        overall = re.search(r'^Overall mAP: (\S+)$', res['full'], re.M)
+        dets = re.findall(r'^\[\d+/\d+\] dets=(\d+)$', res['full'], re.M)
+        print(f'mvdfm cli: the full config on the card, 2 frames of 5 '
+              f'Waymo-size views, dets {dets}, 15 LET lines from '
+              f'python_fallback, Overall mAP {overall.group(1)}; the tiny '
+              f'config card vs cpu (f32, TF32 off): {n} dets, labels equal, '
+              f'max abs err score {worst[0]:.3g} box {worst[1]:.3g}; '
+              f'{cli_s:.1f} s for the three processes', flush=True)
+    print(f'mvdfm phase {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
+def _flops_of(fn, *args):
+    """Floating-point operations of `fn(*args)` (torch's FlopCounterMode:
+    the convolutions and matrix products)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
+        fn(*args)
+    return fc.get_total_flops()
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2428,6 +2825,7 @@ def main():
     parity_phase(cfg, dev)
     eval_phase(cfg, dev)
     train_phase(cfg, dev, results)
+    mvdfm_phase(dev)
 
     print(json.dumps({'kernels': list(results.values())}))
     print(card)

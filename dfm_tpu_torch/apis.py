@@ -1,4 +1,5 @@
-"""Inference entry points. Port of `dfm_tpu/apis.py:18-122, 182-217`.
+"""Inference entry points. Port of `dfm_tpu/apis.py:18-122, 182-217`,
+and MultiViewDfM's (`init_mvdfm_model`, `detect_multiview_sample`).
 
 They run on the CUDA card by default and raise when there is none; the
 CPU is used only when the caller passes device='cpu'. Weights are
@@ -26,10 +27,13 @@ import torch
 from .data.collate import build_batch
 from .evaluation.results import detections_to_kitti_annos
 from .models.detectors.dfm import DfM, DfMConfig, dfm_predict
+from .models.detectors.multiview_dfm import (MultiViewDfM, MVDfMConfig,
+                                             mvdfm_predict)
 from .utils.weights import init_weights, load_reference_checkpoint
 
 __all__ = ['init_dfm_model', 'init_dfm_stream', 'detect_sample',
-           'inference_dfm', 'dataset_inference']
+           'inference_dfm', 'dataset_inference', 'init_mvdfm_model',
+           'detect_multiview_sample']
 
 
 def _device(device):
@@ -130,3 +134,43 @@ def dataset_inference(handle, dataset, max_samples=None):
     n = min(len(dataset), max_samples or len(dataset))
     return [inference_dfm(handle, dataset.get_sample(i, rng))
             for i in range(n)]
+
+
+def init_mvdfm_model(cfg=None, dtype=torch.bfloat16, device=None):
+    """Build a MultiViewDfM model (seeded random weights) and its
+    inference function.
+
+    Returns dict(model, cfg, device, infer, load_checkpoint) with
+    infer(imgs (B, F, V, H, W, 3), lidar2img (B, F, V, 4, 4)) -> padded
+    detections dict in the vehicle frame and load_checkpoint(path) ->
+    the keys of a checkpoint in the port's layout that it did not take.
+    """
+    cfg = cfg or MVDfMConfig()
+    device = _device(device)
+    with torch.device('meta'):
+        model = MultiViewDfM(cfg, dtype=dtype)
+    model = init_weights(model.to_empty(device=device)).eval()
+
+    @torch.inference_mode()
+    def infer(imgs, lidar2img):
+        return mvdfm_predict(model(imgs, lidar2img), cfg)
+
+    return dict(model=model, cfg=cfg, device=device, infer=infer,
+                load_checkpoint=lambda path: load_reference_checkpoint(
+                    model, path))
+
+
+def detect_multiview_sample(handle, sample):
+    """One `data/waymo.py:assemble_multiview_sample` dict through an
+    `init_mvdfm_model` handle -> its kept detections in the vehicle
+    (lidar) frame as numpy arrays: 'boxes_3d' (N, 7) bottom-centre,
+    'scores_3d' (N,), 'labels_3d' (N,) (one move to the host, which waits
+    for the device)."""
+    dev = handle['device']
+    det = handle['infer'](
+        torch.as_tensor(sample['imgs'], device=dev)[None],
+        torch.as_tensor(sample['lidar2img'], device=dev)[None])
+    det = {k: v[0].cpu().numpy() for k, v in det.items()}
+    keep = det['mask'].astype(bool)
+    return dict(boxes_3d=det['boxes3d'][keep], scores_3d=det['scores'][keep],
+                labels_3d=det['labels'][keep])

@@ -1,16 +1,16 @@
 """Geometric transforms on tensors.
 
 Port of `dfm_tpu/core/transforms.py` (`limit_period`, `homogeneous`,
-`points_cam2img`, `points_img2cam`, `rotation_2d`). The 4x4 products
-are written as elementwise multiply-adds, so they stay exact float32 on
-every device whatever the TF32 settings (the JAX package runs them at
-HIGHEST precision).
+`points_cam2img`, `points_img2cam`, `rotation_2d`, `transform_points`).
+The 4x4 products are written as elementwise multiply-adds, so they stay
+exact float32 on every device whatever the TF32 settings (the JAX
+package runs them at HIGHEST precision).
 """
 
 import torch
 
 __all__ = ['limit_period', 'rotation_2d', 'homogeneous', 'apply_mat',
-           'points_cam2img', 'points_img2cam']
+           'points_cam2img', 'points_img2cam', 'transform_points']
 
 
 def limit_period(val, offset=0.5, period=torch.pi):
@@ -52,3 +52,10 @@ def points_img2cam(points, cam2img):
     # solve_ex: no host sync for the singularity check
     out, _ = torch.linalg.solve_ex(cam2img, homo.transpose(-1, -2))
     return out.transpose(-1, -2)[..., :3]
+
+
+def transform_points(points, mat4):
+    """(..., 3) points through a (4, 4) transform (batched as the points'
+    leading axes): the first three rows of mat4 @ [p, 1], no perspective
+    divide (`dfm_tpu/core/transforms.py:137-141`)."""
+    return apply_mat(homogeneous(points), mat4)[..., :3]

@@ -20,19 +20,22 @@ from ...core.transforms import limit_period
 
 
 class LIGAAnchor3DHead(nn.Module):
+    """`num_convs` ConvNorm (`norm`) per tower, then the three output
+    convs; MultiViewDfM's head has no towers (num_convs=0), its output
+    convs read the BEV map itself."""
+
     def __init__(self, num_classes=3, in_channels=64, feat_channels=64,
-                 num_anchors=6):
+                 num_anchors=6, num_convs=2, norm='gn'):
         super().__init__()
-        cins = [in_channels, feat_channels]          # two convs per tower
+        cins = [in_channels, *[feat_channels] * (num_convs - 1)][:num_convs]
         self.cls_convs = nn.ModuleList(
-            [ConvNorm(c, feat_channels, 3) for c in cins])
+            [ConvNorm(c, feat_channels, 3, norm=norm) for c in cins])
         self.reg_convs = nn.ModuleList(
-            [ConvNorm(c, feat_channels, 3) for c in cins])
-        self.conv_cls = Conv(feat_channels, num_anchors * num_classes, 3,
-                             bias=True)
-        self.conv_reg = Conv(feat_channels, num_anchors * 7, 3, bias=True)
-        self.conv_dir_cls = Conv(feat_channels, num_anchors * 2, 1,
-                                 bias=True)
+            [ConvNorm(c, feat_channels, 3, norm=norm) for c in cins])
+        cout = feat_channels if num_convs else in_channels
+        self.conv_cls = Conv(cout, num_anchors * num_classes, 3, bias=True)
+        self.conv_reg = Conv(cout, num_anchors * 7, 3, bias=True)
+        self.conv_dir_cls = Conv(cout, num_anchors * 2, 1, bias=True)
 
     def forward(self, x):
         cls_feats = reg_feats = x

@@ -24,7 +24,10 @@ import pickle
 import numpy as np
 import torch
 
-__all__ = ['dfm_key_map', 'dfm_full_key_map', 'state_dict_from_jax',
+from ..models.backbones.resnet import BASIC_DEPTHS, STAGE_BLOCKS
+
+__all__ = ['dfm_key_map', 'dfm_full_key_map', 'mvdfm_key_map',
+           'resnet_key_map', 'state_dict_from_jax',
            'teacher_state_dict', 'torch_conv_weight',
            'init_weights', 'load_reference_state_dict',
            'load_reference_checkpoint', 'read_checkpoint']
@@ -155,6 +158,54 @@ def dfm_full_key_map(stacked_convs=4):
                     'bn')
     m += [('imit_bev', ('imit_bev', 'Conv_0'), 'conv2d'),
           ('imit_vol', ('imit_vol', 'Conv_0'), 'conv3d')]
+    return m
+
+
+def resnet_key_map(prefix, fpath, depth):
+    """(torch_prefix, flax_path, kind) of a standard ResNet
+    (`models/backbones/resnet.py`, flax `dfm_tpu/models/backbones/
+    resnet.py`): the stem Conv_0 / BatchNorm_0, then per block the flax
+    auto-names in call order, Conv_i / BatchNorm_i for conv{i+1} /
+    bn{i+1} and the next index for the downsample branch of the first
+    block of a stage whose stride or width changes."""
+    basic = depth in BASIC_DEPTHS
+    nconv = 2 if basic else 3
+    m = [(f'{prefix}.conv1', fpath + ('Conv_0',), 'conv2d'),
+         (f'{prefix}.bn1', fpath + ('BatchNorm_0',), 'bn')]
+    for li, nblocks in enumerate(STAGE_BLOCKS[depth], start=1):
+        for b in range(nblocks):
+            t = f'{prefix}.layer{li}.{b}'
+            f = fpath + (f'layer{li}_block{b}',)
+            for i in range(nconv):
+                m += [(f'{t}.conv{i + 1}', f + (f'Conv_{i}',), 'conv2d'),
+                      (f'{t}.bn{i + 1}', f + (f'BatchNorm_{i}',), 'bn')]
+            # every first block but ResNet-18/34's layer1 projects
+            if b == 0 and not (basic and li == 1):
+                m += [(f'{t}.downsample.0', f + (f'Conv_{nconv}',), 'conv2d'),
+                      (f'{t}.downsample.1', f + (f'BatchNorm_{nconv}',),
+                       'bn')]
+    return m
+
+
+def mvdfm_key_map(depth=101):
+    """(torch_prefix, flax_path, kind) for the JAX `MultiViewDfM` tree
+    (anchor head, ImVoxel neck): the ResNet `backbone`, the FPN `neck`
+    (lateral0..3, fpn_conv0..3), `neck_3d` (res{i}/ConvNorm_0..1,
+    down{i}, BatchNorm) and the head's three output convs."""
+    m = resnet_key_map('backbone', ('backbone',), depth)
+    for i in range(4):
+        m += [(f'neck.lateral{i}', ('neck', f'lateral{i}'), 'conv2d'),
+              (f'neck.fpn_conv{i}', ('neck', f'fpn_conv{i}'), 'conv2d')]
+    n = ('neck_3d',)
+    for i in range(3):
+        for j in range(2):
+            m += _convnorm(f'neck_3d.res{i}.conv{j}',
+                           n + (f'res{i}', f'ConvNorm_{j}'), 3, 'bn')
+        m += _convnorm(f'neck_3d.down{i}', n + (f'down{i}',), 3, 'bn')
+    h = ('bbox_head_3d',)
+    m += [('bbox_head_3d.conv_cls', h + ('conv_cls',), 'conv2d'),
+          ('bbox_head_3d.conv_reg', h + ('conv_reg',), 'conv2d'),
+          ('bbox_head_3d.conv_dir_cls', h + ('conv_dir',), 'conv2d')]
     return m
 
 
