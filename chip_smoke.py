@@ -173,6 +173,39 @@ Phases, one line each; any failure raises and no result is printed:
               15 finite LET lines from `python_fallback`, and a tiny
               config on a tree at 1/20 of the sizes on the card and on
               the CPU (f32, TF32 off), their detections equal within 1e-3
+ 10. ddp      data parallelism (`dfm_tpu_torch/parallel/`) and
+              MultiViewDfM training: (a) a process group of one on NCCL in
+              this process: the full-width f32 DfM step (TF32 off) with
+              the group against the same step without one (loss terms
+              rtol 1e-5, gradients and BatchNorm statistics by phase 7
+              (a)'s rule, each one's movement the larger of its
+              movements under one ulp of weight noise (two seeds); the
+              bit-equal gradients of a repeat of the step reported),
+              K1, K2, K3, K1-bwd and K2-bwd launched once; (b) two ranks
+              on the one card under gloo (torchrun, this script with
+              `--ddp-rank`), B = 1 each at full width, against this
+              process at B = 2 (as (a): the loss rtol 1e-5, gradients
+              and BatchNorm statistics by phase 7 (a)'s rule; the two
+              ranks bit-equal), then 3 timed steps a rank
+              after 2 warm-ups: ms split into data (the whole global
+              batch decoded, as the CLI's ranks do), forward, backward,
+              all-reduce and optimizer, the all-reduce's bytes, the peak
+              memory per process, launches; (c) the CLIs under torchrun
+              beside (a): `tools.train` (one rank, NCCL) 2 steps at full
+              width on a KITTI tree as phase 7's and `--auto-resume` to
+              3 (the optimizer's sha1), `tools.test` under 2 gloo ranks
+              on that tree (phase 6's checkpoint) and on phase 9's small
+              Waymo tree (the tiny config, a live checkpoint): the 36 AP
+              and 15 LET lines equal to one process's; (d) MultiViewDfM
+              training: a tiny config (ResNet-18, 2 views of 128x192)
+              in f32, TF32 off, card against CPU by phase 7 (a)'s rule, 0
+              port-kernel launches (64x96 and 256x384 printed, not held:
+              ROADMAP §3); `tools.train` on the camsync config
+              with `--synthetic` for 2 steps and `tools.test` on its
+              checkpoint (15 finite LET lines); the full camsync config
+              in f32 on phase 9's first frame, B = 1: 3 steps after 2
+              warm-ups split into data, forward, backward and optimizer,
+              the peak memory, 0 port-kernel launches
 Then the kernels JSON line, the card line, and the result line.
 Exits non-zero without a result when there is no CUDA device or the
 package is not beside the script.
@@ -1769,11 +1802,13 @@ def _rel_l2(got, want):
 def _grad_compare(what, got, want, noisy):
     """Gradients of the card against the CPU's (name -> tensor or None),
     held to the CPU's own rounding: `noisy` are the CPU's gradients with
-    one ulp of seeded relative noise on every weight. Every parameter
-    with a nonzero CPU gradient has a nonzero card one; each parameter's
-    relative L2 is within max(TRAIN_GRAD_FLOOR, TRAIN_GRAD_FACTOR x that
-    parameter's under the noise), the whole gradient's likewise. Returns
-    (worst relative L2, its parameter, whole, whole under the noise)."""
+    one ulp of seeded relative noise on every weight (or a tuple of such
+    runs, each parameter's movement the largest of theirs). Every
+    parameter with a nonzero CPU gradient has a nonzero card one; each
+    parameter's relative L2 is within max(TRAIN_GRAD_FLOOR,
+    TRAIN_GRAD_FACTOR x that parameter's under the noise), the whole
+    gradient's likewise. Returns (worst relative L2, its parameter,
+    whole, whole under the noise)."""
     missing = [n for n, w in want.items() if w is not None and
                bool(w.abs().sum() > 0) and (got[n] is None or
                                             not bool(got[n].abs().sum() > 0))]
@@ -1784,7 +1819,10 @@ def _grad_compare(what, got, want, noisy):
                   f'{what}: {n} has a card gradient and no CPU one')
     want = {n: w for n, w in want.items() if w is not None}
     rel, whole = _rel_l2(got, want)
-    noise, whole_noise = _rel_l2(noisy, want)
+    runs = [_rel_l2(x, want) for x in (
+        noisy if isinstance(noisy, tuple) else (noisy,))]
+    noise = {n: max(r[0][n] for r in runs) for n in want}
+    whole_noise = max(r[1] for r in runs)
     bad = {n: (r, noise[n]) for n, r in rel.items()
            if r > max(TRAIN_GRAD_FLOOR, TRAIN_GRAD_FACTOR * noise[n])}
     check(not bad, f'{what}: gradients off beyond the rounding noise '
@@ -2579,9 +2617,11 @@ def _mv_dets_agree(what, got, want, tol):
     return n, worst
 
 
-def mvdfm_phase(dev):
+def mvdfm_phase(dev, trees=None):
     """Phase 9: (a) the tiny config card vs CPU, (b) the full camsync
-    config in bf16 and f32, (c) the Waymo CLI on a synthetic tree."""
+    config in bf16 and f32, (c) the Waymo CLI on a synthetic tree. The
+    trees go to `trees['full']` and `trees['small']` (phase 10 reads
+    them), or to a temporary directory."""
     import os
     import pickle
     import tempfile
@@ -2644,8 +2684,10 @@ def mvdfm_phase(dev):
           f'{MV_DET_TOL}), launches 0', flush=True)
     del outs
 
-    with tempfile.TemporaryDirectory() as root, \
-            tempfile.TemporaryDirectory() as small:
+    with tempfile.TemporaryDirectory() as tmp:
+        trees = trees or dict(full=os.path.join(tmp, 'full'),
+                              small=os.path.join(tmp, 'small'))
+        root, small = trees['full'], trees['small']
         t0 = time.perf_counter()
         infos = write_waymo_tree(root)
         write_waymo_tree(small, scale=0.05)
@@ -2782,6 +2824,659 @@ def mvdfm_phase(dev):
     print(f'mvdfm phase {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 
+# phase 10: data parallelism (parallel/dist.py) and MultiViewDfM training
+DDP_LOSS_RTOL = 1e-5          # (b): the loss of the group against one process
+DDP_WARMUP, DDP_TIMED = 2, 3  # (b) timed steps per rank
+# (d) tiny: held at 128x192 views (the stride-32 BatchNorm over 96 values a
+# channel); 64x96 and 256x384 are run and printed, not held: there cuDNN's
+# channels-last rounding moves the tiny model's gradients beyond the rule
+# (an open defect of the card path, ROADMAP §3)
+MV_TRAIN_HW = (128, 192)
+MV_TRAIN_HW_OPEN = ((64, 96), (256, 384))
+MV_TRAIN_TINY = dict(num_views=2, num_frames=1, feat_channels=16,
+                     voxel_range=(-8, -8, -1, 8, 8, 3),
+                     voxel_grid=(4, 16, 16),
+                     anchor_ranges=((-8, -8, 0.0, 8, 8, 0.0),) * 3,
+                     backbone_depth=18, nms_pre=128, max_num=8)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _run(cmd, timeout=600):
+    """`cmd` in a process of its own from the repo root, the package on
+    its path; its CompletedProcess (text output)."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.run(cmd, cwd=here, env=dict(os.environ, PYTHONPATH=here),
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _torchrun(n, *args):
+    return [sys.executable, '-m', 'torch.distributed.run',
+            f'--nproc_per_node={n}', '--master_addr=127.0.0.1',
+            f'--master_port={_free_port()}', *args]
+
+
+def _no_tf32():
+    """Turn TF32 off (cuDNN's convolutions and cuBLAS's matmuls in float32
+    precision); returns the flags to restore."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return flags
+
+
+def _set_tf32(flags):
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _ulp_noise(model, seed=1):
+    """One ulp of seeded relative noise on every parameter (phase 7 (a))."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1 + 1.2e-7 * torch.randn(p.shape, generator=g))
+    return model
+
+
+def _grads_and_stats(step, total, losses):
+    """After `step.reduce()`: the loss terms of the global batch, every
+    gradient and every BatchNorm running statistic, on the host."""
+    from dfm_tpu_torch.parallel import dist as D
+    model = step.model
+    return dict(
+        losses={k: float(v) for k, v in D.sum_scalars(dict(
+            loss=total.detach(), **{k: v.detach() for k, v in
+                                    losses.items()})).items()},
+        grads={n: p.grad.detach().cpu().clone() for n, p in
+               model.named_parameters()},
+        stats={n: b.detach().cpu().clone() for n, b in model.named_buffers()
+               if n.endswith(('running_mean', 'running_var'))})
+
+
+def _losses_agree(what, got, want, rtol):
+    worst = 0.0
+    for k, w in want.items():
+        err = abs(got[k] - w) / (abs(w) + 1e-6)
+        worst = max(worst, err)
+        check(np.isfinite(got[k]) and err <= rtol,
+              f'{what} {k}: {got[k]} vs {w} (rtol {rtol})')
+    return worst
+
+
+def _ddp_compare(what, got, want, movers, again):
+    """Loss terms, gradients and BatchNorm statistics of `got` against
+    `want` (dicts of `_grads_and_stats`), the gradients and statistics by
+    phase 7 (a)'s rule: each one's movement the largest of its movements
+    in the `movers`, want's run under one ulp of weight noise (two
+    seeds). `again` is want's run repeated, whose bit-equal gradients
+    the line reports. Returns a line of the errors."""
+    loss_err = _losses_agree(what, got['losses'], want['losses'],
+                             DDP_LOSS_RTOL)
+    g = _grad_compare(f'{what} gradients', got['grads'], want['grads'],
+                      tuple(m['grads'] for m in movers))
+    s = _grad_compare(f'{what} BatchNorm statistics', got['stats'],
+                      want['stats'], tuple(m['stats'] for m in movers))
+
+    def equal(a):
+        return sum(torch.equal(a['grads'][n], w)
+                   for n, w in want['grads'].items())
+
+    return (f'loss terms worst rel {loss_err:.3g} (rtol {DDP_LOSS_RTOL}); '
+            f'gradients worst relative L2 {g[0]:.3g} ({g[1]}), whole '
+            f'{g[2]:.3g} (under one ulp of weight noise: {g[3]:.3g}), '
+            f'{equal(got)} of {len(want["grads"])} bit-equal '
+            f'({equal(again)} in the repeat); BatchNorm statistics worst '
+            f'{s[0]:.3g}, whole {s[2]:.3g} (noise {s[3]:.3g})')
+
+
+def ddp_rank(work):
+    """One rank of phase 10 (b), started by torchrun on the card: the
+    parity step (TF32 off) on its rows of the global batch of 2, then
+    DDP_WARMUP + DDP_TIMED timed steps (each, as the train CLI's ranks
+    do, decoding the whole global batch and drawing its depth pixels,
+    then taking its rows), split into data, forward, backward,
+    all-reduce and optimizer; writes rank<r>.pt to `work`."""
+    import hashlib
+    import os
+    from dfm_tpu_torch.data.collate import build_batch
+    from dfm_tpu_torch.data.kitti import KittiDataset
+    from dfm_tpu_torch.models.detectors.dfm import DfM, DfMConfig
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.parallel import dist as D
+    from dfm_tpu_torch.runtime.schedule import liga_schedule
+    from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
+    from dfm_tpu_torch.tools.train import draw_depth_pixels, step_generator
+    from dfm_tpu_torch.utils.weights import init_weights
+    dev = D.init_from_env()
+    r = D.rank()
+    inp = torch.load(os.path.join(work, 'inputs.pt'), weights_only=False)
+    ds = KittiDataset(inp['root'], inp['infos'], train=True,
+                      pipeline_kwargs=dict(crop_size=IMG_HW, flip_ratio=0.5,
+                                           max_gt=32))
+    model = _live_weights(init_weights(DfM(DfMConfig())), 4, 0.0).to(dev)
+    step = TrainStep(model, make_optimizer(model), liga_schedule(1e-3))
+    rng = np.random.default_rng(3)
+    samples = [ds.get_sample(i, rng) for i in range(2)]
+    img, meta, gt = build_batch(samples[r:r + 1], dev)
+    flags = _no_tf32()
+    try:
+        total, losses = step.forward(
+            img, meta, gt, depth_pix_idx=D.shard_batch(inp['pix'].to(dev)))
+        step.backward(total)
+        step.reduce()
+        torch.cuda.synchronize()
+    finally:
+        _set_tf32(flags)
+    out = _grads_and_stats(step, total, losses)
+    h = hashlib.sha1()
+    for n in sorted(out['grads']):
+        h.update(out['grads'][n].numpy().tobytes())
+    for n in sorted(out['stats']):
+        h.update(out['stats'][n].numpy().tobytes())
+    out.update(digest=h.hexdigest(), reduce_bytes=step.reduce_bytes,
+               backend=D.backend(), world=D.world_size(), device=str(dev))
+    if r:
+        out = {k: v for k, v in out.items() if k not in ('grads', 'stats')}
+    step.update()
+    del total, losses, img, meta, gt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    splits = []
+    for i in range(DDP_WARMUP + DDP_TIMED):
+        if i == DDP_WARMUP:
+            K.reset_launch_counts()
+        D.barrier()
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        img, meta, gt = build_batch(
+            [ds.get_sample((2 * i + j) % len(ds), rng) for j in range(2)],
+            dev)
+        gen = step_generator(0, i, dev)
+        img, meta, gt, pix = D.shard_batch(
+            (img, meta, gt, draw_depth_pixels(step.model.cfg, gt, gen)))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        total, losses = step.forward(img, meta, gt, gen, pix)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        step.backward(total)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        step.reduce()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        norm = step.update()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        check(np.isfinite(float(total)) and np.isfinite(float(norm)),
+              f'rank {r}: step {i} not finite')
+        if i >= DDP_WARMUP:
+            splits.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
+    out.update(splits=splits, peak=torch.cuda.max_memory_allocated(),
+               launches=dict(K.LAUNCHES))
+    torch.save(out, os.path.join(work, f'rank{r}.pt'))
+    D.destroy()
+    return 0
+
+
+def ddp_phase(cfg, dev, results, waymo_trees):
+    """10. data parallelism and MultiViewDfM training: (a) a group of one
+    on NCCL against no group, (b) two ranks on the one card under gloo
+    against one process at the same global batch, with their step split,
+    all-reduce bytes and peak memory, (c) the CLIs under torchrun, (d)
+    MultiViewDfM training. `waymo_trees` holds phase 9's Waymo trees
+    ('full', 'small')."""
+    import os
+    import tempfile
+    import threading
+    from dfm_tpu_torch.apis import init_mvdfm_model
+    from dfm_tpu_torch.data.collate import build_batch
+    from dfm_tpu_torch.data.kitti import KittiDataset, build_kitti_infos
+    from dfm_tpu_torch.data.waymo import WaymoDataset
+    from dfm_tpu_torch.models.builder import build_detector
+    from dfm_tpu_torch.models.detectors.dfm import DfM, DfMConfig
+    from dfm_tpu_torch.models.detectors.multiview_dfm import (MultiViewDfM,
+                                                              MVDfMConfig)
+    from dfm_tpu_torch.models.heads.depth_head import sample_depth_pixels
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.parallel import dist as D
+    from dfm_tpu_torch.runtime.adapters import mv_synth, mv_to_device
+    from dfm_tpu_torch.runtime.config import load_config, merge_options
+    from dfm_tpu_torch.runtime.schedule import liga_schedule
+    from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
+    from dfm_tpu_torch.tools.train import optimizer_digest
+    from dfm_tpu_torch.utils.weights import init_weights
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    kitti_cfg = os.path.join(here, 'configs', 'dfm_r34_kitti_3class.py')
+    mv_cfg = os.path.join(here, 'configs',
+                          'multiview_dfm_r101_waymo_camsync.py')
+    run = _run
+
+    def in_background(jobs):
+        """Run the (name, fn) jobs in threads; returns a join function
+        that raises the first failure."""
+        errors, threads = {}, []
+
+        def wrap(name, fn):
+            try:
+                fn()
+            except Exception as e:        # raised again by join
+                errors[name] = e
+
+        for name, fn in jobs:
+            threads.append(threading.Thread(target=wrap, args=(name, fn)))
+            threads[-1].start()
+
+        def join():
+            for t in threads:
+                t.join()
+            for e in errors.values():
+                raise e
+        return join
+
+    with tempfile.TemporaryDirectory() as root:
+        # phase 7's KITTI tree (the same writer and seed) with its infos
+        ids = write_kitti_tree(root)
+        infos = build_kitti_infos(root, ids)
+        res = run([sys.executable, '-m', 'dfm_tpu_torch.tools.create_data',
+                   'kitti', '--root', root, '--splits', 'train', 'val'])
+        check(res.returncode == 0, f'create_data failed: {res.stderr}')
+        ckpt = os.path.join(root, 'ref.pth')
+        _ref_checkpoint(cfg, ckpt)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the CLIs, in processes of their own while (a) runs in this
+        # one (nothing of (a) is timed)
+        cli = {}
+        work = os.path.join(root, 'w')
+        train = ['-m', 'dfm_tpu_torch.tools.train', kitti_cfg,
+                 '--cfg-options', 'model.type=DfM', f'data.data_root={root}',
+                 '--work-dir', work, '--max-steps']
+
+        def train_cli():
+            cli['train'] = run(_torchrun(1, *train, '2'))
+            cli['resume'] = run(_torchrun(1, *train, '3', '--auto-resume'))
+
+        kitti_test = ['-m', 'dfm_tpu_torch.tools.test', kitti_cfg,
+                      '--checkpoint', ckpt, '--cfg-options',
+                      f'data.data_root={root}']
+        small = waymo_trees['small']
+        mv_live = os.path.join(root, 'mv_live.pth')
+        h = init_mvdfm_model(build_detector(merge_options(
+            load_config(mv_cfg), list(MV_CLI_TINY)).model), torch.float32,
+            'cpu')
+        _live_weights(h['model'], 6, 4.0)
+        torch.save(h['model'].state_dict(), mv_live)
+        del h
+        waymo_test = ['-m', 'dfm_tpu_torch.tools.test', mv_cfg,
+                      '--checkpoint', mv_live, '--dtype', 'float32',
+                      '--cfg-options', f'data.data_root={small}',
+                      'data.cam_sync=True', *MV_CLI_TINY]
+
+        def eval_cli(name, n, cmd):
+            def go():
+                cli[name] = run(_torchrun(n, *cmd) if n > 1
+                                else [sys.executable, *cmd])
+            return go
+
+        t_cli = time.perf_counter()
+        join_cli = in_background(
+            [('train', train_cli)] + [
+                (f'{kind}{n}', eval_cli(f'{kind}{n}', n, cmd))
+                for kind, cmd in (('kitti', kitti_test),
+                                  ('waymo', waymo_test)) for n in (1, 2)])
+
+        # (a) a group of one on NCCL: the full-width f32 step (TF32 off)
+        # with the group against the same step without one
+        full = DfMConfig()
+        ds = KittiDataset(root, infos, train=True, pipeline_kwargs=dict(
+            crop_size=IMG_HW, flip_ratio=0.5, max_gt=32))
+        rng = np.random.default_rng(3)
+        samples = [ds.get_sample(i, rng) for i in range(2)]
+        img, meta, gt = build_batch(samples[:1], dev)
+        pix = sample_depth_pixels(
+            gt['depth_img'], full.num_depth_sample_pixels,
+            torch.Generator(device=dev).manual_seed(0), full.depth_min,
+            full.depth_max)
+
+        def parity_step(inputs, noise=None):
+            model = _live_weights(init_weights(DfM(full)), 4, 0.0)
+            model = (model if noise is None else
+                     _ulp_noise(model, noise)).to(dev)
+            step = TrainStep(model, make_optimizer(model),
+                             liga_schedule(1e-3))
+            K.reset_launch_counts()
+            total, losses = step.forward(*inputs)
+            step.backward(total)
+            step.reduce()
+            torch.cuda.synchronize()
+            out = _grads_and_stats(step, total, losses)
+            out.update(launches=dict(K.LAUNCHES),
+                       reduce_bytes=step.reduce_bytes)
+            del model, step, total, losses
+            gc.collect()
+            torch.cuda.empty_cache()
+            return out
+
+        inputs = (img, meta, gt, None, pix)
+        flags = _no_tf32()
+        keys = ('MASTER_ADDR', 'MASTER_PORT', 'RANK', 'WORLD_SIZE',
+                'LOCAL_RANK', 'LOCAL_WORLD_SIZE')
+        saved_env = {k: os.environ.get(k) for k in keys}
+        try:
+            alone, again = parity_step(inputs), parity_step(inputs)
+            movers = [parity_step(inputs, noise=seed) for seed in (1, 2)]
+            os.environ.update(MASTER_ADDR='127.0.0.1',
+                              MASTER_PORT=str(_free_port()), RANK='0',
+                              WORLD_SIZE='1', LOCAL_RANK='0',
+                              LOCAL_WORLD_SIZE='1')
+            D.init_from_env()
+            check(D.backend() == 'nccl' and D.world_size() == 1,
+                  f'group of one: backend {D.backend()}')
+            group = parity_step(inputs)
+        finally:
+            D.destroy()
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            _set_tf32(flags)
+        check(not D.is_active(), 'the group of one outlived (a)')
+        line = _ddp_compare('ddp (a) group of one', group, alone, movers,
+                            again)
+        check_launches(group['launches'], 'train', 1, 'ddp (a) group step')
+        for name in TRAIN_PATH:
+            results[name]['launches_ddp_group_step'] = group['launches'][name]
+        print(f'ddp (a) group of one (nccl), full DfMConfig f32 (TF32 '
+              f'off), B = 1, against no group: {line}; all-reduce '
+              f'{group["reduce_bytes"]} bytes; launches '
+              f'{ {k: n for k, n in group["launches"].items() if n} }',
+              flush=True)
+        del alone, again, movers, group, img, meta, gt
+        join_cli()
+        cli_s = time.perf_counter() - t_cli
+
+        # (b) two ranks on the one card under gloo (NCCL refuses two ranks
+        # on one card), B = 1 each, against one process at B = 2
+        img, meta, gt = build_batch(samples, dev)
+        pix2 = sample_depth_pixels(
+            gt['depth_img'], full.num_depth_sample_pixels,
+            torch.Generator(device=dev).manual_seed(0), full.depth_min,
+            full.depth_max)
+        flags = _no_tf32()
+        try:
+            inputs = (img, meta, gt, None, pix2)
+            one, again = parity_step(inputs), parity_step(inputs)
+            movers = [parity_step(inputs, noise=seed) for seed in (1, 2)]
+        finally:
+            _set_tf32(flags)
+        del img, meta, gt
+        gc.collect()
+        torch.cuda.empty_cache()
+        ddp_dir = os.path.join(root, 'ddp')
+        os.makedirs(ddp_dir)
+        torch.save(dict(root=root, infos=infos, pix=pix2.cpu()),
+                   os.path.join(ddp_dir, 'inputs.pt'))
+        t0 = time.perf_counter()
+        res = run(_torchrun(2, os.path.join(here, 'chip_smoke.py'),
+                            '--ddp-rank', ddp_dir), timeout=900)
+        ranks_s = time.perf_counter() - t0
+        check(res.returncode == 0, f'ddp (b) ranks failed: '
+              f'{res.stderr[-3000:]}')
+        ranks = [torch.load(os.path.join(ddp_dir, f'rank{r}.pt'),
+                            weights_only=False) for r in range(2)]
+        check(all(o['backend'] == 'gloo' and o['world'] == 2 for o in ranks),
+              f'ddp (b): {[(o["backend"], o["world"]) for o in ranks]}')
+        check(ranks[0]['digest'] == ranks[1]['digest'], 'ddp (b): the two '
+              "ranks' gradients or BatchNorm statistics differ")
+        line = _ddp_compare('ddp (b) two ranks', ranks[0], one, movers, again)
+        for o in ranks:
+            check_launches(o['launches'], 'train', DDP_TIMED,
+                           'ddp (b) rank steps')
+        names = ('data', 'forward', 'backward', 'all-reduce', 'optimizer')
+        print(f'ddp (b) two ranks on one card (gloo), full DfMConfig f32, '
+              f'B = 1 each, against one process at B = 2 (TF32 off): '
+              f'{line}; ranks on {ranks[0]["device"]}, {ranks_s:.1f} s for '
+              f'the two processes', flush=True)
+        for r, o in enumerate(ranks):
+            med = np.median(np.asarray(o['splits']), 0)
+            print(f'ddp (b) rank {r}: {DDP_TIMED} steps after {DDP_WARMUP} '
+                  f'warm-ups (TF32 as the CLI has it, each decoding the '
+                  f'global batch of 2), ms ' + ' | '.join(
+                      ', '.join(f'{x:.3f}' for x in row)
+                      for row in o['splits'])
+                  + f'; median ' + ', '.join(
+                      f'{n} {x:.3f}' for n, x in zip(names, med))
+                  + f', total {float(np.median(np.sum(o["splits"], 1))):.3f}'
+                  f'; all-reduce {o["reduce_bytes"]} bytes; peak_mem_bytes '
+                  f'{o["peak"]}; launches per step '
+                  f'{ {k: n // DDP_TIMED for k, n in o["launches"].items() if n} }',
+                  flush=True)
+        del one, again, movers, ranks, inputs
+
+        # (c) the CLIs' results
+        for k in ('train', 'resume', 'kitti1', 'kitti2', 'waymo1',
+                  'waymo2'):
+            check(cli[k].returncode == 0, f'ddp (c) {k} failed: '
+                  f'{cli[k].stderr[-3000:]}')
+        check('rank 0 of 1 (nccl)' in cli['train'].stdout,
+              f'ddp (c) train: {cli["train"].stdout[-1000:]}')
+        digest = optimizer_digest(torch.load(
+            os.path.join(work, 'ckpts', 'step_2.pth'), map_location='cpu',
+            weights_only=True)['optimizer'])
+        check(f'resumed from step 2 (optimizer state sha1 {digest})'
+              in cli['resume'].stdout and os.path.exists(
+                  os.path.join(work, 'ckpts', 'step_3.pth')),
+              f'ddp (c) resume: {cli["resume"].stdout[-2000:]}')
+        with open(os.path.join(work, 'metrics.jsonl')) as f:
+            logged = [json.loads(line)['step'] for line in f]
+        check(logged == [1, 2, 3], f'ddp (c) logged steps {logged}')
+        aps = [re.findall(r'^(?:Car|Pedestrian|Cyclist)_\w+: \S+$',
+                          cli[f'kitti{n}'].stdout, re.M) for n in (1, 2)]
+        check(len(aps[0]) == 36 and aps[0] == aps[1],
+              f'ddp (c) tools.test KITTI: 2 ranks {aps[1]} vs 1 {aps[0]}')
+        car = re.search(r'^Car_3d_moderate_strict: (\S+)$',
+                        cli['kitti2'].stdout, re.M).group(1)
+        lets = [LET_LINE.findall(cli[f'waymo{n}'].stdout) for n in (1, 2)]
+        check(len(lets[0]) == 15 and lets[0] == lets[1],
+              f'ddp (c) tools.test Waymo: 2 ranks {lets[1]} vs 1 {lets[0]}')
+        print(f'ddp (c) cli: torchrun --nproc_per_node=1 tools.train (nccl) '
+              f'2 steps at full width on the KITTI tree and a resume to 3 '
+              f'(optimizer sha1 {digest}); tools.test under 2 gloo ranks: '
+              f'the 36 KITTI AP lines and the 15 Waymo LET lines equal to '
+              f'one process\'s (Car_3d_moderate_strict {car}); '
+              f'{cli_s:.1f} s for the six processes beside (a)', flush=True)
+
+    # (d) MultiViewDfM training: the train CLI in processes of its own
+    # while the tiny config's card-vs-CPU gradients run here, then one
+    # full-width camsync step alone on the card
+    with tempfile.TemporaryDirectory() as root:
+        mv_cli = {}
+        work = os.path.join(root, 'w')
+
+        def mv_train_cli():
+            mv_cli['train'] = run([
+                sys.executable, '-m', 'dfm_tpu_torch.tools.train', mv_cfg,
+                '--synthetic', '--max-steps', '2', '--work-dir', work])
+            if mv_cli['train'].returncode == 0:
+                mv_cli['test'] = run([
+                    sys.executable, '-m', 'dfm_tpu_torch.tools.test',
+                    mv_cfg, '--checkpoint',
+                    os.path.join(work, 'ckpts', 'step_2.pth'),
+                    '--cfg-options', f'data.data_root={waymo_trees["small"]}',
+                    'data.cam_sync=True', 'data.target_hw=(32,48)'])
+
+        t_cli = time.perf_counter()
+        join_cli = in_background([('mv train', mv_train_cli)])
+        tiny = MVDfMConfig(**MV_TRAIN_TINY)
+
+        def tiny_sides(hw):
+            """The tiny config's step on the CPU, on the CPU under one ulp
+            of weight noise and on the card (cuDNN's convolutions, as the
+            CLI trains; TF32 off), B = 2 of `hw` views."""
+            batch = mv_synth(tiny, 2, 3, *hw)
+            side = {}
+            flags = _no_tf32()
+            try:
+                for name, d, noise in (('cpu', 'cpu', False),
+                                       ('cpu, noise', 'cpu', True),
+                                       ('card', dev, False)):
+                    model = _live_weights(init_weights(MultiViewDfM(tiny)),
+                                          4, 0.0)
+                    model = (_ulp_noise(model, 1) if noise else
+                             model).to(d)
+                    step = TrainStep(model, make_optimizer(model),
+                                     liga_schedule(1e-3))
+                    K.reset_launch_counts()
+                    total, losses = step.forward(*mv_to_device(batch, d))
+                    step.backward(total)
+                    step.reduce()
+                    side[name] = dict(_grads_and_stats(step, total, losses),
+                                      launches=sum(K.LAUNCHES.values()))
+                    del model, step, total, losses
+            finally:
+                _set_tf32(flags)
+            check(side['card']['launches'] == 0,
+                  'mvdfm train tiny: port kernels launched')
+            return side
+
+        side = tiny_sides(MV_TRAIN_HW)
+        loss_err = _losses_agree('mvdfm train tiny', side['card']['losses'],
+                                 side['cpu']['losses'], TRAIN_LOSS_RTOL)
+        g = _grad_compare('mvdfm train tiny', side['card']['grads'],
+                          side['cpu']['grads'], side['cpu, noise']['grads'])
+        print(f'mvdfm train (d) tiny f32 (TF32 off) card vs cpu, '
+              f'B = 2 of {MV_TRAIN_HW}: losses '
+              f'{ {k: round(v, 6) for k, v in side["card"]["losses"].items()} } '
+              f'worst rel {loss_err:.3g} (rtol {TRAIN_LOSS_RTOL}); gradients '
+              f'of {len(side["cpu"]["grads"])} parameters, worst relative L2 '
+              f'{g[0]:.3g} ({g[1]}), whole {g[2]:.3g} (one ulp of weight '
+              f'noise: {g[3]:.3g}); launches 0', flush=True)
+        for hw in MV_TRAIN_HW_OPEN:
+            side = tiny_sides(hw)
+            rel, whole = _rel_l2(side['card']['grads'], side['cpu']['grads'])
+            noise, whole_noise = _rel_l2(side['cpu, noise']['grads'],
+                                         side['cpu']['grads'])
+            ratio = {n: r / max(TRAIN_GRAD_FLOOR / TRAIN_GRAD_FACTOR,
+                                noise[n]) for n, r in rel.items()}
+            worst = max(ratio, key=ratio.get)
+            print(f'mvdfm train (d) open, not held: tiny f32 (TF32 off) card '
+                  f'vs cpu, B = 2 of {hw}: gradients whole {whole:.3g} (one '
+                  f'ulp of weight noise: {whole_noise:.3g}), worst against '
+                  f'its noise {worst} {rel[worst]:.3g} ({ratio[worst]:.3g}x '
+                  f'the larger of its noise and '
+                  f'{TRAIN_GRAD_FLOOR / TRAIN_GRAD_FACTOR:.2g}; the rule '
+                  f'allows {TRAIN_GRAD_FACTOR:g}x)', flush=True)
+        del side
+        join_cli()
+        mv_cli_s = time.perf_counter() - t_cli
+        for k in ('train', 'test'):
+            check(k in mv_cli and mv_cli[k].returncode == 0,
+                  f'mvdfm train (d) CLI {k} failed: '
+                  f'{mv_cli[k].stderr[-3000:] if k in mv_cli else ""}')
+        lets = LET_LINE.findall(mv_cli['test'].stdout)
+        check(len(lets) == 15 and all(np.isfinite(float(v))
+                                     for _, _, v in lets),
+              f'mvdfm train (d) tools.test: {len(lets)} LET lines')
+        step2 = re.search(r'^step 2/2 .*$', mv_cli['train'].stdout, re.M)
+        check(step2 is not None and 'loss_cls=' in step2.group(0),
+              f'mvdfm train (d) CLI: {mv_cli["train"].stdout[-1000:]}')
+        print(f'mvdfm train (d) cli: tools.train --synthetic at the camsync '
+              f'config, 2 steps ({step2.group(0)}); tools.test on its '
+              f'checkpoint: 15 finite LET lines; {mv_cli_s:.1f} s',
+              flush=True)
+
+        # the full camsync config, f32, B = 1: phase 9's first frame
+        full_mv = MVDfMConfig()
+        ds = WaymoDataset(waymo_trees['full'], os.path.join(
+            waymo_trees['full'], 'waymo_infos_val.pkl'), target_hw=MV_HW,
+            cam_sync=True)
+        t0 = time.perf_counter()
+        sample = ds.get_sample(0)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        frame = dict(img=sample['imgs'][None],
+                     lidar2img=sample['lidar2img'][None],
+                     **{k: sample[k][None] for k in ('gt_boxes', 'gt_labels',
+                                                     'gt_mask')})
+        check(int(sample['gt_mask'].sum()) > 0, 'mvdfm train: no gt box')
+        model = init_weights(MultiViewDfM(full_mv)).to(dev)
+        step = TrainStep(model, make_optimizer(model), liga_schedule(5e-4))
+        splits = []
+        for i in range(2 + 3):
+            if i == 2:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                K.reset_launch_counts()
+            t = [time.perf_counter()]
+            imgs, l2i, gt = mv_to_device(frame, dev)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            total, losses = step.forward(imgs, l2i, gt)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            step.backward(total)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            norm = step.update()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            vals = {k: float(v.detach()) for k, v in
+                    dict(loss=total, **losses).items()}
+            check(all(np.isfinite(x) for x in vals.values()) and
+                  np.isfinite(float(norm)), f'mvdfm train full: {vals}')
+            if i >= 2:
+                splits.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
+        peak = torch.cuda.max_memory_allocated()
+        launches = sum(K.LAUNCHES.values())
+        check(launches == 0, f'mvdfm train full: {dict(K.LAUNCHES)}')
+        med = np.median(np.asarray(splits), 0)
+        print(f'mvdfm train (d) full camsync config, f32 (TF32 as PyTorch '
+              f'has it), B = 1, 1 x 5 x 640x960, phase 9\'s first frame '
+              f'({int(sample["gt_mask"].sum())} gt boxes; its decode and '
+              f'assembly {decode_ms:.1f} ms, once), 3 steps after 2 '
+              f'warm-ups, ms (data = host to device, forward, backward, '
+              f'optimizer): ' + ' | '.join(', '.join(f'{x:.3f}' for x in row)
+                                         for row in splits)
+              + f'; median {", ".join(f"{x:.3f}" for x in med)}, total '
+              f'{float(np.median(np.sum(splits, 1))):.3f}; peak_mem_bytes '
+              f'{peak}; last losses { {k: round(x, 5) for k, x in vals.items()} }'
+              f' grad_norm {float(norm):.5g}; port-kernel launches {launches}',
+              flush=True)
+        del model, step, total, losses, imgs, l2i, gt
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f'ddp phase {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
+def phase10_alone(dev='cuda'):
+    """Phase 10 without the others (the kernels built, phase 9's Waymo
+    trees written here): `python3 -c "import chip_smoke;
+    chip_smoke.phase10_alone()"`."""
+    import os
+    import tempfile
+    from dfm_tpu_torch.models.detectors.dfm import DfMConfig
+    from dfm_tpu_torch.ops.cuda import build
+    print(f'build: {build.build_all():.1f} s', flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trees = dict(full=os.path.join(tmp, 'full'),
+                     small=os.path.join(tmp, 'small'))
+        write_waymo_tree(trees['full'])
+        write_waymo_tree(trees['small'], scale=0.05)
+        ddp_phase(DfMConfig(), dev, {k: {} for k in TRAIN_PATH}, trees)
+
+
 def _flops_of(fn, *args):
     """Floating-point operations of `fn(*args)` (torch's FlopCounterMode:
     the convolutions and matrix products)."""
@@ -2795,6 +3490,8 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
+    import os
+    import tempfile
     from dfm_tpu_torch.models.detectors.dfm import DfMConfig
     from dfm_tpu_torch.ops.cuda import build
 
@@ -2825,7 +3522,11 @@ def main():
     parity_phase(cfg, dev)
     eval_phase(cfg, dev)
     train_phase(cfg, dev, results)
-    mvdfm_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        trees = dict(full=os.path.join(tmp, 'full'),
+                     small=os.path.join(tmp, 'small'))
+        mvdfm_phase(dev, trees)
+        ddp_phase(cfg, dev, results, trees)
 
     print(json.dumps({'kernels': list(results.values())}))
     print(card)
@@ -2836,4 +3537,6 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--ddp-rank']:       # phase 10 (b), one rank
+        sys.exit(ddp_rank(sys.argv[2]))
     sys.exit(main())

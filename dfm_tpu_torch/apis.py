@@ -1,5 +1,6 @@
-"""Inference entry points. Port of `dfm_tpu/apis.py:18-122, 182-217`,
-and MultiViewDfM's (`init_mvdfm_model`, `detect_multiview_sample`).
+"""Inference entry points. Port of `dfm_tpu/apis.py:18-217`, and
+MultiViewDfM's (`init_mvdfm_model`, `detect_multiview_sample`,
+`multihost_multiview_inference`).
 
 They run on the CUDA card by default and raise when there is none; the
 CPU is used only when the caller passes device='cpu'. Weights are
@@ -7,7 +8,10 @@ random from seed 0 (`utils/weights.py:init_weights`) until a
 reference-layout checkpoint is loaded with the handle's
 `load_checkpoint(path)` (the counterpart of the JAX handle's `restore`).
 `inference_dfm` runs one pipeline sample (`data/pipeline.py`) to a KITTI
-anno dict, `dataset_inference` a whole dataset (`data/kitti.py`).
+anno dict, `dataset_inference` (`multihost_dataset_inference`, the JAX
+package's name) a whole dataset (`data/kitti.py`), its frames shared among
+the processes of a torchrun group (`parallel/dist.py`) and the results
+gathered on every one.
 
 `use_band` and `packed` select the form of the 3D trunks
 (`models/backbones/dfm_backbone.py`). The default (`packed=None`) is, for
@@ -23,17 +27,21 @@ packed=False` the dense form. One state dict loads into every form.
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .data.collate import build_batch
 from .evaluation.results import detections_to_kitti_annos
 from .models.detectors.dfm import DfM, DfMConfig, dfm_predict
 from .models.detectors.multiview_dfm import (MultiViewDfM, MVDfMConfig,
                                              mvdfm_predict)
+from .parallel import dist as D
 from .utils.weights import init_weights, load_reference_checkpoint
 
 __all__ = ['init_dfm_model', 'init_dfm_stream', 'detect_sample',
-           'inference_dfm', 'dataset_inference', 'init_mvdfm_model',
-           'detect_multiview_sample']
+           'inference_dfm', 'dataset_inference',
+           'multihost_dataset_inference', 'allgather_pickled',
+           'init_mvdfm_model', 'detect_multiview_sample',
+           'multihost_multiview_inference']
 
 
 def _device(device):
@@ -126,14 +134,45 @@ def inference_dfm(handle, sample):
         (int(org_w * 0.3), int(org_w)))
 
 
+def allgather_pickled(obj):
+    """One picklable object per process of the group -> the list of them
+    in rank order, on every process (`dist.all_gather_object`; the
+    reference's collect_results). [obj] without a group."""
+    if not D.is_active():
+        return [obj]
+    out = [None] * D.world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def _sharded(n, infer_one):
+    """infer_one(i) for i in range(rank, n, world) on each process, the
+    results gathered to every process in index order."""
+    world, rank = D.world_size(), D.rank()
+    mine = {i: infer_one(i) for i in range(rank, n, world)}
+    out = [None] * n
+    for shard in allgather_pickled(mine):
+        for i, r in shard.items():
+            out[i] = r
+    return out
+
+
 def dataset_inference(handle, dataset, max_samples=None):
     """Loop a dataset (`data/kitti.py:KittiDataset`) -> its KITTI annos,
     one per frame, drawing the pipeline's crops from
-    `np.random.default_rng(0)` as the JAX package does."""
+    `np.random.default_rng(0)` as the JAX package does. In a process group
+    (the reference's multi_gpu_test) process r infers frames r, r + world,
+    ... and every process gets the whole dataset-ordered list: each of the
+    evaluation pipeline's draws has one possible value, so a shard's
+    samples are the ones one process makes."""
     rng = np.random.default_rng(0)
     n = min(len(dataset), max_samples or len(dataset))
-    return [inference_dfm(handle, dataset.get_sample(i, rng))
-            for i in range(n)]
+    return _sharded(n, lambda i: inference_dfm(
+        handle, dataset.get_sample(i, rng)))
+
+
+# the JAX package's name for the loop over a group's processes
+multihost_dataset_inference = dataset_inference
 
 
 def init_mvdfm_model(cfg=None, dtype=torch.bfloat16, device=None):
@@ -174,3 +213,14 @@ def detect_multiview_sample(handle, sample):
     keep = det['mask'].astype(bool)
     return dict(boxes_3d=det['boxes3d'][keep], scores_3d=det['scores'][keep],
                 labels_3d=det['labels'][keep])
+
+
+def multihost_multiview_inference(handle, dataset, max_samples=None):
+    """`detect_multiview_sample` over the frames of a Waymo dataset
+    (`data/waymo.py:WaymoDataset`), shared among the processes of a group
+    as `multihost_dataset_inference` shares them -> the dataset-ordered
+    list of kept detections on every process (one process: every frame in
+    order)."""
+    n = min(len(dataset), max_samples or len(dataset))
+    return _sharded(n, lambda i: detect_multiview_sample(
+        handle, dataset.get_sample(i)))

@@ -97,8 +97,9 @@ class DfMConfig:
         dict(pos_iou_thr=0.5, neg_iou_thr=0.35, min_pos_iou=0.35),
         dict(pos_iou_thr=0.5, neg_iou_thr=0.35, min_pos_iou=0.35))
     normalizer_clamp_value: float = 10.0
-    # average the loss normalisers over the process group (JAX's pmean);
-    # False = local normalisation (reference *_wodistnorm.py config)
+    # the loss normalisers over the global batch of a process group (JAX's
+    # loss on the sharded batch); False = each rank's own (reference
+    # *_wodistnorm.py config)
     dist_norm: bool = True
     depth_loss: Any = dataclasses.field(default_factory=lambda: dict(
         type='balanced_focal', loss_weight=1.0, fg_weight=5, bg_weight=1,
@@ -287,19 +288,22 @@ def dfm_loss(outputs, gt, cfg: DfMConfig, anchors_per_class, generator=None,
         anchors_per_class: `DfM.anchors_per_class` at the head's size.
         generator: torch.Generator of the depth-pixel draw.
         depth_pix_idx: optional (B, P) depth-loss pixels instead of a draw.
-        dist_norm: average the normalisers over the process group; None
-            takes `cfg.dist_norm` (a no-op without a process group).
+        dist_norm: in a process group, every normaliser over the global
+            batch, so that the rank's terms are its share of the global
+            batch's (`heads/anchor3d_head.py`); None takes
+            `cfg.dist_norm` (a no-op without a process group).
 
     Returns:
         (total, dict of scalar terms).
     """
+    dist_norm = cfg.dist_norm if dist_norm is None else dist_norm
     losses = anchor3d_head_loss(
         (outputs['cls_score'], outputs['bbox_pred'], outputs['dir_pred']),
         anchors_per_class, gt['gt_boxes'], gt['gt_labels'], gt['gt_mask'],
         list(cfg.assigner_cfgs), num_classes=cfg.num_classes,
         dir_offset=cfg.dir_offset,
         normalizer_clamp_value=cfg.normalizer_clamp_value,
-        dist_norm=cfg.dist_norm if dist_norm is None else dist_norm)
+        dist_norm=dist_norm)
     if gt.get('depth_img') is not None:
         losses['loss_dense_depth'] = depth_distribution_loss(
             outputs['depth_cost'], gt['depth_img'],
@@ -309,7 +313,8 @@ def dfm_loss(outputs, gt, cfg: DfMConfig, anchors_per_class, generator=None,
             cfg.depth_loss, up_factor=cfg.depth_downsample,
             num_sample_pixels=cfg.num_depth_sample_pixels,
             depth_min=cfg.depth_min, depth_max=cfg.depth_max,
-            generator=generator, pix_idx=depth_pix_idx)
+            generator=generator, pix_idx=depth_pix_idx,
+            dist_norm=dist_norm)
     return sum(losses.values()), losses
 
 

@@ -109,8 +109,8 @@ def dfm_full_loss(outputs, gt, cfg: DfMConfig, atss_cfg: ATSS2DConfig,
     'loss_imitation' (BEV + volume) where the outputs hold 'imitation'.
 
     Args as `dfm_loss`, + atss_cfg and img_hw (the input's (H, W)); the
-    normalisers are averaged over the process group where
-    `cfg.dist_norm`.
+    normalisers are those of the global batch of a process group where
+    `cfg.dist_norm` (`dfm_loss`).
 
     Returns:
         (total, dict of scalar terms).

@@ -15,7 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...core.boxes import points_in_rotated_boxes_bev
-from ..heads.anchor3d_head import _dist_mean
+from ...parallel import dist as D
 
 __all__ = ['ImitationAdapter', 'cw_scale_normalize', 'imitation_mask',
            'imitation_loss']
@@ -70,19 +70,25 @@ def imitation_loss(student_feat, teacher_feat, centers_xy, gt_boxes, gt_mask,
         teacher_feat: the same shape, no gradient.
         centers_xy: (Ny * Nx, 2) BEV cell centres (`bev_cell_centers`).
         gt_boxes: (B, G, 7); gt_mask: (B, G).
-        dist_norm: average the normaliser over the process group.
+        dist_norm: in a process group, the normaliser and the batch
+            mean over the global batch (the rank's loss is its share of
+            the global batch's, `anchor3d_head_loss`'s rule); a no-op
+            without a group.
 
     Returns:
         the scalar loss.
     """
     teacher_feat = teacher_feat.detach()
-    b = student_feat.shape[0]
     teacher_n = cw_scale_normalize(teacher_feat)
     weights = imitation_mask(teacher_feat, centers_xy, gt_boxes,
                              gt_mask).float()
-    normalizer = weights.sum() / b
-    if dist_norm:
-        normalizer = _dist_mean(normalizer)
+    b = student_feat.shape[0]
+    total_w = weights.sum()
+    if dist_norm and D.is_active():
+        b = D.global_sum(torch.full((), b, dtype=torch.float32,
+                                    device=weights.device))
+        total_w = D.global_sum(total_w)
+    normalizer = total_w / b
     weights = weights / torch.clamp(normalizer, min=normalizer_clamp_value)
     diff = student_feat.float() - teacher_n.float()
     loss = 0.5 * (diff * diff).mean(-1) * weights

@@ -1,6 +1,7 @@
-"""MultiViewDfM (MV-FCOS3D++), inference in the camsync configuration.
+"""MultiViewDfM (MV-FCOS3D++) in the camsync configuration: inference
+and training.
 
-Port of `dfm_tpu/models/detectors/multiview_dfm.py:33-242, 304-317`
+Port of `dfm_tpu/models/detectors/multiview_dfm.py:33-279, 304-317`
 (reference mmdet3d/models/detectors/multiview_dfm.py:14-353): one
 ResNet + FPN trunk over the B*F*V images, its stride-4 level 0; a 3D
 grid of sample points (the aligned anchor generator's voxel centres,
@@ -12,10 +13,13 @@ in (z, y, x) order through `OutdoorImVoxelNeck` to a 256-channel BEV map
 and the anchor head (no towers) to class, box and direction maps.
 
 The views are sampled one at a time into one (C, P) float32 sum, so the
-V sampled volumes never exist at once. The other options of the JAX
-model (frame_fusion='concat' with neck_3d='dfm', bbox_head='center',
-with_backbone_3d, with_depth_head) are not ported and raise
-NotImplementedError.
+V sampled volumes never exist at once. Training (`forward_train`,
+`mvdfm_loss`) is the camsync branch of JAX's `mvdfm_loss`: the anchor
+head's loss without the IoU term. The other options of the JAX model
+(frame_fusion='concat' with neck_3d='dfm', bbox_head='center',
+with_backbone_3d, with_depth_head) and their loss branches (CenterHead,
+the dense depth loss) are not ported and raise NotImplementedError
+(ROADMAP.md §1, Slice C).
 """
 
 import dataclasses
@@ -31,11 +35,13 @@ from ...core.anchors import (AlignedAnchor3DRangeGenerator,
 from ...core.transforms import transform_points
 from ...ops.point_sample import point_sample
 from ..backbones.resnet import ResNet, stage_channels
-from ..heads.anchor3d_head import LIGAAnchor3DHead, anchor3d_head_get_bboxes
+from ..heads.anchor3d_head import (LIGAAnchor3DHead,
+                                   anchor3d_head_get_bboxes,
+                                   anchor3d_head_loss)
 from ..necks.fpn import FPN
 from ..necks.imvoxel_neck import OutdoorImVoxelNeck
 
-__all__ = ['MVDfMConfig', 'MultiViewDfM', 'mvdfm_predict']
+__all__ = ['MVDfMConfig', 'MultiViewDfM', 'mvdfm_loss', 'mvdfm_predict']
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +183,14 @@ class MultiViewDfM(nn.Module):
         nz, ny, nx = self.cfg.voxel_grid
         return torch.stack(vols).reshape(b, c, nz, ny, nx)
 
+    def forward_train(self, imgs, lidar2img, gt, generator=None,
+                      depth_pix_idx=None):
+        """The forward pass and `mvdfm_loss` on gt's 'gt_boxes' (B, G, 7)
+        (vehicle frame), 'gt_labels' and 'gt_mask' -> (total, dict of
+        terms). `generator` and `depth_pix_idx` (`TrainStep`'s) are not
+        used: the camsync branch has no depth loss."""
+        return mvdfm_loss(self(imgs, lidar2img), gt, self.cfg)
+
     def forward(self, imgs, lidar2img, img_hw=None):
         """imgs (B, F, V, H, W, 3) normalised, the current frame first;
         lidar2img (B, F, V, 4, 4) from the current vehicle frame (earlier
@@ -205,6 +219,51 @@ def _flat_anchors(ranges, sizes, rotations, ny, nx, device):
     grid = Anchor3DRangeGenerator(list(ranges), list(sizes),
                                   list(rotations)).grid_anchors((ny, nx))
     return torch.as_tensor(grid.reshape(-1, 7), device=device)
+
+
+def mvdfm_anchors_per_class(cfg: MVDfMConfig, featmap_size, device):
+    """The (Ny * Nx * R, 7) anchors of each class in the head's (y, x,
+    rot) order (`_mv_anchors`)."""
+    grid = cfg.anchor_generator().grid_anchors(tuple(featmap_size))
+    return [torch.as_tensor(grid[0, :, :, c].reshape(-1, 7), device=device)
+            for c in range(len(cfg.anchor_sizes))]
+
+
+def mvdfm_loss(outputs, gt, cfg: MVDfMConfig):
+    """The camsync branch of JAX's `mvdfm_loss` (`multiview_dfm.py:264-
+    279`): `anchor3d_head_loss` on the anchor head's outputs with the
+    per-class anchors, no IoU term and the weights (1.0, 2.0, 0.2, 0.0)
+    for cls, bbox, dir, iou; in a process group its normaliser is the
+    global batch's positives (`dist_norm`).
+
+    Args:
+        outputs: `MultiViewDfM.forward`'s.
+        gt: 'gt_boxes' (B, G, 7) in the vehicle frame, 'gt_labels' (B, G),
+            'gt_mask' (B, G). Outputs with a 'depth_cost' (the
+            voxel_sample path's dense depth loss) or 'task_outs'
+            (CenterHead) are refused: not ported.
+
+    Returns:
+        (total, dict loss_cls, loss_bbox, loss_dir).
+    """
+    if 'task_outs' in outputs:
+        raise NotImplementedError(
+            "mvdfm_loss: the CenterHead branch (bbox_head='center') is not "
+            'ported to dfm_tpu_torch (ROADMAP.md §1, Slice C)')
+    if 'depth_cost' in outputs:
+        raise NotImplementedError(
+            "mvdfm_loss: the dense depth loss (with_depth_head's "
+            'voxel_sample path) is not ported to dfm_tpu_torch (ROADMAP.md '
+            '§1, Slice C)')
+    ny, nx = outputs['cls_score'].shape[1:3]
+    losses = anchor3d_head_loss(
+        (outputs['cls_score'], outputs['bbox_pred'], outputs['dir_pred']),
+        mvdfm_anchors_per_class(cfg, (ny, nx), outputs['cls_score'].device),
+        gt['gt_boxes'], gt['gt_labels'], gt['gt_mask'],
+        list(cfg.assigner_cfgs), num_classes=cfg.num_classes,
+        dir_offset=cfg.dir_offset, loss_weights=(1.0, 2.0, 0.2, 0.0),
+        use_iou_loss=False, dist_norm=True)
+    return sum(losses.values()), losses
 
 
 def mvdfm_predict(outputs, cfg: MVDfMConfig):

@@ -8,10 +8,10 @@ conv_reg, conv_dir_cls. Head outputs are returned channels-last
 """
 
 import torch
-import torch.distributed as dist
 import torch.nn as nn
 
 from ..layers import Conv, ConvNorm
+from ...parallel import dist as D
 from ...core import losses as L
 from ...core.coders import delta_xyzwlhr_decode
 from ...core.nms import box3d_multiclass_nms
@@ -75,16 +75,6 @@ def anchor3d_head_targets(anchors_per_class, gt_boxes, gt_labels, gt_mask,
     return out, total_pos
 
 
-def _dist_mean(x):
-    """The mean of x over the default process group (JAX's pmean over the
-    data axis); x itself without one."""
-    if not (dist.is_available() and dist.is_initialized()):
-        return x
-    x = x.clone()
-    dist.all_reduce(x)
-    return x / dist.get_world_size()
-
-
 def anchor3d_head_loss(preds, anchors_per_class, gt_boxes, gt_labels,
                        gt_mask, assigner_cfgs, num_classes=3,
                        dir_offset=0.7854, loss_weights=(1.0, 0.5, 0.2, 1.0),
@@ -99,8 +89,11 @@ def anchor3d_head_loss(preds, anchors_per_class, gt_boxes, gt_labels,
         anchors_per_class: list of (A_c, 7) flat per-class anchors in the
             head's (y, x, rot) order.
         gt_boxes: (B, G, 7); gt_labels: (B, G); gt_mask: (B, G).
-        dist_norm: average the positive count over the default process
-            group when one exists (the JAX package's `axis_name`).
+        dist_norm: in a process group, normalise by the positives of the
+            global batch (summed over the group), as JAX's loss on the
+            sharded batch does: the rank's terms are then its share of
+            the global batch's, which the ranks' sum gives
+            (`parallel/dist.py`). A no-op without a group.
 
     Returns:
         dict of scalar losses loss_cls, loss_bbox, loss_dir, loss_iou.
@@ -133,7 +126,7 @@ def anchor3d_head_loss(preds, anchors_per_class, gt_boxes, gt_labels,
     num_total = torch.as_tensor(pos, dtype=torch.float32,
                                 device=cls_score.device)
     if dist_norm:
-        num_total = _dist_mean(num_total)
+        num_total = D.global_sum(num_total)
     avg_cls = num_total + normalizer_clamp_value
     avg_reg = torch.clamp(num_total, min=normalizer_clamp_value)
 

@@ -21,7 +21,7 @@ import torch.nn as nn
 from ..layers import Conv, ConvNorm
 from ...core import losses as L
 from ...core.iou import aligned_iou_2d
-from .anchor3d_head import _dist_mean
+from ...parallel import dist as D
 
 __all__ = ['ATSS2DConfig', 'ATSS2DHead', 'level_anchors', 'atss_assign',
            'atss2d_anchors', 'atss2d_targets', 'atss2d_loss']
@@ -164,7 +164,8 @@ def atss2d_loss(level_outs, img_hw, gt, cfg: ATSS2DConfig, dist_norm=False):
         img_hw: the input image's (H, W).
         gt: 'gt_bboxes2d' (B, G, 4), 'centers2d' (B, G, 2), 'gt_labels'
             (B, G), 'gt_mask' (B, G).
-        dist_norm: average the positive count over the process group.
+        dist_norm: in a process group, the positives of the global batch
+            (`anchor3d_head_loss`'s rule); a no-op without a group.
 
     Returns:
         dict loss_cls2d, loss_bbox2d, loss_centerness2d.
@@ -181,9 +182,10 @@ def atss2d_loss(level_outs, img_hw, gt, cfg: ATSS2DConfig, dist_norm=False):
     centerness = flat('centerness', 1)[..., 0]
 
     labels, matched, pos = atss2d_targets(anchors, level_sizes, gt, cfg)
-    num_pos = torch.clamp(pos.sum().float(), min=1.0)
+    num_pos = pos.sum().float()
     if dist_norm:
-        num_pos = _dist_mean(num_pos)
+        num_pos = D.global_sum(num_pos)
+    num_pos = torch.clamp(num_pos, min=1.0)
 
     loss_cls = L.sigmoid_focal_loss(cls_score, labels, avg_factor=num_pos)
 

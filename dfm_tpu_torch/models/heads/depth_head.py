@@ -11,6 +11,7 @@ reference's dense computation has there).
 import torch
 
 from ...ops.resize import interp_matrix
+from ...parallel import dist as D
 
 __all__ = ['fine_depth_columns', 'sample_depth_pixels',
            'depth_distribution_loss', 'LOSS_TYPES']
@@ -72,7 +73,7 @@ def sample_depth_pixels(depth_img, num_sample_pixels, generator,
 def depth_distribution_loss(cost, depth_img, depth_fgmask_img, depth_samples,
                             loss_cfg, up_factor=4, num_sample_pixels=8192,
                             depth_min=2.0, depth_max=59.6, generator=None,
-                            pix_idx=None):
+                            pix_idx=None, dist_norm=False):
     """Depth loss over a fixed number of valid pixels of each image.
 
     Args:
@@ -87,7 +88,11 @@ def depth_distribution_loss(cost, depth_img, depth_fgmask_img, depth_samples,
         generator: the torch.Generator the pixels are drawn from
             (`sample_depth_pixels`), on cost's device.
         pix_idx: optional (B, P) flat pixel indices to use instead of a
-            draw (the tests pass the JAX package's draws).
+            draw (the tests pass the JAX package's draws; a rank of a
+            process group its rows of the global batch's draw).
+        dist_norm: in a process group, the per-image mean over the global
+            batch (the rank's loss is its share of the global batch's,
+            `anchor3d_head_loss`'s rule); a no-op without a group.
 
     Returns:
         scalar loss: the per-image losses averaged, times loss_weight; an
@@ -144,4 +149,10 @@ def depth_distribution_loss(cost, depth_img, depth_fgmask_img, depth_samples,
             loss = loss.mean()
         losses.append(torch.where(valid[i].any(), loss,
                                   torch.zeros_like(loss)))
-    return loss_cfg.get('loss_weight', 1.0) * torch.stack(losses).mean()
+    losses = torch.stack(losses)
+    if dist_norm and D.is_active():
+        mean = losses.sum() / D.global_sum(torch.full(
+            (), b, dtype=torch.float32, device=losses.device))
+    else:
+        mean = losses.mean()
+    return loss_cfg.get('loss_weight', 1.0) * mean

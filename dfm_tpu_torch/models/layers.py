@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import resize_linear
+from ..parallel import dist as D
 
 __all__ = ['Conv', 'ConvTranspose', 'GroupNorm', 'BatchNorm', 'ConvNorm',
            'convbn', 'Hourglass', 'UpconvModule', 'group_norm',
@@ -106,6 +107,13 @@ class BatchNorm(nn.Module):
     E[x^2] - E[x]^2 clipped at 0; then, outside the graph, it updates the
     running buffers the flax way, ra = 0.9 * ra + 0.1 * batch, with that
     biased variance (`F.batch_norm` would store the unbiased one).
+
+    In a process group of several ranks (`parallel/dist.py`) the batch is
+    the global one, as JAX's BatchNorm sees it on the sharded batch: each
+    rank's float32 sums of x and x^2 and its count are all-reduced (in
+    float64, the count exact) with a gradient, so every rank normalises
+    with, and stores, the same moments. A group of one has nothing to
+    combine and takes the moments as one process does.
     """
 
     momentum = 0.9
@@ -127,8 +135,18 @@ class BatchNorm(nn.Module):
                     bs.view(shape)).to(x.dtype)
         xf = x.float()
         dims = [0] + list(range(2, x.dim()))
-        mean = xf.mean(dims)
-        var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+        if D.world_size() > 1:
+            c = xf.shape[1]
+            count = torch.full((1,), xf.numel() // c, dtype=torch.float64,
+                               device=xf.device)
+            stats = D.sum_over_group(torch.cat([torch.cat([
+                xf.sum(dims), (xf * xf).sum(dims)]).double(), count]))
+            mean = (stats[:c] / stats[-1]).float()
+            var = ((stats[c:2 * c] / stats[-1]).float() -
+                   mean * mean).clamp(min=0.0)
+        else:
+            mean = xf.mean(dims)
+            var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean +

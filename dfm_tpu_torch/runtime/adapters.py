@@ -1,12 +1,16 @@
-"""Synthetic DfM / DfMFull batches (the train CLI's `--synthetic`).
+"""Synthetic batches (the train CLI's `--synthetic`) and the model-args
+functions of the train step.
 
-Port of the DfM part of `dfm_tpu/runtime/adapters.py:74-117`
-(`_dfm_meta`, `_dfm_synth`): the same draws from
+Port of `dfm_tpu/runtime/adapters.py:41-117` (`_gt_pack`, `_cam_matrix`,
+`_dfm_meta`, `_dfm_synth`) and `:327-354` (`_mv_synth` and the
+MultiViewDfM model arguments): the same draws from
 `np.random.default_rng(seed)` in the same order, so that one seed gives
-both packages the same batch. The batch is numpy, batched, in the JAX
-layout: 'img' (B, 2, H, W, 3), 'meta' (the `BatchMeta` fields), the gt
-keys and, with `full`, DfMFull's teacher points and 2D targets;
-`to_device` makes the model's inputs of it.
+both packages the same batch. A batch is numpy, batched, in the JAX
+layout: for DfM 'img' (B, 2, H, W, 3), 'meta' (the `BatchMeta` fields),
+the gt keys and, with `full`, DfMFull's teacher points and 2D targets;
+for MultiViewDfM 'img' (B, 1, V, H, W, 3), 'lidar2img' (B, 1, V, 4, 4)
+and the gt boxes. `to_device` / `mv_to_device` make the model's inputs
+of it (`TrainStep`'s (inputs, cond, gt)), as JAX's `model_args_fn`.
 """
 
 import numpy as np
@@ -15,7 +19,8 @@ import torch
 from ..data.collate import FULL_KEYS, GT_KEYS
 from ..models.detectors.dfm import BatchMeta
 
-__all__ = ['dfm_meta', 'dfm_synth', 'to_device']
+__all__ = ['dfm_meta', 'dfm_synth', 'to_device', 'gt_pack', 'mv_synth',
+           'mv_to_device']
 
 
 def dfm_meta(b, h, w):
@@ -75,3 +80,53 @@ def to_device(batch, device):
     meta = BatchMeta(**{k: t(v) for k, v in batch['meta'].items()})
     gt = {k: t(batch[k]) for k in GT_KEYS + FULL_KEYS if k in batch}
     return t(batch['img']), meta, gt
+
+
+def gt_pack(rng, b, g=4):
+    """`_gt_pack` (vehicle frame): g boxes per sample, centres uniform in
+    x [2, 50), y [-20, 20), z [-2, 0), sizes in [1.5, 4.2) x [1.4, 1.8)^2,
+    yaw in [-pi, pi), float32; labels in {0, 1, 2} int32; all valid."""
+    ctr = np.stack([rng.uniform(2, 50, (b, g)), rng.uniform(-20, 20, (b, g)),
+                    rng.uniform(-2, 0, (b, g))], -1)
+    dim = np.stack([rng.uniform(1.5, 4.2, (b, g)),
+                    rng.uniform(1.4, 1.8, (b, g)),
+                    rng.uniform(1.4, 1.8, (b, g))], -1)
+    yaw = rng.uniform(-np.pi, np.pi, (b, g, 1))
+    boxes = np.concatenate([ctr, dim, yaw], -1).astype(np.float32)
+    labels = rng.integers(0, 3, (b, g)).astype(np.int32)
+    return boxes, labels, np.ones((b, g), bool)
+
+
+def mv_synth(cfg, b, seed, h=32, w=48, n_views=2):
+    """`_mv_synth` for MultiViewDfM: `gt_pack`'s boxes with their centres
+    clipped into `cfg.voxel_range` (half a size from its faces), then
+    normal images (B, 1, n_views, H, W, 3); every view the same camera
+    (f = 30 px, principal point at the centre) looking down the vehicle's
+    x axis."""
+    rng = np.random.default_rng(seed)
+    rot = np.array([[0, -1, 0, 0], [0, 0, -1, 0],
+                    [1, 0, 0, 0], [0, 0, 0, 1]], np.float32)
+    cam = np.eye(4, dtype=np.float32)
+    cam[0, 0] = cam[1, 1] = 30.0
+    cam[0, 2], cam[1, 2] = w / 2.0, h / 2.0
+    cam = cam @ rot
+    boxes, labels, mask = gt_pack(rng, b)
+    img = rng.standard_normal((b, 1, n_views, h, w, 3), dtype=np.float32)
+    l2i = np.tile(cam[None, None, None], (b, 1, n_views, 1, 1))
+    pcr = np.asarray(cfg.voxel_range, np.float32)
+    lo = pcr[:3] + boxes[..., 3:6] / 2
+    hi = pcr[3:] - boxes[..., 3:6] / 2
+    ctr = np.clip(boxes[..., :3], lo, np.maximum(lo, hi))
+    return dict(img=img, lidar2img=l2i,
+                gt_boxes=np.concatenate([ctr, boxes[..., 3:]], -1),
+                gt_labels=labels, gt_mask=mask)
+
+
+def mv_to_device(batch, device):
+    """A batch of `mv_synth` (or of Waymo samples stacked the same way) ->
+    (imgs, lidar2img, gt dict), tensors on `device`."""
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return t(batch['img']), t(batch['lidar2img']), {
+        k: t(batch[k]) for k in ('gt_boxes', 'gt_labels', 'gt_mask')}

@@ -18,9 +18,18 @@ OptimizerHook grad clip 35, AdamW, LR hooks). The JAX package chains
 BatchNorm statistics update in the forward pass of a train-mode model
 (`models/layers.py:BatchNorm`), the frozen LiDAR teacher's of a
 `DfMFull` too (JAX's train step calls it with `train`).
+
+In a process group (`parallel/dist.py`, torchrun) each rank runs the step
+on its rows of the global batch; its loss is its share of the global
+batch's loss (the normalisers are global counts), so the gradients are
+summed over the group before the clip (one flat bucket), and the clip,
+AdamW and the reported `grad_norm` and loss terms are the global batch's,
+as JAX's step on the sharded batch gives them.
 """
 
 import torch
+
+from ..parallel import dist as D
 
 __all__ = ['make_optimizer', 'global_norm', 'clip_by_global_norm',
            'TrainStep']
@@ -53,17 +62,23 @@ def clip_by_global_norm(grads, max_norm, norm=None):
 
 
 class TrainStep:
-    """One optimizer update of a DfM or DfMFull model: `__call__(img,
-    meta, gt, generator)` -> metrics dict of scalar tensors (loss, each
-    loss term, grad_norm), as JAX's `train_step`. The three phases are
-    methods of their own (`forward`, `backward`, `update`) so that a
-    caller can time them apart. The model's `forward_train` gives the
-    loss: `dfm_loss`'s terms for a `DfM`; for a `DfMFull`
-    `dfm_full_loss`'s, + loss_cls2d, loss_bbox2d, loss_centerness2d where
-    gt has 2D targets, + loss_imitation where it has points.
+    """One optimizer update: `__call__(inputs, cond, gt, generator)` ->
+    metrics dict of scalar tensors (loss, each loss term, grad_norm), as
+    JAX's `train_step`. The phases are methods of their own (`forward`,
+    `backward`, `reduce`, `update`) so that a caller can time them
+    apart. The model's `forward_train(inputs, cond, gt, generator,
+    depth_pix_idx)` gives the loss; the model-args function of its batch
+    (`runtime/adapters.py:to_device` for DfM / DfMFull, `mv_to_device` for
+    MultiViewDfM, as JAX's `model_args_fn`) gives the first three:
+    (img, BatchMeta, gt) -> `dfm_loss`'s terms for a `DfM`; for a
+    `DfMFull` `dfm_full_loss`'s, + loss_cls2d, loss_bbox2d,
+    loss_centerness2d where gt has 2D targets, + loss_imitation where it
+    has points; (imgs, lidar2img, gt) -> `mvdfm_loss`'s for a
+    `MultiViewDfM`.
 
     Args:
-        model: `DfM` or `DfMFull` (put in train mode here).
+        model: `DfM`, `DfMFull` or `MultiViewDfM` (put in train mode
+            here).
         optimizer: from `make_optimizer`.
         schedule: count -> learning rate.
         step: the number of updates already taken (a resumed run's).
@@ -78,25 +93,40 @@ class TrainStep:
         self.step = step
         self._trained = {id(p) for g in optimizer.param_groups
                          for p in g['params']}
+        self._reduced = False
+        self.reduce_bytes = 0
 
     def forward(self, img, meta, gt, generator=None, depth_pix_idx=None):
-        """Train-mode forward and loss -> (total, dict of terms)."""
+        """Train-mode forward and loss -> (total, dict of terms); in a
+        process group, this rank's share of the global batch's."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        self._reduced = False
         return self.model.forward_train(img, meta, gt, generator,
                                         depth_pix_idx)
 
     def backward(self, total):
         total.backward()
 
-    def update(self):
-        """Clip and apply the gradients -> the global gradient norm."""
-        params = [p for p in self.model.parameters()]
-        # a parameter the loss did not reach gets a zero gradient: optax
-        # updates it all the same (its decay and moments), AdamW would skip
+    def reduce(self):
+        """Give every parameter the loss did not reach a zero gradient
+        (optax updates it all the same, its decay and moments; AdamW
+        would skip it), then, in a process group, sum the gradients over
+        the group (`dist.all_reduce_grads`; its bytes in
+        `reduce_bytes`)."""
+        params = list(self.model.parameters())
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self.reduce_bytes = D.all_reduce_grads(params)
+        self._reduced = True
+
+    def update(self):
+        """Clip and apply the (reduced) gradients -> the global gradient
+        norm."""
+        if not self._reduced:
+            self.reduce()
+        params = list(self.model.parameters())
         norm_all = global_norm([p.grad for p in params])
         trained = [p.grad for p in params if id(p) in self._trained]
         clip_by_global_norm(trained, self.grad_clip_norm,
@@ -107,12 +137,14 @@ class TrainStep:
             group['lr'] = lr
         self.optimizer.step()
         self.step += 1
+        self._reduced = False
         return norm_all
 
     def __call__(self, img, meta, gt, generator=None, depth_pix_idx=None):
         total, losses = self.forward(img, meta, gt, generator, depth_pix_idx)
         self.backward(total)
         grad_norm = self.update()
-        return dict(loss=total.detach(),
-                    **{k: v.detach() for k, v in losses.items()},
-                    grad_norm=grad_norm)
+        return dict(**D.sum_scalars(dict(
+            loss=total.detach(),
+            **{k: v.detach() for k, v in losses.items()})),
+            grad_norm=grad_norm)

@@ -32,6 +32,12 @@ go to a temporary directory.
 Another model type, or a data root without its info file, exits with a
 message and code 2. Runs on the CUDA card unless `--device cpu`, in
 bfloat16 unless `--dtype float32`.
+
+Under `torchrun --nproc_per_node=N` (`parallel/dist.py`) each rank loads
+the weights and infers frames r, r + N, ... on the card LOCAL_RANK (the
+CPU with `--device cpu`); the results are gathered in dataset order
+(`apis.allgather_pickled`), and rank 0 alone writes `--out`, evaluates
+and prints the metric lines, which equal a one-process run's.
 """
 
 import argparse
@@ -43,14 +49,15 @@ import tempfile
 import numpy as np
 import torch
 
-from ..apis import (detect_multiview_sample, detect_sample, init_dfm_model,
-                    init_mvdfm_model)
+from ..apis import (_sharded, detect_multiview_sample, detect_sample,
+                    init_dfm_model, init_mvdfm_model)
 from ..data.kitti import KittiDataset
 from ..data.waymo import WaymoDataset
 from ..evaluation.kitti_eval import kitti_eval
 from ..evaluation.results import detections_to_kitti_annos
 from ..evaluation.waymo_eval import gt_annos_to_bin, gt_objects_from_infos
 from ..models.builder import build_detector, unused_keys
+from ..parallel import dist as D
 from ..runtime.config import load_config, merge_options
 from ..utils.weights import load_reference_state_dict, read_checkpoint
 
@@ -113,15 +120,19 @@ def kitti_dfm_eval(args, cfg):
         pipeline_kwargs=dict(crop_size=tuple(d.crop_size), max_gt=d.max_gt))
     rng = np.random.default_rng(0)
     n = min(len(ds), args.max_samples or len(ds))
-    dt_annos = []
-    for i in range(n):
+
+    def infer(i):
         info = ds.infos[i]
         det = detect_sample(handle, ds.get_sample(i, rng))
-        dt_annos.append(detections_to_kitti_annos(
+        anno = detections_to_kitti_annos(
             det, np.asarray(info['calib']['P2'])[:3],
-            info.get('image', {}).get('image_shape', (375, 1242))))
-        print(f'[{i + 1}/{n}] dets={len(dt_annos[-1]["name"])}', flush=True)
+            info.get('image', {}).get('image_shape', (375, 1242)))
+        print(f'[{i + 1}/{n}] dets={len(anno["name"])}', flush=True)
+        return anno
 
+    dt_annos = _sharded(n, infer)
+    if not D.is_main():
+        return None
     if args.out:
         with open(args.out, 'wb') as f:
             pickle.dump(dt_annos, f)
@@ -152,11 +163,15 @@ def waymo_mvdfm_eval(args, cfg):
         load_mode=d.get('load_mode', 'lidar_frame'),
         cam_sync=d.get('cam_sync', False))
     n = min(len(ds), args.max_samples or len(ds))
-    results = []
-    for i in range(n):
-        results.append(detect_multiview_sample(handle, ds.get_sample(i)))
-        print(f'[{i + 1}/{n}] dets={len(results[-1]["scores_3d"])}',
-              flush=True)
+
+    def infer(i):
+        res = detect_multiview_sample(handle, ds.get_sample(i))
+        print(f'[{i + 1}/{n}] dets={len(res["scores_3d"])}', flush=True)
+        return res
+
+    results = _sharded(n, infer)
+    if not D.is_main():
+        return None
     if args.out:
         with open(args.out, 'wb') as f:
             pickle.dump(results, f)
@@ -197,7 +212,11 @@ def main(argv=None):
         print(f'[data] {kind} evaluates on {want} infos: no {info} under '
               f'{root!r} (dataset type {data_type!r})', file=sys.stderr)
         return 2
-    run(args, cfg)
+    args.device = D.init_from_env(args.device)
+    try:
+        run(args, cfg)
+    finally:
+        D.destroy()
     return 0
 
 

@@ -1,15 +1,19 @@
-"""Train DfM or DfMFull with the port.
+"""Train DfM, DfMFull or MultiViewDfM with the port, in one process or
+data-parallel across processes.
 
     python -m dfm_tpu_torch.tools.train configs/dfm_r34_kitti_3class.py \
         [--cfg-options key=value ...] [--work-dir W] [--auto-resume] \
         [--max-steps N] [--eval-samples N] [--seed S] [--synthetic] \
         [--device cpu] [--tensorboard]
+    torchrun --nproc_per_node=N -m dfm_tpu_torch.tools.train CONFIG ...
 
-Port of the DfM / DfMFull branch of `tools/train.py:38-99, 159-200,
-464-649`: the config (`runtime/config.py`) -> the data: with
-`--synthetic`, `SyntheticSource` (`runtime/adapters.py:dfm_synth`, the
-batch of step s drawn from seed + s, with teacher points and 2D targets
-for DfMFull); else `kitti_infos_train.pkl` under `data.data_root`
+Port of the DfM / DfMFull / MultiViewDfM branches of `tools/train.py:
+38-99, 159-200, 427-649`: the config (`runtime/config.py`) -> the data:
+with `--synthetic`, `SyntheticSource` (`runtime/adapters.py:dfm_synth`,
+the batch of step s drawn from seed + s, with teacher points and 2D
+targets for DfMFull; `mv_synth` for MultiViewDfM, which has no Waymo
+train source in either package and always trains on it); else
+`kitti_infos_train.pkl` under `data.data_root`
 (`python -m dfm_tpu_torch.tools.create_data kitti --splits train val`
 writes it) -> `KittiDataset(train=True)` (flip, scale, crop and
 photometric distortion from `np.random.default_rng(seed)`), after one
@@ -19,18 +23,32 @@ banded form: the conv chain is inference-only): `DfM`, or `DfMFull`
 (the student under `dfm.`, the FPN + ATSS 2D head from the config's
 `atss`, the dense LiDAR teacher restored from `model.teacher_checkpoint`,
 a flax msgpack tree read by `utils/msgpack_tree.py`, where that file
-exists, and left out of the optimizer) -> `TrainStep` (`dfm_loss` or
-`dfm_full_loss`, the gradient clip at 35, AdamW under the LIGA schedule;
-the depth loss's pixels from a device generator seeded from (seed,
-step)) -> `<work_dir>/ckpts/step_<n>.pth` every
+exists, and left out of the optimizer), or `MultiViewDfM` -> `TrainStep`
+(`dfm_loss`, `dfm_full_loss` or `mvdfm_loss`, the gradient clip at 35,
+AdamW under the config's LIGA schedule; the depth loss's pixels drawn
+from a device generator seeded from (seed, step)) ->
+`<work_dir>/ckpts/step_<n>.pth` (the port's state-dict layout, which
+`utils/weights.py`'s key maps give for JAX trees) every
 `checkpoint.interval_epochs` and at the end, `<work_dir>/metrics.jsonl`,
 and, on KITTI data with `kitti_infos_val.pkl`, the KITTI eval of the
 student every `schedule.eval_interval` epochs on a float32 model with the
 trained weights (`dataset_inference`, `kitti_eval`). `--auto-resume`
 continues from the newest checkpoint: weights, optimizer state and step.
-Another model type exits with a message and code 2, as does a data root
-without the train infos (without `--synthetic`). Runs on the CUDA card
-unless `--device cpu`.
+Another model type exits with a message and code 2, as does a DfM data
+root without the train infos (without `--synthetic`). Runs on the CUDA
+card unless `--device cpu`.
+
+Under torchrun (`parallel/dist.py`) the global batch is
+`data.batch_size_per_chip` x the world size, as JAX's CLI makes it over
+its devices: every rank draws the whole global batch from the same
+`rng` (on KITTI it decodes every sample of it: the crop draws depend on
+each image's size) and the depth pixels on it, and trains on its rows
+(`dist.shard_batch`); the gradients, loss terms and BatchNorm moments
+are those of the global batch (`runtime/train.py`). The seed is rank
+0's; rank 0 alone writes the config, checkpoints, metrics and the eval's
+lines, every rank resumes from the same checkpoint, and the per-epoch
+KITTI eval runs sharded (`apis.multihost_dataset_inference`). Each rank
+takes the card LOCAL_RANK (`--device cpu`: the CPU, gloo).
 """
 
 import argparse
@@ -42,23 +60,27 @@ import time
 import numpy as np
 import torch
 
-from ..apis import _device, dataset_inference, init_dfm_model
+from ..apis import init_dfm_model, multihost_dataset_inference
 from ..data.collate import build_batch
 from ..data.kitti import KittiDataset
 from ..evaluation.kitti_eval import kitti_eval
 from ..models.builder import atss_config, build_detector
 from ..models.detectors.dfm import DfM
 from ..models.detectors.dfm_full import DfMFull
+from ..models.detectors.multiview_dfm import MultiViewDfM
+from ..models.heads.depth_head import sample_depth_pixels
+from ..parallel import dist as D
+from ..parallel.multihost import broadcast_seed
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.config import load_config, merge_options
-from ..runtime.adapters import dfm_synth, to_device
+from ..runtime.adapters import dfm_synth, mv_synth, mv_to_device, to_device
 from ..runtime.logging import MetricsLogger
 from ..runtime.schedule import liga_schedule
 from ..runtime.train import TrainStep, make_optimizer
 from ..utils.msgpack_tree import load_msgpack_tree
 from ..utils.weights import init_weights, teacher_state_dict
 
-TRAINED_TYPES = ('DfM', 'DfMFull')
+TRAINED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM')
 
 
 def parse_args(argv=None):
@@ -142,23 +164,27 @@ class KittiDfMSource:
 
 
 class SyntheticSource:
-    """`tools/train.py:SyntheticSource` for DfM and DfMFull: the batch of
-    step s is `dfm_synth(cfg, batch_size, seed + s, full)` (32x64 images,
-    as JAX's adapter makes them); `rng` is not drawn from. 16 steps an
-    epoch."""
+    """`tools/train.py:SyntheticSource`: the batch of step s is
+    `dfm_synth(cfg, batch_size, seed + s, full)` for DfM / DfMFull (32x64
+    images, as JAX's adapter makes them; `full` for DfMFull), or
+    `mv_synth(cfg, batch_size, seed + s)` for MultiViewDfM (2 views of
+    32x48); `rng` is not drawn from. 16 steps an epoch."""
 
     steps_per_epoch = 16
 
-    def __init__(self, mcfg, batch_size, seed, full):
+    def __init__(self, mcfg, batch_size, seed, kind):
         self.cfg, self.batch_size = mcfg, batch_size
-        self.seed, self.full = seed, full
+        self.seed, self.kind = seed, kind
 
     def next_samples(self, step, rng):
+        if self.kind == 'MultiViewDfM':
+            return mv_synth(self.cfg, self.batch_size, self.seed + step)
         return dfm_synth(self.cfg, self.batch_size, self.seed + step,
-                         full=self.full)
+                         full=self.kind == 'DfMFull')
 
     def next_batch(self, step, rng, device):
-        return to_device(self.next_samples(step, rng), device)
+        to = mv_to_device if self.kind == 'MultiViewDfM' else to_device
+        return to(self.next_samples(step, rng), device)
 
 
 def discard_init_draw(source, rng):
@@ -185,7 +211,8 @@ def restore_teacher(model, path):
 
 def run_eval(cfg, mcfg, model, device, max_samples):
     """The EvalHook: KITTI AP of the trained weights on the val split, a
-    float32 model in its eval form; nothing without val infos."""
+    float32 model in its eval form, each rank inferring its shard of the
+    frames; rank 0 prints the AP. Nothing without val infos."""
     d = cfg.data
     val_info = os.path.join(d.data_root, 'kitti_infos_val.pkl')
     if not os.path.exists(val_info):
@@ -196,7 +223,9 @@ def run_eval(cfg, mcfg, model, device, max_samples):
     handle = init_dfm_model(mcfg, dtype=torch.float32, device=device)
     handle['model'].load_state_dict(model.student.state_dict())
     n = min(len(val_ds), max_samples or len(val_ds))
-    dt_annos = dataset_inference(handle, val_ds, max_samples=n)
+    dt_annos = multihost_dataset_inference(handle, val_ds, max_samples=n)
+    if not D.is_main():
+        return None
     gt_annos = []
     for info in val_ds.infos[:n]:
         a = info['annos']
@@ -214,6 +243,28 @@ def run_eval(cfg, mcfg, model, device, max_samples):
     return res
 
 
+def draw_depth_pixels(mcfg, gt, generator):
+    """The depth loss's pixels of a (global) batch, drawn from `generator`
+    as `dfm_loss` would draw them (None for a batch without a depth map
+    or a model without the loss)."""
+    if gt.get('depth_img') is None or not hasattr(mcfg,
+                                                  'num_depth_sample_pixels'):
+        return None
+    return sample_depth_pixels(gt['depth_img'], mcfg.num_depth_sample_pixels,
+                               generator, mcfg.depth_min, mcfg.depth_max)
+
+
+def build_model(kind, cfg, mcfg, seed):
+    """The float32 model of `kind`, seeded random weights."""
+    if kind == 'DfMFull':
+        model = DfMFull(mcfg, atss_config(cfg.model))
+    elif kind == 'MultiViewDfM':
+        model = MultiViewDfM(mcfg)
+    else:
+        model = DfM(mcfg)
+    return init_weights(model, seed)
+
+
 def main(argv=None):
     args = parse_args(argv)
     cfg = merge_options(load_config(args.config), args.cfg_options)
@@ -224,7 +275,8 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     d = cfg.get('data', {}) or {}
-    if not args.synthetic and (
+    multiview = kind == 'MultiViewDfM'
+    if not args.synthetic and not multiview and (
             d.get('type', '') != 'KittiDataset' or not os.path.exists(
                 os.path.join(d.get('data_root', ''),
                              'kitti_infos_train.pkl'))):
@@ -233,26 +285,43 @@ def main(argv=None):
               f'{d.get("type", "")!r}); --synthetic trains on synthetic '
               'batches', file=sys.stderr)
         return 2
+    device = D.init_from_env(args.device)
+    try:
+        return train(args, cfg, kind, d, device)
+    finally:
+        D.destroy()
+
+
+def train(args, cfg, kind, d, device):
+    main_rank = D.is_main()
+    say = print if main_rank else (lambda *a, **k: None)
     os.makedirs(args.work_dir, exist_ok=True)
-    cfg.dump(os.path.join(args.work_dir, 'config.json'))
-    device = _device(args.device)
+    if main_rank:
+        cfg.dump(os.path.join(args.work_dir, 'config.json'))
+    seed = broadcast_seed(args.seed)
     mcfg = build_detector(cfg.model)
-    full = kind == 'DfMFull'
-    model = DfMFull(mcfg, atss_config(cfg.model)) if full else DfM(mcfg)
-    model = init_weights(model, args.seed)
-    print(f'[model] {kind}, float32, on {device}', flush=True)
+    full, multiview = kind == 'DfMFull', kind == 'MultiViewDfM'
+    model = build_model(kind, cfg, mcfg, seed)
+    world = D.world_size()
+    say(f'[model] {kind}, float32, on {device}'
+        + (f', rank 0 of {world} ({D.backend()})' if D.is_active() else ''),
+        flush=True)
     tck = cfg.model.get('teacher_checkpoint', '') if full else ''
     if tck and os.path.exists(tck):
         restore_teacher(model, tck)
-        print(f'[teacher] restored from {tck}', flush=True)
+        say(f'[teacher] restored from {tck}', flush=True)
     elif tck:
-        print(f'[teacher] {tck!r} not found -> the frozen teacher keeps '
-              'its random init (set model.teacher_checkpoint)', flush=True)
+        say(f'[teacher] {tck!r} not found -> the frozen teacher keeps '
+            'its random init (set model.teacher_checkpoint)', flush=True)
     model = model.to(device)
 
-    batch_size = d.get('batch_size_per_chip', 1)
-    source = SyntheticSource(mcfg, batch_size, args.seed, full) \
-        if args.synthetic else KittiDfMSource(cfg, batch_size)
+    # the global batch: batch_size_per_chip on each rank
+    batch_size = d.get('batch_size_per_chip', 1) * world
+    if multiview and not args.synthetic:
+        say('[data] no Waymo train source: MultiViewDfM trains on synthetic '
+            'batches (pass --synthetic to silence)', flush=True)
+    source = SyntheticSource(mcfg, batch_size, seed, kind) \
+        if args.synthetic or multiview else KittiDfMSource(cfg, batch_size)
     steps_per_epoch = source.steps_per_epoch
     sched_cfg = cfg.get('schedule', {}) or {}
     total_steps = steps_per_epoch * sched_cfg.get('total_epochs', 1)
@@ -275,13 +344,17 @@ def main(argv=None):
     start_step = 0
     if args.auto_resume and ckpt.latest_step() is not None:
         start_step = ckpt.restore(model, optimizer)
-        print(f'resumed from step {start_step} (optimizer state sha1 '
+        # every rank restores, and says so
+        print(('' if main_rank else f'[rank {D.rank()}] ')
+              + f'resumed from step {start_step} (optimizer state sha1 '
               f'{optimizer_digest(optimizer.state_dict())})', flush=True)
+    D.broadcast_module(model)
     train_step = TrainStep(model, optimizer, schedule,
                            opt.get('grad_clip_norm', 35.0), step=start_step)
-    logger = MetricsLogger(args.work_dir, use_tensorboard=args.tensorboard)
+    logger = MetricsLogger(args.work_dir, use_tensorboard=args.tensorboard) \
+        if main_rank else None
 
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     discard_init_draw(source, rng)
     max_steps = args.max_steps or total_steps
     ck_interval = ck.get('interval_epochs', 1) * steps_per_epoch
@@ -290,25 +363,35 @@ def main(argv=None):
     t0 = time.time()
     try:
         while step < max_steps:
-            img, meta, gt = source.next_batch(step, rng, device)
-            metrics = train_step(img, meta, gt,
-                                 step_generator(args.seed, step, device))
+            inputs, cond, gt = source.next_batch(step, rng, device)
+            gen = step_generator(seed, step, device)
+            # the depth pixels of the global batch, then this rank's rows
+            # of both (the whole batch without a group)
+            pix = draw_depth_pixels(mcfg, gt, gen)
+            inputs, cond, gt, pix = D.shard_batch((inputs, cond, gt, pix))
+            metrics = train_step(inputs, cond, gt, gen, pix)
             step += 1
             if step % log_interval == 0 or step == 1 or step == max_steps:
                 m = {k: float(v) for k, v in metrics.items()}
                 m['s_per_iter'] = (time.time() - t0) / (step - start_step)
-                logger.log(step, m)
-                print(f'step {step}/{max_steps} ({m["s_per_iter"]:.2f}s/it) '
-                      + ' '.join(f'{k}={v:.4f}' for k, v in m.items()),
-                      flush=True)
+                if logger is not None:
+                    logger.log(step, m)
+                say(f'step {step}/{max_steps} ({m["s_per_iter"]:.2f}s/it) '
+                    + ' '.join(f'{k}={v:.4f}' for k, v in m.items()),
+                    flush=True)
             if step % ck_interval == 0:
-                ckpt.save(step, model, optimizer, cfg.to_dict())
-                if step % eval_interval == 0 and not args.synthetic:
+                if main_rank:
+                    ckpt.save(step, model, optimizer, cfg.to_dict())
+                if step % eval_interval == 0 and \
+                        isinstance(source, KittiDfMSource):
                     run_eval(cfg, mcfg, model, device, args.eval_samples)
-        path = ckpt.save(step, model, optimizer, cfg.to_dict())
+        path = ckpt.save(step, model, optimizer, cfg.to_dict()) \
+            if main_rank else ckpt.path(step)
+        D.barrier()
     finally:
-        logger.close()
-    print(f'training done: step {step}, checkpoint {path}', flush=True)
+        if logger is not None:
+            logger.close()
+    say(f'training done: step {step}, checkpoint {path}', flush=True)
     return 0
 
 

@@ -251,7 +251,7 @@ def test_train_cli_trains_on_jax_draws_2_and_3(tree, tmp_path, monkeypatch):
         def __init__(self, *args, **kw):
             pass
 
-        def __call__(self, img, meta, gt, generator):
+        def __call__(self, img, meta, gt, generator, depth_pix_idx=None):
             seen.append((img, meta, gt))
             return {'loss': torch.tensor(0.0)}
 
