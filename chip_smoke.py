@@ -197,15 +197,42 @@ Phases, one line each; any failure raises and no result is printed:
               on that tree (phase 6's checkpoint) and on phase 9's small
               Waymo tree (the tiny config, a live checkpoint): the 36 AP
               and 15 LET lines equal to one process's; (d) MultiViewDfM
-              training: a tiny config (ResNet-18, 2 views of 128x192)
-              in f32, TF32 off, card against CPU by phase 7 (a)'s rule, 0
-              port-kernel launches (64x96 and 256x384 printed, not held:
-              ROADMAP §3); `tools.train` on the camsync config
+              training: a tiny config (ResNet-18, 2 views of 64x96,
+              128x192 and 256x384), the card's f32 gradients (cuDNN, TF32
+              off) and the CPU's against the CPU's float64 step (oneDNN
+              off), the card's error within 3x the CPU's own at every
+              size (each parameter and the whole gradient, at least
+              1e-3), at 128x192 also card against CPU by phase 7 (a)'s
+              rule, 0 port-kernel launches; `tools.train` on the camsync
+              config
               with `--synthetic` for 2 steps and `tools.test` on its
               checkpoint (15 finite LET lines); the full camsync config
               in f32 on phase 9's first frame, B = 1: 3 steps after 2
               warm-ups split into data, forward, backward and optimizer,
               the peak memory, 0 port-kernel launches
+ 11. temporal the 10-sweeps MultiViewDfM config (configs/multiview_dfm_
+              r101_waymo_camsync_10sweeps.py: two frames concatenated,
+              `DfMNeck`), the CenterHead and the depth head, no port
+              kernel on their paths: (a) tiny variants (ResNet-18, 2
+              frames x 2 views of 64x96: the 10-sweeps model, its
+              CenterHead variant, the 3D backbone + voxel_sample depth
+              head variant) in f32, TF32 off, seeded live weights, card
+              against CPU: every output within relative L2 1e-4, the
+              detections' labels equal and scores / boxes within 1e-3, no
+              port-kernel launch; (b) the full 10-sweeps config on frame 1
+              of phase 9's tree (1 x 2 frames x 5 views x 640x960, the
+              sweep's lidar2img rewritten by ego-motion) in bf16 and f32:
+              ms per request (median of 3 after 2 warm-ups), ms per stage
+              (trunk + FPN, view sample, DfMNeck, head, predict), their
+              GFLOP and TFLOP/s, peak memory, 0 port-kernel launches;
+              (c) `tools.test` with the 10-sweeps config in processes of
+              their own: the full config on the card over phase 9's tree
+              (2 frames a sample) to 15 finite LET lines, and a tiny
+              config on the small tree under 2 gloo ranks (torchrun) with
+              the LET lines of one process; (d) one full-width f32
+              training step of the 10-sweeps model at B = 1 after a
+              warm-up, split into data, forward, backward and optimizer,
+              its peak memory, 0 port-kernel launches
 Then the kernels JSON line, the card line, and the result line.
 Exits non-zero without a result when there is no CUDA device or the
 package is not beside the script.
@@ -551,10 +578,12 @@ def write_waymo_tree(root, seed=0, frames=2, scale=1.0):
     """A Waymo kitti_format tree under `root`: `frames` frames of one
     context, five PNG views each at Waymo's camera sizes times `scale`
     (training/image_{v}/{idx:07d}.png), and `waymo_infos_val.pkl` with
-    lidar2img, ego2global, the objects as 'annos' and 'cam_sync_annos'
-    (gt_boxes / gt_boxes_3d bottom-centre, labels, names, camera_names,
-    num_lidar_points), context_name and timestamp_micros; returns the
-    infos."""
+    lidar2img, ego2global (2 m of forward motion a frame), the objects as
+    'annos' and 'cam_sync_annos' (gt_boxes / gt_boxes_3d bottom-centre,
+    labels, names, camera_names, num_lidar_points), context_name and
+    timestamp_micros, and from frame 1 on 'sweeps': the previous frame's
+    views, ego2global and timestamp (the 10-sweeps config's reference
+    frame); returns the infos."""
     import os
     import pickle
     rng = np.random.default_rng(seed)
@@ -588,6 +617,11 @@ def write_waymo_tree(root, seed=0, frames=2, scale=1.0):
                           timestamp_micros=1_000_000 + 100_000 * idx,
                           images=views, ego2global=e2g,
                           annos=dict(annos), cam_sync_annos=dict(annos)))
+        if idx:
+            prev = infos[idx - 1]
+            infos[idx]['sweeps'] = [dict(
+                images=prev['images'], ego2global=prev['ego2global'],
+                timestamp_micros=prev['timestamp_micros'])]
     with open(os.path.join(root, 'waymo_infos_val.pkl'), 'wb') as f:
         pickle.dump(infos, f)
     return infos
@@ -1549,7 +1583,7 @@ def _live_weights(model, seed, cls_bias):
     values) on every tensor of `model` (5 % of its mean magnitude, at
     least 5e-4) and on every bias (std 0.1), and `cls_bias` added to the
     classification bias: detections that depend on the image and pass
-    the score threshold."""
+    the score threshold (the CenterHead's heatmap bias likewise)."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, t in model.state_dict().items():
@@ -1557,7 +1591,7 @@ def _live_weights(model, seed, cls_bias):
                 t.float().abs().mean().clamp(min=0.01))
             if name.endswith('.bias'):
                 noise += torch.randn(t.shape, generator=g) * 0.1
-            if name.endswith('conv_cls.bias'):
+            if name.endswith(('conv_cls.bias', 'heatmap_final.bias')):
                 noise += cls_bias
             t.add_(noise.to(t.device, t.dtype))
     return model
@@ -2827,12 +2861,12 @@ def mvdfm_phase(dev, trees=None):
 # phase 10: data parallelism (parallel/dist.py) and MultiViewDfM training
 DDP_LOSS_RTOL = 1e-5          # (b): the loss of the group against one process
 DDP_WARMUP, DDP_TIMED = 2, 3  # (b) timed steps per rank
-# (d) tiny: held at 128x192 views (the stride-32 BatchNorm over 96 values a
-# channel); 64x96 and 256x384 are run and printed, not held: there cuDNN's
-# channels-last rounding moves the tiny model's gradients beyond the rule
-# (an open defect of the card path, ROADMAP §3)
+# (d) tiny: the card's float32 gradients (cuDNN, TF32 off) and the CPU's
+# against the CPU's float64 ones on the same ReLU branches, at three view
+# sizes (`mvdfm_tiny_gradients`); at 128x192 also phase 7 (a)'s rule
+# against the CPU's float32 step
 MV_TRAIN_HW = (128, 192)
-MV_TRAIN_HW_OPEN = ((64, 96), (256, 384))
+MV_TRAIN_HWS = ((64, 96), (128, 192), (256, 384))
 MV_TRAIN_TINY = dict(num_views=2, num_frames=1, feat_channels=16,
                      voxel_range=(-8, -8, -1, 8, 8, 3),
                      voxel_grid=(4, 16, 16),
@@ -3049,7 +3083,7 @@ def ddp_phase(cfg, dev, results, waymo_trees):
     from dfm_tpu_torch.models.heads.depth_head import sample_depth_pixels
     from dfm_tpu_torch.ops.cuda import sampling as K
     from dfm_tpu_torch.parallel import dist as D
-    from dfm_tpu_torch.runtime.adapters import mv_synth, mv_to_device
+    from dfm_tpu_torch.runtime.adapters import mv_to_device
     from dfm_tpu_torch.runtime.config import load_config, merge_options
     from dfm_tpu_torch.runtime.schedule import liga_schedule
     from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
@@ -3320,66 +3354,8 @@ def ddp_phase(cfg, dev, results, waymo_trees):
 
         t_cli = time.perf_counter()
         join_cli = in_background([('mv train', mv_train_cli)])
-        tiny = MVDfMConfig(**MV_TRAIN_TINY)
 
-        def tiny_sides(hw):
-            """The tiny config's step on the CPU, on the CPU under one ulp
-            of weight noise and on the card (cuDNN's convolutions, as the
-            CLI trains; TF32 off), B = 2 of `hw` views."""
-            batch = mv_synth(tiny, 2, 3, *hw)
-            side = {}
-            flags = _no_tf32()
-            try:
-                for name, d, noise in (('cpu', 'cpu', False),
-                                       ('cpu, noise', 'cpu', True),
-                                       ('card', dev, False)):
-                    model = _live_weights(init_weights(MultiViewDfM(tiny)),
-                                          4, 0.0)
-                    model = (_ulp_noise(model, 1) if noise else
-                             model).to(d)
-                    step = TrainStep(model, make_optimizer(model),
-                                     liga_schedule(1e-3))
-                    K.reset_launch_counts()
-                    total, losses = step.forward(*mv_to_device(batch, d))
-                    step.backward(total)
-                    step.reduce()
-                    side[name] = dict(_grads_and_stats(step, total, losses),
-                                      launches=sum(K.LAUNCHES.values()))
-                    del model, step, total, losses
-            finally:
-                _set_tf32(flags)
-            check(side['card']['launches'] == 0,
-                  'mvdfm train tiny: port kernels launched')
-            return side
-
-        side = tiny_sides(MV_TRAIN_HW)
-        loss_err = _losses_agree('mvdfm train tiny', side['card']['losses'],
-                                 side['cpu']['losses'], TRAIN_LOSS_RTOL)
-        g = _grad_compare('mvdfm train tiny', side['card']['grads'],
-                          side['cpu']['grads'], side['cpu, noise']['grads'])
-        print(f'mvdfm train (d) tiny f32 (TF32 off) card vs cpu, '
-              f'B = 2 of {MV_TRAIN_HW}: losses '
-              f'{ {k: round(v, 6) for k, v in side["card"]["losses"].items()} } '
-              f'worst rel {loss_err:.3g} (rtol {TRAIN_LOSS_RTOL}); gradients '
-              f'of {len(side["cpu"]["grads"])} parameters, worst relative L2 '
-              f'{g[0]:.3g} ({g[1]}), whole {g[2]:.3g} (one ulp of weight '
-              f'noise: {g[3]:.3g}); launches 0', flush=True)
-        for hw in MV_TRAIN_HW_OPEN:
-            side = tiny_sides(hw)
-            rel, whole = _rel_l2(side['card']['grads'], side['cpu']['grads'])
-            noise, whole_noise = _rel_l2(side['cpu, noise']['grads'],
-                                         side['cpu']['grads'])
-            ratio = {n: r / max(TRAIN_GRAD_FLOOR / TRAIN_GRAD_FACTOR,
-                                noise[n]) for n, r in rel.items()}
-            worst = max(ratio, key=ratio.get)
-            print(f'mvdfm train (d) open, not held: tiny f32 (TF32 off) card '
-                  f'vs cpu, B = 2 of {hw}: gradients whole {whole:.3g} (one '
-                  f'ulp of weight noise: {whole_noise:.3g}), worst against '
-                  f'its noise {worst} {rel[worst]:.3g} ({ratio[worst]:.3g}x '
-                  f'the larger of its noise and '
-                  f'{TRAIN_GRAD_FLOOR / TRAIN_GRAD_FACTOR:.2g}; the rule '
-                  f'allows {TRAIN_GRAD_FACTOR:g}x)', flush=True)
-        del side
+        mvdfm_tiny_gradients(dev)
         join_cli()
         mv_cli_s = time.perf_counter() - t_cli
         for k in ('train', 'test'):
@@ -3460,6 +3436,410 @@ def ddp_phase(cfg, dev, results, waymo_trees):
     print(f'ddp phase {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 
+class _ReluMasks:
+    """Within `with`: every `F.relu` records its input's sign mask
+    (`record`, a list) or, given `masks` (another run's, in call order),
+    applies them (x * mask): the run then takes the recorded run's branch
+    of each ReLU kink."""
+
+    def __init__(self, masks=None):
+        self.masks, self.record = masks, []
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        self.orig = F.relu
+
+        def relu(x, inplace=False):
+            i = len(self.record)
+            self.record.append((x > 0).cpu())
+            if self.masks is None:
+                return self.orig(x, inplace=inplace)
+            return x * self.masks[i].to(x.device, x.dtype)
+
+        F.relu = relu
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+        F.relu = self.orig
+
+
+def mvdfm_tiny_gradients(dev):
+    """Phase 10 (d)'s tiny MultiViewDfM (ResNet-18, 2 views) gradients at
+    MV_TRAIN_HWS, against the CPU's float64 step (oneDNN off): a float32
+    step's ReLU kinks within its rounding of 0 may take the other branch
+    (a single such element in the 3D neck moves this tiny model's whole
+    gradient by percents), so each float32 step is held against the
+    float64 step on its own branches (`_ReluMasks`): the card's (cuDNN,
+    TF32 off) error, each parameter and the whole gradient, within
+    TRAIN_GRAD_FACTOR x the CPU's float32 error (at least
+    TRAIN_GRAD_FLOOR); the raw float64 distances and the flipped ReLU
+    elements printed. At MV_TRAIN_HW also the card against the CPU's
+    float32 step by phase 7 (a)'s rule. `python3 -c "import chip_smoke;
+    chip_smoke.mvdfm_tiny_gradients('cuda')"` runs it alone."""
+    from dfm_tpu_torch.models.detectors.multiview_dfm import (MultiViewDfM,
+                                                              MVDfMConfig)
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.runtime.adapters import mv_synth, mv_to_device
+    from dfm_tpu_torch.runtime.schedule import liga_schedule
+    from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
+    from dfm_tpu_torch.utils.weights import init_weights
+    tiny = MVDfMConfig(**MV_TRAIN_TINY)
+
+    def side(batch, d, dtype, noise=False, masks=None):
+        model = _live_weights(init_weights(MultiViewDfM(tiny)), 4, 0.0)
+        model = (_ulp_noise(model, 1) if noise else model).to(d, dtype)
+        step = TrainStep(model, make_optimizer(model), liga_schedule(1e-3))
+        K.reset_launch_counts()
+        imgs, l2i, gt = mv_to_device(batch, d)
+        with torch.backends.mkldnn.flags(enabled=dtype != torch.float64), \
+                _ReluMasks(masks) as relu:
+            total, losses = step.forward(imgs.to(dtype), l2i.to(dtype), gt)
+            step.backward(total)
+        step.reduce()
+        return dict(_grads_and_stats(step, total, losses), masks=relu.record,
+                    launches=sum(K.LAUNCHES.values()))
+
+    for hw in MV_TRAIN_HWS:
+        batch = mv_synth(tiny, 2, 3, *hw)
+        flags = _no_tf32()
+        try:
+            runs = dict(f64=side(batch, 'cpu', torch.float64),
+                        cpu=side(batch, 'cpu', torch.float32),
+                        card=side(batch, dev, torch.float32))
+            for k in ('cpu', 'card'):
+                runs[f'f64 on the {k} branches'] = side(
+                    batch, 'cpu', torch.float64, masks=runs[k]['masks'])
+            if hw == MV_TRAIN_HW:
+                runs['cpu, noise'] = side(batch, 'cpu', torch.float32,
+                                          noise=True)
+        finally:
+            _set_tf32(flags)
+        check(runs['card']['launches'] == 0,
+              'mvdfm train tiny: port kernels launched')
+        flips = {k: sum(int((a != b).sum()) for a, b in zip(
+            runs[k]['masks'], runs['f64']['masks'])) for k in ('cpu', 'card')}
+        raw = {k: _rel_l2(runs[k]['grads'], runs['f64']['grads'])[1]
+               for k in ('cpu', 'card')}
+        rel = {k: _rel_l2(runs[k]['grads'],
+                          runs[f'f64 on the {k} branches']['grads'])
+               for k in ('cpu', 'card')}
+        limit = {n: max(TRAIN_GRAD_FLOOR, TRAIN_GRAD_FACTOR * r)
+                 for n, r in rel['cpu'][0].items()}
+        ratio = {n: r / max(TRAIN_GRAD_FLOOR / TRAIN_GRAD_FACTOR,
+                            rel['cpu'][0][n])
+                 for n, r in rel['card'][0].items()}
+        worst = max(ratio, key=ratio.get)
+        print(f'mvdfm train (d) tiny against float64 (CPU, oneDNN off), '
+              f'B = 2 of {hw}: ReLU elements on the other branch than '
+              f'float64: CPU {flips["cpu"]}, card {flips["card"]}; whole '
+              f'relative L2 against float64 CPU f32 {raw["cpu"]:.3g}, card '
+              f'f32 (cuDNN, TF32 off) {raw["card"]:.3g}; on their own '
+              f'branches CPU {rel["cpu"][1]:.3g}, card {rel["card"][1]:.3g}; '
+              f'worst card parameter {worst} {rel["card"][0][worst]:.3g} '
+              f'({ratio[worst]:.3g}x the larger of the CPU\'s '
+              f'{rel["cpu"][0][worst]:.3g} and '
+              f'{TRAIN_GRAD_FLOOR / TRAIN_GRAD_FACTOR:.2g}; held at '
+              f'{TRAIN_GRAD_FACTOR:g}x); launches 0', flush=True)
+        bad = {n: (r, limit[n]) for n, r in rel['card'][0].items()
+               if r > limit[n]}
+        check(not bad, f'mvdfm train tiny {hw}: card gradients beyond '
+              f'3x the CPU\'s float32 error against float64: {bad}')
+        check(rel['card'][1] <= max(TRAIN_GRAD_FLOOR, TRAIN_GRAD_FACTOR
+                                    * rel['cpu'][1]),
+              f'mvdfm train tiny {hw}: whole card gradient '
+              f'{rel["card"][1]} against float64, the CPU\'s '
+              f'{rel["cpu"][1]}')
+        if hw != MV_TRAIN_HW:
+            continue
+        loss_err = _losses_agree('mvdfm train tiny', runs['card']['losses'],
+                                 runs['cpu']['losses'], TRAIN_LOSS_RTOL)
+        g = _grad_compare('mvdfm train tiny', runs['card']['grads'],
+                          runs['cpu']['grads'], runs['cpu, noise']['grads'])
+        print(f'mvdfm train (d) tiny f32 (TF32 off) card vs cpu, '
+              f'B = 2 of {MV_TRAIN_HW}: losses '
+              f'{ {k: round(v, 6) for k, v in runs["card"]["losses"].items()} } '
+              f'worst rel {loss_err:.3g} (rtol {TRAIN_LOSS_RTOL}); '
+              f'gradients of {len(runs["cpu"]["grads"])} parameters, '
+              f'worst relative L2 {g[0]:.3g} ({g[1]}), whole {g[2]:.3g} '
+              f'(one ulp of weight noise: {g[3]:.3g}); launches 0',
+              flush=True)
+
+
+# phase 11: the 10-sweeps MultiViewDfM config (two frames concatenated,
+# DfMNeck), the CenterHead and the voxel_sample depth head
+MV_TEMPORAL_TINY = dict(num_views=2, num_frames=2, feat_channels=16,
+                        voxel_range=(-8, -8, -1, 8, 8, 3),
+                        voxel_grid=(4, 16, 16),
+                        anchor_ranges=((-8, -8, 0.0, 8, 8, 0.0),) * 3,
+                        backbone_depth=18, nms_pre=128, max_num=8,
+                        frame_fusion='concat', neck_3d='dfm')
+MV_TEMPORAL_VARIANTS = (
+    ('10-sweeps', {}),
+    ('center', dict(bbox_head='center')),
+    ('depth head', dict(frame_fusion='mean', neck_3d='imvoxel',
+                        with_backbone_3d=True, with_depth_head=True,
+                        depth_min=1.0, depth_max=8.0, depth_num_bins=16)))
+MV_TEMPORAL_HW = (64, 96)
+MV_TEMPORAL_TRAIN_WARMUP = 1
+
+
+def _detections(det):
+    """Kept detections of `mvdfm_predict`'s output (sample 0), numpy."""
+    if 'scores_3d' in det:                   # CenterHead: padded, sample 0
+        det = {k: v.cpu().numpy() for k, v in det.items()}
+        keep = det['scores_3d'] > 0
+        return {k: v[keep] for k, v in det.items()}
+    det = {k: v[0].cpu().numpy() for k, v in det.items()}
+    m = det['mask'].astype(bool)
+    return dict(boxes_3d=det['boxes3d'][m], scores_3d=det['scores'][m],
+                labels_3d=det['labels'][m])
+
+
+def _flat_outputs(out):
+    """The forward's outputs as name -> tensor (the CenterHead's branch
+    maps as task{t}.{name})."""
+    flat = {k: v for k, v in out.items() if k != 'task_outs'}
+    for t, branches in enumerate(out.get('task_outs', ())):
+        flat.update({f'task{t}.{k}': v for k, v in branches.items()})
+    return flat
+
+
+def temporal_phase(dev, trees):
+    """11. (a) the tiny 10-sweeps, CenterHead and depth-head variants card
+    vs CPU, (b) the full 10-sweeps config in bf16 and f32, (c) tools.test
+    with the 10-sweeps config on phase 9's trees (their infos carry
+    sweeps), (d) one full-width f32 training step. `trees` holds phase 9's
+    Waymo trees ('full', 'small')."""
+    import os
+    from dfm_tpu_torch.apis import init_mvdfm_model
+    from dfm_tpu_torch.data.waymo import WaymoDataset, frames_per_sample
+    from dfm_tpu_torch.models.builder import build_detector
+    from dfm_tpu_torch.models.detectors.multiview_dfm import (
+        MultiViewDfM, MVDfMConfig, mvdfm_predict)
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.runtime.adapters import mv_to_device
+    from dfm_tpu_torch.runtime.config import load_config, merge_options
+    from dfm_tpu_torch.runtime.schedule import liga_schedule
+    from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
+    from dfm_tpu_torch.utils.weights import init_weights
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(here, 'configs',
+                          'multiview_dfm_r101_waymo_camsync_10sweeps.py')
+
+    # (c) starts first: tools.test with the 10-sweeps config in processes
+    # of their own, the full config on the card over the full tree (bf16),
+    # the tiny one on the small tree in one process and under two gloo
+    # ranks (f32, TF32 off)
+    cfg10 = build_detector(load_config(config).model)
+    ckpt = os.path.join(trees['full'], 'live10.pth')
+    h = init_mvdfm_model(cfg10, torch.float32, 'cpu')
+    _live_weights(h['model'], 8, 4.0)
+    torch.save(h['model'].state_dict(), ckpt)
+    tiny_ckpt = os.path.join(trees['small'], 'tiny10.pth')
+    h = init_mvdfm_model(build_detector(merge_options(
+        load_config(config), list(MV_CLI_TINY)).model), torch.float32, 'cpu')
+    _live_weights(h['model'], 9, 4.0)
+    torch.save(h['model'].state_dict(), tiny_ckpt)
+    del h
+    env = dict(os.environ, PYTHONPATH=here, NVIDIA_TF32_OVERRIDE='0')
+
+    def cli(launcher, data_root, *extra, options=()):
+        return subprocess.Popen(
+            [*launcher, '-m', 'dfm_tpu_torch.tools.test', config, *extra,
+             '--cfg-options', f'data.data_root={data_root}',
+             'data.cam_sync=True', *options], cwd=here, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    t_cli = time.perf_counter()
+    tiny_args = ('--dtype', 'float32', '--checkpoint', tiny_ckpt)
+    procs = dict(
+        full=cli([sys.executable], trees['full'], '--checkpoint', ckpt),
+        one=cli([sys.executable], trees['small'], *tiny_args,
+                options=MV_CLI_TINY),
+        two=cli(_torchrun(2), trees['small'], *tiny_args,
+                options=MV_CLI_TINY))
+
+    # (a) tiny variants: every output and the detections, card vs CPU
+    for name, extra in MV_TEMPORAL_VARIANTS:
+        tiny = MVDfMConfig(**dict(MV_TEMPORAL_TINY, **extra))
+        imgs, l2i = _mv_inputs(tiny, MV_TEMPORAL_HW, tiny.num_frames, 5)
+        flags = _no_tf32()
+        outs, dets = {}, {}
+        try:
+            K.reset_launch_counts()
+            for d in ('cpu', dev):
+                h = init_mvdfm_model(tiny, torch.float32, d)
+                _live_weights(h['model'], 7, 2.0)
+                with torch.inference_mode():
+                    out = h['model'](imgs.to(d), l2i.to(d))
+                    dets[d] = [_detections(mvdfm_predict(out, tiny))]
+                outs[d] = {k: v.cpu() for k, v in _flat_outputs(out).items()}
+            launches = sum(K.LAUNCHES.values())
+        finally:
+            _set_tf32(flags)
+        check(launches == 0, f'tiny {name}: port kernels launched')
+        rel = {k: float((outs[dev][k].double() - v.double()).norm()
+                        / v.double().norm()) for k, v in outs['cpu'].items()}
+        bad = {k: r for k, r in rel.items() if not r <= MV_STAGE_REL_L2}
+        check(not bad, f'tiny {name} card vs CPU (relative L2): {bad}')
+        n, worst = _mv_dets_agree(f'tiny {name} dets card vs CPU', dets[dev],
+                                  dets['cpu'], MV_DET_TOL)
+        check(n > 0, f'tiny {name}: no live detection')
+        print(f'temporal (a) tiny {name} f32 (TF32 off) card vs cpu, 1 x '
+              f'{tiny.num_frames} frames x {tiny.num_views} views of '
+              f'{MV_TEMPORAL_HW}: {len(rel)} outputs, worst relative L2 '
+              f'{max(rel.values()):.3g} ({max(rel, key=rel.get)}; tol '
+              f'{MV_STAGE_REL_L2}); {n} dets, max abs err score '
+              f'{worst[0]:.3g} box {worst[1]:.3g} (tol {MV_DET_TOL}); '
+              f'launches 0', flush=True)
+        del outs, h, out
+
+    # (c) the CLIs' results
+    res = {}
+    for name, p in procs.items():
+        out, err = p.communicate(timeout=600)
+        check(p.returncode == 0, f'tools.test 10-sweeps ({name}) failed: '
+              f'{err[-3000:]}')
+        lets = LET_LINE.findall(out)
+        check(len(lets) == 15 and all(np.isfinite(float(v))
+                                     for _, _, v in lets) and
+              '2 frame(s) a sample' in out,
+              f'tools.test 10-sweeps ({name}): {len(lets)} LET lines: '
+              f'{out[-2000:]}')
+        res[name] = out
+    cli_s = time.perf_counter() - t_cli
+    lines = {k: LET_LINE.findall(res[k]) for k in ('one', 'two')}
+    check(lines['one'] == lines['two'], f'tools.test 10-sweeps: two ranks '
+          f'{lines["two"]} against one process {lines["one"]}')
+    dets = re.findall(r'^\[\d+/\d+\] dets=(\d+)$', res['full'], re.M)
+    overall = re.search(r'^Overall mAP: (\S+)$', res['full'], re.M)
+    print(f'temporal (c) cli: tools.test with the 10-sweeps config, the full '
+          f'config on the card over the tree (2 frames a sample: frame 1 '
+          f'with frame 0 as its sweep, frame 0 repeated), dets {dets}, 15 '
+          f'LET lines, Overall mAP {overall.group(1)}; the tiny config on '
+          f'the small tree under 2 gloo ranks: the 15 LET lines of one '
+          f'process; {cli_s:.1f} s for the processes (beside (a))', flush=True)
+    # (b) the full 10-sweeps config on frame 1 of the full tree (its sweep
+    # is frame 0): bf16 (the default) and f32
+    frames = frames_per_sample(load_config(config).data, cfg10)
+    check(frames == 2, f'the 10-sweeps config stacks {frames} frames')
+    ds = WaymoDataset(trees['full'], os.path.join(
+        trees['full'], 'waymo_infos_val.pkl'), num_frames=frames,
+        target_hw=MV_HW, cam_sync=True)
+    t0 = time.perf_counter()
+    sample = ds.get_sample(1)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    check(not np.allclose(sample['lidar2img'][0], sample['lidar2img'][1]),
+          "frame 1's sweep has the current frame's lidar2img")
+    imgs = torch.from_numpy(sample['imgs'])[None].to(dev)
+    l2i = torch.from_numpy(sample['lidar2img'])[None].to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        h = init_mvdfm_model(cfg10, dtype)
+        model = h['model']
+        with torch.no_grad():    # live scores: nms_pre boxes into NMS
+            model.bbox_head_3d.conv_cls.bias.fill_(-1.0)
+        for _ in range(MV_WARMUP):
+            h['infer'](imgs, l2i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        ms = []
+        for _ in range(MV_TIMED):
+            t0 = time.perf_counter()
+            det = h['infer'](imgs, l2i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(not any(launches.values()), f'10-sweeps MultiViewDfM launched '
+              f'port kernels: {launches}')
+        kept = _finite_dets(det, f'10-sweeps MultiViewDfM {dtype}')
+        check(kept > 0, f'10-sweeps MultiViewDfM {dtype}: no live detection')
+        runs = [_mv_stages(model, imgs, l2i, cfg10) for _ in range(MV_TIMED)]
+        stages = np.median([r[1] for r in runs], 0)
+        out = runs[-1][0]
+        del runs
+        vol = out['volume']
+        check(tuple(vol.shape) == (1, 2 * cfg10.feat_channels,
+                                   *cfg10.voxel_grid) and
+              bool(torch.isfinite(vol).all()), '10-sweeps volume')
+        check(tuple(out['bev'].shape) == (1, 256, *cfg10.voxel_grid[1:])
+              and bool(torch.isfinite(out['bev']).all()), '10-sweeps BEV')
+        trunk = _flops_of(model.image_features, imgs)
+        neck = _flops_of(model.neck_3d, vol)
+        names = ('trunk+fpn', 'view sample', 'DfMNeck', 'head', 'predict')
+        tf32 = (' (TF32 convs '
+                f'{"on" if torch.backends.cudnn.allow_tf32 else "off"})'
+                if dtype == torch.float32 else '')
+        print(f'temporal (b) 10-sweeps full {str(dtype)[6:]}{tf32}, 1 x 2 '
+              f'frames x 5 views x 640x960 (frame 1 of the tree and its '
+              f'sweep; assembly {decode_ms:.1f} ms, once): ms/request '
+              f'{[round(x, 3) for x in ms]} median '
+              f'{float(np.median(ms)):.3f}; stages ms (median of '
+              f'{MV_TIMED}) ' + ', '.join(
+                  f'{n} {x:.3f}' for n, x in zip(names, stages))
+              + f'; GFLOP trunk+fpn {trunk / 1e9:.1f} DfMNeck '
+              f'{neck / 1e9:.1f} (TFLOP/s {trunk / stages[0] / 1e9:.1f}, '
+              f'{neck / stages[2] / 1e9:.1f}); peak_mem_bytes {peak}; kept '
+              f'{kept}; port-kernel launches {sum(launches.values())}',
+              flush=True)
+        del h, model, out, vol, det
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) one full-width f32 training step of the 10-sweeps model, B = 1,
+    # on that sample, after a warm-up step
+    frame = dict(img=sample['imgs'][None],
+                 lidar2img=sample['lidar2img'][None],
+                 **{k: sample[k][None] for k in ('gt_boxes', 'gt_labels',
+                                                 'gt_mask')})
+    check(int(sample['gt_mask'].sum()) > 0, '10-sweeps train: no gt box')
+    model = init_weights(MultiViewDfM(cfg10)).to(dev)
+    step = TrainStep(model, make_optimizer(model), liga_schedule(5e-4))
+    for i in range(MV_TEMPORAL_TRAIN_WARMUP + 1):
+        if i == MV_TEMPORAL_TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+        t = [time.perf_counter()]
+        batch = mv_to_device(frame, dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        total, losses = step.forward(*batch)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        step.backward(total)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        norm = step.update()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        vals = {k: float(v.detach()) for k, v in
+                dict(loss=total, **losses).items()}
+        check(all(np.isfinite(x) for x in vals.values()) and
+              np.isfinite(float(norm)), f'10-sweeps train full: {vals}')
+    split = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+    peak = torch.cuda.max_memory_allocated()
+    launches = sum(K.LAUNCHES.values())
+    check(launches == 0, f'10-sweeps train full: {dict(K.LAUNCHES)}')
+    print(f'temporal (d) 10-sweeps full config training, f32 (TF32 as '
+          f'PyTorch has it), B = 1, 1 x 2 x 5 x 640x960 ('
+          f'{int(sample["gt_mask"].sum())} gt boxes), one step after '
+          f'{MV_TEMPORAL_TRAIN_WARMUP} warm-up, ms (data = host to device, '
+          f'forward, backward, optimizer): '
+          + ', '.join(f'{x:.3f}' for x in split)
+          + f'; total {sum(split):.3f}; peak_mem_bytes {peak}; losses '
+          f'{ {k: round(x, 5) for k, x in vals.items()} } grad_norm '
+          f'{float(norm):.5g}; port-kernel launches {launches}', flush=True)
+    del model, step, total, losses, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f'temporal phase {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
 def phase10_alone(dev='cuda'):
     """Phase 10 without the others (the kernels built, phase 9's Waymo
     trees written here): `python3 -c "import chip_smoke;
@@ -3475,6 +3855,20 @@ def phase10_alone(dev='cuda'):
         write_waymo_tree(trees['full'])
         write_waymo_tree(trees['small'], scale=0.05)
         ddp_phase(DfMConfig(), dev, {k: {} for k in TRAIN_PATH}, trees)
+
+
+def phase11_alone(dev='cuda'):
+    """Phase 11 without the others (phase 9's Waymo trees written here, no
+    kernel built: the path has none): `python3 -c "import chip_smoke;
+    chip_smoke.phase11_alone()"`."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        trees = dict(full=os.path.join(tmp, 'full'),
+                     small=os.path.join(tmp, 'small'))
+        write_waymo_tree(trees['full'])
+        write_waymo_tree(trees['small'], scale=0.05)
+        temporal_phase(dev, trees)
 
 
 def _flops_of(fn, *args):
@@ -3527,6 +3921,7 @@ def main():
                      small=os.path.join(tmp, 'small'))
         mvdfm_phase(dev, trees)
         ddp_phase(cfg, dev, results, trees)
+        temporal_phase(dev, trees)
 
     print(json.dumps({'kernels': list(results.values())}))
     print(card)

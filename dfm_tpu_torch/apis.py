@@ -204,11 +204,16 @@ def detect_multiview_sample(handle, sample):
     `init_mvdfm_model` handle -> its kept detections in the vehicle
     (lidar) frame as numpy arrays: 'boxes_3d' (N, 7) bottom-centre,
     'scores_3d' (N,), 'labels_3d' (N,) (one move to the host, which waits
-    for the device)."""
+    for the device). The anchor head's are those of its mask, the
+    CenterHead's those of a score above 0."""
     dev = handle['device']
     det = handle['infer'](
         torch.as_tensor(sample['imgs'], device=dev)[None],
         torch.as_tensor(sample['lidar2img'], device=dev)[None])
+    if 'scores_3d' in det:                  # CenterHead: sample 0, padded
+        det = {k: v.cpu().numpy() for k, v in det.items()}
+        keep = det['scores_3d'] > 0
+        return {k: v[keep] for k, v in det.items()}
     det = {k: v[0].cpu().numpy() for k, v in det.items()}
     keep = det['mask'].astype(bool)
     return dict(boxes_3d=det['boxes3d'][keep], scores_3d=det['scores'][keep],

@@ -32,7 +32,21 @@ from ..evaluation.waymo_proto import Box, ObjectPred, encode_objects
 from .pipeline import IMG_MEAN, IMG_STD, resize_linear_cv2
 from .png import read_png
 
-__all__ = ['WaymoDataset', 'assemble_multiview_sample']
+__all__ = ['WaymoDataset', 'assemble_multiview_sample', 'frames_per_sample']
+
+
+def frames_per_sample(data_cfg, model_cfg=None):
+    """The frames a sample stacks, as the reference config means them:
+    1 + `num_ref_frames` where the data config gives it (the 10-sweeps
+    config: the current frame and one sweep), else its `num_frames`, else
+    the model's `num_frames` (1 without a model config). The
+    reference-frame count comes first because a config that inherits the
+    camsync base's data dict also inherits its `num_frames=1`."""
+    if data_cfg.get('num_ref_frames') is not None:
+        return 1 + int(data_cfg['num_ref_frames'])
+    if data_cfg.get('num_frames') is not None:
+        return int(data_cfg['num_frames'])
+    return getattr(model_cfg, 'num_frames', 1)
 
 
 def _pad44(m):

@@ -10,7 +10,7 @@ conv_reg, conv_dir_cls. Head outputs are returned channels-last
 import torch
 import torch.nn as nn
 
-from ..layers import Conv, ConvNorm
+from ..layers import Conv, ConvNorm, stat_float
 from ...parallel import dist as D
 from ...core import losses as L
 from ...core.coders import delta_xyzwlhr_decode
@@ -105,7 +105,7 @@ def anchor3d_head_loss(preds, anchors_per_class, gt_boxes, gt_labels,
 
     def per_class(x, per_anchor):
         # (B, Ny, Nx, S*R*per) -> per-class (B, Ny*Nx*R, per)
-        x = x.float().reshape(b, -1, num_classes, num_rot, per_anchor)
+        x = stat_float(x).reshape(b, -1, num_classes, num_rot, per_anchor)
         return [x[:, :, c].reshape(b, -1, per_anchor)
                 for c in range(num_classes)]
 

@@ -3,7 +3,7 @@
 Port of `dfm_tpu/models/layers.py:278-465`. Parameters are kept in
 float32 and cast to the activation dtype at use, as the flax modules
 do (`dtype` is the compute precision, parameters stay f32); norm
-statistics are always f32.
+statistics are f32 (f64 in a float64 model, `stat_float`).
 
 Module and attribute names follow the reference torch layout
 (mmcv `ConvModule` `.conv`/`.gn`, `convbn` `Sequential(conv, norm)`,
@@ -25,7 +25,14 @@ from ..parallel import dist as D
 
 __all__ = ['Conv', 'ConvTranspose', 'GroupNorm', 'BatchNorm', 'ConvNorm',
            'convbn', 'Hourglass', 'UpconvModule', 'group_norm',
-           'gn_groups']
+           'gn_groups', 'stat_float']
+
+
+def stat_float(x):
+    """`x` in the statistics' precision: float32, or float64 for a
+    float64 tensor (a model in `.double()`, the reference of the card's
+    float32 rounding)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def gn_groups(c):
@@ -35,17 +42,17 @@ def gn_groups(c):
 
 
 def group_norm(x, weight, bias, groups):
-    """GroupNorm with f32 statistics (var = E[x^2] - E[x]^2) applied as
-    ONE folded per-(batch, channel) scale/bias, cast back to x.dtype
-    (`dfm_tpu/models/layers.py:336-362`)."""
+    """GroupNorm with f32 (`stat_float`) statistics (var = E[x^2] -
+    E[x]^2) applied as ONE folded per-(batch, channel) scale/bias, cast
+    back to x.dtype (`dfm_tpu/models/layers.py:336-362`)."""
     b, c = x.shape[:2]
-    xf = x.float()
+    xf = stat_float(x)
     flat = xf.reshape(b, groups, -1)
     mean = flat.mean(-1)
     var = (flat * flat).mean(-1) - mean * mean
     rstd = torch.rsqrt(var + 1e-5)                             # (B, g)
-    sc = weight.float().view(groups, c // groups) * rstd[..., None]
-    bs = bias.float().view(groups, c // groups) - mean[..., None] * sc
+    sc = stat_float(weight).view(groups, c // groups) * rstd[..., None]
+    bs = stat_float(bias).view(groups, c // groups) - mean[..., None] * sc
     shape = (b, c) + (1,) * (x.dim() - 2)
     return (xf * sc.reshape(shape) + bs.reshape(shape)).to(x.dtype)
 
@@ -99,7 +106,8 @@ class GroupNorm(nn.Module):
 
 class BatchNorm(nn.Module):
     """BatchNorm as flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`,
-    f32 math, cast back to the input dtype.
+    f32 math (`stat_float`: f64 for a f64 input), cast back to the input
+    dtype.
 
     Eval mode (`self.training` False) applies the running statistics.
     Train mode normalises with the batch statistics over every axis but
@@ -128,12 +136,12 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if not self.training:
-            sc = self.weight.float() * torch.rsqrt(
-                self.running_var.float() + 1e-5)
-            bs = self.bias.float() - self.running_mean.float() * sc
-            return (x.float() * sc.view(shape) +
+            sc = stat_float(self.weight) * torch.rsqrt(
+                stat_float(self.running_var) + 1e-5)
+            bs = stat_float(self.bias) - stat_float(self.running_mean) * sc
+            return (stat_float(x) * sc.view(shape) +
                     bs.view(shape)).to(x.dtype)
-        xf = x.float()
+        xf = stat_float(x)
         dims = [0] + list(range(2, x.dim()))
         if D.world_size() > 1:
             c = xf.shape[1]
@@ -141,8 +149,8 @@ class BatchNorm(nn.Module):
                                device=xf.device)
             stats = D.sum_over_group(torch.cat([torch.cat([
                 xf.sum(dims), (xf * xf).sum(dims)]).double(), count]))
-            mean = (stats[:c] / stats[-1]).float()
-            var = ((stats[c:2 * c] / stats[-1]).float() -
+            mean = (stats[:c] / stats[-1]).to(xf.dtype)
+            var = ((stats[c:2 * c] / stats[-1]).to(xf.dtype) -
                    mean * mean).clamp(min=0.0)
         else:
             mean = xf.mean(dims)
@@ -152,9 +160,9 @@ class BatchNorm(nn.Module):
             self.running_mean.copy_(m * self.running_mean +
                                     (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
-        mul = torch.rsqrt(var + 1e-5) * self.weight.float()
+        mul = torch.rsqrt(var + 1e-5) * stat_float(self.weight)
         return ((xf - mean.view(shape)) * mul.view(shape) +
-                self.bias.float().view(shape)).to(x.dtype)
+                stat_float(self.bias).view(shape)).to(x.dtype)
 
 
 def _norm(norm, c):
@@ -166,11 +174,13 @@ def _norm(norm, c):
 
 
 class ConvNorm(nn.Module):
-    """mmcv ConvModule: conv + norm (+ ReLU); keys `.conv`, `.gn`/`.bn`."""
+    """mmcv ConvModule: conv (+ bias) + norm (+ ReLU); keys `.conv`,
+    `.gn`/`.bn`."""
 
-    def __init__(self, cin, cout, k=3, ndim=2, norm='gn', act=True):
+    def __init__(self, cin, cout, k=3, ndim=2, norm='gn', act=True,
+                 bias=False):
         super().__init__()
-        self.conv = Conv(cin, cout, k, ndim=ndim)
+        self.conv = Conv(cin, cout, k, ndim=ndim, bias=bias)
         self.norm_name = norm
         setattr(self, norm, _norm(norm, cout))
         self.act = act

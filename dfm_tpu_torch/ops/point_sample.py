@@ -28,12 +28,14 @@ def point_sample(feat, coords, valid=None):
     """Sample `feat` (C, H, W) at `coords` (P, 2), (x, y) align-corners
     pixel indices -> (C, P) float32, zero outside the map and, where
     `valid` (P,) is given, zero where it is False (those points are sent
-    outside the map, so the sample needs no masking pass of its own)."""
+    outside the map, so the sample needs no masking pass of its own).
+    A float64 map is sampled in float64."""
     c, h, w = feat.shape
-    scale = coords.new_tensor([2.0 / (w - 1), 2.0 / (h - 1)])
-    grid = coords.float() * scale - 1.0
+    dtype = torch.float64 if feat.dtype == torch.float64 else torch.float32
+    scale = coords.new_tensor([2.0 / (w - 1), 2.0 / (h - 1)], dtype=dtype)
+    grid = coords.to(dtype) * scale - 1.0
     if valid is not None:
         grid = torch.where(valid[:, None], grid, _OUTSIDE)
-    return F.grid_sample(feat[None].float(), grid.view(1, 1, -1, 2),
+    return F.grid_sample(feat[None].to(dtype), grid.view(1, 1, -1, 2),
                          mode='bilinear', padding_mode='zeros',
                          align_corners=True)[0, :, 0]

@@ -8,7 +8,7 @@ MultiViewDfM model arguments): the same draws from
 both packages the same batch. A batch is numpy, batched, in the JAX
 layout: for DfM 'img' (B, 2, H, W, 3), 'meta' (the `BatchMeta` fields),
 the gt keys and, with `full`, DfMFull's teacher points and 2D targets;
-for MultiViewDfM 'img' (B, 1, V, H, W, 3), 'lidar2img' (B, 1, V, 4, 4)
+for MultiViewDfM 'img' (B, F, V, H, W, 3), 'lidar2img' (B, F, V, 4, 4)
 and the gt boxes. `to_device` / `mv_to_device` make the model's inputs
 of it (`TrainStep`'s (inputs, cond, gt)), as JAX's `model_args_fn`.
 """
@@ -97,13 +97,17 @@ def gt_pack(rng, b, g=4):
     return boxes, labels, np.ones((b, g), bool)
 
 
-def mv_synth(cfg, b, seed, h=32, w=48, n_views=2):
+def mv_synth(cfg, b, seed, h=32, w=48, n_views=2, frames=None):
     """`_mv_synth` for MultiViewDfM: `gt_pack`'s boxes with their centres
     clipped into `cfg.voxel_range` (half a size from its faces), then
-    normal images (B, 1, n_views, H, W, 3); every view the same camera
-    (f = 30 px, principal point at the centre) looking down the vehicle's
-    x axis."""
+    normal images (B, F, n_views, H, W, 3), F = `frames` (the config's
+    `num_frames` if None); every view the same camera (f = 30 px,
+    principal point at the centre) looking down the vehicle's x axis,
+    frame f's lidar2img rewritten for 0.5 * f m of forward ego-motion
+    since it. For F = 1 the draws and values are JAX's (`_mv_synth` always
+    makes one frame)."""
     rng = np.random.default_rng(seed)
+    frames = cfg.num_frames if frames is None else frames
     rot = np.array([[0, -1, 0, 0], [0, 0, -1, 0],
                     [1, 0, 0, 0], [0, 0, 0, 1]], np.float32)
     cam = np.eye(4, dtype=np.float32)
@@ -111,8 +115,14 @@ def mv_synth(cfg, b, seed, h=32, w=48, n_views=2):
     cam[0, 2], cam[1, 2] = w / 2.0, h / 2.0
     cam = cam @ rot
     boxes, labels, mask = gt_pack(rng, b)
-    img = rng.standard_normal((b, 1, n_views, h, w, 3), dtype=np.float32)
-    l2i = np.tile(cam[None, None, None], (b, 1, n_views, 1, 1))
+    img = rng.standard_normal((b, frames, n_views, h, w, 3),
+                              dtype=np.float32)
+    l2i = np.empty((b, frames, n_views, 4, 4), np.float32)
+    l2i[:, 0] = cam
+    for f in range(1, frames):
+        ego = np.eye(4, dtype=np.float32)
+        ego[0, 3] = 0.5 * f
+        l2i[:, f] = cam @ ego
     pcr = np.asarray(cfg.voxel_range, np.float32)
     lo = pcr[:3] + boxes[..., 3:6] / 2
     hi = pcr[3:] - boxes[..., 3:6] / 2

@@ -19,7 +19,9 @@ student's weights, `student_state_dict`) -> KITTI annos per frame ->
 
 Waymo (MultiViewDfM): config -> `waymo_infos_val.pkl` under
 `data.data_root` -> `WaymoDataset` (load_mode 'lidar_frame', `cam_sync`
-from the data config) -> the port's MultiViewDfM (bfloat16; seeded random
+from the data config; `data/waymo.py:frames_per_sample` frames a sample:
+two for the 10-sweeps config, the sweep's lidar2img rewritten by
+ego-motion) -> the port's MultiViewDfM (bfloat16; seeded random
 weights or a checkpoint in the port's layout) -> the kept detections of
 each frame in the vehicle frame -> `format_results` -> a predictions
 .bin -> `evaluate_waymo` against the GT .bin: `--waymo-gt-bin`, else
@@ -52,7 +54,7 @@ import torch
 from ..apis import (_sharded, detect_multiview_sample, detect_sample,
                     init_dfm_model, init_mvdfm_model)
 from ..data.kitti import KittiDataset
-from ..data.waymo import WaymoDataset
+from ..data.waymo import WaymoDataset, frames_per_sample
 from ..evaluation.kitti_eval import kitti_eval
 from ..evaluation.results import detections_to_kitti_annos
 from ..evaluation.waymo_eval import gt_annos_to_bin, gt_objects_from_infos
@@ -149,15 +151,17 @@ def waymo_mvdfm_eval(args, cfg):
     """Build -> load -> infer -> Objects .bin -> LET metrics."""
     mcfg = build_detector(cfg.model)
     handle = init_mvdfm_model(mcfg, getattr(torch, args.dtype), args.device)
-    print(f'[model] MultiViewDfM on {handle["device"]}', flush=True)
+    d = cfg.data
+    frames = frames_per_sample(d, mcfg)
+    print(f'[model] MultiViewDfM on {handle["device"]}, {frames} frame(s) a '
+          'sample', flush=True)
     if args.checkpoint:
         rest = handle['load_checkpoint'](args.checkpoint)
         print(f'[checkpoint] {args.checkpoint}: {len(rest)} keys not taken',
               flush=True)
-    d = cfg.data
     ds = WaymoDataset(
         d.data_root, os.path.join(d.data_root, WAYMO_INFO_FILE),
-        num_frames=d.get('num_frames', 1),
+        num_frames=frames,
         target_hw=tuple(d.get('target_hw', (640, 960))),
         num_views=d.get('num_views', 5), max_gt=d.get('max_gt', 64),
         load_mode=d.get('load_mode', 'lidar_frame'),

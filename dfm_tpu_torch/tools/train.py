@@ -63,6 +63,7 @@ import torch
 from ..apis import init_dfm_model, multihost_dataset_inference
 from ..data.collate import build_batch
 from ..data.kitti import KittiDataset
+from ..data.waymo import frames_per_sample
 from ..evaluation.kitti_eval import kitti_eval
 from ..models.builder import atss_config, build_detector
 from ..models.detectors.dfm import DfM
@@ -168,17 +169,19 @@ class SyntheticSource:
     `dfm_synth(cfg, batch_size, seed + s, full)` for DfM / DfMFull (32x64
     images, as JAX's adapter makes them; `full` for DfMFull), or
     `mv_synth(cfg, batch_size, seed + s)` for MultiViewDfM (2 views of
-    32x48); `rng` is not drawn from. 16 steps an epoch."""
+    32x48, `frames` frames: `data/waymo.py:frames_per_sample`); `rng` is
+    not drawn from. 16 steps an epoch."""
 
     steps_per_epoch = 16
 
-    def __init__(self, mcfg, batch_size, seed, kind):
+    def __init__(self, mcfg, batch_size, seed, kind, frames=1):
         self.cfg, self.batch_size = mcfg, batch_size
-        self.seed, self.kind = seed, kind
+        self.seed, self.kind, self.frames = seed, kind, frames
 
     def next_samples(self, step, rng):
         if self.kind == 'MultiViewDfM':
-            return mv_synth(self.cfg, self.batch_size, self.seed + step)
+            return mv_synth(self.cfg, self.batch_size, self.seed + step,
+                            frames=self.frames)
         return dfm_synth(self.cfg, self.batch_size, self.seed + step,
                          full=self.kind == 'DfMFull')
 
@@ -320,7 +323,9 @@ def train(args, cfg, kind, d, device):
     if multiview and not args.synthetic:
         say('[data] no Waymo train source: MultiViewDfM trains on synthetic '
             'batches (pass --synthetic to silence)', flush=True)
-    source = SyntheticSource(mcfg, batch_size, seed, kind) \
+    source = SyntheticSource(
+        mcfg, batch_size, seed, kind,
+        frames_per_sample(d, mcfg) if multiview else 1) \
         if args.synthetic or multiview else KittiDfMSource(cfg, batch_size)
     steps_per_epoch = source.steps_per_epoch
     sched_cfg = cfg.get('schedule', {}) or {}

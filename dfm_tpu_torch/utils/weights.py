@@ -25,8 +25,10 @@ import numpy as np
 import torch
 
 from ..models.backbones.resnet import BASIC_DEPTHS, STAGE_BLOCKS
+from ..models.heads.center_head import HEATMAP_BIAS
 
 __all__ = ['dfm_key_map', 'dfm_full_key_map', 'mvdfm_key_map',
+           'center_head_key_map',
            'resnet_key_map', 'state_dict_from_jax',
            'teacher_state_dict', 'torch_conv_weight',
            'init_weights', 'load_reference_state_dict',
@@ -187,25 +189,80 @@ def resnet_key_map(prefix, fpath, depth):
     return m
 
 
-def mvdfm_key_map(depth=101):
-    """(torch_prefix, flax_path, kind) for the JAX `MultiViewDfM` tree
-    (anchor head, ImVoxel neck): the ResNet `backbone`, the FPN `neck`
-    (lateral0..3, fpn_conv0..3), `neck_3d` (res{i}/ConvNorm_0..1,
-    down{i}, BatchNorm) and the head's three output convs."""
+def mvdfm_key_map(depth=101, cfg=None):
+    """(torch_prefix, flax_path, kind) for the JAX `MultiViewDfM` tree of
+    `cfg` (an `MVDfMConfig`; the camsync one if None): the ResNet
+    `backbone`, the FPN `neck` (lateral0..3, fpn_conv0..3); with the 3D
+    backbone `backbone_3d_block{i}` (ConvNorm_0..1), with the depth head
+    `depth_pred` (ConvNorm_0 with GroupNorm, the scalar Conv_0); the 3D
+    neck: `OutdoorImVoxelNeck` (res{i}/ConvNorm_0..1, down{i}) or `DfMNeck`
+    ({mono,stereo}_res{i}, _down{i}, _final_conv, the final BatchNorms
+    flax auto-names BatchNorm_0 (mono) and BatchNorm_1 (stereo), and
+    aggregate_layer); the head: the anchor head's three output convs, or
+    the CenterHead's shared_conv and task{t} branches ({name}_conv{i}
+    ConvNorms with bias, {name}_final). `depth` is the backbone's
+    (`cfg.backbone_depth` is not read)."""
+    from ..models.detectors.multiview_dfm import MVDfMConfig, center_config
+    cfg = cfg or MVDfMConfig()
     m = resnet_key_map('backbone', ('backbone',), depth)
     for i in range(4):
         m += [(f'neck.lateral{i}', ('neck', f'lateral{i}'), 'conv2d'),
               (f'neck.fpn_conv{i}', ('neck', f'fpn_conv{i}'), 'conv2d')]
+    if cfg.with_backbone_3d:
+        for i in range(cfg.num_backbone_3d_blocks):
+            for j in range(2):
+                m += _convnorm(f'backbone_3d_block{i}.conv{j}',
+                               (f'backbone_3d_block{i}', f'ConvNorm_{j}'), 3,
+                               'bn')
+    if cfg.with_depth_head:
+        m += _convnorm('depth_pred.0', ('depth_pred', 'ConvNorm_0'), 3)
+        m += [('depth_pred.1', ('depth_pred', 'Conv_0'), 'conv3d')]
     n = ('neck_3d',)
-    for i in range(3):
-        for j in range(2):
-            m += _convnorm(f'neck_3d.res{i}.conv{j}',
-                           n + (f'res{i}', f'ConvNorm_{j}'), 3, 'bn')
-        m += _convnorm(f'neck_3d.down{i}', n + (f'down{i}',), 3, 'bn')
+    if cfg.neck_3d == 'dfm':
+        for bn, tag in enumerate(('mono', 'stereo')):
+            for i in range(3):
+                for j in range(2):
+                    m += _convnorm(f'neck_3d.{tag}_res{i}.conv{j}',
+                                   n + (f'{tag}_res{i}', f'ConvNorm_{j}'), 3,
+                                   'bn')
+            for i in range(2):
+                m += _convnorm(f'neck_3d.{tag}_down{i}',
+                               n + (f'{tag}_down{i}',), 3, 'bn')
+            m += [(f'neck_3d.{tag}_final_conv', n + (f'{tag}_final_conv',),
+                   'conv3d'),
+                  (f'neck_3d.{tag}_final_bn', n + (f'BatchNorm_{bn}',), 'bn')]
+        m += [('neck_3d.aggregate_layer', n + ('aggregate_layer',),
+               'conv2d')]
+    else:
+        for i in range(3):
+            for j in range(2):
+                m += _convnorm(f'neck_3d.res{i}.conv{j}',
+                               n + (f'res{i}', f'ConvNorm_{j}'), 3, 'bn')
+            m += _convnorm(f'neck_3d.down{i}', n + (f'down{i}',), 3, 'bn')
     h = ('bbox_head_3d',)
-    m += [('bbox_head_3d.conv_cls', h + ('conv_cls',), 'conv2d'),
-          ('bbox_head_3d.conv_reg', h + ('conv_reg',), 'conv2d'),
-          ('bbox_head_3d.conv_dir_cls', h + ('conv_dir',), 'conv2d')]
+    if cfg.bbox_head == 'center':
+        m += center_head_key_map('bbox_head_3d', h, center_config(cfg))
+    else:
+        m += [('bbox_head_3d.conv_cls', h + ('conv_cls',), 'conv2d'),
+              ('bbox_head_3d.conv_reg', h + ('conv_reg',), 'conv2d'),
+              ('bbox_head_3d.conv_dir_cls', h + ('conv_dir',), 'conv2d')]
+    return m
+
+
+def center_head_key_map(prefix, fpath, ccfg):
+    """(torch_prefix, flax_path, kind) of a `CenterHead` of config
+    `ccfg` under `prefix` / `fpath`: `shared_conv`, then per task the
+    branches' `{name}_conv{i}` (ConvNorm with bias, BatchNorm) and
+    `{name}_final`."""
+    m = _convnorm(f'{prefix}.shared_conv', fpath + ('shared_conv',), 2, 'bn')
+    for t in range(ccfg.num_tasks):
+        for name, _, num_conv in ccfg.heads(t):
+            for i in range(num_conv - 1):
+                m += _convnorm(f'{prefix}.task{t}.{name}_conv{i}',
+                               fpath + (f'task{t}', f'{name}_conv{i}'), 2,
+                               'bn')
+            m += [(f'{prefix}.task{t}.{name}_final',
+                   fpath + (f'task{t}', f'{name}_final'), 'conv2d')]
     return m
 
 
@@ -299,8 +356,9 @@ def init_weights(model, seed=0):
     (CPU) seeded with `seed`: conv weights normal with std
     1/sqrt(weight[0].numel()) (lecun-normal for a conv), conv biases 0,
     norms weight 1 / bias 0, BN running stats (0, 1),
-    and the focal prior of the anchor head's cls conv (std 0.01, bias
-    -log(99)). Touches no global RNG."""
+    the focal prior of the anchor head's cls conv (std 0.01, bias
+    -log(99)) and the CenterHead's heatmap bias (-2.19). Touches no global
+    RNG."""
     gen = torch.Generator().manual_seed(seed)
     for name, t in list(model.named_parameters()) + \
             list(model.named_buffers()):
@@ -317,6 +375,8 @@ def init_weights(model, seed=0):
                 val = torch.randn(t.shape, generator=gen) * 0.01
             elif name.endswith('conv_cls.bias'):
                 val = torch.full(t.shape, -math.log((1 - 0.01) / 0.01))
+            elif name.endswith('heatmap_final.bias'):
+                val = torch.full(t.shape, HEATMAP_BIAS)
             t.copy_(val.to(t.dtype))
     return model
 

@@ -380,7 +380,8 @@ def test_init_dfm_model_needs_cuda_unless_asked_for_cpu():
 def test_port_runs_without_jax(tmp_path):
     """A fresh process imports the port (with the K9a / K9b modules, the
     card-only scripts, the KITTI data, evaluation, config, builder and
-    tool modules, and the training modules) and runs a tiny CPU forward
+    tool modules, the training modules, and MultiViewDfM's with `DfMNeck`,
+    the CenterHead and `voxel_sample`) and runs a tiny CPU forward
     in the full-chain form, whose neck runs the fused K2's plain
     version, K1's sweep on the CPU, a tiny `dataset_inference` on a
     synthetic KITTI tree in `tmp_path` (PNG files), and one CPU train
@@ -406,6 +407,10 @@ def test_port_runs_without_jax(tmp_path):
         'import dfm_tpu_torch.runtime.schedule, dfm_tpu_torch.runtime.train\n'
         'import dfm_tpu_torch.runtime.checkpoint\n'
         'import dfm_tpu_torch.runtime.logging, dfm_tpu_torch.tools.train\n'
+        'import dfm_tpu_torch.models.necks.dfm_neck\n'
+        'import dfm_tpu_torch.models.heads.center_head\n'
+        'import dfm_tpu_torch.ops.voxel_sample, dfm_tpu_torch.data.waymo\n'
+        'import dfm_tpu_torch.models.detectors.multiview_dfm\n'
         'from dfm_tpu_torch.data.collate import build_batch\n'
         'from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer\n'
         'from dfm_tpu_torch.runtime.schedule import liga_schedule\n'

@@ -287,20 +287,32 @@ def test_mvdfm_predict(models):
 
 
 def test_camsync_config_and_unported_options():
-    """The camsync config builds MVDfMConfig with its values; unknown keys
-    and the options of later slices are refused."""
+    """The camsync and 10-sweeps configs build MVDfMConfig with their
+    values; unknown keys are refused, and so is `DfMNeck` without concat
+    fusion; every option of the JAX config builds (DfMNeck, CenterHead,
+    the 3D backbone and the depth head); DCN is not ported."""
     cfg = load_config('configs/multiview_dfm_r101_waymo_camsync.py')
     mcfg = build_detector(cfg.model)
     assert isinstance(mcfg, MVDfMConfig)
     assert (mcfg.backbone_depth, mcfg.voxel_grid, mcfg.nms_pre,
             mcfg.max_num) == (101, (12, 240, 300), 1024, 500)
+    ten = build_detector(load_config(
+        'configs/multiview_dfm_r101_waymo_camsync_10sweeps.py').model)
+    assert (ten.num_frames, ten.frame_fusion, ten.neck_3d, ten.nms_pre,
+            ten.max_num, ten.backbone_depth, ten.voxel_grid) == (
+        2, 'concat', 'dfm', 500, 100, 101, (12, 240, 300))
     with pytest.raises(ValueError, match='not_a_field'):
         build_detector(dict(type='MultiViewDfM', not_a_field=1))
-    for bad, name in ((dict(frame_fusion='concat', neck_3d='dfm'), 'DfMNeck'),
-                      (dict(bbox_head='center'), 'CenterHead'),
-                      (dict(with_depth_head=True), 'voxel_sample')):
-        with pytest.raises(NotImplementedError, match=name):
-            MultiViewDfM(MVDfMConfig(**bad))
+    with pytest.raises(ValueError, match='concat'):
+        MultiViewDfM(MVDfMConfig(**dict(TINY, neck_3d='dfm')))
+    for opts, module in ((dict(frame_fusion='concat', neck_3d='dfm'),
+                          'neck_3d.aggregate_layer.weight'),
+                         (dict(bbox_head='center'),
+                          'bbox_head_3d.task1.heatmap_final.bias'),
+                         (dict(with_backbone_3d=True, with_depth_head=True),
+                          'depth_pred.1.weight')):
+        assert module in MultiViewDfM(MVDfMConfig(**dict(
+            TINY, **opts))).state_dict()
     with pytest.raises(NotImplementedError, match='deform_conv'):
         ResNet(50, stage_with_dcn=(False, True, True, True))
 

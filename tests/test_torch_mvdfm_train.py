@@ -5,8 +5,10 @@ in one process and data-parallel in two.
 * `mvdfm_loss` (the camsync branch: the anchor head's loss without the
   IoU term, weights 1.0 / 2.0 / 0.2) equal to JAX's `mvdfm_loss` on the
   same head outputs and gt at a tiny MultiViewDfM (rtol 1e-5: the same
-  float32 sums in another order); the CenterHead and dense-depth
-  branches refused.
+  float32 sums in another order); a depth cost without a depth map adds
+  no term, and 'task_outs' take the CenterHead's branch
+  (tests/test_torch_center_head.py and test_torch_mvdfm_temporal.py hold
+  those branches to JAX's).
 * One whole train step of that tiny model (ResNet-18, FPN width 16, two
   views of 64x96, a (4, 16, 16) grid over +-8 m, `mv_synth`'s batch of 2
   with positives of every term) against JAX's `make_train_step` with
@@ -127,10 +129,20 @@ def test_mvdfm_loss_matches_jax():
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
                                    err_msg=k)
     np.testing.assert_allclose(float(got_total), float(total), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match='CenterHead'):
-        mvdfm_loss(dict(task_outs=()), gt, cfg)
-    with pytest.raises(NotImplementedError, match='dense depth'):
-        mvdfm_loss(dict(outs, depth_cost=None), gt, cfg)
+    # a depth cost without a depth map or a pixel draw adds no term (JAX's
+    # branch needs both); 'task_outs' take the CenterHead's branch
+    _, again = mvdfm_loss(dict({k: torch.from_numpy(v) for k, v in
+                                outs.items()}, depth_cost=None), gt, cfg)
+    assert {k: float(v) for k, v in again.items()} == {
+        k: float(v) for k, v in got.items()}
+    ny, nx = TINY['voxel_grid'][1:]
+    task = {k: torch.zeros(B, ny, nx, c)
+            for k, c in (('reg', 2), ('height', 1), ('dim', 3), ('rot', 2))}
+    _, center = mvdfm_loss(dict(task_outs=[
+        dict(task, heatmap=torch.zeros(B, ny, nx, len(t)))
+        for t in cfg.center_tasks]), gt, cfg)
+    assert sorted(center) == ['task0_loss_bbox', 'task0_loss_heatmap',
+                              'task1_loss_bbox', 'task1_loss_heatmap']
 
 
 def _mv_case():
