@@ -118,7 +118,7 @@ Phases, one line each; any failure raises and no result is printed:
               and the KITTI eval at the end of the epoch), a resume to
               step 6 from the saved optimizer state (its sha1 checked),
               `tools.test` on the step-6 checkpoint, and a type it does
-              not train (FCOSMono3D) refused; (d) full-width training
+              not train (SMOKEMono3D) refused; (d) full-width training
               steps in process:
               two warm-up steps, then three with the launch counts set
               to 0 just before and read just after (a step: K1, K2 one
@@ -233,6 +233,44 @@ Phases, one line each; any failure raises and no result is printed:
               training step of the 10-sweeps model at B = 1 after a
               warm-up, split into data, forward, backward and optimizer,
               its peak memory, 0 port-kernel launches
+ 12. mono     the FCOS3D / PGD monocular family on KITTI (configs/
+              fcos3d_r101_kitti_mono.py, pgd_r101_kitti_mono.py), no port
+              kernel on its path: (a) tiny FCOS3D and PGD (ResNet-18,
+              width 64, 2 x 128x192) in f32, TF32 off, seeded live
+              weights, card against CPU: every level output within
+              relative L2 1e-4, the detections' labels equal and scores /
+              boxes within 1e-3, one training step's loss terms within
+              rtol 1e-3 and gradients by phase 7 (a)'s rule (its movers
+              also the CPU's step on the batch in reverse order, as in
+              (d)), no port-kernel launch; (d) two gloo ranks of the tiny PGD
+              (torchrun, this script with `--mono-rank`), B = 1 each,
+              against this process at B = 2 by phase 10 (b)'s rule (its
+              movers also the step on the batch in reverse order:
+              BatchNorm's E[x^2] - E[x]^2 rounds by summation order); (c)
+              on a KITTI tree (phase 7's writer, `create_data`), in
+              processes of their own beside (a) and (d): `tools.test` on
+              both configs at full width with seeded live checkpoints to
+              36 finite AP lines, in bf16, and in f32 (TF32 off) with
+              NMS keeping every box (`model.nms_thr=1.0`: no IoU decision
+              to flip under rounding) unfused and with `--fuse-conv-bn`
+              (every BatchNorm, 104, folded; its
+              detections within 1e-4 x (1 + |value|) of the unfused
+              run's, each matched to its nearest of its class, the 2D
+              boxes within 1e-4 of the image width, the AP lines printed
+              beside), `--synthetic` on every
+              ported config, `tools.train` on the PGD config for 2 steps,
+              `--auto-resume` to 3 (the optimizer's sha1) and
+              `tools.test` on that checkpoint; (b) after them, the full
+              configs at 1 x 384x1280 (frame 0 of the tree) in bf16 and
+              f32, each unfused and with the BatchNorm fold: ms per
+              request (median of 3 after 2 warm-ups), ms per stage
+              (trunk + FPN, head, predict) with their GFLOP and TFLOP/s,
+              peak memory, 0 port-kernel launches; the fold's outputs
+              against the unfused ones (f32, TF32 off: relative L2 1e-4;
+              bf16: within 2x bf16's own distance from the unfused f32
+              model); one f32 PGD training step at B = 2 on the tree's
+              images after a warm-up, split into data, forward, backward
+              and optimizer, with its peak memory
 Then the kernels JSON line, the card line, and the result line.
 Exits non-zero without a result when there is no CUDA device or the
 package is not beside the script.
@@ -2165,16 +2203,16 @@ def train_phase(cfg, dev, results):
               f'tools.test printed {len(aps)} AP lines')
         res = subprocess.run(
             [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
-             '--cfg-options', 'model.type=FCOSMono3D',
+             '--cfg-options', 'model.type=SMOKEMono3D',
              f'data.data_root={root}', '--work-dir',
              os.path.join(root, 'mono')], cwd=here, env=env,
             capture_output=True, text=True, timeout=300)
         check(res.returncode == 2 and 'not ported yet' in res.stderr,
-              f'the FCOSMono3D type: rc {res.returncode} '
+              f'the SMOKEMono3D type: rc {res.returncode} '
               f'{res.stderr[-500:]}')
         print(f'train (c) resume: from step 4 with the saved optimizer '
               f'state (sha1 {digest}) to step 6; tools.test on step_6.pth: '
-              f'{len(aps)} finite AP lines; FCOSMono3D refused (rc '
+              f'{len(aps)} finite AP lines; SMOKEMono3D refused (rc '
               f'{res.returncode})', flush=True)
 
         # (d) full-width training steps in process: two warm-up steps
@@ -3840,6 +3878,613 @@ def temporal_phase(dev, trees):
     print(f'temporal phase {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 
+# phase 12: the mono family (FCOS3D, PGD) on KITTI, no port kernel on its
+# path
+MONO_TINY = dict(backbone_depth=18, in_channels=64, feat_channels=64,
+                 depth_branch=(16,), nms_pre=200, max_num=20)
+MONO_TINY_HW = (128, 192)
+MONO_HW = (384, 1280)         # the KITTI mono configs' data.img_hw
+MONO_LEVEL_REL_L2 = 1e-4      # (a) card vs CPU, float32 with TF32 off
+MONO_DET_TOL = (1e-3, 1e-3)   # (a) scores atol; boxes atol + rtol
+MONO_LOSS_RTOL = 1e-3         # (a) the loss terms, card vs CPU
+MONO_FOLD_REL_L2 = 1e-4       # (b) fused vs unfused, float32, TF32 off
+# (b) bf16: the fold may move each output at most this many times as far
+# as bf16 itself moves it from the float32 unfused model
+MONO_FOLD_BF16_FACTOR = 2.0
+MONO_WARMUP, MONO_TIMED = 2, 3
+MONO_DET_ATOL = 1e-4          # (c) fused vs unfused CLI detections (f32)
+MONO_PAIR_OPTIONS = ('model.nms_thr=1.0',)   # (c) that pair: no suppression
+MONO_CONFIGS = ('fcos3d_r101_kitti_mono.py', 'pgd_r101_kitti_mono.py')
+PORTED_CONFIGS = MONO_CONFIGS + (
+    'dfm_r34_kitti_3class.py', 'multiview_dfm_r101_waymo_camsync.py',
+    'multiview_dfm_r101_waymo_camsync_10sweeps.py')
+
+
+def _mono_dets(det):
+    """Padded detections (B, max_num, ...) -> per sample the kept ones as
+    `_mv_dets_agree` takes them."""
+    det = {k: v.detach().cpu().numpy() for k, v in det.items()}
+    out = []
+    for i in range(det['mask'].shape[0]):
+        m = det['mask'][i].astype(bool)
+        out.append(dict(boxes_3d=det['boxes3d'][i][m],
+                        scores_3d=det['scores'][i][m],
+                        labels_3d=det['labels'][i][m]))
+    return out
+
+
+def _mono_levels(outs):
+    """The head's per-level dicts -> name -> the levels' values
+    concatenated (float32, on the host)."""
+    return {k: torch.cat([o[k].detach().float().reshape(-1).cpu()
+                          for o in outs]) for k in outs[0]}
+
+
+def _rel_l2s(got, want):
+    return {k: float((got[k].double() - v.double()).norm()
+                     / v.double().norm().clamp(min=1e-30))
+            for k, v in want.items()}
+
+
+def _mono_tiny_step(kind, dev, batch, noise=None, reverse=False):
+    """One train-mode forward + backward of the tiny model of `kind` on
+    `dev` (seeded live weights, + one ulp of noise with seed `noise`; the
+    batch's samples in reverse order with `reverse`): the loss terms,
+    every gradient and the BatchNorm statistics."""
+    from dfm_tpu_torch.models.builder import mono_model
+    from dfm_tpu_torch.runtime.adapters import mono_to_device
+    from dfm_tpu_torch.utils.weights import init_weights
+    model = _live_weights(init_weights(mono_model(dict(type=kind,
+                                                       **MONO_TINY)), 5),
+                          6, 3.0)
+    model = (model if noise is None else _ulp_noise(model, noise)).to(dev)
+    if reverse:
+        batch = {k: v[::-1].copy() for k, v in batch.items()}
+    img, cam2img, gt = mono_to_device(batch, dev)
+    total, losses = model.train().forward_train(img, cam2img, gt)
+    total.backward()
+    return dict(
+        losses={k: float(v) for k, v in dict(loss=total.detach(), **{
+            k: v.detach() for k, v in losses.items()}).items()},
+        grads={n: None if p.grad is None else p.grad.detach().cpu()
+               for n, p in model.named_parameters()},
+        stats={n: b.detach().cpu().clone() for n, b in model.named_buffers()
+               if n.endswith(('running_mean', 'running_var'))})
+
+
+def _annos_match(what, got, want):
+    """One frame's KITTI annos of two runs: the same names, and each of
+    `got`'s detections matched one to one to `want`'s of its name at the
+    nearest location (scores within float32 rounding may rank two
+    detections in either order); location, dimensions, rotation_y and
+    score within MONO_DET_ATOL x (1 + |value|), the 2D box within
+    MONO_DET_ATOL x 1242 px. Returns the largest difference."""
+    names = np.asarray(want['name'])
+    check(sorted(got['name']) == sorted(names), f'{what}: names '
+          f'{list(got["name"])} vs {list(names)}')
+    loc = np.asarray(want['location'], np.float64)
+    taken, err = set(), 0.0
+    for i, name in enumerate(got['name']):
+        free = [j for j in np.flatnonzero(names == name) if j not in taken]
+        d = np.abs(loc[free] - np.asarray(got['location'][i])).max(1)
+        j = free[int(np.argmin(d))]
+        taken.add(j)
+        for k in ('location', 'dimensions', 'rotation_y', 'score', 'bbox'):
+            g = np.asarray(got[k], np.float64)[i]
+            w = np.asarray(want[k], np.float64)[j]
+            diff = float(np.abs(g - w).max())
+            tol = MONO_DET_ATOL * 1242 if k == 'bbox' else \
+                float((MONO_DET_ATOL * (1 + np.abs(w))).min())
+            check(diff <= tol, f'{what} {k}: {g} vs {w}')
+            err = max(err, diff)
+    return err
+
+
+def mono_rank(work):
+    """One rank of phase 12 (d), started by torchrun on the card: the tiny
+    PGD's parity step (TF32 off) on its row of the global batch of 2;
+    writes rank<r>.pt to `work`."""
+    import hashlib
+    import os
+    from dfm_tpu_torch.models.builder import mono_model
+    from dfm_tpu_torch.parallel import dist as D
+    from dfm_tpu_torch.runtime.adapters import mono_to_device
+    from dfm_tpu_torch.runtime.schedule import liga_schedule
+    from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
+    from dfm_tpu_torch.utils.weights import init_weights
+    dev = D.init_from_env()
+    r = D.rank()
+    inp = torch.load(os.path.join(work, 'inputs.pt'), weights_only=False)
+    model = _live_weights(init_weights(mono_model(dict(type='PGD',
+                                                       **MONO_TINY)), 5),
+                          6, 3.0).to(dev)
+    step = TrainStep(model, make_optimizer(model), liga_schedule(1e-3))
+    img, cam2img, gt = D.shard_batch(mono_to_device(inp['batch'], dev))
+    flags = _no_tf32()
+    try:
+        total, losses = step.forward(img, cam2img, gt)
+        step.backward(total)
+        step.reduce()
+        torch.cuda.synchronize()
+    finally:
+        _set_tf32(flags)
+    out = _grads_and_stats(step, total, losses)
+    h = hashlib.sha1()
+    for n in sorted(out['grads']):
+        h.update(out['grads'][n].numpy().tobytes())
+    for n in sorted(out['stats']):
+        h.update(out['stats'][n].numpy().tobytes())
+    out.update(digest=h.hexdigest(), backend=D.backend(),
+               world=D.world_size(), device=str(dev),
+               reduce_bytes=step.reduce_bytes)
+    if r:
+        out = {k: v for k, v in out.items() if k not in ('grads', 'stats')}
+    torch.save(out, os.path.join(work, f'rank{r}.pt'))
+    D.destroy()
+    return 0
+
+
+def mono_phase(dev):
+    """12. the mono family: (a) tiny FCOS3D and PGD card vs CPU, (b) the
+    full configs timed in bf16 and f32, with and without the BatchNorm
+    fold, and one f32 PGD training step, (c) the CLIs on a KITTI tree,
+    (d) two gloo ranks of the tiny PGD against one process."""
+    import os
+    import tempfile
+    import threading
+    from dfm_tpu_torch.models.builder import mono_model
+    from dfm_tpu_torch.runtime.config import load_config
+    from dfm_tpu_torch.utils.weights import init_weights
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    configs = {c: os.path.join(here, 'configs', c) for c in PORTED_CONFIGS}
+    pgd_cfg = configs[MONO_CONFIGS[1]]
+    env = dict(os.environ, PYTHONPATH=here)
+    no_tf32_env = dict(env, NVIDIA_TF32_OVERRIDE='0')
+
+    with tempfile.TemporaryDirectory() as root:
+        # (c) starts first: a KITTI tree, create_data, then the CLIs in
+        # processes of their own while (a), (b) and (d) run here
+        ids = write_kitti_tree(root)
+        res = _run([sys.executable, '-m', 'dfm_tpu_torch.tools.create_data',
+                    'kitti', '--root', root, '--splits', 'train', 'val'])
+        check(res.returncode == 0, f'mono create_data: {res.stderr}')
+        ckpts = {}
+        for i, c in enumerate(MONO_CONFIGS):
+            cfg = load_config(configs[c])
+            model = _live_weights(init_weights(mono_model(cfg.model)),
+                                  20 + i, 3.0)
+            ckpts[c] = os.path.join(root, f'live_{i}.pth')
+            torch.save(model.state_dict(), ckpts[c])
+            del model
+        procs, cli = {}, {}
+
+        def start(name, cmd, e=env):
+            procs[name] = subprocess.Popen(
+                [sys.executable, '-m', *cmd], cwd=here, env=e,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        def test_cmd(c, *extra, options=()):
+            return ['dfm_tpu_torch.tools.test', configs[c], '--checkpoint',
+                    ckpts[c], *extra, '--cfg-options',
+                    f'data.data_root={root}', *options]
+
+        t_cli = time.perf_counter()
+        for c in MONO_CONFIGS:
+            tag = c.split('_')[0]
+            start(f'{tag} bf16', test_cmd(c))
+            # the fused / unfused pair without NMS's suppression: an IoU
+            # within float32 rounding of nms_thr (some 5e5 pairs of the
+            # 1,000 candidates of random weights) would keep another box
+            for fused in (False, True):
+                out = os.path.join(root, f'{tag}_{int(fused)}.pkl')
+                start(f'{tag} f32{" fused" * fused}', test_cmd(
+                    c, '--dtype', 'float32', '--out', out,
+                    *(['--fuse-conv-bn'] if fused else []),
+                    options=MONO_PAIR_OPTIONS), no_tf32_env)
+        for c in PORTED_CONFIGS:
+            start(f'synthetic {c}', ['dfm_tpu_torch.tools.test', configs[c],
+                                     '--synthetic'])
+        work = os.path.join(root, 'w')
+        train = ['dfm_tpu_torch.tools.train', pgd_cfg, '--work-dir', work,
+                 '--cfg-options', f'data.data_root={root}', '--max-steps']
+
+        chain_procs = {}
+
+        def train_chain():
+            for name, cmd in (('train', train + ['2']),
+                              ('resume', train + ['3', '--auto-resume']),
+                              ('trained', [
+                                  'dfm_tpu_torch.tools.test', pgd_cfg,
+                                  '--checkpoint',
+                                  os.path.join(work, 'ckpts', 'step_3.pth'),
+                                  '--cfg-options',
+                                  f'data.data_root={root}'])):
+                p = chain_procs[name] = subprocess.Popen(
+                    [sys.executable, '-m', *cmd], cwd=here, env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+                out, err = p.communicate(timeout=900)
+                cli[name] = subprocess.CompletedProcess(p.args, p.returncode,
+                                                        out, err)
+                if p.returncode:
+                    return
+
+        chain = threading.Thread(target=train_chain)
+        chain.start()
+        try:
+            _mono_checks(dev, root, ids, configs, procs, chain, cli, work,
+                         t_cli)
+        finally:
+            for p in list(procs.values()) + list(chain_procs.values()):
+                if p.poll() is None:
+                    p.kill()
+            chain.join()
+    print(f'mono phase {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
+def _mono_checks(dev, root, ids, configs, procs, chain, cli, work, t_cli):
+    """Phase 12 (a), (d), the CLIs' results (c) and (b), while the CLIs
+    that `mono_phase` started run."""
+    import os
+    import pickle
+    from dfm_tpu_torch.apis import init_mono_model
+    from dfm_tpu_torch.data.kitti import build_kitti_infos
+    from dfm_tpu_torch.data.kitti_mono import (load_mono_image,
+                                               mono_info_from_native)
+    from dfm_tpu_torch.models.builder import (build_detector,
+                                              mono_backbone_depth,
+                                              mono_model)
+    from dfm_tpu_torch.models.detectors.fcos_mono3d import (
+        fcos_mono3d_predict)
+    from dfm_tpu_torch.models.layers import BatchNorm
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.runtime.adapters import mono_synth, mono_to_device
+    from dfm_tpu_torch.runtime.config import load_config, merge_options
+    from dfm_tpu_torch.runtime.schedule import liga_schedule
+    from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
+    from dfm_tpu_torch.tools.train import KittiMonoSource, optimizer_digest
+    from dfm_tpu_torch.utils.fuse_conv_bn import fuse_conv_bn
+    from dfm_tpu_torch.utils.weights import init_weights
+    here = os.path.dirname(os.path.abspath(__file__))
+    pgd_cfg = configs[MONO_CONFIGS[1]]
+
+    # (a) tiny FCOS3D and PGD card vs CPU, f32, TF32 off
+    batch = mono_synth(2, 11, *MONO_TINY_HW, kpts=True)
+    flags = _no_tf32()
+    try:
+        for kind in ('FCOSMono3D', 'PGD'):
+            cfg = build_detector(dict(type=kind, **MONO_TINY))
+            outs, dets = {}, {}
+            K.reset_launch_counts()
+            for d in ('cpu', dev):
+                model = _live_weights(init_weights(mono_model(dict(
+                    type=kind, **MONO_TINY)), 5), 6, 3.0).to(d).eval()
+                img, cam2img, _ = mono_to_device(batch, d)
+                with torch.inference_mode():
+                    o = model(img)
+                    dets[d] = _mono_dets(fcos_mono3d_predict(
+                        o, MONO_TINY_HW, cam2img, cfg))
+                outs[d] = _mono_levels(o)
+            # the movers: two ulp noises and the batch reversed (the
+            # BatchNorm moments' summation order, see (d))
+            cpu = _mono_tiny_step(kind, 'cpu', batch)
+            movers = tuple(_mono_tiny_step(kind, 'cpu', batch, seed)
+                           for seed in (1, 2)) + (_mono_tiny_step(
+                               kind, 'cpu', batch, reverse=True),)
+            card = _mono_tiny_step(kind, dev, batch)
+            launches = sum(K.LAUNCHES.values())
+            check(launches == 0, f'mono tiny {kind}: port kernels '
+                  f'launched {dict(K.LAUNCHES)}')
+            rel = _rel_l2s(outs[dev], outs['cpu'])
+            bad = {k: r for k, r in rel.items()
+                   if not r <= MONO_LEVEL_REL_L2}
+            check(not bad, f'mono tiny {kind} card vs CPU levels: {bad}')
+            n, worst = _mv_dets_agree(f'mono tiny {kind} dets',
+                                      dets[dev], dets['cpu'],
+                                      MONO_DET_TOL)
+            check(n > 0, f'mono tiny {kind}: no live detection')
+            loss_err = _losses_agree(f'mono tiny {kind} step',
+                                     card['losses'], cpu['losses'],
+                                     MONO_LOSS_RTOL)
+            g = _grad_compare(f'mono tiny {kind} gradients',
+                              card['grads'], cpu['grads'],
+                              tuple(m['grads'] for m in movers))
+            print(f'mono (a) tiny {kind} (ResNet-18, width 64) f32 '
+                  f'(TF32 off) card vs cpu, 2 x {MONO_TINY_HW}: '
+                  f'{len(rel)} outputs, worst relative L2 '
+                  f'{max(rel.values()):.3g} ({max(rel, key=rel.get)}; '
+                  f'tol {MONO_LEVEL_REL_L2}); {n} dets, max abs err '
+                  f'score {worst[0]:.3g} box {worst[1]:.3g} (tol '
+                  f'{MONO_DET_TOL}); step: {len(cpu["losses"])} terms, '
+                  f'worst rel {loss_err:.3g} (rtol {MONO_LOSS_RTOL}), '
+                  f'gradients worst relative L2 {g[0]:.3g} ({g[1]}), '
+                  f'whole {g[2]:.3g} (under the movers, two ulp noises '
+                  f'and the batch reversed: {g[3]:.3g}); launches 0',
+                  flush=True)
+            del model, o, cpu, card, movers
+    finally:
+        _set_tf32(flags)
+
+    # (d) two gloo ranks of the tiny PGD (B = 1 each) against this
+    # process at B = 2, by phase 10 (b)'s rule (TF32 off), with one
+    # more mover: this process's step on the batch in reverse order.
+    # BatchNorm's E[x^2] - E[x]^2 (JAX's formula) cancels in float32
+    # for channels whose mean dwarfs their spread; the order of its
+    # sums moves a few gradients of the tiny model by ~1e-2 (CPU,
+    # seeded live weights), which weight noise does not reach
+    flags = _no_tf32()
+    try:
+        def one_step(noise=None, reverse=False):
+            model = _live_weights(init_weights(mono_model(dict(
+                type='PGD', **MONO_TINY)), 5), 6, 3.0)
+            model = (model if noise is None else
+                     _ulp_noise(model, noise)).to(dev)
+            step = TrainStep(model, make_optimizer(model),
+                             liga_schedule(1e-3))
+            b = {k: v[::-1].copy() for k, v in batch.items()} \
+                if reverse else batch
+            total, losses = step.forward(*mono_to_device(b, dev))
+            step.backward(total)
+            step.reduce()
+            return _grads_and_stats(step, total, losses)
+
+        one, again = one_step(), one_step()
+        movers = [one_step(seed) for seed in (1, 2)] + \
+            [one_step(reverse=True)]
+    finally:
+        _set_tf32(flags)
+    ddp_dir = os.path.join(root, 'ddp')
+    os.makedirs(ddp_dir)
+    torch.save(dict(batch=batch), os.path.join(ddp_dir, 'inputs.pt'))
+    t0 = time.perf_counter()
+    res = _run(_torchrun(2, os.path.join(here, 'chip_smoke.py'),
+                         '--mono-rank', ddp_dir), timeout=600)
+    ranks_s = time.perf_counter() - t0
+    check(res.returncode == 0, f'mono (d) ranks: {res.stderr[-3000:]}')
+    ranks = [torch.load(os.path.join(ddp_dir, f'rank{r}.pt'),
+                        weights_only=False) for r in range(2)]
+    check(all(o['backend'] == 'gloo' and o['world'] == 2 for o in ranks),
+          f'mono (d): {[(o["backend"], o["world"]) for o in ranks]}')
+    check(ranks[0]['digest'] == ranks[1]['digest'], "mono (d): the two "
+          "ranks' gradients or BatchNorm statistics differ")
+    line = _ddp_compare('mono (d) two ranks', ranks[0], one, movers,
+                        again)
+    print(f'mono (d) two ranks on one card (gloo), tiny PGD f32, B = 1 '
+          f'each, against one process at B = 2 (TF32 off; movers: two '
+          f'ulp noises and the batch reversed): {line}; '
+          f'all-reduce {ranks[0]["reduce_bytes"]} bytes; '
+          f'{ranks_s:.1f} s for the two processes', flush=True)
+    del one, again, movers, ranks
+    gc.collect()
+
+    # (c) the CLIs' results, before anything is timed
+    for name, p in procs.items():
+        out, err = p.communicate(timeout=900)
+        check(p.returncode == 0, f'mono (c) {name}: {err[-3000:]}')
+        cli[name] = subprocess.CompletedProcess(p.args, p.returncode,
+                                                out, err)
+    chain.join()
+    cli_s = time.perf_counter() - t_cli
+    for name in ('train', 'resume', 'trained'):
+        check(name in cli and cli[name].returncode == 0,
+              f'mono (c) {name}: '
+              f'{cli[name].stderr[-3000:] if name in cli else "not run"}')
+    aps = {}
+    for name, r in cli.items():
+        if name.startswith('synthetic'):
+            check('finite=True' in r.stdout, f'mono (c) {name}: '
+                  f'{r.stdout[-1500:]}')
+            continue
+        if name in ('train', 'resume'):
+            continue
+        found = AP_LINE.findall(r.stdout)
+        check(len(found) == 36 and all(np.isfinite(float(v))
+                                       for _, v in found),
+              f'mono (c) {name}: {len(found)} AP lines: '
+              f'{r.stdout[-1500:]}')
+        aps[name] = re.findall(r'^\S+: \S+$', r.stdout, re.M)
+    worst = {}
+    for c in MONO_CONFIGS:
+        tag = c.split('_')[0]
+        # every BatchNorm of the model (ResNet-101: the stem, 33 blocks
+        # x 3 and 4 downsamples, 104)
+        n_bn = sum(isinstance(m, BatchNorm) for m in mono_model(
+            load_config(configs[c]).model).modules())
+        check(f'[fuse] {n_bn} BatchNorm(s) folded' in
+              cli[f'{tag} f32 fused'].stdout, f'mono (c) {tag}: '
+              f'{cli[f"{tag} f32 fused"].stdout[-1000:]}')
+        annos = []
+        for fused in (0, 1):
+            with open(os.path.join(root, f'{tag}_{fused}.pkl'),
+                      'rb') as f:
+                annos.append(pickle.load(f))
+        err = max(_annos_match(f'mono (c) {tag} fused', f, p)
+                  for p, f in zip(*annos))
+        worst[tag] = (err, sum(len(a['name']) for a in annos[0]),
+                      aps[f'{tag} f32 fused'] == aps[f'{tag} f32'])
+        car = [re.search(r'^Car_3d_moderate_strict: (\S+)$',
+                         cli[f'{tag} {k}'].stdout, re.M).group(1)
+               for k in ('bf16', 'f32', 'f32 fused')]
+        pairs = zip(aps[f'{tag} f32 fused'], aps[f'{tag} f32'])
+        print(f'mono (c) {tag} Car_3d_moderate_strict bf16 / f32 / f32 '
+              f'fused: {" / ".join(car)}; the 36 AP lines, f32 fused / '
+              f'unfused: ' + ', '.join(
+                  f'{a.split(": ")[0]} {a.split(": ")[1]}/'
+                  f'{b.split(": ")[1]}' for a, b in pairs), flush=True)
+    digest = optimizer_digest(torch.load(
+        os.path.join(work, 'ckpts', 'step_2.pth'), map_location='cpu',
+        weights_only=True)['optimizer'])
+    check(f'resumed from step 2 (optimizer state sha1 {digest})'
+          in cli['resume'].stdout and 'step 3/3' in cli['resume'].stdout,
+          f'mono (c) resume: {cli["resume"].stdout[-2000:]}')
+    step2 = re.search(r'^step 2/2 .*$', cli['train'].stdout, re.M)
+    check(step2 is not None and 'loss_consistency=' in step2.group(0),
+          f'mono (c) train: {cli["train"].stdout[-1000:]}')
+    print(f'mono (c) cli: tools.test on both configs (full width, live '
+          f'checkpoints, the tree\'s 4 frames): 36 finite AP lines each '
+          f'in bf16, in f32 (TF32 off) and in f32 with --fuse-conv-bn, '
+          f'those two with {" ".join(MONO_PAIR_OPTIONS)}; '
+          f'fused vs unfused f32 detections (count, max abs err, AP '
+          f'lines equal): ' + ', '.join(
+              f'{t} {n} {e:.3g} {eq}' for t, (e, n, eq) in worst.items())
+          + f' (tol {MONO_DET_ATOL} x (1 + |value|), the 2D boxes '
+          f'{MONO_DET_ATOL} x 1242 px); --synthetic finite on {len(PORTED_CONFIGS)} configs; '
+          f'tools.train PGD 2 steps ({step2.group(0)[:200]}...), resume '
+          f'to 3 (optimizer sha1 {digest}), tools.test on step_3.pth: '
+          f'36 AP lines; {cli_s:.1f} s for the processes', flush=True)
+    # (b) the full configs at 1 x 384 x 1280 (frame 0 of the tree)
+    info0 = build_kitti_infos(root, ids[:1])[0]
+    mono_info = mono_info_from_native(info0, root, MONO_HW)
+    img = torch.from_numpy(load_mono_image(mono_info['image_path'],
+                                           MONO_HW))[None].to(dev)
+    cam2img = torch.from_numpy(mono_info['calib']['P2'])[None].to(dev)
+    for c in MONO_CONFIGS:
+        mc = load_config(configs[c]).model
+        cfg = build_detector(mc)
+        ref = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            h = init_mono_model(cfg, mono_backbone_depth(mc), dtype)
+            model = h['model']
+            head = getattr(model.bbox_head, 'fcos3d', model.bbox_head)
+            with torch.no_grad():   # live scores: nms_pre boxes in NMS
+                head.conv_cls.bias.fill_(0.0)
+            for fused in (False, True):
+                if fused:
+                    n_fold = fuse_conv_bn(model)
+                flags = _no_tf32()
+                try:
+                    with torch.inference_mode():
+                        levels = _mono_levels(model(img))
+                finally:
+                    _set_tf32(flags)
+                ref[(dtype, fused)] = levels
+                for _ in range(MONO_WARMUP):
+                    h['infer'](img, cam2img)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                K.reset_launch_counts()
+                ms = []
+                for _ in range(MONO_TIMED):
+                    t0 = time.perf_counter()
+                    det = h['infer'](img, cam2img)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                peak = torch.cuda.max_memory_allocated()
+                launches = sum(K.LAUNCHES.values())
+                check(launches == 0, f'{c}: port kernels launched')
+                kept = _finite_dets(det, f'{c} {dtype}')
+                stages = []
+                for _ in range(MONO_TIMED):
+                    t = [time.perf_counter()]
+                    with torch.inference_mode():
+                        feats = model.features(img)
+                        torch.cuda.synchronize()
+                        t.append(time.perf_counter())
+                        outs = model.bbox_head(feats)
+                        torch.cuda.synchronize()
+                        t.append(time.perf_counter())
+                        fcos_mono3d_predict(outs, MONO_HW, cam2img, cfg)
+                        torch.cuda.synchronize()
+                        t.append(time.perf_counter())
+                    stages.append([(b - a) * 1e3 for a, b in
+                                   zip(t, t[1:])])
+                st = np.median(stages, 0)
+                trunk = _flops_of(model.features, img)
+                headf = _flops_of(model.bbox_head, feats)
+                tf32 = ('' if dtype == torch.bfloat16 else
+                        f' (TF32 convs '
+                        f'{"on" if torch.backends.cudnn.allow_tf32 else "off"})')
+                fold = f', BatchNorm folded ({n_fold})' if fused else ''
+                print(f'mono (b) {c} {str(dtype)[6:]}{tf32}{fold}, 1 x '
+                      f'{MONO_HW[0]}x{MONO_HW[1]}: ms/request '
+                      f'{[round(x, 3) for x in ms]} median '
+                      f'{float(np.median(ms)):.3f}; stages ms (median '
+                      f'of {MONO_TIMED}) trunk+fpn {st[0]:.3f}, head '
+                      f'{st[1]:.3f}, predict {st[2]:.3f}; GFLOP '
+                      f'trunk+fpn {trunk / 1e9:.1f} head '
+                      f'{headf / 1e9:.1f} (TFLOP/s '
+                      f'{trunk / st[0] / 1e9:.1f}, '
+                      f'{headf / st[1] / 1e9:.1f}); peak_mem_bytes '
+                      f'{peak}; kept {kept}; port-kernel launches '
+                      f'{launches}', flush=True)
+                del feats, outs, det
+            del h, model, head
+            gc.collect()
+            torch.cuda.empty_cache()
+        f32 = _rel_l2s(ref[(torch.float32, True)],
+                       ref[(torch.float32, False)])
+        bf16 = _rel_l2s(ref[(torch.bfloat16, True)],
+                        ref[(torch.bfloat16, False)])
+        level = _rel_l2s(ref[(torch.bfloat16, False)],
+                         ref[(torch.float32, False)])
+        bad = {k: r for k, r in f32.items() if not r <= MONO_FOLD_REL_L2}
+        check(not bad, f'{c} f32 fold vs unfused: {bad}')
+        bad = {k: (r, level[k]) for k, r in bf16.items()
+               if not r <= MONO_FOLD_BF16_FACTOR * level[k]}
+        check(not bad, f'{c} bf16 fold vs unfused (against bf16 vs f32): '
+              f'{bad}')
+        print(f'mono (b) {c} fold vs unfused, relative L2 per output: '
+              f'f32 (TF32 off) worst {max(f32.values()):.3g} (tol '
+              f'{MONO_FOLD_REL_L2}); bf16 '
+              + ', '.join(f'{k} {bf16[k]:.3g} (bf16 vs f32 '
+                          f'{level[k]:.3g})' for k in bf16)
+              + f' (tol {MONO_FOLD_BF16_FACTOR}x bf16 vs f32)',
+              flush=True)
+
+    # (b) one full-width f32 PGD training step at B = 2 after a warm-up
+    pcfg = merge_options(load_config(pgd_cfg),
+                         [f'data.data_root={root}'])
+    source = KittiMonoSource(pcfg, 2)
+    model = init_weights(mono_model(pcfg.model)).to(dev)
+    step = TrainStep(model, make_optimizer(model), liga_schedule(2e-3))
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+        t = [time.perf_counter()]
+        inputs = source.next_batch(i, rng, dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        total, losses = step.forward(*inputs)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        step.backward(total)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        norm = step.update()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        vals = {k: float(v.detach()) for k, v in
+                dict(loss=total, **losses).items()}
+        check(all(np.isfinite(x) for x in vals.values()) and
+              np.isfinite(float(norm)), f'PGD train full: {vals}')
+    split = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+    peak = torch.cuda.max_memory_allocated()
+    launches = sum(K.LAUNCHES.values())
+    check(launches == 0, f'PGD train full: {dict(K.LAUNCHES)}')
+    print(f'mono (b) PGD full config training, f32 (TF32 as PyTorch has '
+          f'it), B = 2, 2 x {MONO_HW[0]}x{MONO_HW[1]} KITTI images of the '
+          f'tree, one step after a warm-up, ms (data = decode + resize '
+          f'+ host to device, forward, backward, optimizer): '
+          + ', '.join(f'{x:.3f}' for x in split)
+          + f'; total {sum(split):.3f}; peak_mem_bytes {peak}; losses '
+          f'{ {k: round(x, 4) for k, x in vals.items()} } grad_norm '
+          f'{float(norm):.5g}; port-kernel launches {launches}',
+          flush=True)
+    del model, step, total, losses, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase12_alone(dev='cuda'):
+    """Phase 12 without the others (no kernel built: the path has none):
+    `python3 -c "import chip_smoke; chip_smoke.phase12_alone()"`."""
+    mono_phase(dev)
+
+
 def phase10_alone(dev='cuda'):
     """Phase 10 without the others (the kernels built, phase 9's Waymo
     trees written here): `python3 -c "import chip_smoke;
@@ -3922,6 +4567,7 @@ def main():
         mvdfm_phase(dev, trees)
         ddp_phase(cfg, dev, results, trees)
         temporal_phase(dev, trees)
+    mono_phase(dev)
 
     print(json.dumps({'kernels': list(results.values())}))
     print(card)
@@ -3934,4 +4580,6 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--ddp-rank']:       # phase 10 (b), one rank
         sys.exit(ddp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ['--mono-rank']:      # phase 12 (d), one rank
+        sys.exit(mono_rank(sys.argv[2]))
     sys.exit(main())

@@ -1,5 +1,6 @@
-"""Inference entry points. Port of `dfm_tpu/apis.py:18-217`, and
-MultiViewDfM's (`init_mvdfm_model`, `detect_multiview_sample`,
+"""Inference entry points. Port of `dfm_tpu/apis.py:18-217` (with the
+mono family's `init_mono_model` / `inference_mono_3d`, FCOS3D and PGD),
+and MultiViewDfM's (`init_mvdfm_model`, `detect_multiview_sample`,
 `multihost_multiview_inference`).
 
 They run on the CUDA card by default and raise when there is none; the
@@ -30,8 +31,12 @@ import torch
 import torch.distributed as dist
 
 from .data.collate import build_batch
+from .data.pipeline import normalize_image
 from .evaluation.results import detections_to_kitti_annos
+from .models.builder import mono_class
 from .models.detectors.dfm import DfM, DfMConfig, dfm_predict
+from .models.detectors.fcos_mono3d import fcos_mono3d_predict
+from .models.heads.fcos_mono3d import FCOS3DConfig, pad44
 from .models.detectors.multiview_dfm import (MultiViewDfM, MVDfMConfig,
                                              mvdfm_predict)
 from .parallel import dist as D
@@ -41,7 +46,8 @@ __all__ = ['init_dfm_model', 'init_dfm_stream', 'detect_sample',
            'inference_dfm', 'dataset_inference',
            'multihost_dataset_inference', 'allgather_pickled',
            'init_mvdfm_model', 'detect_multiview_sample',
-           'multihost_multiview_inference']
+           'multihost_multiview_inference', 'init_mono_model',
+           'inference_mono_3d', 'detect_mono']
 
 
 def _device(device):
@@ -229,3 +235,57 @@ def multihost_multiview_inference(handle, dataset, max_samples=None):
     n = min(len(dataset), max_samples or len(dataset))
     return _sharded(n, lambda i: detect_multiview_sample(
         handle, dataset.get_sample(i)))
+
+
+def init_mono_model(cfg=None, backbone_depth=101, dtype=torch.bfloat16,
+                    device=None):
+    """Build an FCOS3D (`FCOS3DConfig`, the default) or a PGD
+    (`PGDConfig`) mono model, seeded random weights, and its inference
+    function.
+
+    Returns dict(model, cfg, device, infer, load_checkpoint) with
+    infer(img (B, H, W, 3) normalised, cam2img (B, 3|4, 4)) -> padded
+    camera-frame detections ('boxes3d' bottom-centre, 'scores',
+    'labels', 'mask') and load_checkpoint(path) -> the keys of a
+    checkpoint in the port's layout it did not take.
+    """
+    cfg = cfg or FCOS3DConfig()
+    device = _device(device)
+    with torch.device('meta'):
+        model = mono_class(cfg)(cfg, backbone_depth, dtype=dtype)
+    model = init_weights(model.to_empty(device=device)).eval()
+
+    @torch.inference_mode()
+    def infer(img, cam2img):
+        return fcos_mono3d_predict(model(img), tuple(img.shape[1:3]),
+                                   cam2img, cfg)
+
+    return dict(model=model, cfg=cfg, device=device, infer=infer,
+                load_checkpoint=lambda path: load_reference_checkpoint(
+                    model, path))
+
+
+def _infer_mono(handle, img, cam2img):
+    """A normalised (H, W, 3) numpy image and its (3|4, 4) intrinsics ->
+    the padded detections of the image (batch of one, on the device)."""
+    dev = handle['device']
+    img = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+    cam = pad44(torch.as_tensor(np.asarray(cam2img, np.float32)))
+    return handle['infer'](img[None].to(dev), cam[None].to(dev))
+
+
+def inference_mono_3d(handle, image, cam2img):
+    """One image through an `init_mono_model` handle (reference
+    `inference_mono_3d_detector`): `image` (H, W, 3) raw BGR, uint8 or
+    float; `cam2img` (3, 3|4) or (4, 4). Returns the padded camera-frame
+    detections of the image (batch of one, on the device)."""
+    return _infer_mono(handle, normalize_image(np.asarray(image, np.float32)),
+                       cam2img)
+
+
+def detect_mono(handle, img, cam2img):
+    """`inference_mono_3d` of an image already normalised
+    (`data/kitti_mono.py:load_mono_image`), the detections moved to the
+    host as numpy arrays (the move waits for the device)."""
+    return {k: v[0].cpu().numpy()
+            for k, v in _infer_mono(handle, img, cam2img).items()}

@@ -1,7 +1,8 @@
 """Geometric transforms on tensors.
 
 Port of `dfm_tpu/core/transforms.py` (`limit_period`, `homogeneous`,
-`points_cam2img`, `points_img2cam`, `rotation_2d`, `transform_points`).
+`points_cam2img`, `points_img2cam`, `rotation_2d`, `rotation_matrix_3d`,
+`rotate_points_3d`, `transform_points`).
 The 4x4 products are written as elementwise multiply-adds, so they stay
 exact float32 on every device whatever the TF32 settings (the JAX
 package runs them at HIGHEST precision).
@@ -9,8 +10,9 @@ package runs them at HIGHEST precision).
 
 import torch
 
-__all__ = ['limit_period', 'rotation_2d', 'homogeneous', 'apply_mat',
-           'points_cam2img', 'points_img2cam', 'transform_points']
+__all__ = ['limit_period', 'rotation_2d', 'rotation_matrix_3d',
+           'rotate_points_3d', 'homogeneous', 'apply_mat', 'points_cam2img',
+           'points_img2cam', 'transform_points']
 
 
 def limit_period(val, offset=0.5, period=torch.pi):
@@ -24,6 +26,30 @@ def rotation_2d(points, angles):
     s = torch.sin(angles)
     x, y = points[..., 0], points[..., 1]
     return torch.stack([x * c - y * s, x * s + y * c], dim=-1)
+
+
+def rotation_matrix_3d(angles, axis=2):
+    """(..., 3, 3) transposed rotation matrices: `points @ R_T` rotates
+    the points by `angles` around `axis` (mmdet3d `rotation_3d_in_axis`,
+    `dfm_tpu/core/transforms.py:50-69`)."""
+    c, s = torch.cos(angles), torch.sin(angles)
+    one, zero = torch.ones_like(c), torch.zeros_like(c)
+    if axis in (1, -2):
+        rows = [[c, zero, -s], [zero, one, zero], [s, zero, c]]
+    elif axis in (2, -1):
+        rows = [[c, s, zero], [-s, c, zero], [zero, zero, one]]
+    elif axis in (0, -3):
+        rows = [[one, zero, zero], [zero, c, s], [zero, -s, c]]
+    else:
+        raise ValueError(f'axis should be in [-3..2], got {axis}')
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def rotate_points_3d(points, angles, axis=2):
+    """Rotate (..., M, 3) points by per-box angles (...,) around `axis`,
+    as exact f32 sums."""
+    rot_t = rotation_matrix_3d(angles, axis)                # (..., 3, 3)
+    return (points[..., :, :, None] * rot_t[..., None, :, :]).sum(-2)
 
 
 def homogeneous(points):

@@ -26,7 +26,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ['read_png', 'unfilter']
+__all__ = ['read_png', 'png_shape', 'unfilter']
 
 SIGNATURE = b'\x89PNG\r\n\x1a\n'
 CHANNELS = {0: 1, 2: 3, 6: 4}      # colour type -> bytes per pixel
@@ -101,6 +101,19 @@ def unfilter(rows, filters, bpp):
         sk[t + 1, r0 + 1:r1 + 1] = (fk[t, r0:r1] + pred) & 0xFF
     out = sk[diag + 1, r_idx + 1]                     # (H, W, bpp)
     return out.astype(np.uint8).reshape(h, stride)
+
+
+def png_shape(path):
+    """(H, W, 3) of the PNG at `path` from its IHDR chunk (the shape
+    `cv2.imread(path)` gives), without decoding it; ValueError for a file
+    that does not start with a PNG header."""
+    with open(path, 'rb') as f:
+        head = f.read(24)
+    if len(head) < 24 or not head.startswith(SIGNATURE) or \
+            head[12:16] != b'IHDR':
+        raise ValueError(f'{path}: no PNG header')
+    width, height = struct.unpack('>II', head[16:24])
+    return (height, width, 3)
 
 
 def read_png(path):

@@ -2,8 +2,12 @@
 port's config dataclass.
 
 Port of `dfm_tpu/models/builder.py:28-69` (`_mk_cfg`, `_build_dfm`,
-`_build_dfm_full`, `_build_mvdfm`) for the types the port runs: `DfM`
-and `DfMFull` give `DfMConfig`, `MultiViewDfM` gives `MVDfMConfig`.
+`_build_dfm_full`, `_build_mvdfm`, `_build_fcos3d`, `_build_pgd`) for
+the types the port runs: `DfM` and `DfMFull` give `DfMConfig`,
+`MultiViewDfM` gives `MVDfMConfig`, `FCOSMono3D` `FCOS3DConfig` and `PGD`
+`PGDConfig` (their ResNet's depth is the config's `backbone_depth`, 101
+where it has none: `mono_backbone_depth`, which `mono_model` builds
+with).
 DfM and DfMFull evaluate the DfM student alone, so `build_detector`
 gives the student's config for both; `atss_config` gives DfMFull's 2D
 head its config from the model's `atss` entry, and the train CLI
@@ -12,19 +16,30 @@ from `teacher_checkpoint`. For DfM and DfMFull, keys that are no field of
 `DfMConfig` are ignored by `build_detector`, as `_mk_cfg` ignores them;
 `unused_keys` names them (for the repo's DfM configs: the type and
 DfMFull's `atss` and `teacher_checkpoint`, which only training reads).
-A `MultiViewDfM` config with a key that is no field of `MVDfMConfig`
-is refused (ValueError).
+For the mono types `unused_keys` names the type alone in the repo's
+configs (every other key is a field, or `backbone_depth`). A
+`MultiViewDfM` config with a key that is no field of `MVDfMConfig` is
+refused (ValueError).
 """
 
 import dataclasses
 
 from .detectors.dfm import DfMConfig
+from .detectors.fcos_mono3d import FCOSMono3D
 from .detectors.multiview_dfm import MVDfMConfig
+from .detectors.pgd_mono3d import PGDMono3D
 from .heads.atss2d import ATSS2DConfig
+from .heads.fcos_mono3d import FCOS3DConfig
+from .heads.pgd import PGDConfig
 
-__all__ = ['build_detector', 'atss_config', 'unused_keys', 'PORTED_TYPES']
+__all__ = ['build_detector', 'atss_config', 'unused_keys', 'PORTED_TYPES',
+           'MONO_TYPES', 'mono_backbone_depth', 'mono_class', 'mono_model']
 
-PORTED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM')
+MONO_TYPES = ('FCOSMono3D', 'PGD')
+PORTED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM') + MONO_TYPES
+_CONFIG_CLASSES = {'MultiViewDfM': MVDfMConfig, 'FCOSMono3D': FCOS3DConfig,
+                   'PGD': PGDConfig}
+_MONO_MODELS = {FCOS3DConfig: FCOSMono3D, PGDConfig: PGDMono3D}
 
 
 def _mk_cfg(cls, d):
@@ -47,20 +62,24 @@ def _as_dict(model_cfg):
 
 
 def _config_class(kind):
-    return MVDfMConfig if kind == 'MultiViewDfM' else DfMConfig
+    return _CONFIG_CLASSES.get(kind, DfMConfig)
 
 
 def unused_keys(model_cfg):
-    """The keys of `model_cfg` that `build_detector` ignores."""
+    """The keys of `model_cfg` that `build_detector` ignores (a mono
+    type's `backbone_depth` is read, by `mono_backbone_depth`)."""
     d = _as_dict(model_cfg)
     fields = {f.name for f in dataclasses.fields(
         _config_class(d.get('type')))}
+    if d.get('type') in MONO_TYPES:
+        fields.add('backbone_depth')
     return sorted(k for k in d if k not in fields)
 
 
 def build_detector(model_cfg):
-    """`model_cfg` (a dict or `Config` with a `type`) -> `DfMConfig`, or
-    `MVDfMConfig` for MultiViewDfM. Raises NotImplementedError for a type
+    """`model_cfg` (a dict or `Config` with a `type`) -> `DfMConfig`,
+    `MVDfMConfig` for MultiViewDfM, `FCOS3DConfig` / `PGDConfig` for
+    FCOSMono3D / PGD. Raises NotImplementedError for a type
     the port does not run, ValueError for a MultiViewDfM key that is no
     field of `MVDfMConfig`."""
     d = _as_dict(model_cfg)
@@ -84,3 +103,26 @@ def atss_config(model_cfg):
     (the defaults where it has none)."""
     atss = _as_dict(model_cfg).get('atss') or {}
     return _mk_cfg(ATSS2DConfig, _as_dict(atss))
+
+
+def mono_backbone_depth(model_cfg):
+    """The ResNet depth of a mono config (`_build_fcos3d`, `_build_pgd`:
+    `backbone_depth`, 101 where it has none)."""
+    return int(_as_dict(model_cfg).get('backbone_depth', 101))
+
+
+def mono_class(cfg):
+    """The detector module class of an `FCOS3DConfig` (`FCOSMono3D`) or a
+    `PGDConfig` (`PGDMono3D`)."""
+    return _MONO_MODELS[type(cfg)]
+
+
+def mono_model(model_cfg):
+    """The float32 `FCOSMono3D` or `PGDMono3D` module of a mono config
+    (parameters not initialised; `utils/weights.py:init_weights` fills
+    them)."""
+    kind = _as_dict(model_cfg).get('type')
+    if kind not in MONO_TYPES:
+        raise ValueError(f'{kind!r} is no mono type ({MONO_TYPES})')
+    cfg = build_detector(model_cfg)
+    return mono_class(cfg)(cfg, mono_backbone_depth(model_cfg))

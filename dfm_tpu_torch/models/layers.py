@@ -25,7 +25,7 @@ from ..parallel import dist as D
 
 __all__ = ['Conv', 'ConvTranspose', 'GroupNorm', 'BatchNorm', 'ConvNorm',
            'convbn', 'Hourglass', 'UpconvModule', 'group_norm',
-           'gn_groups', 'stat_float']
+           'gn_groups', 'stat_float', 'conv_bias']
 
 
 def stat_float(x):
@@ -57,6 +57,13 @@ def group_norm(x, weight, bias, groups):
     return (xf * sc.reshape(shape) + bs.reshape(shape)).to(x.dtype)
 
 
+def conv_bias(conv, x):
+    """`conv`'s bias in x's dtype, or None. Every caller that reads a
+    conv's `weight` directly passes this as its bias: a BatchNorm fold
+    (`utils/fuse_conv_bn.py`) gives a conv without one a bias."""
+    return None if conv.bias is None else conv.bias.to(x.dtype)
+
+
 class Conv(nn.Module):
     """Conv2d / Conv3d (by `ndim`) whose f32 weight is cast to the
     input dtype at use. 'same' padding k//2 * dilation."""
@@ -73,24 +80,27 @@ class Conv(nn.Module):
 
     def forward(self, x):
         fn = F.conv2d if self.ndim == 2 else F.conv3d
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return fn(x, self.weight.to(x.dtype), b, self.stride,
+        return fn(x, self.weight.to(x.dtype), conv_bias(self, x), self.stride,
                   self.padding, self.dilation)
 
 
 class ConvTranspose(nn.Module):
     """torch ConvTranspose{2,3}d(k3, s2, p1, output_padding 1): exact 2x
     upsample; the flax equivalent is padding (1, 2) per spatial dim
-    (`layers.py:393-398`). Weight layout (I, O, k...)."""
+    (`layers.py:393-398`). Weight layout (I, O, k...); no bias until a
+    BatchNorm fold gives it one."""
+
+    transposed = True
 
     def __init__(self, cin, cout, ndim=2):
         super().__init__()
         self.ndim = ndim
         self.weight = nn.Parameter(torch.empty((cin, cout) + (3,) * ndim))
+        self.bias = None
 
     def forward(self, x):
         fn = F.conv_transpose2d if self.ndim == 2 else F.conv_transpose3d
-        return fn(x, self.weight.to(x.dtype), None, 2, 1, 1)
+        return fn(x, self.weight.to(x.dtype), conv_bias(self, x), 2, 1, 1)
 
 
 class GroupNorm(nn.Module):

@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import BatchNorm, ConvNorm
+from ..layers import BatchNorm, ConvNorm, conv_bias
 from .imvoxel_neck import ResModule3D
 
 __all__ = ['DfMNeck', 'z_after_downs']
@@ -41,14 +41,17 @@ def z_after_downs(nz, downs=2):
 
 class ZValidConv(nn.Module):
     """The paths' final conv: kernel (kz, 3, 3), z VALID, y / x padded 1,
-    no bias; its f32 weight cast to the input's dtype."""
+    no bias (until a BatchNorm fold gives it one); its f32 weight cast to
+    the input's dtype."""
 
     def __init__(self, cin, cout, kz):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, kz, 3, 3))
+        self.bias = None
 
     def forward(self, x):
-        return F.conv3d(x, self.weight.to(x.dtype), None, 1, (0, 1, 1))
+        return F.conv3d(x, self.weight.to(x.dtype), conv_bias(self, x), 1,
+                        (0, 1, 1))
 
 
 class DfMNeck(nn.Module):
@@ -82,7 +85,8 @@ class DfMNeck(nn.Module):
         for i in range(2):
             down = part(f'down{i}')
             x = x.to(self.dtype)
-            x = F.conv3d(x, down.conv.weight.to(x.dtype), None, (2, 1, 1), 1)
+            x = F.conv3d(x, down.conv.weight.to(x.dtype),
+                         conv_bias(down.conv, x), (2, 1, 1), 1)
             x = F.relu(down.bn(x))
             x = part(f'res{i + 1}')(x, self.dtype)
         x = F.relu(part('final_bn')(part('final_conv')(x.to(self.dtype))))

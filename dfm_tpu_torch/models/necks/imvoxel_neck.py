@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import ConvNorm
+from ..layers import ConvNorm, conv_bias
 
 __all__ = ['ResModule3D', 'OutdoorImVoxelNeck']
 
@@ -57,6 +57,7 @@ class OutdoorImVoxelNeck(nn.Module):
             # stride 2 along z only, while more than one plane is left
             sz = 2 if x.shape[2] > 1 else 1
             x = x.to(self.dtype)
-            x = F.conv3d(x, down.conv.weight.to(x.dtype), None, (sz, 1, 1), 1)
+            x = F.conv3d(x, down.conv.weight.to(x.dtype),
+                         conv_bias(down.conv, x), (sz, 1, 1), 1)
             x = F.relu(down.bn(x))
         return x.mean(2) if x.shape[2] > 1 else x[:, :, 0]

@@ -2,15 +2,18 @@
 functions of the train step.
 
 Port of `dfm_tpu/runtime/adapters.py:41-117` (`_gt_pack`, `_cam_matrix`,
-`_dfm_meta`, `_dfm_synth`) and `:327-354` (`_mv_synth` and the
-MultiViewDfM model arguments): the same draws from
+`_dfm_meta`, `_dfm_synth`), `:149-210` (`_mono_synth` and the FCOS3D /
+PGD adapters) and `:327-354` (`_mv_synth` and the MultiViewDfM model
+arguments): the same draws from
 `np.random.default_rng(seed)` in the same order, so that one seed gives
 both packages the same batch. A batch is numpy, batched, in the JAX
 layout: for DfM 'img' (B, 2, H, W, 3), 'meta' (the `BatchMeta` fields),
 the gt keys and, with `full`, DfMFull's teacher points and 2D targets;
 for MultiViewDfM 'img' (B, F, V, H, W, 3), 'lidar2img' (B, F, V, 4, 4)
-and the gt boxes. `to_device` / `mv_to_device` make the model's inputs
-of it (`TrainStep`'s (inputs, cond, gt)), as JAX's `model_args_fn`.
+and the gt boxes; for FCOSMono3D / PGD 'img' (B, H, W, 3), 'cam2img' (B,
+4, 4) and the camera-frame gt. `to_device` / `mv_to_device` /
+`mono_to_device` make the model's inputs of it (`TrainStep`'s (inputs,
+cond, gt)), as JAX's `model_args_fn`.
 """
 
 import numpy as np
@@ -20,7 +23,10 @@ from ..data.collate import FULL_KEYS, GT_KEYS
 from ..models.detectors.dfm import BatchMeta
 
 __all__ = ['dfm_meta', 'dfm_synth', 'to_device', 'gt_pack', 'mv_synth',
-           'mv_to_device']
+           'mv_to_device', 'mono_synth', 'mono_to_device', 'MONO_GT_KEYS']
+
+MONO_GT_KEYS = ('gt_bboxes2d', 'centers2d', 'gt_depths', 'gt_boxes_cam',
+                'gt_labels', 'gt_mask', 'gt_velocities', 'gt_attr_labels')
 
 
 def dfm_meta(b, h, w):
@@ -82,12 +88,20 @@ def to_device(batch, device):
     return t(batch['img']), meta, gt
 
 
-def gt_pack(rng, b, g=4):
-    """`_gt_pack` (vehicle frame): g boxes per sample, centres uniform in
-    x [2, 50), y [-20, 20), z [-2, 0), sizes in [1.5, 4.2) x [1.4, 1.8)^2,
-    yaw in [-pi, pi), float32; labels in {0, 1, 2} int32; all valid."""
-    ctr = np.stack([rng.uniform(2, 50, (b, g)), rng.uniform(-20, 20, (b, g)),
-                    rng.uniform(-2, 0, (b, g))], -1)
+def gt_pack(rng, b, g=4, cam_frame=False):
+    """`_gt_pack`: g boxes per sample, centres uniform in x [2, 50), y
+    [-20, 20), z [-2, 0) (vehicle frame), or with `cam_frame` x [-8, 8),
+    y [0.5, 2), z [8, 40) (camera frame), sizes in [1.5, 4.2) x [1.4,
+    1.8)^2, yaw in [-pi, pi), float32; labels in {0, 1, 2} int32; all
+    valid."""
+    if cam_frame:
+        ctr = np.stack([rng.uniform(-8, 8, (b, g)),
+                        rng.uniform(0.5, 2.0, (b, g)),
+                        rng.uniform(8, 40, (b, g))], -1)
+    else:
+        ctr = np.stack([rng.uniform(2, 50, (b, g)),
+                        rng.uniform(-20, 20, (b, g)),
+                        rng.uniform(-2, 0, (b, g))], -1)
     dim = np.stack([rng.uniform(1.5, 4.2, (b, g)),
                     rng.uniform(1.4, 1.8, (b, g)),
                     rng.uniform(1.4, 1.8, (b, g))], -1)
@@ -140,3 +154,45 @@ def mv_to_device(batch, device):
 
     return t(batch['img']), t(batch['lidar2img']), {
         k: t(batch[k]) for k in ('gt_boxes', 'gt_labels', 'gt_mask')}
+
+
+def mono_synth(b, seed, h=64, w=96, kpts=False):
+    """`_mono_synth`: normal images (B, H, W, 3), `gt_pack`'s camera-frame
+    boxes, a camera of f = 60 px with the principal point at the centre,
+    each box's projected centre (clipped 2 px inside the image) as its 2D
+    centre with a 20 x 20 px 2D box around it, the centre's depth; with
+    `kpts` (the PGD adapter) zero velocities and attributes and 10 uniform
+    keypoints a box."""
+    rng = np.random.default_rng(seed)
+    img = rng.standard_normal((b, h, w, 3), dtype=np.float32)
+    boxes, labels, mask = gt_pack(rng, b, cam_frame=True)
+    g = boxes.shape[1]
+    cam = np.eye(4, dtype=np.float32)
+    cam[0, 0] = cam[1, 1] = 60.0
+    cam[0, 2], cam[1, 2] = w / 2.0, h / 2.0
+    uv = np.stack([boxes[..., 0] / boxes[..., 2] * cam[0, 0] + cam[0, 2],
+                   boxes[..., 1] / boxes[..., 2] * cam[1, 1] + cam[1, 2]],
+                  -1).astype(np.float32)
+    uv = np.clip(uv, 2, [w - 3, h - 3]).astype(np.float32)
+    wh = np.full((b, g, 2), 10.0, np.float32)
+    batch = dict(img=img, cam2img=np.tile(cam[None], (b, 1, 1)),
+                 gt_boxes_cam=boxes, gt_labels=labels, gt_mask=mask,
+                 centers2d=uv, gt_bboxes2d=np.concatenate([uv - wh, uv + wh],
+                                                          -1),
+                 gt_depths=boxes[..., 2].copy())
+    if kpts:
+        batch['gt_velocities'] = np.zeros((b, g, 2), np.float32)
+        batch['gt_attr_labels'] = np.zeros((b, g), np.int32)
+        batch['kpts2d'] = rng.random((b, g, 10, 2), dtype=np.float32) * \
+            np.array([w - 1, h - 1], np.float32)
+    return batch
+
+
+def mono_to_device(batch, device):
+    """A batch of `mono_synth` (or of KITTI mono samples stacked the same
+    way) -> (img, cam2img, gt dict), tensors on `device`."""
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return t(batch['img']), t(batch['cam2img']), {
+        k: t(batch[k]) for k in MONO_GT_KEYS if k in batch}

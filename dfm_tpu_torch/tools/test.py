@@ -1,12 +1,14 @@
-"""Evaluation of a DfM config on KITTI, or of a MultiViewDfM config on
-Waymo, with the port.
+"""Evaluation of a DfM or mono (FCOS3D, PGD) config on KITTI, or of a
+MultiViewDfM config on Waymo, with the port.
 
     python -m dfm_tpu_torch.tools.test CONFIG \\
         [--checkpoint X.pth] [--cfg-options key=value ...] \\
         [--max-samples N] [--out P.pkl] [--eval kitti|waymo|none] \\
-        [--waymo-gt-bin GT.bin] [--dtype float32] [--device cpu]
+        [--waymo-gt-bin GT.bin] [--dtype float32] [--device cpu] \\
+        [--fuse-conv-bn] [--synthetic]
 
-Port of `tools/test.py:163-231` (`kitti_dfm_eval`), `:286-343`
+Port of `tools/test.py:41-47, 64-91` (`--fuse-conv-bn`, `--synthetic`),
+`:93-162` (`kitti_mono_eval`), `:163-231` (`kitti_dfm_eval`), `:286-343`
 (`waymo_real_eval`) and the branches of its `main` that reach them.
 
 KITTI (DfM, DfMFull): config -> `kitti_infos_val.pkl` under
@@ -31,6 +33,22 @@ the metric that computed them (`official_binary` when WAYMO_METRICS_BIN
 names the official binary, `python_fallback` otherwise). The .bin files
 go to a temporary directory.
 
+KITTI mono (FCOSMono3D, PGD; data type 'KittiMono'): the val infos ->
+`data/kitti_mono.py:KittiMonoDataset` (each image resized to
+`data.img_hw`, P2 and the 2D boxes scaled with it) -> the port's model
+(bfloat16; seeded random weights or a checkpoint in the port's layout,
+such as the train CLI's) -> padded camera-frame detections -> KITTI annos
+with the 2D boxes projected by the original image's P2
+(`cam_detections_to_kitti_annos`) -> `kitti_eval`, the same AP lines.
+
+`--fuse-conv-bn` folds every BatchNorm into the convolution before it
+after the weights are loaded (`utils/fuse_conv_bn.py`; DfM's GroupNorm
+trunks keep their norms). `--synthetic` needs no data: one forward and
+decode of a batch of one from the train adapters' synthetic batches
+(`runtime/adapters.py`: `dfm_synth`, `mv_synth`, `mono_synth`), for every
+ported type; it prints the decoded arrays' shapes and whether they are
+finite, and exits 1 when one is not.
+
 Another model type, or a data root without its info file, exits with a
 message and code 2. Runs on the CUDA card unless `--device cpu`, in
 bfloat16 unless `--dtype float32`.
@@ -51,16 +69,24 @@ import tempfile
 import numpy as np
 import torch
 
-from ..apis import (_sharded, detect_multiview_sample, detect_sample,
-                    init_dfm_model, init_mvdfm_model)
+from ..apis import (_sharded, detect_mono, detect_multiview_sample,
+                    detect_sample, init_dfm_model, init_mono_model,
+                    init_mvdfm_model)
 from ..data.kitti import KittiDataset
+from ..data.kitti_mono import (KittiMonoDataset, load_mono_image,
+                               mono_info_from_native)
 from ..data.waymo import WaymoDataset, frames_per_sample
 from ..evaluation.kitti_eval import kitti_eval
-from ..evaluation.results import detections_to_kitti_annos
+from ..evaluation.results import (cam_detections_to_kitti_annos,
+                                  detections_to_kitti_annos)
 from ..evaluation.waymo_eval import gt_annos_to_bin, gt_objects_from_infos
-from ..models.builder import build_detector, unused_keys
+from ..models.builder import (MONO_TYPES, build_detector,
+                              mono_backbone_depth, unused_keys)
 from ..parallel import dist as D
+from ..runtime.adapters import (dfm_synth, mono_synth, mono_to_device,
+                                mv_synth, mv_to_device, to_device)
 from ..runtime.config import load_config, merge_options
+from ..utils.fuse_conv_bn import fuse_conv_bn
 from ..utils.weights import load_reference_state_dict, read_checkpoint
 
 INFO_FILE = 'kitti_infos_val.pkl'
@@ -88,7 +114,43 @@ def parse_args(argv=None):
     p.add_argument('--device', default=None,
                    help="torch device; the CUDA card if omitted, 'cpu' "
                         'to run the plain versions on the CPU')
+    p.add_argument('--fuse-conv-bn', action='store_true',
+                   help='fold BatchNorm into the convolutions before '
+                        'inference (a no-op for the GroupNorm trunks)')
+    p.add_argument('--synthetic', action='store_true',
+                   help='decode one synthetic batch (no dataset needed)')
     return p.parse_args(argv)
+
+
+def init_handle(args, cfg):
+    """The inference handle of the config's type, its checkpoint loaded
+    (`student_state_dict` for the DfM family) and its BatchNorms folded
+    if asked."""
+    kind = cfg.model.type
+    mcfg = build_detector(cfg.model)
+    dtype = getattr(torch, args.dtype)
+    if kind == 'MultiViewDfM':
+        handle = init_mvdfm_model(mcfg, dtype, args.device)
+    elif kind in MONO_TYPES:
+        handle = init_mono_model(mcfg, mono_backbone_depth(cfg.model), dtype,
+                                 args.device)
+    else:
+        handle = init_dfm_model(mcfg, dtype, args.device)
+    if args.checkpoint:
+        if kind in ('DfM', 'DfMFull'):
+            rest = load_reference_state_dict(
+                handle['model'], student_state_dict(read_checkpoint(
+                    args.checkpoint)))
+            why = ' (teacher, ATSS head, num_batches_tracked)'
+        else:
+            rest, why = handle['load_checkpoint'](args.checkpoint), ''
+        print(f'[checkpoint] {args.checkpoint}: {len(rest)} keys not '
+              f'taken{why}', flush=True)
+    if args.fuse_conv_bn:
+        n = fuse_conv_bn(handle['model'])
+        print(f'[fuse] {n} BatchNorm(s) folded into their convolutions',
+              flush=True)
+    return handle
 
 
 def student_state_dict(ckpt):
@@ -103,18 +165,17 @@ def student_state_dict(ckpt):
             for k, v in sd.items()}
 
 
+def print_ap(res):
+    for k in sorted(res):
+        if 'moderate' in k or '3d' in k:
+            print(f'{k}: {res[k]:.4f}')
+
+
 def kitti_dfm_eval(args, cfg):
     """Build -> load -> infer -> KITTI AP on the val split."""
-    mcfg = build_detector(cfg.model)
-    handle = init_dfm_model(mcfg, getattr(torch, args.dtype), args.device)
+    handle = init_handle(args, cfg)
     print(f'[model] {cfg.model.type} on {handle["device"]}; config keys '
           f'not used at inference: {unused_keys(cfg.model)}', flush=True)
-    if args.checkpoint:
-        rest = load_reference_state_dict(
-            handle['model'], student_state_dict(read_checkpoint(
-                args.checkpoint)))
-        print(f'[checkpoint] {args.checkpoint}: {len(rest)} keys not '
-              'taken (teacher, ATSS head, num_batches_tracked)', flush=True)
 
     d = cfg.data
     ds = KittiDataset(
@@ -140,25 +201,85 @@ def kitti_dfm_eval(args, cfg):
             pickle.dump(dt_annos, f)
     if args.eval != 'none':
         res = kitti_eval(ds.gt_annos()[:n], dt_annos)
-        for k in sorted(res):
-            if 'moderate' in k or '3d' in k:
-                print(f'{k}: {res[k]:.4f}')
+        print_ap(res)
         return res
     return None
 
 
+def kitti_mono_eval(args, cfg):
+    """Build -> load -> infer each resized image -> camera-frame boxes ->
+    KITTI AP on the val split, the 2D boxes projected with the original
+    image's P2 (`tools/test.py:93-162`)."""
+    handle = init_handle(args, cfg)
+    print(f'[model] {cfg.model.type} on {handle["device"]}; config keys '
+          f'not used at inference: {unused_keys(cfg.model)}', flush=True)
+    d = cfg.data
+    img_hw = tuple(d.get('img_hw', (384, 1280)))
+    with open(os.path.join(d.data_root, INFO_FILE), 'rb') as f:
+        infos = pickle.load(f)
+    infos = infos['infos'] if isinstance(infos, dict) else infos
+    ds = KittiMonoDataset(
+        [mono_info_from_native(i, d.data_root, img_hw) for i in infos],
+        max_gt=d.get('max_gt', 32))
+    n = min(len(ds), args.max_samples or len(ds))
+
+    def infer(i):
+        s = ds.get_sample(i)
+        det = detect_mono(handle, load_mono_image(s['img_path'], img_hw),
+                          s['cam2img'])
+        anno = cam_detections_to_kitti_annos(
+            det, np.asarray(infos[i]['calib']['P2'])[:3],
+            infos[i].get('image', {}).get('image_shape', (375, 1242)))
+        print(f'[{i + 1}/{n}] dets={len(anno["name"])}', flush=True)
+        return anno
+
+    dt_annos = _sharded(n, infer)
+    if not D.is_main():
+        return None
+    if args.out:
+        with open(args.out, 'wb') as f:
+            pickle.dump(dt_annos, f)
+    if args.eval != 'none':
+        res = kitti_eval([dict(i.get('annos_eval') or i['annos'])
+                          for i in infos[:n]], dt_annos)
+        print_ap(res)
+        return res
+    return None
+
+
+def synthetic_eval(args, cfg):
+    """One forward + decode of a synthetic batch of one (JAX's
+    `synthetic_eval`); 1 when an output is not finite."""
+    handle = init_handle(args, cfg)
+    kind, mcfg, dev = cfg.model.type, handle['cfg'], handle['device']
+    if kind == 'MultiViewDfM':
+        imgs, l2i, _ = mv_to_device(mv_synth(mcfg, 1, 0), dev)
+        det = handle['infer'](imgs, l2i)
+    elif kind in MONO_TYPES:
+        img, cam2img, _ = mono_to_device(mono_synth(1, 0, kpts=kind == 'PGD'),
+                                         dev)
+        det = handle['infer'](img, cam2img)
+    else:
+        img, meta, _ = to_device(dfm_synth(mcfg, 1, 0), dev)
+        det = handle['infer'](img, meta)
+    det = {k: v.detach().cpu() for k, v in det.items()}
+    finite = all(bool(torch.isfinite(v).all()) for v in det.values()
+                 if v.is_floating_point())
+    print(f'[synthetic-eval] {kind}: decoded {len(det)} output arrays, '
+          f'finite={finite}')
+    for k, v in det.items():
+        print(f'  {k}: shape={tuple(v.shape)}')
+    return 0 if finite else 1
+
+
 def waymo_mvdfm_eval(args, cfg):
     """Build -> load -> infer -> Objects .bin -> LET metrics."""
-    mcfg = build_detector(cfg.model)
-    handle = init_mvdfm_model(mcfg, getattr(torch, args.dtype), args.device)
+    handle = init_handle(args, cfg)
+    mcfg = handle['cfg']
     d = cfg.data
     frames = frames_per_sample(d, mcfg)
     print(f'[model] MultiViewDfM on {handle["device"]}, {frames} frame(s) a '
           'sample', flush=True)
-    if args.checkpoint:
-        rest = handle['load_checkpoint'](args.checkpoint)
-        print(f'[checkpoint] {args.checkpoint}: {len(rest)} keys not taken',
-              flush=True)
     ds = WaymoDataset(
         d.data_root, os.path.join(d.data_root, WAYMO_INFO_FILE),
         num_frames=frames,
@@ -210,18 +331,23 @@ def main(argv=None):
     root = cfg.data.get('data_root', '') if 'data' in cfg else ''
     if kind == 'MultiViewDfM':
         want, info, run = 'WaymoDataset', WAYMO_INFO_FILE, waymo_mvdfm_eval
+    elif kind in MONO_TYPES:
+        want, info, run = 'KittiMono', INFO_FILE, kitti_mono_eval
     else:
         want, info, run = 'KittiDataset', INFO_FILE, kitti_dfm_eval
-    if data_type != want or not os.path.exists(os.path.join(root, info)):
+    if args.synthetic:
+        run = synthetic_eval
+    elif data_type != want or not os.path.exists(os.path.join(root, info)):
         print(f'[data] {kind} evaluates on {want} infos: no {info} under '
-              f'{root!r} (dataset type {data_type!r})', file=sys.stderr)
+              f'{root!r} (dataset type {data_type!r}); --synthetic decodes '
+              'a synthetic batch', file=sys.stderr)
         return 2
     args.device = D.init_from_env(args.device)
     try:
-        run(args, cfg)
+        rc = run(args, cfg)
     finally:
         D.destroy()
-    return 0
+    return rc if args.synthetic else 0
 
 
 if __name__ == '__main__':

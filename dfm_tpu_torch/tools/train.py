@@ -1,5 +1,5 @@
-"""Train DfM, DfMFull or MultiViewDfM with the port, in one process or
-data-parallel across processes.
+"""Train DfM, DfMFull, MultiViewDfM, FCOSMono3D or PGD with the port, in
+one process or data-parallel across processes.
 
     python -m dfm_tpu_torch.tools.train configs/dfm_r34_kitti_3class.py \
         [--cfg-options key=value ...] [--work-dir W] [--auto-resume] \
@@ -7,8 +7,9 @@ data-parallel across processes.
         [--device cpu] [--tensorboard]
     torchrun --nproc_per_node=N -m dfm_tpu_torch.tools.train CONFIG ...
 
-Port of the DfM / DfMFull / MultiViewDfM branches of `tools/train.py:
-38-99, 159-200, 427-649`: the config (`runtime/config.py`) -> the data:
+Port of the DfM / DfMFull / MultiViewDfM / mono branches of
+`tools/train.py:38-158, 159-200, 427-649`: the config
+(`runtime/config.py`) -> the data:
 with `--synthetic`, `SyntheticSource` (`runtime/adapters.py:dfm_synth`,
 the batch of step s drawn from seed + s, with teacher points and 2D
 targets for DfMFull; `mv_synth` for MultiViewDfM, which has no Waymo
@@ -34,8 +35,17 @@ and, on KITTI data with `kitti_infos_val.pkl`, the KITTI eval of the
 student every `schedule.eval_interval` epochs on a float32 model with the
 trained weights (`dataset_inference`, `kitti_eval`). `--auto-resume`
 continues from the newest checkpoint: weights, optimizer state and step.
-Another model type exits with a message and code 2, as does a DfM data
-root without the train infos (without `--synthetic`). Runs on the CUDA
+The mono types (FCOSMono3D, PGD; data type 'KittiMono') train on
+`KittiMonoSource` (`tools/train.py:102-158`): the train infos as
+`data/kitti_mono.py:KittiMonoDataset` samples, each image resized to
+`data.img_hw`, `batch_size` indices drawn from `rng` a step (in order when
+the split holds no more than a batch), the decoded images cached; with
+`--synthetic`, `mono_synth` (64x96, PGD with its keypoint keys). Their
+loss is `fcos_mono3d_loss` / `pgd_mono3d_loss` (with the batch's P2),
+normalised by the positives of the global batch, under the same schedule,
+AdamW and clip; no per-epoch eval (JAX's EvalHook runs for the DfM family
+alone). Another model type exits with a message and code 2, as does a
+KITTI data root without the train infos (without `--synthetic`). Runs on the CUDA
 card unless `--device cpu`.
 
 Under torchrun (`parallel/dist.py`) the global batch is
@@ -54,6 +64,7 @@ takes the card LOCAL_RANK (`--device cpu`: the CPU, gloo).
 import argparse
 import hashlib
 import os
+import pickle
 import sys
 import time
 
@@ -63,9 +74,12 @@ import torch
 from ..apis import init_dfm_model, multihost_dataset_inference
 from ..data.collate import build_batch
 from ..data.kitti import KittiDataset
+from ..data.kitti_mono import (KittiMonoDataset, load_mono_image,
+                               mono_info_from_native)
 from ..data.waymo import frames_per_sample
 from ..evaluation.kitti_eval import kitti_eval
-from ..models.builder import atss_config, build_detector
+from ..models.builder import (MONO_TYPES, atss_config, build_detector,
+                              mono_model)
 from ..models.detectors.dfm import DfM
 from ..models.detectors.dfm_full import DfMFull
 from ..models.detectors.multiview_dfm import MultiViewDfM
@@ -74,14 +88,15 @@ from ..parallel import dist as D
 from ..parallel.multihost import broadcast_seed
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.config import load_config, merge_options
-from ..runtime.adapters import dfm_synth, mv_synth, mv_to_device, to_device
+from ..runtime.adapters import (dfm_synth, mono_synth, mono_to_device,
+                                mv_synth, mv_to_device, to_device)
 from ..runtime.logging import MetricsLogger
 from ..runtime.schedule import liga_schedule
 from ..runtime.train import TrainStep, make_optimizer
 from ..utils.msgpack_tree import load_msgpack_tree
 from ..utils.weights import init_weights, teacher_state_dict
 
-TRAINED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM')
+TRAINED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM') + MONO_TYPES
 
 
 def parse_args(argv=None):
@@ -164,13 +179,62 @@ class KittiDfMSource:
         return build_batch(self.next_samples(step, rng), device)
 
 
+class KittiMonoSource:
+    """KITTI images -> FCOSMono3D / PGD batches (`tools/train.py:
+    KittiMonoSource`): each info adapted by `mono_info_from_native` (P2
+    and the 2D boxes scaled for the `data.img_hw` resize), the image read,
+    resized and normalised by `load_mono_image` (at most 65 kept); the
+    train split's infos."""
+
+    def __init__(self, cfg, batch_size):
+        d = cfg.data
+        with open(os.path.join(d.data_root, 'kitti_infos_train.pkl'),
+                  'rb') as f:
+            infos = pickle.load(f)
+        infos = infos['infos'] if isinstance(infos, dict) else infos
+        self.img_hw = tuple(d.get('img_hw', (384, 1280)))
+        self.ds = KittiMonoDataset(
+            [mono_info_from_native(i, d.data_root, self.img_hw)
+             for i in infos], max_gt=d.get('max_gt', 32))
+        self.batch_size = batch_size
+        self._cache = {}
+
+    @property
+    def steps_per_epoch(self):
+        return max(len(self.ds) // self.batch_size, 1)
+
+    def next_samples(self, step, rng):
+        """The batch of `step` as stacked numpy arrays: `batch_size`
+        indices from `rng`, or consecutive ones when the split holds no
+        more than a batch."""
+        n, bs = len(self.ds), self.batch_size
+        idxs = [int(i) for i in rng.integers(0, n, bs)] if n > bs else \
+            [(step * bs + k) % n for k in range(bs)]
+        samples = []
+        for i in idxs:
+            s = dict(self.ds.get_sample(i))
+            path = s.pop('img_path')
+            if path not in self._cache:
+                if len(self._cache) > 64:
+                    self._cache.clear()
+                self._cache[path] = load_mono_image(path, self.img_hw)
+            s['img'] = self._cache[path]
+            samples.append(s)
+        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+    def next_batch(self, step, rng, device):
+        return mono_to_device(self.next_samples(step, rng), device)
+
+
 class SyntheticSource:
     """`tools/train.py:SyntheticSource`: the batch of step s is
     `dfm_synth(cfg, batch_size, seed + s, full)` for DfM / DfMFull (32x64
-    images, as JAX's adapter makes them; `full` for DfMFull), or
+    images, as JAX's adapter makes them; `full` for DfMFull),
     `mv_synth(cfg, batch_size, seed + s)` for MultiViewDfM (2 views of
-    32x48, `frames` frames: `data/waymo.py:frames_per_sample`); `rng` is
-    not drawn from. 16 steps an epoch."""
+    32x48, `frames` frames: `data/waymo.py:frames_per_sample`), or
+    `mono_synth(batch_size, seed + s)` for the mono types (64x96; PGD's
+    with its keypoint keys); `rng` is not drawn from. 16 steps an
+    epoch."""
 
     steps_per_epoch = 16
 
@@ -182,11 +246,15 @@ class SyntheticSource:
         if self.kind == 'MultiViewDfM':
             return mv_synth(self.cfg, self.batch_size, self.seed + step,
                             frames=self.frames)
+        if self.kind in MONO_TYPES:
+            return mono_synth(self.batch_size, self.seed + step,
+                              kpts=self.kind == 'PGD')
         return dfm_synth(self.cfg, self.batch_size, self.seed + step,
                          full=self.kind == 'DfMFull')
 
     def next_batch(self, step, rng, device):
-        to = mv_to_device if self.kind == 'MultiViewDfM' else to_device
+        to = mv_to_device if self.kind == 'MultiViewDfM' else \
+            mono_to_device if self.kind in MONO_TYPES else to_device
         return to(self.next_samples(step, rng), device)
 
 
@@ -261,6 +329,8 @@ def build_model(kind, cfg, mcfg, seed):
     """The float32 model of `kind`, seeded random weights."""
     if kind == 'DfMFull':
         model = DfMFull(mcfg, atss_config(cfg.model))
+    elif kind in MONO_TYPES:
+        model = mono_model(cfg.model)
     elif kind == 'MultiViewDfM':
         model = MultiViewDfM(mcfg)
     else:
@@ -279,14 +349,15 @@ def main(argv=None):
         return 2
     d = cfg.get('data', {}) or {}
     multiview = kind == 'MultiViewDfM'
+    want = 'KittiMono' if kind in MONO_TYPES else 'KittiDataset'
     if not args.synthetic and not multiview and (
-            d.get('type', '') != 'KittiDataset' or not os.path.exists(
+            d.get('type', '') != want or not os.path.exists(
                 os.path.join(d.get('data_root', ''),
                              'kitti_infos_train.pkl'))):
-        print(f'[data] {kind} trains on KITTI infos: no kitti_infos_train.pkl '
-              f'under {d.get("data_root", "")!r} (dataset type '
-              f'{d.get("type", "")!r}); --synthetic trains on synthetic '
-              'batches', file=sys.stderr)
+        print(f'[data] {kind} trains on {want} infos: no '
+              f'kitti_infos_train.pkl under {d.get("data_root", "")!r} '
+              f'(dataset type {d.get("type", "")!r}); --synthetic trains on '
+              'synthetic batches', file=sys.stderr)
         return 2
     device = D.init_from_env(args.device)
     try:
@@ -323,10 +394,14 @@ def train(args, cfg, kind, d, device):
     if multiview and not args.synthetic:
         say('[data] no Waymo train source: MultiViewDfM trains on synthetic '
             'batches (pass --synthetic to silence)', flush=True)
-    source = SyntheticSource(
-        mcfg, batch_size, seed, kind,
-        frames_per_sample(d, mcfg) if multiview else 1) \
-        if args.synthetic or multiview else KittiDfMSource(cfg, batch_size)
+    if args.synthetic or multiview:
+        source = SyntheticSource(
+            mcfg, batch_size, seed, kind,
+            frames_per_sample(d, mcfg) if multiview else 1)
+    elif kind in MONO_TYPES:
+        source = KittiMonoSource(cfg, batch_size)
+    else:
+        source = KittiDfMSource(cfg, batch_size)
     steps_per_epoch = source.steps_per_epoch
     sched_cfg = cfg.get('schedule', {}) or {}
     total_steps = steps_per_epoch * sched_cfg.get('total_epochs', 1)

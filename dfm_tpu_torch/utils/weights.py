@@ -12,6 +12,8 @@ rules (:27-34, :59-72):
       kernel)
   GroupNorm / BatchNorm scale, bias      -> weight, bias
   BatchNorm batch_stats mean, var        -> running_mean, running_var
+  a bare parameter (kind 'param': the mono heads' `scales`,
+      `fuse_lambda`, `scale_kpts`, `scale_bbox2d`) -> the same array
 
 `load_reference_state_dict` / `load_reference_checkpoint` load a
 reference-layout torch checkpoint (the counterpart of the JAX
@@ -28,7 +30,7 @@ from ..models.backbones.resnet import BASIC_DEPTHS, STAGE_BLOCKS
 from ..models.heads.center_head import HEATMAP_BIAS
 
 __all__ = ['dfm_key_map', 'dfm_full_key_map', 'mvdfm_key_map',
-           'center_head_key_map',
+           'center_head_key_map', 'mono_key_map', 'fcos3d_head_key_map',
            'resnet_key_map', 'state_dict_from_jax',
            'teacher_state_dict', 'torch_conv_weight',
            'init_weights', 'load_reference_state_dict',
@@ -266,6 +268,61 @@ def center_head_key_map(prefix, fpath, ccfg):
     return m
 
 
+def fcos3d_head_key_map(prefix, fpath, cfg):
+    """(torch_prefix, flax_path, kind) of an `FCOSMono3DHead` of config
+    `cfg` under `prefix` / `fpath`: the towers (GroupNorm ConvNorms), the
+    four output convs, the attribute branch with `pred_attrs`, `scales`."""
+    m = []
+    for i in range(cfg.stacked_convs):
+        for branch in ('cls', 'reg'):
+            m += _convnorm(f'{prefix}.{branch}_tower{i}',
+                           fpath + (f'{branch}_tower{i}',), 2)
+    m += [(f'{prefix}.{k}', fpath + (k,), 'conv2d')
+          for k in ('conv_cls', 'conv_reg', 'conv_dir', 'conv_centerness')]
+    if cfg.pred_attrs:
+        m += _convnorm(f'{prefix}.attr_tower0', fpath + ('attr_tower0',), 2)
+        m += [(f'{prefix}.conv_attr', fpath + ('conv_attr',), 'conv2d')]
+    return m + [(f'{prefix}.scales', fpath + ('scales',), 'param')]
+
+
+def mono_key_map(cfg, depth=101, pgd=None):
+    """(torch_prefix, flax_path, kind) of the JAX `FCOSMono3D` or
+    `PGDMono3D` tree of config `cfg` (PGD when `pgd`, or when `cfg` is a
+    `PGDConfig` if None): the ResNet `backbone`, the FPN `neck` from
+    stage 1 (lateral0..2, fpn_conv0..2, extra_conv3..4), the head
+    `bbox_head` (PGD: FCOS3D's under `bbox_head/fcos3d`, then the depth
+    classifier, the weights, `fuse_lambda`, the keypoint and 2D box
+    branches with their scales)."""
+    if pgd is None:
+        pgd = hasattr(cfg, 'num_depth_cls')
+    m = resnet_key_map('backbone', ('backbone',), depth)
+    for i in range(3):
+        m += [(f'neck.lateral{i}', ('neck', f'lateral{i}'), 'conv2d'),
+              (f'neck.fpn_conv{i}', ('neck', f'fpn_conv{i}'), 'conv2d')]
+    m += [(f'neck.extra_conv{j}', ('neck', f'extra_conv{j}'), 'conv2d')
+          for j in (3, 4)]
+    h = ('bbox_head',)
+    if not pgd:
+        return m + fcos3d_head_key_map('bbox_head', h, cfg)
+    m += fcos3d_head_key_map('bbox_head.fcos3d', h + ('fcos3d',), cfg)
+    if not cfg.use_depth_classifier:
+        return m
+    for i in range(len(cfg.depth_branch)):
+        m += _convnorm(f'bbox_head.depth_cls_prev{i}',
+                       h + (f'depth_cls_prev{i}',), 2)
+    m += [('bbox_head.conv_depth_cls', h + ('conv_depth_cls',), 'conv2d')]
+    m += [(f'bbox_head.conv_weight{i}', h + (f'conv_weight{i}',), 'conv2d')
+          for i in range(cfg.weight_dim)]
+    m += [('bbox_head.fuse_lambda', h + ('fuse_lambda',), 'param')]
+    for on, name in ((cfg.pred_keypoints, 'kpts'),
+                     (cfg.pred_bbox2d, 'bbox2d')):
+        if on:
+            m += [(f'bbox_head.conv_{name}', h + (f'conv_{name}',), 'conv2d'),
+                  (f'bbox_head.scale_{name}', h + (f'scale_{name}',),
+                   'param')]
+    return m
+
+
 def _get(tree, path):
     for k in path:
         tree = tree[k]
@@ -304,7 +361,9 @@ def state_dict_from_jax(variables, key_map=None):
 
     for prefix, fpath, kind in key_map:
         node = _get(params, fpath)
-        if kind.startswith('conv'):
+        if kind == 'param':
+            put(prefix, node)
+        elif kind.startswith('conv'):
             put(f'{prefix}.weight', _conv_weight(node['kernel'], kind))
             if 'bias' in node:
                 put(f'{prefix}.bias', node['bias'])
@@ -355,8 +414,9 @@ def init_weights(model, seed=0):
     """Fill every parameter and buffer of `model` from a `torch.Generator`
     (CPU) seeded with `seed`: conv weights normal with std
     1/sqrt(weight[0].numel()) (lecun-normal for a conv), conv biases 0,
-    norms weight 1 / bias 0, BN running stats (0, 1),
-    the focal prior of the anchor head's cls conv (std 0.01, bias
+    norms weight 1 / bias 0, BN running stats (0, 1), the mono heads'
+    scales 1 and `fuse_lambda` 1e-4 (the JAX initialisers), the focal
+    prior of the anchor head's cls conv (std 0.01, bias
     -log(99)) and the CenterHead's heatmap bias (-2.19). Touches no global
     RNG."""
     gen = torch.Generator().manual_seed(seed)
@@ -364,7 +424,12 @@ def init_weights(model, seed=0):
             list(model.named_buffers()):
         leaf = name.rsplit('.', 1)[-1]
         with torch.no_grad():
-            if leaf == 'running_mean' or (leaf == 'bias' and t.dim() == 1):
+            if leaf == 'fuse_lambda':
+                val = torch.full(t.shape, 1e-4)
+            elif leaf in ('scales', 'scale_kpts', 'scale_bbox2d'):
+                val = torch.ones(t.shape)
+            elif leaf == 'running_mean' or (leaf == 'bias' and
+                                            t.dim() == 1):
                 val = torch.zeros(t.shape)
             elif leaf == 'running_var' or t.dim() == 1:
                 val = torch.ones(t.shape)

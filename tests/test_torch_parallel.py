@@ -43,6 +43,14 @@ that:
     counts): the ATSS terms (the positives) and the imitation on the BEV
     and the volume (in-box weights, batch mean), the ranks' terms summed
     rtol 1e-5, each rank's gradient its rows of JAX's;
+  - one step of a tiny PGD (ResNet-18, FPN 64, two channels a GroupNorm
+    group; `mono_synth`'s batch of 2 at 160x256, whose samples hold
+    different numbers of positives) against the
+    port's one-process step on the same batch (which
+    tests/test_torch_fcos_mono3d.py holds against `jax.value_and_grad` of
+    JAX's loss): every loss term and grad_norm rtol 1e-5, each
+    parameter's gradient summed over the ranks by relative L2 1e-4, the
+    BatchNorm running statistics atol 1e-5; the ranks bit-equal;
   - `multihost_dataset_inference` of a tiny DfM with live weights on a
     3-frame KITTI tree (uneven shards: 2 + 1 frames) equal on both ranks,
     bit for bit, to `dataset_inference` in this process;
@@ -93,10 +101,14 @@ from dfm_tpu.runtime.train import (create_train_state, make_optimizer as
 from dfm_tpu_torch.apis import dataset_inference, init_dfm_model
 from dfm_tpu_torch.data.kitti import KittiDataset, build_kitti_infos
 from dfm_tpu_torch.models.detectors.dfm import DfM, DfMConfig
+from dfm_tpu_torch.models.builder import mono_model
+from dfm_tpu_torch.models.detectors.fcos_mono3d import mono_level_points
+from dfm_tpu_torch.models.heads.fcos_mono3d import assign
 from dfm_tpu_torch.models.layers import BatchNorm
 from dfm_tpu_torch.parallel import dist as D
 from dfm_tpu_torch.parallel import multihost as M
-from dfm_tpu_torch.runtime.adapters import dfm_synth
+from dfm_tpu_torch.runtime.adapters import (dfm_synth, mono_synth,
+                                            mono_to_device)
 from dfm_tpu_torch.runtime.schedule import liga_schedule
 from dfm_tpu_torch.utils import weights as W
 from dfm_tpu_torch.utils.weights import init_weights
@@ -315,6 +327,31 @@ def norms_case():
                           keys=ATSS_KEYS), imitation=im), reference
 
 
+PGD_TINY = dict(backbone_depth=18, in_channels=64, feat_channels=64,
+                depth_branch=(16,))
+PGD_TERMS = ['loss', 'loss_cls', 'loss_offset', 'loss_depth', 'loss_size',
+             'loss_rotsin', 'loss_dir', 'loss_centerness',
+             'loss_depth_uncertain', 'loss_bbox2d', 'loss_kpts',
+             'loss_consistency']
+PGD_RTOL = 1e-5
+PGD_GRAD_REL_L2 = 1e-4
+
+
+def pgd_case():
+    """A tiny PGD's seeded weights and `mono_synth`'s batch of 2; the
+    reference is the port's one-process step on it."""
+    model = init_weights(mono_model(dict(type='PGD', **PGD_TINY)), 4)
+    inputs = dict(cfg=PGD_TINY, lr=LR, sd=model.state_dict(),
+                  batch=mono_synth(B, 7, h=160, w=256, kpts=True))
+
+    def reference():
+        one = worker_step('PGD', inputs)
+        return dict(metrics=dict(one['metrics'], grad_norm=one['grad_norm']),
+                    grads=one['grads'], stats=one['stats'])
+
+    return inputs, reference
+
+
 def _jax_result(variables, new_state, metrics):
     return dict(
         metrics=metrics,
@@ -375,7 +412,8 @@ def spawned(tmp_path_factory):
                   'bias': torch.from_numpy(0.3 * rng.randn(c)).float(),
                   'running_mean': torch.zeros(c),
                   'running_var': torch.ones(c)})
-    cases = dict(DfM=dfm_case(), DfMFull=full_case(), norms=norms_case())
+    cases = dict(DfM=dfm_case(), DfMFull=full_case(), norms=norms_case(),
+                 PGD=pgd_case())
     root = os.path.join(d, 'kitti')
     ids = chip_smoke.write_kitti_tree(root, frames=chip_smoke.KITTI_FRAMES[:3])
     infos = build_kitti_infos(root, ids)
@@ -407,7 +445,7 @@ def spawned(tmp_path_factory):
     for t in threads_:
         t.start()
     try:
-        for kind in ('DfMFull', 'norms'):
+        for kind in ('DfMFull', 'norms', 'PGD'):
             ref[kind] = cases[kind][1]()
         ref['bn_x'], ref['bn_sd0'] = bn['x'], dict(bn['sd'])
         one = BatchNorm(c).train()
@@ -553,6 +591,44 @@ def test_step_batch_stats_and_parameters_match_jax(spawned, kind):
         err = np.abs(t.numpy() - want)
         assert (err <= atol).all(), (name, float(err.max()))
     assert flips <= 1e-3 * total, (flips, total)
+
+
+@pytest.mark.parametrize('term', PGD_TERMS + ['grad_norm'])
+def test_pgd_step_loss_terms_match_one_process(spawned, term):
+    r0, r1 = (o['PGD'] for o in spawned['ranks'])
+    get = (lambda o: o['grad_norm']) if term == 'grad_norm' else \
+        (lambda o: o['metrics'][term])
+    assert get(r0) == get(r1), term
+    want = spawned['ref']['PGD']['metrics'][term]
+    assert want > 0, term
+    np.testing.assert_allclose(get(r0), want, rtol=PGD_RTOL, err_msg=term)
+
+
+def test_pgd_step_gradients_and_stats_match_one_process(spawned):
+    """The gradients summed over the ranks and the running statistics
+    against one process's; the samples' positives differ, so a rank's own
+    count as the normaliser would miss."""
+    batch = spawned['inputs']['PGD'][0]['batch']
+    _, _, gt = mono_to_device(batch, 'cpu')
+    cfg = mono_model(dict(type='PGD', **PGD_TINY)).cfg
+    pos = assign(mono_level_points(batch['img'].shape[1:3], cfg), cfg,
+                 gt)[2][3]
+    assert pos[0].sum() != pos[1].sum() and pos.sum() > 0
+    r0, r1 = (o['PGD'] for o in spawned['ranks'])
+    ref = spawned['ref']['PGD']
+    bad = {}
+    for name, g in r0['grads'].items():
+        assert torch.equal(g, r1['grads'][name]), name
+        want = ref['grads'][name].double()
+        rel = float((g.double() - want).norm() / want.norm().clamp(
+            min=1e-30))
+        if rel > PGD_GRAD_REL_L2:
+            bad[name] = rel
+    assert not bad, bad
+    for name, t in r0['stats'].items():
+        assert torch.equal(t, r1['stats'][name]), name
+        np.testing.assert_allclose(t.numpy(), ref['stats'][name].numpy(),
+                                   rtol=0, atol=STATS_ATOL, err_msg=name)
 
 
 @pytest.mark.parametrize('term', NORM_TERMS)

@@ -13,8 +13,8 @@ rows of the global batch and writes DIR/rank<r>.pt
 * 'bn': a train-mode `BatchNorm` on the rank's rows: the output, the
   input's gradient, the summed weight / bias gradients and the running
   buffers;
-* 'DfM', 'DfMFull', 'MultiViewDfM': one `TrainStep` of the tiny model
-  on the rank's rows (the depth pixels the rank's rows of the global
+* 'DfM', 'DfMFull', 'MultiViewDfM', 'PGD': one `TrainStep` of the tiny
+  model on the rank's rows (the depth pixels the rank's rows of the global
   draw): the loss terms and grad_norm of the global batch, the gradients
   summed over the group, the BatchNorm buffers after the forward, the
   state after the update;
@@ -38,7 +38,7 @@ sys.path.insert(0, ROOT)
 from dfm_tpu_torch.apis import (allgather_pickled, init_dfm_model,  # noqa
                                 multihost_dataset_inference)
 from dfm_tpu_torch.data.kitti import KittiDataset  # noqa: E402
-from dfm_tpu_torch.models.builder import atss_config  # noqa: E402
+from dfm_tpu_torch.models.builder import atss_config, mono_model  # noqa
 from dfm_tpu_torch.models.detectors.dfm import DfM, DfMConfig  # noqa: E402
 from dfm_tpu_torch.models.detectors.dfm_full import DfMFull  # noqa: E402
 from dfm_tpu_torch.models.detectors.imitation import (  # noqa: E402
@@ -49,8 +49,8 @@ from dfm_tpu_torch.models.detectors.multiview_dfm import (  # noqa: E402
     MultiViewDfM, MVDfMConfig)
 from dfm_tpu_torch.models.layers import BatchNorm  # noqa: E402
 from dfm_tpu_torch.parallel import dist as D  # noqa: E402
-from dfm_tpu_torch.runtime.adapters import (mv_to_device,  # noqa: E402
-                                            to_device)
+from dfm_tpu_torch.runtime.adapters import (mono_to_device,  # noqa
+                                            mv_to_device, to_device)
 from dfm_tpu_torch.runtime.config import load_config  # noqa: E402
 from dfm_tpu_torch.runtime.schedule import liga_schedule  # noqa: E402
 from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer  # noqa
@@ -73,6 +73,9 @@ def step(kind, inp):
     if kind == 'MultiViewDfM':
         model = MultiViewDfM(MVDfMConfig(**inp['cfg']))
         img, meta, gt = mv_to_device(inp['batch'], 'cpu')
+    elif kind == 'PGD':
+        model = mono_model(dict(type='PGD', **inp['cfg']))
+        img, meta, gt = mono_to_device(inp['batch'], 'cpu')
     else:
         cfg = DfMConfig(**inp['cfg'])
         if kind == 'DfMFull':
@@ -147,7 +150,7 @@ def main(out_dir):
     out = dict(rank=r, world=D.world_size(), backend=D.backend())
     if 'bn' in inp:
         out['bn'] = batchnorm(inp['bn'])
-    for kind in ('DfM', 'DfMFull', 'MultiViewDfM'):
+    for kind in ('DfM', 'DfMFull', 'MultiViewDfM', 'PGD'):
         if kind in inp:
             out[kind] = step(kind, inp[kind])
     if 'norms' in inp:
