@@ -118,7 +118,7 @@ Phases, one line each; any failure raises and no result is printed:
               and the KITTI eval at the end of the epoch), a resume to
               step 6 from the saved optimizer state (its sha1 checked),
               `tools.test` on the step-6 checkpoint, and a type it does
-              not train (SMOKEMono3D) refused; (d) full-width training
+              not train (ImVoxelNet) refused; (d) full-width training
               steps in process:
               two warm-up steps, then three with the launch counts set
               to 0 just before and read just after (a step: K1, K2 one
@@ -271,6 +271,35 @@ Phases, one line each; any failure raises and no result is printed:
               model); one f32 PGD training step at B = 2 on the tree's
               images after a warm-up, split into data, forward, backward
               and optimizer, with its peak memory
+ 13. dla      SMOKE and MonoFlex (DLA-34, the DLA neck's 16 DCNv2 layers),
+              no port kernel on their path, every deformable layer with
+              live offsets (`live_dcn`: +-3 px and more): (a) card vs CPU
+              in f32 with TF32 off: the DCN op's output and its four
+              gradients (stride 1 and 2, dilation 2, DCNv1; relative L2
+              1e-5), the DCN ResNet-18 (1e-4), the models at 2 x 64x96
+              (MonoFlex with edge fusion): dense outputs 1e-4, the decode
+              of the same outputs, one step's terms (rtol 1e-3) and
+              gradients by phase 7 (a)'s rule (movers: three ulp noises
+              and the batch reversed); (c) in processes of their own beside
+              (a): SMOKE `tools.test` on a KITTI tree (`data.type=
+              KittiMono`) with a live checkpoint to 36 AP lines in bf16
+              and in f32 (TF32 off) unfused and with `--fuse-conv-bn` (55
+              BatchNorms; detections matched as phase 12's), `--synthetic`
+              on both configs, the shipped configs refused without KITTI
+              mono data or `--synthetic` (rc 2), `tools.train` SMOKE 2
+              steps and a resume to 3, MonoFlex `--synthetic` 2 steps
+              (`tools.test` on a trained checkpoint: the CPU tests); (b)
+              after them: one
+              DeformConv2d(64, 64) at 96x320 against `F.conv2d` of the
+              same shape with both bounds, then the full configs at 1 x
+              384x1280 in bf16 and f32, unfused and folded: ms per
+              request (median of 3 after 2 warm-ups), per stage (trunk,
+              neck with its 16 DCN layers' CUDA-event time, head,
+              predict) with GFLOP and TFLOP/s, peak memory, 0 port-kernel
+              launches; one f32 training step of each at its per-chip
+              batch (SMOKE 8 on the tree's images, MonoFlex 4 synthetic)
+              split into data, forward, backward and optimizer, with its
+              peak memory
 Then the kernels JSON line, the card line, and the result line.
 Exits non-zero without a result when there is no CUDA device or the
 package is not beside the script.
@@ -2203,16 +2232,16 @@ def train_phase(cfg, dev, results):
               f'tools.test printed {len(aps)} AP lines')
         res = subprocess.run(
             [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
-             '--cfg-options', 'model.type=SMOKEMono3D',
+             '--cfg-options', 'model.type=ImVoxelNet',
              f'data.data_root={root}', '--work-dir',
              os.path.join(root, 'mono')], cwd=here, env=env,
             capture_output=True, text=True, timeout=300)
         check(res.returncode == 2 and 'not ported yet' in res.stderr,
-              f'the SMOKEMono3D type: rc {res.returncode} '
+              f'the ImVoxelNet type: rc {res.returncode} '
               f'{res.stderr[-500:]}')
         print(f'train (c) resume: from step 4 with the saved optimizer '
               f'state (sha1 {digest}) to step 6; tools.test on step_6.pth: '
-              f'{len(aps)} finite AP lines; SMOKEMono3D refused (rc '
+              f'{len(aps)} finite AP lines; ImVoxelNet refused (rc '
               f'{res.returncode})', flush=True)
 
         # (d) full-width training steps in process: two warm-up steps
@@ -4479,6 +4508,540 @@ def _mono_checks(dev, root, ids, configs, procs, chain, cli, work, t_cli):
     torch.cuda.empty_cache()
 
 
+# phase 13: SMOKE and MonoFlex (DLA-34, the DLA neck's DCNv2) on KITTI, no
+# port kernel on their path
+DLA_CONFIGS = ('smoke_dla34_kitti.py', 'monoflex_dla34_kitti.py')
+DLA_TINY_HW = (64, 96)
+DLA_HW = MONO_HW              # a KITTI image resized, as the mono configs
+DLA_KITTI = ('data.type=KittiMono',)   # SMOKE on the KITTI tree
+DCN_REL_L2 = 1e-5             # (a) the op and its gradients, card vs CPU
+DLA_REL_L2 = 1e-4             # (a) dense outputs card vs CPU, f32, TF32 off
+DLA_DET_TOL = (1e-5, 1e-4)    # (a) decode of the same outputs
+DLA_LOSS_RTOL = 1e-3          # (a) loss terms card vs CPU
+DCN_OFFSET_SCALE = 8.0        # conv_offset std x sqrt(fan_in): +-3 px and
+DCN_STEP_SCALE = 1.0          # more; the steps' (see tests/test_torch_smoke)
+DCN_LAYER_HW = (96, 320)      # the neck's stride-4 map at 384x1280
+DLA_TRAIN_BATCH = {'SMOKEMono3D': 8, 'MonoFlex': 4}   # the configs' per chip
+
+
+def live_dcn(model, seed, scale=DCN_OFFSET_SCALE):
+    """Seeded offset convs in every `DeformConv2d` of `model` (a CPU
+    generator): weights normal with std scale / sqrt(fan_in), biases std
+    0.5: offsets of a few pixels (some taps off the map), mask logits away
+    from 0 (the port's and JAX's zero init hides a wrong offset layout)."""
+    from dfm_tpu_torch.models.layers import DeformConv2d
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, DeformConv2d):
+                w = m.conv_offset.weight
+                w.copy_(torch.randn(w.shape, generator=g) * scale /
+                        float(w[0].numel()) ** 0.5)
+                m.conv_offset.bias.copy_(
+                    torch.randn(m.conv_offset.bias.shape, generator=g) * 0.5)
+    return model
+
+
+def _dla_model(kind, seed, scale=DCN_OFFSET_SCALE, **opts):
+    from dfm_tpu_torch.models.builder import mono_model
+    from dfm_tpu_torch.utils.weights import init_weights
+    return live_dcn(_live_weights(init_weights(mono_model(dict(
+        type=kind, **opts)), seed), seed + 1, 0.0), seed + 2, scale)
+
+
+def _dcn_case(stride, dilation, modulated, seed):
+    """Inputs of one op case at the neck's widths: x (2, 64, 48, 80),
+    offsets in +-3 px (a quarter on integer coordinates), the mask, the
+    weight, the output's cotangent."""
+    g = torch.Generator().manual_seed(seed)
+    ho, wo = (48 - 1) // stride + 1, (80 - 1) // stride + 1
+    off = (torch.randn(2, 18, ho, wo, generator=g) * 1.5).clamp(-3, 3)
+    whole = torch.rand(off.shape, generator=g) < 0.25
+    off = torch.where(whole, off.round(), off)
+    return dict(x=torch.randn(2, 64, 48, 80, generator=g), off=off,
+                mask=torch.rand(2, 9, ho, wo, generator=g)
+                if modulated else None,
+                w=torch.randn(64, 64, 3, 3, generator=g) * 0.05,
+                cot=torch.randn(2, 64, ho, wo, generator=g))
+
+
+def _dcn_run(case, dev, stride, dilation):
+    """The op's output and its four gradients on `dev`, on the host."""
+    from dfm_tpu_torch.ops.deform_conv import deform_conv2d
+    args = {k: None if v is None else
+            v.detach().clone().to(dev).requires_grad_(k != 'cot')
+            for k, v in case.items()}
+    out = deform_conv2d(args['x'], args['off'], args['mask'], args['w'],
+                        stride, dilation)
+    (out * args['cot']).sum().backward()
+    res = dict(out=out.detach().cpu())
+    for k in ('x', 'off', 'mask', 'w'):
+        if args[k] is not None:
+            res[f'd{k}'] = args[k].grad.cpu()
+    return res
+
+
+def _dla_step(kind, dev, batch, noise=None, reverse=False):
+    """One train-mode forward + backward of the DLA model of `kind` with
+    live offsets at the steps' scale (`_mono_tiny_step` for DLA): the loss
+    terms, every gradient (zero where the loss does not reach) and the
+    BatchNorm statistics."""
+    from dfm_tpu_torch.runtime.adapters import mono_to_device
+    opts = dict(use_edge_fusion=True) if kind == 'MonoFlex' else {}
+    model = _dla_model(kind, 30, DCN_STEP_SCALE, **opts)
+    model = (model if noise is None else _ulp_noise(model, noise)).to(dev)
+    if reverse:
+        batch = {k: v[::-1].copy() for k, v in batch.items()}
+    img, cam2img, gt = mono_to_device(batch, dev)
+    total, losses = model.train().forward_train(img, cam2img, gt)
+    total.backward()
+    return dict(
+        losses={k: float(v) for k, v in dict(loss=total.detach(), **{
+            k: v.detach() for k, v in losses.items()}).items()},
+        grads={n: (torch.zeros_like(p) if p.grad is None else p.grad)
+               .detach().cpu() for n, p in model.named_parameters()})
+
+
+def dla_phase(dev):
+    """13. SMOKE and MonoFlex: (a) the DCN op, the DCN ResNet-18 and the
+    tiny-input models card vs CPU, (b) the full configs timed in bf16 and
+    f32, unfused and folded, the neck's deformable layers apart, one f32
+    training step of each at its per-chip batch, (c) the CLIs on a KITTI
+    tree."""
+    import os
+    import tempfile
+    import threading
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    configs = {c: os.path.join(here, 'configs', c) for c in DLA_CONFIGS}
+    smoke_cfg, flex_cfg = (configs[c] for c in DLA_CONFIGS)
+    env = dict(os.environ, PYTHONPATH=here)
+    no_tf32_env = dict(env, NVIDIA_TF32_OVERRIDE='0')
+
+    with tempfile.TemporaryDirectory() as root:
+        # (c) starts first: a KITTI tree, create_data, then the CLIs in
+        # processes of their own while (a) runs here
+        ids = write_kitti_tree(root)
+        res = _run([sys.executable, '-m', 'dfm_tpu_torch.tools.create_data',
+                    'kitti', '--root', root, '--splits', 'train', 'val'])
+        check(res.returncode == 0, f'dla create_data: {res.stderr}')
+        live = os.path.join(root, 'smoke_live.pth')
+        torch.save(_dla_model('SMOKEMono3D', 40).state_dict(), live)
+        procs, cli = {}, {}
+        kitti = ['--cfg-options', f'data.data_root={root}', *DLA_KITTI]
+
+        def start(name, cmd, e=env):
+            procs[name] = subprocess.Popen(
+                [sys.executable, '-m', *cmd], cwd=here, env=e,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        t_cli = time.perf_counter()
+        test = ['dfm_tpu_torch.tools.test', smoke_cfg, '--checkpoint', live]
+        start('smoke bf16', test + kitti)
+        for fused in (False, True):
+            start(f'smoke f32{" fused" * fused}', test + [
+                '--dtype', 'float32', '--out',
+                os.path.join(root, f'smoke_{int(fused)}.pkl')]
+                + ['--fuse-conv-bn'] * fused + kitti, no_tf32_env)
+        for c in DLA_CONFIGS:
+            start(f'synthetic {c}', ['dfm_tpu_torch.tools.test', configs[c],
+                                     '--synthetic'])
+        start('monoflex train', ['dfm_tpu_torch.tools.train', flex_cfg,
+                                 '--synthetic', '--max-steps', '2',
+                                 '--work-dir', os.path.join(root, 'wf')])
+        start('smoke refused', ['dfm_tpu_torch.tools.test', smoke_cfg,
+                                '--cfg-options', f'data.data_root={root}'])
+        start('monoflex refused', ['dfm_tpu_torch.tools.train', flex_cfg,
+                                   '--work-dir', os.path.join(root, 'wr')])
+        work = os.path.join(root, 'w')
+        train = ['dfm_tpu_torch.tools.train', smoke_cfg, '--work-dir', work,
+                 *kitti, '--max-steps']
+        chain = [('train', train + ['2']),
+                 ('resume', train + ['3', '--auto-resume'])]
+        chain_procs = {}
+
+        def train_chain():
+            for name, cmd in chain:
+                p = chain_procs[name] = subprocess.Popen(
+                    [sys.executable, '-m', *cmd], cwd=here, env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+                out, err = p.communicate(timeout=900)
+                cli[name] = subprocess.CompletedProcess(p.args, p.returncode,
+                                                        out, err)
+                if p.returncode:
+                    return
+
+        thread = threading.Thread(target=train_chain)
+        thread.start()
+        try:
+            _dla_parity(dev)
+            for name, p in procs.items():
+                out, err = p.communicate(timeout=900)
+                cli[name] = subprocess.CompletedProcess(p.args, p.returncode,
+                                                        out, err)
+            thread.join()
+            for name, _ in chain:
+                check(name in cli and cli[name].returncode == 0,
+                      f'dla (c) {name}: {cli[name].stderr[-3000:]}'
+                      if name in cli else f'dla (c) {name}: not run')
+            _dla_cli_checks(root, cli, work, time.perf_counter() - t_cli)
+            _dla_timed(dev, root, ids, configs)
+        finally:
+            for p in list(procs.values()) + list(chain_procs.values()):
+                if p.poll() is None:
+                    p.kill()
+            thread.join()
+    print(f'dla phase {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
+def _dla_parity(dev):
+    """13 (a): card vs CPU, float32 with TF32 off."""
+    from dfm_tpu_torch.models.backbones.resnet import ResNet
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.runtime.adapters import mono_synth, mono_to_device
+    from dfm_tpu_torch.utils.weights import init_weights
+    flags = _no_tf32()
+    try:
+        K.reset_launch_counts()
+        worst = {}
+        for stride, dilation, modulated in ((1, 1, True), (2, 1, True),
+                                            (1, 2, False)):
+            case = _dcn_case(stride, dilation, modulated, 50 + stride)
+            cpu, card = (_dcn_run(case, d, stride, dilation)
+                         for d in ('cpu', dev))
+            rel = _rel_l2s(card, cpu)
+            bad = {k: r for k, r in rel.items() if not r <= DCN_REL_L2}
+            check(not bad, f'dcn op s{stride} d{dilation} card vs CPU: {bad}')
+            worst[(stride, dilation, modulated)] = max(rel.values())
+        resnet = live_dcn(init_weights(ResNet(18, stage_with_dcn=(
+            False, True, True, True)), 7), 8).eval()
+        x = torch.randn(2, 3, *DLA_TINY_HW,
+                        generator=torch.Generator().manual_seed(9))
+        with torch.inference_mode():
+            outs = {d: [o.cpu() for o in resnet.to(d)(x.to(d))]
+                    for d in ('cpu', dev)}
+        res_rel = max(_rel_l2s(dict(enumerate(outs[dev])),
+                               dict(enumerate(outs['cpu']))).values())
+        check(res_rel <= DLA_REL_L2, f'DCN ResNet-18 card vs CPU: {res_rel}')
+        print(f'dla (a) DCNv2 op card vs CPU f32 (TF32 off), x (2, 64, 48, '
+              f'80), offsets +-3 px: worst relative L2 of the output and '
+              f'the four gradients per (stride, dilation, mask): '
+              + ', '.join(f'{k} {v:.3g}' for k, v in worst.items())
+              + f' (tol {DCN_REL_L2}); DCN ResNet-18 (stages 2-4) live '
+              f'offsets, 2 x {DLA_TINY_HW}: {res_rel:.3g} (tol '
+              f'{DLA_REL_L2})', flush=True)
+        batch = mono_synth(2, 11, *DLA_TINY_HW, flex=True)
+        for kind in ('SMOKEMono3D', 'MonoFlex'):
+            opts = dict(use_edge_fusion=True) if kind == 'MonoFlex' else {}
+            model = _dla_model(kind, 20, **opts).eval()
+            img, cam2img, _ = mono_to_device(batch, 'cpu')
+            outs, dets = {}, {}
+            for d in ('cpu', dev):
+                with torch.inference_mode():
+                    o = model.to(d)(img.to(d))
+                    outs[d] = {k: v.cpu() for k, v in o.items()}
+                    # the decode of the CPU's outputs: the same peaks
+                    shared = {k: v.to(d) for k, v in outs['cpu'].items()}
+                    dets[d] = _mono_dets(model.predict(
+                        shared, DLA_TINY_HW, cam2img.to(d)))
+            rel = _rel_l2s(outs[dev], outs['cpu'])
+            bad = {k: r for k, r in rel.items() if not r <= DLA_REL_L2}
+            check(not bad, f'dla tiny {kind} card vs CPU: {bad}')
+            n, dw = _mv_dets_agree(f'dla tiny {kind} dets', dets[dev],
+                                   dets['cpu'], DLA_DET_TOL)
+            check(n > 0, f'dla tiny {kind}: no live detection')
+            # the deformable layers carry rounding into their sample
+            # points: three ulp noises and the batch reversed
+            cpu = _dla_step(kind, 'cpu', batch)
+            movers = tuple(_dla_step(kind, 'cpu', batch, seed)
+                           for seed in (1, 2, 3)) + (_dla_step(
+                               kind, 'cpu', batch, reverse=True),)
+            card = _dla_step(kind, dev, batch)
+            loss_err = _losses_agree(f'dla tiny {kind} step',
+                                     card['losses'], cpu['losses'],
+                                     DLA_LOSS_RTOL)
+            g = _grad_compare(f'dla tiny {kind} gradients', card['grads'],
+                              cpu['grads'], tuple(m['grads'] for m in movers))
+            print(f'dla (a) tiny-input {kind}'
+                  f'{" (edge fusion)" * bool(opts)} f32 (TF32 off) card vs '
+                  f'cpu, 2 x {DLA_TINY_HW}, live offsets: {len(rel)} '
+                  f'outputs, worst relative L2 {max(rel.values()):.3g} '
+                  f'({max(rel, key=rel.get)}; tol {DLA_REL_L2}); decode of '
+                  f'the same outputs: {n} dets, max abs err score '
+                  f'{dw[0]:.3g} box {dw[1]:.3g}; step: {len(cpu["losses"])} '
+                  f'terms, worst rel {loss_err:.3g} (rtol {DLA_LOSS_RTOL}), '
+                  f'gradients worst relative L2 {g[0]:.3g} ({g[1]}), whole '
+                  f'{g[2]:.3g} (movers: three ulp noises and the batch '
+                  f'reversed: {g[3]:.3g})', flush=True)
+            del model, cpu, card, movers
+        check(sum(K.LAUNCHES.values()) == 0,
+              f'dla (a): port kernels launched {dict(K.LAUNCHES)}')
+    finally:
+        _set_tf32(flags)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dla_cli_checks(root, cli, work, cli_s):
+    """13 (c): the CLIs' results."""
+    import os
+    import pickle
+    from dfm_tpu_torch.tools.train import optimizer_digest
+    for name, r in cli.items():
+        if name.endswith('refused'):
+            check(r.returncode == 2 and '--synthetic' in r.stderr,
+                  f'dla (c) {name}: rc {r.returncode} {r.stderr[-500:]}')
+        else:
+            check(r.returncode == 0, f'dla (c) {name}: {r.stderr[-3000:]}')
+    for c in DLA_CONFIGS:
+        check('finite=True' in cli[f'synthetic {c}'].stdout,
+              f'dla (c) synthetic {c}: {cli[f"synthetic {c}"].stdout[-800:]}')
+    aps = {}
+    for name in ('smoke bf16', 'smoke f32', 'smoke f32 fused'):
+        found = AP_LINE.findall(cli[name].stdout)
+        check(len(found) == 36 and all(np.isfinite(float(v))
+                                       for _, v in found),
+              f'dla (c) {name}: {len(found)} AP lines: '
+              f'{cli[name].stdout[-1500:]}')
+        aps[name] = re.search(r'^Car_3d_moderate_strict: (\S+)$',
+                              cli[name].stdout, re.M).group(1)
+    check('[fuse] 55 BatchNorm(s) folded' in cli['smoke f32 fused'].stdout,
+          f'dla (c) fold: {cli["smoke f32 fused"].stdout[-800:]}')
+    annos = []
+    for fused in (0, 1):
+        with open(os.path.join(root, f'smoke_{fused}.pkl'), 'rb') as f:
+            annos.append(pickle.load(f))
+    err = max(_annos_match('dla (c) smoke fused', f, p)
+              for p, f in zip(*annos))
+    n_det = sum(len(a['name']) for a in annos[0])
+    digest = optimizer_digest(torch.load(
+        os.path.join(work, 'ckpts', 'step_2.pth'), map_location='cpu',
+        weights_only=True)['optimizer'])
+    check(f'resumed from step 2 (optimizer state sha1 {digest})'
+          in cli['resume'].stdout and 'step 3/3' in cli['resume'].stdout,
+          f'dla (c) resume: {cli["resume"].stdout[-2000:]}')
+    step2 = re.search(r'^step 2/2 .*$', cli['train'].stdout, re.M)
+    flex2 = re.search(r'^step 2/2 .*$', cli['monoflex train'].stdout, re.M)
+    check(step2 is not None and 'loss_bbox=' in step2.group(0) and
+          flex2 is not None and 'loss_ori=' in flex2.group(0),
+          f'dla (c) train: {cli["train"].stdout[-800:]} '
+          f'{cli["monoflex train"].stdout[-800:]}')
+    print(f'dla (c) cli: SMOKE tools.test on the KITTI tree (36 AP lines '
+          f'each; Car_3d_moderate_strict bf16 / f32 / f32 fused '
+          f'{aps["smoke bf16"]} / {aps["smoke f32"]} / '
+          f'{aps["smoke f32 fused"]}, live checkpoint), the 55 BatchNorms '
+          f'folded: {n_det} detections, fused vs unfused max abs err '
+          f'{err:.3g} (tol {MONO_DET_ATOL} x (1 + |value|)); --synthetic '
+          f'finite on both configs; the shipped configs refused without '
+          f'KITTI mono data / --synthetic (rc 2); tools.train SMOKE 2 '
+          f'steps ({step2.group(0)[:160]}...), resume to 3 (optimizer sha1 '
+          f'{digest}); MonoFlex --synthetic 2 steps ({flex2.group(0)[:160]}...); {cli_s:.1f} s '
+          f'for the processes', flush=True)
+
+
+def _dcn_layer_times(dev):
+    """One DeformConv2d(64, 64) at the neck's 96x320 map, live offsets, in
+    f32 and bf16: ms of the layer (its offset conv included) and of
+    `F.conv2d` of the same shape (CUDA events, median of 20), and the
+    bound of each: bytes (x in, the 64 outputs out) over 3.35 TB/s against
+    operations over the type's peak."""
+    import torch.nn.functional as F
+    from dfm_tpu_torch.models.layers import DeformConv2d
+    from dfm_tpu_torch.utils.weights import init_weights
+    layer = live_dcn(init_weights(DeformConv2d(64, 64), 3), 4).to(dev).eval()
+    p = DCN_LAYER_HW[0] * DCN_LAYER_HW[1]
+    out = []
+    for dtype, peak in ((torch.float32, F32_FLOPS),
+                        (torch.bfloat16, BF16_TENSOR_FLOPS)):
+        x = torch.randn(1, 64, *DCN_LAYER_HW, device=dev).to(dtype)
+        w = layer.weight.to(dtype)
+        elt = x.element_size()
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: layer(x))
+            conv_ms = cuda_ms(lambda: F.conv2d(x, w, None, 1, 1))
+        nbytes = 2 * 64 * p * elt
+        conv_ops = 2 * 9 * 64 * 64 * p
+        dcn_ops = conv_ops + 2 * 9 * 64 * 27 * p
+        out.append((str(dtype)[6:], ms, conv_ms,
+                     max(nbytes / HBM_BYTES_PER_S, dcn_ops / peak) * 1e3,
+                     max(nbytes / HBM_BYTES_PER_S, conv_ops / peak) * 1e3))
+    return out
+
+
+def _dla_timed(dev, root, ids, configs):
+    """13 (b): the full configs at 1 x 384x1280 (frame 0 of the tree), then
+    one f32 training step of each at its per-chip batch."""
+    from dfm_tpu_torch.apis import init_mono_model
+    from dfm_tpu_torch.data.kitti import build_kitti_infos
+    from dfm_tpu_torch.data.kitti_mono import (load_mono_image,
+                                               mono_info_from_native)
+    from dfm_tpu_torch.models.builder import build_detector, mono_model
+    from dfm_tpu_torch.models.layers import DeformConv2d
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.runtime.adapters import mono_synth, mono_to_device
+    from dfm_tpu_torch.runtime.config import load_config, merge_options
+    from dfm_tpu_torch.runtime.schedule import liga_schedule
+    from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
+    from dfm_tpu_torch.tools.train import KittiMonoSource
+    from dfm_tpu_torch.utils.fuse_conv_bn import fuse_conv_bn
+    from dfm_tpu_torch.utils.weights import init_weights
+    info0 = build_kitti_infos(root, ids[:1])[0]
+    mono_info = mono_info_from_native(info0, root, DLA_HW)
+    img = torch.from_numpy(load_mono_image(mono_info['image_path'],
+                                           DLA_HW))[None].to(dev)
+    cam2img = torch.from_numpy(mono_info['calib']['P2'])[None].to(dev)
+    for dtype, ms, conv_ms, bound, conv_bound in _dcn_layer_times(dev):
+        print(f'dla (b) one DeformConv2d(64, 64) at 1 x 64 x '
+              f'{DCN_LAYER_HW[0]}x{DCN_LAYER_HW[1]} {dtype}, live offsets: '
+              f'{ms:.4f} ms (bound {bound:.4f}) against F.conv2d of the '
+              f'same shape {conv_ms:.4f} ms (bound {conv_bound:.4f}): '
+              f'{ms / conv_ms:.1f}x', flush=True)
+    for c in DLA_CONFIGS:
+        mc = load_config(configs[c]).model
+        cfg = build_detector(mc)
+        flops = None
+        for dtype in (torch.float32, torch.bfloat16):
+            h = init_mono_model(cfg, dtype=dtype)
+            model = live_dcn(h['model'], 5)
+            for fused in (False, True):
+                if fused:
+                    n_fold = fuse_conv_bn(model)
+                for _ in range(MONO_WARMUP):
+                    h['infer'](img, cam2img)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                K.reset_launch_counts()
+                ms = []
+                for _ in range(MONO_TIMED):
+                    t0 = time.perf_counter()
+                    det = h['infer'](img, cam2img)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                peak = torch.cuda.max_memory_allocated()
+                launches = sum(K.LAUNCHES.values())
+                check(launches == 0, f'{c}: port kernels launched')
+                kept = _finite_dets(det, f'{c} {dtype}')
+                stages, dcn = [], []
+                events = []
+                hooks = [m.register_forward_pre_hook(
+                    lambda *a: events.append(torch.cuda.Event(
+                        enable_timing=True)) or events[-1].record())
+                    for m in model.modules() if isinstance(m, DeformConv2d)]
+                hooks += [m.register_forward_hook(
+                    lambda *a: events.append(torch.cuda.Event(
+                        enable_timing=True)) or events[-1].record())
+                    for m in model.modules() if isinstance(m, DeformConv2d)]
+                for _ in range(MONO_TIMED):
+                    events.clear()
+                    t = [time.perf_counter()]
+                    with torch.inference_mode():
+                        feats = model.backbone(img.permute(0, 3, 1, 2).to(
+                            dtype))
+                        torch.cuda.synchronize()
+                        t.append(time.perf_counter())
+                        feat = model.neck(feats)
+                        torch.cuda.synchronize()
+                        t.append(time.perf_counter())
+                        outs = model.bbox_head(feat)
+                        torch.cuda.synchronize()
+                        t.append(time.perf_counter())
+                        model.predict(outs, DLA_HW, cam2img)
+                        torch.cuda.synchronize()
+                        t.append(time.perf_counter())
+                    stages.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
+                    dcn.append(sum(a.elapsed_time(b) for a, b in zip(
+                        events[0::2], events[1::2])))
+                for hk in hooks:
+                    hk.remove()
+                check(len(events) == 32, f'{c}: {len(events)} DCN events')
+                st = np.median(stages, 0)
+                if flops is None:     # the same in every dtype and form
+                    flops = [_flops_of(model.backbone,
+                                       img.permute(0, 3, 1, 2).to(dtype)),
+                             _flops_of(model.neck, feats),
+                             _flops_of(model.bbox_head, feat)]
+                tf32 = ('' if dtype == torch.bfloat16 else
+                        f' (TF32 convs '
+                        f'{"on" if torch.backends.cudnn.allow_tf32 else "off"})')
+                fold = f', BatchNorm folded ({n_fold})' if fused else ''
+                print(f'dla (b) {c} {str(dtype)[6:]}{tf32}{fold}, 1 x '
+                      f'{DLA_HW[0]}x{DLA_HW[1]}, live offsets: ms/request '
+                      f'{[round(v, 3) for v in ms]} median '
+                      f'{float(np.median(ms)):.3f}; stages ms (median of '
+                      f'{MONO_TIMED}) trunk {st[0]:.3f}, neck {st[1]:.3f} '
+                      f'(its 16 DCN layers {float(np.median(dcn)):.3f}, CUDA '
+                      f'events), head {st[2]:.3f}, predict {st[3]:.3f}; '
+                      f'GFLOP trunk {flops[0] / 1e9:.1f} neck '
+                      f'{flops[1] / 1e9:.1f} head {flops[2] / 1e9:.1f} '
+                      f'(TFLOP/s {flops[0] / st[0] / 1e9:.1f}, '
+                      f'{flops[1] / st[1] / 1e9:.1f}, '
+                      f'{flops[2] / st[2] / 1e9:.1f}); peak_mem_bytes '
+                      f'{peak}; kept {kept}; port-kernel launches '
+                      f'{launches}', flush=True)
+                del feats, feat, outs, det
+            del h, model
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # one full-width f32 step of each at the config's per-chip batch
+    for c, kind in zip(DLA_CONFIGS, ('SMOKEMono3D', 'MonoFlex')):
+        b = DLA_TRAIN_BATCH[kind]
+        cfg = merge_options(load_config(configs[c]),
+                            [f'data.data_root={root}', *DLA_KITTI])
+        check(cfg.data.batch_size_per_chip == b, f'{c}: batch {b}')
+        model = live_dcn(init_weights(mono_model(cfg.model)), 6,
+                         DCN_STEP_SCALE).to(dev)
+        step = TrainStep(model, make_optimizer(model), liga_schedule(2e-3))
+        source = KittiMonoSource(cfg, b) if kind == 'SMOKEMono3D' else None
+        rng = np.random.default_rng(0)
+        for i in range(2):
+            if i == 1:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                K.reset_launch_counts()
+            t = [time.perf_counter()]
+            inputs = source.next_batch(i, rng, dev) if source else \
+                mono_to_device(mono_synth(b, i, *DLA_HW, flex=True), dev)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            total, losses = step.forward(*inputs)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            step.backward(total)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            norm = step.update()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            vals = {k: float(v.detach()) for k, v in
+                    dict(loss=total, **losses).items()}
+            check(all(np.isfinite(v) for v in vals.values()) and
+                  np.isfinite(float(norm)), f'{kind} train full: {vals}')
+        split = [(b2 - a) * 1e3 for a, b2 in zip(t, t[1:])]
+        peak = torch.cuda.max_memory_allocated()
+        launches = sum(K.LAUNCHES.values())
+        check(launches == 0, f'{kind} train full: {dict(K.LAUNCHES)}')
+        print(f'dla (b) {kind} full config training, f32 (TF32 as PyTorch '
+              f'has it), B = {b}, {b} x {DLA_HW[0]}x{DLA_HW[1]} '
+              f'({"the tree" if source else "synthetic"} images), one step '
+              f'after a warm-up, ms (data, forward, backward, optimizer): '
+              + ', '.join(f'{v:.3f}' for v in split)
+              + f'; total {sum(split):.3f}; peak_mem_bytes {peak}; losses '
+              f'{ {k: round(v, 4) for k, v in vals.items()} } grad_norm '
+              f'{float(norm):.5g}; port-kernel launches {launches}',
+              flush=True)
+        del model, step, total, losses, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase13_alone(dev='cuda'):
+    """Phase 13 without the others (no kernel built: the path has none):
+    `python3 -c "import chip_smoke; chip_smoke.phase13_alone()"`."""
+    dla_phase(dev)
+
+
 def phase12_alone(dev='cuda'):
     """Phase 12 without the others (no kernel built: the path has none):
     `python3 -c "import chip_smoke; chip_smoke.phase12_alone()"`."""
@@ -4568,6 +5131,7 @@ def main():
         ddp_phase(cfg, dev, results, trees)
         temporal_phase(dev, trees)
     mono_phase(dev)
+    dla_phase(dev)
 
     print(json.dumps({'kernels': list(results.values())}))
     print(card)

@@ -1,5 +1,6 @@
 """Inference entry points. Port of `dfm_tpu/apis.py:18-217` (with the
-mono family's `init_mono_model` / `inference_mono_3d`, FCOS3D and PGD),
+mono family's `init_mono_model` / `inference_mono_3d`: FCOS3D, PGD, SMOKE
+and MonoFlex),
 and MultiViewDfM's (`init_mvdfm_model`, `detect_multiview_sample`,
 `multihost_multiview_inference`).
 
@@ -35,7 +36,6 @@ from .data.pipeline import normalize_image
 from .evaluation.results import detections_to_kitti_annos
 from .models.builder import mono_class
 from .models.detectors.dfm import DfM, DfMConfig, dfm_predict
-from .models.detectors.fcos_mono3d import fcos_mono3d_predict
 from .models.heads.fcos_mono3d import FCOS3DConfig, pad44
 from .models.detectors.multiview_dfm import (MultiViewDfM, MVDfMConfig,
                                              mvdfm_predict)
@@ -237,11 +237,12 @@ def multihost_multiview_inference(handle, dataset, max_samples=None):
         handle, dataset.get_sample(i)))
 
 
-def init_mono_model(cfg=None, backbone_depth=101, dtype=torch.bfloat16,
+def init_mono_model(cfg=None, backbone_depth=None, dtype=torch.bfloat16,
                     device=None):
-    """Build an FCOS3D (`FCOS3DConfig`, the default) or a PGD
-    (`PGDConfig`) mono model, seeded random weights, and its inference
-    function.
+    """Build an FCOS3D (`FCOS3DConfig`, the default), a PGD (`PGDConfig`),
+    an SMOKE (`SMOKEConfig`) or a MonoFlex (`MonoFlexConfig`) mono model,
+    seeded random weights, and its inference function. `backbone_depth`:
+    the ResNet's (101 if None); SMOKE and MonoFlex take 34 (DLA-34).
 
     Returns dict(model, cfg, device, infer, load_checkpoint) with
     infer(img (B, H, W, 3) normalised, cam2img (B, 3|4, 4)) -> padded
@@ -251,14 +252,15 @@ def init_mono_model(cfg=None, backbone_depth=101, dtype=torch.bfloat16,
     """
     cfg = cfg or FCOS3DConfig()
     device = _device(device)
+    depth = {} if backbone_depth is None else dict(
+        backbone_depth=backbone_depth)
     with torch.device('meta'):
-        model = mono_class(cfg)(cfg, backbone_depth, dtype=dtype)
+        model = mono_class(cfg)(cfg, dtype=dtype, **depth)
     model = init_weights(model.to_empty(device=device)).eval()
 
     @torch.inference_mode()
     def infer(img, cam2img):
-        return fcos_mono3d_predict(model(img), tuple(img.shape[1:3]),
-                                   cam2img, cfg)
+        return model.predict(model(img), tuple(img.shape[1:3]), cam2img)
 
     return dict(model=model, cfg=cfg, device=device, infer=infer,
                 load_checkpoint=lambda path: load_reference_checkpoint(

@@ -9,14 +9,16 @@ whose stride or width changes; the four stage outputs (strides 4, 8, 16,
 32). Keys follow mmdet: conv1 / bn1, layerL.B.{conv1, bn1, conv2, bn2,
 conv3, bn3, downsample.0, downsample.1}.
 
-The deformable 3x3 convs (DCNv2, `stage_with_dcn`) are not ported:
-MultiViewDfM builds every stage without them (`multiview_dfm.py:119`).
+A stage of `stage_with_dcn` takes DCNv2 (`models/layers.py:DeformConv2d`,
+the stride on it) for the 3x3 conv: a Bottleneck's conv2 (JAX
+`conv2_dcn`), a BasicBlock's conv1 (JAX `conv1_dcn`, `:112-115`); its
+keys are conv{i}.weight and conv{i}.conv_offset.{weight, bias}.
 """
 
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import BatchNorm, Conv
+from ..layers import BatchNorm, Conv, DeformConv2d
 
 __all__ = ['ResNet', 'Bottleneck', 'BasicBlock', 'STAGE_BLOCKS',
            'stage_channels']
@@ -26,11 +28,9 @@ STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
 BASIC_DEPTHS = (18, 34)
 
 
-def _no_dcn(dcn):
-    if dcn:
-        raise NotImplementedError(
-            'DCNv2 stages (dfm_tpu/ops/deform_conv.py, DeformConv2d) are '
-            'not ported to dfm_tpu_torch')
+def _conv3x3(cin, cout, stride, dilation, dcn):
+    return DeformConv2d(cin, cout, 3, stride, dilation) if dcn else \
+        Conv(cin, cout, 3, stride, dilation)
 
 
 class Bottleneck(nn.Module):
@@ -39,10 +39,9 @@ class Bottleneck(nn.Module):
     def __init__(self, cin, planes, stride=1, dilation=1, downsample=False,
                  dcn=False):
         super().__init__()
-        _no_dcn(dcn)
         self.conv1 = Conv(cin, planes, 1)
         self.bn1 = BatchNorm(planes)
-        self.conv2 = Conv(planes, planes, 3, stride, dilation)
+        self.conv2 = _conv3x3(planes, planes, stride, dilation, dcn)
         self.bn2 = BatchNorm(planes)
         self.conv3 = Conv(planes, planes * 4, 1)
         self.bn3 = BatchNorm(planes * 4)
@@ -64,8 +63,7 @@ class BasicBlock(nn.Module):
     def __init__(self, cin, planes, stride=1, dilation=1, downsample=False,
                  dcn=False):
         super().__init__()
-        _no_dcn(dcn)
-        self.conv1 = Conv(cin, planes, 3, stride, dilation)
+        self.conv1 = _conv3x3(cin, planes, stride, dilation, dcn)
         self.bn1 = BatchNorm(planes)
         self.conv2 = Conv(planes, planes, 3, 1, dilation)
         self.bn2 = BatchNorm(planes)

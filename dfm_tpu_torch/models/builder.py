@@ -1,13 +1,14 @@
 """Detector builder: a config's `model = dict(type=..., ...)` -> the
 port's config dataclass.
 
-Port of `dfm_tpu/models/builder.py:28-69` (`_mk_cfg`, `_build_dfm`,
-`_build_dfm_full`, `_build_mvdfm`, `_build_fcos3d`, `_build_pgd`) for
-the types the port runs: `DfM` and `DfMFull` give `DfMConfig`,
-`MultiViewDfM` gives `MVDfMConfig`, `FCOSMono3D` `FCOS3DConfig` and `PGD`
-`PGDConfig` (their ResNet's depth is the config's `backbone_depth`, 101
-where it has none: `mono_backbone_depth`, which `mono_model` builds
-with).
+Port of `dfm_tpu/models/builder.py:28-106` (`_mk_cfg`, `_build_dfm`,
+`_build_dfm_full`, `_build_mvdfm`, `_build_fcos3d`, `_build_pgd`,
+`_build_monoflex`, `_build_smoke`) for the types the port runs: `DfM` and
+`DfMFull` give `DfMConfig`, `MultiViewDfM` gives `MVDfMConfig`,
+`FCOSMono3D` `FCOS3DConfig`, `PGD` `PGDConfig` (their ResNet's depth is the
+config's `backbone_depth`, 101 where it has none: `mono_backbone_depth`,
+which `mono_model` builds with), `SMOKEMono3D` `SMOKEConfig` and `MonoFlex`
+`MonoFlexConfig` (DLA-34, depth 34).
 DfM and DfMFull evaluate the DfM student alone, so `build_detector`
 gives the student's config for both; `atss_config` gives DfMFull's 2D
 head its config from the model's `atss` entry, and the train CLI
@@ -17,7 +18,8 @@ from `teacher_checkpoint`. For DfM and DfMFull, keys that are no field of
 `unused_keys` names them (for the repo's DfM configs: the type and
 DfMFull's `atss` and `teacher_checkpoint`, which only training reads).
 For the mono types `unused_keys` names the type alone in the repo's
-configs (every other key is a field, or `backbone_depth`). A
+configs (every other key is a field, or `backbone_depth`). The first type
+of the JAX builder's registry that the port does not run is `ImVoxelNet`. A
 `MultiViewDfM` config with a key that is no field of `MVDfMConfig` is
 refused (ValueError).
 """
@@ -26,20 +28,27 @@ import dataclasses
 
 from .detectors.dfm import DfMConfig
 from .detectors.fcos_mono3d import FCOSMono3D
+from .detectors.monoflex import MonoFlex
 from .detectors.multiview_dfm import MVDfMConfig
 from .detectors.pgd_mono3d import PGDMono3D
+from .detectors.smoke import SMOKEConfig, SMOKEMono3D
 from .heads.atss2d import ATSS2DConfig
 from .heads.fcos_mono3d import FCOS3DConfig
+from .heads.monoflex import MonoFlexConfig
 from .heads.pgd import PGDConfig
 
 __all__ = ['build_detector', 'atss_config', 'unused_keys', 'PORTED_TYPES',
-           'MONO_TYPES', 'mono_backbone_depth', 'mono_class', 'mono_model']
+           'MONO_TYPES', 'DLA_TYPES', 'mono_backbone_depth', 'mono_class',
+           'mono_model']
 
-MONO_TYPES = ('FCOSMono3D', 'PGD')
+DLA_TYPES = ('SMOKEMono3D', 'MonoFlex')
+MONO_TYPES = ('FCOSMono3D', 'PGD') + DLA_TYPES
 PORTED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM') + MONO_TYPES
 _CONFIG_CLASSES = {'MultiViewDfM': MVDfMConfig, 'FCOSMono3D': FCOS3DConfig,
-                   'PGD': PGDConfig}
-_MONO_MODELS = {FCOS3DConfig: FCOSMono3D, PGDConfig: PGDMono3D}
+                   'PGD': PGDConfig, 'SMOKEMono3D': SMOKEConfig,
+                   'MonoFlex': MonoFlexConfig}
+_MONO_MODELS = {FCOS3DConfig: FCOSMono3D, PGDConfig: PGDMono3D,
+                SMOKEConfig: SMOKEMono3D, MonoFlexConfig: MonoFlex}
 
 
 def _mk_cfg(cls, d):
@@ -78,8 +87,9 @@ def unused_keys(model_cfg):
 
 def build_detector(model_cfg):
     """`model_cfg` (a dict or `Config` with a `type`) -> `DfMConfig`,
-    `MVDfMConfig` for MultiViewDfM, `FCOS3DConfig` / `PGDConfig` for
-    FCOSMono3D / PGD. Raises NotImplementedError for a type
+    `MVDfMConfig` for MultiViewDfM, `FCOS3DConfig` / `PGDConfig` /
+    `SMOKEConfig` / `MonoFlexConfig` for FCOSMono3D / PGD / SMOKEMono3D /
+    MonoFlex. Raises NotImplementedError for a type
     the port does not run, ValueError for a MultiViewDfM key that is no
     field of `MVDfMConfig`."""
     d = _as_dict(model_cfg)
@@ -106,21 +116,23 @@ def atss_config(model_cfg):
 
 
 def mono_backbone_depth(model_cfg):
-    """The ResNet depth of a mono config (`_build_fcos3d`, `_build_pgd`:
-    `backbone_depth`, 101 where it has none)."""
-    return int(_as_dict(model_cfg).get('backbone_depth', 101))
+    """The trunk depth of a mono config: `backbone_depth`, else 101 for the
+    ResNet types (`_build_fcos3d`, `_build_pgd`) and 34 for the DLA ones."""
+    d = _as_dict(model_cfg)
+    return int(d.get('backbone_depth',
+                     34 if d.get('type') in DLA_TYPES else 101))
 
 
 def mono_class(cfg):
-    """The detector module class of an `FCOS3DConfig` (`FCOSMono3D`) or a
-    `PGDConfig` (`PGDMono3D`)."""
+    """The detector module class of an `FCOS3DConfig` (`FCOSMono3D`), a
+    `PGDConfig` (`PGDMono3D`), an `SMOKEConfig` (`SMOKEMono3D`) or a
+    `MonoFlexConfig` (`MonoFlex`)."""
     return _MONO_MODELS[type(cfg)]
 
 
 def mono_model(model_cfg):
-    """The float32 `FCOSMono3D` or `PGDMono3D` module of a mono config
-    (parameters not initialised; `utils/weights.py:init_weights` fills
-    them)."""
+    """The float32 mono detector module of a mono config (parameters not
+    initialised; `utils/weights.py:init_weights` fills them)."""
     kind = _as_dict(model_cfg).get('type')
     if kind not in MONO_TYPES:
         raise ValueError(f'{kind!r} is no mono type ({MONO_TYPES})')

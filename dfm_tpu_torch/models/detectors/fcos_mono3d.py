@@ -47,7 +47,8 @@ class MonoDetector(nn.Module):
     """ResNet -> FPN -> a mono head; `forward(img)` takes (B, H, W, 3)
     normalised images (channels last, as the JAX package) and returns the
     head's per-level dicts; `forward_train(img, cam2img, gt)` the loss
-    (the train step's (inputs, cond, gt))."""
+    (the train step's (inputs, cond, gt)); `predict(outs, img_hw,
+    cam2img)` the padded detections."""
 
     head_class = None
 
@@ -73,6 +74,10 @@ class MonoDetector(nn.Module):
 
     def loss(self, outs, img_hw, gt, cam2img):
         return fcos_mono3d_loss(outs, img_hw, gt, self.cfg)
+
+    def predict(self, outs, img_hw, cam2img):
+        """The padded camera-frame detections of the head's outputs."""
+        return fcos_mono3d_predict(outs, img_hw, cam2img, self.cfg)
 
     def forward_train(self, img, cam2img, gt, generator=None,
                       depth_pix_idx=None):

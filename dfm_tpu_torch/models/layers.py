@@ -20,12 +20,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.deform_conv import deform_conv2d
 from ..ops.resize import resize_linear
 from ..parallel import dist as D
 
-__all__ = ['Conv', 'ConvTranspose', 'GroupNorm', 'BatchNorm', 'ConvNorm',
-           'convbn', 'Hourglass', 'UpconvModule', 'group_norm',
+__all__ = ['Conv', 'ConvTranspose', 'DeformConv2d', 'GroupNorm', 'BatchNorm',
+           'ConvNorm', 'convbn', 'Hourglass', 'UpconvModule', 'group_norm',
            'gn_groups', 'stat_float', 'conv_bias']
+
+_CONV_FNS = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
 def stat_float(x):
@@ -65,8 +68,8 @@ def conv_bias(conv, x):
 
 
 class Conv(nn.Module):
-    """Conv2d / Conv3d (by `ndim`) whose f32 weight is cast to the
-    input dtype at use. 'same' padding k//2 * dilation."""
+    """Conv1d / Conv2d / Conv3d (by `ndim`) whose f32 weight is cast to
+    the input dtype at use. 'same' padding k//2 * dilation."""
 
     def __init__(self, cin, cout, k=3, stride=1, dilation=1, ndim=2,
                  bias=False):
@@ -79,9 +82,9 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
 
     def forward(self, x):
-        fn = F.conv2d if self.ndim == 2 else F.conv3d
-        return fn(x, self.weight.to(x.dtype), conv_bias(self, x), self.stride,
-                  self.padding, self.dilation)
+        return _CONV_FNS[self.ndim](x, self.weight.to(x.dtype),
+                                    conv_bias(self, x), self.stride,
+                                    self.padding, self.dilation)
 
 
 class ConvTranspose(nn.Module):
@@ -101,6 +104,33 @@ class ConvTranspose(nn.Module):
     def forward(self, x):
         fn = F.conv_transpose2d if self.ndim == 2 else F.conv_transpose3d
         return fn(x, self.weight.to(x.dtype), conv_bias(self, x), 2, 1, 1)
+
+
+class DeformConv2d(nn.Module):
+    """DCNv2 layer (`dfm_tpu/models/backbones/resnet.py:23-55`): a biased
+    `conv_offset` (3K channels laid out [2K interleaved (dy, dx); K mask
+    logits], initialised to zero by `utils/weights.py:init_weights`, as
+    JAX does) at the layer's stride and dilation, then
+    `ops/deform_conv.py:deform_conv2d` with the float32 (`stat_float`)
+    offsets and the sigmoid of the mask logits. The main `weight` (C_out,
+    C_in, k, k) has no bias until a BatchNorm fold gives it one
+    (`conv_bias`)."""
+
+    def __init__(self, cin, cout, k=3, stride=1, dilation=1):
+        super().__init__()
+        self.k, self.stride, self.dilation = k, stride, dilation
+        self.conv_offset = Conv(cin, 3 * k * k, k, stride, dilation,
+                                bias=True)
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.bias = None
+
+    def forward(self, x):
+        kk = self.k * self.k
+        off = stat_float(self.conv_offset(x))
+        return deform_conv2d(x, off[:, :2 * kk],
+                             torch.sigmoid(off[:, 2 * kk:]),
+                             self.weight.to(x.dtype), self.stride,
+                             self.dilation, conv_bias(self, x))
 
 
 class GroupNorm(nn.Module):

@@ -2,16 +2,17 @@
 functions of the train step.
 
 Port of `dfm_tpu/runtime/adapters.py:41-117` (`_gt_pack`, `_cam_matrix`,
-`_dfm_meta`, `_dfm_synth`), `:149-210` (`_mono_synth` and the FCOS3D /
-PGD adapters) and `:327-354` (`_mv_synth` and the MultiViewDfM model
-arguments): the same draws from
+`_dfm_meta`, `_dfm_synth`), `:149-241` (`_mono_synth` and the FCOS3D /
+PGD / SMOKE / MonoFlex adapters) and `:327-354` (`_mv_synth` and the
+MultiViewDfM model arguments): the same draws from
 `np.random.default_rng(seed)` in the same order, so that one seed gives
 both packages the same batch. A batch is numpy, batched, in the JAX
 layout: for DfM 'img' (B, 2, H, W, 3), 'meta' (the `BatchMeta` fields),
 the gt keys and, with `full`, DfMFull's teacher points and 2D targets;
 for MultiViewDfM 'img' (B, F, V, H, W, 3), 'lidar2img' (B, F, V, 4, 4)
-and the gt boxes; for FCOSMono3D / PGD 'img' (B, H, W, 3), 'cam2img' (B,
-4, 4) and the camera-frame gt. `to_device` / `mv_to_device` /
+and the gt boxes; for the mono types 'img' (B, H, W, 3), 'cam2img' (B, 4,
+4) and the camera-frame gt (MonoFlex's with `kpts2d` and `gt_alphas`).
+`to_device` / `mv_to_device` /
 `mono_to_device` make the model's inputs of it (`TrainStep`'s (inputs,
 cond, gt)), as JAX's `model_args_fn`.
 """
@@ -26,7 +27,8 @@ __all__ = ['dfm_meta', 'dfm_synth', 'to_device', 'gt_pack', 'mv_synth',
            'mv_to_device', 'mono_synth', 'mono_to_device', 'MONO_GT_KEYS']
 
 MONO_GT_KEYS = ('gt_bboxes2d', 'centers2d', 'gt_depths', 'gt_boxes_cam',
-                'gt_labels', 'gt_mask', 'gt_velocities', 'gt_attr_labels')
+                'gt_labels', 'gt_mask', 'gt_velocities', 'gt_attr_labels',
+                'kpts2d', 'gt_alphas')
 
 
 def dfm_meta(b, h, w):
@@ -156,13 +158,14 @@ def mv_to_device(batch, device):
         k: t(batch[k]) for k in ('gt_boxes', 'gt_labels', 'gt_mask')}
 
 
-def mono_synth(b, seed, h=64, w=96, kpts=False):
+def mono_synth(b, seed, h=64, w=96, kpts=False, flex=False):
     """`_mono_synth`: normal images (B, H, W, 3), `gt_pack`'s camera-frame
     boxes, a camera of f = 60 px with the principal point at the centre,
     each box's projected centre (clipped 2 px inside the image) as its 2D
     centre with a 20 x 20 px 2D box around it, the centre's depth; with
     `kpts` (the PGD adapter) zero velocities and attributes and 10 uniform
-    keypoints a box."""
+    keypoints a box; with `flex` (the MonoFlex adapter) 10 uniform
+    keypoints a box, then an observation angle uniform in [-pi, pi)."""
     rng = np.random.default_rng(seed)
     img = rng.standard_normal((b, h, w, 3), dtype=np.float32)
     boxes, labels, mask = gt_pack(rng, b, cam_frame=True)
@@ -185,6 +188,11 @@ def mono_synth(b, seed, h=64, w=96, kpts=False):
         batch['gt_attr_labels'] = np.zeros((b, g), np.int32)
         batch['kpts2d'] = rng.random((b, g, 10, 2), dtype=np.float32) * \
             np.array([w - 1, h - 1], np.float32)
+    if flex:
+        batch['kpts2d'] = rng.random((b, g, 10, 2), dtype=np.float32) * \
+            np.array([w - 1, h - 1], np.float32)
+        batch['gt_alphas'] = rng.uniform(-np.pi, np.pi,
+                                         (b, g)).astype(np.float32)
     return batch
 
 

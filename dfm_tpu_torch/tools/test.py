@@ -1,5 +1,5 @@
-"""Evaluation of a DfM or mono (FCOS3D, PGD) config on KITTI, or of a
-MultiViewDfM config on Waymo, with the port.
+"""Evaluation of a DfM or mono (FCOS3D, PGD, SMOKE) config on KITTI, or of
+a MultiViewDfM config on Waymo, with the port.
 
     python -m dfm_tpu_torch.tools.test CONFIG \\
         [--checkpoint X.pth] [--cfg-options key=value ...] \\
@@ -33,18 +33,23 @@ the metric that computed them (`official_binary` when WAYMO_METRICS_BIN
 names the official binary, `python_fallback` otherwise). The .bin files
 go to a temporary directory.
 
-KITTI mono (FCOSMono3D, PGD; data type 'KittiMono'): the val infos ->
+KITTI mono (FCOSMono3D, PGD, SMOKEMono3D; data type 'KittiMono'), as
+`tools/test.py:536-559` routes them: the val infos ->
 `data/kitti_mono.py:KittiMonoDataset` (each image resized to
 `data.img_hw`, P2 and the 2D boxes scaled with it) -> the port's model
 (bfloat16; seeded random weights or a checkpoint in the port's layout,
 such as the train CLI's) -> padded camera-frame detections -> KITTI annos
 with the 2D boxes projected by the original image's P2
 (`cam_detections_to_kitti_annos`) -> `kitti_eval`, the same AP lines.
+MonoFlex has no real-data evaluation in either package (JAX falls back to
+a synthetic batch): it runs with `--synthetic` only, and exits 2 saying so
+without it.
 
 `--fuse-conv-bn` folds every BatchNorm into the convolution before it
 after the weights are loaded (`utils/fuse_conv_bn.py`; DfM's GroupNorm
-trunks keep their norms). `--synthetic` needs no data: one forward and
-decode of a batch of one from the train adapters' synthetic batches
+trunks keep their norms; DLA's convs, its neck's DCNv2 and MonoFlex's
+edge-fusion 1D convs fold too). `--synthetic` needs no data: one forward
+and decode of a batch of one from the train adapters' synthetic batches
 (`runtime/adapters.py`: `dfm_synth`, `mv_synth`, `mono_synth`), for every
 ported type; it prints the decoded arrays' shapes and whether they are
 finite, and exits 1 when one is not.
@@ -256,8 +261,8 @@ def synthetic_eval(args, cfg):
         imgs, l2i, _ = mv_to_device(mv_synth(mcfg, 1, 0), dev)
         det = handle['infer'](imgs, l2i)
     elif kind in MONO_TYPES:
-        img, cam2img, _ = mono_to_device(mono_synth(1, 0, kpts=kind == 'PGD'),
-                                         dev)
+        img, cam2img, _ = mono_to_device(mono_synth(
+            1, 0, kpts=kind == 'PGD', flex=kind == 'MonoFlex'), dev)
         det = handle['infer'](img, cam2img)
     else:
         img, meta, _ = to_device(dfm_synth(mcfg, 1, 0), dev)
@@ -337,6 +342,11 @@ def main(argv=None):
         want, info, run = 'KittiDataset', INFO_FILE, kitti_dfm_eval
     if args.synthetic:
         run = synthetic_eval
+    elif kind == 'MonoFlex':
+        print('[data] MonoFlex has no real-data evaluation (JAX wires none '
+              'either); --synthetic decodes a synthetic batch',
+              file=sys.stderr)
+        return 2
     elif data_type != want or not os.path.exists(os.path.join(root, info)):
         print(f'[data] {kind} evaluates on {want} infos: no {info} under '
               f'{root!r} (dataset type {data_type!r}); --synthetic decodes '

@@ -1,5 +1,5 @@
-"""Train DfM, DfMFull, MultiViewDfM, FCOSMono3D or PGD with the port, in
-one process or data-parallel across processes.
+"""Train DfM, DfMFull, MultiViewDfM, FCOSMono3D, PGD, SMOKEMono3D or
+MonoFlex with the port, in one process or data-parallel across processes.
 
     python -m dfm_tpu_torch.tools.train configs/dfm_r34_kitti_3class.py \
         [--cfg-options key=value ...] [--work-dir W] [--auto-resume] \
@@ -35,18 +35,21 @@ and, on KITTI data with `kitti_infos_val.pkl`, the KITTI eval of the
 student every `schedule.eval_interval` epochs on a float32 model with the
 trained weights (`dataset_inference`, `kitti_eval`). `--auto-resume`
 continues from the newest checkpoint: weights, optimizer state and step.
-The mono types (FCOSMono3D, PGD; data type 'KittiMono') train on
-`KittiMonoSource` (`tools/train.py:102-158`): the train infos as
+The mono types (FCOSMono3D, PGD, SMOKEMono3D; data type 'KittiMono') train
+on `KittiMonoSource` (`tools/train.py:102-158, 444-460`): the train infos as
 `data/kitti_mono.py:KittiMonoDataset` samples, each image resized to
 `data.img_hw`, `batch_size` indices drawn from `rng` a step (in order when
 the split holds no more than a batch), the decoded images cached; with
-`--synthetic`, `mono_synth` (64x96, PGD with its keypoint keys). Their
-loss is `fcos_mono3d_loss` / `pgd_mono3d_loss` (with the batch's P2),
-normalised by the positives of the global batch, under the same schedule,
-AdamW and clip; no per-epoch eval (JAX's EvalHook runs for the DfM family
-alone). Another model type exits with a message and code 2, as does a
-KITTI data root without the train infos (without `--synthetic`). Runs on the CUDA
-card unless `--device cpu`.
+`--synthetic`, `mono_synth` (64x96, PGD with its keypoint keys, MonoFlex
+with its keypoints and observation angles). MonoFlex trains on synthetic
+batches only: no KITTI source gives its `kpts2d` / `gt_alphas` (JAX's
+neither, `tools/train.py:450`), so without `--synthetic` it exits 2 saying
+so. Their loss is `fcos_mono3d_loss` / `pgd_mono3d_loss` (with the batch's
+P2) / `smoke_loss` / `monoflex_loss`, normalised over the global batch,
+under the same schedule, AdamW and clip; no per-epoch eval (JAX's EvalHook
+runs for the DfM family alone). Another model type exits with a message
+and code 2, as does a KITTI data root without the train infos (without
+`--synthetic`). Runs on the CUDA card unless `--device cpu`.
 
 Under torchrun (`parallel/dist.py`) the global batch is
 `data.batch_size_per_chip` x the world size, as JAX's CLI makes it over
@@ -233,8 +236,8 @@ class SyntheticSource:
     `mv_synth(cfg, batch_size, seed + s)` for MultiViewDfM (2 views of
     32x48, `frames` frames: `data/waymo.py:frames_per_sample`), or
     `mono_synth(batch_size, seed + s)` for the mono types (64x96; PGD's
-    with its keypoint keys); `rng` is not drawn from. 16 steps an
-    epoch."""
+    with its keypoint keys, MonoFlex's with `kpts2d` and `gt_alphas`);
+    `rng` is not drawn from. 16 steps an epoch."""
 
     steps_per_epoch = 16
 
@@ -248,7 +251,8 @@ class SyntheticSource:
                             frames=self.frames)
         if self.kind in MONO_TYPES:
             return mono_synth(self.batch_size, self.seed + step,
-                              kpts=self.kind == 'PGD')
+                              kpts=self.kind == 'PGD',
+                              flex=self.kind == 'MonoFlex')
         return dfm_synth(self.cfg, self.batch_size, self.seed + step,
                          full=self.kind == 'DfMFull')
 
@@ -349,6 +353,11 @@ def main(argv=None):
         return 2
     d = cfg.get('data', {}) or {}
     multiview = kind == 'MultiViewDfM'
+    if kind == 'MonoFlex' and not args.synthetic:
+        print('[data] MonoFlex trains on synthetic batches only: no KITTI '
+              'source gives its kpts2d / gt_alphas (JAX wires none either); '
+              'pass --synthetic', file=sys.stderr)
+        return 2
     want = 'KittiMono' if kind in MONO_TYPES else 'KittiDataset'
     if not args.synthetic and not multiview and (
             d.get('type', '') != want or not os.path.exists(

@@ -12,10 +12,13 @@ The pairs are found by name, whatever the module's type (the JAX
 function pairs `Conv_<i>` with `BatchNorm_<i>` the same way): a
 BatchNorm child named `...bn<suffix>` of a module folds into its sibling
 `...conv<suffix>` (`bn1` / `conv1`, ConvNorm's `bn` / `conv`, DfMNeck's
-`mono_final_bn` / `mono_final_conv`), and a BatchNorm at index k of an
-`nn.Sequential` into its child k - 1 (`convbn`, a downsample branch). The
+`mono_final_bn` / `mono_final_conv`, EdgeFusion's `edge_bn` /
+`edge_conv`), else into `...dcn<suffix>` (the DLA neck's DCNv2 `dcn` /
+`bn`), and a BatchNorm at index k of an `nn.Sequential` into its child
+k - 1 (`convbn`, a downsample branch, a DLA Tree's `project`). The
 convolution is any module with a `weight` of 3 or more dimensions and a
-`bias` attribute (None or a tensor); a transposed convolution's weight
+`bias` attribute (None or a tensor: a 1D conv, a `DeformConv2d`, whose
+offset conv keeps its own bias); a transposed convolution's weight
 (I, O, k...) scales along dim 1 (`ConvTranspose`, detected by
 `transposed`). A BatchNorm with no such sibling is left as it is. The
 fold is for inference only: after it the model has no BatchNorm state to
@@ -46,8 +49,10 @@ def _partner(parent, name):
         cand = parent[int(name) - 1] if int(name) > 0 else None
     else:
         i = name.rfind('bn')
-        cand = getattr(parent, name[:i] + 'conv' + name[i + 2:], None) \
-            if i >= 0 else None
+        cand = None
+        for conv in ('conv', 'dcn'):
+            if cand is None and i >= 0:
+                cand = getattr(parent, name[:i] + conv + name[i + 2:], None)
     w = getattr(cand, 'weight', None)
     if cand is None or not torch.is_tensor(w) or w.dim() < 3 or \
             not hasattr(cand, 'bias'):

@@ -26,12 +26,16 @@ import pickle
 import numpy as np
 import torch
 
+from ..models.backbones.dla import DLA_CHANNELS, DLA_LEVELS
 from ..models.backbones.resnet import BASIC_DEPTHS, STAGE_BLOCKS
+from ..models.detectors.smoke import SMOKEConfig
 from ..models.heads.center_head import HEATMAP_BIAS
+from ..models.heads.monoflex import BRANCHES, MonoFlexConfig
 
 __all__ = ['dfm_key_map', 'dfm_full_key_map', 'mvdfm_key_map',
            'center_head_key_map', 'mono_key_map', 'fcos3d_head_key_map',
-           'resnet_key_map', 'state_dict_from_jax',
+           'resnet_key_map', 'dla_key_map', 'dla_neck_key_map',
+           'dla_mono_key_map', 'state_dict_from_jax',
            'teacher_state_dict', 'torch_conv_weight',
            'init_weights', 'load_reference_state_dict',
            'load_reference_checkpoint', 'read_checkpoint']
@@ -165,29 +169,126 @@ def dfm_full_key_map(stacked_convs=4):
     return m
 
 
-def resnet_key_map(prefix, fpath, depth):
+def _dcn(prefix, fpath):
+    """A `DeformConv2d` (flax: its 'kernel' and its `conv_offset` Conv)."""
+    return [(prefix, fpath, 'conv2d'),
+            (f'{prefix}.conv_offset', fpath + ('conv_offset',), 'conv2d')]
+
+
+def resnet_key_map(prefix, fpath, depth, stage_with_dcn=(False,) * 4):
     """(torch_prefix, flax_path, kind) of a standard ResNet
     (`models/backbones/resnet.py`, flax `dfm_tpu/models/backbones/
     resnet.py`): the stem Conv_0 / BatchNorm_0, then per block the flax
     auto-names in call order, Conv_i / BatchNorm_i for conv{i+1} /
     bn{i+1} and the next index for the downsample branch of the first
-    block of a stage whose stride or width changes."""
+    block of a stage whose stride or width changes. In a stage of
+    `stage_with_dcn` the 3x3 conv is the named `DeformConv2d`
+    (`conv2_dcn` of a Bottleneck, `conv1_dcn` of a BasicBlock) and the
+    convs after it take the Conv indices one lower."""
     basic = depth in BASIC_DEPTHS
     nconv = 2 if basic else 3
+    at = 0 if basic else 1          # the 3x3 conv that DCN replaces
     m = [(f'{prefix}.conv1', fpath + ('Conv_0',), 'conv2d'),
          (f'{prefix}.bn1', fpath + ('BatchNorm_0',), 'bn')]
     for li, nblocks in enumerate(STAGE_BLOCKS[depth], start=1):
+        dcn = stage_with_dcn[li - 1]
         for b in range(nblocks):
             t = f'{prefix}.layer{li}.{b}'
             f = fpath + (f'layer{li}_block{b}',)
             for i in range(nconv):
-                m += [(f'{t}.conv{i + 1}', f + (f'Conv_{i}',), 'conv2d'),
-                      (f'{t}.bn{i + 1}', f + (f'BatchNorm_{i}',), 'bn')]
+                if dcn and i == at:
+                    m += _dcn(f'{t}.conv{i + 1}', f + (f'conv{i + 1}_dcn',))
+                else:
+                    j = i - int(dcn and i > at)
+                    m += [(f'{t}.conv{i + 1}', f + (f'Conv_{j}',), 'conv2d')]
+                m += [(f'{t}.bn{i + 1}', f + (f'BatchNorm_{i}',), 'bn')]
             # every first block but ResNet-18/34's layer1 projects
             if b == 0 and not (basic and li == 1):
-                m += [(f'{t}.downsample.0', f + (f'Conv_{nconv}',), 'conv2d'),
+                m += [(f'{t}.downsample.0', f + (f'Conv_{nconv - dcn}',),
+                       'conv2d'),
                       (f'{t}.downsample.1', f + (f'BatchNorm_{nconv}',),
                        'bn')]
+    return m
+
+
+def _conv_bn(prefix, fpath):
+    """A conv + BatchNorm pair that flax auto-names Conv_0 /
+    BatchNorm_0 (DLA's `_ConvNormRelu`, `Root`)."""
+    return [(f'{prefix}.conv', fpath + ('Conv_0',), 'conv2d'),
+            (f'{prefix}.bn', fpath + ('BatchNorm_0',), 'bn')]
+
+
+def _dla_tree(prefix, fpath, levels, cin, ch):
+    m = []
+    if cin != ch:
+        m += [(f'{prefix}.project.0', fpath + ('project',), 'conv2d'),
+              (f'{prefix}.project.1', fpath + ('BatchNorm_0',), 'bn')]
+    if levels > 1:
+        return m + _dla_tree(f'{prefix}.tree1', fpath + ('tree1',),
+                             levels - 1, cin, ch) + \
+            _dla_tree(f'{prefix}.tree2', fpath + ('tree2',), levels - 1, ch,
+                      ch)
+    for tree in ('tree1', 'tree2'):
+        for i in range(2):
+            sub = fpath + (tree, f'_ConvNormRelu_{i}')
+            m += [(f'{prefix}.{tree}.conv{i + 1}', sub + ('Conv_0',),
+                   'conv2d'),
+                  (f'{prefix}.{tree}.bn{i + 1}', sub + ('BatchNorm_0',),
+                   'bn')]
+    return m + _conv_bn(f'{prefix}.root', fpath + ('root',))
+
+
+def dla_key_map(prefix='backbone', fpath=('backbone',)):
+    """(torch_prefix, flax_path, kind) of the JAX `DLANet` (DLA-34):
+    base_layer, level0, level1 (`_ConvNormRelu`), level2..5 (`Tree`s:
+    `project` with the Tree's BatchNorm_0, tree1 / tree2, root)."""
+    m = []
+    for name in ('base_layer', 'level0', 'level1'):
+        m += _conv_bn(f'{prefix}.{name}', fpath + (name,))
+    for i in range(4):
+        m += _dla_tree(f'{prefix}.level{i + 2}', fpath + (f'level{i + 2}',),
+                       DLA_LEVELS[i + 2], DLA_CHANNELS[i + 1],
+                       DLA_CHANNELS[i + 2])
+    return m
+
+
+def dla_neck_key_map(prefix='neck', fpath=('neck',), use_dcn=True):
+    """(torch_prefix, flax_path, kind) of the JAX `DLANeck` over levels 2-5:
+    dla_up0..2 (k + 1 proj / node pairs) and ida_up (2), each `_ProjNode`
+    its `dcn` (or Conv_0 with a bias) and BatchNorm_0."""
+    m = []
+    for name, n in (('dla_up0', 1), ('dla_up1', 2), ('dla_up2', 3),
+                    ('ida_up', 2)):
+        for i in range(n):
+            for part in (f'proj{i}', f'node{i}'):
+                t, f = f'{prefix}.{name}.{part}', fpath + (name, part)
+                m += _dcn(f'{t}.dcn', f + ('dcn',)) if use_dcn else \
+                    [(f'{t}.conv', f + ('Conv_0',), 'conv2d')]
+                m += [(f'{t}.bn', f + ('BatchNorm_0',), 'bn')]
+    return m
+
+
+def dla_mono_key_map(cfg):
+    """(torch_prefix, flax_path, kind) of the JAX `SMOKEMono3D` (an
+    `SMOKEConfig`) or `MonoFlex` (a `MonoFlexConfig`) tree: `dla_key_map`,
+    `dla_neck_key_map` (SMOKE's `use_dcn_neck`; MonoFlex always DCN), the
+    head's branches ({name}_conv, GroupNorm_<i> in branch order,
+    {name}_out) and, with MonoFlex's edge fusion, edge_cls / edge_offset
+    (edge_conv, BatchNorm_0, edge_out: 1D convs)."""
+    smoke = isinstance(cfg, SMOKEConfig)
+    m = dla_key_map() + dla_neck_key_map(
+        use_dcn=cfg.use_dcn_neck if smoke else True)
+    h = ('bbox_head',)
+    for i, name in enumerate(('cls', 'reg') if smoke else BRANCHES):
+        m += [(f'bbox_head.{name}_conv', h + (f'{name}_conv',), 'conv2d'),
+              (f'bbox_head.{name}_gn', h + (f'GroupNorm_{i}',), 'gn'),
+              (f'bbox_head.{name}_out', h + (f'{name}_out',), 'conv2d')]
+    if not smoke and cfg.use_edge_fusion:
+        for e in ('edge_cls', 'edge_offset'):
+            m += [(f'bbox_head.{e}.edge_conv', h + (e, 'edge_conv'),
+                   'conv1d'),
+                  (f'bbox_head.{e}.edge_bn', h + (e, 'BatchNorm_0'), 'bn'),
+                  (f'bbox_head.{e}.edge_out', h + (e, 'edge_out'), 'conv1d')]
     return m
 
 
@@ -292,7 +393,10 @@ def mono_key_map(cfg, depth=101, pgd=None):
     stage 1 (lateral0..2, fpn_conv0..2, extra_conv3..4), the head
     `bbox_head` (PGD: FCOS3D's under `bbox_head/fcos3d`, then the depth
     classifier, the weights, `fuse_lambda`, the keypoint and 2D box
-    branches with their scales)."""
+    branches with their scales); `dla_mono_key_map` for an `SMOKEConfig`
+    or a `MonoFlexConfig` (`depth` not read)."""
+    if isinstance(cfg, (SMOKEConfig, MonoFlexConfig)):
+        return dla_mono_key_map(cfg)
     if pgd is None:
         pgd = hasattr(cfg, 'num_depth_cls')
     m = resnet_key_map('backbone', ('backbone',), depth)
@@ -415,7 +519,8 @@ def init_weights(model, seed=0):
     (CPU) seeded with `seed`: conv weights normal with std
     1/sqrt(weight[0].numel()) (lecun-normal for a conv), conv biases 0,
     norms weight 1 / bias 0, BN running stats (0, 1), the mono heads'
-    scales 1 and `fuse_lambda` 1e-4 (the JAX initialisers), the focal
+    scales 1 and `fuse_lambda` 1e-4 (the JAX initialisers), DCNv2's
+    `conv_offset` 0 (its offsets and mask logits start at 0), the focal
     prior of the anchor head's cls conv (std 0.01, bias
     -log(99)) and the CenterHead's heatmap bias (-2.19). Touches no global
     RNG."""
@@ -436,7 +541,9 @@ def init_weights(model, seed=0):
             else:       # conv (O, I, k...) / transposed conv (I, O, k...)
                 val = torch.randn(t.shape, generator=gen) / \
                     math.sqrt(t[0].numel())
-            if name.endswith('conv_cls.weight'):
+            if '.conv_offset.' in name or name.startswith('conv_offset.'):
+                val = torch.zeros(t.shape)
+            elif name.endswith('conv_cls.weight'):
                 val = torch.randn(t.shape, generator=gen) * 0.01
             elif name.endswith('conv_cls.bias'):
                 val = torch.full(t.shape, -math.log((1 - 0.01) / 0.01))

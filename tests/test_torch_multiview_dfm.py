@@ -290,7 +290,7 @@ def test_camsync_config_and_unported_options():
     """The camsync and 10-sweeps configs build MVDfMConfig with their
     values; unknown keys are refused, and so is `DfMNeck` without concat
     fusion; every option of the JAX config builds (DfMNeck, CenterHead,
-    the 3D backbone and the depth head); DCN is not ported."""
+    the 3D backbone and the depth head); DCN stages build."""
     cfg = load_config('configs/multiview_dfm_r101_waymo_camsync.py')
     mcfg = build_detector(cfg.model)
     assert isinstance(mcfg, MVDfMConfig)
@@ -313,8 +313,11 @@ def test_camsync_config_and_unported_options():
                           'depth_pred.1.weight')):
         assert module in MultiViewDfM(MVDfMConfig(**dict(
             TINY, **opts))).state_dict()
-    with pytest.raises(NotImplementedError, match='deform_conv'):
-        ResNet(50, stage_with_dcn=(False, True, True, True))
+    # DCNv2 stages build (their parity with JAX: tests/test_torch_dla.py)
+    dcn = ResNet(50, stage_with_dcn=(False, True, True, True)).state_dict()
+    assert 'layer2.0.conv2.conv_offset.weight' in dcn
+    assert not any(k.startswith('layer1.') and 'conv_offset' in k
+                   for k in dcn)
 
 
 def test_key_map_takes_every_leaf(models):
