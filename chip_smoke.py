@@ -118,7 +118,7 @@ Phases, one line each; any failure raises and no result is printed:
               and the KITTI eval at the end of the epoch), a resume to
               step 6 from the saved optimizer state (its sha1 checked),
               `tools.test` on the step-6 checkpoint, and a type it does
-              not train (ImVoxelNet) refused; (d) full-width training
+              not train (VoxelNet) refused; (d) full-width training
               steps in process:
               two warm-up steps, then three with the launch counts set
               to 0 just before and read just after (a step: K1, K2 one
@@ -300,6 +300,41 @@ Phases, one line each; any failure raises and no result is printed:
               batch (SMOKE 8 on the tree's images, MonoFlex 4 synthetic)
               split into data, forward, backward and optimizer, with its
               peak memory
+ 14. imvoxel  ImVoxelNet on KITTI (configs/imvoxelnet_kitti_car.py), no
+              port kernel on its path: (a) a tiny model (ResNet-18, grid
+              (4, 16, 16), 2 x 64x96) in f32, TF32 off, seeded live
+              weights, card against CPU: every output within relative L2
+              1e-4, the decode's labels equal and scores / boxes within
+              1e-3, one step's loss terms within rtol 1e-3 and gradients
+              by phase 7 (a)'s rule (movers: two ulp noises and the batch
+              reversed); (c) in processes of their own beside (a):
+              `tools.test` and `tools.train` with `--synthetic` at the
+              full config, both refused without it (rc 2); (b) the full
+              config at 1 x 384x1280 in bf16 and f32, unfused and folded:
+              ms per request (median of 3 after 2 warm-ups), per stage
+              (trunk + FPN, voxel sample, neck_3d, head, predict), peak
+              memory, 0 port-kernel launches; one f32 training step at
+              the config's B = 4, split and peak
+ 15. nuscenes nuScenes-mono (configs/fcos3d_r101_nus_mono.py,
+              pgd_r101_nus_mono_1x.py): (a) the committed JPEG fixtures
+              (tests/data/jpeg/) decoded by the port equal to their PNGs
+              and cv2 digests, the host ms of the 1600x900 decode; (b)
+              both configs at the raw 900x1600 in bf16 and f32: ms per
+              request and per stage (trunk + FPN, head, predict), peak,
+              0 launches; (c) beside them, `tools.test` of each with a
+              live checkpoint on a nuScenes tree of the fixture JPEGs:
+              17 finite metric lines (the APs, TP errors, mAP, NDS)
+ 16. waymo_cam PGD-Waymo's camera modes and the mono demo: (a) a tiny PGD
+              on the five 'cam_frame' samples of a frame, f32, TF32 off,
+              card against CPU (decode within 1e-3) and the five
+              cameras' merges equal; (b) the full pgd_r101_waymo_mv3d
+              config on one camera at its 1280x1920 in bf16 and f32: ms
+              per request and stage, peak, 0 launches, the merge's host
+              ms; (c) `tools.test` refusing both PGD-Waymo configs on a
+              Waymo tree (rc 2, the reason named) and decoding them with
+              `--synthetic`; (d) the demo (FCOS3D R101, bf16, a live
+              checkpoint) on the 1600x900 fixture JPEG: detections
+              printed, its PNG read back
 Then the kernels JSON line, the card line, and the result line.
 Exits non-zero without a result when there is no CUDA device or the
 package is not beside the script.
@@ -504,34 +539,6 @@ KITTI_OBJECTS = tuple(
 FORWARD_M = 0.8               # ego-motion from the prev frame to the frame
 
 
-def png_bytes(img_bgr):
-    """An 8-bit RGB PNG of (H, W, 3) uint8 BGR, row r stored with filter
-    r % 5 (None, Sub, Up, Average, Paeth), so a reader's five branches
-    all run."""
-    import zlib
-    h, w, _ = img_bgr.shape
-    raw = np.ascontiguousarray(img_bgr[..., ::-1]).reshape(h, w * 3)
-    raw = raw.astype(np.int16)
-    a = np.zeros_like(raw)
-    a[:, 3:] = raw[:, :-3]
-    b = np.zeros_like(raw)
-    b[1:] = raw[:-1]
-    c = np.zeros_like(raw)
-    c[1:, 3:] = raw[:-1, :-3]
-    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
-    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    kind = (np.arange(h) % 5)[:, None]
-    filtered = (raw - np.choose(kind, (0, a, b, (a + b) >> 1, paeth))) & 0xFF
-    data = np.concatenate([kind, filtered], 1).astype(np.uint8).tobytes()
-
-    def chunk(tag, body):
-        return (len(body).to_bytes(4, 'big') + tag + body
-                + zlib.crc32(tag + body).to_bytes(4, 'big'))
-    ihdr = w.to_bytes(4, 'big') + h.to_bytes(4, 'big') + bytes((8, 2, 0, 0, 0))
-    return (b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', ihdr)
-            + chunk(b'IDAT', zlib.compress(data, 6)) + chunk(b'IEND', b''))
-
-
 def _box_corners(dims, loc, ry):
     """(8, 3) camera-frame corners of a KITTI box (bottom centre)."""
     h, w, l = dims
@@ -549,6 +556,7 @@ def write_kitti_tree(root, seed=0, frames=KITTI_FRAMES):
     (the same frames), the images random from `seed`; returns the frame
     ids."""
     import os
+    from dfm_tpu_torch.data.png import png_bytes
     rng = np.random.default_rng(seed)
     base = os.path.join(root, 'training')
     for sub in ('image_2', 'prev_2', 'calib', 'poses', 'label_2',
@@ -653,6 +661,7 @@ def write_waymo_tree(root, seed=0, frames=2, scale=1.0):
     frame); returns the infos."""
     import os
     import pickle
+    from dfm_tpu_torch.data.png import png_bytes
     rng = np.random.default_rng(seed)
     names = ('Car', 'Pedestrian', 'Cyclist')
     boxes = np.array([b for _, b, _ in WAYMO_OBJECTS])
@@ -2232,16 +2241,16 @@ def train_phase(cfg, dev, results):
               f'tools.test printed {len(aps)} AP lines')
         res = subprocess.run(
             [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
-             '--cfg-options', 'model.type=ImVoxelNet',
+             '--cfg-options', 'model.type=VoxelNet',
              f'data.data_root={root}', '--work-dir',
              os.path.join(root, 'mono')], cwd=here, env=env,
             capture_output=True, text=True, timeout=300)
         check(res.returncode == 2 and 'not ported yet' in res.stderr,
-              f'the ImVoxelNet type: rc {res.returncode} '
+              f'the VoxelNet type: rc {res.returncode} '
               f'{res.stderr[-500:]}')
         print(f'train (c) resume: from step 4 with the saved optimizer '
               f'state (sha1 {digest}) to step 6; tools.test on step_6.pth: '
-              f'{len(aps)} finite AP lines; ImVoxelNet refused (rc '
+              f'{len(aps)} finite AP lines; VoxelNet refused (rc '
               f'{res.returncode})', flush=True)
 
         # (d) full-width training steps in process: two warm-up steps
@@ -5036,6 +5045,639 @@ def _dla_timed(dev, root, ids, configs):
         torch.cuda.empty_cache()
 
 
+IMVOXEL_CONFIG = 'imvoxelnet_kitti_car.py'
+IMVOXEL_TINY = dict(feat_channels=16, voxel_range=(0.0, -8.0, -2.0, 16.0,
+                                                   8.0, 2.0),
+                    voxel_grid=(4, 16, 16),
+                    anchor_ranges=((0.0, -8.0, -1.78, 16.0, 8.0, -1.78),),
+                    backbone_depth=18, nms_pre=128, max_num=8)
+IMVOXEL_TINY_HW = (64, 96)
+IMVOXEL_HW = (384, 1280)      # the config's data.input_size
+IMVOXEL_REL_L2 = 1e-4         # (a) dense outputs card vs CPU, f32, TF32 off
+IMVOXEL_DET_TOL = (1e-3, 1e-3)
+NUS_CONFIGS = ('fcos3d_r101_nus_mono.py', 'pgd_r101_nus_mono_1x.py')
+NUS_HW = (900, 1600)          # the raw nuScenes image JAX's sample gives
+NUS_METRIC_LINES = 17         # 10 class APs, mAP, 5 TP errors, NDS
+WAYMO_CAM_CONFIGS = ('pgd_r101_waymo_mono3d.py', 'pgd_r101_waymo_mv3d.py')
+WAYMO_CAM_TINY = dict(backbone_depth=18, in_channels=32, feat_channels=32,
+                      depth_branch=(16,), nms_pre=100, max_num=20)
+JPEG_FIXTURES = ('tests', 'data', 'jpeg')
+
+
+def _request_times(infer, stages, what, launches_ok=True):
+    """`infer()` after MONO_WARMUP calls, timed MONO_TIMED times (host
+    clock, synchronised), then `stages` (a list of (name, fn(prev) ->
+    out), the first called with None) timed apart MONO_TIMED times; the
+    peak memory of the timed requests and the port-kernel launches,
+    checked 0. Returns (request ms list, stage ms medians, peak, the
+    last request's output)."""
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    for _ in range(MONO_WARMUP):
+        infer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    ms = []
+    for _ in range(MONO_TIMED):
+        t0 = time.perf_counter()
+        out = infer()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    launches = sum(K.LAUNCHES.values())
+    check(launches == 0, f'{what}: port kernels launched '
+          f'{dict(K.LAUNCHES)}')
+    per = []
+    with torch.inference_mode():
+        for _ in range(MONO_TIMED):
+            x, t = None, []
+            for _, fn in stages:
+                t0 = time.perf_counter()
+                x = fn(x)
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3)
+            per.append(t)
+    return ms, dict(zip([n for n, _ in stages], np.median(per, 0))), peak, \
+        out
+
+
+def _stage_line(what, ms, st, peak):
+    return (f'{what}: ms/request {[round(v, 3) for v in ms]} median '
+            f'{float(np.median(ms)):.3f}; stages ms (median of {MONO_TIMED}) '
+            + ', '.join(f'{k} {v:.3f}' for k, v in st.items())
+            + f'; peak_mem_bytes {peak}; port-kernel launches 0')
+
+
+def _train_step_line(what, model, batch_fn, dev):
+    """One f32 training step after a warm-up, split into data, forward,
+    backward and optimizer; its peak memory and 0 port-kernel launches."""
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.runtime.schedule import liga_schedule
+    from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
+    step = TrainStep(model, make_optimizer(model), liga_schedule(1e-4))
+    for i in range(2):
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+        t = [time.perf_counter()]
+        inputs = batch_fn(i)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        total, losses = step.forward(*inputs)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        step.backward(total)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        norm = step.update()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        vals = {k: float(v.detach()) for k, v in
+                dict(loss=total, **losses).items()}
+        check(all(np.isfinite(v) for v in vals.values()) and
+              np.isfinite(float(norm)), f'{what}: {vals}')
+    split = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+    launches = sum(K.LAUNCHES.values())
+    check(launches == 0, f'{what}: {dict(K.LAUNCHES)}')
+    print(f'{what}: one step after a warm-up, ms (data, forward, backward, '
+          f'optimizer): ' + ', '.join(f'{v:.3f}' for v in split)
+          + f'; total {sum(split):.3f}; peak_mem_bytes '
+          f'{torch.cuda.max_memory_allocated()}; losses '
+          f'{ {k: round(v, 4) for k, v in vals.items()} } grad_norm '
+          f'{float(norm):.5g}; port-kernel launches 0', flush=True)
+
+
+def _start(procs, name, cmd, env=None):
+    """`python -m cmd...` in a process of its own from the repo root."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs[name] = subprocess.Popen(
+        [sys.executable, '-m', *cmd], cwd=here,
+        env=env or dict(os.environ, PYTHONPATH=here),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish(procs, timeout=900):
+    """Wait for every process of `procs` -> name -> CompletedProcess."""
+    out = {}
+    for name, p in procs.items():
+        o, e = p.communicate(timeout=timeout)
+        out[name] = subprocess.CompletedProcess(p.args, p.returncode, o, e)
+    return out
+
+
+def _kill(procs):
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+
+
+def _kitti_lidar2img(hw, f=721.5):
+    """A KITTI-like lidar2img for an (h, w) image: the camera at the
+    lidar's origin looking down x, focal `f` scaled to the width."""
+    h, w = hw
+    cam = np.eye(4, dtype=np.float32)
+    cam[0, 0] = cam[1, 1] = f * w / 1242.0
+    cam[0, 2], cam[1, 2] = w / 2.0, h / 2.0
+    rot = np.array([[0, -1, 0, 0], [0, 0, -1, 0], [1, 0, 0, 0],
+                    [0, 0, 0, 1]], np.float32)
+    return cam @ rot
+
+
+def _imvoxel_tiny_step(dev, batch, noise=None, reverse=False):
+    """One train-mode forward + backward of the tiny ImVoxelNet on `dev`
+    (seeded live weights, + one ulp of noise with seed `noise`; the batch
+    reversed with `reverse`): loss terms, gradients."""
+    from dfm_tpu_torch.models.detectors.imvoxelnet import (ImVoxelNet,
+                                                           ImVoxelNetConfig)
+    from dfm_tpu_torch.runtime.adapters import mv_to_device
+    from dfm_tpu_torch.utils.weights import init_weights
+    model = _live_weights(init_weights(ImVoxelNet(ImVoxelNetConfig(
+        **IMVOXEL_TINY)), 5), 6, 3.0)
+    model = (model if noise is None else _ulp_noise(model, noise)).to(dev)
+    if reverse:
+        batch = {k: v[::-1].copy() for k, v in batch.items()}
+    imgs, l2i, gt = mv_to_device(batch, dev)
+    total, losses = model.train().forward_train(imgs, l2i, gt)
+    total.backward()
+    return dict(
+        losses={k: float(v) for k, v in dict(loss=total.detach(), **{
+            k: v.detach() for k, v in losses.items()}).items()},
+        grads={n: None if p.grad is None else p.grad.detach().cpu()
+               for n, p in model.named_parameters()})
+
+
+def imvoxel_phase(dev):
+    """14. ImVoxelNet on KITTI (configs/imvoxelnet_kitti_car.py): (a) the
+    tiny model card vs CPU, (b) the full config's request timed by stage
+    in bf16 and f32, unfused and folded, one f32 step at B = 4, (c) the
+    `--synthetic` CLIs and the refusals without it."""
+    import os
+    import tempfile
+    from dfm_tpu_torch.apis import init_imvoxelnet_model
+    from dfm_tpu_torch.models.builder import build_detector
+    from dfm_tpu_torch.models.detectors.imvoxelnet import (
+        ImVoxelNet, ImVoxelNetConfig, imvoxelnet_predict)
+    from dfm_tpu_torch.runtime.adapters import imvoxel_synth, mv_to_device
+    from dfm_tpu_torch.runtime.config import load_config
+    from dfm_tpu_torch.utils.fuse_conv_bn import fuse_conv_bn
+    from dfm_tpu_torch.utils.weights import init_weights
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(here, 'configs', IMVOXEL_CONFIG)
+    procs = {}
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            # (c) in processes of their own while (a) runs here
+            _start(procs, 'test synthetic', ['dfm_tpu_torch.tools.test',
+                                             config, '--synthetic'])
+            _start(procs, 'test refused', ['dfm_tpu_torch.tools.test',
+                                           config])
+            _start(procs, 'train synthetic', [
+                'dfm_tpu_torch.tools.train', config, '--synthetic',
+                '--max-steps', '2', '--work-dir', os.path.join(work, 'w')])
+            _start(procs, 'train refused', ['dfm_tpu_torch.tools.train',
+                                            config, '--work-dir',
+                                            os.path.join(work, 'r')])
+            # (a) card vs CPU, f32 with TF32 off
+            flags = _no_tf32()
+            try:
+                cfg = ImVoxelNetConfig(**IMVOXEL_TINY)
+                batch = imvoxel_synth(cfg, 2, 0, *IMVOXEL_TINY_HW)
+                outs, dets = {}, {}
+                for d in ('cpu', dev):
+                    model = _live_weights(init_weights(ImVoxelNet(cfg), 5),
+                                          6, 3.0).to(d).eval()
+                    imgs, l2i, _ = mv_to_device(batch, d)
+                    with torch.inference_mode():
+                        out = model(imgs, l2i)
+                        dets[d] = _mono_dets(imvoxelnet_predict(
+                            {k: v.cpu() for k, v in out.items()}, cfg))
+                    outs[d] = {k: v.float().cpu() for k, v in out.items()}
+                rel = _rel_l2s(outs[dev], outs['cpu'])
+                check(max(rel.values()) <= IMVOXEL_REL_L2,
+                      f'imvoxel (a) outputs card vs CPU: {rel}')
+                n_det, worst = _mv_dets_agree('imvoxel (a) decode',
+                                              dets[dev], dets['cpu'],
+                                              IMVOXEL_DET_TOL)
+                check(n_det > 0, 'imvoxel (a): no live detection')
+                cpu = _imvoxel_tiny_step('cpu', batch)
+                card = _imvoxel_tiny_step(dev, batch)
+                movers = (_imvoxel_tiny_step('cpu', batch, noise=1)['grads'],
+                          _imvoxel_tiny_step('cpu', batch, noise=2)['grads'],
+                          _imvoxel_tiny_step('cpu', batch,
+                                             reverse=True)['grads'])
+                loss_err = _losses_agree('imvoxel (a) step', card['losses'],
+                                         cpu['losses'], TRAIN_LOSS_RTOL)
+                g_worst, g_name, g_whole, g_noise = _grad_compare(
+                    'imvoxel (a) step', card['grads'], cpu['grads'], movers)
+            finally:
+                _set_tf32(flags)
+            print(f'imvoxel (a) tiny ImVoxelNet (ResNet-18, grid '
+                  f'{IMVOXEL_TINY["voxel_grid"]}, 2 x {IMVOXEL_TINY_HW[0]}x'
+                  f'{IMVOXEL_TINY_HW[1]}) f32, TF32 off, card vs CPU: '
+                  f'outputs relative L2 max {max(rel.values()):.3g}; '
+                  f'{n_det} detections, scores / boxes off by at most '
+                  f'{worst[0]:.3g} / {worst[1]:.3g}; one step: loss terms '
+                  f'rtol {loss_err:.3g}, gradients worst {g_worst:.3g} '
+                  f'({g_name}), whole {g_whole:.3g} (CPU movers '
+                  f'{g_noise:.3g})',
+                  flush=True)
+            cli = _finish(procs)
+            for name in ('test synthetic', 'train synthetic'):
+                check(cli[name].returncode == 0, f'imvoxel (c) {name}: '
+                      f'{cli[name].stderr[-3000:]}')
+            check('finite=True' in cli['test synthetic'].stdout and
+                  'step 2/2' in cli['train synthetic'].stdout,
+                  'imvoxel (c): the synthetic CLIs printed no result')
+            for name in ('test refused', 'train refused'):
+                check(cli[name].returncode == 2 and '--synthetic' in
+                      cli[name].stderr, f'imvoxel (c) {name}: rc '
+                      f'{cli[name].returncode} {cli[name].stderr[-500:]}')
+            print('imvoxel (c) tools.test --synthetic (finite) and '
+                  'tools.train --synthetic (2 steps) at the full config; '
+                  'both refused without --synthetic (rc 2)', flush=True)
+        finally:
+            _kill(procs)
+
+    # (b) the full config
+    mcfg = build_detector(load_config(config).model)
+    l2i = torch.from_numpy(_kitti_lidar2img(IMVOXEL_HW))[None].to(dev)
+    img = torch.randn((1,) + IMVOXEL_HW + (3,), generator=torch.Generator(
+        ).manual_seed(0)).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        h = init_imvoxelnet_model(mcfg, dtype)
+        model = _live_weights(h['model'], 7, 3.0)
+        for fused in (False, True):
+            n_fold = fuse_conv_bn(model) if fused else 0
+            stages = [
+                ('trunk + FPN', lambda _: model.image_features(img)),
+                ('voxel sample', lambda f: model.sample_volume(
+                    f, l2i, IMVOXEL_HW)),
+                ('neck_3d', lambda v: model.neck_3d(v)),
+                ('head', lambda b: dict(zip(
+                    ('cls_score', 'bbox_pred', 'dir_pred'),
+                    model.bbox_head(b)))),
+                ('predict', lambda o: imvoxelnet_predict(o, mcfg))]
+            ms, st, peak, det = _request_times(
+                lambda: h['infer'](img, l2i), stages, 'imvoxel (b)')
+            kept = _finite_dets(det, 'imvoxel (b)')
+            tf32 = '' if dtype == torch.bfloat16 else ' (TF32 as PyTorch ' \
+                'has it)'
+            fold = f', BatchNorm folded ({n_fold})' if fused else ''
+            print(_stage_line(
+                f'imvoxel (b) full config {str(dtype)[6:]}{tf32}{fold}, 1 x '
+                f'{IMVOXEL_HW[0]}x{IMVOXEL_HW[1]}, volume '
+                f'{mcfg.voxel_grid} x {mcfg.feat_channels}', ms, st, peak)
+                + f'; kept {kept}', flush=True)
+        del h, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    b = load_config(config).data.batch_size_per_chip
+    model = init_weights(ImVoxelNet(mcfg)).to(dev)
+    _train_step_line(
+        f'imvoxel (b) full config training, f32 (TF32 as PyTorch has it), '
+        f'B = {b} synthetic {IMVOXEL_HW[0]}x{IMVOXEL_HW[1]}', model,
+        lambda i: mv_to_device(imvoxel_synth(mcfg, b, i, *IMVOXEL_HW), dev),
+        dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f'imvoxel phase {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
+def _jpeg_fixtures():
+    """(folder, manifest) of the committed JPEG fixtures."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    folder = os.path.join(here, *JPEG_FIXTURES)
+    with open(os.path.join(folder, 'manifest.json')) as f:
+        return folder, json.load(f)
+
+
+def _nus_tree(root, folder, n=2):
+    """A nuScenes-mono tree of the 1600x900 fixture JPEG (n copies, each
+    with its own intrinsics) and its infos pickle with a few GT boxes."""
+    import os
+    import pickle
+    import shutil
+    os.makedirs(os.path.join(root, 'samples', 'CAM_FRONT'))
+    rng = np.random.default_rng(0)
+    infos = []
+    for i in range(n):
+        path = f'samples/CAM_FRONT/{i}.jpg'
+        shutil.copy(os.path.join(folder, 'nus_1600x900_420.jpg'),
+                    os.path.join(root, path))
+        g = 6
+        boxes = np.concatenate([rng.uniform(-10, 10, (g, 1)),
+                                rng.uniform(0.5, 2, (g, 1)),
+                                rng.uniform(8, 40, (g, 1)),
+                                rng.uniform(0.5, 4, (g, 3)),
+                                rng.uniform(-np.pi, np.pi, (g, 1)),
+                                rng.normal(0, 2, (g, 2))], 1)
+        infos.append(dict(
+            token=f'tok{i}', img_path=path, width=1600, height=900,
+            cam2img=np.array([[1266.4 + 10 * i, 0, 816.3], [0, 1266.4, 491.5],
+                              [0, 0, 1]]),
+            gt_boxes=boxes.astype(np.float32),
+            gt_names=['car', 'pedestrian', 'truck', 'barrier',
+                      'traffic_cone', 'bicycle'],
+            gt_attrs=rng.integers(0, 9, g)))
+    with open(os.path.join(root, 'nuscenes_infos_mono_val.pkl'), 'wb') as f:
+        pickle.dump(infos, f)
+    return infos
+
+
+def nuscenes_phase(dev):
+    """15. nuScenes-mono: (a) the JPEG fixtures decoded to their committed
+    PNGs and digests, the host ms of the 1600x900 decode, (b) FCOS3D-nus
+    and PGD-nus requests at 900x1600 by stage in bf16 and f32, (c)
+    `tools.test` on a tree of the fixture JPEGs to the NDS lines."""
+    import hashlib
+    import os
+    import tempfile
+    from dfm_tpu_torch.apis import init_mono_model
+    from dfm_tpu_torch.data.jpeg import read_jpeg
+    from dfm_tpu_torch.data.pipeline import normalize_image
+    from dfm_tpu_torch.data.png import read_png
+    from dfm_tpu_torch.models.builder import (build_detector,
+                                              mono_backbone_depth, mono_model)
+    from dfm_tpu_torch.models.heads.fcos_mono3d import pad44
+    from dfm_tpu_torch.runtime.config import load_config
+    from dfm_tpu_torch.utils.weights import init_weights
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    configs = {c: os.path.join(here, 'configs', c) for c in NUS_CONFIGS}
+    folder, manifest = _jpeg_fixtures()
+    procs = {}
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            # (c) in processes of their own while (a) and (b) run here
+            _nus_tree(root, folder)
+            for c, path in configs.items():
+                live = os.path.join(root, f'{c}.pth')
+                torch.save(_live_weights(init_weights(mono_model(
+                    load_config(path).model)), 8, 3.0).state_dict(), live)
+                _start(procs, c, ['dfm_tpu_torch.tools.test', path,
+                                  '--checkpoint', live, '--cfg-options',
+                                  f'data.data_root={root}'])
+            # (a) the fixtures
+            decode_ms, img = [], None
+            for name, m in sorted(manifest.items()):
+                path = os.path.join(folder, name + '.jpg')
+                t0 = time.perf_counter()
+                got = read_jpeg(path)
+                if list(got.shape) == [NUS_HW[0], NUS_HW[1], 3]:
+                    decode_ms.append((time.perf_counter() - t0) * 1e3)
+                    img = got
+                check(hashlib.sha256(got.tobytes()).hexdigest() == m['sha256'],
+                      f'nuscenes (a) {name}: decode differs from cv2.imdecode')
+                if m['png']:
+                    check(np.array_equal(got, read_png(os.path.join(
+                        folder, name + '.png'))), f'nuscenes (a) {name}: '
+                        'decode differs from its PNG')
+            big = os.path.join(folder, 'nus_1600x900_420.jpg')
+            for _ in range(2):
+                t0 = time.perf_counter()
+                read_jpeg(big)
+                decode_ms.append((time.perf_counter() - t0) * 1e3)
+            print(f'nuscenes (a) {len(manifest)} JPEG fixtures decoded '
+                  f'bit for bit as cv2.imdecode (their PNGs and digests); '
+                  f'host ms of the 1600x900 4:2:0 decode '
+                  f'({os.path.getsize(big)} bytes) '
+                  f'{[round(v, 1) for v in decode_ms]} median '
+                  f'{float(np.median(decode_ms)):.1f}', flush=True)
+            # (b) the requests at 900x1600
+            norm = torch.from_numpy(normalize_image(img.astype(
+                np.float32)))[None].to(dev)
+            cam = pad44(torch.tensor([[1266.4, 0, 816.3, 0],
+                                      [0, 1266.4, 491.5, 0],
+                                      [0, 0, 1, 0]]))[None].to(dev)
+            for c, path in configs.items():
+                mc = load_config(path).model
+                cfg = build_detector(mc)
+                for dtype in (torch.bfloat16, torch.float32):
+                    h = init_mono_model(cfg, mono_backbone_depth(mc), dtype)
+                    model = _live_weights(h['model'], 9, 3.0)
+                    stages = [('trunk + FPN', lambda _: model.features(norm)),
+                              ('head', lambda f: model.bbox_head(f)),
+                              ('predict', lambda o: model.predict(
+                                  o, NUS_HW, cam))]
+                    ms, st, peak, det = _request_times(
+                        lambda: h['infer'](norm, cam), stages,
+                        f'nuscenes (b) {c}')
+                    kept = _finite_dets(det, f'nuscenes (b) {c}')
+                    check('velocity' in det and 'attrs' in det,
+                          f'nuscenes (b) {c}: no velocity / attributes')
+                    tf32 = '' if dtype == torch.bfloat16 else \
+                        ' (TF32 as PyTorch has it)'
+                    print(_stage_line(
+                        f'nuscenes (b) {c} {str(dtype)[6:]}{tf32}, 1 x '
+                        f'{NUS_HW[0]}x{NUS_HW[1]}', ms, st, peak)
+                        + f'; kept {kept}', flush=True)
+                    del h, model
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            cli = _finish(procs)
+            for c in configs:
+                res = cli[c]
+                check(res.returncode == 0, f'nuscenes (c) {c}: '
+                      f'{res.stderr[-3000:]}')
+                lines = re.findall(r'^([A-Za-z_]+): (-?[0-9.]+|nan)$',
+                                   res.stdout, re.M)
+                check(len(lines) == NUS_METRIC_LINES and all(
+                    np.isfinite(float(v)) for _, v in lines),
+                    f'nuscenes (c) {c}: {len(lines)} metric lines '
+                    f'{res.stdout[-1500:]}')
+                dets = re.findall(r'dets=(\d+)', res.stdout)
+                print(f'nuscenes (c) tools.test {c} (full width, bf16, live '
+                      f'checkpoint) on {len(dets)} fixture JPEGs: dets '
+                      f'{dets}; ' + ', '.join(f'{k} {v}' for k, v in lines
+                                              if k in ('mAP', 'NDS')),
+                      flush=True)
+        finally:
+            _kill(procs)
+    print(f'nuscenes phase {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+
+
+def waymo_cam_phase(dev):
+    """16. PGD-Waymo's camera modes and the mono demo: (a) the tiny PGD on
+    'cam_frame' samples card vs CPU and the five cameras' merge, (b) the
+    full PGD-Waymo request at 1280x1920 by stage and the merge's ms, (c)
+    the `tools.test` refusal and `--synthetic`, (d) the demo on a fixture
+    image writing its PNG."""
+    import os
+    import tempfile
+    from dfm_tpu_torch.apis import init_mono_model
+    from dfm_tpu_torch.data.png import read_png
+    from dfm_tpu_torch.data.waymo import WaymoDataset
+    from dfm_tpu_torch.models.builder import (build_detector,
+                                              mono_backbone_depth, mono_model)
+    from dfm_tpu_torch.models.heads.fcos_mono3d import FCOS3DConfig
+    from dfm_tpu_torch.runtime.config import load_config
+    from dfm_tpu_torch.utils.weights import init_weights
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    configs = {c: os.path.join(here, 'configs', c)
+               for c in WAYMO_CAM_CONFIGS}
+    folder, _ = _jpeg_fixtures()
+    procs = {}
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            small, full = os.path.join(root, 'small'), os.path.join(root,
+                                                                    'full')
+            write_waymo_tree(small, scale=0.05, frames=1)
+            for c, path in configs.items():
+                _start(procs, f'refused {c}', [
+                    'dfm_tpu_torch.tools.test', path, '--cfg-options',
+                    f'data.data_root={small}'])
+                _start(procs, f'synthetic {c}', ['dfm_tpu_torch.tools.test',
+                                                 path, '--synthetic'])
+            demo_ckpt = os.path.join(root, 'demo.pth')
+            torch.save(_live_weights(init_weights(mono_model(dict(
+                type='FCOSMono3D'))), 10, 3.0).state_dict(), demo_ckpt)
+            demo_png = os.path.join(root, 'vis.png')
+            _start(procs, 'demo', ['dfm_tpu_torch.demo.mono_det_demo',
+                                   os.path.join(folder,
+                                                'nus_1600x900_420.jpg'),
+                                   '--fx', '1266.4', '--checkpoint',
+                                   demo_ckpt, '--out', demo_png])
+            write_waymo_tree(full, frames=1)
+            # (a) the tiny PGD on the five cameras of a frame, card vs CPU
+            mc = dict(load_config(configs[WAYMO_CAM_CONFIGS[1]]).model
+                      .to_dict(), **WAYMO_CAM_TINY)
+            ds = WaymoDataset(small, os.path.join(small,
+                                                  'waymo_infos_val.pkl'),
+                              target_hw=(64, 96), load_mode='cam_frame')
+            check(len(ds) == 5, f'waymo_cam (a): {len(ds)} camera samples')
+            flags = _no_tf32()
+            try:
+                per_dev = {}
+                for d in ('cpu', dev):
+                    model = _live_weights(init_weights(mono_model(mc)), 11,
+                                          3.0).to(d).eval()
+                    per_cam = []
+                    for i in range(len(ds)):
+                        s = ds.get_sample(i)
+                        l2i = torch.from_numpy(s['lidar2img'][0, 0])
+                        img = torch.from_numpy(s['imgs'][0])
+                        with torch.inference_mode():
+                            det = model.predict(model(img.to(d)), (64, 96),
+                                                l2i[None].to(d))
+                        per_cam.append(_mono_dets(det)[0])
+                    per_dev[d] = per_cam
+                n_det, worst = _mv_dets_agree('waymo_cam (a)', per_dev[dev],
+                                              per_dev['cpu'], MONO_DET_TOL)
+                merged = {d: ds.merge_multi_view_boxes([
+                    dict(boxes3d=r['boxes_3d'], scores=r['scores_3d'],
+                         labels=r['labels_3d']) for r in per_dev[d]])
+                    for d in per_dev}
+                check(np.array_equal(merged[dev]['labels'],
+                                     merged['cpu']['labels']) and
+                      np.allclose(merged[dev]['boxes3d'],
+                                  merged['cpu']['boxes3d'], atol=1e-3,
+                                  rtol=1e-3),
+                      'waymo_cam (a): the merges differ')
+            finally:
+                _set_tf32(flags)
+            print(f'waymo_cam (a) tiny PGD on the 5 cam_frame samples of a '
+                  f'frame (64x96), f32, TF32 off, card vs CPU: {n_det} '
+                  f'detections, scores / boxes off by at most '
+                  f'{worst[0]:.3g} / {worst[1]:.3g}; merged '
+                  f'{len(merged[dev]["labels"])} boxes on both', flush=True)
+            # (b) the full PGD-Waymo request at 1280x1920
+            path = configs[WAYMO_CAM_CONFIGS[1]]
+            lc = load_config(path)
+            hw = tuple(lc.data.input_size)
+            cfg = build_detector(lc.model)
+            ds = WaymoDataset(full, os.path.join(full, 'waymo_infos_val.pkl'),
+                              target_hw=hw, load_mode='cam_frame')
+            samples = [ds.get_sample(i) for i in range(len(ds))]
+            for dtype in (torch.bfloat16, torch.float32):
+                h = init_mono_model(cfg, mono_backbone_depth(lc.model), dtype)
+                model = _live_weights(h['model'], 12, 3.0)
+                img = torch.from_numpy(samples[0]['imgs'][0]).to(dev)
+                cam = torch.from_numpy(samples[0]['lidar2img'][0]).to(dev)
+                stages = [('trunk + FPN', lambda _: model.features(img)),
+                          ('head', lambda f: model.bbox_head(f)),
+                          ('predict', lambda o: model.predict(o, hw, cam))]
+                ms, st, peak, det = _request_times(
+                    lambda: h['infer'](img, cam), stages, 'waymo_cam (b)')
+                per_cam = []
+                for s in samples:
+                    det = h['infer'](torch.from_numpy(s['imgs'][0]).to(dev),
+                                     torch.from_numpy(s['lidar2img'][0]).to(
+                                         dev))
+                    _finite_dets(det, 'waymo_cam (b)')
+                    d0 = _mono_dets(det)[0]
+                    per_cam.append(dict(boxes3d=d0['boxes_3d'],
+                                        scores=d0['scores_3d'],
+                                        labels=d0['labels_3d']))
+                t0 = time.perf_counter()
+                merged = ds.merge_multi_view_boxes(per_cam)
+                merge_ms = (time.perf_counter() - t0) * 1e3
+                tf32 = '' if dtype == torch.bfloat16 else \
+                    ' (TF32 as PyTorch has it)'
+                print(_stage_line(
+                    f'waymo_cam (b) {WAYMO_CAM_CONFIGS[1]} {str(dtype)[6:]}'
+                    f'{tf32}, one camera 1 x {hw[0]}x{hw[1]} (its lidar2img '
+                    'as the projection)', ms, st, peak)
+                    + f'; the 5 cameras\' merge (host) {merge_ms:.1f} ms, '
+                    f'{sum(len(r["scores"]) for r in per_cam)} -> '
+                    f'{len(merged["scores"])} boxes', flush=True)
+                del h, model
+                gc.collect()
+                torch.cuda.empty_cache()
+            cli = _finish(procs)
+            for c in configs:
+                r, syn = cli[f'refused {c}'], cli[f'synthetic {c}']
+                check(r.returncode == 2 and 'max pool' in r.stderr,
+                      f'waymo_cam (c) {c}: rc {r.returncode} '
+                      f'{r.stderr[-500:]}')
+                check(syn.returncode == 0 and 'finite=True' in syn.stdout,
+                      f'waymo_cam (c) {c} --synthetic: {syn.stderr[-2000:]}')
+            print('waymo_cam (c) tools.test refuses both PGD-Waymo configs '
+                  'on a Waymo tree (rc 2, the reason named) and decodes '
+                  'them with --synthetic', flush=True)
+            d = cli['demo']
+            check(d.returncode == 0, f'waymo_cam (d) demo: '
+                  f'{d.stderr[-3000:]}')
+            n = int(re.search(r'^(\d+) detections', d.stdout, re.M).group(1))
+            vis = read_png(demo_png)
+            check(vis is not None and vis.shape == NUS_HW + (3,) and n > 0,
+                  f'waymo_cam (d) demo: {n} detections, image '
+                  f'{None if vis is None else vis.shape}')
+            drawn = int(np.all(vis == (0, 255, 0), -1).sum())
+            print(f'waymo_cam (d) the mono demo (FCOS3D R101, bf16, live '
+                  f'checkpoint) on the 1600x900 fixture JPEG: {n} '
+                  f'detections, {drawn} pixels drawn, its PNG read back',
+                  flush=True)
+        finally:
+            _kill(procs)
+    print(f'waymo_cam phase {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+
+
+def phase14_alone(dev='cuda'):
+    """Phase 14 without the others (no kernel built: the path has none):
+    `python3 -c "import chip_smoke; chip_smoke.phase14_alone()"`."""
+    imvoxel_phase(dev)
+
+
+def phase15_alone(dev='cuda'):
+    """Phase 15 without the others (no kernel built):
+    `python3 -c "import chip_smoke; chip_smoke.phase15_alone()"`."""
+    nuscenes_phase(dev)
+
+
+def phase16_alone(dev='cuda'):
+    """Phase 16 without the others (no kernel built):
+    `python3 -c "import chip_smoke; chip_smoke.phase16_alone()"`."""
+    waymo_cam_phase(dev)
+
+
 def phase13_alone(dev='cuda'):
     """Phase 13 without the others (no kernel built: the path has none):
     `python3 -c "import chip_smoke; chip_smoke.phase13_alone()"`."""
@@ -5132,6 +5774,9 @@ def main():
         temporal_phase(dev, trees)
     mono_phase(dev)
     dla_phase(dev)
+    imvoxel_phase(dev)
+    nuscenes_phase(dev)
+    waymo_cam_phase(dev)
 
     print(json.dumps({'kernels': list(results.values())}))
     print(card)

@@ -1,8 +1,9 @@
 """Inference entry points. Port of `dfm_tpu/apis.py:18-217` (with the
 mono family's `init_mono_model` / `inference_mono_3d`: FCOS3D, PGD, SMOKE
 and MonoFlex),
-and MultiViewDfM's (`init_mvdfm_model`, `detect_multiview_sample`,
-`multihost_multiview_inference`).
+MultiViewDfM's (`init_mvdfm_model`, `detect_multiview_sample`,
+`multihost_multiview_inference`) and ImVoxelNet's
+(`init_imvoxelnet_model`).
 
 They run on the CUDA card by default and raise when there is none; the
 CPU is used only when the caller passes device='cpu'. Weights are
@@ -36,6 +37,8 @@ from .data.pipeline import normalize_image
 from .evaluation.results import detections_to_kitti_annos
 from .models.builder import mono_class
 from .models.detectors.dfm import DfM, DfMConfig, dfm_predict
+from .models.detectors.imvoxelnet import (ImVoxelNet, ImVoxelNetConfig,
+                                          imvoxelnet_predict)
 from .models.heads.fcos_mono3d import FCOS3DConfig, pad44
 from .models.detectors.multiview_dfm import (MultiViewDfM, MVDfMConfig,
                                              mvdfm_predict)
@@ -46,7 +49,8 @@ __all__ = ['init_dfm_model', 'init_dfm_stream', 'detect_sample',
            'inference_dfm', 'dataset_inference',
            'multihost_dataset_inference', 'allgather_pickled',
            'init_mvdfm_model', 'detect_multiview_sample',
-           'multihost_multiview_inference', 'init_mono_model',
+           'multihost_multiview_inference', 'init_imvoxelnet_model',
+           'init_mono_model',
            'inference_mono_3d', 'detect_mono']
 
 
@@ -237,6 +241,31 @@ def multihost_multiview_inference(handle, dataset, max_samples=None):
         handle, dataset.get_sample(i)))
 
 
+def init_imvoxelnet_model(cfg=None, dtype=torch.bfloat16, device=None):
+    """Build an ImVoxelNet model (seeded random weights) and its
+    inference function.
+
+    Returns dict(model, cfg, device, infer, load_checkpoint) with
+    infer(imgs (B, H, W, 3) normalised, lidar2img (B, 4, 4)) -> padded
+    detections in the lidar frame ('boxes3d' bottom-centre, 'scores',
+    'labels', 'mask') and load_checkpoint(path) -> the keys of a
+    checkpoint in the port's layout that it did not take.
+    """
+    cfg = cfg or ImVoxelNetConfig()
+    device = _device(device)
+    with torch.device('meta'):
+        model = ImVoxelNet(cfg, dtype=dtype)
+    model = init_weights(model.to_empty(device=device)).eval()
+
+    @torch.inference_mode()
+    def infer(imgs, lidar2img):
+        return imvoxelnet_predict(model(imgs, lidar2img), cfg)
+
+    return dict(model=model, cfg=cfg, device=device, infer=infer,
+                load_checkpoint=lambda path: load_reference_checkpoint(
+                    model, path))
+
+
 def init_mono_model(cfg=None, backbone_depth=None, dtype=torch.bfloat16,
                     device=None):
     """Build an FCOS3D (`FCOS3DConfig`, the default), a PGD (`PGDConfig`),
@@ -286,8 +315,10 @@ def inference_mono_3d(handle, image, cam2img):
 
 
 def detect_mono(handle, img, cam2img):
-    """`inference_mono_3d` of an image already normalised
-    (`data/kitti_mono.py:load_mono_image`), the detections moved to the
-    host as numpy arrays (the move waits for the device)."""
+    """`inference_mono_3d` of an image as the model takes it: normalised
+    (`data/kitti_mono.py:load_mono_image`), or raw as the nuScenes
+    evaluation gives it (`tools/test.py:nuscenes_mono_eval`); the
+    detections moved to the host as numpy arrays (the move waits for the
+    device)."""
     return {k: v[0].cpu().numpy()
             for k, v in _infer_mono(handle, img, cam2img).items()}

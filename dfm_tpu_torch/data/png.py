@@ -19,6 +19,10 @@ anti-diagonals: pixel (r, x) needs only pixels (r, x-1), (r-1, x) and
 (r-1, x-1), which lie on the previous two diagonals r + x - 1 and
 r + x - 2, so each of the H + W - 1 diagonals is one vectorised step
 over up to H pixels, whatever filter each row uses.
+
+`png_bytes` / `write_png` write an 8-bit RGB PNG of a BGR image, each
+row r stored with filter r % 5, so that a reader's five branches all
+run (the demo's output, the synthetic KITTI and Waymo trees).
 """
 
 import struct
@@ -26,7 +30,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ['read_png', 'png_shape', 'unfilter']
+__all__ = ['read_png', 'png_shape', 'unfilter', 'png_bytes', 'write_png']
 
 SIGNATURE = b'\x89PNG\r\n\x1a\n'
 CHANNELS = {0: 1, 2: 3, 6: 4}      # colour type -> bytes per pixel
@@ -147,3 +151,35 @@ def read_png(path):
     if bpp == 1:
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[..., 2::-1])
+
+
+def png_bytes(img_bgr):
+    """An 8-bit RGB PNG of (H, W, 3) uint8 BGR, row r stored with filter
+    r % 5 (None, Sub, Up, Average, Paeth)."""
+    h, w, _ = img_bgr.shape
+    raw = np.ascontiguousarray(img_bgr[..., ::-1]).reshape(h, w * 3)
+    raw = raw.astype(np.int16)
+    a = np.zeros_like(raw)
+    a[:, 3:] = raw[:, :-3]
+    b = np.zeros_like(raw)
+    b[1:] = raw[:-1]
+    c = np.zeros_like(raw)
+    c[1:, 3:] = raw[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kind = (np.arange(h) % 5)[:, None]
+    filtered = (raw - np.choose(kind, (0, a, b, (a + b) >> 1, paeth))) & 0xFF
+    data = np.concatenate([kind, filtered], 1).astype(np.uint8).tobytes()
+
+    def chunk(tag, body):
+        return (len(body).to_bytes(4, 'big') + tag + body
+                + zlib.crc32(tag + body).to_bytes(4, 'big'))
+    ihdr = w.to_bytes(4, 'big') + h.to_bytes(4, 'big') + bytes((8, 2, 0, 0, 0))
+    return (SIGNATURE + chunk(b'IHDR', ihdr)
+            + chunk(b'IDAT', zlib.compress(data, 6)) + chunk(b'IEND', b''))
+
+
+def write_png(path, img_bgr):
+    """Write (H, W, 3) uint8 BGR to `path` as `png_bytes` encodes it."""
+    with open(path, 'wb') as f:
+        f.write(png_bytes(img_bgr))

@@ -8,7 +8,7 @@ Port of `dfm_tpu/models/builder.py:28-106` (`_mk_cfg`, `_build_dfm`,
 `FCOSMono3D` `FCOS3DConfig`, `PGD` `PGDConfig` (their ResNet's depth is the
 config's `backbone_depth`, 101 where it has none: `mono_backbone_depth`,
 which `mono_model` builds with), `SMOKEMono3D` `SMOKEConfig` and `MonoFlex`
-`MonoFlexConfig` (DLA-34, depth 34).
+`MonoFlexConfig` (DLA-34, depth 34), `ImVoxelNet` `ImVoxelNetConfig`.
 DfM and DfMFull evaluate the DfM student alone, so `build_detector`
 gives the student's config for both; `atss_config` gives DfMFull's 2D
 head its config from the model's `atss` entry, and the train CLI
@@ -19,7 +19,7 @@ from `teacher_checkpoint`. For DfM and DfMFull, keys that are no field of
 DfMFull's `atss` and `teacher_checkpoint`, which only training reads).
 For the mono types `unused_keys` names the type alone in the repo's
 configs (every other key is a field, or `backbone_depth`). The first type
-of the JAX builder's registry that the port does not run is `ImVoxelNet`. A
+of the JAX builder's registry that the port does not run is `VoxelNet`. A
 `MultiViewDfM` config with a key that is no field of `MVDfMConfig` is
 refused (ValueError).
 """
@@ -28,6 +28,7 @@ import dataclasses
 
 from .detectors.dfm import DfMConfig
 from .detectors.fcos_mono3d import FCOSMono3D
+from .detectors.imvoxelnet import ImVoxelNetConfig
 from .detectors.monoflex import MonoFlex
 from .detectors.multiview_dfm import MVDfMConfig
 from .detectors.pgd_mono3d import PGDMono3D
@@ -43,8 +44,9 @@ __all__ = ['build_detector', 'atss_config', 'unused_keys', 'PORTED_TYPES',
 
 DLA_TYPES = ('SMOKEMono3D', 'MonoFlex')
 MONO_TYPES = ('FCOSMono3D', 'PGD') + DLA_TYPES
-PORTED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM') + MONO_TYPES
-_CONFIG_CLASSES = {'MultiViewDfM': MVDfMConfig, 'FCOSMono3D': FCOS3DConfig,
+PORTED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM', 'ImVoxelNet') + MONO_TYPES
+_CONFIG_CLASSES = {'MultiViewDfM': MVDfMConfig, 'ImVoxelNet': ImVoxelNetConfig,
+                   'FCOSMono3D': FCOS3DConfig,
                    'PGD': PGDConfig, 'SMOKEMono3D': SMOKEConfig,
                    'MonoFlex': MonoFlexConfig}
 _MONO_MODELS = {FCOS3DConfig: FCOSMono3D, PGDConfig: PGDMono3D,
@@ -87,7 +89,8 @@ def unused_keys(model_cfg):
 
 def build_detector(model_cfg):
     """`model_cfg` (a dict or `Config` with a `type`) -> `DfMConfig`,
-    `MVDfMConfig` for MultiViewDfM, `FCOS3DConfig` / `PGDConfig` /
+    `MVDfMConfig` for MultiViewDfM, `ImVoxelNetConfig` for ImVoxelNet,
+    `FCOS3DConfig` / `PGDConfig` /
     `SMOKEConfig` / `MonoFlexConfig` for FCOSMono3D / PGD / SMOKEMono3D /
     MonoFlex. Raises NotImplementedError for a type
     the port does not run, ValueError for a MultiViewDfM key that is no

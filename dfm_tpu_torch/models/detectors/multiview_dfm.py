@@ -34,7 +34,6 @@ map; or the CenterHead's loss.
 """
 
 import dataclasses
-import functools
 from typing import Tuple
 
 import numpy as np
@@ -42,10 +41,6 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
-from ...core.anchors import (AlignedAnchor3DRangeGenerator,
-                             Anchor3DRangeGenerator)
-from ...core.transforms import transform_points
-from ...ops.point_sample import point_sample
 from ...ops.voxel_sample import voxel_sample
 from ..backbones.resnet import ResNet, stage_channels
 from ..heads.anchor3d_head import (LIGAAnchor3DHead,
@@ -58,13 +53,14 @@ from ..layers import Conv, ConvNorm
 from ..necks.dfm_neck import DfMNeck
 from ..necks.fpn import FPN
 from ..necks.imvoxel_neck import OutdoorImVoxelNeck, ResModule3D
+from ..voxel_lift import VoxelGridConfig, sample_scales, view_sample
 
 __all__ = ['MVDfMConfig', 'MultiViewDfM', 'center_config', 'mvdfm_loss',
            'mvdfm_predict']
 
 
 @dataclasses.dataclass(frozen=True)
-class MVDfMConfig:
+class MVDfMConfig(VoxelGridConfig):
     """Fields and defaults of the JAX `MVDfMConfig` (the camsync
     config's values where it sets them)."""
     num_classes: int = 3
@@ -101,20 +97,6 @@ class MVDfMConfig:
     score_thr: float = 0.1
     nms_thr: float = 0.25
     max_num: int = 500
-
-    def sample_points(self):
-        """(Nz, Ny, Nx, 3) float32 sample-grid centres (x, y, z)."""
-        gen = AlignedAnchor3DRangeGenerator(
-            ranges=[list(self.voxel_range)], sizes=[[1, 1, 1]],
-            rotations=[0.0])
-        a = gen.anchors_single_range(self.voxel_grid, self.voxel_range,
-                                     [1, 1, 1])
-        return a[:, :, :, 0, 0, :3]
-
-    def anchor_generator(self):
-        return Anchor3DRangeGenerator(
-            ranges=list(self.anchor_ranges), sizes=list(self.anchor_sizes),
-            rotations=list(self.anchor_rotations))
 
     @property
     def volume_channels(self):
@@ -178,7 +160,6 @@ class MultiViewDfM(nn.Module):
                 cfg.num_classes, 256, 256,
                 len(cfg.anchor_sizes) * len(cfg.anchor_rotations),
                 num_convs=0, norm='none')
-        self._points = {}
 
     def image_features(self, imgs):
         """(B, F, V, H, W, 3) normalised images -> the FPN's level 0,
@@ -190,14 +171,6 @@ class MultiViewDfM(nn.Module):
         if f > 1:
             feat0 = torch.cat([feat0[:, :1], feat0[:, 1:].detach()], 1)
         return feat0
-
-    def grid_points(self, device):
-        """The sample points, (Nz * Ny * Nx, 3) float32 on `device`."""
-        key = str(device)
-        if key not in self._points:
-            self._points[key] = torch.as_tensor(
-                self.cfg.sample_points().reshape(-1, 3), device=device)
-        return self._points[key]
 
     def sample_volume(self, feat0, lidar2img, img_hw):
         """Level-0 features (B, F, V, C, fh, fw) and lidar2img (B, F, V,
@@ -212,14 +185,10 @@ class MultiViewDfM(nn.Module):
         if concat and f != self.cfg.num_frames:
             raise ValueError(f"MultiViewDfM with frame_fusion='concat' "
                              f'takes {self.cfg.num_frames} frames, got {f}')
-        h, w = img_hw
-        pts = self.grid_points(feat0.device)
+        pts = self.cfg.grid_points(feat0.device)
         if feat0.dtype == torch.float64:
             pts = pts.double()
-        # true divisions by tensors (a CUDA tensor divided by a Python
-        # number is multiplied by its reciprocal)
-        img_max = pts.new_tensor([w - 1, h - 1])
-        feat_max = pts.new_tensor([fw - 1, fh - 1])
+        img_max, feat_max = sample_scales(pts, img_hw, (fh, fw))
         vols = []
         for bi in range(b):
             frames = []
@@ -227,14 +196,10 @@ class MultiViewDfM(nn.Module):
                 acc = pts.new_zeros(c, pts.shape[0])
                 count = pts.new_zeros(pts.shape[0])
                 for vi in range(v):
-                    uvw = transform_points(pts, lidar2img[bi, fi, vi].to(
-                        pts.dtype))
-                    depth = uvw[:, 2]
-                    uv = uvw[:, :2] / depth.abs().clamp(min=1e-5)[:, None]
-                    valid = ((depth > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < w)
-                             & (uv[:, 1] >= 0) & (uv[:, 1] < h))
-                    coords = uv / img_max * feat_max
-                    acc += point_sample(feat0[bi, fi, vi], coords, valid)
+                    feat, valid = view_sample(
+                        feat0[bi, fi, vi], pts, lidar2img[bi, fi, vi],
+                        img_hw, img_max, feat_max)
+                    acc += feat
                     count += valid
                 frames.append(acc / count.clamp(min=1.0))
             if concat:
@@ -316,21 +281,6 @@ class MultiViewDfM(nn.Module):
         return out
 
 
-@functools.lru_cache(maxsize=4)
-def _flat_anchors(ranges, sizes, rotations, ny, nx, device):
-    grid = Anchor3DRangeGenerator(list(ranges), list(sizes),
-                                  list(rotations)).grid_anchors((ny, nx))
-    return torch.as_tensor(grid.reshape(-1, 7), device=device)
-
-
-def mvdfm_anchors_per_class(cfg: MVDfMConfig, featmap_size, device):
-    """The (Ny * Nx * R, 7) anchors of each class in the head's (y, x,
-    rot) order (`_mv_anchors`)."""
-    grid = cfg.anchor_generator().grid_anchors(tuple(featmap_size))
-    return [torch.as_tensor(grid[0, :, :, c].reshape(-1, 7), device=device)
-            for c in range(len(cfg.anchor_sizes))]
-
-
 def mvdfm_loss(outputs, gt, cfg: MVDfMConfig, generator=None,
                pix_idx=None):
     """JAX's `mvdfm_loss` (`multiview_dfm.py:264-303`).
@@ -362,7 +312,7 @@ def mvdfm_loss(outputs, gt, cfg: MVDfMConfig, generator=None,
     ny, nx = outputs['cls_score'].shape[1:3]
     losses = anchor3d_head_loss(
         (outputs['cls_score'], outputs['bbox_pred'], outputs['dir_pred']),
-        mvdfm_anchors_per_class(cfg, (ny, nx), outputs['cls_score'].device),
+        cfg.anchors_per_class((ny, nx), outputs['cls_score'].device),
         gt['gt_boxes'], gt['gt_labels'], gt['gt_mask'],
         list(cfg.assigner_cfgs), num_classes=cfg.num_classes,
         dir_offset=cfg.dir_offset, loss_weights=(1.0, 2.0, 0.2, 0.0),
@@ -393,9 +343,7 @@ def mvdfm_predict(outputs, cfg: MVDfMConfig):
             return center_head_decode(outputs['task_outs'],
                                       center_config(cfg), cfg.center_tasks)
     ny, nx = outputs['cls_score'].shape[1:3]
-    anchors = _flat_anchors(cfg.anchor_ranges, cfg.anchor_sizes,
-                            cfg.anchor_rotations, ny, nx,
-                            str(outputs['cls_score'].device))
+    anchors = cfg.flat_anchors((ny, nx), outputs['cls_score'].device)
     with record_function('mvdfm.predict'):
         return anchor3d_head_get_bboxes(
             (outputs['cls_score'], outputs['bbox_pred'],

@@ -3,18 +3,18 @@ functions of the train step.
 
 Port of `dfm_tpu/runtime/adapters.py:41-117` (`_gt_pack`, `_cam_matrix`,
 `_dfm_meta`, `_dfm_synth`), `:149-241` (`_mono_synth` and the FCOS3D /
-PGD / SMOKE / MonoFlex adapters) and `:327-354` (`_mv_synth` and the
-MultiViewDfM model arguments): the same draws from
+PGD / SMOKE / MonoFlex adapters) and `:327-372` (`_mv_synth` and the
+MultiViewDfM / ImVoxelNet model arguments): the same draws from
 `np.random.default_rng(seed)` in the same order, so that one seed gives
 both packages the same batch. A batch is numpy, batched, in the JAX
 layout: for DfM 'img' (B, 2, H, W, 3), 'meta' (the `BatchMeta` fields),
 the gt keys and, with `full`, DfMFull's teacher points and 2D targets;
 for MultiViewDfM 'img' (B, F, V, H, W, 3), 'lidar2img' (B, F, V, 4, 4)
-and the gt boxes; for the mono types 'img' (B, H, W, 3), 'cam2img' (B, 4,
-4) and the camera-frame gt (MonoFlex's with `kpts2d` and `gt_alphas`).
-`to_device` / `mv_to_device` /
-`mono_to_device` make the model's inputs of it (`TrainStep`'s (inputs,
-cond, gt)), as JAX's `model_args_fn`.
+and the gt boxes (ImVoxelNet's without the F and V axes); for the mono
+types 'img' (B, H, W, 3), 'cam2img' (B, 4, 4) and the camera-frame gt
+(MonoFlex's with `kpts2d` and `gt_alphas`). `to_device` /
+`mv_to_device` / `mono_to_device` make the model's inputs of it
+(`TrainStep`'s (inputs, cond, gt)), as JAX's `model_args_fn`.
 """
 
 import numpy as np
@@ -24,7 +24,8 @@ from ..data.collate import FULL_KEYS, GT_KEYS
 from ..models.detectors.dfm import BatchMeta
 
 __all__ = ['dfm_meta', 'dfm_synth', 'to_device', 'gt_pack', 'mv_synth',
-           'mv_to_device', 'mono_synth', 'mono_to_device', 'MONO_GT_KEYS']
+           'imvoxel_synth', 'mv_to_device', 'mono_synth', 'mono_to_device',
+           'MONO_GT_KEYS']
 
 MONO_GT_KEYS = ('gt_bboxes2d', 'centers2d', 'gt_depths', 'gt_boxes_cam',
                 'gt_labels', 'gt_mask', 'gt_velocities', 'gt_attr_labels',
@@ -146,6 +147,15 @@ def mv_synth(cfg, b, seed, h=32, w=48, n_views=2, frames=None):
     return dict(img=img, lidar2img=l2i,
                 gt_boxes=np.concatenate([ctr, boxes[..., 3:]], -1),
                 gt_labels=labels, gt_mask=mask)
+
+
+def imvoxel_synth(cfg, b, seed, h=32, w=48):
+    """`_mv_synth`'s ImVoxelNet branch: `mv_synth`'s draws for one view of
+    one frame (the same normals in the same order), the image (B, H, W,
+    3) and lidar2img (B, 4, 4) without the frame and view axes."""
+    batch = mv_synth(cfg, b, seed, h, w, n_views=1, frames=1)
+    return dict(batch, img=batch['img'][:, 0, 0],
+                lidar2img=batch['lidar2img'][:, 0, 0])
 
 
 def mv_to_device(batch, device):

@@ -1,5 +1,6 @@
-"""Evaluation of a DfM or mono (FCOS3D, PGD, SMOKE) config on KITTI, or of
-a MultiViewDfM config on Waymo, with the port.
+"""Evaluation of a DfM or mono (FCOS3D, PGD, SMOKE) config on KITTI, of a
+MultiViewDfM config on Waymo, or of FCOS3D / PGD on nuScenes-mono, with the
+port.
 
     python -m dfm_tpu_torch.tools.test CONFIG \\
         [--checkpoint X.pth] [--cfg-options key=value ...] \\
@@ -41,18 +42,29 @@ KITTI mono (FCOSMono3D, PGD, SMOKEMono3D; data type 'KittiMono'), as
 such as the train CLI's) -> padded camera-frame detections -> KITTI annos
 with the 2D boxes projected by the original image's P2
 (`cam_detections_to_kitti_annos`) -> `kitti_eval`, the same AP lines.
-MonoFlex has no real-data evaluation in either package (JAX falls back to
-a synthetic batch): it runs with `--synthetic` only, and exits 2 saying so
-without it.
+MonoFlex and ImVoxelNet have no real-data evaluation in either package
+(JAX falls back to a synthetic batch): they run with `--synthetic` only,
+and exit 2 saying so without it.
+
+nuScenes-mono (FCOSMono3D, PGD; data type 'NuScenesMonoDataset'), as
+`tools/test.py:348-404, 549-551` route it: `data.ann_file` (default
+`nuscenes_infos_mono_val.pkl`) under `data.data_root` ->
+`data/nuscenes.py:NuScenesMonoDataset` (JPEG or PNG images, the raw BGR
+image into the model, neither normalised nor resized, as JAX's CLI gives
+it) -> the kept camera-frame boxes with their velocity (zeros without
+one) and attributes -> `nuscenes_detection_metrics`, printing every AP,
+the five TP errors, mAP and NDS. A mono model on a 'WaymoDataset' (the
+PGD-Waymo configs) exits 2 naming the reason: JAX's route for it fails
+(tests/test_torch_waymo_cam.py).
 
 `--fuse-conv-bn` folds every BatchNorm into the convolution before it
 after the weights are loaded (`utils/fuse_conv_bn.py`; DfM's GroupNorm
 trunks keep their norms; DLA's convs, its neck's DCNv2 and MonoFlex's
 edge-fusion 1D convs fold too). `--synthetic` needs no data: one forward
 and decode of a batch of one from the train adapters' synthetic batches
-(`runtime/adapters.py`: `dfm_synth`, `mv_synth`, `mono_synth`), for every
-ported type; it prints the decoded arrays' shapes and whether they are
-finite, and exits 1 when one is not.
+(`runtime/adapters.py`: `dfm_synth`, `mv_synth`, `imvoxel_synth`,
+`mono_synth`), for every ported type; it prints the decoded arrays'
+shapes and whether they are finite, and exits 1 when one is not.
 
 Another model type, or a data root without its info file, exits with a
 message and code 2. Runs on the CUDA card unless `--device cpu`, in
@@ -75,11 +87,12 @@ import numpy as np
 import torch
 
 from ..apis import (_sharded, detect_mono, detect_multiview_sample,
-                    detect_sample, init_dfm_model, init_mono_model,
-                    init_mvdfm_model)
+                    detect_sample, init_dfm_model, init_imvoxelnet_model,
+                    init_mono_model, init_mvdfm_model)
 from ..data.kitti import KittiDataset
 from ..data.kitti_mono import (KittiMonoDataset, load_mono_image,
                                mono_info_from_native)
+from ..data.nuscenes import NuScenesMonoDataset
 from ..data.waymo import WaymoDataset, frames_per_sample
 from ..evaluation.kitti_eval import kitti_eval
 from ..evaluation.results import (cam_detections_to_kitti_annos,
@@ -88,14 +101,16 @@ from ..evaluation.waymo_eval import gt_annos_to_bin, gt_objects_from_infos
 from ..models.builder import (MONO_TYPES, build_detector,
                               mono_backbone_depth, unused_keys)
 from ..parallel import dist as D
-from ..runtime.adapters import (dfm_synth, mono_synth, mono_to_device,
-                                mv_synth, mv_to_device, to_device)
+from ..runtime.adapters import (dfm_synth, imvoxel_synth, mono_synth,
+                                mono_to_device, mv_synth, mv_to_device,
+                                to_device)
 from ..runtime.config import load_config, merge_options
 from ..utils.fuse_conv_bn import fuse_conv_bn
 from ..utils.weights import load_reference_state_dict, read_checkpoint
 
 INFO_FILE = 'kitti_infos_val.pkl'
 WAYMO_INFO_FILE = 'waymo_infos_val.pkl'
+NUS_INFO_FILE = 'nuscenes_infos_mono_val.pkl'
 
 
 def parse_args(argv=None):
@@ -136,6 +151,8 @@ def init_handle(args, cfg):
     dtype = getattr(torch, args.dtype)
     if kind == 'MultiViewDfM':
         handle = init_mvdfm_model(mcfg, dtype, args.device)
+    elif kind == 'ImVoxelNet':
+        handle = init_imvoxelnet_model(mcfg, dtype, args.device)
     elif kind in MONO_TYPES:
         handle = init_mono_model(mcfg, mono_backbone_depth(cfg.model), dtype,
                                  args.device)
@@ -252,13 +269,57 @@ def kitti_mono_eval(args, cfg):
     return None
 
 
+def nuscenes_mono_eval(args, cfg):
+    """Build -> load -> infer each image -> NDS metrics
+    (`tools/test.py:348-404`, `nuscenes_real_eval`): each raw image goes
+    to the model as JAX's CLI gives it, neither normalised nor resized;
+    the kept boxes get their predicted velocity (zeros for a model
+    without one) as columns 7-8."""
+    handle = init_handle(args, cfg)
+    print(f'[model] {cfg.model.type} on {handle["device"]}; config keys '
+          f'not used at inference: {unused_keys(cfg.model)}', flush=True)
+    d = cfg.data
+    ds = NuScenesMonoDataset(d.data_root, d.get('ann_file', NUS_INFO_FILE),
+                             max_gt=d.get('max_gt', 48))
+    n = min(len(ds), args.max_samples or len(ds))
+
+    def infer(i):
+        s = ds.get_sample(i)
+        det = detect_mono(handle, s['img'].astype(np.float32), s['cam2img'])
+        m = det['mask'].astype(bool)
+        boxes = det['boxes3d'][m]
+        velo = det['velocity'][m][:, :2] if 'velocity' in det else \
+            np.zeros((len(boxes), 2), boxes.dtype)
+        print(f'[{i + 1}/{n}] dets={int(m.sum())}', flush=True)
+        return dict(boxes=np.concatenate([boxes, velo.astype(boxes.dtype)],
+                                         -1),
+                    scores=det['scores'][m], labels=det['labels'][m],
+                    attrs=det['attrs'][m] if 'attrs' in det else None)
+
+    results = _sharded(n, infer)
+    if not D.is_main():
+        return None
+    if args.out:
+        with open(args.out, 'wb') as f:
+            pickle.dump(results, f)
+    if args.eval == 'none':
+        return None
+    ds.infos = ds.infos[:n]
+    res = ds.evaluate(results)
+    for k in sorted(res):
+        if isinstance(res[k], float):
+            print(f'{k}: {res[k]:.4f}')
+    return res
+
+
 def synthetic_eval(args, cfg):
     """One forward + decode of a synthetic batch of one (JAX's
     `synthetic_eval`); 1 when an output is not finite."""
     handle = init_handle(args, cfg)
     kind, mcfg, dev = cfg.model.type, handle['cfg'], handle['device']
-    if kind == 'MultiViewDfM':
-        imgs, l2i, _ = mv_to_device(mv_synth(mcfg, 1, 0), dev)
+    if kind in ('MultiViewDfM', 'ImVoxelNet'):
+        synth = mv_synth if kind == 'MultiViewDfM' else imvoxel_synth
+        imgs, l2i, _ = mv_to_device(synth(mcfg, 1, 0), dev)
         det = handle['infer'](imgs, l2i)
     elif kind in MONO_TYPES:
         img, cam2img, _ = mono_to_device(mono_synth(
@@ -336,14 +397,27 @@ def main(argv=None):
     root = cfg.data.get('data_root', '') if 'data' in cfg else ''
     if kind == 'MultiViewDfM':
         want, info, run = 'WaymoDataset', WAYMO_INFO_FILE, waymo_mvdfm_eval
+    elif kind in MONO_TYPES and data_type == 'NuScenesMonoDataset':
+        want, info, run = (data_type, cfg.data.get('ann_file', NUS_INFO_FILE),
+                           nuscenes_mono_eval)
     elif kind in MONO_TYPES:
         want, info, run = 'KittiMono', INFO_FILE, kitti_mono_eval
     else:
         want, info, run = 'KittiDataset', INFO_FILE, kitti_dfm_eval
     if args.synthetic:
         run = synthetic_eval
-    elif kind == 'MonoFlex':
-        print('[data] MonoFlex has no real-data evaluation (JAX wires none '
+    elif kind in MONO_TYPES and data_type == 'WaymoDataset':
+        print(f'[data] {kind} on WaymoDataset (load_mode '
+              f'{cfg.data.get("load_mode", "lidar_frame")!r}) is not '
+              'evaluated: JAX routes it to its multi-view Waymo evaluation, '
+              'which fails for a mono model (the (1, F, V, H, W, 3) image '
+              "stack reaches the (B, H, W, 3) model and the ResNet's max "
+              'pool raises; it would also merge no cameras and write '
+              'camera-frame boxes as vehicle-frame ones); --synthetic '
+              'decodes a synthetic batch', file=sys.stderr)
+        return 2
+    elif kind in ('MonoFlex', 'ImVoxelNet'):
+        print(f'[data] {kind} has no real-data evaluation (JAX wires none '
               'either); --synthetic decodes a synthetic batch',
               file=sys.stderr)
         return 2

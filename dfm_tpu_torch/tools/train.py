@@ -1,5 +1,6 @@
-"""Train DfM, DfMFull, MultiViewDfM, FCOSMono3D, PGD, SMOKEMono3D or
-MonoFlex with the port, in one process or data-parallel across processes.
+"""Train DfM, DfMFull, MultiViewDfM, ImVoxelNet, FCOSMono3D, PGD,
+SMOKEMono3D or MonoFlex with the port, in one process or data-parallel
+across processes.
 
     python -m dfm_tpu_torch.tools.train configs/dfm_r34_kitti_3class.py \
         [--cfg-options key=value ...] [--work-dir W] [--auto-resume] \
@@ -13,7 +14,9 @@ Port of the DfM / DfMFull / MultiViewDfM / mono branches of
 with `--synthetic`, `SyntheticSource` (`runtime/adapters.py:dfm_synth`,
 the batch of step s drawn from seed + s, with teacher points and 2D
 targets for DfMFull; `mv_synth` for MultiViewDfM, which has no Waymo
-train source in either package and always trains on it); else
+train source in either package and always trains on it; `imvoxel_synth`
+for ImVoxelNet, which has no source in either package and exits 2 without
+`--synthetic`); else
 `kitti_infos_train.pkl` under `data.data_root`
 (`python -m dfm_tpu_torch.tools.create_data kitti --splits train val`
 writes it) -> `KittiDataset(train=True)` (flip, scale, crop and
@@ -24,8 +27,9 @@ banded form: the conv chain is inference-only): `DfM`, or `DfMFull`
 (the student under `dfm.`, the FPN + ATSS 2D head from the config's
 `atss`, the dense LiDAR teacher restored from `model.teacher_checkpoint`,
 a flax msgpack tree read by `utils/msgpack_tree.py`, where that file
-exists, and left out of the optimizer), or `MultiViewDfM` -> `TrainStep`
-(`dfm_loss`, `dfm_full_loss` or `mvdfm_loss`, the gradient clip at 35,
+exists, and left out of the optimizer), or `MultiViewDfM`, or
+`ImVoxelNet` -> `TrainStep` (`dfm_loss`, `dfm_full_loss`, `mvdfm_loss` or
+`imvoxelnet_loss`, the gradient clip at 35,
 AdamW under the config's LIGA schedule; the depth loss's pixels drawn
 from a device generator seeded from (seed, step)) ->
 `<work_dir>/ckpts/step_<n>.pth` (the port's state-dict layout, which
@@ -85,21 +89,24 @@ from ..models.builder import (MONO_TYPES, atss_config, build_detector,
                               mono_model)
 from ..models.detectors.dfm import DfM
 from ..models.detectors.dfm_full import DfMFull
+from ..models.detectors.imvoxelnet import ImVoxelNet
 from ..models.detectors.multiview_dfm import MultiViewDfM
 from ..models.heads.depth_head import sample_depth_pixels
 from ..parallel import dist as D
 from ..parallel.multihost import broadcast_seed
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.config import load_config, merge_options
-from ..runtime.adapters import (dfm_synth, mono_synth, mono_to_device,
-                                mv_synth, mv_to_device, to_device)
+from ..runtime.adapters import (dfm_synth, imvoxel_synth, mono_synth,
+                                mono_to_device, mv_synth, mv_to_device,
+                                to_device)
 from ..runtime.logging import MetricsLogger
 from ..runtime.schedule import liga_schedule
 from ..runtime.train import TrainStep, make_optimizer
 from ..utils.msgpack_tree import load_msgpack_tree
 from ..utils.weights import init_weights, teacher_state_dict
 
-TRAINED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM') + MONO_TYPES
+VOXEL_TYPES = ('MultiViewDfM', 'ImVoxelNet')
+TRAINED_TYPES = ('DfM', 'DfMFull') + VOXEL_TYPES + MONO_TYPES
 
 
 def parse_args(argv=None):
@@ -234,7 +241,8 @@ class SyntheticSource:
     `dfm_synth(cfg, batch_size, seed + s, full)` for DfM / DfMFull (32x64
     images, as JAX's adapter makes them; `full` for DfMFull),
     `mv_synth(cfg, batch_size, seed + s)` for MultiViewDfM (2 views of
-    32x48, `frames` frames: `data/waymo.py:frames_per_sample`), or
+    32x48, `frames` frames: `data/waymo.py:frames_per_sample`),
+    `imvoxel_synth` for ImVoxelNet (one 32x48 image), or
     `mono_synth(batch_size, seed + s)` for the mono types (64x96; PGD's
     with its keypoint keys, MonoFlex's with `kpts2d` and `gt_alphas`);
     `rng` is not drawn from. 16 steps an epoch."""
@@ -249,6 +257,8 @@ class SyntheticSource:
         if self.kind == 'MultiViewDfM':
             return mv_synth(self.cfg, self.batch_size, self.seed + step,
                             frames=self.frames)
+        if self.kind == 'ImVoxelNet':
+            return imvoxel_synth(self.cfg, self.batch_size, self.seed + step)
         if self.kind in MONO_TYPES:
             return mono_synth(self.batch_size, self.seed + step,
                               kpts=self.kind == 'PGD',
@@ -257,7 +267,7 @@ class SyntheticSource:
                          full=self.kind == 'DfMFull')
 
     def next_batch(self, step, rng, device):
-        to = mv_to_device if self.kind == 'MultiViewDfM' else \
+        to = mv_to_device if self.kind in VOXEL_TYPES else \
             mono_to_device if self.kind in MONO_TYPES else to_device
         return to(self.next_samples(step, rng), device)
 
@@ -337,6 +347,8 @@ def build_model(kind, cfg, mcfg, seed):
         model = mono_model(cfg.model)
     elif kind == 'MultiViewDfM':
         model = MultiViewDfM(mcfg)
+    elif kind == 'ImVoxelNet':
+        model = ImVoxelNet(mcfg)
     else:
         model = DfM(mcfg)
     return init_weights(model, seed)
@@ -357,6 +369,11 @@ def main(argv=None):
         print('[data] MonoFlex trains on synthetic batches only: no KITTI '
               'source gives its kpts2d / gt_alphas (JAX wires none either); '
               'pass --synthetic', file=sys.stderr)
+        return 2
+    if kind == 'ImVoxelNet' and not args.synthetic:
+        print('[data] ImVoxelNet trains on synthetic batches only: no data '
+              'source is wired for it (JAX wires none either); pass '
+              '--synthetic', file=sys.stderr)
         return 2
     want = 'KittiMono' if kind in MONO_TYPES else 'KittiDataset'
     if not args.synthetic and not multiview and (
@@ -403,7 +420,7 @@ def train(args, cfg, kind, d, device):
     if multiview and not args.synthetic:
         say('[data] no Waymo train source: MultiViewDfM trains on synthetic '
             'batches (pass --synthetic to silence)', flush=True)
-    if args.synthetic or multiview:
+    if args.synthetic or kind in VOXEL_TYPES:
         source = SyntheticSource(
             mcfg, batch_size, seed, kind,
             frames_per_sample(d, mcfg) if multiview else 1)

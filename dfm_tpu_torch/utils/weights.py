@@ -33,6 +33,7 @@ from ..models.heads.center_head import HEATMAP_BIAS
 from ..models.heads.monoflex import BRANCHES, MonoFlexConfig
 
 __all__ = ['dfm_key_map', 'dfm_full_key_map', 'mvdfm_key_map',
+           'imvoxelnet_key_map',
            'center_head_key_map', 'mono_key_map', 'fcos3d_head_key_map',
            'resnet_key_map', 'dla_key_map', 'dla_neck_key_map',
            'dla_mono_key_map', 'state_dict_from_jax',
@@ -307,10 +308,7 @@ def mvdfm_key_map(depth=101, cfg=None):
     (`cfg.backbone_depth` is not read)."""
     from ..models.detectors.multiview_dfm import MVDfMConfig, center_config
     cfg = cfg or MVDfMConfig()
-    m = resnet_key_map('backbone', ('backbone',), depth)
-    for i in range(4):
-        m += [(f'neck.lateral{i}', ('neck', f'lateral{i}'), 'conv2d'),
-              (f'neck.fpn_conv{i}', ('neck', f'fpn_conv{i}'), 'conv2d')]
+    m = _resnet_fpn(depth)
     if cfg.with_backbone_3d:
         for i in range(cfg.num_backbone_3d_blocks):
             for j in range(2):
@@ -320,8 +318,8 @@ def mvdfm_key_map(depth=101, cfg=None):
     if cfg.with_depth_head:
         m += _convnorm('depth_pred.0', ('depth_pred', 'ConvNorm_0'), 3)
         m += [('depth_pred.1', ('depth_pred', 'Conv_0'), 'conv3d')]
-    n = ('neck_3d',)
     if cfg.neck_3d == 'dfm':
+        n = ('neck_3d',)
         for bn, tag in enumerate(('mono', 'stereo')):
             for i in range(3):
                 for j in range(2):
@@ -337,19 +335,49 @@ def mvdfm_key_map(depth=101, cfg=None):
         m += [('neck_3d.aggregate_layer', n + ('aggregate_layer',),
                'conv2d')]
     else:
-        for i in range(3):
-            for j in range(2):
-                m += _convnorm(f'neck_3d.res{i}.conv{j}',
-                               n + (f'res{i}', f'ConvNorm_{j}'), 3, 'bn')
-            m += _convnorm(f'neck_3d.down{i}', n + (f'down{i}',), 3, 'bn')
-    h = ('bbox_head_3d',)
+        m += _imvoxel_neck()
     if cfg.bbox_head == 'center':
-        m += center_head_key_map('bbox_head_3d', h, center_config(cfg))
+        m += center_head_key_map('bbox_head_3d', ('bbox_head_3d',),
+                                 center_config(cfg))
     else:
-        m += [('bbox_head_3d.conv_cls', h + ('conv_cls',), 'conv2d'),
-              ('bbox_head_3d.conv_reg', h + ('conv_reg',), 'conv2d'),
-              ('bbox_head_3d.conv_dir_cls', h + ('conv_dir',), 'conv2d')]
+        m += _anchor_head('bbox_head_3d')
     return m
+
+
+def _resnet_fpn(depth):
+    """A ResNet `backbone` of `depth` and its four-level FPN `neck`."""
+    m = resnet_key_map('backbone', ('backbone',), depth)
+    for i in range(4):
+        m += [(f'neck.lateral{i}', ('neck', f'lateral{i}'), 'conv2d'),
+              (f'neck.fpn_conv{i}', ('neck', f'fpn_conv{i}'), 'conv2d')]
+    return m
+
+
+def _imvoxel_neck():
+    """`OutdoorImVoxelNeck` under `neck_3d` (res{i}/ConvNorm_0..1,
+    down{i})."""
+    m, n = [], ('neck_3d',)
+    for i in range(3):
+        for j in range(2):
+            m += _convnorm(f'neck_3d.res{i}.conv{j}',
+                           n + (f'res{i}', f'ConvNorm_{j}'), 3, 'bn')
+        m += _convnorm(f'neck_3d.down{i}', n + (f'down{i}',), 3, 'bn')
+    return m
+
+
+def _anchor_head(name):
+    """The three output convs of an anchor head without towers."""
+    return [(f'{name}.conv_cls', (name, 'conv_cls'), 'conv2d'),
+            (f'{name}.conv_reg', (name, 'conv_reg'), 'conv2d'),
+            (f'{name}.conv_dir_cls', (name, 'conv_dir'), 'conv2d')]
+
+
+def imvoxelnet_key_map(depth=50):
+    """(torch_prefix, flax_path, kind) for the JAX `ImVoxelNet` tree: the
+    ResNet `backbone` of `depth`, the FPN `neck` (lateral0..3,
+    fpn_conv0..3), the `OutdoorImVoxelNeck` `neck_3d` and the anchor
+    head `bbox_head`'s three output convs."""
+    return _resnet_fpn(depth) + _imvoxel_neck() + _anchor_head('bbox_head')
 
 
 def center_head_key_map(prefix, fpath, ccfg):

@@ -3,9 +3,9 @@
 * `png.read_png` against `cv2.imread`, bit for bit: RGB, RGBA and grey
   images written by cv2 at two compression levels (the files hold Sub,
   Up, Average and Paeth rows, which the test asserts), and the files of
-  chip_smoke's own encoder, which cycles all five filters by row. A
-  missing or corrupt file gives None, a PNG of a kind it does not read
-  a ValueError.
+  the port's own encoder (`data/png.py:png_bytes`), which cycles all
+  five filters by row. A missing or corrupt file gives None, a PNG of a
+  kind it does not read a ValueError.
 * `parse_calib_file`, `parse_label_file`, `build_kitti_infos` and
   `infos_from_reference_pkl` against the JAX package's, field for
   field, on the synthetic KITTI tree of chip_smoke.py (KITTI's own P2
@@ -27,7 +27,7 @@ import pytest
 
 from dfm_tpu.data import kitti as JK
 from dfm_tpu_torch.data import kitti as PK
-from dfm_tpu_torch.data.png import read_png
+from dfm_tpu_torch.data.png import png_bytes, read_png
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -76,12 +76,13 @@ def test_read_png_matches_cv2(tmp_path, channels, level):
 
 
 def test_read_png_all_five_filters_match_cv2(tmp_path):
-    """chip_smoke's encoder: row r stored with filter r % 5."""
+    """The port's encoder (`data/png.py:png_bytes`): row r stored with
+    filter r % 5."""
     cv2 = pytest.importorskip('cv2')
     img = _image(np.random.default_rng(5), 37, 123, 3)
     path = str(tmp_path / 'five.png')
     with open(path, 'wb') as f:
-        f.write(chip_smoke.png_bytes(img))
+        f.write(png_bytes(img))
     assert set(png_filters(path).tolist()) == {0, 1, 2, 3, 4}
     np.testing.assert_array_equal(read_png(path), cv2.imread(path))
     np.testing.assert_array_equal(read_png(path), img)
@@ -98,7 +99,7 @@ def _png(ihdr, rows):
 
 def test_read_png_missing_corrupt_and_unsupported(tmp_path):
     assert read_png(str(tmp_path / 'absent.png')) is None
-    good = chip_smoke.png_bytes(np.zeros((4, 5, 3), np.uint8))
+    good = png_bytes(np.zeros((4, 5, 3), np.uint8))
     for name, data in (('text.png', b'not a png'),
                        ('cut.png', good[:len(good) - 20]),
                        ('crc.png', good[:40] + bytes([good[40] ^ 1])

@@ -217,8 +217,11 @@ def test_dataset_echo_scores_one(tree, tmp_path):
     ap = ds.evaluate(results, gt_bin, str(tmp_path))
     for cls in ('Vehicle', 'Pedestrian', 'Cyclist', 'Overall'):
         assert ap[f'{cls} mAP'] == pytest.approx(1.0), cls
-    with pytest.raises(NotImplementedError, match='cam_frame'):
-        WaymoDataset(root, [], load_mode='cam_frame')
+    # the camera modes are ported (tests/test_torch_waymo_cam.py); an
+    # unknown mode is refused
+    assert len(WaymoDataset(root, [], load_mode='cam_frame')) == 0
+    with pytest.raises(ValueError, match='load_mode'):
+        WaymoDataset(root, [], load_mode='cam')
 
 
 def test_cli_without_jax(tree, tmp_path):
