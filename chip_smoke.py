@@ -118,7 +118,7 @@ Phases, one line each; any failure raises and no result is printed:
               and the KITTI eval at the end of the epoch), a resume to
               step 6 from the saved optimizer state (its sha1 checked),
               `tools.test` on the step-6 checkpoint, and a type it does
-              not train (VoxelNet) refused; (d) full-width training
+              not train (CenterPoint) refused; (d) full-width training
               steps in process:
               two warm-up steps, then three with the launch counts set
               to 0 just before and read just after (a step: K1, K2 one
@@ -703,43 +703,101 @@ def write_waymo_tree(root, seed=0, frames=2, scale=1.0):
     return infos
 
 
-def _msgpack_head(n, fix, fix_max, codes):
-    if n <= fix_max:
-        return bytes([fix | n])
-    for code, fmt in codes:
-        if n < 1 << (8 * struct.calcsize(fmt)):
-            return bytes([code]) + struct.pack(fmt, n)
-    raise ValueError(f'msgpack: {n} items or bytes')
+def _pb_varint(v):
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
 
 
-def msgpack_tree_bytes(x):
-    """flax's msgpack of a tree (`flax.serialization.msgpack_serialize`;
-    arrays under its 1 GiB chunk size), written with the standard library
-    (the card's machine has no flax): dicts with str keys, lists, str,
-    bytes, ints >= 0, and numpy arrays as ext type 1 holding the msgpack of
-    (shape, dtype name, C-order bytes)."""
-    if isinstance(x, dict):
-        return _msgpack_head(len(x), 0x80, 15, ((0xde, '>H'), (0xdf, '>I'))) \
-            + b''.join(msgpack_tree_bytes(k) + msgpack_tree_bytes(v)
-                       for k, v in x.items())
-    if isinstance(x, (list, tuple)):
-        return _msgpack_head(len(x), 0x90, 15, ((0xdc, '>H'), (0xdd, '>I'))) \
-            + b''.join(map(msgpack_tree_bytes, x))
-    if isinstance(x, str):
-        b = x.encode()
-        return _msgpack_head(len(b), 0xa0, 31, ((0xd9, '>B'), (0xda, '>H'),
-                                                (0xdb, '>I'))) + b
-    if isinstance(x, bytes):
-        return _msgpack_head(len(x), 0, -1, ((0xc4, '>B'), (0xc5, '>H'),
-                                             (0xc6, '>I'))) + x
-    if isinstance(x, int) and 0 <= x < 1 << 32:
-        return bytes([x]) if x < 128 else b'\xce' + struct.pack('>I', x)
-    if isinstance(x, np.ndarray):
-        body = msgpack_tree_bytes([list(x.shape), x.dtype.name,
-                                   np.ascontiguousarray(x).tobytes()])
-        return _msgpack_head(len(body), 0, -1, ((0xc7, '>B'), (0xc8, '>H'),
-                                                (0xc9, '>I'))) + b'\x01' + body
-    raise TypeError(f'msgpack_tree_bytes: {type(x)}')
+def _pb(fn, value):
+    """One protobuf field: an int as a varint, a float as a 64-bit double
+    (wire type 1), bytes / str length-delimited."""
+    if isinstance(value, bool) or isinstance(value, int):
+        return _pb_varint(fn << 3) + _pb_varint(int(value))
+    if isinstance(value, float):
+        return _pb_varint(fn << 3 | 1) + struct.pack('<d', value)
+    if isinstance(value, str):
+        value = value.encode()
+    return _pb_varint(fn << 3 | 2) + _pb_varint(len(value)) + bytes(value)
+
+
+def _pb_box(box7):
+    """A Label.Box of a bottom-centre (x, y, z, l, w, h, yaw) box."""
+    x, y, z, le, wi, he, yaw = map(float, box7)
+    return b''.join(_pb(k, v) for k, v in (
+        (1, x), (2, y), (3, z + he / 2), (4, wi), (5, le), (6, he),
+        (7, yaw)))
+
+
+def waymo_frame_record(idx, jpegs, context='synthetic_segment'):
+    """The bytes of one Waymo `Frame` proto: five cameras of
+    WAYMO_CAMERAS (extrinsic vehicle <- camera at WAYMO_CAMERA_AT along
+    each yaw, intrinsics f_u, f_v, c_u, c_v and five zero distortion terms,
+    the size of its image), each camera's JPEG `jpegs[v]` = (bytes, (H,
+    W)),
+    the pose (2 m of forward motion a frame) and LiDAR labels: the
+    objects of WAYMO_OBJECTS (types 1, 2, 4), the first two with their
+    most visible camera named and the first with a camera-synced box 0.2 m
+    ahead, a sign (type 3) and a car behind the vehicle that no camera
+    sees."""
+    types = (1, 2, 4)
+    cams, imgs = b'', b''
+    for v, (name, _, yaw) in enumerate(WAYMO_CAMERAS):
+        data, (h, w) = jpegs[v]
+        c, s_ = np.cos(yaw), np.sin(yaw)
+        ext = np.eye(4)
+        ext[:3, :3] = [[c, -s_, 0], [s_, c, 0], [0, 0, 1]]
+        ext[:3, 3] = WAYMO_CAMERA_AT
+        f = WAYMO_FOCAL * w / 1920.0
+        intr = (f, f, w / 2.0, h / 2.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+        cal = _pb(1, v + 1) + b''.join(_pb(2, float(x)) for x in intr) + \
+            _pb(3, b''.join(_pb(1, float(x)) for x in ext.reshape(-1))) + \
+            _pb(4, w) + _pb(5, h)
+        cams += _pb(2, cal)
+        imgs += _pb(4, _pb(1, v + 1) + _pb(2, data))
+    labels = b''
+    objects = [(types[lb], box, cam if i < 2 else '')
+               for i, (lb, box, cam) in enumerate(WAYMO_OBJECTS)]
+    objects += [(3, (20.0, 3.0, 0.0, 0.5, 0.5, 2.0, 0.0), ''),
+                (1, (-20.0, 0.0, 0.0, 4.5, 2.0, 1.6, 0.0), '')]
+    for i, (t, box, cam) in enumerate(objects):
+        lab = _pb(1, _pb_box(box)) + _pb(3, t) + _pb(4, f'obj{i}') + \
+            _pb(7, 30 + i)
+        if cam:
+            lab += _pb(11, cam)
+        if i == 0:
+            lab += _pb(12, _pb_box((box[0] + 0.2,) + tuple(box[1:])))
+        labels += _pb(6, lab)
+    pose = np.eye(4)
+    pose[0, 3] = 2.0 * idx
+    return (_pb(1, _pb(1, context) + cams) + _pb(2, 1_000_000 + 100_000 * idx)
+            + _pb(3, b''.join(_pb(1, float(x)) for x in pose.reshape(-1)))
+            + imgs + labels)
+
+
+def write_waymo_tfrecord(path, frames=2, jpegs=None):
+    """A TFRecord file of `frames` `waymo_frame_record`s (the small JPEG
+    fixtures of tests/data/jpeg as the five cameras' images unless
+    `jpegs` gives others); the crcs are zeros (the parser skips them).
+    Returns the file's size."""
+    import os
+    if jpegs is None:
+        folder, man = _jpeg_fixtures()
+        jpegs = []
+        for k in ('small_420', 'small_444', 'small_422_rst', 'small_420',
+                  'small_444'):
+            with open(os.path.join(folder, k + '.jpg'), 'rb') as f:
+                jpegs.append((f.read(), tuple(man[k]['shape'][:2])))
+    with open(path, 'wb') as f:
+        for i in range(frames):
+            rec = waymo_frame_record(i, jpegs)
+            f.write(struct.pack('<Q', len(rec)) + b'\0' * 4 + rec +
+                    b'\0' * 4)
+    return os.path.getsize(path)
 
 
 def teacher_tree(teacher, seed):
@@ -1962,13 +2020,193 @@ TRAIN_TINY_CROP = (192, 384)
 # plain forwards; the kernels sum each gradient in another order (float32)
 BWD_TOL = (1e-3, 1e-4)
 TRAIN_TIMED_STEPS = 3         # phase 7 (d)
+def _in_background(jobs):
+    """Run the (name, fn) jobs in threads; returns a join function that
+    waits for them and raises the first job's error again."""
+    import threading
+    errors, threads = {}, []
+
+    def wrap(name, fn):
+        try:
+            fn()
+        except Exception as e:        # raised again by join
+            errors[name] = e
+
+    for name, fn in jobs:
+        threads.append(threading.Thread(target=wrap, args=(name, fn)))
+        threads[-1].start()
+
+    def join():
+        for t in threads:
+            t.join()
+        for e in errors.values():
+            raise e
+    return join
+
+
+def _train_cli(root, config, here, env):
+    """Phase 7 (c): the train CLI at full width in processes of its own: 4
+    steps (one epoch of the 4 frames: a checkpoint and the KITTI eval), a
+    resume to 6, the eval CLI on the last checkpoint, and a type the port
+    does not train refused."""
+    import os
+    from dfm_tpu_torch.tools.train import optimizer_digest
+    work = os.path.join(root, 'w')
+    base = [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
+            '--cfg-options', 'model.type=DfM', f'data.data_root={root}',
+            '--work-dir', work]
+    t0 = time.perf_counter()
+    res = subprocess.run(base + ['--max-steps', '4'], cwd=here, env=env,
+                         capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0, f'tools.train failed: {res.stderr[-3000:]}')
+    with open(os.path.join(work, 'metrics.jsonl')) as f:
+        recs = [json.loads(line) for line in f]
+    keys = ('loss', 'loss_cls', 'loss_bbox', 'loss_dir', 'loss_iou',
+            'loss_dense_depth', 'grad_norm')
+    check([r['step'] for r in recs] == [1, 4], f'logged steps '
+          f'{[r["step"] for r in recs]}')
+    check(all(np.isfinite(r[f'train/{k}']) for r in recs for k in keys),
+          f'tools.train logged a non-finite term: {recs}')
+    evals = re.findall(r'^\[eval\] (\S+): (\S+)$', res.stdout, re.M)
+    check(len(evals) == 6 and all(np.isfinite(float(x)) for _, x in
+                                 evals), f'tools.train eval: {evals}')
+    ckpt4 = os.path.join(work, 'ckpts', 'step_4.pth')
+    digest = optimizer_digest(torch.load(
+        ckpt4, map_location='cpu', weights_only=True)['optimizer'])
+    print(f'train (c) cli: 4 steps at full width in {cli_s:.1f} s in its '
+          f'own process; logged '
+          + '; '.join(f'step {r["step"]} ' + ', '.join(
+              f'{k} {r[f"train/{k}"]:.5g}' for k in keys) for r in recs)
+          + f'; eval {len(evals)} finite 3d-moderate APs', flush=True)
+    res = subprocess.run(base + ['--max-steps', '6', '--auto-resume'],
+                         cwd=here, env=env, capture_output=True,
+                         text=True, timeout=900)
+    check(res.returncode == 0, f'tools.train --auto-resume failed: '
+          f'{res.stderr[-3000:]}')
+    check(f'resumed from step 4 (optimizer state sha1 {digest})'
+          in res.stdout, f'resume: {res.stdout[-2000:]}')
+    with open(os.path.join(work, 'metrics.jsonl')) as f:
+        logged = [json.loads(line)['step'] for line in f]
+    check(logged == [1, 4, 6] and re.search(r'^step 6/6 ', res.stdout,
+                                            re.M) is not None,
+          f'resume did not end at step 6: logged {logged}')
+    last = os.path.join(work, 'ckpts', 'step_6.pth')
+    check(os.path.exists(last), 'no checkpoint at step 6')
+    res = subprocess.run(
+        [sys.executable, '-m', 'dfm_tpu_torch.tools.test', config,
+         '--checkpoint', last, '--cfg-options',
+         f'data.data_root={root}'], cwd=here, env=env,
+        capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f'tools.test of the trained checkpoint '
+          f'failed: {res.stderr[-3000:]}')
+    aps = [float(m.group(2)) for m in AP_LINE.finditer(res.stdout)]
+    check(len(aps) == 36 and all(np.isfinite(aps)),
+          f'tools.test printed {len(aps)} AP lines')
+    res = subprocess.run(
+        [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
+         '--cfg-options', 'model.type=CenterPoint',
+         f'data.data_root={root}', '--work-dir',
+         os.path.join(root, 'mono')], cwd=here, env=env,
+        capture_output=True, text=True, timeout=300)
+    check(res.returncode == 2 and 'not ported yet' in res.stderr,
+          f'the CenterPoint type: rc {res.returncode} '
+          f'{res.stderr[-500:]}')
+    print(f'train (c) resume: from step 4 with the saved optimizer '
+          f'state (sha1 {digest}) to step 6; tools.test on step_6.pth: '
+          f'{len(aps)} finite AP lines; CenterPoint refused (rc '
+          f'{res.returncode})', flush=True)
+
+
+def _full_cli(root, here, env):
+    """Phase 8 (c): the train CLI on the flagship config (DfMFull) with
+    --synthetic and a teacher file in flax's msgpack format: 2 steps, a
+    resume to 3, then tools.test on the checkpoint over the KITTI tree."""
+    import os
+    from dfm_tpu_torch.models.detectors.dfm import DfMConfig
+    from dfm_tpu_torch.models.detectors.teacher import LidarTeacher
+    from dfm_tpu_torch.tools.train import optimizer_digest
+    from dfm_tpu_torch.utils.msgpack_tree import (load_msgpack_tree,
+                                                  msgpack_dumps)
+    from dfm_tpu_torch.utils.weights import teacher_state_dict
+    full = DfMConfig()
+    config = os.path.join(here, 'configs', 'dfm_r34_kitti_3class.py')
+    teacher = os.path.join(root, 'teacher.msgpack')
+    tree = teacher_tree(LidarTeacher(
+        full.point_cloud_range, full.voxel_size,
+        volume_channels=full.cv_channels, bev_channels=full.bev_channels), 7)
+    with open(teacher, 'wb') as f:
+        f.write(msgpack_dumps(tree))
+    work = os.path.join(root, 'full')
+    base = [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
+            '--synthetic', '--work-dir', work, '--cfg-options',
+            f'model.teacher_checkpoint={teacher}']
+    t0 = time.perf_counter()
+    res = subprocess.run(base + ['--max-steps', '2'], cwd=here, env=env,
+                         capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0, f'DfMFull tools.train failed: '
+          f'{res.stderr[-3000:]}')
+    check(f'[teacher] restored from {teacher}' in res.stdout,
+          f'no teacher restored: {res.stdout[-2000:]}')
+    with open(os.path.join(work, 'metrics.jsonl')) as f:
+        recs = [json.loads(line) for line in f]
+    keys = ('loss', 'loss_cls', 'loss_bbox', 'loss_dir', 'loss_iou',
+            'loss_dense_depth', 'loss_cls2d', 'loss_bbox2d',
+            'loss_centerness2d', 'loss_imitation', 'grad_norm')
+    check([r['step'] for r in recs] == [1, 2] and all(
+        np.isfinite(r.get(f'train/{k}', np.nan)) for r in recs for k in keys),
+        f'DfMFull tools.train logged {recs}')
+    ckpt2 = os.path.join(work, 'ckpts', 'step_2.pth')
+    digest = optimizer_digest(torch.load(
+        ckpt2, map_location='cpu', weights_only=True)['optimizer'])
+    t0 = time.perf_counter()
+    res = subprocess.run(base + ['--max-steps', '3', '--auto-resume'],
+                         cwd=here, env=env, capture_output=True, text=True,
+                         timeout=600)
+    resume_s = time.perf_counter() - t0
+    check(res.returncode == 0 and f'resumed from step 2 (optimizer state '
+          f'sha1 {digest})' in res.stdout, f'DfMFull resume: rc '
+          f'{res.returncode} {res.stdout[-2000:]} {res.stderr[-2000:]}')
+    last = os.path.join(work, 'ckpts', 'step_3.pth')
+    saved = torch.load(last, map_location='cpu', weights_only=True)
+    want = teacher_state_dict(load_msgpack_tree(teacher))
+    params = [k for k in want if not k.endswith(('running_mean',
+                                                 'running_var'))]
+    check(all(torch.equal(saved['state_dict'][f'lidar_teacher.{k}'],
+                          want[k]) for k in params),
+          "the teacher's parameters in step_3.pth differ from the file's")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-m', 'dfm_tpu_torch.tools.test', config,
+         '--checkpoint', last, '--cfg-options', f'data.data_root={root}'],
+        cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    test_s = time.perf_counter() - t0
+    check(res.returncode == 0, f'tools.test of the DfMFull checkpoint '
+          f'failed: {res.stderr[-3000:]}')
+    aps = [float(m.group(2)) for m in AP_LINE.finditer(res.stdout)]
+    check(len(aps) == 36 and all(np.isfinite(aps)),
+          f'tools.test printed {len(aps)} AP lines')
+    print(f'full (c) cli: DfMFull on configs/dfm_r34_kitti_3class.py '
+          f'--synthetic, 2 steps in {cli_s:.1f} s in its own process, the '
+          f'teacher restored from a flax msgpack file ({len(params)} '
+          f'parameters, equal in step_3.pth); logged '
+          + '; '.join(f'step {r["step"]} ' + ', '.join(
+              f'{k} {r[f"train/{k}"]:.5g}' for k in keys) for r in recs)
+          + f'; resume from step 2 (sha1 {digest}) to 3 in {resume_s:.1f} s; '
+          f'tools.test on step_3.pth: {len(aps)} finite AP lines in '
+          f'{test_s:.1f} s', flush=True)
+
+
 def train_phase(cfg, dev, results):
     """7. train: (a) the card's gradients against the CPU's, (b) the
     backward kernels against their plain versions at full width, (c)
     the train CLI at full width with a resume and an eval of its
-    checkpoint, (d) one full-width step in process with its launches,
-    time split and peak memory, (e) an overfit of one frame; then phase
-    8 (`full_train_phase`) on the same KITTI tree."""
+    checkpoint (`_train_cli`), (d) one full-width step in process with
+    its launches, time split and peak memory, (e) an overfit of one frame;
+    then phase 8 (`full_train_phase`) on the same KITTI tree. The CLIs of
+    (c) and of phase 8 (c) run in processes of their own beside (a) and
+    (e), and are joined before (b), the first timed section."""
     import os
     import tempfile
     import torch.nn.functional as F
@@ -1981,7 +2219,6 @@ def train_phase(cfg, dev, results):
     from dfm_tpu_torch.ops.cuda import sampling as K
     from dfm_tpu_torch.runtime.schedule import liga_schedule, step_schedule
     from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
-    from dfm_tpu_torch.tools.train import optimizer_digest
     from dfm_tpu_torch.utils.weights import init_weights
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here)
@@ -1990,6 +2227,16 @@ def train_phase(cfg, dev, results):
     with tempfile.TemporaryDirectory() as root:
         ids = write_kitti_tree(root)
         infos = build_kitti_infos(root, ids)
+        res = subprocess.run(
+            [sys.executable, '-m', 'dfm_tpu_torch.tools.create_data',
+             'kitti', '--root', root, '--splits', 'train', 'val'], cwd=here,
+            env=env, capture_output=True, text=True, timeout=300)
+        check(res.returncode == 0, f'create_data failed: {res.stderr}')
+        # (c) and phase 8 (c): the CLIs in processes of their own, beside
+        # (a) and (e), joined before anything is timed
+        join_cli = _in_background([
+            ('train (c)', lambda: _train_cli(root, config, here, env)),
+            ('full (c)', lambda: _full_cli(root, here, env))])
 
         # (a) gradients, card against CPU: the same live weights, one
         # training sample (flip, scale, photometric) and the same depth
@@ -2058,6 +2305,31 @@ def train_phase(cfg, dev, results):
               f'{ {k: n for k, n in side[dev]["launches"].items() if n} }',
               flush=True)
         del side
+
+        # (e) overfit one frame at the tiny config: no flip, scale or
+        # photometric distortion (the evaluation pipeline), 30 steps at a
+        # constant lr 1e-3
+        frame = KittiDataset(root, infos, train=False, pipeline_kwargs=dict(
+            crop_size=TRAIN_TINY_CROP, max_gt=32)).get_sample(
+                0, np.random.default_rng(0))
+        model = init_weights(DfM(tiny)).to(dev)
+        step = TrainStep(model, make_optimizer(model), step_schedule(1e-3))
+        img, meta, gt = build_batch([frame], dev)
+        curve = []
+        for i in range(30):
+            m = step(img, meta, gt,
+                     torch.Generator(device=dev).manual_seed(i))
+            curve.append(float(m['loss']))
+        first, last = float(np.mean(curve[:5])), float(np.mean(curve[-5:]))
+        check(np.isfinite(curve).all() and last < first,
+              f'overfit: mean loss of the last 5 steps {last} not below the '
+              f'first 5 {first}: {curve}')
+        print(f'train (e) overfit one frame, tiny, 30 steps at lr 1e-3: mean '
+              f'loss first 5 {first:.5f}, last 5 {last:.5f}', flush=True)
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        join_cli()
 
         # (b) the backward kernels at the full-width training shapes
         # (float32): K1's gradient of prev, K2's of vol and sem
@@ -2178,81 +2450,6 @@ def train_phase(cfg, dev, results):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (c) the train CLI at full width in processes of its own: 4 steps
-        # (one epoch of the 4 frames: a checkpoint and the KITTI eval),
-        # a resume to 6, the eval CLI on the last checkpoint, and a type
-        # the port does not train refused
-        res = subprocess.run(
-            [sys.executable, '-m', 'dfm_tpu_torch.tools.create_data',
-             'kitti', '--root', root, '--splits', 'train', 'val'], cwd=here,
-            env=env, capture_output=True, text=True, timeout=300)
-        check(res.returncode == 0, f'create_data failed: {res.stderr}')
-        work = os.path.join(root, 'w')
-        base = [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
-                '--cfg-options', 'model.type=DfM', f'data.data_root={root}',
-                '--work-dir', work]
-        t0 = time.perf_counter()
-        res = subprocess.run(base + ['--max-steps', '4'], cwd=here, env=env,
-                             capture_output=True, text=True, timeout=900)
-        cli_s = time.perf_counter() - t0
-        check(res.returncode == 0, f'tools.train failed: {res.stderr[-3000:]}')
-        with open(os.path.join(work, 'metrics.jsonl')) as f:
-            recs = [json.loads(line) for line in f]
-        keys = ('loss', 'loss_cls', 'loss_bbox', 'loss_dir', 'loss_iou',
-                'loss_dense_depth', 'grad_norm')
-        check([r['step'] for r in recs] == [1, 4], f'logged steps '
-              f'{[r["step"] for r in recs]}')
-        check(all(np.isfinite(r[f'train/{k}']) for r in recs for k in keys),
-              f'tools.train logged a non-finite term: {recs}')
-        evals = re.findall(r'^\[eval\] (\S+): (\S+)$', res.stdout, re.M)
-        check(len(evals) == 6 and all(np.isfinite(float(x)) for _, x in
-                                     evals), f'tools.train eval: {evals}')
-        ckpt4 = os.path.join(work, 'ckpts', 'step_4.pth')
-        digest = optimizer_digest(torch.load(
-            ckpt4, map_location='cpu', weights_only=True)['optimizer'])
-        print(f'train (c) cli: 4 steps at full width in {cli_s:.1f} s in its '
-              f'own process; logged '
-              + '; '.join(f'step {r["step"]} ' + ', '.join(
-                  f'{k} {r[f"train/{k}"]:.5g}' for k in keys) for r in recs)
-              + f'; eval {len(evals)} finite 3d-moderate APs', flush=True)
-        res = subprocess.run(base + ['--max-steps', '6', '--auto-resume'],
-                             cwd=here, env=env, capture_output=True,
-                             text=True, timeout=900)
-        check(res.returncode == 0, f'tools.train --auto-resume failed: '
-              f'{res.stderr[-3000:]}')
-        check(f'resumed from step 4 (optimizer state sha1 {digest})'
-              in res.stdout, f'resume: {res.stdout[-2000:]}')
-        with open(os.path.join(work, 'metrics.jsonl')) as f:
-            logged = [json.loads(line)['step'] for line in f]
-        check(logged == [1, 4, 6] and re.search(r'^step 6/6 ', res.stdout,
-                                                re.M) is not None,
-              f'resume did not end at step 6: logged {logged}')
-        last = os.path.join(work, 'ckpts', 'step_6.pth')
-        check(os.path.exists(last), 'no checkpoint at step 6')
-        res = subprocess.run(
-            [sys.executable, '-m', 'dfm_tpu_torch.tools.test', config,
-             '--checkpoint', last, '--cfg-options',
-             f'data.data_root={root}'], cwd=here, env=env,
-            capture_output=True, text=True, timeout=600)
-        check(res.returncode == 0, f'tools.test of the trained checkpoint '
-              f'failed: {res.stderr[-3000:]}')
-        aps = [float(m.group(2)) for m in AP_LINE.finditer(res.stdout)]
-        check(len(aps) == 36 and all(np.isfinite(aps)),
-              f'tools.test printed {len(aps)} AP lines')
-        res = subprocess.run(
-            [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
-             '--cfg-options', 'model.type=VoxelNet',
-             f'data.data_root={root}', '--work-dir',
-             os.path.join(root, 'mono')], cwd=here, env=env,
-            capture_output=True, text=True, timeout=300)
-        check(res.returncode == 2 and 'not ported yet' in res.stderr,
-              f'the VoxelNet type: rc {res.returncode} '
-              f'{res.stderr[-500:]}')
-        print(f'train (c) resume: from step 4 with the saved optimizer '
-              f'state (sha1 {digest}) to step 6; tools.test on step_6.pth: '
-              f'{len(aps)} finite AP lines; VoxelNet refused (rc '
-              f'{res.returncode})', flush=True)
-
         # (d) full-width training steps in process: two warm-up steps
         # (cuDNN's and the allocator's first calls), then three steps
         # with the launch counts set to 0 just before and read just
@@ -2315,30 +2512,6 @@ def train_phase(cfg, dev, results):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (e) overfit one frame at the tiny config: no flip, scale or
-        # photometric distortion (the evaluation pipeline), 30 steps at a
-        # constant lr 1e-3
-        frame = KittiDataset(root, infos, train=False, pipeline_kwargs=dict(
-            crop_size=TRAIN_TINY_CROP, max_gt=32)).get_sample(
-                0, np.random.default_rng(0))
-        model = init_weights(DfM(tiny)).to(dev)
-        step = TrainStep(model, make_optimizer(model), step_schedule(1e-3))
-        img, meta, gt = build_batch([frame], dev)
-        curve = []
-        for i in range(30):
-            m = step(img, meta, gt,
-                     torch.Generator(device=dev).manual_seed(i))
-            curve.append(float(m['loss']))
-        first, last = float(np.mean(curve[:5])), float(np.mean(curve[-5:]))
-        check(np.isfinite(curve).all() and last < first,
-              f'overfit: mean loss of the last 5 steps {last} not below the '
-              f'first 5 {first}: {curve}')
-        print(f'train (e) overfit one frame, tiny, 30 steps at lr 1e-3: mean '
-              f'loss first 5 {first:.5f}, last 5 {last:.5f}', flush=True)
-        del model, step
-        gc.collect()
-        torch.cuda.empty_cache()
-
         # phase 8 trains DfMFull on this tree, beside (d)'s median split
         full_train_phase(cfg, dev, root, ids, infos, med)
 
@@ -2385,10 +2558,11 @@ def full_targets(sample, cfg, rng, n_points):
 def full_train_phase(cfg, dev, root, ids, infos, bare_med):
     """8. DfMFull training: (a) the card's losses and gradients against
     the CPU's, the teacher frozen, (b) full-width steps with their split,
-    peak memory, launches, ATSS positives and imitation cells, (c) the
+    peak memory, launches, ATSS positives and imitation cells; (c), the
     train CLI on the flagship config with a teacher file, a resume, and
-    `tools.test` on its checkpoint. `root` holds phase 7's KITTI tree
-    (frames `ids`, `infos`) with its train and val info files."""
+    `tools.test` on its checkpoint, is `_full_cli`, run beside phase 7 (a)
+    and (e). `root` holds phase 7's KITTI tree (frames `ids`, `infos`)
+    with its train and val info files."""
     import os
     from dfm_tpu_torch.data.collate import build_batch
     from dfm_tpu_torch.data.kitti import KittiDataset
@@ -2397,7 +2571,6 @@ def full_train_phase(cfg, dev, root, ids, infos, bare_med):
     from dfm_tpu_torch.models.detectors.dfm_full import (DfMFull,
                                                          bev_cell_centers)
     from dfm_tpu_torch.models.detectors.imitation import imitation_mask
-    from dfm_tpu_torch.models.detectors.teacher import LidarTeacher
     from dfm_tpu_torch.models.heads.atss2d import (atss2d_anchors,
                                                    atss2d_targets)
     from dfm_tpu_torch.models.heads.depth_head import sample_depth_pixels
@@ -2405,11 +2578,8 @@ def full_train_phase(cfg, dev, root, ids, infos, bare_med):
     from dfm_tpu_torch.runtime.config import load_config
     from dfm_tpu_torch.runtime.schedule import liga_schedule
     from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
-    from dfm_tpu_torch.tools.train import optimizer_digest
-    from dfm_tpu_torch.utils.msgpack_tree import load_msgpack_tree
-    from dfm_tpu_torch.utils.weights import init_weights, teacher_state_dict
+    from dfm_tpu_torch.utils.weights import init_weights
     here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=here)
     config = os.path.join(here, 'configs', 'dfm_r34_kitti_3class.py')
     atss = atss_config(load_config(config).model)
     frozen = ('lidar_teacher',)
@@ -2573,76 +2743,7 @@ def full_train_phase(cfg, dev, root, ids, infos, bare_med):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) the train CLI on the flagship config (DfMFull) with --synthetic
-    # and a teacher file in flax's msgpack format: 2 steps, a resume to 3,
-    # then tools.test on the checkpoint over the KITTI tree
-    teacher = os.path.join(root, 'teacher.msgpack')
-    tree = teacher_tree(LidarTeacher(
-        full.point_cloud_range, full.voxel_size,
-        volume_channels=full.cv_channels, bev_channels=full.bev_channels), 7)
-    with open(teacher, 'wb') as f:
-        f.write(msgpack_tree_bytes(tree))
-    work = os.path.join(root, 'full')
-    base = [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
-            '--synthetic', '--work-dir', work, '--cfg-options',
-            f'model.teacher_checkpoint={teacher}']
-    t0 = time.perf_counter()
-    res = subprocess.run(base + ['--max-steps', '2'], cwd=here, env=env,
-                         capture_output=True, text=True, timeout=600)
-    cli_s = time.perf_counter() - t0
-    check(res.returncode == 0, f'DfMFull tools.train failed: '
-          f'{res.stderr[-3000:]}')
-    check(f'[teacher] restored from {teacher}' in res.stdout,
-          f'no teacher restored: {res.stdout[-2000:]}')
-    with open(os.path.join(work, 'metrics.jsonl')) as f:
-        recs = [json.loads(line) for line in f]
-    keys = ('loss', 'loss_cls', 'loss_bbox', 'loss_dir', 'loss_iou',
-            'loss_dense_depth', 'loss_cls2d', 'loss_bbox2d',
-            'loss_centerness2d', 'loss_imitation', 'grad_norm')
-    check([r['step'] for r in recs] == [1, 2] and all(
-        np.isfinite(r.get(f'train/{k}', np.nan)) for r in recs for k in keys),
-        f'DfMFull tools.train logged {recs}')
-    ckpt2 = os.path.join(work, 'ckpts', 'step_2.pth')
-    digest = optimizer_digest(torch.load(
-        ckpt2, map_location='cpu', weights_only=True)['optimizer'])
-    t0 = time.perf_counter()
-    res = subprocess.run(base + ['--max-steps', '3', '--auto-resume'],
-                         cwd=here, env=env, capture_output=True, text=True,
-                         timeout=600)
-    resume_s = time.perf_counter() - t0
-    check(res.returncode == 0 and f'resumed from step 2 (optimizer state '
-          f'sha1 {digest})' in res.stdout, f'DfMFull resume: rc '
-          f'{res.returncode} {res.stdout[-2000:]} {res.stderr[-2000:]}')
-    last = os.path.join(work, 'ckpts', 'step_3.pth')
-    saved = torch.load(last, map_location='cpu', weights_only=True)
-    want = teacher_state_dict(load_msgpack_tree(teacher))
-    params = [k for k in want if not k.endswith(('running_mean',
-                                                 'running_var'))]
-    check(all(torch.equal(saved['state_dict'][f'lidar_teacher.{k}'],
-                          want[k]) for k in params),
-          "the teacher's parameters in step_3.pth differ from the file's")
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, '-m', 'dfm_tpu_torch.tools.test', config,
-         '--checkpoint', last, '--cfg-options', f'data.data_root={root}'],
-        cwd=here, env=env, capture_output=True, text=True, timeout=600)
-    test_s = time.perf_counter() - t0
-    check(res.returncode == 0, f'tools.test of the DfMFull checkpoint '
-          f'failed: {res.stderr[-3000:]}')
-    aps = [float(m.group(2)) for m in AP_LINE.finditer(res.stdout)]
-    check(len(aps) == 36 and all(np.isfinite(aps)),
-          f'tools.test printed {len(aps)} AP lines')
-    print(f'full (c) cli: DfMFull on configs/dfm_r34_kitti_3class.py '
-          f'--synthetic, 2 steps in {cli_s:.1f} s in its own process, the '
-          f'teacher restored from a flax msgpack file ({len(params)} '
-          f'parameters, equal in step_3.pth); logged '
-          + '; '.join(f'step {r["step"]} ' + ', '.join(
-              f'{k} {r[f"train/{k}"]:.5g}' for k in keys) for r in recs)
-          + f'; resume from step 2 (sha1 {digest}) to 3 in {resume_s:.1f} s; '
-          f'tools.test on step_3.pth: {len(aps)} finite AP lines in '
-          f'{test_s:.1f} s; phase 8 {time.perf_counter() - t_phase:.1f} s',
-          flush=True)
-
+    print(f'full phase {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 # phase 9: MultiViewDfM (MV-FCOS3D++, the camsync config) on the card
 MV_TINY = dict(num_views=3, num_frames=2, feat_channels=16,
@@ -3172,27 +3273,6 @@ def ddp_phase(cfg, dev, results, waymo_trees):
                           'multiview_dfm_r101_waymo_camsync.py')
     run = _run
 
-    def in_background(jobs):
-        """Run the (name, fn) jobs in threads; returns a join function
-        that raises the first failure."""
-        errors, threads = {}, []
-
-        def wrap(name, fn):
-            try:
-                fn()
-            except Exception as e:        # raised again by join
-                errors[name] = e
-
-        for name, fn in jobs:
-            threads.append(threading.Thread(target=wrap, args=(name, fn)))
-            threads[-1].start()
-
-        def join():
-            for t in threads:
-                t.join()
-            for e in errors.values():
-                raise e
-        return join
 
     with tempfile.TemporaryDirectory() as root:
         # phase 7's KITTI tree (the same writer and seed) with its infos
@@ -3241,7 +3321,7 @@ def ddp_phase(cfg, dev, results, waymo_trees):
             return go
 
         t_cli = time.perf_counter()
-        join_cli = in_background(
+        join_cli = _in_background(
             [('train', train_cli)] + [
                 (f'{kind}{n}', eval_cli(f'{kind}{n}', n, cmd))
                 for kind, cmd in (('kitti', kitti_test),
@@ -3429,7 +3509,7 @@ def ddp_phase(cfg, dev, results, waymo_trees):
                     'data.cam_sync=True', 'data.target_hw=(32,48)'])
 
         t_cli = time.perf_counter()
-        join_cli = in_background([('mv train', mv_train_cli)])
+        join_cli = _in_background([('mv train', mv_train_cli)])
 
         mvdfm_tiny_gradients(dev)
         join_cli()
@@ -5721,6 +5801,524 @@ def phase11_alone(dev='cuda'):
         temporal_phase(dev, trees)
 
 
+# --- phases 17-20: the Waymo converter, the generic FrustumToVoxel, the
+# SECOND LiDAR family and DfMWithTeacher with the sparse teacher
+WAYMO_RAW_FRAMES = 3
+MV_CAMSYNC_CONFIG = 'multiview_dfm_r101_waymo_camsync.py'
+LIDAR_CONFIGS = ('hv_second_kitti_3class.py',
+                 'hv_second_kitti_3class_freeanchor.py')
+LIDAR_POINTS = 18000
+LIDAR_TINY = dict(
+    point_cloud_range=(0, -8, -2, 16, 8, 1.2), voxel_size=(0.4, 0.4, 0.4),
+    max_points_per_voxel=5, cv_channels=8, bev_channels=16,
+    anchor_ranges=((0, -8, -0.6, 16, 8, -0.6), (0, -8, -0.6, 16, 8, -0.6),
+                   (0, -8, -1.78, 16, 8, -1.78)),
+    nms_pre=256, max_num=30, score_thr=0.05)
+LIDAR_REL_L2 = 1e-5           # card against CPU, float32, TF32 off
+# a sparse teacher whose dense output is (2, 16, 16); capacity overflowed
+SPARSE_SMALL = dict(voxel_size=(0.9, 0.95, 0.25), sparse_shape=(17, 64, 64),
+                    capacity=640)
+SPARSE_REL_L2 = 1e-5
+TEACHER_POINTS = 20000        # phase 20's full-width step
+GENERIC_REL = 2e-2            # generic against separable FrustumToVoxel
+
+
+def lidar_cloud(pcr, n, seed, clusters=20):
+    """(n, 3) float32 points uniform in `pcr` with `clusters` dense blobs
+    (voxels of more than 5 points), a few outside."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(pcr[:3], np.float64), np.asarray(pcr[3:], np.float64)
+    pts = rng.uniform(lo - 0.5, hi + 0.5, (n, 3))
+    per = n // (4 * clusters)
+    for c in range(clusters):
+        pts[c * per:(c + 1) * per] = rng.uniform(lo + 1, hi - 1) + \
+            0.05 * rng.standard_normal((per, 3))
+    return pts.astype(np.float32)
+
+
+def _timed(fn, reps=3):
+    """fn() once, then `reps` times on the host clock (synchronised) ->
+    (ms list, peak memory of the timed calls, the last output)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, torch.cuda.max_memory_allocated(), out
+
+
+def waymo_convert_phase(procs, work):
+    """17. Waymo TFRecords -> the port's kitti_format tree: records of
+    WAYMO_RAW_FRAMES frames (five cameras, the JPEG fixtures) written here,
+    converted (`tools/data_converter/waymo_converter.py`, host ms a frame),
+    read back by `WaymoDataset`, the GT .bin of `create_waymo_gt_bin`, and
+    MultiViewDfM camsync's `tools.test` started on the tree against it (its
+    LET lines are read in `_lidar_cli_checks`). Returns the tree's root."""
+    import os
+    import pickle
+    from dfm_tpu_torch.data.waymo import WaymoDataset
+    from dfm_tpu_torch.tools import create_waymo_gt_bin
+    from dfm_tpu_torch.tools.data_converter import waymo_converter
+    here = os.path.dirname(os.path.abspath(__file__))
+    rec_dir = os.path.join(work, 'waymo_records')
+    out = os.path.join(work, 'waymo_converted')
+    os.makedirs(rec_dir)
+    size = write_waymo_tfrecord(os.path.join(rec_dir, 'segment-0.tfrecord'),
+                                WAYMO_RAW_FRAMES)
+    t0 = time.perf_counter()
+    check(waymo_converter.main(['--tfrecord-dir', rec_dir, '--out', out])
+          == 0, 'waymo (17): the converter failed')
+    convert_ms = (time.perf_counter() - t0) * 1e3 / WAYMO_RAW_FRAMES
+    info_path = os.path.join(out, 'waymo_infos_val.pkl')
+    with open(info_path, 'rb') as f:
+        infos = pickle.load(f)
+    check(len(infos) == WAYMO_RAW_FRAMES and all(
+        len(i['images']) == 5 and len(i['annos']['gt_boxes']) == 7
+        for i in infos), 'waymo (17): converted infos')
+    ds = WaymoDataset(out, info_path, target_hw=(640, 960), cam_sync=True)
+    t0 = time.perf_counter()
+    sample = ds.get_sample(1)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    views = np.abs(sample['imgs']).reshape(5, -1).max(1)
+    check(np.isfinite(sample['imgs']).all() and (views > 0).all() and
+          int(sample['gt_mask'].sum()) == 6, 'waymo (17): the sample')
+    gt = os.path.join(out, 'gt.bin')
+    check(create_waymo_gt_bin.main(['--infos', info_path, '--out', gt]) == 0,
+          'waymo (17): create_waymo_gt_bin')
+    _start(procs, 'waymo test', [
+        'dfm_tpu_torch.tools.test',
+        os.path.join(here, 'configs', MV_CAMSYNC_CONFIG), '--waymo-gt-bin',
+        gt, '--cfg-options', f'data.data_root={out}', 'data.cam_sync=True'])
+    print(f'waymo (17) conversion: {WAYMO_RAW_FRAMES} frames of 5 cameras '
+          f'({size} bytes of TFRecord) -> kitti_format tree, host ms a frame '
+          f'{convert_ms:.3f}; WaymoDataset sample (5 JPEG views to 640x960) '
+          f'{read_ms:.3f} ms, 6 cam-synced gt; GT .bin '
+          f'{os.path.getsize(gt)} bytes; tools.test (MultiViewDfM camsync) '
+          'started on the tree', flush=True)
+    return out
+
+
+def frustum_generic_phase(dev):
+    """18. FrustumToVoxel's generic branch at the full DfMConfig (72
+    planes at 80x320, 64 channels in, the (20, 304, 288) grid) in bf16
+    and f32: ms and peak memory against the separable branch (K2 / K3) on
+    the same inputs, and their outputs within GENERIC_REL."""
+    from dfm_tpu_torch.models.detectors.dfm import DfMConfig
+    from dfm_tpu_torch.models.necks.frustum_to_voxel import FrustumToVoxel
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.utils.weights import init_weights
+    t_phase = time.perf_counter()
+    cfg = DfMConfig()
+    d, h, w = cfg.num_downsampled_bins, IMG_HW[0] // 4, IMG_HW[1] // 4
+    g = torch.Generator().manual_seed(0)
+    stereo = torch.randn((1, d, h, w, 32), generator=g)
+    cost = 2 * torch.randn((1, d, h, w), generator=g)
+    sem = torch.randn((1, h, w, 32), generator=g)
+    cam = np.eye(4, dtype=np.float32)
+    cam[:3] = KITTI_P2[0]
+    cam2img = torch.from_numpy(cam)[None].to(dev)
+    coors = cfg.coordinates_3d()
+    lines = []
+    for dtype in (torch.bfloat16, torch.float32):
+        neck = init_weights(FrustumToVoxel(64, 32, cfg.depth_min,
+                                           cfg.depth_max)).to(dev).eval()
+        args = [x.to(dev, dtype) for x in (stereo, cost, sem)]
+        outs, res = {}, {}
+        for sep in (False, True):
+            neck.separable = sep
+            K.reset_launch_counts()
+            with torch.inference_mode():
+                ms, peak, out = _timed(lambda: neck(
+                    args[0], args[1], args[2], coors, cam2img, IMG_HW))
+            launched = {k: n for k, n in K.LAUNCHES.items() if n}
+            check(bool(launched) == sep, f'frustum (18) separable={sep}: '
+                  f'launches {launched}')
+            outs[sep] = out.float()
+            res[sep] = (ms, peak)
+        rel = float((outs[False] - outs[True]).norm() /
+                    outs[True].norm().clamp(min=1e-30))
+        check(np.isfinite(rel) and rel <= GENERIC_REL and
+              float(outs[True].abs().max()) > 0,
+              f'frustum (18) {dtype}: generic against separable {rel}')
+        lines.append(
+            f'{str(dtype)[6:]}: generic ms {[round(v, 3) for v in res[False][0]]}'
+            f' peak_mem_bytes {res[False][1]}; separable ms '
+            f'{[round(v, 3) for v in res[True][0]]} peak_mem_bytes '
+            f'{res[True][1]}; relative L2 {rel:.3g}')
+        del neck, args, outs
+        torch.cuda.empty_cache()
+    print(f'frustum (18) FrustumToVoxel at the full DfMConfig ({d} planes at '
+          f'{h}x{w}, 64 channels, grid {cfg.voxel_grid_size()}), B = 1, '
+          'after one call: ' + ' | '.join(lines)
+          + f'; {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
+def _kitti_lidar_trees(work):
+    """Two KITTI trees with velodyne points and train / val infos, the
+    second with `create_data --with-gt-db`'s database."""
+    import os
+    from dfm_tpu_torch.tools import create_data
+    roots = []
+    for tag, extra in (('plain', []), ('gtdb', ['--with-gt-db'])):
+        root = os.path.join(work, f'kitti_lidar_{tag}')
+        write_kitti_tree(root)
+        check(create_data.main(['kitti', '--root', root, '--splits', 'train',
+                                'val'] + extra) == 0,
+              f'voxelnet (19) create_data {tag}')
+        roots.append(root)
+    check(os.path.exists(os.path.join(roots[1],
+                                      'dfm_gt_database_infos.pkl')),
+          'voxelnet (19): no GT database')
+    return roots
+
+
+def voxelnet_phase(dev, procs, work):
+    """19. The SECOND LiDAR family at configs/hv_second_kitti_3class.py
+    (18,000 points, grid 20x400x352, 5 points a voxel): (a) card against
+    CPU at a tiny grid, (b) requests in bf16 and f32 by stage, the f32
+    training step at B = 6 (and with the FreeAnchor head), a
+    DynamicVoxelNet request, (c) `tools.train` on a KITTI tree with and
+    without the GT database and `tools.test --synthetic`, started here
+    in processes of their own."""
+    import os
+    from dfm_tpu_torch.apis import init_lidar_model
+    from dfm_tpu_torch.models.builder import build_detector
+    from dfm_tpu_torch.models.detectors.dynamic_voxelnet import (
+        DynamicVoxelNet, DynamicVoxelNetConfig)
+    from dfm_tpu_torch.models.detectors.voxelnet import (
+        VoxelNet, VoxelNetConfig, voxelnet_predict)
+    from dfm_tpu_torch.runtime.adapters import lidar_synth, lidar_to_device
+    from dfm_tpu_torch.runtime.config import load_config
+    from dfm_tpu_torch.utils.weights import init_weights
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    configs = [os.path.join(here, 'configs', c) for c in LIDAR_CONFIGS]
+    plain, gtdb = _kitti_lidar_trees(work)
+    for tag, root in (('plain', plain), ('gtdb', gtdb)):
+        _start(procs, f'lidar train {tag}', [
+            'dfm_tpu_torch.tools.train', configs[0], '--max-steps', '3',
+            '--work-dir', os.path.join(work, f'lidar_{tag}'),
+            '--cfg-options', f'data.data_root={root}'])
+    _start(procs, 'lidar test', ['dfm_tpu_torch.tools.test', configs[0],
+                                 '--synthetic'])
+
+    # (a) the card against the CPU at the tiny grid, f32, TF32 off
+    pts = torch.from_numpy(np.stack([lidar_cloud(
+        LIDAR_TINY['point_cloud_range'], 3000, s) for s in (0, 1)]))
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool)
+    flags = _no_tf32()
+    try:
+        rels = {}
+        for cls, cfg_cls, opts in (
+                (VoxelNet, VoxelNetConfig, {}),
+                (DynamicVoxelNet, DynamicVoxelNetConfig,
+                 dict(max_points_per_voxel=None))):
+            cfg = cfg_cls(**dict(LIDAR_TINY, **opts))
+            outs = {}
+            for d in ('cpu', dev):
+                model = _live_weights(init_weights(cls(cfg), 5), 6,
+                                      3.0).to(d).eval()
+                with torch.inference_mode():
+                    out = model(pts.to(d), mask.to(d))
+                outs[d] = {k: v.float().cpu() for k, v in out.items()}
+            rel = _rel_l2s(outs[dev], outs['cpu'])
+            rels[cls.__name__] = max(rel.values())
+            check(rels[cls.__name__] <= LIDAR_REL_L2,
+                  f'voxelnet (19a) {cls.__name__} card vs CPU: {rel}')
+    finally:
+        _set_tf32(flags)
+    print(f'voxelnet (19a) tiny grid (8, 40, 40), 2 x 3000 points, f32, TF32 '
+          f'off, card vs CPU: outputs relative L2 max '
+          f'{ {k: float(f"{v:.3g}") for k, v in rels.items()} }', flush=True)
+
+    # (b) the full config: requests, training steps
+    mcfg = build_detector(load_config(configs[0]).model)
+    pcr = mcfg.point_cloud_range
+    req = torch.from_numpy(lidar_cloud(pcr, LIDAR_POINTS, 2))[None].to(dev)
+    req_mask = torch.ones(req.shape[:2], dtype=torch.bool, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        h = init_lidar_model(mcfg, dtype)
+        model = _live_weights(h['model'], 7, 3.0)
+        enc = model.encoder
+        stages = [
+            ('voxelize', lambda _: enc.voxelize(req, req_mask)),
+            ('encoder + BEV', lambda x: enc.encode(x)[1]),
+            ('head', lambda bev: dict(zip(
+                ('cls_score', 'bbox_pred', 'dir_pred'),
+                model.bbox_head(bev.permute(0, 3, 1, 2))))),
+            ('predict', lambda o: voxelnet_predict(o, mcfg))]
+        ms, st, peak, det = _request_times(lambda: h['infer'](req, req_mask),
+                                           stages, 'voxelnet (19b)')
+        kept = _finite_dets(det, 'voxelnet (19b)')
+        tf32 = '' if dtype == torch.bfloat16 else ' (TF32 as PyTorch has it)'
+        print(_stage_line(
+            f'voxelnet (19b) {LIDAR_CONFIGS[0]} request {str(dtype)[6:]}'
+            f'{tf32}, {LIDAR_POINTS} points, grid {enc.grid_size()}', ms, st,
+            peak) + f'; kept {kept}', flush=True)
+        del h, model, enc
+        gc.collect()
+        torch.cuda.empty_cache()
+    dyn = DynamicVoxelNetConfig(**{**vars(mcfg), 'max_points_per_voxel':
+                                   None})
+    h = init_lidar_model(dyn, torch.float32)
+    ms, peak, det = _timed(lambda: h['infer'](req, req_mask))
+    kept = _finite_dets(det, 'voxelnet (19b) dynamic')
+    print(f'voxelnet (19b) DynamicVoxelNet request f32 (TF32 as PyTorch has '
+          f'it): ms {[round(v, 3) for v in ms]}; peak_mem_bytes {peak}; kept '
+          f'{kept}', flush=True)
+    del h
+    b = load_config(configs[0]).data.batch_size_per_chip
+    for config in configs:
+        cfg = build_detector(load_config(config).model)
+        model = init_weights(VoxelNet(cfg)).to(dev)
+        _train_step_line(
+            f'voxelnet (19b) {os.path.basename(config)} training step '
+            f'(bbox_head {cfg.bbox_head}), f32 (TF32 as PyTorch has it), '
+            f'B = {b} x {LIDAR_POINTS} points', model,
+            lambda i, c=cfg: lidar_to_device(lidar_synth(
+                c, b, i, n=LIDAR_POINTS), dev), dev)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f'voxelnet phase (a, b) {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+
+
+def _second_state_dict(teacher, seed):
+    """A seeded SECOND teacher state dict in the reference's key names
+    (`lidar_model.middle_encoder.*` in spconv v2's (kz, ky, kx, C_in,
+    C_out) layout, `lidar_model.backbone.*` the BEV hourglass) for the
+    port's `SparseLidarTeacher` `teacher`, and the port state dict it
+    should convert to."""
+    from dfm_tpu_torch.utils.weights import SPARSE_ENCODER_LAYERS
+    from dfm_tpu_torch.utils.weights import init_weights
+    init_weights(teacher, seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in teacher.state_dict().items():
+            if name.endswith(('running_mean', 'bias')):
+                t.add_(0.1 * torch.randn(t.shape, generator=g))
+            elif name.endswith(('running_var', 'weight')) and t.dim() == 1:
+                t.mul_(1 + 0.2 * torch.rand(t.shape, generator=g))
+    port = teacher.state_dict()
+    layers = ['conv_input', 'encoder_layers.encoder_layer1.0'] + [
+        f'encoder_layers.encoder_layer{s + 1}.{j}'
+        for s in (1, 2, 3) for j in (0, 1, 2)]
+    sd = {}
+    for (conv, bn), layer in zip(SPARSE_ENCODER_LAYERS, layers):
+        k = port[f'middle_encoder.{conv}.kernel']
+        sd[f'middle_encoder.{layer}.0.weight'] = k.reshape(
+            3, 3, 3, k.shape[1], k.shape[2])
+        for leaf in ('weight', 'bias', 'running_mean', 'running_var'):
+            sd[f'middle_encoder.{layer}.1.{leaf}'] = \
+                port[f'middle_encoder.{bn}.{leaf}']
+    k = port['middle_encoder.conv_out.kernel']
+    sd['middle_encoder.conv_out.0.weight'] = k.reshape(1, 1, 1, *k.shape[1:])
+    for name, t in port.items():
+        if name.startswith('bev.'):
+            sd['backbone.' + name[len('bev.'):]] = t
+    return {f'lidar_model.{k}': v.clone() for k, v in sd.items()}, port
+
+
+def sparse_teacher_phase(dev, work):
+    """20. DfMWithTeacher(teacher_encoder='sparse') at the full DfMConfig:
+    (a) the sparse teacher card against CPU at a small sparse shape, (b)
+    the teacher's weights from the SECOND converter on a seeded state dict
+    in the reference's key names, (c) full-width f32 steps at B = 1 with
+    TEACHER_POINTS points: the split, peak memory, occupied voxels against
+    the capacity, one launch each of K1, K2, K3, K1-bwd and K2-bwd a
+    step."""
+    import os
+    from dfm_tpu_torch.models.detectors.dfm import DfMConfig
+    from dfm_tpu_torch.models.detectors.dfm_with_teacher import \
+        DfMWithTeacher
+    from dfm_tpu_torch.models.detectors.teacher import SparseLidarTeacher
+    from dfm_tpu_torch.ops.cuda import sampling as K
+    from dfm_tpu_torch.runtime.adapters import dfm_synth, to_device
+    from dfm_tpu_torch.runtime.schedule import liga_schedule
+    from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
+    from dfm_tpu_torch.tools.model_converters import \
+        convert_second_checkpoints as CONV
+    from dfm_tpu_torch.utils.msgpack_tree import load_msgpack_tree
+    from dfm_tpu_torch.utils.weights import init_weights, teacher_state_dict
+    t_phase = time.perf_counter()
+    full = DfMConfig()
+    pcr = full.point_cloud_range
+    # (a) card against CPU, a small sparse shape past its capacity
+    pts = torch.from_numpy(np.stack([lidar_cloud(pcr, 1500, s)
+                                     for s in (3, 4)]))
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool)
+    flags = _no_tf32()
+    try:
+        outs, keys = {}, {}
+        for d in ('cpu', dev):
+            t = init_weights(SparseLidarTeacher(pcr, bev_channels=16,
+                                                **SPARSE_SMALL), 3)
+            t = t.to(d).eval()
+            with torch.inference_mode():
+                keys[d] = [x.cpu() for x in t.voxelize(pts.to(d),
+                                                       mask.to(d))]
+                vol, bev = t(pts.to(d), mask.to(d))
+            outs[d] = dict(vol=vol.float().cpu(), bev=bev.float().cpu())
+        rel = _rel_l2s(outs[dev], outs['cpu'])
+        check(torch.equal(keys[dev][0], keys['cpu'][0]) and
+              torch.equal(keys[dev][2], keys['cpu'][2]) and
+              max(rel.values()) <= SPARSE_REL_L2,
+              f'sparse (20a) card vs CPU: keys equal '
+              f'{torch.equal(keys[dev][0], keys["cpu"][0])}, {rel}')
+    finally:
+        _set_tf32(flags)
+    print(f'sparse (20a) SparseLidarTeacher {SPARSE_SMALL}, 2 x 1500 points, '
+          f'f32, TF32 off, card vs CPU: keys and masks equal, '
+          f'{int(keys["cpu"][2].sum())} of {2 * SPARSE_SMALL["capacity"]} '
+          f'slots active, outputs relative L2 '
+          f'{ {k: float(f"{v:.3g}") for k, v in rel.items()} }', flush=True)
+
+    # (b) the teacher's weights through the converter
+    model = init_weights(DfMWithTeacher(full, 'sparse'))
+    sd, want = _second_state_dict(SparseLidarTeacher(
+        pcr, bev_channels=full.bev_channels), 11)
+    src, dst = os.path.join(work, 'second.pth'), os.path.join(
+        work, 'sparse_teacher.msgpack')
+    torch.save({'state_dict': sd}, src)
+    t0 = time.perf_counter()
+    check(CONV.main([src, dst]) == 0, 'sparse (20b) the converter failed')
+    conv_ms = (time.perf_counter() - t0) * 1e3
+    missing, unexpected = model.lidar_teacher.load_state_dict(
+        teacher_state_dict(load_msgpack_tree(dst), 'sparse'), strict=True)
+    check(all(torch.equal(v, want[k]) for k, v in
+              model.lidar_teacher.state_dict().items()),
+          'sparse (20b): the converted teacher differs from its weights')
+    print(f'sparse (20b) SECOND state dict ({len(sd)} reference keys) -> '
+          f'converter ({conv_ms:.1f} ms) -> teacher_state_dict(sparse): the '
+          'seeded weights, bit for bit', flush=True)
+
+    # (c) full-width steps
+    model = model.to(dev)
+    step = TrainStep(model, make_optimizer(
+        model, frozen_prefixes=('lidar_teacher',)), liga_schedule(1e-3))
+    before = {k: v.clone() for k, v in model.lidar_teacher.state_dict()
+              .items()}
+
+    def batch(i):
+        b = dfm_synth(full, 1, i, h=IMG_HW[0], w=IMG_HW[1], full=True)
+        b['points'] = lidar_cloud(pcr, TEACHER_POINTS, 10 + i)[None]
+        b['point_mask'] = np.ones((1, TEACHER_POINTS), bool)
+        for k in ('gt_bboxes2d', 'centers2d'):
+            b.pop(k, None)
+        return to_device(b, dev)
+
+    for i in range(2):
+        step(*batch(i), torch.Generator(device=dev).manual_seed(i))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    splits = []
+    for i in range(2):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        img, meta, gt = batch(i + 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        total, losses = step.forward(
+            img, meta, gt, torch.Generator(device=dev).manual_seed(i))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        step.backward(total)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        norm = step.update()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        check_launches(dict(K.LAUNCHES), 'train', 1,
+                       f'sparse (20c) step {i}')
+        splits.append([(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+                       (t4 - t3) * 1e3])
+        vals = {k: float(v.detach())
+                for k, v in dict(loss=total, **losses).items()}
+        check('loss_imitation' in vals and all(np.isfinite(x) for x in
+                                               vals.values()),
+              f'sparse (20c) step: {vals}')
+    peak = torch.cuda.max_memory_allocated()
+    after = model.lidar_teacher.state_dict()
+    check(all(torch.equal(before[k], after[k]) for k in before
+              if not k.endswith(('running_mean', 'running_var'))),
+          'sparse (20c): the update changed a teacher parameter')
+    with torch.no_grad():
+        occupied = int(model.lidar_teacher.voxelize(
+            gt['points'], gt['point_mask'])[2].sum())
+    print(f'sparse (20c) DfMWithTeacher(sparse) full DfMConfig, f32 (TF32 as '
+          f'PyTorch has it), B = 1, {TEACHER_POINTS} points, after 2 warm-up '
+          'steps, ms (data, forward, backward, optimizer): '
+          + ' | '.join(', '.join(f'{x:.3f}' for x in row) for row in splits)
+          + f'; peak_mem_bytes {peak}; occupied voxels {occupied} of '
+          f'{model.lidar_teacher.capacity}; losses '
+          f'{ {k: round(x, 5) for k, x in vals.items()} } grad_norm '
+          f'{float(norm):.5g}; launches per step '
+          f'{ {k: n for k, n in K.LAUNCHES.items() if n} } (K1, K2, K3, '
+          f'K1-bwd, K2-bwd once each); teacher parameters unchanged; '
+          f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lidar_cli_checks(procs):
+    """The processes of phases 17 and 19: the LET lines of tools.test on
+    the converted Waymo tree, tools.train's steps on the KITTI trees (the
+    GT database read where it exists), tools.test --synthetic."""
+    t0 = time.perf_counter()
+    cli = _finish(procs)
+    for name, res in cli.items():
+        check(res.returncode == 0, f'{name}: rc {res.returncode} '
+              f'{res.stderr[-3000:]}')
+    out = cli['waymo test'].stdout
+    lets = re.findall(r'^(?:Vehicle|Pedestrian|Cyclist|Sign|Overall) '
+                      r'mAP\w?: (\S+)$', out, re.M)
+    check(len(lets) == 15 and all(np.isfinite(float(x)) for x in lets) and
+          f'[{WAYMO_RAW_FRAMES}/{WAYMO_RAW_FRAMES}]' in out,
+          f'waymo (17) tools.test: {out[-2000:]}')
+    for tag in ('plain', 'gtdb'):
+        out = cli[f'lidar train {tag}'].stdout
+        check('step 3/3' in out and ('ObjectSample GT database' in out) ==
+              (tag == 'gtdb'), f'voxelnet (19c) train {tag}: {out[-2000:]}')
+    check('[synthetic-eval] VoxelNet: decoded 5 output arrays, finite=True'
+          in cli['lidar test'].stdout, 'voxelnet (19c) tools.test')
+    print(f'waymo (17) tools.test on the converted tree: '
+          f'{len(lets)} LET lines ({", ".join(lets[-3:])} overall); voxelnet '
+          '(19c) tools.train 3 steps on KITTI velodyne trees without and '
+          'with the GT database, tools.test --synthetic finite; waited '
+          f'{time.perf_counter() - t0:.1f} s for them', flush=True)
+
+
+def lidar_phases(dev):
+    """Phases 17-20, their processes collected at the end."""
+    import tempfile
+    t0 = time.perf_counter()
+    procs = {}
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            waymo_convert_phase(procs, work)
+            voxelnet_phase(dev, procs, work)
+            frustum_generic_phase(dev)
+            sparse_teacher_phase(dev, work)
+            _lidar_cli_checks(procs)
+        finally:
+            _kill(procs)
+    print(f'phases 17-20 {time.perf_counter() - t0:.1f} s', flush=True)
+
+
+def phases17_20_alone(dev='cuda'):
+    """Phases 17-20 by themselves, the kernels built first."""
+    from dfm_tpu_torch.ops.cuda import build
+    print(card_line(), flush=True)
+    build.build_all()
+    lidar_phases(dev)
+
+
 def _flops_of(fn, *args):
     """Floating-point operations of `fn(*args)` (torch's FlopCounterMode:
     the convolutions and matrix products)."""
@@ -5777,6 +6375,7 @@ def main():
     imvoxel_phase(dev)
     nuscenes_phase(dev)
     waymo_cam_phase(dev)
+    lidar_phases(dev)
 
     print(json.dumps({'kernels': list(results.values())}))
     print(card)

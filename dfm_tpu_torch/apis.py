@@ -2,8 +2,9 @@
 mono family's `init_mono_model` / `inference_mono_3d`: FCOS3D, PGD, SMOKE
 and MonoFlex),
 MultiViewDfM's (`init_mvdfm_model`, `detect_multiview_sample`,
-`multihost_multiview_inference`) and ImVoxelNet's
-(`init_imvoxelnet_model`).
+`multihost_multiview_inference`), ImVoxelNet's
+(`init_imvoxelnet_model`) and the SECOND LiDAR family's
+(`init_lidar_model`: VoxelNet, DynamicVoxelNet).
 
 They run on the CUDA card by default and raise when there is none; the
 CPU is used only when the caller passes device='cpu'. Weights are
@@ -40,8 +41,12 @@ from .models.detectors.dfm import DfM, DfMConfig, dfm_predict
 from .models.detectors.imvoxelnet import (ImVoxelNet, ImVoxelNetConfig,
                                           imvoxelnet_predict)
 from .models.heads.fcos_mono3d import FCOS3DConfig, pad44
+from .models.detectors.dynamic_voxelnet import (DynamicVoxelNet,
+                                                DynamicVoxelNetConfig)
 from .models.detectors.multiview_dfm import (MultiViewDfM, MVDfMConfig,
                                              mvdfm_predict)
+from .models.detectors.voxelnet import (VoxelNet, VoxelNetConfig,
+                                        voxelnet_predict)
 from .parallel import dist as D
 from .utils.weights import init_weights, load_reference_checkpoint
 
@@ -50,7 +55,7 @@ __all__ = ['init_dfm_model', 'init_dfm_stream', 'detect_sample',
            'multihost_dataset_inference', 'allgather_pickled',
            'init_mvdfm_model', 'detect_multiview_sample',
            'multihost_multiview_inference', 'init_imvoxelnet_model',
-           'init_mono_model',
+           'init_lidar_model', 'init_mono_model',
            'inference_mono_3d', 'detect_mono']
 
 
@@ -260,6 +265,34 @@ def init_imvoxelnet_model(cfg=None, dtype=torch.bfloat16, device=None):
     @torch.inference_mode()
     def infer(imgs, lidar2img):
         return imvoxelnet_predict(model(imgs, lidar2img), cfg)
+
+    return dict(model=model, cfg=cfg, device=device, infer=infer,
+                load_checkpoint=lambda path: load_reference_checkpoint(
+                    model, path))
+
+
+def init_lidar_model(cfg=None, dtype=torch.bfloat16, device=None):
+    """Build a VoxelNet (a `VoxelNetConfig`, the default) or a
+    DynamicVoxelNet (a `DynamicVoxelNetConfig`), seeded random weights,
+    and its inference function.
+
+    Returns dict(model, cfg, device, infer, load_checkpoint) with
+    infer(points (B, P, 3+), point_mask (B, P)) -> padded detections in
+    the LiDAR frame ('boxes3d' bottom-centre, 'scores', 'labels', 'mask')
+    and load_checkpoint(path) -> the keys of a checkpoint in the port's
+    layout that it did not take.
+    """
+    cfg = cfg or VoxelNetConfig()
+    device = _device(device)
+    cls = DynamicVoxelNet if isinstance(cfg, DynamicVoxelNetConfig) \
+        else VoxelNet
+    with torch.device('meta'):
+        model = cls(cfg, dtype=dtype)
+    model = init_weights(model.to_empty(device=device)).eval()
+
+    @torch.inference_mode()
+    def infer(points, point_mask):
+        return voxelnet_predict(model(points, point_mask), cfg)
 
     return dict(model=model, cfg=cfg, device=device, infer=infer,
                 load_checkpoint=lambda path: load_reference_checkpoint(

@@ -1,9 +1,10 @@
 """Waymo evaluation: Objects .bin files -> LET-mAP / mAPH / mAPL.
 
-Port of `dfm_tpu/evaluation/waymo_eval.py:115-190` (`gt_annos_to_bin`,
-`run_let_binary`, `parse_let_text`, `evaluate_waymo`) and of
-`tools/create_waymo_gt_bin.py:38-75` (`gt_objects_from_infos`, the GT
-from converted info dicts). `evaluate_waymo` runs the official
+Port of `dfm_tpu/evaluation/waymo_eval.py:40-112` (`kitti_result_to_objects`,
+`results_to_bin`: KITTI-format camera-frame results -> vehicle-frame
+Objects), `:115-190` (`gt_annos_to_bin`, `run_let_binary`,
+`parse_let_text`, `evaluate_waymo`) and of `tools/create_waymo_gt_bin.py:
+38-75` (`gt_objects_from_infos`, the GT from converted info dicts). `evaluate_waymo` runs the official
 `compute_detection_let_metrics_main` binary when the environment
 variable WAYMO_METRICS_BIN names one, and the port's pure-Python metric
 (`evaluation/waymo_let.py`) otherwise; the result's '_source' says which
@@ -17,13 +18,81 @@ import subprocess
 import numpy as np
 
 from .waymo_let import let_detection_metrics
-from .waymo_proto import Box, ObjectPred, decode_objects, encode_objects
+from .waymo_proto import (KITTI_NAME_TO_TYPE, Box, ObjectPred,
+                          decode_objects, encode_objects)
 
-__all__ = ['WAYMO_TYPE_BY_LABEL', 'gt_objects_from_infos',
-           'gt_annos_to_bin', 'find_let_binary', 'run_let_binary',
-           'parse_let_text', 'evaluate_waymo']
+__all__ = ['WAYMO_TYPE_BY_LABEL', 'T_REF_TO_FRONT_CAM',
+           'kitti_result_to_objects', 'results_to_bin',
+           'gt_objects_from_infos', 'gt_annos_to_bin', 'find_let_binary',
+           'run_let_binary', 'parse_let_text', 'evaluate_waymo']
 
 WAYMO_TYPE_BY_LABEL = (1, 2, 4)  # Car, Pedestrian, Cyclist
+
+# KITTI reference camera -> Waymo front camera axes (reference
+# prediction_kitti_to_waymo.py:74-77)
+T_REF_TO_FRONT_CAM = np.array([[0.0, 0.0, 1.0, 0.0],
+                               [-1.0, 0.0, 0.0, 0.0],
+                               [0.0, -1.0, 0.0, 0.0],
+                               [0.0, 0.0, 0.0, 1.0]])
+
+
+def _heading_cam_to_waymo(rotation_y):
+    h = -(rotation_y + np.pi / 2)
+    while h < -np.pi:
+        h += 2 * np.pi
+    while h > np.pi:
+        h -= 2 * np.pi
+    return h
+
+
+def kitti_result_to_objects(kitti_result, t_k2w, context_name,
+                            frame_timestamp_micros, score_round=4):
+    """One frame's KITTI-format detections ('name', 'dimensions' (l, h,
+    w), 'location' (bottom centre, KITTI camera frame), 'rotation_y',
+    'score') -> ObjectPred list in the vehicle frame through `t_k2w` (4,
+    4): each value rounded to `score_round` decimals, y raised by h / 2 to
+    the box centre, heading -(ry + pi / 2) wrapped into [-pi, pi]; names
+    outside Car / Pedestrian / Cyclist left out."""
+    out = []
+    for i in range(len(kitti_result['name'])):
+        cls = str(kitti_result['name'][i])
+        if cls not in KITTI_NAME_TO_TYPE:
+            continue
+        le, he, wi = (round(float(kitti_result['dimensions'][i, k]),
+                            score_round) for k in range(3))
+        x, y, z = (round(float(kitti_result['location'][i, k]), score_round)
+                   for k in range(3))
+        ry = round(float(kitti_result['rotation_y'][i]), score_round)
+        score = round(float(kitti_result['score'][i]), score_round)
+        y -= he / 2
+        xyz = t_k2w @ np.array([x, y, z, 1.0])
+        out.append(ObjectPred(
+            box=Box(center_x=float(xyz[0]), center_y=float(xyz[1]),
+                    center_z=float(xyz[2]), length=le, width=wi, height=he,
+                    heading=float(_heading_cam_to_waymo(ry))),
+            type=KITTI_NAME_TO_TYPE[cls], score=score,
+            context_name=context_name,
+            frame_timestamp_micros=int(frame_timestamp_micros)))
+    return out
+
+
+def results_to_bin(kitti_results, frame_infos, path):
+    """Write the predictions .bin of a list of frames' KITTI-format results
+    (each with 'sample_idx'; empty frames skipped); `frame_infos` maps
+    str(sample_idx) -> 'T_front_cam_to_vehicle' (4, 4), 'context_name',
+    'timestamp_micros'. Returns the number of objects written."""
+    objs = []
+    for res in kitti_results:
+        if len(res.get('sample_idx', [])) == 0:
+            continue
+        info = frame_infos[str(res['sample_idx'][0])]
+        t_k2w = np.asarray(info['T_front_cam_to_vehicle']) @ \
+            T_REF_TO_FRONT_CAM
+        objs.extend(kitti_result_to_objects(
+            res, t_k2w, info['context_name'], info['timestamp_micros']))
+    with open(path, 'wb') as f:
+        f.write(encode_objects(objs))
+    return len(objs)
 
 
 def _box7_to_proto(b):
@@ -36,7 +105,9 @@ def _box7_to_proto(b):
 def gt_objects_from_infos(infos, cam_sync=True, min_points=1):
     """Camera-only GT Objects from info dicts (`context_name`,
     `timestamp_micros`, and an 'annos' dict with vehicle-frame
-    'gt_boxes_3d' (N, 7 bottom centre), 'labels', 'camera_names' (most
+    'gt_boxes_3d' (N, 7 bottom centre; where an info has none, its
+    'gt_boxes', the key the port's converter writes, are read),
+    'labels', 'camera_names' (most
     visible camera, '' = none), optional 'camera_synced_boxes_3d' and
     'num_lidar_points'): labels outside the three classes and boxes with
     fewer than `min_points` points are left out, and with `cam_sync` so
@@ -44,8 +115,8 @@ def gt_objects_from_infos(infos, cam_sync=True, min_points=1):
     objs = []
     for info in infos:
         annos = info.get('annos', {})
-        boxes = np.asarray(annos.get('gt_boxes_3d',
-                                     np.zeros((0, 7)))).reshape(-1, 7)
+        boxes = np.asarray(annos.get('gt_boxes_3d', annos.get(
+            'gt_boxes', np.zeros((0, 7))))).reshape(-1, 7)
         labels = np.asarray(annos.get('labels',
                                       np.zeros((len(boxes),), int)))
         cams = annos.get('camera_names', [''] * len(boxes))

@@ -8,7 +8,10 @@ Port of `dfm_tpu/models/builder.py:28-106` (`_mk_cfg`, `_build_dfm`,
 `FCOSMono3D` `FCOS3DConfig`, `PGD` `PGDConfig` (their ResNet's depth is the
 config's `backbone_depth`, 101 where it has none: `mono_backbone_depth`,
 which `mono_model` builds with), `SMOKEMono3D` `SMOKEConfig` and `MonoFlex`
-`MonoFlexConfig` (DLA-34, depth 34), `ImVoxelNet` `ImVoxelNetConfig`.
+`MonoFlexConfig` (DLA-34, depth 34), `ImVoxelNet` `ImVoxelNetConfig`,
+`VoxelNet` `VoxelNetConfig` and `DynamicVoxelNet` `DynamicVoxelNetConfig`
+(`_build_voxelnet`, `_build_dynamic_voxelnet`; a `bbox_head` the port
+does not run, 'shape_aware', raises NotImplementedError).
 DfM and DfMFull evaluate the DfM student alone, so `build_detector`
 gives the student's config for both; `atss_config` gives DfMFull's 2D
 head its config from the model's `atss` entry, and the train CLI
@@ -19,7 +22,7 @@ from `teacher_checkpoint`. For DfM and DfMFull, keys that are no field of
 DfMFull's `atss` and `teacher_checkpoint`, which only training reads).
 For the mono types `unused_keys` names the type alone in the repo's
 configs (every other key is a field, or `backbone_depth`). The first type
-of the JAX builder's registry that the port does not run is `VoxelNet`. A
+of the JAX builder's registry that the port does not run is `CenterPoint`. A
 `MultiViewDfM` config with a key that is no field of `MVDfMConfig` is
 refused (ValueError).
 """
@@ -27,25 +30,31 @@ refused (ValueError).
 import dataclasses
 
 from .detectors.dfm import DfMConfig
+from .detectors.dynamic_voxelnet import DynamicVoxelNetConfig
 from .detectors.fcos_mono3d import FCOSMono3D
 from .detectors.imvoxelnet import ImVoxelNetConfig
 from .detectors.monoflex import MonoFlex
 from .detectors.multiview_dfm import MVDfMConfig
 from .detectors.pgd_mono3d import PGDMono3D
 from .detectors.smoke import SMOKEConfig, SMOKEMono3D
+from .detectors.voxelnet import VoxelNetConfig, check_bbox_head
 from .heads.atss2d import ATSS2DConfig
 from .heads.fcos_mono3d import FCOS3DConfig
 from .heads.monoflex import MonoFlexConfig
 from .heads.pgd import PGDConfig
 
 __all__ = ['build_detector', 'atss_config', 'unused_keys', 'PORTED_TYPES',
-           'MONO_TYPES', 'DLA_TYPES', 'mono_backbone_depth', 'mono_class',
-           'mono_model']
+           'MONO_TYPES', 'DLA_TYPES', 'LIDAR_TYPES', 'mono_backbone_depth',
+           'mono_class', 'mono_model']
 
 DLA_TYPES = ('SMOKEMono3D', 'MonoFlex')
 MONO_TYPES = ('FCOSMono3D', 'PGD') + DLA_TYPES
-PORTED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM', 'ImVoxelNet') + MONO_TYPES
+LIDAR_TYPES = ('VoxelNet', 'DynamicVoxelNet')
+PORTED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM', 'ImVoxelNet') + \
+    MONO_TYPES + LIDAR_TYPES
 _CONFIG_CLASSES = {'MultiViewDfM': MVDfMConfig, 'ImVoxelNet': ImVoxelNetConfig,
+                   'VoxelNet': VoxelNetConfig,
+                   'DynamicVoxelNet': DynamicVoxelNetConfig,
                    'FCOSMono3D': FCOS3DConfig,
                    'PGD': PGDConfig, 'SMOKEMono3D': SMOKEConfig,
                    'MonoFlex': MonoFlexConfig}
@@ -90,6 +99,8 @@ def unused_keys(model_cfg):
 def build_detector(model_cfg):
     """`model_cfg` (a dict or `Config` with a `type`) -> `DfMConfig`,
     `MVDfMConfig` for MultiViewDfM, `ImVoxelNetConfig` for ImVoxelNet,
+    `VoxelNetConfig` / `DynamicVoxelNetConfig` for VoxelNet /
+    DynamicVoxelNet,
     `FCOS3DConfig` / `PGDConfig` /
     `SMOKEConfig` / `MonoFlexConfig` for FCOSMono3D / PGD / SMOKEMono3D /
     MonoFlex. Raises NotImplementedError for a type
@@ -108,7 +119,10 @@ def build_detector(model_cfg):
         if unknown:
             raise ValueError(f'MultiViewDfM config keys that are no field '
                              f'of MVDfMConfig: {unknown}')
-    return _mk_cfg(_config_class(kind), d)
+    cfg = _mk_cfg(_config_class(kind), d)
+    if kind in LIDAR_TYPES:
+        check_bbox_head(cfg)
+    return cfg
 
 
 def atss_config(model_cfg):

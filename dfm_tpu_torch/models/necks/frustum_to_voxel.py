@@ -1,18 +1,26 @@
-"""FrustumToVoxel neck, KITTI (separable-camera) path.
+"""FrustumToVoxel neck: the KITTI separable-camera path and the generic
+path for any projection.
 
-Port of `dfm_tpu/models/necks/frustum_to_voxel.py:72-146, 248-277`:
-lift the stereo volume into the pseudo-lidar voxel grid, weight the
-sampled 2D semantic features by the depth-softmax attention (K3) and
-concat them along channels, all three in one kernel (K2 fused, as the
-JAX package's `_fused` cond computes them), then the voxel ConvNorm and
-an average pool over z. The stages run in `record_function` spans
-`dfm.frustum_to_voxel.{uv, softmax_volume, attention, voxel_features,
-voxel_convnorm, pool}`.
+Port of `dfm_tpu/models/necks/frustum_to_voxel.py:72-146, 207-277`: lift
+the stereo volume into the pseudo-lidar voxel grid, weight the sampled 2D
+semantic features by the depth-softmax attention and concat them along
+channels, then the voxel ConvNorm and an average pool over z.
+
+* Separable (`separable=True`, the default, as JAX's, with a static numpy
+  `coors_3d`): the projection of a KITTI P-form camera splits by axis, and
+  the attention (K3) and the fused voxel features (K2) run in CUDA
+  kernels on the card, as JAX's `_fused` cond computes them. The stages
+  run in `record_function` spans `dfm.frustum_to_voxel.{uv,
+  softmax_volume, attention, voxel_features, voxel_convnorm, pool}`.
+* Generic (`separable=False`, or a `coors_3d` tensor, as JAX takes its
+  gather path for a traced one): each voxel centre is projected by the
+  full cam2img and sampled by direct gathers (`ops/frustum.py`; the
+  attention from the log-sum-exp map, without the x4 volume), in the
+  span `dfm.frustum_to_voxel.generic`. No Pallas kernel lies on JAX's
+  branch, so the plain PyTorch version is the port.
 
 Only the configuration DfM-KITTI uses is ported (sem_atten_feat,
-cat_img_feature, no stereo attention, one voxel conv). The generic
-gather path for arbitrary projections (multi-view Waymo,
-`ops/frustum.py`) is not ported yet.
+cat_img_feature, no stereo attention, one voxel conv).
 """
 
 import numpy as np
@@ -22,6 +30,7 @@ from torch.profiler import record_function
 
 from ..layers import ConvNorm
 from ...ops import frustum_separable as FS
+from ...ops.frustum import frustum_voxel_features_generic
 from ...ops.cuda.sampling import attention_sample, \
     frustum_voxel_features
 
@@ -30,8 +39,9 @@ class FrustumToVoxel(nn.Module):
     pool_z = 4                # AvgPool3d((4, 1, 1)) over z
 
     def __init__(self, in_channels=64, out_channels=32, depth_min=2.0,
-                 depth_max=59.6, up_factor=4):
+                 depth_max=59.6, up_factor=4, separable=True):
         super().__init__()
+        self.separable = separable
         self.depth_min = depth_min
         self.depth_max = depth_max
         self.up_factor = up_factor
@@ -45,7 +55,8 @@ class FrustumToVoxel(nn.Module):
             stereo_vol: (B, D, H', W', Cv) stereo features.
             depth_cost: (B, D, H', W') fused depth cost.
             sem_feat: (B, Hs, Ws, Cs) semantic features.
-            coors_3d: (Nz, Ny, Nx, 3) numpy pseudo-lidar voxel centres.
+            coors_3d: (Nz, Ny, Nx, 3) pseudo-lidar voxel centres, numpy
+                (a tensor takes the generic path).
             cam2img: (B, 4, 4) augmented intrinsics.
             pad_shape: (pad_h, pad_w) of the input image.
 
@@ -53,6 +64,13 @@ class FrustumToVoxel(nn.Module):
             (B, Nz / pool_z, Ny, Nx, C_out) voxel features.
         """
         span = 'dfm.frustum_to_voxel.'
+        if not self.separable or torch.is_tensor(coors_3d):
+            with record_function(span + 'generic'):
+                vol = frustum_voxel_features_generic(
+                    stereo_vol, depth_cost, sem_feat, coors_3d, cam2img,
+                    pad_shape, self.depth_min, self.depth_max,
+                    self.up_factor)
+            return self._convs_and_pool(vol, span)
         with record_function(span + 'uv'):
             coors_3d = np.asarray(coors_3d)
             xs = coors_3d[0, 0, :, 0]
@@ -78,6 +96,9 @@ class FrustumToVoxel(nn.Module):
             vol = frustum_voxel_features(
                 stereo_vol.contiguous(), sem_feat.contiguous(), att, u, v,
                 ds, pad_shape)                       # (B, Nz, Ny, Nx, C)
+        return self._convs_and_pool(vol, span)
+
+    def _convs_and_pool(self, vol, span):
         with record_function(span + 'voxel_convnorm'):
             x = vol.permute(0, 4, 1, 2, 3)
             for conv in self.voxel_convs:

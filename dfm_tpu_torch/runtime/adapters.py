@@ -4,7 +4,8 @@ functions of the train step.
 Port of `dfm_tpu/runtime/adapters.py:41-117` (`_gt_pack`, `_cam_matrix`,
 `_dfm_meta`, `_dfm_synth`), `:149-241` (`_mono_synth` and the FCOS3D /
 PGD / SMOKE / MonoFlex adapters) and `:327-372` (`_mv_synth` and the
-MultiViewDfM / ImVoxelNet model arguments): the same draws from
+MultiViewDfM / ImVoxelNet model arguments) and `:246-262`
+(`_points_synth`, the LiDAR families' points and gt): the same draws from
 `np.random.default_rng(seed)` in the same order, so that one seed gives
 both packages the same batch. A batch is numpy, batched, in the JAX
 layout: for DfM 'img' (B, 2, H, W, 3), 'meta' (the `BatchMeta` fields),
@@ -25,7 +26,7 @@ from ..models.detectors.dfm import BatchMeta
 
 __all__ = ['dfm_meta', 'dfm_synth', 'to_device', 'gt_pack', 'mv_synth',
            'imvoxel_synth', 'mv_to_device', 'mono_synth', 'mono_to_device',
-           'MONO_GT_KEYS']
+           'lidar_synth', 'lidar_to_device', 'MONO_GT_KEYS']
 
 MONO_GT_KEYS = ('gt_bboxes2d', 'centers2d', 'gt_depths', 'gt_boxes_cam',
                 'gt_labels', 'gt_mask', 'gt_velocities', 'gt_attr_labels',
@@ -214,3 +215,30 @@ def mono_to_device(batch, device):
 
     return t(batch['img']), t(batch['cam2img']), {
         k: t(batch[k]) for k in MONO_GT_KEYS if k in batch}
+
+
+def lidar_synth(cfg, b, seed, n=512):
+    """`_points_synth`: `n` points a sample uniform in the config's
+    point-cloud range (all valid), then `gt_pack`'s boxes with their
+    centres clipped half a size inside the range."""
+    rng = np.random.default_rng(seed)
+    pcr = np.asarray(cfg.point_cloud_range, np.float32)
+    pts = rng.random((b, n, 3)).astype(np.float32) * (pcr[3:] - pcr[:3]) \
+        + pcr[:3]
+    boxes, labels, mask = gt_pack(rng, b)
+    lo = pcr[:3] + boxes[..., 3:6] / 2
+    hi = pcr[3:] - boxes[..., 3:6] / 2
+    ctr = np.clip(boxes[..., :3], lo, np.maximum(lo, hi))
+    return dict(points=pts, point_mask=np.ones((b, n), bool),
+                gt_boxes=np.concatenate([ctr, boxes[..., 3:]], -1),
+                gt_labels=labels, gt_mask=mask)
+
+
+def lidar_to_device(batch, device):
+    """A batch of `lidar_synth` (or of `KittiLidarSource`) -> (points,
+    point_mask, gt dict), tensors on `device`."""
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return t(batch['points']), t(batch['point_mask']), {
+        k: t(batch[k]) for k in ('gt_boxes', 'gt_labels', 'gt_mask')}

@@ -12,8 +12,11 @@ OptimizerHook grad clip 35, AdamW, LR hooks). The JAX package chains
   scaled by the learning rate) is optax's `adamw`, with the learning
   rate set from the schedule at each update (count 0 first);
 * parameters under `frozen_prefixes` get no update and no decay (JAX's
-  `multi_transform` with `set_to_zero`); the reported `grad_norm` covers
-  them too, as `optax.global_norm(grads)` does.
+  `make_optimizer(frozen_prefixes=...)`: `multi_transform` with
+  `set_to_zero`; the LiDAR teacher of `DfMFull` and `DfMWithTeacher`
+  under 'lidar_teacher'), and the clip's norm is over the trained ones,
+  as optax clips within the 'train' partition; the reported
+  `grad_norm` covers them too, as `optax.global_norm(grads)` does.
 
 BatchNorm statistics update in the forward pass of a train-mode model
 (`models/layers.py:BatchNorm`), the frozen LiDAR teacher's of a

@@ -44,7 +44,10 @@ with the 2D boxes projected by the original image's P2
 (`cam_detections_to_kitti_annos`) -> `kitti_eval`, the same AP lines.
 MonoFlex and ImVoxelNet have no real-data evaluation in either package
 (JAX falls back to a synthetic batch): they run with `--synthetic` only,
-and exit 2 saying so without it.
+and exit 2 saying so without it. VoxelNet and DynamicVoxelNet have none
+either; as JAX's `tools/test.py:553-557` does for them, they run the
+synthetic evaluation with or without `--synthetic` (their exit code is
+its own).
 
 nuScenes-mono (FCOSMono3D, PGD; data type 'NuScenesMonoDataset'), as
 `tools/test.py:348-404, 549-551` route it: `data.ann_file` (default
@@ -63,7 +66,7 @@ trunks keep their norms; DLA's convs, its neck's DCNv2 and MonoFlex's
 edge-fusion 1D convs fold too). `--synthetic` needs no data: one forward
 and decode of a batch of one from the train adapters' synthetic batches
 (`runtime/adapters.py`: `dfm_synth`, `mv_synth`, `imvoxel_synth`,
-`mono_synth`), for every ported type; it prints the decoded arrays'
+`mono_synth`, `lidar_synth`), for every ported type; it prints the decoded arrays'
 shapes and whether they are finite, and exits 1 when one is not.
 
 Another model type, or a data root without its info file, exits with a
@@ -88,7 +91,7 @@ import torch
 
 from ..apis import (_sharded, detect_mono, detect_multiview_sample,
                     detect_sample, init_dfm_model, init_imvoxelnet_model,
-                    init_mono_model, init_mvdfm_model)
+                    init_lidar_model, init_mono_model, init_mvdfm_model)
 from ..data.kitti import KittiDataset
 from ..data.kitti_mono import (KittiMonoDataset, load_mono_image,
                                mono_info_from_native)
@@ -98,12 +101,12 @@ from ..evaluation.kitti_eval import kitti_eval
 from ..evaluation.results import (cam_detections_to_kitti_annos,
                                   detections_to_kitti_annos)
 from ..evaluation.waymo_eval import gt_annos_to_bin, gt_objects_from_infos
-from ..models.builder import (MONO_TYPES, build_detector,
+from ..models.builder import (LIDAR_TYPES, MONO_TYPES, build_detector,
                               mono_backbone_depth, unused_keys)
 from ..parallel import dist as D
-from ..runtime.adapters import (dfm_synth, imvoxel_synth, mono_synth,
-                                mono_to_device, mv_synth, mv_to_device,
-                                to_device)
+from ..runtime.adapters import (dfm_synth, imvoxel_synth, lidar_synth,
+                                lidar_to_device, mono_synth, mono_to_device,
+                                mv_synth, mv_to_device, to_device)
 from ..runtime.config import load_config, merge_options
 from ..utils.fuse_conv_bn import fuse_conv_bn
 from ..utils.weights import load_reference_state_dict, read_checkpoint
@@ -153,6 +156,8 @@ def init_handle(args, cfg):
         handle = init_mvdfm_model(mcfg, dtype, args.device)
     elif kind == 'ImVoxelNet':
         handle = init_imvoxelnet_model(mcfg, dtype, args.device)
+    elif kind in LIDAR_TYPES:
+        handle = init_lidar_model(mcfg, dtype, args.device)
     elif kind in MONO_TYPES:
         handle = init_mono_model(mcfg, mono_backbone_depth(cfg.model), dtype,
                                  args.device)
@@ -321,6 +326,9 @@ def synthetic_eval(args, cfg):
         synth = mv_synth if kind == 'MultiViewDfM' else imvoxel_synth
         imgs, l2i, _ = mv_to_device(synth(mcfg, 1, 0), dev)
         det = handle['infer'](imgs, l2i)
+    elif kind in LIDAR_TYPES:
+        pts, mask, _ = lidar_to_device(lidar_synth(mcfg, 1, 0), dev)
+        det = handle['infer'](pts, mask)
     elif kind in MONO_TYPES:
         img, cam2img, _ = mono_to_device(mono_synth(
             1, 0, kpts=kind == 'PGD', flex=kind == 'MonoFlex'), dev)
@@ -406,6 +414,10 @@ def main(argv=None):
         want, info, run = 'KittiDataset', INFO_FILE, kitti_dfm_eval
     if args.synthetic:
         run = synthetic_eval
+    elif kind in LIDAR_TYPES:
+        print(f'[data] {kind} has no real-data evaluation (JAX wires none '
+              'either): running the synthetic evaluation', flush=True)
+        run, args.synthetic = synthetic_eval, True
     elif kind in MONO_TYPES and data_type == 'WaymoDataset':
         print(f'[data] {kind} on WaymoDataset (load_mode '
               f'{cfg.data.get("load_mode", "lidar_frame")!r}) is not '

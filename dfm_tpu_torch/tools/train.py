@@ -1,6 +1,6 @@
 """Train DfM, DfMFull, MultiViewDfM, ImVoxelNet, FCOSMono3D, PGD,
-SMOKEMono3D or MonoFlex with the port, in one process or data-parallel
-across processes.
+SMOKEMono3D, MonoFlex, VoxelNet or DynamicVoxelNet with the port, in one
+process or data-parallel across processes.
 
     python -m dfm_tpu_torch.tools.train configs/dfm_r34_kitti_3class.py \
         [--cfg-options key=value ...] [--work-dir W] [--auto-resume] \
@@ -51,7 +51,15 @@ neither, `tools/train.py:450`), so without `--synthetic` it exits 2 saying
 so. Their loss is `fcos_mono3d_loss` / `pgd_mono3d_loss` (with the batch's
 P2) / `smoke_loss` / `monoflex_loss`, normalised over the global batch,
 under the same schedule, AdamW and clip; no per-epoch eval (JAX's EvalHook
-runs for the DfM family alone). Another model type exits with a message
+runs for the DfM family alone). The SECOND LiDAR family (VoxelNet,
+DynamicVoxelNet; data type 'KittiDataset') trains on `KittiLidarSource`
+(`tools/train.py:201-307`): each train frame's velodyne points in the
+pseudo-LiDAR frame and its boxes, with ObjectSample from
+`dfm_gt_database_infos.pkl` where `create_data --with-gt-db` wrote it,
+then flip, rotation, scale, the range filters and a permutation of the
+points, in JAX's draw order; with `--synthetic`, `lidar_synth` (512
+points uniform in the range). Its loss is `voxelnet_loss` (the
+anchor3d or the FreeAnchor head). Another model type exits with a message
 and code 2, as does a KITTI data root without the train infos (without
 `--synthetic`). Runs on the CUDA card unless `--device cpu`.
 
@@ -85,20 +93,23 @@ from ..data.kitti_mono import (KittiMonoDataset, load_mono_image,
                                mono_info_from_native)
 from ..data.waymo import frames_per_sample
 from ..evaluation.kitti_eval import kitti_eval
-from ..models.builder import (MONO_TYPES, atss_config, build_detector,
-                              mono_model)
+from ..data.dbsampler import DataBaseSampler, paste_objects
+from ..models.builder import (LIDAR_TYPES, MONO_TYPES, atss_config,
+                              build_detector, mono_model)
 from ..models.detectors.dfm import DfM
 from ..models.detectors.dfm_full import DfMFull
+from ..models.detectors.dynamic_voxelnet import DynamicVoxelNet
 from ..models.detectors.imvoxelnet import ImVoxelNet
 from ..models.detectors.multiview_dfm import MultiViewDfM
+from ..models.detectors.voxelnet import VoxelNet
 from ..models.heads.depth_head import sample_depth_pixels
 from ..parallel import dist as D
 from ..parallel.multihost import broadcast_seed
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.config import load_config, merge_options
-from ..runtime.adapters import (dfm_synth, imvoxel_synth, mono_synth,
-                                mono_to_device, mv_synth, mv_to_device,
-                                to_device)
+from ..runtime.adapters import (dfm_synth, imvoxel_synth, lidar_synth,
+                                lidar_to_device, mono_synth, mono_to_device,
+                                mv_synth, mv_to_device, to_device)
 from ..runtime.logging import MetricsLogger
 from ..runtime.schedule import liga_schedule
 from ..runtime.train import TrainStep, make_optimizer
@@ -106,7 +117,7 @@ from ..utils.msgpack_tree import load_msgpack_tree
 from ..utils.weights import init_weights, teacher_state_dict
 
 VOXEL_TYPES = ('MultiViewDfM', 'ImVoxelNet')
-TRAINED_TYPES = ('DfM', 'DfMFull') + VOXEL_TYPES + MONO_TYPES
+TRAINED_TYPES = ('DfM', 'DfMFull') + VOXEL_TYPES + MONO_TYPES + LIDAR_TYPES
 
 
 def parse_args(argv=None):
@@ -236,6 +247,121 @@ class KittiMonoSource:
         return mono_to_device(self.next_samples(step, rng), device)
 
 
+class KittiLidarSource:
+    """KITTI velodyne points -> VoxelNet-family batches
+    (`tools/train.py:KittiLidarSource`; reference
+    kitti-3d-3class.py:10-50): each frame's points in the pseudo-LiDAR
+    frame and its 'gt_boxes_pl', ObjectSample where the GT database
+    exists (train only), then, drawn from `rng` in this order, a flip
+    (y, yaw; p 0.5), a rotation in [-pi/4, pi/4) and a scale in [0.95,
+    1.05); the points and the boxes' centres kept inside the config's
+    point-cloud range, at most `data.max_points` points in a permuted
+    order, at most `data.max_gt` boxes. JAX augments the info's own box
+    array in place (`np.asarray` of a float32 array is the array), so a
+    frame drawn again starts from its last augmentation; the port copies
+    it (ROADMAP, faults)."""
+
+    SAMPLE_GROUPS = dict(Car=12, Pedestrian=6, Cyclist=6)
+    MIN_POINTS = dict(Car=5, Pedestrian=10, Cyclist=10)
+
+    def __init__(self, cfg, batch_size, train=True):
+        d = cfg.data
+        split = 'train' if train else 'val'
+        with open(os.path.join(d.data_root,
+                               f'kitti_infos_{split}.pkl'), 'rb') as f:
+            self.infos = pickle.load(f)
+        self.ds = KittiDataset(d.data_root, self.infos, train=train)
+        self.max_points = d.get('max_points', 18000)
+        self.max_gt = d.get('max_gt', 40)
+        self.pcr = np.asarray(cfg.model.get(
+            'point_cloud_range', (0, -40, -3, 70.4, 40, 1)), np.float32)
+        self.train = train
+        self.batch_size = batch_size
+        self.sampler = None
+        db = os.path.join(d.data_root, 'dfm_gt_database_infos.pkl')
+        if train and os.path.exists(db):
+            self.sampler = DataBaseSampler(
+                db, d.data_root, self.SAMPLE_GROUPS,
+                classes=['Car', 'Pedestrian', 'Cyclist'],
+                filter_by_min_points=self.MIN_POINTS)
+            if D.is_main():
+                print(f'[data] ObjectSample GT database: {db}', flush=True)
+        self.order = None
+        self.cursor = 0
+
+    def __len__(self):
+        return len(self.infos)
+
+    @property
+    def steps_per_epoch(self):
+        return max(len(self.infos) // self.batch_size, 1)
+
+    def sample(self, idx, rng):
+        """One frame's dict of numpy arrays: points (max_points, 3),
+        point_mask, gt_boxes (max_gt, 7), gt_labels, gt_mask."""
+        info = self.infos[idx]
+        pts = self.ds._load_points_pl(info)
+        boxes = np.array(info['annos']['gt_boxes_pl'],
+                         np.float32).reshape(-1, 7)
+        labels = np.asarray(info['annos']['labels'], np.int64)
+        if pts is None:
+            pts = np.zeros((1, 3), np.float32)
+        if self.train:
+            if self.sampler is not None:
+                pts, boxes, labels = paste_objects(pts, boxes, labels,
+                                                   self.sampler)
+            if rng.random() < 0.5:                 # horizontal flip
+                pts[:, 1] = -pts[:, 1]
+                boxes[:, 1] = -boxes[:, 1]
+                boxes[:, 6] = -boxes[:, 6]
+            rot = rng.uniform(-0.78539816, 0.78539816)
+            c, s = np.cos(rot), np.sin(rot)
+            mat = np.array([[c, -s], [s, c]], np.float32)
+            pts[:, :2] = pts[:, :2] @ mat.T
+            boxes[:, :2] = boxes[:, :2] @ mat.T
+            boxes[:, 6] += rot
+            scale = rng.uniform(0.95, 1.05)
+            pts[:, :3] *= scale
+            boxes[:, :6] *= scale
+        pcr = self.pcr
+        pts = pts[(pts[:, 0] >= pcr[0]) & (pts[:, 0] < pcr[3]) &
+                  (pts[:, 1] >= pcr[1]) & (pts[:, 1] < pcr[4]) &
+                  (pts[:, 2] >= pcr[2]) & (pts[:, 2] < pcr[5])]
+        bkeep = ((boxes[:, 0] >= pcr[0]) & (boxes[:, 0] < pcr[3]) &
+                 (boxes[:, 1] >= pcr[1]) & (boxes[:, 1] < pcr[4]))
+        boxes, labels = boxes[bkeep], labels[bkeep]
+        out_pts = np.zeros((self.max_points, 3), np.float32)
+        mask = np.zeros((self.max_points,), bool)
+        sel = rng.permutation(len(pts))[:self.max_points]
+        out_pts[:len(sel)] = pts[sel]
+        mask[:len(sel)] = True
+        g = min(len(boxes), self.max_gt)
+        gt_boxes = np.zeros((self.max_gt, 7), np.float32)
+        gt_labels = np.zeros((self.max_gt,), np.int64)
+        gt_mask = np.zeros((self.max_gt,), bool)
+        gt_boxes[:g] = boxes[:g]
+        gt_labels[:g] = labels[:g]
+        gt_mask[:g] = True
+        return dict(points=out_pts, point_mask=mask, gt_boxes=gt_boxes,
+                    gt_labels=gt_labels, gt_mask=gt_mask)
+
+    def next_samples(self, step, rng):
+        """The next batch, stacked (numpy), a fresh permutation of the
+        frames each epoch (the step is not used)."""
+        idxs = []
+        while len(idxs) < self.batch_size:
+            if self.order is None or self.cursor >= len(self.order):
+                self.order = rng.permutation(len(self.infos))
+                self.cursor = 0
+            idxs.append(int(self.order[self.cursor]))
+            self.cursor += 1
+        samples = [self.sample(i, rng) for i in idxs]
+        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+    def next_batch(self, step, rng, device):
+        return lidar_to_device(self.next_samples(step, rng), device)
+
+
 class SyntheticSource:
     """`tools/train.py:SyntheticSource`: the batch of step s is
     `dfm_synth(cfg, batch_size, seed + s, full)` for DfM / DfMFull (32x64
@@ -244,7 +370,8 @@ class SyntheticSource:
     32x48, `frames` frames: `data/waymo.py:frames_per_sample`),
     `imvoxel_synth` for ImVoxelNet (one 32x48 image), or
     `mono_synth(batch_size, seed + s)` for the mono types (64x96; PGD's
-    with its keypoint keys, MonoFlex's with `kpts2d` and `gt_alphas`);
+    with its keypoint keys, MonoFlex's with `kpts2d` and `gt_alphas`),
+    `lidar_synth(cfg, batch_size, seed + s)` for the LiDAR types;
     `rng` is not drawn from. 16 steps an epoch."""
 
     steps_per_epoch = 16
@@ -263,12 +390,15 @@ class SyntheticSource:
             return mono_synth(self.batch_size, self.seed + step,
                               kpts=self.kind == 'PGD',
                               flex=self.kind == 'MonoFlex')
+        if self.kind in LIDAR_TYPES:
+            return lidar_synth(self.cfg, self.batch_size, self.seed + step)
         return dfm_synth(self.cfg, self.batch_size, self.seed + step,
                          full=self.kind == 'DfMFull')
 
     def next_batch(self, step, rng, device):
         to = mv_to_device if self.kind in VOXEL_TYPES else \
-            mono_to_device if self.kind in MONO_TYPES else to_device
+            mono_to_device if self.kind in MONO_TYPES else \
+            lidar_to_device if self.kind in LIDAR_TYPES else to_device
         return to(self.next_samples(step, rng), device)
 
 
@@ -349,6 +479,10 @@ def build_model(kind, cfg, mcfg, seed):
         model = MultiViewDfM(mcfg)
     elif kind == 'ImVoxelNet':
         model = ImVoxelNet(mcfg)
+    elif kind == 'VoxelNet':
+        model = VoxelNet(mcfg)
+    elif kind == 'DynamicVoxelNet':
+        model = DynamicVoxelNet(mcfg)
     else:
         model = DfM(mcfg)
     return init_weights(model, seed)
@@ -426,6 +560,8 @@ def train(args, cfg, kind, d, device):
             frames_per_sample(d, mcfg) if multiview else 1)
     elif kind in MONO_TYPES:
         source = KittiMonoSource(cfg, batch_size)
+    elif kind in LIDAR_TYPES:
+        source = KittiLidarSource(cfg, batch_size)
     else:
         source = KittiDfMSource(cfg, batch_size)
     steps_per_epoch = source.steps_per_epoch

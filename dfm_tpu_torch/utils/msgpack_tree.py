@@ -1,5 +1,5 @@
-"""Read a flax msgpack tree (`flax.serialization.msgpack_serialize`,
-`msgpack_restore`) with the standard library and numpy.
+"""Read and write a flax msgpack tree (`flax.serialization.
+msgpack_serialize`, `msgpack_restore`) with the standard library and numpy.
 
 The teacher checkpoints of DfMFull are such files
 (`dfm_tpu/utils/checkpoint_import.py:load_msgpack_tree`). The decoder
@@ -15,7 +15,7 @@ import struct
 
 import numpy as np
 
-__all__ = ['msgpack_loads', 'load_msgpack_tree']
+__all__ = ['msgpack_loads', 'load_msgpack_tree', 'msgpack_dumps']
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 _CHUNKED = '__msgpack_chunked_array__'
@@ -135,3 +135,41 @@ def load_msgpack_tree(path):
     """The tree of the flax msgpack file at `path`."""
     with open(path, 'rb') as f:
         return msgpack_loads(f.read())
+
+
+def _head(n, fix, fix_max, codes):
+    if n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt in codes:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f'msgpack: {n} items or bytes')
+
+
+def msgpack_dumps(x):
+    """flax's msgpack of a tree (`flax.serialization.msgpack_serialize`;
+    arrays under its 1 GiB chunk size): dicts with str keys, lists, str,
+    bytes, ints >= 0, and numpy arrays as ext type 1 holding the msgpack of
+    (shape, dtype name, C-order bytes). `msgpack_loads` reads it back."""
+    if isinstance(x, dict):
+        return _head(len(x), 0x80, 15, ((0xde, '>H'), (0xdf, '>I'))) + \
+            b''.join(msgpack_dumps(k) + msgpack_dumps(v)
+                     for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        return _head(len(x), 0x90, 15, ((0xdc, '>H'), (0xdd, '>I'))) + \
+            b''.join(map(msgpack_dumps, x))
+    if isinstance(x, str):
+        b = x.encode()
+        return _head(len(b), 0xa0, 31, ((0xd9, '>B'), (0xda, '>H'),
+                                        (0xdb, '>I'))) + b
+    if isinstance(x, bytes):
+        return _head(len(x), 0, -1, ((0xc4, '>B'), (0xc5, '>H'),
+                                     (0xc6, '>I'))) + x
+    if isinstance(x, int) and 0 <= x < 1 << 32:
+        return bytes([x]) if x < 128 else b'\xce' + struct.pack('>I', x)
+    if isinstance(x, np.ndarray):
+        body = msgpack_dumps([list(x.shape), x.dtype.name,
+                              np.ascontiguousarray(x).tobytes()])
+        return _head(len(body), 0, -1, ((0xc7, '>B'), (0xc8, '>H'),
+                                        (0xc9, '>I'))) + b'\x01' + body
+    raise TypeError(f'msgpack_dumps: {type(x)}')

@@ -33,7 +33,9 @@ from ..models.heads.center_head import HEATMAP_BIAS
 from ..models.heads.monoflex import BRANCHES, MonoFlexConfig
 
 __all__ = ['dfm_key_map', 'dfm_full_key_map', 'mvdfm_key_map',
-           'imvoxelnet_key_map',
+           'imvoxelnet_key_map', 'voxelnet_key_map',
+           'dynamic_voxelnet_key_map', 'sparse_teacher_key_map',
+           'dfm_with_teacher_key_map',
            'center_head_key_map', 'mono_key_map', 'fcos3d_head_key_map',
            'resnet_key_map', 'dla_key_map', 'dla_neck_key_map',
            'dla_mono_key_map', 'state_dict_from_jax',
@@ -126,16 +128,81 @@ def dfm_key_map(stage_blocks=(3, 4, 6, 3)):
     m += _convnorm('backbone_3d.compress_conv', ('backbone_3d', 'compress'),
                    2)
     m += _hourglass('backbone_3d.bev_hourglass', ('backbone_3d', 'hg'), 2)
-    h = ('bbox_head_3d',)
-    for i in range(2):
-        m += _convnorm(f'bbox_head_3d.cls_convs.{i}', h + (f'cls_conv{i}',),
-                       2)
-        m += _convnorm(f'bbox_head_3d.reg_convs.{i}', h + (f'reg_conv{i}',),
-                       2)
-    m += [('bbox_head_3d.conv_cls', h + ('conv_cls',), 'conv2d'),
-          ('bbox_head_3d.conv_reg', h + ('conv_reg',), 'conv2d'),
-          ('bbox_head_3d.conv_dir_cls', h + ('conv_dir',), 'conv2d')]
+    m += _liga_head('bbox_head_3d', ('bbox_head_3d',))
     return m
+
+
+def _liga_head(prefix, fpath, num_convs=2):
+    """A `LIGAAnchor3DHead` with `num_convs` GroupNorm ConvNorms a tower."""
+    m = []
+    for i in range(num_convs):
+        m += _convnorm(f'{prefix}.cls_convs.{i}', fpath + (f'cls_conv{i}',),
+                       2)
+        m += _convnorm(f'{prefix}.reg_convs.{i}', fpath + (f'reg_conv{i}',),
+                       2)
+    return m + [(f'{prefix}.conv_cls', fpath + ('conv_cls',), 'conv2d'),
+                (f'{prefix}.conv_reg', fpath + ('conv_reg',), 'conv2d'),
+                (f'{prefix}.conv_dir_cls', fpath + ('conv_dir',), 'conv2d')]
+
+
+def _lidar_teacher(prefix, fpath):
+    """A dense `LidarTeacher`: enc0..2 (3D ConvNorm, BatchNorm) and its
+    BEV hourglass."""
+    m = []
+    for i in range(3):
+        m += _convnorm(f'{prefix}.enc{i}', fpath + (f'enc{i}',), 3, 'bn')
+    m += _convnorm(f'{prefix}.bev.compress_conv', fpath + ('bev', 'compress'),
+                   2, 'bn')
+    return m + _hourglass(f'{prefix}.bev.bev_hourglass', fpath + ('bev', 'hg'),
+                          2, 'bn')
+
+
+SPARSE_ENCODER_LAYERS = (
+    [('conv_input', 'bn_input'), ('enc0_0', 'bn0_0')] +
+    [(f'enc{s}_{j}', f'bn{s}_{j}') for s in (1, 2, 3)
+     for j in ('down', 1, 2)])
+
+
+def sparse_teacher_key_map(prefix='', fpath=()):
+    """(torch_prefix, flax_path, kind) for a JAX `SparseLidarTeacher`
+    tree (the SECOND converter's): `middle_encoder`'s sparse kernels
+    ('param': the (K, C_in, C_out) arrays as they are) and `SparseBN`s, and
+    the BEV hourglass `bev` (BatchNorm)."""
+    me, p = fpath + ('middle_encoder',), prefix + 'middle_encoder.'
+    m = []
+    for conv, bn in SPARSE_ENCODER_LAYERS:
+        m += [(f'{p}{conv}.kernel', me + (conv, 'kernel'), 'param'),
+              (f'{p}{bn}', me + (bn,), 'bn')]
+    m += [(f'{p}conv_out.kernel', me + ('conv_out', 'kernel'), 'param')]
+    m += _convnorm(f'{prefix}bev.compress_conv', fpath + ('bev', 'compress'),
+                   2, 'bn')
+    return m + _hourglass(f'{prefix}bev.bev_hourglass', fpath + ('bev', 'hg'),
+                          2, 'bn')
+
+
+def dfm_with_teacher_key_map(teacher_encoder='dense'):
+    """The JAX `DfMWithTeacher` tree: the student `dfm`, the teacher
+    `lidar_teacher` (dense or sparse) and the adapters."""
+    m = [(f'dfm.{p}', ('dfm',) + f, k) for p, f, k in dfm_key_map()]
+    m += sparse_teacher_key_map('lidar_teacher.', ('lidar_teacher',)) \
+        if teacher_encoder == 'sparse' else \
+        _lidar_teacher('lidar_teacher', ('lidar_teacher',))
+    return m + [('imit_bev', ('imit_bev', 'Conv_0'), 'conv2d'),
+                ('imit_vol', ('imit_vol', 'Conv_0'), 'conv3d')]
+
+
+def voxelnet_key_map(prefix='', fpath=()):
+    """(torch_prefix, flax_path, kind) for the JAX `VoxelNet` tree: the
+    `LidarTeacher` `encoder` and the anchor head `bbox_head` (two
+    GroupNorm towers); `prefix` / `fpath` put it under a parent (the
+    `DynamicVoxelNet`'s 'voxelnet')."""
+    return _lidar_teacher(prefix + 'encoder', fpath + ('encoder',)) + \
+        _liga_head(prefix + 'bbox_head', fpath + ('bbox_head',))
+
+
+def dynamic_voxelnet_key_map():
+    """The JAX `DynamicVoxelNet` tree: a `VoxelNet` under 'voxelnet'."""
+    return voxelnet_key_map('voxelnet.', ('voxelnet',))
 
 
 def dfm_full_key_map(stacked_convs=4):
@@ -158,13 +225,7 @@ def dfm_full_key_map(stacked_convs=4):
                            2)
     m += [(f'bbox_head_2d.{k}', h + (k,), 'conv2d')
           for k in ('atss_cls', 'atss_reg', 'atss_centerness')]
-    t = ('lidar_teacher',)
-    for i in range(3):
-        m += _convnorm(f'lidar_teacher.enc{i}', t + (f'enc{i}',), 3, 'bn')
-    m += _convnorm('lidar_teacher.bev.compress_conv', t + ('bev', 'compress'),
-                   2, 'bn')
-    m += _hourglass('lidar_teacher.bev.bev_hourglass', t + ('bev', 'hg'), 2,
-                    'bn')
+    m += _lidar_teacher('lidar_teacher', ('lidar_teacher',))
     m += [('imit_bev', ('imit_bev', 'Conv_0'), 'conv2d'),
           ('imit_vol', ('imit_vol', 'Conv_0'), 'conv3d')]
     return m
@@ -509,16 +570,21 @@ def state_dict_from_jax(variables, key_map=None):
     return sd
 
 
-def teacher_state_dict(tree):
-    """The state dict of a `LidarTeacher` (keys relative to it) from a
-    teacher file's tree, JAX's restore (`tools/train.py:521-537`): its
-    'params' are the teacher's parameters, its 'batch_stats', when
-    present and not empty, the running statistics (else none are given).
-    Raises KeyError naming every parameter group the tree lacks: a tree
-    of another teacher (the sparse SECOND converter's 'middle_encoder')
-    has no enc0, enc1, enc2."""
-    entries = [(p[len('lidar_teacher.'):], f[1:], k)
-               for p, f, k in dfm_full_key_map() if f[0] == 'lidar_teacher']
+def teacher_state_dict(tree, encoder='dense'):
+    """The state dict of a teacher (keys relative to it) from a teacher
+    file's tree, JAX's restore (`tools/train.py:521-537`): its 'params'
+    are the teacher's parameters, its 'batch_stats', when present and not
+    empty, the running statistics (else none are given). `encoder`
+    'dense' reads a `LidarTeacher` tree (enc0..2, bev), 'sparse' a
+    `SparseLidarTeacher` tree (the SECOND converter's: middle_encoder,
+    bev). Raises KeyError naming every parameter group the tree lacks (a
+    sparse tree has no enc0, enc1, enc2; a dense one no middle_encoder)."""
+    if encoder == 'sparse':
+        entries = sparse_teacher_key_map()
+    else:
+        entries = [(p[len('lidar_teacher.'):], f[1:], k)
+                   for p, f, k in dfm_full_key_map()
+                   if f[0] == 'lidar_teacher']
     params = tree.get('params') if isinstance(tree, dict) else None
     if not isinstance(params, dict):
         raise KeyError("the teacher file holds no 'params' tree")
@@ -530,10 +596,12 @@ def teacher_state_dict(tree):
             t = t[k]
         return True
 
-    missing = sorted({'/'.join(f) for _, f, _ in entries
-                      if not has(params, f)})
+    missing = sorted({'/'.join(f[:-1] if k == 'param' else f)
+                      for _, f, k in entries if not has(params, f)})
     if missing:
-        raise KeyError(f'the teacher file is not a dense LidarTeacher tree: '
+        kind = 'SparseLidarTeacher' if encoder == 'sparse' else \
+            'dense LidarTeacher'
+        raise KeyError(f'the teacher file is not a {kind} tree: '
                        f'{len(missing)} parameter groups missing: {missing} '
                        f'(its params hold {sorted(params)})')
     stats = tree.get('batch_stats') or None
@@ -546,7 +614,8 @@ def init_weights(model, seed=0):
     """Fill every parameter and buffer of `model` from a `torch.Generator`
     (CPU) seeded with `seed`: conv weights normal with std
     1/sqrt(weight[0].numel()) (lecun-normal for a conv), conv biases 0,
-    norms weight 1 / bias 0, BN running stats (0, 1), the mono heads'
+    norms weight 1 / bias 0, BN running stats (0, 1), a sparse conv's
+    (K, I, O) kernel std 1/sqrt(K * I), the mono heads'
     scales 1 and `fuse_lambda` 1e-4 (the JAX initialisers), DCNv2's
     `conv_offset` 0 (its offsets and mask logits start at 0), the focal
     prior of the anchor head's cls conv (std 0.01, bias
@@ -566,6 +635,9 @@ def init_weights(model, seed=0):
                 val = torch.zeros(t.shape)
             elif leaf == 'running_var' or t.dim() == 1:
                 val = torch.ones(t.shape)
+            elif leaf == 'kernel':    # a sparse conv's (K, I, O)
+                val = torch.randn(t.shape, generator=gen) / \
+                    math.sqrt(t.numel() // t.shape[-1])
             else:       # conv (O, I, k...) / transposed conv (I, O, k...)
                 val = torch.randn(t.shape, generator=gen) / \
                     math.sqrt(t[0].numel())

@@ -461,10 +461,11 @@ def test_port_runs_without_jax(tmp_path):
         'from dfm_tpu_torch.models.detectors.dfm_full import DfMFull\n'
         'from dfm_tpu_torch.runtime.adapters import dfm_synth, to_device\n'
         'from dfm_tpu_torch.utils.msgpack_tree import load_msgpack_tree\n'
+        'from dfm_tpu_torch.utils.msgpack_tree import msgpack_dumps\n'
         'from dfm_tpu_torch.utils.weights import init_weights\n'
         'full = init_weights(DfMFull(cfg))\n'
         "f = r'" + str(tmp_path / 'teacher.msgpack') + "'\n"
-        'open(f, "wb").write(chip_smoke.msgpack_tree_bytes('
+        'open(f, "wb").write(msgpack_dumps('
         'chip_smoke.teacher_tree(full.lidar_teacher, 0)))\n'
         "assert 'enc0' in load_msgpack_tree(f)['params']\n"
         'step = TrainStep(full, make_optimizer(full, frozen_prefixes=('

@@ -24,7 +24,8 @@
   flax writes, bfloat16 (widened to float32), numpy scalars and flax's
   chunked arrays (its chunk size lowered in the test), equal to
   `msgpack_restore`; another ext type refused by its code; the stdlib
-  writer of chip_smoke.py read back by `msgpack_restore`.
+  writer (`utils/msgpack_tree.py:msgpack_dumps`) read back by
+  `msgpack_restore`.
 * The train CLI on the CPU at the tiny config: `--synthetic`, 2 steps
   with the teacher restored from a JAX `LidarTeacher` tree, the four new
   terms finite in metrics.jsonl, the teacher's parameters in the
@@ -67,7 +68,8 @@ from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer
 from dfm_tpu_torch.tools import test as test_cli
 from dfm_tpu_torch.tools import train as train_cli
 from dfm_tpu_torch.utils import weights as W
-from dfm_tpu_torch.utils.msgpack_tree import load_msgpack_tree, msgpack_loads
+from dfm_tpu_torch.utils.msgpack_tree import (load_msgpack_tree,
+                                              msgpack_dumps, msgpack_loads)
 
 from test_torch_train_step import (GRAD_REL_L2, GRAD_REL_L2_ALL,
                                    GRAD_REL_L2_LIFTED, LOSS_RTOL, LR,
@@ -361,7 +363,7 @@ def test_chip_smoke_writer_reads_back_with_flax():
     tree = chip_smoke.teacher_tree(DfMFull(DfMConfig(**TINY)).lidar_teacher,
                                    0)
     tree['other'] = {'text': 'y' * 300, 'raw': b'abc', 'n': [1, 200, 70000]}
-    data = chip_smoke.msgpack_tree_bytes(tree)
+    data = msgpack_dumps(tree)
     _same(FS.msgpack_restore(data), tree)
     _same(msgpack_loads(data), tree)
 

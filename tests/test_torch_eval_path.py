@@ -195,7 +195,7 @@ def test_cli_from_config_to_ap(tree, tmp_path, capsys):
 def test_cli_refuses_unported_model():
     res = subprocess.run(
         [sys.executable, '-m', 'dfm_tpu_torch.tools.test',
-         os.path.join(ROOT, 'configs', 'hv_second_kitti_3class.py')],
+         os.path.join(ROOT, 'configs', 'centerpoint_second_waymo.py')],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
         env=dict(os.environ, PYTHONPATH=ROOT))
     assert res.returncode == 2 and 'not ported' in res.stderr

@@ -196,7 +196,7 @@ def test_config_and_builder_match_jax(name):
 
 def test_builder_refuses_unported_types():
     with pytest.raises(NotImplementedError, match='not ported'):
-        B.build_detector(dict(type='VoxelNet'))
+        B.build_detector(dict(type='CenterPoint'))
 
 
 @pytest.mark.parametrize('blocks', [(3, 4, 6, 3), (2, 2, 2, 2)])

@@ -27,9 +27,12 @@ both packages in float32, torch in one thread. Tolerances:
   gradients of `DfMNeck` lie 3.5e-3 to 9e-3 from the float64 gradients of
   the same step (the whole vector 3e-4 to 2.2e-3; six grids, sizes and
   seeds measured on the CPU). The port's own rounding is held apart: its
-  float32 gradients within relative L2 1e-4 of its float64 step's, for
-  the 3D neck and head each and for the whole vector (measured: 1e-5 and
-  2.7e-6);
+  float32 gradients within relative L2 1e-4 of the step of a float64
+  model (`MultiViewDfM(cfg, torch.float64)`: the trunk and the 3D neck in
+  float64 too), for the 3D neck and head each and for the whole vector
+  (measured: 1.2e-5 and 3.8e-6), and that float64 step within 1e-6 of
+  JAX's float64 step under `jax.enable_x64` on every parameter (measured
+  1.1e-7);
 * `tools.test` with the 10-sweeps config on a tiny Waymo tree whose infos
   carry sweeps: two frames a sample, the 15 LET lines.
 """
@@ -102,7 +105,13 @@ RUN = ('sweeps', 'center', 'depth')
 TRAIN_HW = (64, 96)
 LIFTED = ('neck_3d.', 'bbox_head_3d.')
 WHOLE_REL_L2 = 5e-3        # the step's whole gradient against JAX's
-OWN_ROUNDING = 1e-4        # the port's float32 against its float64 step
+# the port's float32 step against its float64 model's step (every layer in
+# float64): measured 3.8e-6 for the whole vector, 1.2e-5 for the worst
+# parameter after the lifting (CPU, oneDNN off)
+OWN_ROUNDING = 1e-4
+# the port's float64 step against JAX's float64 step, each parameter:
+# measured 1.1e-7 (JAX's loss rounds the head's maps to float32)
+F64_REL_L2 = 1e-6
 CLI_OPTS = ['data.target_hw=(32,48)', 'data.cam_sync=True',
             'model.backbone_depth=18', 'model.feat_channels=16',
             'model.voxel_grid=(4,24,30)', 'model.max_num=20']
@@ -357,15 +366,53 @@ def _train_case():
                 {'params': new_state.params,
                  'batch_stats': new_state.batch_stats}), key_map))
 
-    return cfg, batch, W.state_dict_from_jax(variables, key_map), reference
+    def reference64():
+        """JAX's gradients of the same train-mode loss with the model, its
+        variables and the batch in float64 under `jax.enable_x64`. JAX's
+        layers ask the convolutions for float32 accumulators
+        (`preferred_element_type`), which float64 operands refuse, so that
+        is widened to float64 here (its loss still rounds the head's maps
+        to float32: ~1e-7 relative)."""
+        jm = JMultiViewDfM(cfg=jcfg, dtype=jnp.float64)
+        v64 = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
+        b64 = {k: np.asarray(a, np.float64) if a.dtype == np.float32 else a
+               for k, a in batch.items()}
+
+        def loss_fn(params):
+            out, _ = jm.apply(dict(v64, params=params), b64['img'],
+                              b64['lidar2img'], TRAIN_HW, train=True,
+                              mutable=['batch_stats'])
+            return j_mvdfm_loss(out, b64, jcfg)[0]
+
+        conv = jax.lax.conv_general_dilated
+
+        def conv_wide(lhs, rhs, *args, preferred_element_type=None, **kw):
+            if jnp.result_type(lhs, rhs) == jnp.float64:
+                preferred_element_type = None
+            return conv(lhs, rhs, *args,
+                        preferred_element_type=preferred_element_type, **kw)
+
+        jax.lax.conv_general_dilated = conv_wide
+        try:
+            with jax.enable_x64(True):
+                grads = jax.jit(jax.grad(loss_fn))(v64['params'])
+                grads = jax.tree.map(lambda a: np.asarray(a, np.float64),
+                                     grads)
+        finally:
+            jax.lax.conv_general_dilated = conv
+        sd64 = W.state_dict_from_jax({'params': grads}, key_map)
+        return {k: t.double().numpy() for k, t in sd64.items()}
+
+    return (cfg, batch, W.state_dict_from_jax(variables, key_map), reference,
+            reference64)
 
 
 def _port_grads64(cfg, batch, sd):
-    """The port's gradients of the same step in float64 (its own rounding
-    held apart from JAX's), oneDNN off: with it on, PyTorch's float64
-    trunk differs from its float64 reference by float32 rounding (2.6e-6
-    relative at FPN level 0 here)."""
-    model = MultiViewDfM(cfg)
+    """The port's gradients of the same step with a float64 model (every
+    layer, the trunk and the 3D neck included, in float64; its own
+    rounding held apart from JAX's), oneDNN off: with it on, PyTorch's
+    float64 convolutions round as float32."""
+    model = MultiViewDfM(cfg, torch.float64)
     model.load_state_dict(sd, strict=True)
     model = model.double().train()
     imgs, l2i, gt = mv_to_device(batch, 'cpu')
@@ -406,7 +453,7 @@ def steps(tmp_path_factory):
                           CONFIG, '--device', 'cpu', '--dtype', 'float32',
                           '--cfg-options', f'data.data_root={d}', *CLI_OPTS])
 
-    cfg, batch, sd, reference = _train_case()
+    cfg, batch, sd, reference, reference64 = _train_case()
     port = {}
 
     def port_steps():
@@ -419,11 +466,12 @@ def steps(tmp_path_factory):
         t.start()
     try:
         ref = reference()
+        ref64 = reference64()
     finally:
         for t in ts:
             t.join()
-    return dict(jax=ref, port=port['f32'], port64=port['f64'], sd=sd,
-                cli=cli['res'])
+    return dict(jax=ref, jax64=ref64, port=port['f32'], port64=port['f64'],
+                sd=sd, cli=cli['res'])
 
 
 def test_step_matches_jax(steps):
@@ -458,6 +506,13 @@ def test_step_matches_jax(steps):
         flat['got'].append(g.ravel())
         flat['want'].append(want.ravel())
     assert not bad, f'gradients off (relative L2): {bad}'
+    # the port's float64 step against JAX's float64 step, per parameter
+    j64 = steps['jax64']
+    off64 = {name: rel(g64[name].numpy(), j64[name]) for name in g64
+             if np.linalg.norm(j64[name]) > 0}
+    assert set(g64) <= set(j64)
+    assert max(off64.values()) <= F64_REL_L2, max(off64.items(),
+                                                  key=lambda kv: kv[1])
     flat = {k: np.concatenate(x) for k, x in flat.items()}
     assert rel(flat['got'], flat['want']) <= WHOLE_REL_L2
     assert rel(flat['got'], flat['g64']) <= OWN_ROUNDING

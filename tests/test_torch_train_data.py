@@ -227,7 +227,7 @@ def _train_cli_on_cpu(tree, tmp_path, capsys):
     assert 'step 3/3' in out and ck.latest_step() == 3
     # a type the port does not train (DfMFull trains:
     # tests/test_torch_dfm_full_train.py)
-    assert train_cli.main([cfg, '--cfg-options', 'model.type=VoxelNet',
+    assert train_cli.main([cfg, '--cfg-options', 'model.type=CenterPoint',
                            f'data.data_root={root}', '--device', 'cpu']) == 2
     assert 'not ported yet' in capsys.readouterr().err
 
