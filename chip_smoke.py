@@ -118,7 +118,7 @@ Phases, one line each; any failure raises and no result is printed:
               and the KITTI eval at the end of the epoch), a resume to
               step 6 from the saved optimizer state (its sha1 checked),
               `tools.test` on the step-6 checkpoint, and a type it does
-              not train (CenterPoint) refused; (d) full-width training
+              not train (VoteNet) refused; (d) full-width training
               steps in process:
               two warm-up steps, then three with the launch counts set
               to 0 just before and read just after (a step: K1, K2 one
@@ -335,6 +335,23 @@ Phases, one line each; any failure raises and no result is printed:
               `--synthetic`; (d) the demo (FCOS3D R101, bf16, a live
               checkpoint) on the 1600x900 fixture JPEG: detections
               printed, its PNG read back
+17-20. lidar  the Waymo converter, the generic FrustumToVoxel, the SECOND
+              family, DfMWithTeacher(sparse) (`lidar_phases`; no two
+              trainings at B = 6 on the card at once)
+ 21. lidar2   CenterPoint, SA-SSD, Part-A2 and PointRCNN at their configs,
+              no port kernel on their paths (`lidar2_phase`): (d)'s CLIs
+              started first (`tools.test --synthetic` on the four,
+              `tools.train` PartA2 / PointRCNN `--synthetic` and SA-SSD
+              (B = 2) on a KITTI velodyne tree beside (a) and (b),
+              CenterPoint on it beside (c)), the refusals in process; (a) tiny configs
+              card vs CPU in f32, TF32 off: index outputs equal (voxel keys, proposal labels and masks;
+              FPS, ball groups and 3-NN on blob-heavy clouds), features
+              within 1e-5; (b) requests at full width in bf16 and f32,
+              median of 3 after 2 warm-ups, by stage, peak memory, 0
+              port-kernel launches, FPS's share of a PointRCNN request;
+              (c) one f32 training step of each at its per-chip batch,
+              split and peak
+After each phase, the most memory in use on the card (every process).
 Then the kernels JSON line, the card line, and the result line.
 Exits non-zero without a result when there is no CUDA device or the
 package is not beside the script.
@@ -483,6 +500,42 @@ def card_line():
                          text=True, timeout=60)
     check(res.returncode == 0, f'nvidia-smi failed: {res.stderr}')
     return res.stdout.strip().splitlines()[0]
+
+
+class CardMemory:
+    """The card's memory in use by every process on it (nvidia-smi's
+    memory.used, read every 50 ms by a process of its own), at its highest
+    since the last `mark`: the phases that run processes beside this one
+    share the card's memory with them."""
+
+    def __init__(self):
+        import threading
+        self.peak = self.total = 0
+        self.lock = threading.Lock()
+        self.proc = subprocess.Popen(
+            ['nvidia-smi', '--query-gpu=memory.used,memory.total',
+             '--format=csv,noheader,nounits', '-lms', '50'],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                used, total = (int(x) for x in line.split(',')[:2])
+            except ValueError:
+                continue
+            with self.lock:
+                self.peak, self.total = max(self.peak, used), total
+
+    def mark(self, what):
+        with self.lock:
+            peak, self.peak = self.peak, 0
+        print(f'card memory: {what} at most {peak} MiB of {self.total} MiB '
+              'in use (every process on the card)', flush=True)
+
+    def close(self):
+        self.proc.kill()
+        self.proc.wait()
 
 
 def kitti_meta(batch, device):
@@ -2105,16 +2158,16 @@ def _train_cli(root, config, here, env):
           f'tools.test printed {len(aps)} AP lines')
     res = subprocess.run(
         [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
-         '--cfg-options', 'model.type=CenterPoint',
+         '--cfg-options', 'model.type=VoteNet',
          f'data.data_root={root}', '--work-dir',
          os.path.join(root, 'mono')], cwd=here, env=env,
         capture_output=True, text=True, timeout=300)
     check(res.returncode == 2 and 'not ported yet' in res.stderr,
-          f'the CenterPoint type: rc {res.returncode} '
+          f'the VoteNet type: rc {res.returncode} '
           f'{res.stderr[-500:]}')
     print(f'train (c) resume: from step 4 with the saved optimizer '
           f'state (sha1 {digest}) to step 6; tools.test on step_6.pth: '
-          f'{len(aps)} finite AP lines; CenterPoint refused (rc '
+          f'{len(aps)} finite AP lines; VoteNet refused (rc '
           f'{res.returncode})', flush=True)
 
 
@@ -5976,14 +6029,29 @@ def _kitti_lidar_trees(work):
     return roots
 
 
+def _voxelnet_train(procs, work, tag, root, batch=None):
+    """19 (c): `tools.train` at hv_second_kitti_3class.py (its B = 6, or
+    `batch`), 3 steps on the KITTI velodyne tree `root`, in a process of
+    its own."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    _start(procs, f'lidar train {tag}', [
+        'dfm_tpu_torch.tools.train',
+        os.path.join(here, 'configs', LIDAR_CONFIGS[0]), '--max-steps', '3',
+        '--work-dir', os.path.join(work, f'lidar_{tag}'),
+        '--cfg-options', f'data.data_root={root}'] + (
+            [f'data.batch_size_per_chip={batch}'] if batch else []))
+
+
 def voxelnet_phase(dev, procs, work):
     """19. The SECOND LiDAR family at configs/hv_second_kitti_3class.py
     (18,000 points, grid 20x400x352, 5 points a voxel): (a) card against
-    CPU at a tiny grid, (b) requests in bf16 and f32 by stage, the f32
-    training step at B = 6 (and with the FreeAnchor head), a
-    DynamicVoxelNet request, (c) `tools.train` on a KITTI tree with and
-    without the GT database and `tools.test --synthetic`, started here
-    in processes of their own."""
+    CPU at a tiny grid, (b) requests in bf16 and f32 by stage, a
+    DynamicVoxelNet request (its training steps: `voxelnet_steps`), (c)
+    `tools.test --synthetic` and `tools.train` on a KITTI tree without
+    the GT database at B = 6 and on one with it at B = 2 (two trainings
+    at B = 6, ~30 GB each, and the rest of phases 17-20 would outgrow the
+    card), started here in processes of their own."""
     import os
     from dfm_tpu_torch.apis import init_lidar_model
     from dfm_tpu_torch.models.builder import build_detector
@@ -5991,18 +6059,14 @@ def voxelnet_phase(dev, procs, work):
         DynamicVoxelNet, DynamicVoxelNetConfig)
     from dfm_tpu_torch.models.detectors.voxelnet import (
         VoxelNet, VoxelNetConfig, voxelnet_predict)
-    from dfm_tpu_torch.runtime.adapters import lidar_synth, lidar_to_device
     from dfm_tpu_torch.runtime.config import load_config
     from dfm_tpu_torch.utils.weights import init_weights
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     configs = [os.path.join(here, 'configs', c) for c in LIDAR_CONFIGS]
     plain, gtdb = _kitti_lidar_trees(work)
-    for tag, root in (('plain', plain), ('gtdb', gtdb)):
-        _start(procs, f'lidar train {tag}', [
-            'dfm_tpu_torch.tools.train', configs[0], '--max-steps', '3',
-            '--work-dir', os.path.join(work, f'lidar_{tag}'),
-            '--cfg-options', f'data.data_root={root}'])
+    _voxelnet_train(procs, work, 'plain', plain)
+    _voxelnet_train(procs, work, 'gtdb', gtdb, batch=2)
     _start(procs, 'lidar test', ['dfm_tpu_torch.tools.test', configs[0],
                                  '--synthetic'])
 
@@ -6071,6 +6135,22 @@ def voxelnet_phase(dev, procs, work):
           f'it): ms {[round(v, 3) for v in ms]}; peak_mem_bytes {peak}; kept '
           f'{kept}', flush=True)
     del h
+    print(f'voxelnet phase (a, b) {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+
+
+def voxelnet_steps(dev):
+    """19 (b)'s f32 training steps at B = 6, run once (c)'s processes have
+    ended: their training at B = 6 and these together would outgrow the
+    card's memory."""
+    import os
+    from dfm_tpu_torch.models.builder import build_detector
+    from dfm_tpu_torch.models.detectors.voxelnet import VoxelNet
+    from dfm_tpu_torch.runtime.adapters import lidar_synth, lidar_to_device
+    from dfm_tpu_torch.runtime.config import load_config
+    from dfm_tpu_torch.utils.weights import init_weights
+    here = os.path.dirname(os.path.abspath(__file__))
+    configs = [os.path.join(here, 'configs', c) for c in LIDAR_CONFIGS]
     b = load_config(configs[0]).data.batch_size_per_chip
     for config in configs:
         cfg = build_detector(load_config(config).model)
@@ -6084,8 +6164,6 @@ def voxelnet_phase(dev, procs, work):
         del model
         gc.collect()
         torch.cuda.empty_cache()
-    print(f'voxelnet phase (a, b) {time.perf_counter() - t_phase:.1f} s',
-          flush=True)
 
 
 def _second_state_dict(teacher, seed):
@@ -6289,16 +6367,21 @@ def _lidar_cli_checks(procs):
           in cli['lidar test'].stdout, 'voxelnet (19c) tools.test')
     print(f'waymo (17) tools.test on the converted tree: '
           f'{len(lets)} LET lines ({", ".join(lets[-3:])} overall); voxelnet '
-          '(19c) tools.train 3 steps on KITTI velodyne trees without and '
-          'with the GT database, tools.test --synthetic finite; waited '
+          '(19c) tools.train 3 steps on KITTI velodyne trees without (B = '
+          '6) and with (B = 2) the GT database, tools.test --synthetic '
+          'finite; waited '
           f'{time.perf_counter() - t0:.1f} s for them', flush=True)
 
 
 def lidar_phases(dev):
-    """Phases 17-20, their processes collected at the end."""
+    """Phases 17-20, their processes collected at the end, then phase 19's
+    training steps: no two trainings at B = 6 (about 30 GB each) share
+    the card."""
     import tempfile
     t0 = time.perf_counter()
     procs = {}
+    gc.collect()
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
         try:
             waymo_convert_phase(procs, work)
@@ -6306,6 +6389,7 @@ def lidar_phases(dev):
             frustum_generic_phase(dev)
             sparse_teacher_phase(dev, work)
             _lidar_cli_checks(procs)
+            voxelnet_steps(dev)
         finally:
             _kill(procs)
     print(f'phases 17-20 {time.perf_counter() - t0:.1f} s', flush=True)
@@ -6319,6 +6403,409 @@ def phases17_20_alone(dev='cuda'):
     lidar_phases(dev)
 
 
+LIDAR2_CONFIGS = dict(CenterPoint='centerpoint_second_waymo.py',
+                      SASSD='sassd_kitti_3class.py',
+                      PartA2='parta2_kitti_3class.py',
+                      PointRCNN='point_rcnn_kitti.py')
+# (b) / (c): points a request / a training sample (each config's
+# data.max_points, Part-A2's inherited from the SECOND config)
+LIDAR2_POINTS = dict(CenterPoint=32000, SASSD=18000, PartA2=18000,
+                     PointRCNN=16384)
+LIDAR2_RANGE = (0.0, -8.0, -2.0, 16.0, 8.0, 1.2)
+LIDAR2_ANCHORS = ((0, -8, -0.6, 16, 8, -0.6), (0, -8, -0.6, 16, 8, -0.6),
+                  (0, -8, -1.78, 16, 8, -1.78))
+# (a): the tiny configs of tests/test_torch_{centerpoint,sassd,parta2,
+# point_rcnn}.py, and the points a sample
+LIDAR2_TINY = dict(
+    CenterPoint=dict(point_cloud_range=LIDAR2_RANGE,
+                     voxel_size=(0.4, 0.4, 0.8), max_points_per_voxel=5,
+                     encoder_channels=8, second_channels=(16, 32),
+                     second_layers=(1, 1), fpn_channels=(16, 16),
+                     head=dict(share_conv_channel=16, head_conv=16,
+                               voxel_size=(0.4, 0.4), pc_range=(0.0, -8.0),
+                               max_per_task=20)),
+    SASSD=dict(point_cloud_range=LIDAR2_RANGE, voxel_size=(0.4, 0.4, 0.4),
+               max_points_per_voxel=5, cv_channels=8, bev_channels=16,
+               anchor_ranges=LIDAR2_ANCHORS, nms_pre=256, max_num=30),
+    PartA2=dict(point_cloud_range=LIDAR2_RANGE, voxel_size=(0.5, 0.5, 0.4),
+                sparse_shape=(9, 32, 32), voxel_capacity=256, unet_base=8,
+                bev_channels=16, anchor_ranges=LIDAR2_ANCHORS,
+                num_proposals=8, roi_grid=4, roi_pool='points', max_num=6),
+    PointRCNN=dict(point_cloud_range=LIDAR2_RANGE,
+                   sa_points=(64, 32, 16, 8), num_proposals=32,
+                   rpn_nms_thr=0.5, roi_num_points=32, max_num=8))
+LIDAR2_TINY_POINTS = 1200
+LIDAR2_TRAIN_STEPS = 2        # (d) the CLIs' steps
+LIDAR2_INDEX_KEYS = ('keys', 'vmask', 'prop_labels', 'prop_mask',
+                     'labels', 'labels_3d', 'mask')
+
+
+def _lidar2_outputs(out):
+    """A model's outputs (CenterPoint's per-task list flattened) on the
+    CPU."""
+    if isinstance(out, list):
+        out = {f'task{i}.{k}': v for i, d in enumerate(out)
+               for k, v in d.items()}
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def _lidar2_agree(what, got, want):
+    """Index outputs equal, float ones within LIDAR_REL_L2 -> the largest
+    relative L2."""
+    worst = 0.0
+    for k, v in want.items():
+        if v.is_floating_point() and k not in LIDAR2_INDEX_KEYS:
+            r = float((got[k].double() - v.double()).norm() /
+                      v.double().norm().clamp(min=1e-30))
+            check(r <= LIDAR_REL_L2, f'{what} {k}: relative L2 {r}')
+            worst = max(worst, r)
+        else:
+            check(torch.equal(got[k], v), f'{what} {k}: indices differ')
+    return worst
+
+
+def _lidar2_parity(dev):
+    """(a) The four models at their tiny configs and the PointNet++
+    indices, card against CPU, f32, TF32 off."""
+    from dfm_tpu_torch.models.backbones import pointnet2 as P2
+    from dfm_tpu_torch.models.builder import build_detector, lidar_class
+    from dfm_tpu_torch.utils.weights import init_weights
+    pts = torch.from_numpy(np.stack([lidar_cloud(
+        LIDAR2_RANGE, LIDAR2_TINY_POINTS, s) for s in (3, 4)]))
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool)
+    flags = _no_tf32()
+    lines = []
+    try:
+        for kind, opts in LIDAR2_TINY.items():
+            cfg = build_detector(dict(type=kind, **opts))
+            outs = {}
+            for d in ('cpu', dev):
+                model = _live_weights(init_weights(lidar_class(cfg)(cfg), 5),
+                                      6, 0.0).to(d).eval()
+                with torch.inference_mode():
+                    outs[d] = _lidar2_outputs(model(pts.to(d), mask.to(d)))
+            worst = _lidar2_agree(f'lidar2 (21a) {kind}', outs[dev],
+                                  outs['cpu'])
+            extra = ''
+            if 'prop_mask' in outs['cpu']:
+                extra = (f', proposals kept '
+                         f'{int(outs["cpu"]["prop_mask"].sum())}')
+            if 'vmask' in outs['cpu']:
+                extra += f', active voxels {int(outs["cpu"]["vmask"].sum())}'
+            lines.append(f'{kind} {worst:.3g}{extra}')
+        # the PointNet++ index ops on a cloud with dense blobs (ties)
+        cloud = torch.from_numpy(np.stack([lidar_cloud(
+            (0, -40, -3, 70.4, 40, 1), 4096, s) for s in (5, 6)]))
+        got = {}
+        for d in ('cpu', dev):
+            xyz = cloud.to(d)
+            idx = P2.farthest_point_sample(xyz, 1024)
+            ctr = P2.gather_points(xyz, idx)
+            feats = torch.arange(4096, device=d, dtype=torch.float32)[
+                None, :, None].expand(2, -1, 1)
+            got[d] = dict(fps=idx, ball=P2.ball_group(xyz, feats, ctr, 0.8,
+                                                      32),
+                          dilated=P2.ball_group(xyz, feats, ctr, 1.6, 32,
+                                                0.8),
+                          nn3=P2.lowest_k(P2._sq_dist(ctr[:, :, None],
+                                                      xyz[:, None]), 3))
+        for k in got['cpu']:
+            check(torch.equal(got[dev][k].cpu(), got['cpu'][k]),
+                  f'lidar2 (21a) PointNet++ {k}: card and CPU differ')
+    finally:
+        _set_tf32(flags)
+    print('lidar2 (21a) tiny configs, 2 x {} points, f32, TF32 off, card vs '
+          'CPU: index outputs (voxel keys, masks, proposal labels and masks) '
+          'equal, outputs relative L2 max: '.format(LIDAR2_TINY_POINTS)
+          + '; '.join(lines) + '; FPS 1024 of 2 x 4096, ball groups (0.8, '
+          '32; dilated 0.8-1.6) and 3-NN indices equal', flush=True)
+
+
+def _lidar2_stages(kind, model, cfg, req, mask):
+    """(name, fn(prev) -> out) of one request, by stage."""
+    from dfm_tpu_torch.models.builder import lidar_predict
+    predict = lidar_predict(cfg)
+    if kind == 'CenterPoint':
+        return [('voxelize', lambda _: model.voxelize(req, mask)),
+                ('encoder', model.bev),
+                ('SECOND + FPN', lambda x: model.neck(model.backbone(x))),
+                ('head', model.bbox_head),
+                ('predict', lambda o: predict(o, cfg))]
+    if kind == 'SASSD':
+        enc = model.encoder
+
+        def head(vb):
+            cls, reg, dirs = model.bbox_head(vb[1].permute(0, 3, 1, 2))
+            return vb[0], dict(cls_score=cls, bbox_pred=reg, dir_pred=dirs)
+
+        def aux(vo):
+            model.aux(req, vo[0])
+            return vo[1]
+
+        return [('voxelize', lambda _: enc.voxelize(req, mask)),
+                ('encoder + BEV', enc.encode), ('head', head), ('aux', aux),
+                ('predict', lambda o: predict(o, cfg))]
+    if kind == 'PartA2':
+        st = {}
+
+        def unet(v):
+            st['v'] = v
+            seg, bottom = model.unet(*v)
+            st['seg'] = (seg, model.seg_cls(seg)[..., 0], model.part_reg(seg))
+            return bottom
+
+        def pool(props):
+            st['props'] = props
+            keys, vfeat, vmask = st['v']
+            return model.roi_pool(props['boxes3d'], keys, vfeat, vmask,
+                                  *st['seg'])
+
+        def head(pooled):
+            rc, rr = model.roi_head(pooled)
+            p = st['props']
+            return dict(proposals=p['boxes3d'], prop_labels=p['labels'],
+                        prop_mask=p['mask'], rcnn_cls=rc, rcnn_reg=rr)
+
+        return [('voxelize', lambda _: model.voxelize(req, mask)),
+                ('sparse U-Net', unet),
+                ('RPN', lambda b: model.rpn(b)),
+                ('proposals', lambda o: model.proposals(*o)),
+                ('RoI pool', pool), ('RoI head', head),
+                ('predict', lambda o: predict(o, cfg))]
+    st = {}
+
+    def props(s1):
+        st['s1'] = s1
+        return model.proposals(s1[0], s1[2], s1[3])
+
+    def roi(p):
+        rc, rr = model.roi_stage(req, st['s1'][1], p[4], p[0])
+        return dict(proposals=p[0], prop_labels=p[2], prop_mask=p[3],
+                    rcnn_cls=rc, rcnn_reg=rr)
+
+    return [('backbone + FP + RPN', lambda _: model.stage1(req)),
+            ('proposals', props), ('RoI stage', roi),
+            ('predict', lambda o: predict(o, cfg))]
+
+
+def _lidar2_fps_share(infer, req):
+    """One request with every FPS call timed apart (synchronised before
+    and after it: the request's FPS time and its whole time in the same
+    run) -> (FPS ms, request ms, FPS calls)."""
+    from dfm_tpu_torch.models.backbones import pointnet2 as P2
+    from dfm_tpu_torch.models.backbones import pointnet2_msg as P2M
+    fps = P2.farthest_point_sample
+    spent = []
+
+    def timed(xyz, npoint):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fps(xyz, npoint)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    P2.farthest_point_sample = P2M.farthest_point_sample = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infer(req)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        P2.farthest_point_sample = P2M.farthest_point_sample = fps
+    return sum(spent), total, len(spent)
+
+
+def _lidar2_requests(dev):
+    """(b) Each config at full width: requests in bf16 and f32 by stage,
+    peak memory, 0 port-kernel launches; PointRCNN's FPS share."""
+    from dfm_tpu_torch.apis import init_lidar_model
+    from dfm_tpu_torch.models.builder import build_detector
+    from dfm_tpu_torch.runtime.config import load_config
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    for kind, config in LIDAR2_CONFIGS.items():
+        mcfg = build_detector(load_config(os.path.join(
+            here, 'configs', config)).model)
+        n = LIDAR2_POINTS[kind]
+        req = torch.from_numpy(lidar_cloud(mcfg.point_cloud_range, n,
+                                           21))[None].to(dev)
+        mask = torch.ones(req.shape[:2], dtype=torch.bool, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            h = init_lidar_model(mcfg, dtype)
+            model = _live_weights(h['model'], 7, 3.0)
+            ms, st, peak, det = _request_times(
+                lambda: h['infer'](req, mask), _lidar2_stages(
+                    kind, model, mcfg, req, mask), f'lidar2 (21b) {kind}')
+            det = {k: v for k, v in det.items()}
+            check(all(bool(torch.isfinite(v).all()) for v in det.values()
+                      if v.is_floating_point()), f'lidar2 (21b) {kind}: '
+                  'detections not finite')
+            tf32 = '' if dtype == torch.bfloat16 else \
+                ' (TF32 as PyTorch has it)'
+            grid = dict(CenterPoint=lambda: f', grid {mcfg.grid_size}',
+                        SASSD=lambda: f', grid {model.encoder.grid_size()}',
+                        PartA2=lambda: f', sparse grid {mcfg.sparse_shape}, '
+                        f'{mcfg.voxel_capacity} voxels, pool '
+                        f'{mcfg.roi_pool!r} at {mcfg.roi_grid}',
+                        PointRCNN=lambda: '')[kind]()
+            print(_stage_line(
+                f'lidar2 (21b) {config} request {str(dtype)[6:]}{tf32}, '
+                f'{n} points{grid}', ms, st, peak), flush=True)
+            if kind == 'PointRCNN':
+                fps, total, calls = _lidar2_fps_share(h['infer'], req)
+                print(f'lidar2 (21b) PointRCNN {str(dtype)[6:]}: FPS '
+                      f'({calls} calls) {fps:.3f} ms of one request of '
+                      f'{total:.3f} ms (each call synchronised): share '
+                      f'{fps / total:.3f}', flush=True)
+            del h, model
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def _lidar2_steps(dev):
+    """(c) One f32 training step of each config at its per-chip batch."""
+    from dfm_tpu_torch.models.builder import build_detector, lidar_class
+    from dfm_tpu_torch.runtime.adapters import lidar_synth, lidar_to_device
+    from dfm_tpu_torch.runtime.config import load_config
+    from dfm_tpu_torch.utils.weights import init_weights
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    for kind, config in LIDAR2_CONFIGS.items():
+        cfg = load_config(os.path.join(here, 'configs', config))
+        mcfg = build_detector(cfg.model)
+        b = cfg.data.batch_size_per_chip
+        n = LIDAR2_POINTS[kind]
+        model = init_weights(lidar_class(mcfg)(mcfg)).to(dev)
+        _train_step_line(
+            f'lidar2 (21c) {config} training step, f32 (TF32 as PyTorch has '
+            f'it), B = {b} x {n} points', model,
+            lambda i, c=mcfg: lidar_to_device(lidar_synth(c, b, i, n=n),
+                                              dev), dev)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _lidar2_train(procs, work, root, kind):
+    """(d) `tools.train` of `kind`'s config in a process of its own, on the
+    KITTI velodyne tree `root` (CenterPoint, SASSD) or with `--synthetic`
+    (PartA2, PointRCNN), at its per-chip batch but SA-SSD's (B = 2: its
+    B = 6 takes 31 GB, as much as (c)'s step, beside the rest of (d))."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = ['--synthetic', '--cfg-options'] if kind in (
+        'PartA2', 'PointRCNN') else [
+        '--cfg-options', 'data.type=KittiDataset', f'data.data_root={root}']
+    if kind == 'SASSD':
+        data.append('data.batch_size_per_chip=2')
+    _start(procs, f'lidar2 train {kind}', [
+        'dfm_tpu_torch.tools.train',
+        os.path.join(here, 'configs', LIDAR2_CONFIGS[kind]), '--max-steps',
+        str(LIDAR2_TRAIN_STEPS), '--work-dir',
+        os.path.join(work, f'lidar2_{kind}')] + data)
+
+
+def _lidar2_clis(procs, work):
+    """(d) The CLIs in processes of their own: `tools.test --synthetic` on
+    each config and `tools.train` of all but CenterPoint (whose follows
+    beside (c), `lidar2_phase`). In process, the refusals: tools.train
+    PartA2 / PointRCNN without `--synthetic`, tools.test CenterPoint on
+    its WaymoDataset (rc 2 each). Returns the KITTI velodyne tree."""
+    import contextlib
+    import io
+    import os
+    from dfm_tpu_torch.tools import create_data
+    from dfm_tpu_torch.tools import test as test_cli
+    from dfm_tpu_torch.tools import train as train_cli
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(work, 'kitti_lidar2')
+    write_kitti_tree(root)
+    check(create_data.main(['kitti', '--root', root, '--splits', 'train'])
+          == 0, 'lidar2 (21d) create_data')
+    for kind, config in LIDAR2_CONFIGS.items():
+        path = os.path.join(here, 'configs', config)
+        _start(procs, f'lidar2 test {kind}', ['dfm_tpu_torch.tools.test', path,
+                                              '--synthetic'])
+        if kind != 'CenterPoint':
+            _lidar2_train(procs, work, root, kind)
+    refused = []
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        for kind in ('PartA2', 'PointRCNN'):
+            refused.append(train_cli.main([
+                os.path.join(here, 'configs', LIDAR2_CONFIGS[kind]),
+                '--work-dir', os.path.join(work, 'refused')]))
+        refused.append(test_cli.main([os.path.join(
+            here, 'configs', LIDAR2_CONFIGS['CenterPoint'])]))
+    check(refused == [2, 2, 2] and err.getvalue().count('--synthetic') == 3,
+          f'lidar2 (21d) refusals: {refused} {err.getvalue()[-1500:]}')
+    return root
+
+
+def _lidar2_cli_checks(procs):
+    """Wait for (d)'s processes of `procs` (emptied) and check what each
+    printed -> the names checked and the seconds waited."""
+    t0 = time.perf_counter()
+    cli = _finish(procs)
+    procs.clear()
+    arrays = dict(CenterPoint=3, SASSD=5, PartA2=4, PointRCNN=4)
+    for name, res in cli.items():
+        check(res.returncode == 0, f'{name}: rc {res.returncode} '
+              f'{res.stderr[-3000:]}')
+        kind = name.split()[-1]
+        if name.startswith('lidar2 test'):
+            check(f'[synthetic-eval] {kind}: decoded {arrays[kind]} output '
+                  'arrays, finite=True' in res.stdout,
+                  f'lidar2 (21d) tools.test {kind}')
+        else:
+            check(f'step {LIDAR2_TRAIN_STEPS}/{LIDAR2_TRAIN_STEPS}' in
+                  res.stdout, f'lidar2 (21d) tools.train {kind}: '
+                  f'{res.stdout[-2000:]}')
+    return list(cli), time.perf_counter() - t0
+
+
+def lidar2_phase(dev):
+    """21. CenterPoint, SA-SSD, Part-A2 and PointRCNN, no port kernel on
+    their paths: (d)'s CLIs but CenterPoint's training started first, (a)
+    card against CPU at tiny sizes, (b) full-width requests; those CLIs
+    collected, CenterPoint's training (15 GB) started, (c) the full-width
+    training steps (SA-SSD's 31 GB), that CLI collected."""
+    import tempfile
+    t0 = time.perf_counter()
+    procs = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            root = _lidar2_clis(procs, work)
+            _lidar2_parity(dev)
+            _lidar2_requests(dev)
+            names, waited = _lidar2_cli_checks(procs)
+            _lidar2_train(procs, work, root, 'CenterPoint')
+            _lidar2_steps(dev)
+            more, more_s = _lidar2_cli_checks(procs)
+            check(len(names + more) == 8, f'lidar2 (21d): {names + more}')
+            print(f'lidar2 (21d) tools.test --synthetic on the four configs '
+                  f'(finite decodes), tools.train {LIDAR2_TRAIN_STEPS} steps '
+                  'each (CenterPoint, and SASSD at B = 2, on a KITTI '
+                  'velodyne tree, '
+                  'PartA2 and PointRCNN --synthetic), the refusals rc 2 '
+                  f'naming --synthetic; waited {waited:.1f} s for them after '
+                  f'(b), {more_s:.1f} s for CenterPoint\'s after (c)',
+                  flush=True)
+        finally:
+            _kill(procs)
+    print(f'phase 21 {time.perf_counter() - t0:.1f} s', flush=True)
+
+
+def phase21_alone(dev='cuda'):
+    """Phase 21 by itself (no kernel build: none lies on its paths)."""
+    print(card_line(), flush=True)
+    lidar2_phase(dev)
+
+
 def _flops_of(fn, *args):
     """Floating-point operations of `fn(*args)` (torch's FlopCounterMode:
     the convolutions and matrix products)."""
@@ -6328,12 +6815,50 @@ def _flops_of(fn, *args):
     return fc.get_total_flops()
 
 
+def run_phases(cfg, dev, mem):
+    """Phases 3-21; the card's memory in use after each -> the kernels'
+    results."""
+    import os
+    import tempfile
+    results = kernel_phase(cfg, dev)
+    from dfm_tpu_torch.ops.cuda import conv_chain as KC
+    gc.collect()
+    check(not KC._WGMMA_WEIGHTS, f'{len(KC._WGMMA_WEIGHTS)} weight layouts '
+          'outlived the kernel phase (the table keeps no weight alive)')
+    mem.mark('phase 3')
+    launches = main_phase(cfg, dev)
+    for name, n in launches.items():
+        if name in results:
+            results[name]['main_path_launches' if name in OFF_PATH
+                          else 'launches'] = n
+    mem.mark('phase 4')
+    parity_phase(cfg, dev)
+    mem.mark('phase 5')
+    eval_phase(cfg, dev)
+    mem.mark('phase 6')
+    train_phase(cfg, dev, results)
+    mem.mark('phase 7-8')
+    with tempfile.TemporaryDirectory() as tmp:
+        trees = dict(full=os.path.join(tmp, 'full'),
+                     small=os.path.join(tmp, 'small'))
+        mvdfm_phase(dev, trees)
+        mem.mark('phase 9')
+        ddp_phase(cfg, dev, results, trees)
+        mem.mark('phase 10')
+        temporal_phase(dev, trees)
+        mem.mark('phase 11')
+    for n, phase in ((12, mono_phase), (13, dla_phase), (14, imvoxel_phase),
+                     (15, nuscenes_phase), (16, waymo_cam_phase),
+                     ('17-20', lidar_phases), (21, lidar2_phase)):
+        phase(dev)
+        mem.mark(f'phase {n}')
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
-    import os
-    import tempfile
     from dfm_tpu_torch.models.detectors.dfm import DfMConfig
     from dfm_tpu_torch.ops.cuda import build
 
@@ -6351,32 +6876,11 @@ def main():
 
     dev = 'cuda'
     cfg = DfMConfig()
-    results = kernel_phase(cfg, dev)
-    from dfm_tpu_torch.ops.cuda import conv_chain as KC
-    gc.collect()
-    check(not KC._WGMMA_WEIGHTS, f'{len(KC._WGMMA_WEIGHTS)} weight layouts '
-          'outlived the kernel phase (the table keeps no weight alive)')
-    launches = main_phase(cfg, dev)
-    for name, n in launches.items():
-        if name in results:
-            results[name]['main_path_launches' if name in OFF_PATH
-                          else 'launches'] = n
-    parity_phase(cfg, dev)
-    eval_phase(cfg, dev)
-    train_phase(cfg, dev, results)
-    with tempfile.TemporaryDirectory() as tmp:
-        trees = dict(full=os.path.join(tmp, 'full'),
-                     small=os.path.join(tmp, 'small'))
-        mvdfm_phase(dev, trees)
-        ddp_phase(cfg, dev, results, trees)
-        temporal_phase(dev, trees)
-    mono_phase(dev)
-    dla_phase(dev)
-    imvoxel_phase(dev)
-    nuscenes_phase(dev)
-    waymo_cam_phase(dev)
-    lidar_phases(dev)
-
+    mem = CardMemory()
+    try:
+        results = run_phases(cfg, dev, mem)
+    finally:
+        mem.close()
     print(json.dumps({'kernels': list(results.values())}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

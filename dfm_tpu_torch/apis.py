@@ -3,8 +3,9 @@ mono family's `init_mono_model` / `inference_mono_3d`: FCOS3D, PGD, SMOKE
 and MonoFlex),
 MultiViewDfM's (`init_mvdfm_model`, `detect_multiview_sample`,
 `multihost_multiview_inference`), ImVoxelNet's
-(`init_imvoxelnet_model`) and the SECOND LiDAR family's
-(`init_lidar_model`: VoxelNet, DynamicVoxelNet).
+(`init_imvoxelnet_model`) and the outdoor LiDAR detectors'
+(`init_lidar_model`: VoxelNet, DynamicVoxelNet, SASSD, CenterPoint,
+PointRCNN).
 
 They run on the CUDA card by default and raise when there is none; the
 CPU is used only when the caller passes device='cpu'. Weights are
@@ -36,17 +37,14 @@ import torch.distributed as dist
 from .data.collate import build_batch
 from .data.pipeline import normalize_image
 from .evaluation.results import detections_to_kitti_annos
-from .models.builder import mono_class
+from .models.builder import lidar_class, lidar_predict, mono_class
 from .models.detectors.dfm import DfM, DfMConfig, dfm_predict
 from .models.detectors.imvoxelnet import (ImVoxelNet, ImVoxelNetConfig,
                                           imvoxelnet_predict)
 from .models.heads.fcos_mono3d import FCOS3DConfig, pad44
-from .models.detectors.dynamic_voxelnet import (DynamicVoxelNet,
-                                                DynamicVoxelNetConfig)
 from .models.detectors.multiview_dfm import (MultiViewDfM, MVDfMConfig,
                                              mvdfm_predict)
-from .models.detectors.voxelnet import (VoxelNet, VoxelNetConfig,
-                                        voxelnet_predict)
+from .models.detectors.voxelnet import VoxelNetConfig
 from .parallel import dist as D
 from .utils.weights import init_weights, load_reference_checkpoint
 
@@ -272,27 +270,30 @@ def init_imvoxelnet_model(cfg=None, dtype=torch.bfloat16, device=None):
 
 
 def init_lidar_model(cfg=None, dtype=torch.bfloat16, device=None):
-    """Build a VoxelNet (a `VoxelNetConfig`, the default) or a
-    DynamicVoxelNet (a `DynamicVoxelNetConfig`), seeded random weights,
-    and its inference function.
+    """Build a LiDAR detector of its config's class (`models/builder.py:
+    lidar_class`: VoxelNet for a `VoxelNetConfig`, the default,
+    DynamicVoxelNet, SASSD, CenterPoint, PointRCNN), seeded random
+    weights, and its inference function.
 
     Returns dict(model, cfg, device, infer, load_checkpoint) with
-    infer(points (B, P, 3+), point_mask (B, P)) -> padded detections in
-    the LiDAR frame ('boxes3d' bottom-centre, 'scores', 'labels', 'mask')
-    and load_checkpoint(path) -> the keys of a checkpoint in the port's
+    infer(points (B, P, 3+), point_mask (B, P) or None: PointRCNN reads
+    no mask) -> the model's own
+    predict (`lidar_predict`): padded detections in the LiDAR frame
+    ('boxes3d' bottom-centre, 'scores', 'labels', 'mask'; CenterPoint's
+    decode: sample 0's 'boxes_3d', 'scores_3d', 'labels_3d'), and
+    load_checkpoint(path) -> the keys of a checkpoint in the port's
     layout that it did not take.
     """
     cfg = cfg or VoxelNetConfig()
     device = _device(device)
-    cls = DynamicVoxelNet if isinstance(cfg, DynamicVoxelNetConfig) \
-        else VoxelNet
+    predict = lidar_predict(cfg)
     with torch.device('meta'):
-        model = cls(cfg, dtype=dtype)
+        model = lidar_class(cfg)(cfg, dtype=dtype)
     model = init_weights(model.to_empty(device=device)).eval()
 
     @torch.inference_mode()
-    def infer(points, point_mask):
-        return voxelnet_predict(model(points, point_mask), cfg)
+    def infer(points, point_mask=None):
+        return predict(model(points, point_mask), cfg)
 
     return dict(model=model, cfg=cfg, device=device, infer=infer,
                 load_checkpoint=lambda path: load_reference_checkpoint(

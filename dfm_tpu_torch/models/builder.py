@@ -11,7 +11,10 @@ which `mono_model` builds with), `SMOKEMono3D` `SMOKEConfig` and `MonoFlex`
 `MonoFlexConfig` (DLA-34, depth 34), `ImVoxelNet` `ImVoxelNetConfig`,
 `VoxelNet` `VoxelNetConfig` and `DynamicVoxelNet` `DynamicVoxelNetConfig`
 (`_build_voxelnet`, `_build_dynamic_voxelnet`; a `bbox_head` the port
-does not run, 'shape_aware', raises NotImplementedError).
+does not run, 'shape_aware', raises NotImplementedError), `CenterPoint`
+`CenterPointConfig` (its `head` dict a `CenterHeadConfig`), `SASSD`
+`SASSDConfig`, `PointRCNN` `PointRCNNConfig` and `PartA2`
+`PartA2Config`.
 DfM and DfMFull evaluate the DfM student alone, so `build_detector`
 gives the student's config for both; `atss_config` gives DfMFull's 2D
 head its config from the model's `atss` entry, and the train CLI
@@ -22,55 +25,85 @@ from `teacher_checkpoint`. For DfM and DfMFull, keys that are no field of
 DfMFull's `atss` and `teacher_checkpoint`, which only training reads).
 For the mono types `unused_keys` names the type alone in the repo's
 configs (every other key is a field, or `backbone_depth`). The first type
-of the JAX builder's registry that the port does not run is `CenterPoint`. A
+of the JAX builder's registry that the port does not run is `VoteNet`. A
 `MultiViewDfM` config with a key that is no field of `MVDfMConfig` is
 refused (ValueError).
 """
 
 import dataclasses
 
+from .detectors.centerpoint import (CenterPoint, CenterPointConfig,
+                                    centerpoint_predict)
 from .detectors.dfm import DfMConfig
-from .detectors.dynamic_voxelnet import DynamicVoxelNetConfig
+from .detectors.dynamic_voxelnet import (DynamicVoxelNet,
+                                         DynamicVoxelNetConfig)
 from .detectors.fcos_mono3d import FCOSMono3D
 from .detectors.imvoxelnet import ImVoxelNetConfig
 from .detectors.monoflex import MonoFlex
 from .detectors.multiview_dfm import MVDfMConfig
+from .detectors.parta2 import PartA2, PartA2Config, parta2_predict
 from .detectors.pgd_mono3d import PGDMono3D
+from .detectors.point_rcnn import (PointRCNN, PointRCNNConfig,
+                                   point_rcnn_predict)
+from .detectors.sassd import SASSD, SASSDConfig, sassd_predict
 from .detectors.smoke import SMOKEConfig, SMOKEMono3D
-from .detectors.voxelnet import VoxelNetConfig, check_bbox_head
+from .detectors.voxelnet import (VoxelNet, VoxelNetConfig, check_bbox_head,
+                                 voxelnet_predict)
 from .heads.atss2d import ATSS2DConfig
 from .heads.fcos_mono3d import FCOS3DConfig
 from .heads.monoflex import MonoFlexConfig
 from .heads.pgd import PGDConfig
 
 __all__ = ['build_detector', 'atss_config', 'unused_keys', 'PORTED_TYPES',
-           'MONO_TYPES', 'DLA_TYPES', 'LIDAR_TYPES', 'mono_backbone_depth',
-           'mono_class', 'mono_model']
+           'MONO_TYPES', 'DLA_TYPES', 'LIDAR_TYPES', 'VOXELNET_TYPES',
+           'POINT_CONFIGS', 'mono_backbone_depth', 'mono_class',
+           'mono_model', 'lidar_class', 'lidar_predict']
 
 DLA_TYPES = ('SMOKEMono3D', 'MonoFlex')
 MONO_TYPES = ('FCOSMono3D', 'PGD') + DLA_TYPES
-LIDAR_TYPES = ('VoxelNet', 'DynamicVoxelNet')
+LIDAR_TYPES = ('VoxelNet', 'DynamicVoxelNet', 'CenterPoint', 'SASSD',
+               'PointRCNN', 'PartA2')
+# the types whose config is a `VoxelNetConfig` (their anchor head's
+# `bbox_head` checked)
+VOXELNET_TYPES = ('VoxelNet', 'DynamicVoxelNet', 'SASSD', 'PartA2')
 PORTED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM', 'ImVoxelNet') + \
     MONO_TYPES + LIDAR_TYPES
 _CONFIG_CLASSES = {'MultiViewDfM': MVDfMConfig, 'ImVoxelNet': ImVoxelNetConfig,
                    'VoxelNet': VoxelNetConfig,
                    'DynamicVoxelNet': DynamicVoxelNetConfig,
+                   'CenterPoint': CenterPointConfig, 'SASSD': SASSDConfig,
+                   'PointRCNN': PointRCNNConfig, 'PartA2': PartA2Config,
                    'FCOSMono3D': FCOS3DConfig,
                    'PGD': PGDConfig, 'SMOKEMono3D': SMOKEConfig,
                    'MonoFlex': MonoFlexConfig}
 _MONO_MODELS = {FCOS3DConfig: FCOSMono3D, PGDConfig: PGDMono3D,
                 SMOKEConfig: SMOKEMono3D, MonoFlexConfig: MonoFlex}
+# config class -> (detector module, its predict(outputs, cfg))
+_LIDAR_MODELS = {VoxelNetConfig: (VoxelNet, voxelnet_predict),
+                 DynamicVoxelNetConfig: (DynamicVoxelNet, voxelnet_predict),
+                 SASSDConfig: (SASSD, sassd_predict),
+                 CenterPointConfig: (CenterPoint, centerpoint_predict),
+                 PointRCNNConfig: (PointRCNN, point_rcnn_predict),
+                 PartA2Config: (PartA2, parta2_predict)}
+# the point-based types: their model and batch take no point mask
+POINT_CONFIGS = (PointRCNNConfig,)
 
 
 def _mk_cfg(cls, d):
     """Dataclass `cls` from dict `d`, ignoring unknown keys; lists become
-    tuples (of tuples), as the JAX builder makes them."""
-    fields = {f.name for f in dataclasses.fields(cls)}
+    tuples (of tuples), and a dict for a dataclass field (CenterPoint's
+    `head`) that dataclass, as the JAX builder makes them."""
+    fields = {f.name: f for f in dataclasses.fields(cls)}
     kwargs = {}
     for k, v in d.items():
         if k not in fields:
             continue
-        if isinstance(v, list):
+        sub = fields[k].default_factory
+        if hasattr(v, 'to_dict'):
+            v = v.to_dict()
+        if isinstance(v, dict) and dataclasses.is_dataclass(sub):
+            v = _mk_cfg(sub, v)
+        elif isinstance(v, list):
             v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
         kwargs[k] = v
     return cls(**kwargs)
@@ -99,8 +132,10 @@ def unused_keys(model_cfg):
 def build_detector(model_cfg):
     """`model_cfg` (a dict or `Config` with a `type`) -> `DfMConfig`,
     `MVDfMConfig` for MultiViewDfM, `ImVoxelNetConfig` for ImVoxelNet,
-    `VoxelNetConfig` / `DynamicVoxelNetConfig` for VoxelNet /
-    DynamicVoxelNet,
+    `VoxelNetConfig` / `DynamicVoxelNetConfig` / `SASSDConfig` for
+    VoxelNet / DynamicVoxelNet / SASSD, `CenterPointConfig` for
+    CenterPoint, `PointRCNNConfig` for PointRCNN, `PartA2Config` for
+    PartA2,
     `FCOS3DConfig` / `PGDConfig` /
     `SMOKEConfig` / `MonoFlexConfig` for FCOSMono3D / PGD / SMOKEMono3D /
     MonoFlex. Raises NotImplementedError for a type
@@ -120,7 +155,7 @@ def build_detector(model_cfg):
             raise ValueError(f'MultiViewDfM config keys that are no field '
                              f'of MVDfMConfig: {unknown}')
     cfg = _mk_cfg(_config_class(kind), d)
-    if kind in LIDAR_TYPES:
+    if kind in VOXELNET_TYPES:
         check_bbox_head(cfg)
     return cfg
 
@@ -155,3 +190,16 @@ def mono_model(model_cfg):
         raise ValueError(f'{kind!r} is no mono type ({MONO_TYPES})')
     cfg = build_detector(model_cfg)
     return mono_class(cfg)(cfg, mono_backbone_depth(model_cfg))
+
+
+def lidar_class(cfg):
+    """The detector module class of a LiDAR type's config (by its exact
+    class: `SASSDConfig` and `DynamicVoxelNetConfig` are
+    `VoxelNetConfig`s)."""
+    return _LIDAR_MODELS[type(cfg)][0]
+
+
+def lidar_predict(cfg):
+    """The decode of a LiDAR type's config: predict(outputs, cfg) ->
+    detections."""
+    return _LIDAR_MODELS[type(cfg)][1]

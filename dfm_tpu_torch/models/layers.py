@@ -25,8 +25,9 @@ from ..ops.resize import resize_linear
 from ..parallel import dist as D
 
 __all__ = ['Conv', 'ConvTranspose', 'DeformConv2d', 'GroupNorm', 'BatchNorm',
-           'ConvNorm', 'convbn', 'Hourglass', 'UpconvModule', 'group_norm',
-           'gn_groups', 'stat_float', 'conv_bias']
+           'BatchNormLast', 'Linear', 'ConvNorm', 'convbn', 'Hourglass',
+           'UpconvModule', 'group_norm', 'gn_groups', 'stat_float',
+           'conv_bias']
 
 _CONV_FNS = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
@@ -44,16 +45,17 @@ def gn_groups(c):
     return 32 if c % 32 == 0 else c
 
 
-def group_norm(x, weight, bias, groups):
+def group_norm(x, weight, bias, groups, eps=1e-5):
     """GroupNorm with f32 (`stat_float`) statistics (var = E[x^2] -
     E[x]^2) applied as ONE folded per-(batch, channel) scale/bias, cast
-    back to x.dtype (`dfm_tpu/models/layers.py:336-362`)."""
+    back to x.dtype (`dfm_tpu/models/layers.py:336-362`); `eps` 1e-5 as
+    the JAX package's GroupNorm (flax's own `nn.GroupNorm` takes 1e-6)."""
     b, c = x.shape[:2]
     xf = stat_float(x)
     flat = xf.reshape(b, groups, -1)
     mean = flat.mean(-1)
     var = (flat * flat).mean(-1) - mean * mean
-    rstd = torch.rsqrt(var + 1e-5)                             # (B, g)
+    rstd = torch.rsqrt(var + eps)                              # (B, g)
     sc = stat_float(weight).view(groups, c // groups) * rstd[..., None]
     bs = stat_float(bias).view(groups, c // groups) - mean[..., None] * sc
     shape = (b, c) + (1,) * (x.dim() - 2)
@@ -88,22 +90,26 @@ class Conv(nn.Module):
 
 
 class ConvTranspose(nn.Module):
-    """torch ConvTranspose{2,3}d(k3, s2, p1, output_padding 1): exact 2x
-    upsample; the flax equivalent is padding (1, 2) per spatial dim
-    (`layers.py:393-398`). Weight layout (I, O, k...); no bias until a
-    BatchNorm fold gives it one."""
+    """torch ConvTranspose{2,3}d, by default k3, s2, p1, output_padding 1:
+    exact 2x upsample; the flax equivalent is padding (1, 2) per spatial
+    dim (`layers.py:393-398`). SECONDFPN takes k = s, no padding. Weight
+    layout (I, O, k...); no bias until a BatchNorm fold gives it one."""
 
     transposed = True
 
-    def __init__(self, cin, cout, ndim=2):
+    def __init__(self, cin, cout, ndim=2, k=3, stride=2, padding=1,
+                 output_padding=1):
         super().__init__()
         self.ndim = ndim
-        self.weight = nn.Parameter(torch.empty((cin, cout) + (3,) * ndim))
+        self.stride, self.padding = stride, padding
+        self.output_padding = output_padding
+        self.weight = nn.Parameter(torch.empty((cin, cout) + (k,) * ndim))
         self.bias = None
 
     def forward(self, x):
         fn = F.conv_transpose2d if self.ndim == 2 else F.conv_transpose3d
-        return fn(x, self.weight.to(x.dtype), conv_bias(self, x), 2, 1, 1)
+        return fn(x, self.weight.to(x.dtype), conv_bias(self, x),
+                  self.stride, self.padding, self.output_padding)
 
 
 class DeformConv2d(nn.Module):
@@ -134,14 +140,18 @@ class DeformConv2d(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    def __init__(self, c):
+    """`groups` (`gn_groups(c)` if None) and `eps` 1e-5, the JAX package's
+    GroupNorm; flax's `nn.GroupNorm(num_groups=16)` is (16, 1e-6)."""
+
+    def __init__(self, c, groups=None, eps=1e-5):
         super().__init__()
-        self.groups = gn_groups(c)
+        self.groups = groups or gn_groups(c)
+        self.eps = eps
         self.weight = nn.Parameter(torch.empty(c))
         self.bias = nn.Parameter(torch.empty(c))
 
     def forward(self, x):
-        return group_norm(x, self.weight, self.bias, self.groups)
+        return group_norm(x, self.weight, self.bias, self.groups, self.eps)
 
 
 class BatchNorm(nn.Module):
@@ -205,6 +215,28 @@ class BatchNorm(nn.Module):
                 stat_float(self.bias).view(shape)).to(x.dtype)
 
 
+class BatchNormLast(BatchNorm):
+    """`BatchNorm` on a channels-last (..., C) tensor, as flax's
+    `nn.BatchNorm` normalises a point set's (B, M, K, C) features: the
+    moments over every axis but the last."""
+
+    def forward(self, x):
+        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+
+
+class Linear(nn.Module):
+    """flax's `nn.Dense`: x @ W^T (+ b) on the last axis, the f32 weight
+    (C_out, C_in) and bias cast to the input dtype."""
+
+    def __init__(self, cin, cout, bias=True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), conv_bias(self, x))
+
+
 def _norm(norm, c):
     if norm == 'gn':
         return GroupNorm(c)
@@ -215,12 +247,13 @@ def _norm(norm, c):
 
 class ConvNorm(nn.Module):
     """mmcv ConvModule: conv (+ bias) + norm (+ ReLU); keys `.conv`,
-    `.gn`/`.bn`."""
+    `.gn`/`.bn`. A `stride` > 1 pads k // 2, as the flax ConvNorm's strided
+    branch does."""
 
     def __init__(self, cin, cout, k=3, ndim=2, norm='gn', act=True,
-                 bias=False):
+                 bias=False, stride=1):
         super().__init__()
-        self.conv = Conv(cin, cout, k, ndim=ndim, bias=bias)
+        self.conv = Conv(cin, cout, k, stride, ndim=ndim, bias=bias)
         self.norm_name = norm
         setattr(self, norm, _norm(norm, cout))
         self.act = act

@@ -141,7 +141,11 @@ def subm_conv(feats, nbr, kernel_w):
     v, c = feats.shape
     fz = torch.cat([feats, feats.new_zeros((1, c))], 0)
     idx = torch.where(nbr >= 0, nbr, torch.full_like(nbr, v))
-    g = fz[idx.t()]                                   # (V_out, K, C)
+    # index_select, not fz[idx]: its backward is an index_add_, where the
+    # indexing's sorts each row's duplicates and walks them in one warp
+    # (the zero row is most taps' neighbour: seconds a training step)
+    g = torch.index_select(fz, 0, idx.t().reshape(-1)).reshape(
+        idx.shape[1], idx.shape[0], c)                # (V_out, K, C)
     acc = torch.float64 if feats.dtype == torch.float64 else torch.float32
     out = torch.matmul(g.reshape(g.shape[0], -1).to(acc),
                        kernel_w.reshape(-1, kernel_w.shape[-1]).to(acc))

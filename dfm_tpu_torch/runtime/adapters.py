@@ -217,10 +217,15 @@ def mono_to_device(batch, device):
         k: t(batch[k]) for k in MONO_GT_KEYS if k in batch}
 
 
-def lidar_synth(cfg, b, seed, n=512):
+def lidar_synth(cfg, b, seed, n=None):
     """`_points_synth`: `n` points a sample uniform in the config's
     point-cloud range (all valid), then `gt_pack`'s boxes with their
-    centres clipped half a size inside the range."""
+    centres clipped half a size inside the range. `n` defaults to 512,
+    and to 4096 for the point-based types (`POINT_CONFIGS`: PointRCNN),
+    whose batch has no 'point_mask' (JAX's PointRCNN adapter)."""
+    from ..models.builder import POINT_CONFIGS
+    point_based = isinstance(cfg, POINT_CONFIGS)
+    n = n or (4096 if point_based else 512)
     rng = np.random.default_rng(seed)
     pcr = np.asarray(cfg.point_cloud_range, np.float32)
     pts = rng.random((b, n, 3)).astype(np.float32) * (pcr[3:] - pcr[:3]) \
@@ -229,16 +234,21 @@ def lidar_synth(cfg, b, seed, n=512):
     lo = pcr[:3] + boxes[..., 3:6] / 2
     hi = pcr[3:] - boxes[..., 3:6] / 2
     ctr = np.clip(boxes[..., :3], lo, np.maximum(lo, hi))
-    return dict(points=pts, point_mask=np.ones((b, n), bool),
-                gt_boxes=np.concatenate([ctr, boxes[..., 3:]], -1),
-                gt_labels=labels, gt_mask=mask)
+    batch = dict(points=pts, point_mask=np.ones((b, n), bool),
+                 gt_boxes=np.concatenate([ctr, boxes[..., 3:]], -1),
+                 gt_labels=labels, gt_mask=mask)
+    if point_based:
+        del batch['point_mask']
+    return batch
 
 
 def lidar_to_device(batch, device):
     """A batch of `lidar_synth` (or of `KittiLidarSource`) -> (points,
-    point_mask, gt dict), tensors on `device`."""
+    point_mask (None for a batch without one: PointRCNN's), gt dict),
+    tensors on `device`."""
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
-    return t(batch['points']), t(batch['point_mask']), {
+    mask = batch.get('point_mask')
+    return t(batch['points']), None if mask is None else t(mask), {
         k: t(batch[k]) for k in ('gt_boxes', 'gt_labels', 'gt_mask')}

@@ -44,10 +44,14 @@ with the 2D boxes projected by the original image's P2
 (`cam_detections_to_kitti_annos`) -> `kitti_eval`, the same AP lines.
 MonoFlex and ImVoxelNet have no real-data evaluation in either package
 (JAX falls back to a synthetic batch): they run with `--synthetic` only,
-and exit 2 saying so without it. VoxelNet and DynamicVoxelNet have none
-either; as JAX's `tools/test.py:553-557` does for them, they run the
-synthetic evaluation with or without `--synthetic` (their exit code is
-its own).
+and exit 2 saying so without it. The LiDAR detectors (VoxelNet,
+DynamicVoxelNet, SASSD, CenterPoint) have none either; as JAX's
+`tools/test.py:553-557` does for them, they run the synthetic evaluation
+with or without `--synthetic` (their exit code is its own), except on a
+'WaymoDataset' (CenterPoint's Waymo config): JAX routes that to its
+multi-view Waymo evaluation, which raises for a LiDAR model (its samples
+hold no points; ROADMAP.md §3), so the port exits 2 naming the reason,
+and decodes with `--synthetic`.
 
 nuScenes-mono (FCOSMono3D, PGD; data type 'NuScenesMonoDataset'), as
 `tools/test.py:348-404, 549-551` route it: `data.ann_file` (default
@@ -414,6 +418,13 @@ def main(argv=None):
         want, info, run = 'KittiDataset', INFO_FILE, kitti_dfm_eval
     if args.synthetic:
         run = synthetic_eval
+    elif kind in LIDAR_TYPES and data_type == 'WaymoDataset':
+        print(f'[data] {kind} on WaymoDataset is not evaluated: JAX routes '
+              'it to its multi-view Waymo evaluation, which fails for a '
+              "LiDAR model (its samples hold camera images and no 'points', "
+              'which the LiDAR model arguments read: KeyError); --synthetic '
+              'decodes a synthetic batch', file=sys.stderr)
+        return 2
     elif kind in LIDAR_TYPES:
         print(f'[data] {kind} has no real-data evaluation (JAX wires none '
               'either): running the synthetic evaluation', flush=True)

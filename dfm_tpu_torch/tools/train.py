@@ -1,5 +1,6 @@
 """Train DfM, DfMFull, MultiViewDfM, ImVoxelNet, FCOSMono3D, PGD,
-SMOKEMono3D, MonoFlex, VoxelNet or DynamicVoxelNet with the port, in one
+SMOKEMono3D, MonoFlex, VoxelNet, DynamicVoxelNet, CenterPoint or SASSD
+with the port, in one
 process or data-parallel across processes.
 
     python -m dfm_tpu_torch.tools.train configs/dfm_r34_kitti_3class.py \
@@ -51,15 +52,20 @@ neither, `tools/train.py:450`), so without `--synthetic` it exits 2 saying
 so. Their loss is `fcos_mono3d_loss` / `pgd_mono3d_loss` (with the batch's
 P2) / `smoke_loss` / `monoflex_loss`, normalised over the global batch,
 under the same schedule, AdamW and clip; no per-epoch eval (JAX's EvalHook
-runs for the DfM family alone). The SECOND LiDAR family (VoxelNet,
-DynamicVoxelNet; data type 'KittiDataset') trains on `KittiLidarSource`
+runs for the DfM family alone). The LiDAR detectors VoxelNet,
+DynamicVoxelNet, CenterPoint and SASSD on data type 'KittiDataset' train
+on `KittiLidarSource`
 (`tools/train.py:201-307`): each train frame's velodyne points in the
 pseudo-LiDAR frame and its boxes, with ObjectSample from
 `dfm_gt_database_infos.pkl` where `create_data --with-gt-db` wrote it,
 then flip, rotation, scale, the range filters and a permutation of the
 points, in JAX's draw order; with `--synthetic`, `lidar_synth` (512
-points uniform in the range). Its loss is `voxelnet_loss` (the
-anchor3d or the FreeAnchor head). Another model type exits with a message
+points uniform in the range). Their losses are `voxelnet_loss` (the
+anchor3d or the FreeAnchor head), `centerpoint_loss` and `sassd_loss`.
+Every other LiDAR case (CenterPoint on its Waymo config) has no train
+source: with `--synthetic` it trains on `lidar_synth`, without it the CLI
+exits 2 naming the flag (JAX falls back to synthetic batches silently).
+Another model type exits with a message
 and code 2, as does a KITTI data root without the train infos (without
 `--synthetic`). Runs on the CUDA card unless `--device cpu`.
 
@@ -95,13 +101,11 @@ from ..data.waymo import frames_per_sample
 from ..evaluation.kitti_eval import kitti_eval
 from ..data.dbsampler import DataBaseSampler, paste_objects
 from ..models.builder import (LIDAR_TYPES, MONO_TYPES, atss_config,
-                              build_detector, mono_model)
+                              build_detector, lidar_class, mono_model)
 from ..models.detectors.dfm import DfM
 from ..models.detectors.dfm_full import DfMFull
-from ..models.detectors.dynamic_voxelnet import DynamicVoxelNet
 from ..models.detectors.imvoxelnet import ImVoxelNet
 from ..models.detectors.multiview_dfm import MultiViewDfM
-from ..models.detectors.voxelnet import VoxelNet
 from ..models.heads.depth_head import sample_depth_pixels
 from ..parallel import dist as D
 from ..parallel.multihost import broadcast_seed
@@ -117,6 +121,9 @@ from ..utils.msgpack_tree import load_msgpack_tree
 from ..utils.weights import init_weights, teacher_state_dict
 
 VOXEL_TYPES = ('MultiViewDfM', 'ImVoxelNet')
+# the LiDAR types that train on KITTI velodyne points (JAX
+# `tools/train.py:456-458`); every other LiDAR case has no source
+KITTI_LIDAR_TYPES = ('VoxelNet', 'DynamicVoxelNet', 'CenterPoint', 'SASSD')
 TRAINED_TYPES = ('DfM', 'DfMFull') + VOXEL_TYPES + MONO_TYPES + LIDAR_TYPES
 
 
@@ -479,10 +486,8 @@ def build_model(kind, cfg, mcfg, seed):
         model = MultiViewDfM(mcfg)
     elif kind == 'ImVoxelNet':
         model = ImVoxelNet(mcfg)
-    elif kind == 'VoxelNet':
-        model = VoxelNet(mcfg)
-    elif kind == 'DynamicVoxelNet':
-        model = DynamicVoxelNet(mcfg)
+    elif kind in LIDAR_TYPES:
+        model = lidar_class(mcfg)(mcfg)
     else:
         model = DfM(mcfg)
     return init_weights(model, seed)
@@ -507,6 +512,15 @@ def main(argv=None):
     if kind == 'ImVoxelNet' and not args.synthetic:
         print('[data] ImVoxelNet trains on synthetic batches only: no data '
               'source is wired for it (JAX wires none either); pass '
+              '--synthetic', file=sys.stderr)
+        return 2
+    if kind in LIDAR_TYPES and not args.synthetic and (
+            kind not in KITTI_LIDAR_TYPES or
+            d.get('type', '') != 'KittiDataset'):
+        print(f'[data] {kind} on dataset type {d.get("type", "")!r} has no '
+              'train source (JAX wires KITTI velodyne points for VoxelNet, '
+              'DynamicVoxelNet, CenterPoint and SASSD on KittiDataset alone, '
+              'and falls back to synthetic batches otherwise); pass '
               '--synthetic', file=sys.stderr)
         return 2
     want = 'KittiMono' if kind in MONO_TYPES else 'KittiDataset'

@@ -7,6 +7,7 @@ The port's modules carry the reference torch names, so the port's
 rules (:27-34, :59-72):
 
   flax Conv (k..., I, O)                 -> torch (O, I, k...)
+  flax Dense kernel (I, O) (kind 'linear') -> torch (O, I)
   flax ConvTranspose kernel[k..., i, o]  -> torch w[i, o, K-1-k...]
       (spatial flip: torch's transposed conv correlates with the flipped
       kernel)
@@ -33,7 +34,8 @@ from ..models.heads.center_head import HEATMAP_BIAS
 from ..models.heads.monoflex import BRANCHES, MonoFlexConfig
 
 __all__ = ['dfm_key_map', 'dfm_full_key_map', 'mvdfm_key_map',
-           'imvoxelnet_key_map', 'voxelnet_key_map',
+           'imvoxelnet_key_map', 'voxelnet_key_map', 'centerpoint_key_map',
+           'sassd_key_map', 'point_rcnn_key_map', 'parta2_key_map',
            'dynamic_voxelnet_key_map', 'sparse_teacher_key_map',
            'dfm_with_teacher_key_map',
            'center_head_key_map', 'mono_key_map', 'fcos3d_head_key_map',
@@ -198,6 +200,86 @@ def voxelnet_key_map(prefix='', fpath=()):
     `DynamicVoxelNet`'s 'voxelnet')."""
     return _lidar_teacher(prefix + 'encoder', fpath + ('encoder',)) + \
         _liga_head(prefix + 'bbox_head', fpath + ('bbox_head',))
+
+
+def centerpoint_key_map(cfg):
+    """(torch_prefix, flax_path, kind) for the JAX `CenterPoint` tree of
+    config `cfg`: `enc0`, `enc1` (3D ConvNorm, BatchNorm), SECOND's
+    `backbone.stage{s}_conv{i}`, SECONDFPN's `neck` (a level of stride >
+    1: `deblock{i}_conv` and the neck's `BatchNorm_{j}`, j counting those
+    levels; else the ConvNorm `deblock{i}`) and the CenterHead
+    `bbox_head`."""
+    m = _convnorm('enc0', ('enc0',), 3, 'bn') + \
+        _convnorm('enc1', ('enc1',), 3, 'bn')
+    for s, n in enumerate(cfg.second_layers):
+        for i in range(n + 1):
+            m += _convnorm(f'backbone.stage{s}_conv{i}',
+                           ('backbone', f'stage{s}_conv{i}'), 2, 'bn')
+    j = 0
+    for i, st in enumerate(cfg.fpn_strides):
+        if st > 1:
+            m += [(f'neck.deblock{i}.conv', ('neck', f'deblock{i}_conv'),
+                   'convt2d'),
+                  (f'neck.deblock{i}.bn', ('neck', f'BatchNorm_{j}'), 'bn')]
+            j += 1
+        else:
+            m += _convnorm(f'neck.deblock{i}', ('neck', f'deblock{i}'), 2,
+                           'bn')
+    return m + center_head_key_map('bbox_head', ('bbox_head',), cfg.head)
+
+
+def sassd_key_map():
+    """The JAX `SASSD` tree: `voxelnet_key_map`'s encoder and head, and
+    the auxiliary branch's `point_fc`, `point_cls`, `point_reg` (Dense)."""
+    return voxelnet_key_map() + [(k, (k,), 'linear') for k in (
+        'point_fc', 'point_cls', 'point_reg')]
+
+
+def _dense_key_map(module, prefix=''):
+    """(torch_prefix, flax_path, kind) of every `Linear` ('linear') and
+    `BatchNormLast` ('bn') of `module` whose torch path is the flax path
+    (the point-set modules keep flax's names)."""
+    from ..models.layers import BatchNormLast, Linear
+    m = []
+    for name, mod in module.named_modules():
+        kind = 'linear' if isinstance(mod, Linear) else \
+            'bn' if isinstance(mod, BatchNormLast) else None
+        if kind:
+            m.append((prefix + name, tuple(name.split('.')), kind))
+    return m
+
+
+def point_rcnn_key_map(cfg=None):
+    """(torch_prefix, flax_path, kind) for the JAX `PointRCNN` tree of
+    config `cfg`: the MSG `backbone`'s `sa{s}.mlp{i}_{j}` / `bn{i}_{j}`,
+    the FP `neck`'s `fp{i}.mlp{j}` / `bn{j}`, the RPN and RCNN heads'
+    `Linear`s and the RoI `SAModule`s, each under its flax name."""
+    from ..models.detectors.point_rcnn import PointRCNN
+    with torch.device('meta'):
+        return _dense_key_map(PointRCNN(cfg))
+
+
+PARTA2_UNET_LAYERS = ('enc0', 'enc0b', 'down0', 'enc1', 'down1', 'enc2',
+                      'up1', 'dec1', 'up0', 'dec0')
+PARTA2_UNET_NORMS = ('bn0', 'bn0b', 'bn_down0', 'bn_enc1', 'bn_down1',
+                     'bn_enc2', 'bn_up1', 'bn_dec1', 'bn_up0', 'bn_dec0')
+
+
+def parta2_key_map():
+    """(torch_prefix, flax_path, kind) for the JAX `PartA2` tree: the
+    sparse U-Net `unet` (kernels 'param', `SparseBN`s), `seg_cls`,
+    `part_reg` (Dense), `bev_stem` (conv) with its GroupNorm `bev_gn`, the
+    anchor head `rpn_head` (two GroupNorm towers), `roi_conv0..1` (3D
+    conv) and the Dense `roi_fc0`, `roi_fc1`, `roi_cls`, `roi_reg`."""
+    m = [(f'unet.{k}.kernel', ('unet', k, 'kernel'), 'param')
+         for k in PARTA2_UNET_LAYERS]
+    m += [(f'unet.{k}', ('unet', k), 'bn') for k in PARTA2_UNET_NORMS]
+    m += [(k, (k,), 'linear') for k in ('seg_cls', 'part_reg')]
+    m += [('bev_stem', ('bev_stem',), 'conv2d'), ('bev_gn', ('bev_gn',), 'gn')]
+    m += _liga_head('rpn_head', ('rpn_head',))
+    m += [(f'roi_conv{i}', (f'roi_conv{i}',), 'conv3d') for i in (0, 1)]
+    return m + [(k, (k,), 'linear') for k in ('roi_fc0', 'roi_fc1',
+                                              'roi_cls', 'roi_reg')]
 
 
 def dynamic_voxelnet_key_map():
@@ -556,7 +638,7 @@ def state_dict_from_jax(variables, key_map=None):
         node = _get(params, fpath)
         if kind == 'param':
             put(prefix, node)
-        elif kind.startswith('conv'):
+        elif kind.startswith('conv') or kind == 'linear':
             put(f'{prefix}.weight', _conv_weight(node['kernel'], kind))
             if 'bias' in node:
                 put(f'{prefix}.bias', node['bias'])
