@@ -118,7 +118,7 @@ Phases, one line each; any failure raises and no result is printed:
               and the KITTI eval at the end of the epoch), a resume to
               step 6 from the saved optimizer state (its sha1 checked),
               `tools.test` on the step-6 checkpoint, and a type it does
-              not train (VoteNet) refused; (d) full-width training
+              not train (GroupFree3DNet) refused; (d) full-width training
               steps in process:
               two warm-up steps, then three with the launch counts set
               to 0 just before and read just after (a step: K1, K2 one
@@ -2158,16 +2158,16 @@ def _train_cli(root, config, here, env):
           f'tools.test printed {len(aps)} AP lines')
     res = subprocess.run(
         [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
-         '--cfg-options', 'model.type=VoteNet',
+         '--cfg-options', 'model.type=GroupFree3DNet',
          f'data.data_root={root}', '--work-dir',
          os.path.join(root, 'mono')], cwd=here, env=env,
         capture_output=True, text=True, timeout=300)
     check(res.returncode == 2 and 'not ported yet' in res.stderr,
-          f'the VoteNet type: rc {res.returncode} '
+          f'the GroupFree3DNet type: rc {res.returncode} '
           f'{res.stderr[-500:]}')
     print(f'train (c) resume: from step 4 with the saved optimizer '
           f'state (sha1 {digest}) to step 6; tools.test on step_6.pth: '
-          f'{len(aps)} finite AP lines; VoteNet refused (rc '
+          f'{len(aps)} finite AP lines; GroupFree3DNet refused (rc '
           f'{res.returncode})', flush=True)
 
 
@@ -6594,6 +6594,7 @@ def _lidar2_fps_share(infer, req):
     run) -> (FPS ms, request ms, FPS calls)."""
     from dfm_tpu_torch.models.backbones import pointnet2 as P2
     from dfm_tpu_torch.models.backbones import pointnet2_msg as P2M
+    from dfm_tpu_torch.models.detectors import votenet as PV
     fps = P2.farthest_point_sample
     spent = []
 
@@ -6605,7 +6606,8 @@ def _lidar2_fps_share(infer, req):
         spent.append((time.perf_counter() - t0) * 1e3)
         return out
 
-    P2.farthest_point_sample = P2M.farthest_point_sample = timed
+    P2.farthest_point_sample = P2M.farthest_point_sample = \
+        PV.farthest_point_sample = timed
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6613,7 +6615,8 @@ def _lidar2_fps_share(infer, req):
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3
     finally:
-        P2.farthest_point_sample = P2M.farthest_point_sample = fps
+        P2.farthest_point_sample = P2M.farthest_point_sample = \
+            PV.farthest_point_sample = fps
     return sum(spent), total, len(spent)
 
 
@@ -6806,6 +6809,553 @@ def phase21_alone(dev='cuda'):
     lidar2_phase(dev)
 
 
+SUNRGBD_NAMES = ('bed', 'table', 'sofa', 'chair', 'toilet', 'desk',
+                 'dresser', 'night_stand', 'bookshelf', 'bathtub')
+# NYU40 ids of ScanNet's 18 classes
+SCANNET_NYU_IDS = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34,
+                   36, 39)
+
+
+def _room_points(rng, n, centres):
+    """(n, 6) float32 xyz + rgb: half uniform in a 6 x 6 x 2.5 m room, the
+    rest in blobs around `centres`."""
+    per = (n - n // 2) // len(centres) + 1
+    blobs = np.concatenate([c + 0.3 * rng.standard_normal((per, 3))
+                            for c in centres])[:n - n // 2]
+    pts = np.concatenate([rng.uniform((-3, 0, -1), (3, 6, 1.5),
+                                      (n // 2, 3)), blobs])
+    return np.concatenate([pts, rng.uniform(0, 255, (n, 3))],
+                          1).astype(np.float32)
+
+
+def write_sunrgbd_tree(root, seed=0, splits=(('train', (1, 2)),
+                                             ('val', (3, 4))),
+                       points=3000, jpeg=None):
+    """SUN RGB-D's extracted layout under `root`/sunrgbd_trainval:
+    `{split}_data_idx.txt`, depth/{idx:06d}.mat ('instance': (points, 6)
+    xyz rgb, `scipy.io.savemat`), image/{idx:06d}.jpg (the `jpeg` bytes,
+    the committed small_420 fixture if None; the last frame has no
+    image), calib/ (Rt and K, column-major rows) and label/ (three objects
+    of the ten classes and a 'lamp' a frame), random from `seed`."""
+    import os
+    import scipy.io as sio
+    if jpeg is None:
+        folder, _ = _jpeg_fixtures()
+        with open(os.path.join(folder, 'small_420.jpg'), 'rb') as f:
+            jpeg = f.read()
+    rng = np.random.default_rng(seed)
+    tv = os.path.join(root, 'sunrgbd_trainval')
+    for sub in ('depth', 'image', 'calib', 'label'):
+        os.makedirs(os.path.join(tv, sub), exist_ok=True)
+    last = max(i for _, ids in splits for i in ids)
+    for split, ids in splits:
+        with open(os.path.join(tv, f'{split}_data_idx.txt'), 'w') as f:
+            f.write('\n'.join(str(i) for i in ids) + '\n')
+        for idx in ids:
+            name = f'{idx:06d}'
+            objs = []
+            for j, cls in enumerate(list(rng.choice(SUNRGBD_NAMES, 3)) +
+                                    ['lamp']):
+                ctr = rng.uniform((-2, 1.5, -0.5), (2, 5, 0.8))
+                half = rng.uniform(0.3, 1.0, 3)
+                yaw = rng.uniform(-np.pi, np.pi)
+                objs.append((cls, ctr, half, yaw))
+            sio.savemat(os.path.join(tv, 'depth', name + '.mat'), dict(
+                instance=_room_points(rng, points, [o[1] for o in objs])))
+            if idx != last:
+                with open(os.path.join(tv, 'image', name + '.jpg'),
+                          'wb') as f:
+                    f.write(jpeg)
+            rt = np.eye(3) + 0.01 * rng.standard_normal((3, 3))
+            k = np.array([[529.5, 0, 365.0], [0, 529.5, 265.0], [0, 0, 1]])
+            with open(os.path.join(tv, 'calib', name + '.txt'), 'w') as f:
+                for m in (rt, k):
+                    f.write(' '.join(f'{x:.6f}' for x in m.ravel('F'))
+                            + '\n')
+            with open(os.path.join(tv, 'label', name + '.txt'), 'w') as f:
+                for cls, ctr, half, yaw in objs:
+                    box2d = rng.uniform(0, 300, 4)
+                    vals = [*box2d, *ctr, half[1], half[0], half[2],
+                            np.cos(yaw), np.sin(yaw)]
+                    f.write(cls + ' ' + ' '.join(f'{v:.6f}' for v in vals)
+                            + '\n')
+    return root
+
+
+def write_scannet_tree(root, seed=0, splits=(
+        ('train', ('scene0000_00', 'scene0001_00')),
+        ('val', ('scene0002_00', 'scene0003_00'))), points=3000):
+    """ScanNet's extracted layout under `root`: meta_data/scannetv2_{split}
+    .txt and scannet_instance_data/{scene}_{vert, ins_label, sem_label,
+    aligned_bbox, unaligned_bbox, axis_align_matrix}.npy: four boxes a
+    scene of NYU40 ids of the 18 classes, each with its points' instance
+    and semantic labels, the scene turned about z and shifted by its
+    axis_align_matrix, random from `seed`."""
+    import os
+    rng = np.random.default_rng(seed)
+    inst = os.path.join(root, 'scannet_instance_data')
+    os.makedirs(inst, exist_ok=True)
+    os.makedirs(os.path.join(root, 'meta_data'), exist_ok=True)
+    for split, ids in splits:
+        with open(os.path.join(root, 'meta_data', f'scannetv2_{split}.txt'),
+                  'w') as f:
+            f.write('\n'.join(ids) + '\n')
+        for sid in ids:
+            ctrs = rng.uniform((-2, 1, -0.5), (2, 5, 0.8), (4, 3))
+            dims = rng.uniform(0.4, 1.8, (4, 3))
+            nyu = rng.choice(SCANNET_NYU_IDS, 4)
+            vert = _room_points(rng, points, list(ctrs))
+            ins = np.zeros(points, np.int64)
+            sem = np.zeros(points, np.int64)
+            for j in range(4):
+                inside = (np.abs(vert[:, :3] - ctrs[j]) <= dims[j] / 2).all(1)
+                ins[inside], sem[inside] = j + 1, nyu[j]
+            ang = rng.uniform(-0.3, 0.3)
+            c, s = np.cos(ang), np.sin(ang)
+            align = np.array([[c, -s, 0, rng.uniform(-1, 1)],
+                              [s, c, 0, rng.uniform(-1, 1)], [0, 0, 1, 0.1],
+                              [0, 0, 0, 1]])
+            # the scene as scanned: the aligned one moved by the inverse
+            raw = vert.copy()
+            raw[:, :3] = (vert[:, :3] - align[:3, 3]) @ align[:3, :3]
+            aligned = np.concatenate([ctrs, dims, nyu[:, None]], 1)
+            unaligned = aligned.copy()
+            unaligned[:, :3] = (ctrs - align[:3, 3]) @ align[:3, :3]
+            for key, arr in (('vert', raw), ('ins_label', ins),
+                             ('sem_label', sem), ('aligned_bbox', aligned),
+                             ('unaligned_bbox', unaligned),
+                             ('axis_align_matrix', align)):
+                np.save(os.path.join(inst, f'{sid}_{key}.npy'), arr)
+    return root
+
+
+INDOOR_CONFIGS = dict(SSD3DNet='ssd3d_kitti_car.py',
+                      MVXFasterRCNN='mvx_fasterrcnn_kitti.py',
+                      VoteNet_ScanNet='votenet_scannet.py',
+                      VoteNet_SUNRGBD='votenet_sunrgbd.py')
+# (b) points a request: 3DSSD's data.num_points, the VoxelNet request's,
+# each VoteNet config's data.num_points
+INDOOR_POINTS = dict(SSD3DNet=16384, MVXFasterRCNN=18000,
+                     VoteNet_ScanNet=40000, VoteNet_SUNRGBD=20000)
+MVX_HW = (384, 1280)
+INDOOR_TRAIN_STEPS = 2        # (d) the CLIs' steps
+# (a): the tiny configs of tests/test_torch_{ssd3d,mvx,votenet}.py
+SSD3D_TINY = dict(
+    num_candidates=16, sa_num_points=((64,), (32,), (16, 16)),
+    sa_fps_ranges=((-1,), (-1,), (32, -1)),
+    sa_radii=((0.5, 1.0, 2.0), (1.0, 2.0, 4.0), (2.0, 4.0, 6.0)),
+    sa_num_samples=((8, 8, 16), (8, 8, 16), (8, 8, 8)),
+    sa_channels=(((8, 8, 16), (8, 8, 16), (8, 8, 16)),
+                 ((16, 16, 16), (16, 16, 16), (16, 16, 16)),
+                 ((16, 16, 32), (16, 16, 32), (16, 16, 32))),
+    sa_aggregation=(16, 24, 32), agg_ks=(8, 16),
+    agg_mlps=((16, 16, 32), (16, 16, 32)), shared_channels=(32, 16),
+    point_cloud_range=LIDAR2_RANGE, score_thr=0.0, max_num=8)
+MVX_TINY = dict(
+    LIDAR2_TINY['SASSD'], anchor_sizes=((0.8, 0.6, 1.73), (1.76, 0.6, 1.73),
+                                        (3.9, 1.6, 1.56)),
+    img_channels=16, fusion_mid=16)
+VOTENET_TINY = dict(num_classes=4, num_heading_bins=3, num_proposals=16,
+                    mean_sizes=((0.8, 0.8, 0.9), (1.8, 1.8, 1.2),
+                                (0.6, 0.6, 0.7), (1.4, 1.5, 0.8)))
+INDOOR_INDEX_KEYS = ('seed_points', 'seed_xyz', 'fusion_valid', 'labels',
+                     'labels_3d', 'mask')
+
+
+def _indoor_scene(n, seed, side=2.0):
+    """(1, n, 4) points in a `side` m cube with a height column."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((1, n, 3)) * side
+    return torch.from_numpy(np.concatenate([pts, pts[..., 2:] - 0.1],
+                                           -1).astype(np.float32))
+
+
+def _index_groups(xyz, centers, radius, k):
+    """The ball groups of `centers` over `xyz` as point indices (an index
+    channel grouped with the points)."""
+    from dfm_tpu_torch.models.backbones import pointnet2 as P2
+    idx = torch.arange(xyz.shape[1], device=xyz.device, dtype=xyz.dtype)
+    return P2.ball_group(xyz, idx[None, :, None].expand(xyz.shape[0], -1, 1),
+                         centers, radius, k)[..., 3]
+
+
+def _indoor_parity(dev):
+    """(a) 3DSSD, MVX and VoteNet at their tiny configs, card against CPU,
+    f32, TF32 off: the sampled indices (FPS / F-FPS / FS of every stage,
+    the vote aggregation's and the proposals' ball groups, the proposals'
+    FPS), MVX's PointFusion validity equal, every float output within
+    LIDAR_REL_L2."""
+    from dfm_tpu_torch.models.backbones import pointnet2 as P2
+    from dfm_tpu_torch.models.detectors.mvx_two_stage import (MVXConfig,
+                                                              MVXFasterRCNN)
+    from dfm_tpu_torch.models.detectors.ssd3d import SSD3DConfig, SSD3DNet
+    from dfm_tpu_torch.models.detectors.votenet import (VoteNet,
+                                                        VoteNetConfig)
+    from dfm_tpu_torch.utils.weights import init_weights
+    cloud = np.stack([lidar_cloud(LIDAR2_RANGE, LIDAR2_TINY_POINTS, s)
+                      for s in (3, 4)])
+    inten = np.random.default_rng(5).random(cloud.shape[:2] + (1,))
+    pts4 = torch.from_numpy(np.concatenate([cloud, inten], -1).astype(
+        np.float32))
+    pts3 = torch.from_numpy(cloud)
+    mask = torch.ones(pts3.shape[:2], dtype=torch.bool)
+    img = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 64, 96, 3)).astype(np.float32))
+    l2i = torch.from_numpy(np.tile(_kitti_lidar2img((64, 96), 400.0)[None],
+                                   (2, 1, 1)))
+    room = torch.cat([_indoor_scene(2500, 7), _indoor_scene(2500, 8)])
+    flags = _no_tf32()
+    lines = []
+    try:
+        cases = (
+            ('SSD3DNet', SSD3DNet(SSD3DConfig(**SSD3D_TINY)), (pts4,)),
+            ('MVXFasterRCNN', MVXFasterRCNN(MVXConfig(**MVX_TINY)),
+             (pts3, mask, img, l2i)),
+            ('VoteNet', VoteNet(VoteNetConfig(**VOTENET_TINY)), (room,)))
+        for kind, model, args in cases:
+            model = _live_weights(init_weights(model, 5), 6, 0.0)
+            outs, extra = {}, ''
+            for d in ('cpu', dev):
+                m = model.to(d).eval()
+                a = [x.to(d) for x in args]
+                with torch.inference_mode():
+                    out = _lidar2_outputs(m(*a))
+                    if kind == 'SSD3DNet':
+                        feat = m.backbone(a[0])
+                        for i, ix in enumerate(feat['sa_indices'][1:]):
+                            out[f'sa{i}_indices'] = ix.cpu()
+                        seeds = feat['sa_xyz'][-1]
+                        cand = out['aggregated_points'].to(d)
+                        for r, k in zip(m.cfg.agg_radii, m.cfg.agg_ks):
+                            out[f'agg_group_{r}'] = _index_groups(
+                                seeds, cand, r, k).cpu()
+                    elif kind == 'VoteNet':
+                        votes = out['vote_xyz'].to(d)
+                        cidx = P2.farthest_point_sample(
+                            votes, m.cfg.num_proposals)
+                        out['proposal_fps'] = cidx.cpu()
+                        out['proposal_groups'] = _index_groups(
+                            votes, P2.gather_points(votes, cidx),
+                            m.cfg.vote_radius, m.cfg.vote_k).cpu()
+                outs[d] = out
+            worst = 0.0
+            for k, v in outs['cpu'].items():
+                got = outs[dev][k]
+                if v.is_floating_point() and k not in INDOOR_INDEX_KEYS \
+                        and not k.endswith(('_indices', '_fps')) and \
+                        'group' not in k:
+                    r = float((got.double() - v.double()).norm() /
+                              v.double().norm().clamp(min=1e-30))
+                    check(r <= LIDAR_REL_L2,
+                          f'indoor (22a) {kind} {k}: relative L2 {r}')
+                    worst = max(worst, r)
+                else:
+                    check(torch.equal(got, v),
+                          f'indoor (22a) {kind} {k}: card and CPU differ')
+            if kind == 'MVXFasterRCNN':
+                extra = f', PointFusion valid ' \
+                    f'{float(outs["cpu"]["fusion_valid"].float().mean()):.3f}'
+            lines.append(f'{kind} {worst:.3g}{extra}')
+            model.to('cpu')
+    finally:
+        _set_tf32(flags)
+    print('indoor (22a) tiny configs, f32, TF32 off, card vs CPU: 3DSSD\'s '
+          'FPS / F-FPS / FS indices of every stage and its aggregation '
+          'groups, MVX\'s PointFusion validity, VoteNet\'s seeds, proposal '
+          'FPS and ball groups equal; outputs relative L2 max: '
+          + '; '.join(lines), flush=True)
+
+
+def _indoor_request(kind, mcfg, dev, seed=22):
+    """The inputs of one full-width request of `kind`."""
+    n = INDOOR_POINTS[kind]
+    if kind.startswith('VoteNet'):
+        side = 8.0 if kind.endswith('ScanNet') else 6.0
+        return (_indoor_scene(n, seed, side).to(dev),)
+    pts = torch.from_numpy(lidar_cloud(mcfg.point_cloud_range, n, seed))
+    if kind == 'SSD3DNet':
+        inten = torch.from_numpy(np.random.default_rng(seed).random(
+            (n, 1)).astype(np.float32))
+        return (torch.cat([pts, inten], -1)[None].to(dev),)
+    img = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (1,) + MVX_HW + (3,)).astype(np.float32))
+    l2i = torch.from_numpy(_kitti_lidar2img(MVX_HW)[None])
+    return (pts[None].to(dev), torch.ones((1, n), dtype=torch.bool,
+                                          device=dev), img.to(dev),
+            l2i.to(dev))
+
+
+def _indoor_stages(kind, model, cfg, req):
+    """(name, fn(prev) -> out) of one request, by stage."""
+    from dfm_tpu_torch.models.builder import lidar_predict
+    predict = lidar_predict(cfg)
+    st = {}
+    if kind == 'SSD3DNet':
+        def vote(s):
+            st['s'] = s
+            return model.candidates(*s)
+
+        def agg(c):
+            st['c'] = c
+            return model.vote_aggregation(*st['s'], target_xyz=c[0])[1]
+
+        def heads(f):
+            cls, reg = model.heads(f)
+            nd = cfg.num_dir_bins
+            cand, off, seed = st['c']
+            return dict(cls_score=cls, center_offset=reg[..., :3],
+                        size=reg[..., 3:6], dir_class=reg[..., 6:6 + nd],
+                        dir_res_norm=reg[..., 6 + nd:6 + 2 * nd],
+                        aggregated_points=cand, vote_offset=off,
+                        seed_points=seed)
+
+        return [('backbone', lambda _: model.seeds(req[0])),
+                ('vote', vote), ('aggregation', agg), ('heads', heads),
+                ('predict', lambda o: predict(o, cfg))]
+    if kind == 'MVXFasterRCNN':
+        pts, mask, img, l2i = req
+
+        def head(bev):
+            cls, reg, dirs = model.bbox_head(bev[1].permute(0, 3, 1, 2))
+            return dict(cls_score=cls, bbox_pred=reg, dir_pred=dirs)
+
+        return [('image backbone + FPN', lambda _: model.image_features(img)),
+                ('point fusion', lambda f: model.fuse(
+                    pts, f, l2i, tuple(img.shape[1:3]))[0]),
+                ('voxel encoder + BEV', lambda p: model.pts_encoder(p, mask)),
+                ('head', head), ('predict', lambda o: predict(o, cfg))]
+
+    def props(v):
+        c, raw = model.proposals(*v)
+        return dict(centers=c, raw=raw)
+
+    return [('backbone', lambda _: model.backbone(req[0].to(model.dtype))),
+            ('vote', lambda s: model.votes(*s)), ('proposals', props),
+            ('predict', lambda o: predict(o, cfg))]
+
+
+def _indoor_requests(dev):
+    """(b) Each config at full width: requests in bf16 and f32 by stage,
+    peak memory, 0 port-kernel launches, FPS's share of a request."""
+    import os
+    from dfm_tpu_torch.apis import init_lidar_model
+    from dfm_tpu_torch.models.builder import build_detector
+    from dfm_tpu_torch.runtime.config import load_config
+    here = os.path.dirname(os.path.abspath(__file__))
+    for kind, config in INDOOR_CONFIGS.items():
+        mcfg = build_detector(load_config(os.path.join(
+            here, 'configs', config)).model)
+        req = _indoor_request(kind, mcfg, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            h = init_lidar_model(mcfg, dtype)
+            model = _live_weights(h['model'], 7, 3.0)
+            ms, st, peak, det = _request_times(
+                lambda: h['infer'](*req), _indoor_stages(kind, model, mcfg,
+                                                         req),
+                f'indoor (22b) {kind}')
+            check(all(bool(torch.isfinite(v).all()) for v in det.values()
+                      if v.is_floating_point()), f'indoor (22b) {kind}: '
+                  'detections not finite')
+            tf32 = '' if dtype == torch.bfloat16 else \
+                ' (TF32 as PyTorch has it)'
+            extra = f', image {MVX_HW[0]}x{MVX_HW[1]}' \
+                if kind == 'MVXFasterRCNN' else ''
+            print(_stage_line(
+                f'indoor (22b) {config} request {str(dtype)[6:]}{tf32}, '
+                f'{INDOOR_POINTS[kind]} points{extra}', ms, st, peak),
+                flush=True)
+            fps, total, calls = _lidar2_fps_share(
+                lambda _: h['infer'](*req), req[0])
+            print(f'indoor (22b) {kind} {str(dtype)[6:]}: FPS ({calls} '
+                  f'calls) {fps:.3f} ms of one request of {total:.3f} ms '
+                  f'(each call synchronised): share {fps / total:.3f}',
+                  flush=True)
+            del h, model
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def _indoor_steps(dev, scannet_root):
+    """(c) One f32 training step of each config at its per-chip batch:
+    3DSSD and MVX on synthetic batches at (b)'s points (MVX's images at
+    384x1280 through a KITTI-like camera), VoteNet ScanNet on the ScanNet
+    tree's train scenes (`IndoorSource`: the points sampled and augmented
+    on the host in the data time)."""
+    import os
+    from dfm_tpu_torch.models.builder import build_detector, lidar_class
+    from dfm_tpu_torch.runtime.adapters import (lidar_synth, lidar_to_device,
+                                                mvx_synth, mvx_to_device)
+    from dfm_tpu_torch.runtime.config import load_config, merge_options
+    from dfm_tpu_torch.tools.train import IndoorSource
+    from dfm_tpu_torch.utils.weights import init_weights
+    here = os.path.dirname(os.path.abspath(__file__))
+    for kind in ('SSD3DNet', 'MVXFasterRCNN', 'VoteNet_ScanNet'):
+        config = INDOOR_CONFIGS[kind]
+        cfg = load_config(os.path.join(here, 'configs', config))
+        mcfg = build_detector(cfg.model)
+        b = cfg.data.batch_size_per_chip
+        n = INDOOR_POINTS[kind]
+        if kind == 'SSD3DNet':
+            def batch_fn(i, c=mcfg):
+                return lidar_to_device(lidar_synth(c, b, i, n=n), dev)
+        elif kind == 'MVXFasterRCNN':
+            l2i = np.tile(_kitti_lidar2img(MVX_HW)[None], (b, 1, 1))
+
+            def batch_fn(i, c=mcfg):
+                batch = mvx_synth(c, b, i, n=n, h=MVX_HW[0], w=MVX_HW[1])
+                return mvx_to_device(dict(batch, lidar2img=l2i), dev)
+        else:
+            src = IndoorSource(merge_options(cfg, [
+                f'data.data_root={scannet_root}']), b)
+            rng = np.random.default_rng(0)
+
+            def batch_fn(i):
+                return src.next_batch(i, rng, dev)
+        model = init_weights(lidar_class(mcfg)(mcfg)).to(dev)
+        _train_step_line(
+            f'indoor (22c) {config} training step, f32 (TF32 as PyTorch '
+            f'has it), B = {b} x {n} points', model, batch_fn, dev)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _indoor_clis(procs, work):
+    """(d) The CLIs in processes of their own: `create_data scannet` and
+    `sunrgbd` on extracted trees written here (in process), then
+    `tools.test` of VoteNet on each tree to the indoor AP lines,
+    `tools.train` of VoteNet ScanNet (B = 2) on its tree, and `tools.test`
+    / `tools.train` (B = 2) `--synthetic` of 3DSSD and MVX. Returns the
+    trees."""
+    import contextlib
+    import io
+    import os
+    from dfm_tpu_torch.tools import create_data
+    here = os.path.dirname(os.path.abspath(__file__))
+    roots = dict(scannet=os.path.join(work, 'scannet'),
+                 sunrgbd=os.path.join(work, 'sunrgbd'))
+    write_scannet_tree(roots['scannet'], points=50000)
+    write_sunrgbd_tree(roots['sunrgbd'], points=30000)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        for name, root in roots.items():
+            check(create_data.main([name, '--root', root, '--splits',
+                                    'train', 'val']) == 0,
+                  f'indoor (22d) create_data {name}')
+    check(buf.getvalue().count('wrote 2 infos') == 4,
+          f'indoor (22d) create_data: {buf.getvalue()}')
+    convert_s = time.perf_counter() - t0
+    cfgs = {k: os.path.join(here, 'configs', c)
+            for k, c in INDOOR_CONFIGS.items()}
+    for name, key in (('scannet', 'VoteNet_ScanNet'),
+                      ('sunrgbd', 'VoteNet_SUNRGBD')):
+        _start(procs, f'indoor test {name}', [
+            'dfm_tpu_torch.tools.test', cfgs[key], '--cfg-options',
+            f'data.data_root={roots[name]}'])
+    _start(procs, 'indoor train scannet', [
+        'dfm_tpu_torch.tools.train', cfgs['VoteNet_ScanNet'], '--max-steps',
+        str(INDOOR_TRAIN_STEPS), '--work-dir',
+        os.path.join(work, 'votenet'), '--cfg-options',
+        f'data.data_root={roots["scannet"]}', 'data.batch_size_per_chip=2'])
+    for kind in ('SSD3DNet', 'MVXFasterRCNN'):
+        _start(procs, f'indoor synthetic-test {kind}', [
+            'dfm_tpu_torch.tools.test', cfgs[kind], '--synthetic'])
+        _start(procs, f'indoor synthetic-train {kind}', [
+            'dfm_tpu_torch.tools.train', cfgs[kind], '--synthetic',
+            '--max-steps', str(INDOOR_TRAIN_STEPS), '--work-dir',
+            os.path.join(work, kind), '--cfg-options',
+            'data.batch_size_per_chip=2'])
+    return roots, convert_s
+
+
+INDOOR_AP = re.compile(r'^(mA[PR]_0\.(?:25|50)): (\S+)$', re.M)
+
+
+def _indoor_cli_checks(procs):
+    """Wait for (d)'s processes of `procs` (emptied) and check what each
+    printed -> the names checked, the AP lines and the seconds waited."""
+    t0 = time.perf_counter()
+    cli = _finish(procs)
+    procs.clear()
+    aps = {}
+    for name, res in cli.items():
+        check(res.returncode == 0, f'{name}: rc {res.returncode} '
+              f'{res.stderr[-3000:]}')
+        if name.startswith('indoor test'):
+            lines = dict(INDOOR_AP.findall(res.stdout))
+            check(len(lines) == 4 and all(np.isfinite(float(v))
+                                          for v in lines.values()),
+                  f'{name}: {res.stdout[-2000:]}')
+            aps[name.split()[-1]] = lines
+        elif name.startswith('indoor synthetic-test'):
+            kind = name.split()[-1]
+            n = 4 if kind == 'SSD3DNet' else 5
+            check(f'[synthetic-eval] {kind}: decoded {n} output arrays, '
+                  'finite=True' in res.stdout, f'{name}: {res.stdout[-2000:]}')
+        elif 'resume' in name:
+            check('resumed from step 2' in res.stdout and
+                  f'step {INDOOR_TRAIN_STEPS + 1}/{INDOOR_TRAIN_STEPS + 1}'
+                  in res.stdout, f'{name}: {res.stdout[-2000:]}')
+        else:
+            check(f'step {INDOOR_TRAIN_STEPS}/{INDOOR_TRAIN_STEPS}' in
+                  res.stdout, f'{name}: {res.stdout[-2000:]}')
+    return list(cli), aps, time.perf_counter() - t0
+
+
+def indoor_phase(dev):
+    """22. 3DSSD, MVX and VoteNet (ScanNet, SUN RGB-D), no port kernel on
+    their paths: (d)'s trees converted and its CLIs started, (a) card
+    against CPU at tiny sizes, (b) full-width requests; those CLIs
+    collected, VoteNet's resume to step 3 started, (c) the full-width
+    training steps, the resume collected."""
+    import os
+    import tempfile
+    t0 = time.perf_counter()
+    procs = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            roots, convert_s = _indoor_clis(procs, work)
+            _indoor_parity(dev)
+            _indoor_requests(dev)
+            names, aps, waited = _indoor_cli_checks(procs)
+            _start(procs, 'indoor train scannet resume', [
+                'dfm_tpu_torch.tools.train',
+                os.path.join(here, 'configs', INDOOR_CONFIGS[
+                    'VoteNet_ScanNet']), '--max-steps',
+                str(INDOOR_TRAIN_STEPS + 1), '--auto-resume', '--work-dir',
+                os.path.join(work, 'votenet'), '--cfg-options',
+                f'data.data_root={roots["scannet"]}',
+                'data.batch_size_per_chip=2'])
+            _indoor_steps(dev, roots['scannet'])
+            more, _, more_s = _indoor_cli_checks(procs)
+            check(len(names + more) == 8, f'indoor (22d): {names + more}')
+            print(f'indoor (22d) create_data scannet + sunrgbd (2 + 2 '
+                  f'scenes each) {convert_s:.1f} s on the host; tools.test '
+                  'VoteNet to indoor AP: '
+                  + '; '.join(f'{k} ' + ', '.join(f'{m} {v}' for m, v in
+                                                  sorted(a.items()))
+                              for k, a in sorted(aps.items()))
+                  + f'; tools.train VoteNet ScanNet {INDOOR_TRAIN_STEPS} '
+                  f'steps (B = 2) and a resume to {INDOOR_TRAIN_STEPS + 1}; '
+                  f'tools.test / tools.train (B = 2, {INDOOR_TRAIN_STEPS} '
+                  'steps) --synthetic of 3DSSD and MVX; waited '
+                  f'{waited:.1f} s for them after (b), {more_s:.1f} s for '
+                  'the resume after (c)', flush=True)
+        finally:
+            _kill(procs)
+    print(f'phase 22 {time.perf_counter() - t0:.1f} s', flush=True)
+
+
+def phase22_alone(dev='cuda'):
+    """Phase 22 by itself (no kernel build: none lies on its paths)."""
+    print(card_line(), flush=True)
+    indoor_phase(dev)
+
+
 def _flops_of(fn, *args):
     """Floating-point operations of `fn(*args)` (torch's FlopCounterMode:
     the convolutions and matrix products)."""
@@ -6816,7 +7366,7 @@ def _flops_of(fn, *args):
 
 
 def run_phases(cfg, dev, mem):
-    """Phases 3-21; the card's memory in use after each -> the kernels'
+    """Phases 3-22; the card's memory in use after each -> the kernels'
     results."""
     import os
     import tempfile
@@ -6849,7 +7399,8 @@ def run_phases(cfg, dev, mem):
         mem.mark('phase 11')
     for n, phase in ((12, mono_phase), (13, dla_phase), (14, imvoxel_phase),
                      (15, nuscenes_phase), (16, waymo_cam_phase),
-                     ('17-20', lidar_phases), (21, lidar2_phase)):
+                     ('17-20', lidar_phases), (21, lidar2_phase),
+                     (22, indoor_phase)):
         phase(dev)
         mem.mark(f'phase {n}')
     return results

@@ -1,10 +1,11 @@
 """Functional 3D box ops on tensors.
 
-Port of `dfm_tpu/core/boxes.py`: `corners_cam` (:63),
-`points_in_rotated_boxes_bev` (:110) and the camera <-> pseudo-LiDAR box
-conversions (:131-164). Boxes are (..., 7) `(x, y, z, x_size, y_size,
-z_size, yaw)`; a camera box's origin is its bottom centre (relative
-origin (0.5, 1.0, 0.5)), its yaw around y; pseudo-LiDAR is
+Port of `dfm_tpu/core/boxes.py`: `corners_lidar` (:49), `corners_cam`
+(:63), `points_in_rotated_boxes_bev` (:110) and the camera <-> pseudo-LiDAR
+box conversions (:131-164). Boxes are (..., 7) `(x, y, z, x_size, y_size,
+z_size, yaw)`; a LiDAR box's origin is its bottom centre (relative origin
+(0.5, 0.5, 0)), its yaw around z; a camera box's origin is its bottom
+centre (relative origin (0.5, 1.0, 0.5)), its yaw around y; pseudo-LiDAR is
 `(z_cam, -x_cam, -y_cam)`.
 """
 
@@ -15,13 +16,25 @@ import torch
 
 from .transforms import limit_period, rotate_points_3d, rotation_2d
 
-__all__ = ['corners_cam', 'points_in_rotated_boxes_bev',
+__all__ = ['corners_lidar', 'corners_cam', 'points_in_rotated_boxes_bev',
            'cam_to_pseudo_lidar_points', 'pseudo_lidar_to_cam_points',
            'cam_to_pseudo_lidar_boxes', 'pseudo_lidar_to_cam_boxes']
 
 # corner template in the reference's unravel order [0,1,3,2,4,5,7,6]
 _CORNERS_NORM = np.stack(np.unravel_index(np.arange(8), [2] * 3),
                          axis=1)[[0, 1, 3, 2, 4, 5, 7, 6]].astype(np.float32)
+
+
+def corners_lidar(boxes):
+    """Corners of LiDAR-frame boxes: (..., 7) -> (..., 8, 3)
+    (LiDARInstance3DBoxes.corners: relative origin (0.5, 0.5, 0), yaw
+    around z)."""
+    norm = torch.as_tensor(_CORNERS_NORM - np.array([0.5, 0.5, 0.0],
+                                                    np.float32),
+                           dtype=boxes.dtype, device=boxes.device)
+    corners = boxes[..., None, 3:6] * norm
+    return rotate_points_3d(corners, boxes[..., 6], axis=2) + \
+        boxes[..., None, :3]
 
 
 def corners_cam(boxes):

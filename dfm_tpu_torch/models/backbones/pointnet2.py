@@ -19,12 +19,14 @@ JAX package's static-shape forms, batched over (B, ...) tensors:
 * `three_interpolate`: inverse squared-distance weights of the 3
   nearest source points (ties to the lower index), normalised;
 * `FPModule`: that interpolation, the skip features before it, a shared
-  MLP.
+  MLP;
+* `PointNet2SASSG`: VoteNet's stack of four `SAModule`s (`sa{i}`); JAX's
+  FP decoder (`fp_channels`) and `return_hierarchy` come with GroupFree3D
+  and the segmentors.
 
 `lowest_k` gives `lax.top_k(-x, k)`'s indices (ascending, ties to the
 lower index) for any size: `torch.topk` promises no order among ties.
-Point sets are channels-last, (B, N, C). `PointNet2SASSG` has no caller
-here yet (VoteNet's backbone).
+Point sets are channels-last, (B, N, C).
 """
 
 import torch
@@ -34,7 +36,8 @@ import torch.nn.functional as F
 from ..layers import BatchNormLast, Linear
 
 __all__ = ['lowest_k', 'highest_k', 'farthest_point_sample', 'ball_group',
-           'three_interpolate', 'gather_points', 'SAModule', 'FPModule']
+           'three_interpolate', 'gather_points', 'SAModule', 'FPModule',
+           'PointNet2SASSG']
 
 
 def lowest_k(x, k):
@@ -188,3 +191,30 @@ class FPModule(nn.Module):
         x = interp if dst_feats is None else \
             torch.cat([dst_feats, interp.to(dst_feats.dtype)], -1)
         return _run_mlp(self, self.layers, x.to(self.dtype))
+
+
+class PointNet2SASSG(nn.Module):
+    """The SSG stack (VoteNet's defaults: four levels); `point_channels` =
+    3 + the points' features. forward(points (B, N, 3+C)) -> (seed_xyz
+    (B, M, 3), seed_feats (B, M, C')) of the last level."""
+
+    def __init__(self, point_channels=3, sa_points=(2048, 1024, 512, 256),
+                 sa_radii=(0.2, 0.4, 0.8, 1.2), sa_ks=(64, 32, 16, 16),
+                 sa_mlps=((64, 64, 128), (128, 128, 256), (128, 128, 256),
+                          (128, 128, 256)), dtype=torch.float32):
+        super().__init__()
+        self.num_levels = len(sa_points)
+        cin = point_channels
+        for i in range(self.num_levels):
+            setattr(self, f'sa{i}', SAModule(sa_points[i], sa_radii[i],
+                                             sa_ks[i], sa_mlps[i], cin,
+                                             dtype))
+            cin = 3 + sa_mlps[i][-1]
+        self.out_channels = sa_mlps[-1][-1]
+
+    def forward(self, points):
+        xyz = points[..., :3]
+        feats = points[..., 3:] if points.shape[-1] > 3 else None
+        for i in range(self.num_levels):
+            xyz, feats = getattr(self, f'sa{i}')(xyz, feats)
+        return xyz, feats

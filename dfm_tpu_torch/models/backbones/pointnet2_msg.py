@@ -5,12 +5,12 @@ mmdet3d pointnet2_sa_msg.py:13-175 and mmcv's Points_Sampler /
 PointSAModuleMSG): per stage the centres by a fusion of D-FPS (FPS on
 xyz), F-FPS (FPS on [xyz, features]) and 'FS' (both, F-FPS first), each
 mode on its slice of the points (`fps_ranges`: each mode's end,
-exclusive, -1 to the end), then per radius a dilated ball group (from the
-previous radius: JAX's `dilated`, True wherever it is built), a shared MLP
-and a max, the radii's
-features concatenated and, with `aggregation`, a `Linear` + BatchNorm +
-ReLU. Keys `mlp{i}_{j}`, `bn{i}_{j}`, `aggregation`, `aggregation_bn`;
-the stack's stages `sa{s}`. Channels-last.
+exclusive, -1 to the end), or given centres (`target_xyz`: 3DSSD's vote
+aggregation), then per radius a ball group (with `dilated`, from the
+previous radius on), a shared MLP and a max, the radii's features
+concatenated and, with `aggregation`, a `Linear` + BatchNorm + ReLU. Keys
+`mlp{i}_{j}`, `bn{i}_{j}`, `aggregation`, `aggregation_bn`; the stack's
+stages `sa{s}`. Channels-last.
 """
 
 import torch
@@ -58,10 +58,12 @@ class SAModuleMSG(nn.Module):
     """`cin` = 3 + the features' channels."""
 
     def __init__(self, npoints, radii, ks, mlps, cin, fps_mods=('D-FPS',),
-                 fps_ranges=(-1,), aggregation=None, dtype=torch.float32):
+                 fps_ranges=(-1,), aggregation=None, dilated=True,
+                 dtype=torch.float32):
         super().__init__()
         self.npoints, self.radii, self.ks = tuple(npoints), radii, ks
         self.fps_mods, self.fps_ranges = tuple(fps_mods), tuple(fps_ranges)
+        self.dilated = dilated
         self.dtype = dtype
         self.layers = [_mlp_layers(self, cin, mlp, f'mlp{i}_', f'bn{i}_')
                        for i, mlp in enumerate(mlps)]
@@ -73,16 +75,22 @@ class SAModuleMSG(nn.Module):
             width = aggregation
         self.out_channels = width
 
-    def forward(self, xyz, feats):
+    def forward(self, xyz, feats, target_xyz=None):
         """xyz (B, N, 3), feats (B, N, C) or None -> (new_xyz (B, M, 3),
-        features (B, M, C'), idx (B, M)). (JAX's `target_xyz` /
-        `target_idx` centres, for vote aggregation, come with VoteNet.)"""
-        idx = sample_centers(xyz, feats, self.fps_mods, self.fps_ranges,
-                             self.npoints)
-        new_xyz = gather_points(xyz, idx)
+        features (B, M, C'), idx (B, M)). With `target_xyz` (B, M, 3) the
+        groups form around those centres, nothing is sampled and idx is
+        zeros (JAX's `target_xyz` path)."""
+        if target_xyz is None:
+            idx = sample_centers(xyz, feats, self.fps_mods, self.fps_ranges,
+                                 self.npoints)
+            new_xyz = gather_points(xyz, idx)
+        else:
+            idx = torch.zeros(target_xyz.shape[:2], dtype=torch.long,
+                              device=xyz.device)
+            new_xyz = target_xyz
         scale_feats = []
         for i, (radius, k) in enumerate(zip(self.radii, self.ks)):
-            min_r = self.radii[i - 1] if i > 0 else 0.0
+            min_r = self.radii[i - 1] if self.dilated and i > 0 else 0.0
             g = ball_group(xyz, feats, new_xyz, radius, k, min_radius=min_r)
             x = _run_mlp(self, self.layers[i], g.to(self.dtype))
             scale_feats.append(x.amax(2))

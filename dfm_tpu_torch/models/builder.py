@@ -13,8 +13,9 @@ which `mono_model` builds with), `SMOKEMono3D` `SMOKEConfig` and `MonoFlex`
 (`_build_voxelnet`, `_build_dynamic_voxelnet`; a `bbox_head` the port
 does not run, 'shape_aware', raises NotImplementedError), `CenterPoint`
 `CenterPointConfig` (its `head` dict a `CenterHeadConfig`), `SASSD`
-`SASSDConfig`, `PointRCNN` `PointRCNNConfig` and `PartA2`
-`PartA2Config`.
+`SASSDConfig`, `PointRCNN` `PointRCNNConfig`, `PartA2` `PartA2Config`,
+`SSD3DNet` `SSD3DConfig`, `MVXFasterRCNN` and `DynamicMVXFasterRCNN`
+`MVXConfig` (`_build_mvx` serves both) and `VoteNet` `VoteNetConfig`.
 DfM and DfMFull evaluate the DfM student alone, so `build_detector`
 gives the student's config for both; `atss_config` gives DfMFull's 2D
 head its config from the model's `atss` entry, and the train CLI
@@ -24,8 +25,9 @@ from `teacher_checkpoint`. For DfM and DfMFull, keys that are no field of
 `unused_keys` names them (for the repo's DfM configs: the type and
 DfMFull's `atss` and `teacher_checkpoint`, which only training reads).
 For the mono types `unused_keys` names the type alone in the repo's
-configs (every other key is a field, or `backbone_depth`). The first type
-of the JAX builder's registry that the port does not run is `VoteNet`. A
+configs (every other key is a field, or `backbone_depth`). The first
+detector type of the JAX builder's registry that the port does not run is
+`GroupFree3DNet`. A
 `MultiViewDfM` config with a key that is no field of `MVDfMConfig` is
 refused (ValueError).
 """
@@ -41,12 +43,15 @@ from .detectors.fcos_mono3d import FCOSMono3D
 from .detectors.imvoxelnet import ImVoxelNetConfig
 from .detectors.monoflex import MonoFlex
 from .detectors.multiview_dfm import MVDfMConfig
+from .detectors.mvx_two_stage import MVXConfig, MVXFasterRCNN, mvx_predict
 from .detectors.parta2 import PartA2, PartA2Config, parta2_predict
 from .detectors.pgd_mono3d import PGDMono3D
 from .detectors.point_rcnn import (PointRCNN, PointRCNNConfig,
                                    point_rcnn_predict)
 from .detectors.sassd import SASSD, SASSDConfig, sassd_predict
 from .detectors.smoke import SMOKEConfig, SMOKEMono3D
+from .detectors.ssd3d import SSD3DConfig, SSD3DNet, ssd3d_predict
+from .detectors.votenet import VoteNet, VoteNetConfig, votenet_predict
 from .detectors.voxelnet import (VoxelNet, VoxelNetConfig, check_bbox_head,
                                  voxelnet_predict)
 from .heads.atss2d import ATSS2DConfig
@@ -56,23 +61,31 @@ from .heads.pgd import PGDConfig
 
 __all__ = ['build_detector', 'atss_config', 'unused_keys', 'PORTED_TYPES',
            'MONO_TYPES', 'DLA_TYPES', 'LIDAR_TYPES', 'VOXELNET_TYPES',
-           'POINT_CONFIGS', 'mono_backbone_depth', 'mono_class',
+           'MVX_TYPES',
+           'mono_backbone_depth', 'mono_class',
            'mono_model', 'lidar_class', 'lidar_predict']
 
 DLA_TYPES = ('SMOKEMono3D', 'MonoFlex')
 MONO_TYPES = ('FCOSMono3D', 'PGD') + DLA_TYPES
+# the point-cloud detectors: infer(points, point_mask) (VoteNet's points
+# indoor, the others' outdoor)
 LIDAR_TYPES = ('VoxelNet', 'DynamicVoxelNet', 'CenterPoint', 'SASSD',
-               'PointRCNN', 'PartA2')
+               'PointRCNN', 'PartA2', 'SSD3DNet', 'VoteNet')
+# points and a camera image: infer(points, point_mask, img, lidar2img)
+MVX_TYPES = ('MVXFasterRCNN', 'DynamicMVXFasterRCNN')
 # the types whose config is a `VoxelNetConfig` (their anchor head's
 # `bbox_head` checked)
 VOXELNET_TYPES = ('VoxelNet', 'DynamicVoxelNet', 'SASSD', 'PartA2')
 PORTED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM', 'ImVoxelNet') + \
-    MONO_TYPES + LIDAR_TYPES
+    MONO_TYPES + LIDAR_TYPES + MVX_TYPES
 _CONFIG_CLASSES = {'MultiViewDfM': MVDfMConfig, 'ImVoxelNet': ImVoxelNetConfig,
                    'VoxelNet': VoxelNetConfig,
                    'DynamicVoxelNet': DynamicVoxelNetConfig,
                    'CenterPoint': CenterPointConfig, 'SASSD': SASSDConfig,
                    'PointRCNN': PointRCNNConfig, 'PartA2': PartA2Config,
+                   'SSD3DNet': SSD3DConfig, 'VoteNet': VoteNetConfig,
+                   'MVXFasterRCNN': MVXConfig,
+                   'DynamicMVXFasterRCNN': MVXConfig,
                    'FCOSMono3D': FCOS3DConfig,
                    'PGD': PGDConfig, 'SMOKEMono3D': SMOKEConfig,
                    'MonoFlex': MonoFlexConfig}
@@ -84,9 +97,10 @@ _LIDAR_MODELS = {VoxelNetConfig: (VoxelNet, voxelnet_predict),
                  SASSDConfig: (SASSD, sassd_predict),
                  CenterPointConfig: (CenterPoint, centerpoint_predict),
                  PointRCNNConfig: (PointRCNN, point_rcnn_predict),
-                 PartA2Config: (PartA2, parta2_predict)}
-# the point-based types: their model and batch take no point mask
-POINT_CONFIGS = (PointRCNNConfig,)
+                 PartA2Config: (PartA2, parta2_predict),
+                 SSD3DConfig: (SSD3DNet, ssd3d_predict),
+                 VoteNetConfig: (VoteNet, votenet_predict),
+                 MVXConfig: (MVXFasterRCNN, mvx_predict)}
 
 
 def _mk_cfg(cls, d):
@@ -135,7 +149,8 @@ def build_detector(model_cfg):
     `VoxelNetConfig` / `DynamicVoxelNetConfig` / `SASSDConfig` for
     VoxelNet / DynamicVoxelNet / SASSD, `CenterPointConfig` for
     CenterPoint, `PointRCNNConfig` for PointRCNN, `PartA2Config` for
-    PartA2,
+    PartA2, `SSD3DConfig` for SSD3DNet, `MVXConfig` for MVXFasterRCNN and
+    DynamicMVXFasterRCNN, `VoteNetConfig` for VoteNet,
     `FCOS3DConfig` / `PGDConfig` /
     `SMOKEConfig` / `MonoFlexConfig` for FCOSMono3D / PGD / SMOKEMono3D /
     MonoFlex. Raises NotImplementedError for a type
@@ -193,9 +208,9 @@ def mono_model(model_cfg):
 
 
 def lidar_class(cfg):
-    """The detector module class of a LiDAR type's config (by its exact
-    class: `SASSDConfig` and `DynamicVoxelNetConfig` are
-    `VoxelNetConfig`s)."""
+    """The detector module class of a LiDAR or MVX type's config (by its
+    exact class: `SASSDConfig`, `DynamicVoxelNetConfig` and `MVXConfig`
+    are `VoxelNetConfig`s)."""
     return _LIDAR_MODELS[type(cfg)][0]
 
 

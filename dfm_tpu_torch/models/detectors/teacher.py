@@ -110,11 +110,14 @@ class LidarTeacher(nn.Module):
     (BEVHourglass with 'bn'). `max_points` caps each voxel's points in
     arrival order (hard voxelization, SECOND's 5; None averages them all,
     JAX `teacher.py:92-101, 117-122`); the voxel features go into the
-    encoder in `dtype`."""
+    encoder in `dtype`. `point_channels`: the width of the points it
+    averages (3, xyz; MVX's fused points 3 + 64), enc0's input that and
+    the occupancy."""
 
     def __init__(self, point_cloud_range=(2, -30.4, -3, 59.6, 30.4, 1),
                  voxel_size=(0.2, 0.2, 0.2), pool_z=4, volume_channels=32,
-                 bev_channels=64, max_points=None, dtype=torch.float32):
+                 bev_channels=64, max_points=None, dtype=torch.float32,
+                 point_channels=3):
         super().__init__()
         self.point_cloud_range = tuple(point_cloud_range)
         self.voxel_size = tuple(voxel_size)
@@ -122,8 +125,8 @@ class LidarTeacher(nn.Module):
         self.max_points = max_points
         self.dtype = dtype
         nz = self.grid_size()[0]
-        # the mean (x, y, z) of each voxel and its occupancy
-        self.enc0 = ConvNorm(4, 16, 3, ndim=3, norm='bn')
+        # the mean point of each voxel and its occupancy
+        self.enc0 = ConvNorm(point_channels + 1, 16, 3, ndim=3, norm='bn')
         self.enc1 = ConvNorm(16, volume_channels, 3, ndim=3, norm='bn')
         self.enc2 = ConvNorm(volume_channels, volume_channels, 3, ndim=3,
                              norm='bn')
@@ -137,13 +140,13 @@ class LidarTeacher(nn.Module):
         return int(gs[2]), int(gs[1]), int(gs[0])
 
     def forward(self, points, point_mask):
-        """(B, P, 3) points, (B, P) mask -> volume features (B, Nz /
-        pool_z, Ny, Nx, C), BEV features (B, Ny, Nx, C2)."""
+        """(B, P, point_channels) points, (B, P) mask -> volume features
+        (B, Nz / pool_z, Ny, Nx, C), BEV features (B, Ny, Nx, C2)."""
         return self.encode(self.voxelize(points, point_mask))
 
     def voxelize(self, points, point_mask):
-        """The encoder's input (B, 4, Nz, Ny, Nx) in `dtype`: each voxel's
-        mean (x, y, z) and its occupancy."""
+        """The encoder's input (B, point_channels + 1, Nz, Ny, Nx) in
+        `dtype`: each voxel's mean point and its occupancy."""
         gs = self.grid_size()
         vox, cnt = zip(*[voxelize_mean(p, m, self.point_cloud_range,
                                        self.voxel_size, gs, self.max_points)

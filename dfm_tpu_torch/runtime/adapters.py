@@ -4,8 +4,10 @@ functions of the train step.
 Port of `dfm_tpu/runtime/adapters.py:41-117` (`_gt_pack`, `_cam_matrix`,
 `_dfm_meta`, `_dfm_synth`), `:149-241` (`_mono_synth` and the FCOS3D /
 PGD / SMOKE / MonoFlex adapters) and `:327-372` (`_mv_synth` and the
-MultiViewDfM / ImVoxelNet model arguments) and `:246-262`
-(`_points_synth`, the LiDAR families' points and gt): the same draws from
+MultiViewDfM / ImVoxelNet model arguments), `:246-262`
+(`_points_synth`, the LiDAR families' points and gt) and the synthetic
+batches of `_mk_votenet_adapter:293`, `_mk_ssd3d_adapter:381` and
+`_mk_mvx_adapter:498`: the same draws from
 `np.random.default_rng(seed)` in the same order, so that one seed gives
 both packages the same batch. A batch is numpy, batched, in the JAX
 layout: for DfM 'img' (B, 2, H, W, 3), 'meta' (the `BatchMeta` fields),
@@ -13,8 +15,11 @@ the gt keys and, with `full`, DfMFull's teacher points and 2D targets;
 for MultiViewDfM 'img' (B, F, V, H, W, 3), 'lidar2img' (B, F, V, 4, 4)
 and the gt boxes (ImVoxelNet's without the F and V axes); for the mono
 types 'img' (B, H, W, 3), 'cam2img' (B, 4, 4) and the camera-frame gt
-(MonoFlex's with `kpts2d` and `gt_alphas`). `to_device` /
-`mv_to_device` / `mono_to_device` make the model's inputs of it
+(MonoFlex's with `kpts2d` and `gt_alphas`); for the LiDAR types
+'points', 'point_mask' (not for PointRCNN and VoteNet) and the gt, for MVX
+also 'img' (B, H, W, 3) and 'lidar2img' (B, 4, 4). `to_device` /
+`mv_to_device` / `mono_to_device` / `lidar_to_device` / `mvx_to_device`
+make the model's inputs of it
 (`TrainStep`'s (inputs, cond, gt)), as JAX's `model_args_fn`.
 """
 
@@ -23,10 +28,15 @@ import torch
 
 from ..data.collate import FULL_KEYS, GT_KEYS
 from ..models.detectors.dfm import BatchMeta
+from ..models.detectors.point_rcnn import PointRCNNConfig
+from ..models.detectors.ssd3d import SSD3DConfig
+from ..models.detectors.votenet import VoteNetConfig
 
 __all__ = ['dfm_meta', 'dfm_synth', 'to_device', 'gt_pack', 'mv_synth',
            'imvoxel_synth', 'mv_to_device', 'mono_synth', 'mono_to_device',
-           'lidar_synth', 'lidar_to_device', 'MONO_GT_KEYS']
+           'lidar_synth', 'lidar_to_device', 'indoor_synth',
+           'synth_point_channels', 'mvx_synth', 'mvx_to_device',
+           'MONO_GT_KEYS']
 
 MONO_GT_KEYS = ('gt_bboxes2d', 'centers2d', 'gt_depths', 'gt_boxes_cam',
                 'gt_labels', 'gt_mask', 'gt_velocities', 'gt_attr_labels',
@@ -220,12 +230,15 @@ def mono_to_device(batch, device):
 def lidar_synth(cfg, b, seed, n=None):
     """`_points_synth`: `n` points a sample uniform in the config's
     point-cloud range (all valid), then `gt_pack`'s boxes with their
-    centres clipped half a size inside the range. `n` defaults to 512,
-    and to 4096 for the point-based types (`POINT_CONFIGS`: PointRCNN),
-    whose batch has no 'point_mask' (JAX's PointRCNN adapter)."""
-    from ..models.builder import POINT_CONFIGS
-    point_based = isinstance(cfg, POINT_CONFIGS)
-    n = n or (4096 if point_based else 512)
+    centres clipped half a size inside the range. `n` defaults to 512, to
+    4096 for PointRCNN, whose batch has no 'point_mask' (JAX's PointRCNN
+    adapter), and to 1024 for 3DSSD, whose points get a zero fourth
+    column (JAX's SSD3D adapter); VoteNet's is `indoor_synth`."""
+    if isinstance(cfg, VoteNetConfig):
+        return indoor_synth(cfg, b, seed, n or 256)
+    point_rcnn = isinstance(cfg, PointRCNNConfig)
+    ssd3d = isinstance(cfg, SSD3DConfig)
+    n = n or (4096 if point_rcnn else 1024 if ssd3d else 512)
     rng = np.random.default_rng(seed)
     pcr = np.asarray(cfg.point_cloud_range, np.float32)
     pts = rng.random((b, n, 3)).astype(np.float32) * (pcr[3:] - pcr[:3]) \
@@ -234,11 +247,53 @@ def lidar_synth(cfg, b, seed, n=None):
     lo = pcr[:3] + boxes[..., 3:6] / 2
     hi = pcr[3:] - boxes[..., 3:6] / 2
     ctr = np.clip(boxes[..., :3], lo, np.maximum(lo, hi))
+    if ssd3d:
+        pts = np.concatenate([pts, np.zeros((b, n, 1), np.float32)], -1)
     batch = dict(points=pts, point_mask=np.ones((b, n), bool),
                  gt_boxes=np.concatenate([ctr, boxes[..., 3:]], -1),
                  gt_labels=labels, gt_mask=mask)
-    if point_based:
+    if point_rcnn:
         del batch['point_mask']
+    return batch
+
+
+def indoor_synth(cfg, b, seed, n=256):
+    """JAX's VoteNet batch: `n` xyz points a sample uniform in a 6 m room
+    cube, 4 boxes (centres in [0.5, 5.5), sizes in [0.5, 1.2), yaw in
+    [-pi, pi)) of classes below `cfg.num_classes`, all valid; no
+    'point_mask' and no height feature."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((b, n, 3)).astype(np.float32) * 6.0
+    g = 4
+    ctr = rng.random((b, g, 3)).astype(np.float32) * 5.0 + 0.5
+    dim = rng.uniform(0.5, 1.2, (b, g, 3)).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, (b, g, 1)).astype(np.float32)
+    return dict(points=pts, gt_boxes=np.concatenate([ctr, dim, yaw], -1),
+                gt_labels=rng.integers(0, cfg.num_classes, (b, g)).astype(
+                    np.int32),
+                gt_mask=np.ones((b, g), bool))
+
+
+def synth_point_channels(cfg):
+    """The width of a point-based config's synthetic points where it is
+    not its model's default (VoteNet: 3, xyz without the datasets'
+    height), else None."""
+    return 3 if isinstance(cfg, VoteNetConfig) else None
+
+
+def mvx_synth(cfg, b, seed, n=512, h=64, w=96):
+    """JAX's MVX batch: `lidar_synth`'s points and gt, then from
+    `default_rng(seed + 7)` images uniform in [0, 1) (B, h, w, 3) and a
+    lidar2img of focal 40 with the principal point at the image centre
+    and no rotation."""
+    batch = lidar_synth(cfg, b, seed, n)
+    rng = np.random.default_rng(seed + 7)
+    batch['img'] = rng.random((b, h, w, 3)).astype(np.float32)
+    l2i = np.tile(np.eye(4, dtype=np.float32)[None], (b, 1, 1))
+    l2i[:, 0, 0] = l2i[:, 1, 1] = 40.0
+    l2i[:, 0, 3] = w / 2
+    l2i[:, 1, 3] = h / 2
+    batch['lidar2img'] = l2i
     return batch
 
 
@@ -251,4 +306,15 @@ def lidar_to_device(batch, device):
 
     mask = batch.get('point_mask')
     return t(batch['points']), None if mask is None else t(mask), {
+        k: t(batch[k]) for k in ('gt_boxes', 'gt_labels', 'gt_mask')}
+
+
+def mvx_to_device(batch, device):
+    """A batch of `mvx_synth` -> (points, (point_mask, img, lidar2img), gt
+    dict), tensors on `device`: MVX's `forward_train` arguments."""
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return t(batch['points']), tuple(t(batch[k]) for k in (
+        'point_mask', 'img', 'lidar2img')), {
         k: t(batch[k]) for k in ('gt_boxes', 'gt_labels', 'gt_mask')}

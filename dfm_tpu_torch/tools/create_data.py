@@ -1,6 +1,8 @@
-"""KITTI info files for the port, on a machine without JAX.
+"""KITTI, ScanNet and SUN RGB-D info files for the port, without JAX.
 
     python -m dfm_tpu_torch.tools.create_data kitti --root data/kitti \\
+        --splits train val
+    python -m dfm_tpu_torch.tools.create_data scannet|sunrgbd --root R \\
         --splits train val
 
 Port of the kitti branch of `tools/create_data.py:111-127`: reads
@@ -13,6 +15,11 @@ database of the train split (`tools/create_data.py:128-138`,
 `dfm_gt_database_infos.pkl` under the root, from each frame's velodyne
 points in the pseudo-LiDAR frame, which `tools.train`'s
 `KittiLidarSource` samples from.
+
+`scannet` / `sunrgbd` are the indoor routes of `tools/create_data.py:59-80`
+(`tools/data_converter/indoor_converter.py`): `{dataset}_infos_{split}.pkl`
+under the root, and the `points/` bins (ScanNet's instance and semantic
+masks too) that they name. S3DIS comes with the segmentation slice.
 """
 
 import argparse
@@ -23,6 +30,7 @@ import sys
 
 from ..data.dbsampler import create_gt_database
 from ..data.kitti import KittiDataset, build_kitti_infos
+from .data_converter import indoor_converter as ic
 
 
 def split_ids(root, split):
@@ -39,13 +47,22 @@ def split_ids(root, split):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument('dataset', choices=['kitti'])
+    p.add_argument('dataset', choices=['kitti', 'scannet', 'sunrgbd'])
     p.add_argument('--root', default='data/kitti')
     p.add_argument('--splits', nargs='*', default=['train', 'val'])
     p.add_argument('--with-gt-db', action='store_true',
                    help='also build the cut-and-paste GT database from the '
                         'train split')
     args = p.parse_args(argv)
+    if args.dataset != 'kitti':
+        build = ic.build_sunrgbd_infos if args.dataset == 'sunrgbd' else \
+            ic.build_scannet_infos
+        for split in args.splits:
+            infos = build(args.root, split)
+            out = ic.write_infos(infos, os.path.join(
+                args.root, f'{args.dataset}_infos_{split}.pkl'))
+            print(f'wrote {len(infos)} infos -> {out}')
+        return 0
     for split in args.splits:
         infos = build_kitti_infos(args.root, split_ids(args.root, split))
         out = os.path.join(args.root, f'kitti_infos_{split}.pkl')

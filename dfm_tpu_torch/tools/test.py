@@ -1,6 +1,6 @@
 """Evaluation of a DfM or mono (FCOS3D, PGD, SMOKE) config on KITTI, of a
-MultiViewDfM config on Waymo, or of FCOS3D / PGD on nuScenes-mono, with the
-port.
+MultiViewDfM config on Waymo, of FCOS3D / PGD on nuScenes-mono, or of
+VoteNet on ScanNet / SUN RGB-D, with the port.
 
     python -m dfm_tpu_torch.tools.test CONFIG \\
         [--checkpoint X.pth] [--cfg-options key=value ...] \\
@@ -9,8 +9,9 @@ port.
         [--fuse-conv-bn] [--synthetic]
 
 Port of `tools/test.py:41-47, 64-91` (`--fuse-conv-bn`, `--synthetic`),
-`:93-162` (`kitti_mono_eval`), `:163-231` (`kitti_dfm_eval`), `:286-343`
-(`waymo_real_eval`) and the branches of its `main` that reach them.
+`:93-162` (`kitti_mono_eval`), `:163-231` (`kitti_dfm_eval`), `:234-283`
+(`indoor_real_eval`), `:286-343` (`waymo_real_eval`) and the branches of
+its `main` that reach them.
 
 KITTI (DfM, DfMFull): config -> `kitti_infos_val.pkl` under
 `data.data_root` (`python -m dfm_tpu_torch.tools.create_data kitti`
@@ -42,12 +43,28 @@ KITTI mono (FCOSMono3D, PGD, SMOKEMono3D; data type 'KittiMono'), as
 such as the train CLI's) -> padded camera-frame detections -> KITTI annos
 with the 2D boxes projected by the original image's P2
 (`cam_detections_to_kitti_annos`) -> `kitti_eval`, the same AP lines.
+Indoor (VoteNet; data type 'ScanNetDataset' or 'SUNRGBDDataset'), as
+`tools/test.py:543-545` routes it: `{scannet,sunrgbd}_infos_val.pkl` under
+`data.data_root` (`python -m dfm_tpu_torch.tools.create_data
+scannet|sunrgbd` writes it) -> `data/indoor.py`'s dataset (`train=False`:
+`data.num_points` points a scene, with the height feature) -> VoteNet
+(bfloat16; seeded random weights or a checkpoint in the port's layout)
+-> every proposal with its score and class -> `indoor_eval`, printing
+the mAP and mAR lines at IoU 0.25 and 0.5. The boxes go in as the model
+gives them: trained on the dataset's boxes, whose centres
+`votenet_loss` matches to `gt_boxes[..., :3]` (the bottom centre), its
+centres are bottom centres. JAX's `indoor_real_eval` reads `boxes3d`,
+`scores` and `labels` of `votenet_predict`'s output, which names them
+`boxes_3d`, `scores_3d`, `labels_3d`, and raises KeyError (ROADMAP.md
+§3); the port reads its keys.
+
 MonoFlex and ImVoxelNet have no real-data evaluation in either package
 (JAX falls back to a synthetic batch): they run with `--synthetic` only,
-and exit 2 saying so without it. The LiDAR detectors (VoxelNet,
-DynamicVoxelNet, SASSD, CenterPoint) have none either; as JAX's
-`tools/test.py:553-557` does for them, they run the synthetic evaluation
-with or without `--synthetic` (their exit code is its own), except on a
+and exit 2 saying so without it. The outdoor LiDAR detectors (VoxelNet,
+DynamicVoxelNet, SASSD, CenterPoint, PointRCNN, PartA2, SSD3DNet) and
+MVX have none either; as JAX's `tools/test.py:555-557` does for them,
+they run the synthetic evaluation with or without `--synthetic` (their
+exit code is its own), except on a
 'WaymoDataset' (CenterPoint's Waymo config): JAX routes that to its
 multi-view Waymo evaluation, which raises for a LiDAR model (its samples
 hold no points; ROADMAP.md §3), so the port exits 2 naming the reason,
@@ -70,8 +87,9 @@ trunks keep their norms; DLA's convs, its neck's DCNv2 and MonoFlex's
 edge-fusion 1D convs fold too). `--synthetic` needs no data: one forward
 and decode of a batch of one from the train adapters' synthetic batches
 (`runtime/adapters.py`: `dfm_synth`, `mv_synth`, `imvoxel_synth`,
-`mono_synth`, `lidar_synth`), for every ported type; it prints the decoded arrays'
-shapes and whether they are finite, and exits 1 when one is not.
+`mono_synth`, `lidar_synth`, `mvx_synth`), for every ported type; it prints
+the decoded arrays' shapes and whether they are finite, and exits 1 when
+one is not.
 
 Another model type, or a data root without its info file, exits with a
 message and code 2. Runs on the CUDA card unless `--device cpu`, in
@@ -96,6 +114,7 @@ import torch
 from ..apis import (_sharded, detect_mono, detect_multiview_sample,
                     detect_sample, init_dfm_model, init_imvoxelnet_model,
                     init_lidar_model, init_mono_model, init_mvdfm_model)
+from ..data.indoor import INDOOR_DATASETS, indoor_split
 from ..data.kitti import KittiDataset
 from ..data.kitti_mono import (KittiMonoDataset, load_mono_image,
                                mono_info_from_native)
@@ -105,12 +124,15 @@ from ..evaluation.kitti_eval import kitti_eval
 from ..evaluation.results import (cam_detections_to_kitti_annos,
                                   detections_to_kitti_annos)
 from ..evaluation.waymo_eval import gt_annos_to_bin, gt_objects_from_infos
-from ..models.builder import (LIDAR_TYPES, MONO_TYPES, build_detector,
-                              mono_backbone_depth, unused_keys)
+from ..models.builder import (LIDAR_TYPES, MONO_TYPES, MVX_TYPES,
+                              build_detector, mono_backbone_depth,
+                              unused_keys)
 from ..parallel import dist as D
 from ..runtime.adapters import (dfm_synth, imvoxel_synth, lidar_synth,
                                 lidar_to_device, mono_synth, mono_to_device,
-                                mv_synth, mv_to_device, to_device)
+                                mv_synth, mv_to_device, mvx_synth,
+                                mvx_to_device, synth_point_channels,
+                                to_device)
 from ..runtime.config import load_config, merge_options
 from ..utils.fuse_conv_bn import fuse_conv_bn
 from ..utils.weights import load_reference_state_dict, read_checkpoint
@@ -149,10 +171,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def init_handle(args, cfg):
+def init_handle(args, cfg, point_channels=None):
     """The inference handle of the config's type, its checkpoint loaded
     (`student_state_dict` for the DfM family) and its BatchNorms folded
-    if asked."""
+    if asked; `point_channels` for a point-based model whose points are
+    not of its default width."""
     kind = cfg.model.type
     mcfg = build_detector(cfg.model)
     dtype = getattr(torch, args.dtype)
@@ -160,8 +183,8 @@ def init_handle(args, cfg):
         handle = init_mvdfm_model(mcfg, dtype, args.device)
     elif kind == 'ImVoxelNet':
         handle = init_imvoxelnet_model(mcfg, dtype, args.device)
-    elif kind in LIDAR_TYPES:
-        handle = init_lidar_model(mcfg, dtype, args.device)
+    elif kind in LIDAR_TYPES + MVX_TYPES:
+        handle = init_lidar_model(mcfg, dtype, args.device, point_channels)
     elif kind in MONO_TYPES:
         handle = init_mono_model(mcfg, mono_backbone_depth(cfg.model), dtype,
                                  args.device)
@@ -321,11 +344,47 @@ def nuscenes_mono_eval(args, cfg):
     return res
 
 
+def indoor_real_eval(args, cfg):
+    """Build -> load -> infer each scene -> indoor AP at IoU 0.25 / 0.5
+    (`tools/test.py:234-283`, with `votenet_predict`'s keys)."""
+    ds = indoor_split(cfg.data, 'val')
+    n = min(len(ds), args.max_samples or len(ds))
+    handle = init_handle(args, cfg, ds.get_sample(0)['points'].shape[-1])
+    print(f'[model] {cfg.model.type} on {handle["device"]}; config keys '
+          f'not used at inference: {unused_keys(cfg.model)}', flush=True)
+    dev = handle['device']
+
+    def infer(i):
+        pts = torch.from_numpy(ds.get_sample(i)['points'])[None].to(dev)
+        det = {k: v[0].cpu().numpy() for k, v in handle['infer'](pts).items()}
+        res = dict(boxes3d=det['boxes_3d'], scores=det['scores_3d'],
+                   labels=det['labels_3d'], mask=det['labels_3d'] >= 0)
+        print(f'[{i + 1}/{n}] dets={int(res["mask"].sum())}', flush=True)
+        return res
+
+    results = _sharded(n, infer)
+    if not D.is_main():
+        return None
+    if args.out:
+        with open(args.out, 'wb') as f:
+            pickle.dump(results, f)
+    if args.eval == 'none':
+        return None
+    ds.infos = ds.infos[:n]
+    res = ds.evaluate(results)
+    for k in sorted(res):
+        if k.startswith(('mAP', 'mAR')):
+            print(f'{k}: {res[k]:.4f}')
+    return res
+
+
 def synthetic_eval(args, cfg):
     """One forward + decode of a synthetic batch of one (JAX's
     `synthetic_eval`); 1 when an output is not finite."""
-    handle = init_handle(args, cfg)
-    kind, mcfg, dev = cfg.model.type, handle['cfg'], handle['device']
+    kind = cfg.model.type
+    handle = init_handle(args, cfg, synth_point_channels(
+        build_detector(cfg.model)))
+    mcfg, dev = handle['cfg'], handle['device']
     if kind in ('MultiViewDfM', 'ImVoxelNet'):
         synth = mv_synth if kind == 'MultiViewDfM' else imvoxel_synth
         imgs, l2i, _ = mv_to_device(synth(mcfg, 1, 0), dev)
@@ -333,6 +392,9 @@ def synthetic_eval(args, cfg):
     elif kind in LIDAR_TYPES:
         pts, mask, _ = lidar_to_device(lidar_synth(mcfg, 1, 0), dev)
         det = handle['infer'](pts, mask)
+    elif kind in MVX_TYPES:
+        pts, cond, _ = mvx_to_device(mvx_synth(mcfg, 1, 0), dev)
+        det = handle['infer'](pts, *cond)
     elif kind in MONO_TYPES:
         img, cam2img, _ = mono_to_device(mono_synth(
             1, 0, kpts=kind == 'PGD', flex=kind == 'MonoFlex'), dev)
@@ -414,6 +476,12 @@ def main(argv=None):
                            nuscenes_mono_eval)
     elif kind in MONO_TYPES:
         want, info, run = 'KittiMono', INFO_FILE, kitti_mono_eval
+    elif kind == 'VoteNet':
+        want = data_type if data_type in INDOOR_DATASETS else \
+            'ScanNetDataset or SUNRGBDDataset'
+        info = f'{INDOOR_DATASETS[data_type][0]}_infos_val.pkl' \
+            if data_type in INDOOR_DATASETS else 'indoor'
+        run = indoor_real_eval
     else:
         want, info, run = 'KittiDataset', INFO_FILE, kitti_dfm_eval
     if args.synthetic:
@@ -425,7 +493,7 @@ def main(argv=None):
               'which the LiDAR model arguments read: KeyError); --synthetic '
               'decodes a synthetic batch', file=sys.stderr)
         return 2
-    elif kind in LIDAR_TYPES:
+    elif (kind in LIDAR_TYPES and kind != 'VoteNet') or kind in MVX_TYPES:
         print(f'[data] {kind} has no real-data evaluation (JAX wires none '
               'either): running the synthetic evaluation', flush=True)
         run, args.synthetic = synthetic_eval, True

@@ -1,7 +1,7 @@
-"""Train DfM, DfMFull, MultiViewDfM, ImVoxelNet, FCOSMono3D, PGD,
-SMOKEMono3D, MonoFlex, VoxelNet, DynamicVoxelNet, CenterPoint or SASSD
-with the port, in one
-process or data-parallel across processes.
+"""Train DfM, DfMFull, MultiViewDfM, ImVoxelNet, the mono types (FCOSMono3D,
+PGD, SMOKEMono3D, MonoFlex), the LiDAR types (VoxelNet, DynamicVoxelNet,
+CenterPoint, SASSD, PointRCNN, PartA2, SSD3DNet), MVX or VoteNet with the
+port, in one process or data-parallel across processes.
 
     python -m dfm_tpu_torch.tools.train configs/dfm_r34_kitti_3class.py \
         [--cfg-options key=value ...] [--work-dir W] [--auto-resume] \
@@ -62,9 +62,19 @@ then flip, rotation, scale, the range filters and a permutation of the
 points, in JAX's draw order; with `--synthetic`, `lidar_synth` (512
 points uniform in the range). Their losses are `voxelnet_loss` (the
 anchor3d or the FreeAnchor head), `centerpoint_loss` and `sassd_loss`.
-Every other LiDAR case (CenterPoint on its Waymo config) has no train
-source: with `--synthetic` it trains on `lidar_synth`, without it the CLI
-exits 2 naming the flag (JAX falls back to synthetic batches silently).
+Every other LiDAR case (CenterPoint on its Waymo config, PointRCNN,
+PartA2, SSD3DNet) and MVX (MVXFasterRCNN, DynamicMVXFasterRCNN) have no
+train source: with `--synthetic` they train on `lidar_synth` (3DSSD's 1024
+points with a zero fourth column) or `mvx_synth` (its points, a 64x96
+image and lidar2img), loss `ssd3d_loss` / `mvx_loss` among them; without
+it the CLI exits 2 naming the flag (JAX falls back to synthetic batches
+silently, `tools/train.py:454-461`). VoteNet on data type 'ScanNetDataset'
+or 'SUNRGBDDataset' trains on `IndoorSource` (`tools/train.py:357-395`:
+`{scannet,sunrgbd}_infos_train.pkl` under `data.data_root` as
+`data/indoor.py` train samples, augmented from the dataset's own
+RandomState(0), indices from a fresh permutation of `rng` each epoch),
+loss `votenet_loss`; with `--synthetic`, `indoor_synth` (256 xyz points
+in a room cube, the model built for 3 point channels).
 Another model type exits with a message
 and code 2, as does a KITTI data root without the train infos (without
 `--synthetic`). Runs on the CUDA card unless `--device cpu`.
@@ -100,8 +110,10 @@ from ..data.kitti_mono import (KittiMonoDataset, load_mono_image,
 from ..data.waymo import frames_per_sample
 from ..evaluation.kitti_eval import kitti_eval
 from ..data.dbsampler import DataBaseSampler, paste_objects
-from ..models.builder import (LIDAR_TYPES, MONO_TYPES, atss_config,
-                              build_detector, lidar_class, mono_model)
+from ..data.indoor import INDOOR_DATASETS, indoor_split
+from ..models.builder import (LIDAR_TYPES, MONO_TYPES, MVX_TYPES,
+                              atss_config, build_detector, lidar_class,
+                              mono_model)
 from ..models.detectors.dfm import DfM
 from ..models.detectors.dfm_full import DfMFull
 from ..models.detectors.imvoxelnet import ImVoxelNet
@@ -113,7 +125,9 @@ from ..runtime.checkpoint import CheckpointManager
 from ..runtime.config import load_config, merge_options
 from ..runtime.adapters import (dfm_synth, imvoxel_synth, lidar_synth,
                                 lidar_to_device, mono_synth, mono_to_device,
-                                mv_synth, mv_to_device, to_device)
+                                mv_synth, mv_to_device, mvx_synth,
+                                mvx_to_device, synth_point_channels,
+                                to_device)
 from ..runtime.logging import MetricsLogger
 from ..runtime.schedule import liga_schedule
 from ..runtime.train import TrainStep, make_optimizer
@@ -124,7 +138,8 @@ VOXEL_TYPES = ('MultiViewDfM', 'ImVoxelNet')
 # the LiDAR types that train on KITTI velodyne points (JAX
 # `tools/train.py:456-458`); every other LiDAR case has no source
 KITTI_LIDAR_TYPES = ('VoxelNet', 'DynamicVoxelNet', 'CenterPoint', 'SASSD')
-TRAINED_TYPES = ('DfM', 'DfMFull') + VOXEL_TYPES + MONO_TYPES + LIDAR_TYPES
+TRAINED_TYPES = ('DfM', 'DfMFull') + VOXEL_TYPES + MONO_TYPES + \
+    LIDAR_TYPES + MVX_TYPES
 
 
 def parse_args(argv=None):
@@ -369,6 +384,42 @@ class KittiLidarSource:
         return lidar_to_device(self.next_samples(step, rng), device)
 
 
+class IndoorSource:
+    """ScanNet / SUN RGB-D -> VoteNet batches (`tools/train.py:357-395`):
+    the split's infos as `data/indoor.py` samples (`data.num_points`
+    points, `data.max_gt` boxes; train-time flips, rotation and scale from
+    the dataset's own RandomState(0)), `batch_size` indices a step from a
+    fresh permutation of `rng` each epoch."""
+
+    def __init__(self, cfg, batch_size):
+        self.ds = indoor_split(cfg.data, 'train')
+        self.batch_size = batch_size
+        self.order = None
+        self.cursor = 0
+
+    def __len__(self):
+        return len(self.ds)
+
+    @property
+    def steps_per_epoch(self):
+        return max(len(self.ds) // self.batch_size, 1)
+
+    def next_samples(self, step, rng):
+        """The next batch, stacked (numpy); the step is not used."""
+        idxs = []
+        while len(idxs) < self.batch_size:
+            if self.order is None or self.cursor >= len(self.order):
+                self.order = rng.permutation(len(self.ds))
+                self.cursor = 0
+            idxs.append(int(self.order[self.cursor]))
+            self.cursor += 1
+        samples = [self.ds.get_sample(i) for i in idxs]
+        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+    def next_batch(self, step, rng, device):
+        return lidar_to_device(self.next_samples(step, rng), device)
+
+
 class SyntheticSource:
     """`tools/train.py:SyntheticSource`: the batch of step s is
     `dfm_synth(cfg, batch_size, seed + s, full)` for DfM / DfMFull (32x64
@@ -378,7 +429,8 @@ class SyntheticSource:
     `imvoxel_synth` for ImVoxelNet (one 32x48 image), or
     `mono_synth(batch_size, seed + s)` for the mono types (64x96; PGD's
     with its keypoint keys, MonoFlex's with `kpts2d` and `gt_alphas`),
-    `lidar_synth(cfg, batch_size, seed + s)` for the LiDAR types;
+    `lidar_synth(cfg, batch_size, seed + s)` for the LiDAR types (VoteNet's
+    `indoor_synth`), `mvx_synth` for MVX;
     `rng` is not drawn from. 16 steps an epoch."""
 
     steps_per_epoch = 16
@@ -399,13 +451,16 @@ class SyntheticSource:
                               flex=self.kind == 'MonoFlex')
         if self.kind in LIDAR_TYPES:
             return lidar_synth(self.cfg, self.batch_size, self.seed + step)
+        if self.kind in MVX_TYPES:
+            return mvx_synth(self.cfg, self.batch_size, self.seed + step)
         return dfm_synth(self.cfg, self.batch_size, self.seed + step,
                          full=self.kind == 'DfMFull')
 
     def next_batch(self, step, rng, device):
         to = mv_to_device if self.kind in VOXEL_TYPES else \
             mono_to_device if self.kind in MONO_TYPES else \
-            lidar_to_device if self.kind in LIDAR_TYPES else to_device
+            lidar_to_device if self.kind in LIDAR_TYPES else \
+            mvx_to_device if self.kind in MVX_TYPES else to_device
         return to(self.next_samples(step, rng), device)
 
 
@@ -476,8 +531,10 @@ def draw_depth_pixels(mcfg, gt, generator):
                                generator, mcfg.depth_min, mcfg.depth_max)
 
 
-def build_model(kind, cfg, mcfg, seed):
-    """The float32 model of `kind`, seeded random weights."""
+def build_model(kind, cfg, mcfg, seed, synthetic=False):
+    """The float32 model of `kind`, seeded random weights (a point-based
+    model built for its synthetic points' width where they differ from
+    its default: `synth_point_channels`)."""
     if kind == 'DfMFull':
         model = DfMFull(mcfg, atss_config(cfg.model))
     elif kind in MONO_TYPES:
@@ -486,8 +543,10 @@ def build_model(kind, cfg, mcfg, seed):
         model = MultiViewDfM(mcfg)
     elif kind == 'ImVoxelNet':
         model = ImVoxelNet(mcfg)
-    elif kind in LIDAR_TYPES:
-        model = lidar_class(mcfg)(mcfg)
+    elif kind in LIDAR_TYPES + MVX_TYPES:
+        width = synth_point_channels(mcfg) if synthetic else None
+        model = lidar_class(mcfg)(mcfg, **(
+            {} if width is None else dict(point_channels=width)))
     else:
         model = DfM(mcfg)
     return init_weights(model, seed)
@@ -514,22 +573,27 @@ def main(argv=None):
               'source is wired for it (JAX wires none either); pass '
               '--synthetic', file=sys.stderr)
         return 2
-    if kind in LIDAR_TYPES and not args.synthetic and (
-            kind not in KITTI_LIDAR_TYPES or
-            d.get('type', '') != 'KittiDataset'):
+    indoor = kind == 'VoteNet' and d.get('type', '') in INDOOR_DATASETS
+    if (kind in LIDAR_TYPES + MVX_TYPES) and not args.synthetic and \
+            not indoor and (kind not in KITTI_LIDAR_TYPES or
+                            d.get('type', '') != 'KittiDataset'):
         print(f'[data] {kind} on dataset type {d.get("type", "")!r} has no '
               'train source (JAX wires KITTI velodyne points for VoxelNet, '
               'DynamicVoxelNet, CenterPoint and SASSD on KittiDataset alone, '
+              'indoor scenes for VoteNet on ScanNetDataset / SUNRGBDDataset, '
               'and falls back to synthetic batches otherwise); pass '
               '--synthetic', file=sys.stderr)
         return 2
-    want = 'KittiMono' if kind in MONO_TYPES else 'KittiDataset'
+    want, info = ('KittiMono' if kind in MONO_TYPES else 'KittiDataset',
+                  'kitti_infos_train.pkl')
+    if indoor:
+        want = d.type
+        info = f'{INDOOR_DATASETS[want][0]}_infos_train.pkl'
     if not args.synthetic and not multiview and (
             d.get('type', '') != want or not os.path.exists(
-                os.path.join(d.get('data_root', ''),
-                             'kitti_infos_train.pkl'))):
+                os.path.join(d.get('data_root', ''), info))):
         print(f'[data] {kind} trains on {want} infos: no '
-              f'kitti_infos_train.pkl under {d.get("data_root", "")!r} '
+              f'{info} under {d.get("data_root", "")!r} '
               f'(dataset type {d.get("type", "")!r}); --synthetic trains on '
               'synthetic batches', file=sys.stderr)
         return 2
@@ -549,7 +613,7 @@ def train(args, cfg, kind, d, device):
     seed = broadcast_seed(args.seed)
     mcfg = build_detector(cfg.model)
     full, multiview = kind == 'DfMFull', kind == 'MultiViewDfM'
-    model = build_model(kind, cfg, mcfg, seed)
+    model = build_model(kind, cfg, mcfg, seed, args.synthetic)
     world = D.world_size()
     say(f'[model] {kind}, float32, on {device}'
         + (f', rank 0 of {world} ({D.backend()})' if D.is_active() else ''),
@@ -574,6 +638,8 @@ def train(args, cfg, kind, d, device):
             frames_per_sample(d, mcfg) if multiview else 1)
     elif kind in MONO_TYPES:
         source = KittiMonoSource(cfg, batch_size)
+    elif kind == 'VoteNet':
+        source = IndoorSource(cfg, batch_size)
     elif kind in LIDAR_TYPES:
         source = KittiLidarSource(cfg, batch_size)
     else:

@@ -36,6 +36,7 @@ from ..models.heads.monoflex import BRANCHES, MonoFlexConfig
 __all__ = ['dfm_key_map', 'dfm_full_key_map', 'mvdfm_key_map',
            'imvoxelnet_key_map', 'voxelnet_key_map', 'centerpoint_key_map',
            'sassd_key_map', 'point_rcnn_key_map', 'parta2_key_map',
+           'ssd3d_key_map', 'mvx_key_map', 'votenet_key_map',
            'dynamic_voxelnet_key_map', 'sparse_teacher_key_map',
            'dfm_with_teacher_key_map',
            'center_head_key_map', 'mono_key_map', 'fcos3d_head_key_map',
@@ -257,6 +258,47 @@ def point_rcnn_key_map(cfg=None):
     from ..models.detectors.point_rcnn import PointRCNN
     with torch.device('meta'):
         return _dense_key_map(PointRCNN(cfg))
+
+
+def ssd3d_key_map(cfg=None):
+    """(torch_prefix, flax_path, kind) for the JAX `SSD3DNet` tree of
+    config `cfg`: the MSG `backbone`'s `sa{s}.mlp{i}_{j}` / `bn{i}_{j}` /
+    `aggregation` / `aggregation_bn`, the vote module (`vote_mlp`,
+    `vote_bn`, `vote_out`), `vote_aggregation`'s MLPs, `shared{i}` /
+    `shared_bn{i}` and the `cls*` / `reg*` heads, each under its flax
+    name."""
+    from ..models.detectors.ssd3d import SSD3DNet
+    with torch.device('meta'):
+        return _dense_key_map(SSD3DNet(cfg))
+
+
+def votenet_key_map(cfg=None):
+    """(torch_prefix, flax_path, kind) for the JAX `VoteNet` tree of
+    config `cfg`: the SSG `backbone`'s `sa{i}.mlp{j}` / `bn{j}`, `vote0`,
+    `vote1`, `vote_out`, `prop0`, `prop1` and `head_out`."""
+    from ..models.detectors.votenet import VoteNet
+    with torch.device('meta'):
+        return _dense_key_map(VoteNet(cfg))
+
+
+def mvx_key_map(cfg=None):
+    """(torch_prefix, flax_path, kind) for the JAX `MVXFasterRCNN` tree of
+    config `cfg`: the ResNet `img_backbone`, the FPN `img_neck` (lateral0..3,
+    fpn_conv0..3, extra_conv4), the PointFusion `fuse0`, `fuse1` (Dense),
+    the `LidarTeacher` `pts_encoder` and the anchor head `bbox_head` (two
+    GroupNorm towers)."""
+    from ..models.detectors.mvx_two_stage import MVXConfig
+    cfg = cfg or MVXConfig()
+    m = resnet_key_map('img_backbone', ('img_backbone',),
+                       cfg.img_backbone_depth)
+    n = ('img_neck',)
+    for i in range(4):
+        m += [(f'img_neck.lateral{i}', n + (f'lateral{i}',), 'conv2d'),
+              (f'img_neck.fpn_conv{i}', n + (f'fpn_conv{i}',), 'conv2d')]
+    m += [('img_neck.extra_conv4', n + ('extra_conv4',), 'conv2d')]
+    m += [(k, (k,), 'linear') for k in ('fuse0', 'fuse1')]
+    return m + _lidar_teacher('pts_encoder', ('pts_encoder',)) + \
+        _liga_head('bbox_head', ('bbox_head',))
 
 
 PARTA2_UNET_LAYERS = ('enc0', 'enc0b', 'down0', 'enc1', 'down1', 'enc2',

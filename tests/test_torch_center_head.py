@@ -37,20 +37,14 @@ from dfm_tpu_torch.utils import weights as W
 from test_torch_layers import carry
 from test_torch_multiview_dfm import flax_variables
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 TASK_IDS = ((0,), (1, 2))
 NY, NX = 24, 20
 KW = dict(tasks=(('Car',), ('Pedestrian', 'Cyclist')), voxel_size=(0.5, 0.5),
           pc_range=(0.0, -6.0), max_objs=8, max_per_task=12,
           circle_nms_thr=1.0, score_thr=0.05)
 JCFG, PCFG = J.CenterHeadConfig(**KW), P.CenterHeadConfig(**KW)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 def gt_batch(seed, b=2, g=9):

@@ -55,6 +55,8 @@ from test_torch_train_step import STATS_ATOL, random_variables
 from torch_lidar_common import (RANGE, boxes_on_points, check_step, cloud,
                                 jax_apply, rel, t)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 B, P, G = 2, 700, 5
 OUT_REL = 1e-4
 TERM_RTOL = 1e-5
@@ -71,14 +73,6 @@ CLI_TINY = ['model.point_cloud_range=(0,-8,-2,16,8,1.2)',
             'model.second_channels=(16,32)', 'model.second_layers=(1,1)',
             'model.fpn_channels=(16,16)', 'model.head.voxel_size=(0.4,0.4)',
             'model.head.pc_range=(0.0,-8.0)']
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def configs():

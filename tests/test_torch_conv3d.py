@@ -39,6 +39,8 @@ from dfm_tpu_torch.ops.cuda import conv3d as KC3
 from dfm_tpu_torch.ops.cuda import sampling as K
 from dfm_tpu_torch.utils.weights import torch_conv_weight
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 F32_TOL = dict(atol=1e-4, rtol=0)
 GN_BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 DTYPES = {'float32': (jnp.float32, torch.float32),

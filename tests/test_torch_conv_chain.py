@@ -51,6 +51,8 @@ from dfm_tpu_torch.utils import weights as W
 
 from test_torch_layers import carry, randomize, submap
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 D, H, Wd, TH = 8, 16, 32, 8
 TOL = dict(atol=1e-4, rtol=0)
 PHASES = [0, 2]

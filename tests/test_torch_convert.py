@@ -9,6 +9,8 @@ import torch
 from dfm_tpu.utils.torch_convert import (convert_bn, convert_conv2d,
                                          convert_conv3d, convert_linear)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 
 def test_conv2d_parity():
     tconv = torch.nn.Conv2d(4, 6, 3, padding=1, bias=True)

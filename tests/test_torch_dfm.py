@@ -49,6 +49,8 @@ from dfm_tpu_torch.utils import weights as W
 
 from test_torch_layers import randomize
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, 'tests', 'data', 'golden_dfm_backbone.npz')
 SLICE_TOL = dict(atol=3e-4, rtol=3e-4)
@@ -380,8 +382,9 @@ def test_init_dfm_model_needs_cuda_unless_asked_for_cpu():
 def test_port_runs_without_jax(tmp_path):
     """A fresh process imports the port (with the K9a / K9b modules, the
     card-only scripts, the KITTI data, evaluation, config, builder and
-    tool modules, the training modules, and MultiViewDfM's with `DfMNeck`,
-    the CenterHead and `voxel_sample`) and runs a tiny CPU forward
+    tool modules, the training modules, MultiViewDfM's with `DfMNeck`,
+    the CenterHead and `voxel_sample`, and 3DSSD's, MVX's, VoteNet's and
+    the indoor data's) and runs a tiny CPU forward
     in the full-chain form, whose neck runs the fused K2's plain
     version, K1's sweep on the CPU, a tiny `dataset_inference` on a
     synthetic KITTI tree in `tmp_path` (PNG files), and one CPU train
@@ -411,6 +414,12 @@ def test_port_runs_without_jax(tmp_path):
         'import dfm_tpu_torch.models.heads.center_head\n'
         'import dfm_tpu_torch.ops.voxel_sample, dfm_tpu_torch.data.waymo\n'
         'import dfm_tpu_torch.models.detectors.multiview_dfm\n'
+        'import dfm_tpu_torch.models.detectors.ssd3d\n'
+        'import dfm_tpu_torch.models.detectors.mvx_two_stage\n'
+        'import dfm_tpu_torch.models.detectors.votenet\n'
+        'import dfm_tpu_torch.ops.grid_sample, dfm_tpu_torch.data.indoor\n'
+        'import dfm_tpu_torch.evaluation.indoor_eval\n'
+        'import dfm_tpu_torch.tools.data_converter.indoor_converter\n'
         'from dfm_tpu_torch.data.collate import build_batch\n'
         'from dfm_tpu_torch.runtime.train import TrainStep, make_optimizer\n'
         'from dfm_tpu_torch.runtime.schedule import liga_schedule\n'

@@ -47,19 +47,13 @@ from dfm_tpu_torch.utils import weights as W
 
 from test_torch_layers import carry, randomize
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 TRAIN_BN_TOL = dict(atol=1e-4, rtol=1e-4)
 ATSS = dict(num_classes=3, in_channels=16, feat_channels=64,
             stacked_convs=2)
 IMG_HW = (64, 128)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 def init_vars(module, seed, *args):

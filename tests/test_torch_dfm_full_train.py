@@ -76,6 +76,8 @@ from test_torch_train_step import (GRAD_REL_L2, GRAD_REL_L2_ALL,
                                    PARAM_ATOL, STATS_ATOL, RecordGrads,
                                    random_variables)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
@@ -97,14 +99,6 @@ FAST_COMPILE = {'xla_backend_optimization_level': 0,
                 'xla_llvm_disable_expensive_passes': True}
 TINY_OPTS = ['model.depth_num_bins=48', 'model.voxel_size=(3.6,3.8,0.5)',
              'model.num_depth_sample_pixels=256']
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 def _atss():

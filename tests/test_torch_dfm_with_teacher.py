@@ -72,6 +72,8 @@ from test_torch_train_step import (GRAD_REL_L2, GRAD_REL_L2_ALL,
                                    PARAM_ATOL, STATS_ATOL, RecordGrads,
                                    random_variables)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
@@ -83,14 +85,6 @@ LIFTED = ('dfm.feature_transformation.', 'dfm.backbone_3d.',
 # the layers after the lifting: measured 3.2e-4 (the regression tower's
 # first conv; JAX's own probe moves it 6.7e-5), the rest below 1e-4
 LIFTED_REL = 1e-3
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def run_teacher(outs):

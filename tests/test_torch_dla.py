@@ -50,6 +50,8 @@ from test_torch_dfm_full_train import FAST_COMPILE
 from test_torch_layers import carry, submap
 from test_torch_multiview_dfm import flax_variables
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 REL_L2 = 1e-5
 FOLD_REL_L2 = 1e-5
 JAX_FOLD_MOVES = 1e-2
@@ -59,14 +61,6 @@ LEVEL_HW = [(H >> max(i, 0), WID >> max(i, 0)) for i in range(6)]
 # the op's cases: (stride, dilation, modulated, (h, w))
 OP_CASES = [(1, 1, True, (7, 9)), (2, 1, True, (7, 9)), (1, 2, True, (7, 9)),
             (1, 1, False, (7, 9)), (1, 1, True, (3, 1))]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 def rel_l2(got, want):

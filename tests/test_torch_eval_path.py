@@ -54,6 +54,8 @@ from dfm_tpu_torch.utils import weights as W
 
 from test_torch_layers import randomize
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (the synthetic KITTI tree)
@@ -195,7 +197,7 @@ def test_cli_from_config_to_ap(tree, tmp_path, capsys):
 def test_cli_refuses_unported_model():
     res = subprocess.run(
         [sys.executable, '-m', 'dfm_tpu_torch.tools.test',
-         os.path.join(ROOT, 'configs', 'votenet_scannet.py')],
+         os.path.join(ROOT, 'configs', 'groupfree3d_scannet.py')],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
         env=dict(os.environ, PYTHONPATH=ROOT))
     assert res.returncode == 2 and 'not ported' in res.stderr

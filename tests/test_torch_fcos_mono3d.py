@@ -73,6 +73,8 @@ from test_torch_dfm_full_train import FAST_COMPILE
 from test_torch_layers import submap
 from test_torch_multiview_dfm import flax_variables
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 B, H, WID = 2, 160, 256
 DEPTH = 18
 WIDTH = dict(in_channels=64, feat_channels=64, nms_pre=200, max_num=20)
@@ -90,14 +92,6 @@ FCOS_TERMS = ('loss_cls', 'loss_offset', 'loss_depth', 'loss_size',
               'loss_rotsin', 'loss_dir', 'loss_centerness')
 PGD_TERMS = FCOS_TERMS + ('loss_depth_uncertain', 'loss_bbox2d',
                           'loss_kpts', 'loss_consistency')
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 def rel_l2(got, want):

@@ -33,6 +33,8 @@ from dfm_tpu_torch.utils import weights as W
 
 from test_torch_layers import randomize
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 B, D, HC, WC, CV, CS = 2, 12, 6, 10, 8, 8
 PAD = (24, 40)
 HS, WS = 12, 20
@@ -71,14 +73,6 @@ def inputs(seed=0):
 
 def t(x):
     return torch.from_numpy(np.array(x))
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_ops_match_jax():

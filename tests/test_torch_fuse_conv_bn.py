@@ -44,6 +44,8 @@ from dfm_tpu_torch.utils.weights import _conv_weight, init_weights
 from test_torch_dfm import TINY as DFM_TINY, _np_meta, _tiny_cam
 from test_torch_multiview_dfm import flax_variables
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (the tiny MultiViewDfM configs and inputs)
@@ -52,14 +54,6 @@ WEIGHT_TOL = 1e-6
 REL_L2 = 1e-4
 MONO = dict(backbone_depth=18, in_channels=32, feat_channels=32,
             nms_pre=100, max_num=20)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 def seeded_stats(model, seed):

@@ -55,6 +55,8 @@ from dfm_tpu_torch.utils import weights as W
 from test_torch_layers import carry
 from test_torch_multiview_dfm import flax_variables, rel_l2
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 B, H, WID = 2, 64, 96
 STAGE_TOL, MODEL_TOL = 1e-5, 1e-4
 TINY = dict(feat_channels=16, voxel_range=(0.0, -8.0, -2.0, 16.0, 8.0, 2.0),
@@ -67,14 +69,6 @@ TINY_OPTS = ['model.feat_channels=16',
              "model.anchor_ranges=((0.0,-8.0,-1.78,16.0,8.0,-1.78),)",
              'model.backbone_depth=18', 'data.batch_size_per_chip=2']
 CONFIG = 'configs/imvoxelnet_kitti_car.py'
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 def jax_batch(seed, h=H, w=WID):

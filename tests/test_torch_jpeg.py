@@ -22,9 +22,12 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from dfm_tpu_torch.data.jpeg import decode_jpeg, read_image, read_jpeg
 from dfm_tpu_torch.data.png import read_png
+
+torch.set_num_threads(1)    # from import on; the workers share the cores
 
 cv2 = pytest.importorskip('cv2')
 

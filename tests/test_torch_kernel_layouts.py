@@ -63,6 +63,8 @@ from dfm_tpu_torch.ops.cuda import conv3d as KC3
 from dfm_tpu_torch.ops.cuda import conv_chain as KC
 from dfm_tpu_torch.ops.cuda import sampling as K
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 # K4's constants (csrc/conv_p2p.cuh)
 TY, TX = KC.TILE
 SY, SX = TY + 2, TX + 2

@@ -32,6 +32,8 @@ from dfm_tpu_torch.ops import frustum_separable as PFS
 from dfm_tpu_torch.ops.cuda import conv_chain as KC
 from dfm_tpu_torch.ops.cuda import sampling as K
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=6e-2, rtol=6e-2)
 

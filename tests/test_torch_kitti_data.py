@@ -24,10 +24,13 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from dfm_tpu.data import kitti as JK
 from dfm_tpu_torch.data import kitti as PK
 from dfm_tpu_torch.data.png import png_bytes, read_png
+
+torch.set_num_threads(1)    # from import on; the workers share the cores
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)

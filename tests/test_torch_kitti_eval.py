@@ -51,6 +51,8 @@ from dfm_tpu_torch.ops.cuda import conv_chain as KC
 from dfm_tpu_torch.runtime import config as PC
 from dfm_tpu_torch.utils import weights as W
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (the synthetic KITTI tree)
@@ -196,7 +198,7 @@ def test_config_and_builder_match_jax(name):
 
 def test_builder_refuses_unported_types():
     with pytest.raises(NotImplementedError, match='not ported'):
-        B.build_detector(dict(type='VoteNet'))
+        B.build_detector(dict(type='GroupFree3DNet'))
 
 
 @pytest.mark.parametrize('blocks', [(3, 4, 6, 3), (2, 2, 2, 2)])

@@ -21,9 +21,9 @@ of 375x1242 and 370x1224 PNGs):
   matched one to one within chip_smoke's `_annos_match` tolerance,
   1e-4 x (1 + |value|) and the 2D boxes 0.12 px: NMS's IoU decisions
   could flip under the fold's float32 rounding on another CPU),
-  `--synthetic` on every
-  ported config (finite), `tools.train` of PGD for 2 steps, a resume to
-  3 (the optimizer's sha1), and `tools.test` on that checkpoint;
+  `--synthetic` on both mono configs (finite; the other families' are in
+  `test_torch_ported_configs.py`), `tools.train` of PGD for 2 steps, a
+  resume to 3 (the optimizer's sha1), and `tools.test` on that checkpoint;
 * `init_mono_model` + `inference_mono_3d` on a raw BGR image: the
   model's own decode of the normalised image, bit for bit; without a
   device the entry point refuses the CPU.
@@ -54,6 +54,8 @@ from dfm_tpu_torch.tools import test as test_cli
 from dfm_tpu_torch.tools import train as train_cli
 from dfm_tpu_torch.utils.weights import init_weights
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (the synthetic KITTI tree, live weights)
@@ -66,18 +68,7 @@ FCOS = os.path.join(ROOT, 'configs', 'fcos3d_r101_kitti_mono.py')
 TINY_OPTS = ['model.backbone_depth=18', 'model.in_channels=32',
              'model.feat_channels=32', 'data.img_hw=(96,320)',
              'model.nms_pre=100', 'model.max_num=20']
-PORTED_CONFIGS = ('fcos3d_r101_kitti_mono.py', 'pgd_r101_kitti_mono.py',
-                  'dfm_r34_kitti_3class.py',
-                  'multiview_dfm_r101_waymo_camsync.py',
-                  'multiview_dfm_r101_waymo_camsync_10sweeps.py')
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
+PORTED_CONFIGS = ('fcos3d_r101_kitti_mono.py', 'pgd_r101_kitti_mono.py')
 
 
 @pytest.fixture(scope='module')
@@ -177,7 +168,7 @@ def _main(cli, args):
 @pytest.fixture(scope='module')
 def clis(tree, tmp_path_factory):
     """The CLIs' runs on the tree: tools.test (live checkpoint, unfused
-    and fused, --out), --synthetic on every ported config, tools.train
+    and fused, --out), --synthetic on both mono configs, tools.train
     (2 steps, the resume to 3) and tools.test on its checkpoint."""
     root, _ = tree
     d = str(tmp_path_factory.mktemp('cli'))

@@ -24,6 +24,8 @@ from dfm_tpu_torch.models.backbones.liga_resnet import LIGAResNet
 from dfm_tpu_torch.models.necks.spp_unet import SPPUNetNeck
 from dfm_tpu_torch.utils import weights as W
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 STACK_TOL = dict(atol=2e-4, rtol=2e-4)
 

@@ -45,9 +45,10 @@ from test_torch_fcos_mono3d import (B, DEPTH, FCOS_TERMS, H, LOSS_RTOL,
                                     check_forward, check_loss_term,
                                     check_step, configs, nus_gt, rel_l2,
                                     tensors)
-from test_torch_fcos_mono3d import one_thread  # noqa: F401 (autouse)
 from test_torch_layers import submap
 from test_torch_multiview_dfm import flax_variables
+
+torch.set_num_threads(1)    # from import on; the workers share the cores
 
 NUS = dict(pred_velo=True, pred_attrs=True)
 NUS_TERMS = FCOS_TERMS + ('loss_velo', 'loss_attr')

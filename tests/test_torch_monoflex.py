@@ -65,6 +65,8 @@ from test_torch_multiview_dfm import flax_variables
 from test_torch_smoke import (MONOFLEX, _jit, check_step, stage_outputs,
                               step_pair, tensors)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 B, H, WID = 2, 64, 96
 REL_L2 = 1e-5
 MODEL_REL_L2 = 1e-4
@@ -75,14 +77,6 @@ SCORE_ATOL = 1e-6
 BOX_ATOL = 1e-4
 TERMS = ('loss_heatmap', 'loss_offset', 'loss_kpts', 'loss_dims',
          'loss_ori', 'loss_depth')
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 def jax_loss(jcfg):

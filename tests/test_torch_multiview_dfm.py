@@ -50,6 +50,8 @@ from dfm_tpu_torch.utils import weights as W
 
 from test_torch_layers import carry, randomize, submap
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 B, F, V, H, WID = 1, 2, 3, 32, 48
 REL_L2 = 1e-4
 DET_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -57,14 +59,6 @@ TINY = dict(num_views=V, num_frames=F, feat_channels=16,
             voxel_range=(-8, -8, -1, 8, 8, 3), voxel_grid=(4, 16, 16),
             anchor_ranges=((-8, -8, 0.0, 8, 8, 0.0),) * 3,
             backbone_depth=50, nms_pre=128, max_num=8)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 def rel_l2(got, want):

@@ -70,6 +70,8 @@ from test_torch_train_step import (GRAD_REL_L2, GRAD_REL_L2_ALL,
                                    PARAM_ATOL, STATS_ATOL, RecordGrads,
                                    random_variables)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (the synthetic Waymo tree)
@@ -85,14 +87,6 @@ TERMS = ['loss', 'loss_cls', 'loss_bbox', 'loss_dir']
 # the camsync config at the tiny widths (tests/test_torch_waymo.py's)
 CLI_OPTS = ['model.backbone_depth=18', 'model.feat_channels=16',
             'model.voxel_grid=(4,24,30)', 'model.max_num=20']
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 def _handle(cfg):

@@ -51,6 +51,8 @@ from dfm_tpu_torch.utils import weights as W
 
 from test_torch_multiview_dfm import flax_variables
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 cv2 = pytest.importorskip('cv2')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -65,14 +67,6 @@ TINY_OPTS = ['model.backbone_depth=18', 'model.in_channels=32',
              'model.feat_channels=32', 'model.nms_pre=100',
              'model.max_num=20', 'model.depth_branch=(16,)']
 METRIC_LINE = re.compile(r'^([A-Za-z_]+): (-?[0-9.]+|nan)$', re.M)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 def scene(h, w, seed):

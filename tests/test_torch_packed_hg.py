@@ -37,6 +37,8 @@ from dfm_tpu_torch.utils import weights as W
 from test_torch_conv_chain import _backbone_inputs, _backbone_km, t
 from test_torch_layers import carry, randomize, submap
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 D, H, Wd, TH = 8, 16, 32, 8
 HG_TOL = dict(atol=2e-3, rtol=1e-3)
 

@@ -126,6 +126,8 @@ from test_torch_train_step import (GRAD_REL_L2, GRAD_REL_L2_ALL,
                                    random_variables)
 from test_torch_train_step import LIFTED as DFM_LIFTED
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (the synthetic KITTI tree, live weights)

@@ -54,6 +54,8 @@ from test_torch_voxelnet import TINY as VOXEL_TINY
 from torch_lidar_common import (boxes_on_points, check_step, cloud,
                                 gt_on_proposals, rel, t)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 B, P, G = 2, 700, 5
 OUT_REL = 1e-4
 UNET_REL = 1e-5
@@ -71,14 +73,6 @@ CLI_TINY = ['model.point_cloud_range=(0,-8,-2,16,8,1.2)',
             'model.roi_grid=4', 'model.max_num=6', 'model.anchor_ranges=((0,-8,-0.6,16,8,-0.6),'
             '(0,-8,-0.6,16,8,-0.6),(0,-8,-1.78,16,8,-1.78))']
 INDEX_KEYS = ('keys', 'vmask', 'prop_labels', 'prop_mask')
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def batch_of(seed=0):

@@ -72,6 +72,8 @@ from test_torch_train_step import STATS_ATOL, random_variables
 from torch_lidar_common import (RANGE, boxes_on_points, check_step, cloud,
                                 gt_on_proposals, jax_apply, rel, t)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 B, N, G = 2, 256, 5
 OUT_REL = 1e-4
 MOD_REL = 1e-5
@@ -88,14 +90,6 @@ CONFIG = 'configs/point_rcnn_kitti.py'
 CLI_TINY = ['model.point_cloud_range=(0,-8,-2,16,8,1.2)',
             'model.sa_points=(64,32,16,8)', 'model.num_proposals=16',
             'model.roi_num_points=32', 'model.max_num=8']
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def lattice(b, n, seed, step=0.5, extent=4):

@@ -41,20 +41,14 @@ from test_torch_voxelnet import CLI_TINY, TINY
 from torch_lidar_common import (boxes_on_points, check_step, cloud,
                                 jax_apply, rel, t)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 B, P, G = 2, 700, 5
 OUT_REL = 1e-4
 TERM_RTOL = 1e-5
 MAP_GRAD_REL = 1e-5
 CONFIG = 'configs/sassd_kitti_3class.py'
 AUX = ('point_cls', 'point_reg')
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def batch_of(seed=0):

@@ -75,6 +75,8 @@ from test_torch_dla import live_offsets, nchw, nhwc, rel_l2
 from test_torch_kitti_mono import _ap_lines, _main
 from test_torch_multiview_dfm import flax_variables
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (the synthetic KITTI tree, live weights)
@@ -95,14 +97,6 @@ MONOFLEX = os.path.join(ROOT, 'configs', 'monoflex_dla34_kitti.py')
 CLI_OPTS = ['data.type=KittiMono', 'data.img_hw=(96,320)',
             'data.batch_size_per_chip=2']
 TERMS = ('loss_cls', 'loss_bbox')
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jit(fn, *args):

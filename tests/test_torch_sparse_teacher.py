@@ -70,6 +70,8 @@ from test_torch_train_step import (GRAD_REL_L2, GRAD_REL_L2_ALL,
                                    PARAM_ATOL, STATS_ATOL, RecordGrads,
                                    random_variables)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
@@ -84,14 +86,6 @@ OP_TOL = 1e-6
 OUT_REL = 1e-4
 LIFTED = ('dfm.feature_transformation.', 'dfm.backbone_3d.',
           'dfm.bbox_head_3d.', 'imit_bev.', 'imit_vol.')
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def t(x):

@@ -41,6 +41,8 @@ from dfm_tpu_torch.tools import train as train_cli
 from dfm_tpu_torch.utils.weights import (init_weights,
                                          load_reference_checkpoint)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CV2_TOL = 1e-3          # 0-255 scale
 PHOTO_TOL = 2e-3        # 0-255 scale, the photometric step alone
@@ -227,7 +229,7 @@ def _train_cli_on_cpu(tree, tmp_path, capsys):
     assert 'step 3/3' in out and ck.latest_step() == 3
     # a type the port does not train (DfMFull trains:
     # tests/test_torch_dfm_full_train.py)
-    assert train_cli.main([cfg, '--cfg-options', 'model.type=VoteNet',
+    assert train_cli.main([cfg, '--cfg-options', 'model.type=GroupFree3DNet',
                            f'data.data_root={root}', '--device', 'cpu']) == 2
     assert 'not ported yet' in capsys.readouterr().err
 

@@ -39,6 +39,8 @@ from dfm_tpu_torch.runtime.schedule import liga_schedule
 from dfm_tpu_torch.runtime.train import (clip_by_global_norm, global_norm,
                                          make_optimizer)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 TINY = dict(depth_num_bins=48, voxel_size=(3.6, 3.8, 0.5))
 NY = NX = 16
 VAL_TOL = dict(rtol=1e-5, atol=1e-6)

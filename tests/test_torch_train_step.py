@@ -54,6 +54,8 @@ from dfm_tpu_torch.utils import weights as W
 
 from test_torch_dfm import TINY, H, W_, _augmented_meta_b2
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 B, G = 2, 6
 LR = dict(base_lr=1e-3, warmup_iters=4, warmup_ratio=0.1)
 LOSS_RTOL = 2e-4

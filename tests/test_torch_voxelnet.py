@@ -73,6 +73,8 @@ from test_torch_train_step import (GRAD_REL_L2, GRAD_REL_L2_ALL, LOSS_RTOL,
                                    LR, PARAM_ATOL, STATS_ATOL, RecordGrads,
                                    random_variables)
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 B, G, P = 2, 6, 700
 TINY = dict(
     point_cloud_range=(0, -8, -2, 16, 8, 1.2), voxel_size=(0.4, 0.4, 0.4),
@@ -92,14 +94,6 @@ MAP_GRAD_REL = 1e-5
 CLI_TINY = [f'model.{k}={v!r}'.replace(' ', '') for k, v in TINY.items()
             if k in ('point_cloud_range', 'voxel_size', 'cv_channels',
                      'bev_channels', 'anchor_ranges')]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def rel(a, b):

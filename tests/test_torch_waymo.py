@@ -236,6 +236,8 @@ import sys
 for name in ('jax', 'flax', 'cv2', 'dfm_tpu'):
     sys.modules[name] = None          # any import of them raises
 import torch
+
+torch.set_num_threads(1)    # from import on; the workers share the cores
 torch.set_num_threads(1)
 from dfm_tpu_torch.apis import init_mvdfm_model
 from dfm_tpu_torch.models.builder import build_detector

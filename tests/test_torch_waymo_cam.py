@@ -51,6 +51,8 @@ from dfm_tpu_torch.utils import weights as W
 
 from test_torch_multiview_dfm import flax_variables
 
+torch.set_num_threads(1)    # from import on; the workers share the cores
+
 cv2 = pytest.importorskip('cv2')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -65,14 +67,6 @@ TINY_OPTS = ['model.backbone_depth=18', 'model.in_channels=32',
              'data.target_hw=(32,48)']
 DEMO_HW = (96, 160)
 DEMO_OPTS = dict(in_channels=32, feat_channels=32, nms_pre=100, max_num=12)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # small ops; the suite's workers share cores
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')

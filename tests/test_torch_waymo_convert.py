@@ -23,6 +23,7 @@ import pickle
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from dfm_tpu.evaluation import waymo_eval as JWE
@@ -37,6 +38,8 @@ from tools.create_waymo_gt_bin import \
     gt_objects_from_infos as j_gt_objects_from_infos
 from tools.data_converter import waymo_converter as JC
 from tools.data_converter import waymo_raw as JR
+
+torch.set_num_threads(1)    # from import on; the workers share the cores
 
 FRAMES = 3
 

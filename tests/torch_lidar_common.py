@@ -1,5 +1,6 @@
 """Helpers of the LiDAR detectors' parity tests (tests/test_torch_
-centerpoint.py, _sassd.py, _point_rcnn.py, _parta2.py): seeded point
+centerpoint.py, _sassd.py, _point_rcnn.py, _parta2.py, _ssd3d.py,
+_mvx.py, _votenet.py): seeded point
 clouds, the relative L2, and one training step of a JAX module against
 the port's `TrainStep` by the rules of tests/test_torch_train_step.py."""
 
@@ -19,6 +20,8 @@ from dfm_tpu_torch.utils import weights as W
 from test_torch_dfm_full_train import FAST_COMPILE
 from test_torch_train_step import (GRAD_REL_L2, GRAD_REL_L2_ALL, LOSS_RTOL,
                                    LR, PARAM_ATOL, STATS_ATOL, RecordGrads)
+
+torch.set_num_threads(1)    # from import on; the workers share the cores
 
 RANGE = (0.0, -8.0, -2.0, 16.0, 8.0, 1.2)
 ZERO_GRAD = 1e-5     # of the whole gradient's norm: a gradient that is 0
@@ -130,7 +133,8 @@ def _to64(x):
 
 
 def check_step(jm, j_loss, variables, key_map, port, jbatch, model_args,
-               port_inputs, live=(), f64=None, compiler_options=FAST_COMPILE):
+               port_inputs, live=(), f64=None, probe=False,
+               compiler_options=FAST_COMPILE):
     """One JAX `make_train_step` of `jm` (loss `j_loss(outputs, batch)`) and
     one port `TrainStep` of `port` (loaded with the same weights) on the
     same batch: the loss terms (rtol LOSS_RTOL), each parameter's
@@ -150,14 +154,22 @@ def check_step(jm, j_loss, variables, key_map, port, jbatch, model_args,
     (under `jax.enable_x64`) and is the reference. The port's float64
     step agrees with it within 1e-6 (loss terms rtol, gradients relative
     L2, statistics atol), and the port's float32 step is held to it by
-    the rules above.
+    the rules above. With `probe`, for a model whose float32 steps round
+    far from their float64 ones (discrete choices on rounded values: FPS
+    over votes, ball groups, max pooling over groups of near-equal
+    features), JAX's float32 step of `jm` runs too: a loss term and the
+    whole gradient vector may then also lie as far from the float64 step
+    as JAX's own float32 step does; each parameter stays within
+    GRAD_REL_L2.
     Returns (the reference step's metrics, the worst parameter's gradient
     gap, the whole vector's)."""
-    if f64 is None:
-        metrics, jgrads, after = _jax_step(jm, j_loss, variables, key_map,
-                                           jbatch, model_args,
-                                           compiler_options)
-    else:
+    assert f64 is not None or not probe
+    if f64 is None or probe:
+        metrics32, grads32, after = _jax_step(jm, j_loss, variables, key_map,
+                                              jbatch, model_args,
+                                              compiler_options)
+        metrics, jgrads = metrics32, grads32
+    if f64 is not None:
         jm64, inputs64 = f64
         with jax.enable_x64():
             metrics, jgrads, after = _jax_step(
@@ -184,7 +196,10 @@ def check_step(jm, j_loss, variables, key_map, port, jbatch, model_args,
     assert set(got) == set(metrics)
     for k, v in got.items():
         x = metrics[k]
-        assert abs(v - x) <= LOSS_RTOL * abs(x) + 1e-7, (k, v, x)
+        lim = LOSS_RTOL * abs(x) + 1e-7
+        if probe:
+            lim = max(lim, abs(metrics32[k] - x))
+        assert abs(v - x) <= lim, (k, v, x)
     fw = np.concatenate([jgrads[n].numpy().ravel() for n in grads])
     scale = float(np.linalg.norm(fw))
     gaps, zero = {}, {}
@@ -203,7 +218,11 @@ def check_step(jm, j_loss, variables, key_map, port, jbatch, model_args,
     assert not bad, bad
     whole = rel(np.concatenate([g.numpy().ravel() for g in grads.values()]),
                 fw)
-    assert whole <= GRAD_REL_L2_ALL, whole
+    lim = GRAD_REL_L2_ALL
+    if probe:
+        lim = max(lim, rel(np.concatenate(
+            [grads32[n].numpy().ravel() for n in grads]), fw))
+    assert whole <= lim, (whole, lim)
     lr0 = liga_schedule(**LR)(0)
     clip = min(1.0, 35.0 / got['grad_norm'])
     clip_jax = min(1.0, 35.0 / metrics['grad_norm'])
