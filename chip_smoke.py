@@ -118,7 +118,7 @@ Phases, one line each; any failure raises and no result is printed:
               and the KITTI eval at the end of the epoch), a resume to
               step 6 from the saved optimizer state (its sha1 checked),
               `tools.test` on the step-6 checkpoint, and a type it does
-              not train (GroupFree3DNet) refused; (d) full-width training
+              not train (EncoderDecoder3D) refused; (d) full-width training
               steps in process:
               two warm-up steps, then three with the launch counts set
               to 0 just before and read just after (a step: K1, K2 one
@@ -351,6 +351,35 @@ Phases, one line each; any failure raises and no result is printed:
               port-kernel launches, FPS's share of a PointRCNN request;
               (c) one f32 training step of each at its per-chip batch,
               split and peak
+ 22. indoor   3DSSD, MVX and VoteNet (ScanNet, SUN RGB-D), no port
+              kernel on their paths (`indoor_phase`): (d) synthetic
+              ScanNet / SUN RGB-D trees through `create_data`, the CLIs
+              (VoteNet `tools.test` to indoor AP on both, `tools.train`
+              and a resume on ScanNet, 3DSSD / MVX `--synthetic`) beside
+              (a) and (b); (a) tiny configs card vs CPU, f32, TF32 off:
+              every sampled index equal, outputs within 1e-5; (b)
+              full-width requests in bf16 and f32 by stage (median of 2
+              after a warm-up), peak, 0 launches, FPS's share; (c) one f32 step of each at its
+              per-chip batch, split and peak
+ 23. indoor2  GroupFree3D, ImVoteNet and H3DNet at their configs, no port
+              kernel on their paths (`indoor2_phase`): (d) a ScanNet tree
+              of 50,000-point scenes and a SUN RGB-D tree through
+              `create_data`, the CLIs started first (`tools.test` of
+              GroupFree3D / H3DNet to indoor AP, `tools.train` of each,
+              B = 2; ImVoteNet `--synthetic` test and train, and refusing
+              SUN RGB-D data, rc 2; EncoderDecoder3D refused) beside (a)
+              and (b); (a) the tests' tiny configs card vs CPU in f32,
+              TF32 off (ImVoteNet without and with the image branch,
+              H3DNet without and with the cues): seeds, KPS candidates,
+              proposal FPS and groups, decoded 2D classes in slot order,
+              fusion masks and primitive groups equal, outputs within
+              1e-4; (b) requests at full width (GroupFree3D 50,000
+              points, H3DNet 40,000 with 4 towers, ImVoteNet 20,000 with a
+              530x730 image and 16 2D box slots) in bf16 and f32, median
+              of 2 after a warm-up, by stage, peak, 0 port-kernel
+              launches, FPS's share; (c) one f32 step of each at its
+              per-chip batch (GroupFree3D B = 4, ImVoteNet B = 8, H3DNet
+              B = 8), split and peak
 After each phase, the most memory in use on the card (every process).
 Then the kernels JSON line, the card line, and the result line.
 Exits non-zero without a result when there is no CUDA device or the
@@ -2158,16 +2187,16 @@ def _train_cli(root, config, here, env):
           f'tools.test printed {len(aps)} AP lines')
     res = subprocess.run(
         [sys.executable, '-m', 'dfm_tpu_torch.tools.train', config,
-         '--cfg-options', 'model.type=GroupFree3DNet',
+         '--cfg-options', 'model.type=EncoderDecoder3D',
          f'data.data_root={root}', '--work-dir',
          os.path.join(root, 'mono')], cwd=here, env=env,
         capture_output=True, text=True, timeout=300)
     check(res.returncode == 2 and 'not ported yet' in res.stderr,
-          f'the GroupFree3DNet type: rc {res.returncode} '
+          f'the EncoderDecoder3D type: rc {res.returncode} '
           f'{res.stderr[-500:]}')
     print(f'train (c) resume: from step 4 with the saved optimizer '
           f'state (sha1 {digest}) to step 6; tools.test on step_6.pth: '
-          f'{len(aps)} finite AP lines; GroupFree3DNet refused (rc '
+          f'{len(aps)} finite AP lines; EncoderDecoder3D refused (rc '
           f'{res.returncode})', flush=True)
 
 
@@ -5197,21 +5226,22 @@ WAYMO_CAM_TINY = dict(backbone_depth=18, in_channels=32, feat_channels=32,
 JPEG_FIXTURES = ('tests', 'data', 'jpeg')
 
 
-def _request_times(infer, stages, what, launches_ok=True):
-    """`infer()` after MONO_WARMUP calls, timed MONO_TIMED times (host
-    clock, synchronised), then `stages` (a list of (name, fn(prev) ->
-    out), the first called with None) timed apart MONO_TIMED times; the
-    peak memory of the timed requests and the port-kernel launches,
-    checked 0. Returns (request ms list, stage ms medians, peak, the
-    last request's output)."""
+def _request_times(infer, stages, what, launches_ok=True,
+                   warmup=MONO_WARMUP, timed=MONO_TIMED):
+    """`infer()` after `warmup` calls, timed `timed` times (host clock,
+    synchronised), then `stages` (a list of (name, fn(prev) -> out), the
+    first called with None) timed apart `timed` times; the peak memory of
+    the timed requests and the port-kernel launches, checked 0. Returns
+    (request ms list, stage ms medians, peak, the last request's
+    output)."""
     from dfm_tpu_torch.ops.cuda import sampling as K
-    for _ in range(MONO_WARMUP):
+    for _ in range(warmup):
         infer()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     ms = []
-    for _ in range(MONO_TIMED):
+    for _ in range(timed):
         t0 = time.perf_counter()
         out = infer()
         torch.cuda.synchronize()
@@ -5222,7 +5252,7 @@ def _request_times(infer, stages, what, launches_ok=True):
           f'{dict(K.LAUNCHES)}')
     per = []
     with torch.inference_mode():
-        for _ in range(MONO_TIMED):
+        for _ in range(timed):
             x, t = None, []
             for _, fn in stages:
                 t0 = time.perf_counter()
@@ -5234,9 +5264,9 @@ def _request_times(infer, stages, what, launches_ok=True):
         out
 
 
-def _stage_line(what, ms, st, peak):
+def _stage_line(what, ms, st, peak, timed=MONO_TIMED):
     return (f'{what}: ms/request {[round(v, 3) for v in ms]} median '
-            f'{float(np.median(ms)):.3f}; stages ms (median of {MONO_TIMED}) '
+            f'{float(np.median(ms)):.3f}; stages ms (median of {timed}) '
             + ', '.join(f'{k} {v:.3f}' for k, v in st.items())
             + f'; peak_mem_bytes {peak}; port-kernel launches 0')
 
@@ -6594,6 +6624,7 @@ def _lidar2_fps_share(infer, req):
     run) -> (FPS ms, request ms, FPS calls)."""
     from dfm_tpu_torch.models.backbones import pointnet2 as P2
     from dfm_tpu_torch.models.backbones import pointnet2_msg as P2M
+    from dfm_tpu_torch.models.detectors import imvotenet as PI
     from dfm_tpu_torch.models.detectors import votenet as PV
     fps = P2.farthest_point_sample
     spent = []
@@ -6607,7 +6638,7 @@ def _lidar2_fps_share(infer, req):
         return out
 
     P2.farthest_point_sample = P2M.farthest_point_sample = \
-        PV.farthest_point_sample = timed
+        PV.farthest_point_sample = PI.farthest_point_sample = timed
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6616,7 +6647,7 @@ def _lidar2_fps_share(infer, req):
         total = (time.perf_counter() - t0) * 1e3
     finally:
         P2.farthest_point_sample = P2M.farthest_point_sample = \
-            PV.farthest_point_sample = fps
+            PV.farthest_point_sample = PI.farthest_point_sample = fps
     return sum(spent), total, len(spent)
 
 
@@ -6938,6 +6969,8 @@ INDOOR_CONFIGS = dict(SSD3DNet='ssd3d_kitti_car.py',
 INDOOR_POINTS = dict(SSD3DNet=16384, MVXFasterRCNN=18000,
                      VoteNet_ScanNet=40000, VoteNet_SUNRGBD=20000)
 MVX_HW = (384, 1280)
+# (b) warm-up and timed requests of phases 22 and 23
+INDOOR2_WARMUP, INDOOR2_TIMED = 1, 2
 INDOOR_TRAIN_STEPS = 2        # (d) the CLIs' steps
 # (a): the tiny configs of tests/test_torch_{ssd3d,mvx,votenet}.py
 SSD3D_TINY = dict(
@@ -7135,8 +7168,10 @@ def _indoor_stages(kind, model, cfg, req):
 
 
 def _indoor_requests(dev):
-    """(b) Each config at full width: requests in bf16 and f32 by stage,
-    peak memory, 0 port-kernel launches, FPS's share of a request."""
+    """(b) Each config at full width: requests in bf16 and f32 by stage
+    (since phase 23 came, INDOOR2_WARMUP warm-ups and INDOOR2_TIMED timed,
+    as phase 23's), peak memory, 0 port-kernel launches, FPS's share of a
+    request."""
     import os
     from dfm_tpu_torch.apis import init_lidar_model
     from dfm_tpu_torch.models.builder import build_detector
@@ -7152,7 +7187,8 @@ def _indoor_requests(dev):
             ms, st, peak, det = _request_times(
                 lambda: h['infer'](*req), _indoor_stages(kind, model, mcfg,
                                                          req),
-                f'indoor (22b) {kind}')
+                f'indoor (22b) {kind}', warmup=INDOOR2_WARMUP,
+                timed=INDOOR2_TIMED)
             check(all(bool(torch.isfinite(v).all()) for v in det.values()
                       if v.is_floating_point()), f'indoor (22b) {kind}: '
                   'detections not finite')
@@ -7162,8 +7198,8 @@ def _indoor_requests(dev):
                 if kind == 'MVXFasterRCNN' else ''
             print(_stage_line(
                 f'indoor (22b) {config} request {str(dtype)[6:]}{tf32}, '
-                f'{INDOOR_POINTS[kind]} points{extra}', ms, st, peak),
-                flush=True)
+                f'{INDOOR_POINTS[kind]} points{extra}', ms, st, peak,
+                INDOOR2_TIMED), flush=True)
             fps, total, calls = _lidar2_fps_share(
                 lambda _: h['infer'](*req), req[0])
             print(f'indoor (22b) {kind} {str(dtype)[6:]}: FPS ({calls} '
@@ -7356,6 +7392,474 @@ def phase22_alone(dev='cuda'):
     indoor_phase(dev)
 
 
+INDOOR2_CONFIGS = dict(GroupFree3DNet='groupfree3d_scannet.py',
+                       ImVoteNet='imvotenet_sunrgbd.py',
+                       H3DNet='h3dnet_scannet.py')
+# (b) points a request: each config's data.num_points
+INDOOR2_POINTS = dict(GroupFree3DNet=50000, ImVoteNet=20000, H3DNet=40000)
+SUNRGBD_HW = (530, 730)       # SUN RGB-D's image size (w 730, h 530)
+INDOOR2_STEP_B = dict(GroupFree3DNet=4, ImVoteNet=8, H3DNet=8)
+INDOOR2_TRAIN_STEPS = 2       # (d) the CLIs' steps
+# (a): the tiny configs of tests/test_torch_{groupfree3d,imvotenet,
+# h3dnet}.py
+GROUPFREE3D_TINY = dict(
+    num_classes=4, num_proposal=16, num_decoder_layers=2, embed_dims=32,
+    num_heads=4, ffn_channels=64, mean_sizes=VOTENET_TINY['mean_sizes'],
+    sa_points=(256, 128, 64, 32), sa_ks=(16, 8, 8, 8),
+    sa_mlps=((16, 16, 32), (32, 32, 64), (32, 32, 64), (32, 32, 64)),
+    fp_channels=((64, 64), (64, 48)), max_num=16)
+IMVOTENET_TINY = dict(VOTENET_TINY, img_max_boxes=16)
+H3DNET_TINY = dict(VOTENET_TINY, num_backbones=2)
+INDOOR2_TINY_HW = (50, 70)
+# (a) card against CPU, f32, TF32 off: a stage's, tower's or head's
+# outputs together (GroupFree3D's seed objectness, one dot product of 32
+# features that cancels to a small logit, moved 1.5e-5 in the first run)
+INDOOR2_REL_L2 = 1e-4
+
+
+def _sunrgbd_view(n, seed, hw=None, boxes=16):
+    """One SUN RGB-D-like frame: (1, n, 4) depth-frame points (x right in
+    [-3, 3), y forward in [1, 7), z up in [-1, 1.5), the height above the
+    lowest as the fourth column), a 0-255 image (1, h, w, 3), `boxes` 2D
+    box slots (1, boxes, 6) (the first half live) and SUN RGB-D's
+    depth2img (1, 3, 4): K (f 529.5 px, the principal point at the
+    centre) times the depth-to-camera flip, scaled to the image (`hw`,
+    SUNRGBD_HW if None)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform((-3, 1, -1), (3, 7, 1.5), (n, 3))
+    pts = np.concatenate([pts, pts[:, 2:] - pts[:, 2].min()], 1)
+    h, w = hw or SUNRGBD_HW
+    img = rng.integers(0, 256, (1, h, w, 3)).astype(np.float32)
+    bb = np.zeros((1, boxes, 6), np.float32)
+    live = boxes // 2
+    xy = rng.uniform(0, (w * 0.7, h * 0.7), (live, 2))
+    bb[0, :live, :4] = np.concatenate([xy, xy + rng.uniform(
+        0.1, 0.3, (live, 2)) * (w, h)], 1)
+    bb[0, :live, 4] = rng.uniform(0.2, 0.9, live)
+    bb[0, :live, 5] = rng.integers(0, 10, live)
+    f = 529.5 * w / 730.0
+    k = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
+    flip = np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]])
+    d2i = np.concatenate([k @ flip, np.zeros((3, 1))], 1)[None]
+    return tuple(torch.from_numpy(np.asarray(x, np.float32))
+                 for x in (pts[None], img, bb, d2i))
+
+
+def _flat_outputs(out, prefix=''):
+    """Nested dicts / lists / tuples of tensors -> {path: CPU tensor}."""
+    if torch.is_tensor(out):
+        return {prefix: out.detach().cpu()}
+    items = out.items() if isinstance(out, dict) else enumerate(out)
+    flat = {}
+    for k, v in items:
+        flat.update(_flat_outputs(v, f'{prefix}.{k}' if prefix else str(k)))
+    return flat
+
+
+def _indoor2_indices(kind, model, out, args):
+    """The sampled indices of one tiny request on its device: GroupFree3D's
+    KPS candidates; each vote tower's proposal FPS and ball groups;
+    ImVoteNet's decoded 2D classes and fusion mask; H3DNet's primitive
+    groups of the keypoints."""
+    from dfm_tpu_torch.models.backbones import pointnet2 as P2
+    from dfm_tpu_torch.models.detectors import h3dnet as PH
+    from dfm_tpu_torch.models.detectors import imvotenet as PI
+    from dfm_tpu_torch.models.detectors.votenet import votenet_predict
+    idx = {}
+    if kind.startswith('GroupFree3D'):
+        idx['candidate_idx'] = out['candidate_idx']
+        return idx
+    towers = ('joint', 'pts', 'img') if kind.startswith('ImVoteNet') \
+        else ('initial',)
+    for name in towers:
+        votes = out[name]['vote_xyz']
+        cidx = P2.farthest_point_sample(votes, model.cfg.num_proposals)
+        idx[f'{name}.proposal_fps'] = cidx
+        idx[f'{name}.proposal_groups'] = _index_groups(
+            votes, P2.gather_points(votes, cidx), model.cfg.vote_radius,
+            model.cfg.vote_k)
+    if kind.startswith('ImVoteNet'):
+        bb = args[3]
+        if model.cfg.with_img_branch:
+            bb = model.image_branch(args[2])[1]
+            idx['decoded_2d_classes'] = bb[..., 5]
+        idx['fusion_mask'] = PI.vote_fusion_cues(
+            out['joint']['seed_xyz'], bb, args[2], args[4],
+            model.cfg.num_classes, model.cfg.max_imvote_per_pixel)[2]
+        return idx
+    with torch.no_grad():
+        boxes = votenet_predict(out['initial'], model.cfg)['boxes_3d']
+    surf, line = PH.box_surface_line_centers(boxes)
+    prims = out['prims']
+    k = model.cfg.primitive_k
+    if model.cfg.with_cues:
+        pairs = (('surface', torch.cat([prims['z'][1], prims['xy'][1]], 1),
+                  surf, model.cfg.surface_radius),
+                 ('line', prims['line'][1], line, model.cfg.line_radius))
+    else:
+        pairs = (('all', torch.cat([prims[m][1] for m in PH.MODES], 1),
+                  torch.cat([surf, line], 2), model.cfg.primitive_radius),)
+    for name, xyz, kp, radius in pairs:
+        idx[f'primitive_groups.{name}'] = _index_groups(
+            xyz, kp.reshape(kp.shape[0], -1, 3), radius, k)
+    return idx
+
+
+def _indoor2_parity(dev):
+    """(a) GroupFree3D, ImVoteNet (without and with the image branch) and
+    H3DNet (without and with the cues) at their tests' tiny configs,
+    card against CPU, f32, TF32 off: the seeds and every sampled index
+    equal (FPS and ball groups through the seeds, the KPS candidates, the
+    vote towers' proposal FPS and groups, the decoded 2D boxes' classes
+    in their order, the fusion mask, the primitive groups), the outputs
+    within INDOOR2_REL_L2 (a stage's or tower's keys together)."""
+    from dfm_tpu_torch.models.detectors.groupfree3d import (
+        GroupFree3DConfig, GroupFree3DNet)
+    from dfm_tpu_torch.models.detectors.h3dnet import H3DNet, H3DNetConfig
+    from dfm_tpu_torch.models.detectors.imvotenet import (ImVoteNet,
+                                                          ImVoteNetConfig)
+    from dfm_tpu_torch.utils.weights import init_weights
+    room = _indoor_scene(2500, 9)
+    view = _sunrgbd_view(2500, 10, INDOOR2_TINY_HW, 6)
+    cases = (
+        ('GroupFree3D', GroupFree3DNet(GroupFree3DConfig(**GROUPFREE3D_TINY)),
+         (room,)),
+        ('ImVoteNet', ImVoteNet(ImVoteNetConfig(**IMVOTENET_TINY)),
+         (view[0], None) + view[1:]),
+        ('ImVoteNet image branch', ImVoteNet(ImVoteNetConfig(
+            **IMVOTENET_TINY, with_img_branch=True)), (view[0], None)
+         + view[1:]),
+        ('H3DNet', H3DNet(H3DNetConfig(**H3DNET_TINY)), (room,)),
+        ('H3DNet cues', H3DNet(H3DNetConfig(**H3DNET_TINY, with_cues=True)),
+         (room,)))
+    flags = _no_tf32()
+    lines = []
+    try:
+        for kind, model, args in cases:
+            model = _live_weights(init_weights(model, 5), 6, 0.0)
+            outs, idx = {}, {}
+            for d in ('cpu', dev):
+                m = model.to(d).eval()
+                a = [None if x is None else x.to(d) for x in args]
+                with torch.inference_mode():
+                    out = m(*a)
+                    idx[d] = {k: v.cpu() for k, v in _indoor2_indices(
+                        kind, m, out, a).items()}
+                outs[d] = _flat_outputs(out)
+            for k, v in idx['cpu'].items():
+                check(torch.equal(idx[dev][k], v), f'indoor2 (23a) {kind} '
+                      f'{k}: card and CPU differ')
+            worst = 0.0
+            groups = {}
+            for k, v in outs['cpu'].items():
+                got = outs[dev][k]
+                if not v.is_floating_point() or k.endswith('seed_xyz') or \
+                        k in ('seed_points', 'query_points_xyz'):
+                    check(torch.equal(got, v), f'indoor2 (23a) {kind} {k}: '
+                          'card and CPU differ')
+                    continue
+                g = '.'.join(k.split('.')[:2])
+                a_, b_ = groups.get(g, ([], []))
+                groups[g] = (a_ + [got.double().ravel()],
+                             b_ + [v.double().ravel()])
+            for g, (a_, b_) in groups.items():
+                a_, b_ = torch.cat(a_), torch.cat(b_)
+                r = float((a_ - b_).norm() / b_.norm().clamp(min=1e-30))
+                check(r <= INDOOR2_REL_L2, f'indoor2 (23a) {kind} {g}: '
+                      f'relative L2 {r}')
+                if r >= worst:
+                    worst, where = r, g
+            lines.append(f'{kind} {worst:.3g} ({where}; '
+                         f'{len(idx["cpu"])} index sets)')
+            model.to('cpu')
+    finally:
+        _set_tf32(flags)
+    print('indoor2 (23a) tiny configs, f32, TF32 off, card vs CPU: seeds, '
+          'KPS candidates, proposal FPS and ball groups, decoded 2D classes '
+          '(in slot order), fusion masks and primitive groups equal; '
+          'outputs relative L2 max: ' + '; '.join(lines), flush=True)
+
+
+def _indoor2_request(kind, dev, seed=23):
+    """The inputs of one full-width request of `kind`."""
+    n = INDOOR2_POINTS[kind]
+    if kind == 'ImVoteNet':
+        pts, img, bb, d2i = _sunrgbd_view(n, seed)
+        return (pts.to(dev), None, img.to(dev), bb.to(dev), d2i.to(dev))
+    return (_indoor_scene(n, seed, 8.0).to(dev),)
+
+
+def _indoor2_stages(kind, model, cfg, req):
+    """(name, fn(prev) -> out) of one request, by stage."""
+    from dfm_tpu_torch.models.builder import lidar_predict
+    predict = lidar_predict(cfg)
+    st = {}
+    if kind == 'GroupFree3DNet':
+        def sampling(s):
+            st['s'] = s
+            return model.sampling(*s)
+
+        def decoder(c):
+            st['c'] = c
+            return model.decoder(st['s'][0], st['s'][1], c[2], c[3])
+
+        return [('backbone', lambda _: model.backbone(req[0].to(
+            model.dtype))), ('sampling', sampling), ('decoder', decoder),
+            ('predict', lambda stages: predict(dict(stages=stages), cfg))]
+    if kind == 'ImVoteNet':
+        pts, _, img, _, d2i = req
+
+        def backbone(b):
+            st['b'] = b
+            return model.backbone(pts.to(model.dtype))
+
+        def fusion(s):
+            st['s'] = s
+            return model.image_features(s[0], st['b'], img, d2i)
+
+        def towers(f):
+            xyz, sf = st['s']
+            return dict(joint=model.joint(xyz, torch.cat([sf, f], -1)),
+                        pts=model.pts(xyz, sf), img=model.img(xyz, f))
+
+        return [('img_branch', lambda _: model.image_branch(img)[1]),
+                ('backbone', backbone), ('fusion', fusion),
+                ('towers', towers), ('predict', lambda o: predict(o, cfg))]
+
+    def rpn(s):
+        st['s'] = s
+        return model.rpn(*s)
+
+    def prims(i):
+        st['i'] = i
+        return model.primitives(*st['s'])
+
+    def refine(p):
+        matched, extra = model.match(st['i'], p)
+        return dict(refined=model.refine(st['i'], matched))
+
+    return [('backbones', lambda _: model.backbones(req[0])), ('rpn', rpn),
+            ('primitives', prims), ('refine', refine),
+            ('predict', lambda o: predict(o, cfg))]
+
+
+def _indoor2_requests(dev):
+    """(b) Each config at full width: requests in bf16 and f32 by stage
+    (INDOOR2_WARMUP warm-ups, INDOOR2_TIMED timed), peak memory, 0
+    port-kernel launches, FPS's share of a request."""
+    import os
+    from dfm_tpu_torch.apis import init_imvotenet_model, init_lidar_model
+    from dfm_tpu_torch.models.builder import build_detector
+    from dfm_tpu_torch.runtime.config import load_config
+    here = os.path.dirname(os.path.abspath(__file__))
+    for kind, config in INDOOR2_CONFIGS.items():
+        mcfg = build_detector(load_config(os.path.join(
+            here, 'configs', config)).model)
+        req = _indoor2_request(kind, dev)
+        init = init_imvotenet_model if kind == 'ImVoteNet' \
+            else init_lidar_model
+        for dtype in (torch.bfloat16, torch.float32):
+            h = init(mcfg, dtype)
+            model = _live_weights(h['model'], 7, 3.0)
+            ms, st, peak, det = _request_times(
+                lambda: h['infer'](*req), _indoor2_stages(kind, model, mcfg,
+                                                          req),
+                f'indoor2 (23b) {kind}', warmup=INDOOR2_WARMUP,
+                timed=INDOOR2_TIMED)
+            check(all(bool(torch.isfinite(v).all()) for v in det.values()
+                      if v.is_floating_point()), f'indoor2 (23b) {kind}: '
+                  'detections not finite')
+            tf32 = '' if dtype == torch.bfloat16 else \
+                ' (TF32 as PyTorch has it)'
+            extra = f', image {SUNRGBD_HW[0]}x{SUNRGBD_HW[1]}, 16 2D box ' \
+                'slots' if kind == 'ImVoteNet' else ''
+            print(_stage_line(
+                f'indoor2 (23b) {config} request {str(dtype)[6:]}{tf32}, '
+                f'{INDOOR2_POINTS[kind]} points{extra}', ms, st, peak,
+                INDOOR2_TIMED), flush=True)
+            fps, total, calls = _lidar2_fps_share(
+                lambda r: h['infer'](*r), req)
+            print(f'indoor2 (23b) {kind} {str(dtype)[6:]}: FPS ({calls} '
+                  f'calls) {fps:.3f} ms of one request of {total:.3f} ms '
+                  f'(each call synchronised): share {fps / total:.3f}',
+                  flush=True)
+            del h, model
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def _indoor2_steps(dev, scannet_root):
+    """(c) One f32 training step of each config at its per-chip batch
+    (INDOOR2_STEP_B): GroupFree3D and H3DNet on the ScanNet tree's train
+    scenes (`IndoorSource`: the points sampled and augmented on the host
+    in the data time), ImVoteNet on `imvotenet_synth` batches at full
+    width (20,000 points, 530x730 images, 16 2D box slots)."""
+    import os
+    from dfm_tpu_torch.models.builder import build_detector, lidar_class
+    from dfm_tpu_torch.runtime.adapters import (imvotenet_synth,
+                                                imvotenet_to_device)
+    from dfm_tpu_torch.runtime.config import load_config, merge_options
+    from dfm_tpu_torch.tools.train import IndoorSource
+    from dfm_tpu_torch.utils.weights import init_weights
+    here = os.path.dirname(os.path.abspath(__file__))
+    for kind, config in INDOOR2_CONFIGS.items():
+        cfg = load_config(os.path.join(here, 'configs', config))
+        mcfg = build_detector(cfg.model)
+        b, n = INDOOR2_STEP_B[kind], INDOOR2_POINTS[kind]
+        if kind == 'ImVoteNet':
+            def batch_fn(i, c=mcfg):
+                return imvotenet_to_device(imvotenet_synth(
+                    c, b, i, n=n, h=SUNRGBD_HW[0], w=SUNRGBD_HW[1], m=16),
+                    dev)
+            width = dict(point_channels=3)
+        else:
+            src = IndoorSource(merge_options(cfg, [
+                f'data.data_root={scannet_root}']), b)
+            rng = np.random.default_rng(0)
+
+            def batch_fn(i, s=src, r=rng):
+                return s.next_batch(i, r, dev)
+            width = {}
+        model = init_weights(lidar_class(mcfg)(mcfg, **width)).to(dev)
+        _train_step_line(
+            f'indoor2 (23c) {config} training step, f32 (TF32 as PyTorch '
+            f'has it), B = {b} x {n} points', model, batch_fn, dev)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _indoor2_clis(procs, work):
+    """(d) The CLIs in processes of their own: a ScanNet tree (2 + 2
+    scenes of 50,000 points) and a SUN RGB-D tree converted here (in
+    process), then `tools.test` of GroupFree3D and H3DNet on the ScanNet
+    tree to the indoor AP lines, `tools.train` of each (B = 2) on it,
+    ImVoteNet's `tools.test` / `tools.train` (B = 2) with `--synthetic`
+    and both refusing the SUN RGB-D tree (rc 2, the image inputs named),
+    and `tools.test` refusing a type the port does not run
+    (EncoderDecoder3D). Returns the ScanNet tree and the host seconds of
+    the conversion."""
+    import contextlib
+    import io
+    import os
+    from dfm_tpu_torch.tools import create_data
+    here = os.path.dirname(os.path.abspath(__file__))
+    roots = dict(scannet=os.path.join(work, 'scannet'),
+                 sunrgbd=os.path.join(work, 'sunrgbd'))
+    t0 = time.perf_counter()
+    write_scannet_tree(roots['scannet'], seed=2, points=50000)
+    write_sunrgbd_tree(roots['sunrgbd'], seed=2)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        for name, root in roots.items():
+            check(create_data.main([name, '--root', root, '--splits',
+                                    'train', 'val']) == 0,
+                  f'indoor2 (23d) create_data {name}')
+    check(buf.getvalue().count('wrote 2 infos') == 4,
+          f'indoor2 (23d) create_data: {buf.getvalue()}')
+    convert_s = time.perf_counter() - t0
+    cfgs = {k: os.path.join(here, 'configs', c)
+            for k, c in INDOOR2_CONFIGS.items()}
+    scannet = f'data.data_root={roots["scannet"]}'
+    for kind in ('GroupFree3DNet', 'H3DNet'):
+        _start(procs, f'indoor2 test {kind}', [
+            'dfm_tpu_torch.tools.test', cfgs[kind], '--cfg-options',
+            scannet])
+        _start(procs, f'indoor2 train {kind}', [
+            'dfm_tpu_torch.tools.train', cfgs[kind], '--max-steps',
+            str(INDOOR2_TRAIN_STEPS), '--work-dir', os.path.join(work, kind),
+            '--cfg-options', scannet, 'data.batch_size_per_chip=2'])
+    _start(procs, 'indoor2 synthetic-test ImVoteNet', [
+        'dfm_tpu_torch.tools.test', cfgs['ImVoteNet'], '--synthetic'])
+    _start(procs, 'indoor2 synthetic-train ImVoteNet', [
+        'dfm_tpu_torch.tools.train', cfgs['ImVoteNet'], '--synthetic',
+        '--max-steps', str(INDOOR2_TRAIN_STEPS), '--work-dir',
+        os.path.join(work, 'imvotenet'), '--cfg-options',
+        'data.batch_size_per_chip=2'])
+    sun = ['--cfg-options', f'data.data_root={roots["sunrgbd"]}']
+    _start(procs, 'indoor2 refused-test ImVoteNet', [
+        'dfm_tpu_torch.tools.test', cfgs['ImVoteNet']] + sun)
+    _start(procs, 'indoor2 refused-train ImVoteNet', [
+        'dfm_tpu_torch.tools.train', cfgs['ImVoteNet'], '--work-dir',
+        os.path.join(work, 'refused')] + sun)
+    _start(procs, 'indoor2 refused-type EncoderDecoder3D', [
+        'dfm_tpu_torch.tools.test',
+        os.path.join(here, 'configs', 'pointnet2_ssg_s3dis_seg.py')])
+    return roots['scannet'], convert_s
+
+
+def _indoor2_cli_checks(procs):
+    """Wait for (d)'s processes (emptied) and check what each printed ->
+    the names checked, the AP lines and the seconds waited."""
+    t0 = time.perf_counter()
+    cli = _finish(procs)
+    procs.clear()
+    aps = {}
+    for name, res in cli.items():
+        if 'refused' in name:
+            want = 'not ported' if 'type' in name else 'depth2img'
+            check(res.returncode == 2 and want in res.stderr,
+                  f'{name}: rc {res.returncode} {res.stderr[-2000:]}')
+            continue
+        check(res.returncode == 0, f'{name}: rc {res.returncode} '
+              f'{res.stderr[-3000:]}')
+        if name.startswith('indoor2 test'):
+            lines = dict(INDOOR_AP.findall(res.stdout))
+            check(len(lines) == 4 and all(np.isfinite(float(v))
+                                          for v in lines.values()),
+                  f'{name}: {res.stdout[-2000:]}')
+            aps[name.split()[-1]] = lines
+        elif name.startswith('indoor2 synthetic-test'):
+            check('[synthetic-eval] ImVoteNet: decoded 3 output arrays, '
+                  'finite=True' in res.stdout, f'{name}: '
+                  f'{res.stdout[-2000:]}')
+        else:
+            check(f'step {INDOOR2_TRAIN_STEPS}/{INDOOR2_TRAIN_STEPS}' in
+                  res.stdout, f'{name}: {res.stdout[-2000:]}')
+    return list(cli), aps, time.perf_counter() - t0
+
+
+def indoor2_phase(dev):
+    """23. GroupFree3D, ImVoteNet and H3DNet, no port kernel on their
+    paths: (d)'s trees converted and its CLIs started, (a) card against
+    CPU at tiny sizes, (b) full-width requests; the CLIs collected, then
+    (c) the full-width training steps."""
+    import tempfile
+    t0 = time.perf_counter()
+    procs = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            scannet, convert_s = _indoor2_clis(procs, work)
+            _indoor2_parity(dev)
+            _indoor2_requests(dev)
+            names, aps, waited = _indoor2_cli_checks(procs)
+            check(len(names) == 9, f'indoor2 (23d): {names}')
+            print(f'indoor2 (23d) create_data scannet (50,000 points a '
+                  f'scene) + sunrgbd {convert_s:.1f} s on the host; '
+                  'tools.test to indoor AP: '
+                  + '; '.join(f'{k} ' + ', '.join(f'{m} {v}' for m, v in
+                                                  sorted(a.items()))
+                              for k, a in sorted(aps.items()))
+                  + f'; tools.train GroupFree3D and H3DNet '
+                  f'{INDOOR2_TRAIN_STEPS} steps (B = 2) on the tree; '
+                  'ImVoteNet tools.test / tools.train --synthetic, both '
+                  'refusing SUN RGB-D data (rc 2); EncoderDecoder3D '
+                  f'refused (rc 2); waited {waited:.1f} s for them after '
+                  '(b)', flush=True)
+            _indoor2_steps(dev, scannet)
+        finally:
+            _kill(procs)
+    print(f'phase 23 {time.perf_counter() - t0:.1f} s', flush=True)
+
+
+def phase23_alone(dev='cuda'):
+    """Phase 23 by itself (no kernel build: none lies on its paths)."""
+    print(card_line(), flush=True)
+    indoor2_phase(dev)
+
+
 def _flops_of(fn, *args):
     """Floating-point operations of `fn(*args)` (torch's FlopCounterMode:
     the convolutions and matrix products)."""
@@ -7366,7 +7870,7 @@ def _flops_of(fn, *args):
 
 
 def run_phases(cfg, dev, mem):
-    """Phases 3-22; the card's memory in use after each -> the kernels'
+    """Phases 3-23; the card's memory in use after each -> the kernels'
     results."""
     import os
     import tempfile
@@ -7400,7 +7904,7 @@ def run_phases(cfg, dev, mem):
     for n, phase in ((12, mono_phase), (13, dla_phase), (14, imvoxel_phase),
                      (15, nuscenes_phase), (16, waymo_cam_phase),
                      ('17-20', lidar_phases), (21, lidar2_phase),
-                     (22, indoor_phase)):
+                     (22, indoor_phase), (23, indoor2_phase)):
         phase(dev)
         mem.mark(f'phase {n}')
     return results

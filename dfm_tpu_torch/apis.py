@@ -5,8 +5,9 @@ MultiViewDfM's (`init_mvdfm_model`, `detect_multiview_sample`,
 `multihost_multiview_inference`), ImVoxelNet's
 (`init_imvoxelnet_model`), the point-cloud detectors' (`init_lidar_model`:
 VoxelNet, DynamicVoxelNet, SASSD, CenterPoint, PointRCNN, Part-A2, 3DSSD,
-the indoor VoteNet and MVX, whose `infer` also takes a camera image;
-`init_mvx_model` is its MVX default).
+the indoor VoteNet, GroupFree3D and H3DNet, MVX and ImVoteNet, whose
+`infer` also takes a camera image; `init_mvx_model` and
+`init_imvotenet_model` are their defaults).
 
 They run on the CUDA card by default and raise when there is none; the
 CPU is used only when the caller passes device='cpu'. Weights are
@@ -45,6 +46,7 @@ from .models.detectors.imvoxelnet import (ImVoxelNet, ImVoxelNetConfig,
 from .models.heads.fcos_mono3d import FCOS3DConfig, pad44
 from .models.detectors.multiview_dfm import (MultiViewDfM, MVDfMConfig,
                                              mvdfm_predict)
+from .models.detectors.imvotenet import ImVoteNetConfig
 from .models.detectors.mvx_two_stage import MVXConfig
 from .models.detectors.voxelnet import VoxelNetConfig
 from .parallel import dist as D
@@ -55,7 +57,8 @@ __all__ = ['init_dfm_model', 'init_dfm_stream', 'detect_sample',
            'multihost_dataset_inference', 'allgather_pickled',
            'init_mvdfm_model', 'detect_multiview_sample',
            'multihost_multiview_inference', 'init_imvoxelnet_model',
-           'init_lidar_model', 'init_mvx_model', 'init_mono_model',
+           'init_lidar_model', 'init_mvx_model', 'init_imvotenet_model',
+           'init_mono_model',
            'inference_mono_3d', 'detect_mono']
 
 
@@ -276,21 +279,26 @@ def init_lidar_model(cfg=None, dtype=torch.bfloat16, device=None,
     """Build a point-cloud detector of its config's class
     (`models/builder.py:lidar_class`: VoxelNet for a `VoxelNetConfig`, the
     default, DynamicVoxelNet, SASSD, CenterPoint, PointRCNN, PartA2,
-    SSD3DNet, VoteNet, MVXFasterRCNN for an `MVXConfig`), seeded random
+    SSD3DNet, VoteNet, GroupFree3DNet, H3DNet, MVXFasterRCNN for an
+    `MVXConfig`, ImVoteNet for an `ImVoteNetConfig`), seeded random
     weights, and its inference function. `point_channels`: the width of
-    the points of a point-based model (3DSSD's and VoteNet's default 4)
-    where it differs.
+    the points of a point-based model (3DSSD's and the indoor models'
+    default 4) where it differs.
 
     Returns dict(model, cfg, device, infer, load_checkpoint) with
     infer(points (B, P, 3+), point_mask (B, P) or None: the point-based
     models read no mask; MVX's also img (B, H, W, 3), lidar2img
-    (B, 4, 4)) -> the model's own predict (`lidar_predict`): padded
-    detections ('boxes3d' bottom-centre, 'scores', 'labels', 'mask';
+    (B, 4, 4); ImVoteNet's img (B, H, W, 3) 0-255, bboxes_2d (B, M, 6),
+    depth2img (B, 3|4, 4)) -> the model's own predict (`lidar_predict`):
+    padded detections ('boxes3d' bottom-centre, 'scores', 'labels', 'mask';
     CenterPoint's decode: sample 0's 'boxes_3d', 'scores_3d',
     'labels_3d'; 3DSSD's 'boxes_3d', 'scores_3d', 'labels_3d', 'mask';
-    VoteNet's every proposal as 'boxes_3d' (centre), 'scores_3d' (0
-    below the threshold), 'labels_3d'), and load_checkpoint(path) -> the
-    keys of a checkpoint in the port's layout that it did not take.
+    VoteNet's, ImVoteNet's (the joint tower) and H3DNet's (the refined
+    proposals) every proposal as 'boxes_3d' (centre), 'scores_3d' (0
+    below the threshold), 'labels_3d'; GroupFree3D's last stage as
+    bottom-centre 'boxes_3d', 'scores_3d', 'labels_3d'), and
+    load_checkpoint(path) -> the keys of a checkpoint in the port's layout
+    that it did not take.
     """
     cfg = cfg or VoxelNetConfig()
     device = _device(device)
@@ -314,6 +322,12 @@ def init_mvx_model(cfg=None, dtype=torch.bfloat16, device=None):
     """`init_lidar_model` of MVX-FasterRCNN (`MVXConfig()` by default):
     infer(points, point_mask, img, lidar2img)."""
     return init_lidar_model(cfg or MVXConfig(), dtype, device)
+
+
+def init_imvotenet_model(cfg=None, dtype=torch.bfloat16, device=None):
+    """`init_lidar_model` of ImVoteNet (`ImVoteNetConfig()` by default):
+    infer(points, None, img, bboxes_2d, depth2img)."""
+    return init_lidar_model(cfg or ImVoteNetConfig(), dtype, device)
 
 
 def init_mono_model(cfg=None, backbone_depth=None, dtype=torch.bfloat16,

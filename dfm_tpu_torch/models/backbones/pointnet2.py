@@ -20,9 +20,9 @@ JAX package's static-shape forms, batched over (B, ...) tensors:
   nearest source points (ties to the lower index), normalised;
 * `FPModule`: that interpolation, the skip features before it, a shared
   MLP;
-* `PointNet2SASSG`: VoteNet's stack of four `SAModule`s (`sa{i}`); JAX's
-  FP decoder (`fp_channels`) and `return_hierarchy` come with GroupFree3D
-  and the segmentors.
+* `PointNet2SASSG`: VoteNet's stack of four `SAModule`s (`sa{i}`) and
+  JAX's FP decoder (`fp_channels`, `fp{j}`: GroupFree3D's two steps back
+  up the pyramid); `return_hierarchy` comes with the segmentors.
 
 `lowest_k` gives `lax.top_k(-x, k)`'s indices (ascending, ties to the
 lower index) for any size: `torch.topk` promises no order among ties.
@@ -196,25 +196,46 @@ class FPModule(nn.Module):
 class PointNet2SASSG(nn.Module):
     """The SSG stack (VoteNet's defaults: four levels); `point_channels` =
     3 + the points' features. forward(points (B, N, 3+C)) -> (seed_xyz
-    (B, M, 3), seed_feats (B, M, C')) of the last level."""
+    (B, M, 3), seed_feats (B, M, C')) of the last level, or with
+    `fp_channels` of the FP level len(fp_channels) steps up from it: step
+    j (`fp{j}`) interpolates onto level len(levels) - 2 - j (level 0 the
+    input points) and takes that level's features as its skip."""
 
     def __init__(self, point_channels=3, sa_points=(2048, 1024, 512, 256),
                  sa_radii=(0.2, 0.4, 0.8, 1.2), sa_ks=(64, 32, 16, 16),
                  sa_mlps=((64, 64, 128), (128, 128, 256), (128, 128, 256),
-                          (128, 128, 256)), dtype=torch.float32):
+                          (128, 128, 256)), fp_channels=(),
+                 dtype=torch.float32):
         super().__init__()
         self.num_levels = len(sa_points)
+        self.num_fp = len(fp_channels)
         cin = point_channels
+        level_channels = [point_channels - 3]
         for i in range(self.num_levels):
             setattr(self, f'sa{i}', SAModule(sa_points[i], sa_radii[i],
                                              sa_ks[i], sa_mlps[i], cin,
                                              dtype))
             cin = 3 + sa_mlps[i][-1]
-        self.out_channels = sa_mlps[-1][-1]
+            level_channels.append(sa_mlps[i][-1])
+        src = level_channels[-1]
+        for j, mlp in enumerate(fp_channels):
+            dst = self.num_levels - 1 - j
+            setattr(self, f'fp{j}', FPModule(tuple(mlp),
+                                             level_channels[dst] + src, dtype))
+            src = mlp[-1]
+        self.out_channels = src
 
     def forward(self, points):
         xyz = points[..., :3]
         feats = points[..., 3:] if points.shape[-1] > 3 else None
+        sa_xyz, sa_feats = [xyz], [feats]
         for i in range(self.num_levels):
             xyz, feats = getattr(self, f'sa{i}')(xyz, feats)
+            sa_xyz.append(xyz)
+            sa_feats.append(feats)
+        for j in range(self.num_fp):
+            dst = len(sa_xyz) - 2 - j
+            feats = getattr(self, f'fp{j}')(sa_xyz[dst], sa_feats[dst], xyz,
+                                            feats)
+            xyz = sa_xyz[dst]
         return xyz, feats

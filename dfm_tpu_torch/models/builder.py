@@ -15,7 +15,10 @@ does not run, 'shape_aware', raises NotImplementedError), `CenterPoint`
 `CenterPointConfig` (its `head` dict a `CenterHeadConfig`), `SASSD`
 `SASSDConfig`, `PointRCNN` `PointRCNNConfig`, `PartA2` `PartA2Config`,
 `SSD3DNet` `SSD3DConfig`, `MVXFasterRCNN` and `DynamicMVXFasterRCNN`
-`MVXConfig` (`_build_mvx` serves both) and `VoteNet` `VoteNetConfig`.
+`MVXConfig` (`_build_mvx` serves both), `VoteNet` `VoteNetConfig`,
+`GroupFree3DNet` `GroupFree3DConfig`, `ImVoteNet` `ImVoteNetConfig` and
+`H3DNet` `H3DNetConfig` (`_build_groupfree3d`, `_build_imvotenet`,
+`_build_h3dnet`).
 DfM and DfMFull evaluate the DfM student alone, so `build_detector`
 gives the student's config for both; `atss_config` gives DfMFull's 2D
 head its config from the model's `atss` entry, and the train CLI
@@ -27,7 +30,7 @@ DfMFull's `atss` and `teacher_checkpoint`, which only training reads).
 For the mono types `unused_keys` names the type alone in the repo's
 configs (every other key is a field, or `backbone_depth`). The first
 detector type of the JAX builder's registry that the port does not run is
-`GroupFree3DNet`. A
+`EncoderDecoder3D` (the segmentors). A
 `MultiViewDfM` config with a key that is no field of `MVDfMConfig` is
 refused (ValueError).
 """
@@ -40,6 +43,11 @@ from .detectors.dfm import DfMConfig
 from .detectors.dynamic_voxelnet import (DynamicVoxelNet,
                                          DynamicVoxelNetConfig)
 from .detectors.fcos_mono3d import FCOSMono3D
+from .detectors.groupfree3d import (GroupFree3DConfig, GroupFree3DNet,
+                                    groupfree3d_predict)
+from .detectors.h3dnet import H3DNet, H3DNetConfig, h3dnet_predict
+from .detectors.imvotenet import (ImVoteNet, ImVoteNetConfig,
+                                  imvotenet_predict)
 from .detectors.imvoxelnet import ImVoxelNetConfig
 from .detectors.monoflex import MonoFlex
 from .detectors.multiview_dfm import MVDfMConfig
@@ -61,29 +69,37 @@ from .heads.pgd import PGDConfig
 
 __all__ = ['build_detector', 'atss_config', 'unused_keys', 'PORTED_TYPES',
            'MONO_TYPES', 'DLA_TYPES', 'LIDAR_TYPES', 'VOXELNET_TYPES',
-           'MVX_TYPES',
+           'MVX_TYPES', 'IMVOTE_TYPES', 'INDOOR_TYPES',
            'mono_backbone_depth', 'mono_class',
            'mono_model', 'lidar_class', 'lidar_predict']
 
 DLA_TYPES = ('SMOKEMono3D', 'MonoFlex')
 MONO_TYPES = ('FCOSMono3D', 'PGD') + DLA_TYPES
-# the point-cloud detectors: infer(points, point_mask) (VoteNet's points
-# indoor, the others' outdoor)
+# the point-cloud detectors: infer(points, point_mask) (VoteNet's,
+# GroupFree3D's and H3DNet's points indoor, the others' outdoor)
 LIDAR_TYPES = ('VoxelNet', 'DynamicVoxelNet', 'CenterPoint', 'SASSD',
-               'PointRCNN', 'PartA2', 'SSD3DNet', 'VoteNet')
+               'PointRCNN', 'PartA2', 'SSD3DNet', 'VoteNet', 'GroupFree3DNet',
+               'H3DNet')
+# indoor points, an image and its 2D boxes: infer(points, None, img,
+# bboxes_2d, depth2img)
+IMVOTE_TYPES = ('ImVoteNet',)
+# the types that evaluate and train on the indoor datasets' points
+INDOOR_TYPES = ('VoteNet', 'GroupFree3DNet', 'H3DNet')
 # points and a camera image: infer(points, point_mask, img, lidar2img)
 MVX_TYPES = ('MVXFasterRCNN', 'DynamicMVXFasterRCNN')
 # the types whose config is a `VoxelNetConfig` (their anchor head's
 # `bbox_head` checked)
 VOXELNET_TYPES = ('VoxelNet', 'DynamicVoxelNet', 'SASSD', 'PartA2')
 PORTED_TYPES = ('DfM', 'DfMFull', 'MultiViewDfM', 'ImVoxelNet') + \
-    MONO_TYPES + LIDAR_TYPES + MVX_TYPES
+    MONO_TYPES + LIDAR_TYPES + MVX_TYPES + IMVOTE_TYPES
 _CONFIG_CLASSES = {'MultiViewDfM': MVDfMConfig, 'ImVoxelNet': ImVoxelNetConfig,
                    'VoxelNet': VoxelNetConfig,
                    'DynamicVoxelNet': DynamicVoxelNetConfig,
                    'CenterPoint': CenterPointConfig, 'SASSD': SASSDConfig,
                    'PointRCNN': PointRCNNConfig, 'PartA2': PartA2Config,
                    'SSD3DNet': SSD3DConfig, 'VoteNet': VoteNetConfig,
+                   'GroupFree3DNet': GroupFree3DConfig,
+                   'ImVoteNet': ImVoteNetConfig, 'H3DNet': H3DNetConfig,
                    'MVXFasterRCNN': MVXConfig,
                    'DynamicMVXFasterRCNN': MVXConfig,
                    'FCOSMono3D': FCOS3DConfig,
@@ -100,6 +116,9 @@ _LIDAR_MODELS = {VoxelNetConfig: (VoxelNet, voxelnet_predict),
                  PartA2Config: (PartA2, parta2_predict),
                  SSD3DConfig: (SSD3DNet, ssd3d_predict),
                  VoteNetConfig: (VoteNet, votenet_predict),
+                 GroupFree3DConfig: (GroupFree3DNet, groupfree3d_predict),
+                 ImVoteNetConfig: (ImVoteNet, imvotenet_predict),
+                 H3DNetConfig: (H3DNet, h3dnet_predict),
                  MVXConfig: (MVXFasterRCNN, mvx_predict)}
 
 
@@ -151,6 +170,8 @@ def build_detector(model_cfg):
     CenterPoint, `PointRCNNConfig` for PointRCNN, `PartA2Config` for
     PartA2, `SSD3DConfig` for SSD3DNet, `MVXConfig` for MVXFasterRCNN and
     DynamicMVXFasterRCNN, `VoteNetConfig` for VoteNet,
+    `GroupFree3DConfig` / `ImVoteNetConfig` / `H3DNetConfig` for
+    GroupFree3DNet / ImVoteNet / H3DNet,
     `FCOS3DConfig` / `PGDConfig` /
     `SMOKEConfig` / `MonoFlexConfig` for FCOSMono3D / PGD / SMOKEMono3D /
     MonoFlex. Raises NotImplementedError for a type
@@ -208,9 +229,10 @@ def mono_model(model_cfg):
 
 
 def lidar_class(cfg):
-    """The detector module class of a LiDAR or MVX type's config (by its
-    exact class: `SASSDConfig`, `DynamicVoxelNetConfig` and `MVXConfig`
-    are `VoxelNetConfig`s)."""
+    """The detector module class of a LiDAR, MVX or ImVoteNet type's
+    config (by its exact class: `SASSDConfig`, `DynamicVoxelNetConfig`
+    and `MVXConfig` are `VoxelNetConfig`s, `ImVoteNetConfig` and
+    `H3DNetConfig` `VoteNetConfig`s)."""
     return _LIDAR_MODELS[type(cfg)][0]
 
 

@@ -1,9 +1,13 @@
-"""2D auxiliary ATSS head of DfMFull: forward, assignment and loss.
+"""2D ATSS head of DfMFull and ImVoteNet: forward, assignment, loss and
+decode.
 
-Port of `dfm_tpu/models/heads/atss2d.py:31-212` (`ATSS2DConfig`,
+Port of `dfm_tpu/models/heads/atss2d.py:31-258` (`ATSS2DConfig`,
 `ATSS2DHead`, `level_anchors`, `atss_assign`, `atss2d_loss`; the
 reference's `LIGAATSSHead` with the `ATSS3DCenterAssigner`, where each
-gt's centre for the candidate selection is its projected 3D centre).
+gt's centre for the candidate selection is its projected 3D centre; and
+`atss2d_decode`, ImVoteNet's in-graph 2D detections: the top
+`max_boxes` anchors by sigmoid(cls) x sigmoid(centerness), no NMS,
+`highest_k`'s order, ties to the lower index, as `lax.top_k`).
 The GroupNorm towers are shared by the levels. Keys: cls_tower<i>,
 reg_tower<i> (conv + gn), atss_cls, atss_reg, atss_centerness. Level
 outputs are returned channels-last (B, h, w, X), as in the JAX package,
@@ -18,13 +22,15 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..backbones.pointnet2 import highest_k
 from ..layers import Conv, ConvNorm
 from ...core import losses as L
 from ...core.iou import aligned_iou_2d
 from ...parallel import dist as D
 
 __all__ = ['ATSS2DConfig', 'ATSS2DHead', 'level_anchors', 'atss_assign',
-           'atss2d_anchors', 'atss2d_targets', 'atss2d_loss']
+           'atss2d_anchors', 'atss2d_targets', 'atss2d_loss',
+           'atss2d_decode']
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,3 +226,43 @@ def atss2d_loss(level_outs, img_hw, gt, cfg: ATSS2DConfig, dist_norm=False):
                                       avg_factor=num_pos)
     return dict(loss_cls2d=loss_cls, loss_bbox2d=loss_bbox,
                 loss_centerness2d=loss_ctr)
+
+
+def atss2d_decode(level_outs, img_hw, cfg: ATSS2DConfig, max_boxes=16):
+    """`ATSS2DHead` outputs of an (H, W) image -> (B, max_boxes, 6) slots
+    (l, t, r, b, conf, cls): the anchors of the `max_boxes` highest
+    confidences (the best class's sigmoid(cls) x sigmoid(centerness)),
+    their DeltaXYWH boxes clipped to the image, the class as a float;
+    float32, as JAX computes them in any model dtype."""
+    h, w = img_hw
+    device = level_outs[0]['cls_score'].device
+    anchors, _ = atss2d_anchors(img_hw, cfg, device)
+
+    def flat(key, per):
+        return torch.cat([o[key].float().reshape(o[key].shape[0], -1, per)
+                          for o in level_outs], 1)
+
+    score = torch.sigmoid(flat('cls_score', cfg.num_classes)) * \
+        torch.sigmoid(flat('centerness', 1))
+    conf, label = score.max(-1).values, torch.argmax(score, -1)
+    anchors = anchors.to(conf.dtype)
+    stds = torch.as_tensor(cfg.target_stds, dtype=conf.dtype, device=device)
+    d = flat('bbox_pred', 4) * stds
+    wa = anchors[:, 2] - anchors[:, 0]
+    ha = anchors[:, 3] - anchors[:, 1]
+    xa = (anchors[:, 0] + anchors[:, 2]) / 2
+    ya = (anchors[:, 1] + anchors[:, 3]) / 2
+    xg = xa + d[..., 0] * wa
+    yg = ya + d[..., 1] * ha
+    wg = wa * torch.exp(torch.clamp(d[..., 2], -10, 10))
+    hg = ha * torch.exp(torch.clamp(d[..., 3], -10, 10))
+    boxes = torch.stack([
+        torch.clamp(xg - wg / 2, 0, w - 1), torch.clamp(yg - hg / 2, 0, h - 1),
+        torch.clamp(xg + wg / 2, 0, w - 1), torch.clamp(yg + hg / 2, 0, h - 1)],
+        -1)
+    top_conf, idx = highest_k(conf, max_boxes)
+    top_boxes = torch.gather(boxes, 1, idx[..., None].expand(
+        idx.shape + (4,)))
+    top_label = torch.gather(label, 1, idx)
+    return torch.cat([top_boxes, top_conf[..., None],
+                      top_label[..., None].to(conf.dtype)], -1)

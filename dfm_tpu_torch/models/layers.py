@@ -25,8 +25,8 @@ from ..ops.resize import resize_linear
 from ..parallel import dist as D
 
 __all__ = ['Conv', 'ConvTranspose', 'DeformConv2d', 'GroupNorm', 'BatchNorm',
-           'BatchNormLast', 'Linear', 'ConvNorm', 'convbn', 'Hourglass',
-           'UpconvModule', 'group_norm', 'gn_groups', 'stat_float',
+           'BatchNormLast', 'Linear', 'LayerNorm', 'MultiHeadAttention',
+           'ConvNorm', 'convbn', 'Hourglass', 'UpconvModule', 'group_norm', 'gn_groups', 'stat_float',
            'conv_bias']
 
 _CONV_FNS = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -235,6 +235,62 @@ class Linear(nn.Module):
 
     def forward(self, x):
         return F.linear(x, self.weight.to(x.dtype), conv_bias(self, x))
+
+
+class LayerNorm(nn.Module):
+    """flax's `nn.LayerNorm()` on the last axis: eps 1e-6 (torch's default
+    is 1e-5), the mean and the "fast" variance E[x^2] - E[x]^2 clipped at
+    0 in float32 (`stat_float`), (x - mean) * rsqrt(var + eps) * weight +
+    bias, cast back to the input dtype. Keys `weight` / `bias` (flax's
+    `scale` / `bias`)."""
+
+    eps = 1e-6
+
+    def __init__(self, c):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c))
+        self.bias = nn.Parameter(torch.empty(c))
+
+    def forward(self, x):
+        xf = stat_float(x)
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
+        mul = torch.rsqrt(var + self.eps) * stat_float(self.weight)
+        return ((xf - mean) * mul + stat_float(self.bias)).to(x.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """flax's `nn.MultiHeadDotProductAttention(num_heads, qkv_features)`
+    (no mask, no dropout): `query`, `key`, `value` project the inputs to
+    `heads` x `dim // heads` (flax's DenseGeneral kernels (in, heads,
+    head_dim) flattened to (heads * head_dim, in)), the queries are
+    divided by sqrt(head_dim), each head's softmax of q.k weights its
+    values (`F.scaled_dot_product_attention` at scale 1), and `out`
+    projects the heads back to `cin` (flax's (heads, head_dim, cin)
+    kernel flattened). forward(q_in, kv_in): keys and values both from
+    `kv_in`, as flax takes `inputs_v` = `inputs_k`."""
+
+    def __init__(self, cin, dim, heads):
+        super().__init__()
+        self.heads = heads
+        self.query = Linear(cin, dim)
+        self.key = Linear(cin, dim)
+        self.value = Linear(cin, dim)
+        self.out = Linear(dim, cin)
+
+    def forward(self, q_in, kv_in):
+        b, nq, _ = q_in.shape
+        h = self.heads
+
+        def split(x):
+            return x.reshape(b, x.shape[1], h, -1).transpose(1, 2)
+
+        q, k, v = split(self.query(q_in)), split(self.key(kv_in)), \
+            split(self.value(kv_in))
+        q = q / torch.tensor(q.shape[-1], dtype=q.dtype,
+                             device=q.device).sqrt()
+        o = F.scaled_dot_product_attention(q, k, v, scale=1.0)
+        return self.out(o.transpose(1, 2).reshape(b, nq, -1))
 
 
 def _norm(norm, c):

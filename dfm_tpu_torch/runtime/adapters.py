@@ -6,7 +6,9 @@ Port of `dfm_tpu/runtime/adapters.py:41-117` (`_gt_pack`, `_cam_matrix`,
 PGD / SMOKE / MonoFlex adapters) and `:327-372` (`_mv_synth` and the
 MultiViewDfM / ImVoxelNet model arguments), `:246-262`
 (`_points_synth`, the LiDAR families' points and gt) and the synthetic
-batches of `_mk_votenet_adapter:293`, `_mk_ssd3d_adapter:381` and
+batches of `_mk_votenet_adapter:293`, `_mk_ssd3d_adapter:381`,
+`_mk_groupfree3d_adapter:404`, `_mk_imvotenet_adapter:455`,
+`_mk_h3dnet_adapter:542` (VoteNet's batch) and
 `_mk_mvx_adapter:498`: the same draws from
 `np.random.default_rng(seed)` in the same order, so that one seed gives
 both packages the same batch. A batch is numpy, batched, in the JAX
@@ -16,10 +18,11 @@ for MultiViewDfM 'img' (B, F, V, H, W, 3), 'lidar2img' (B, F, V, 4, 4)
 and the gt boxes (ImVoxelNet's without the F and V axes); for the mono
 types 'img' (B, H, W, 3), 'cam2img' (B, 4, 4) and the camera-frame gt
 (MonoFlex's with `kpts2d` and `gt_alphas`); for the LiDAR types
-'points', 'point_mask' (not for PointRCNN and VoteNet) and the gt, for MVX
-also 'img' (B, H, W, 3) and 'lidar2img' (B, 4, 4). `to_device` /
-`mv_to_device` / `mono_to_device` / `lidar_to_device` / `mvx_to_device`
-make the model's inputs of it
+'points', 'point_mask' (not for PointRCNN and the indoor types) and the gt, for
+MVX also 'img' (B, H, W, 3) and 'lidar2img' (B, 4, 4), for ImVoteNet
+'img' (B, H, W, 3) 0-255, 'bboxes_2d' (B, M, 6) and 'depth2img' (B, 4,
+4). `to_device` / `mv_to_device` / `mono_to_device` / `lidar_to_device`
+/ `mvx_to_device` / `imvotenet_to_device` make the model's inputs of it
 (`TrainStep`'s (inputs, cond, gt)), as JAX's `model_args_fn`.
 """
 
@@ -28,6 +31,8 @@ import torch
 
 from ..data.collate import FULL_KEYS, GT_KEYS
 from ..models.detectors.dfm import BatchMeta
+from ..models.detectors.groupfree3d import GroupFree3DConfig
+from ..models.detectors.imvotenet import ImVoteNetConfig
 from ..models.detectors.point_rcnn import PointRCNNConfig
 from ..models.detectors.ssd3d import SSD3DConfig
 from ..models.detectors.votenet import VoteNetConfig
@@ -36,6 +41,7 @@ __all__ = ['dfm_meta', 'dfm_synth', 'to_device', 'gt_pack', 'mv_synth',
            'imvoxel_synth', 'mv_to_device', 'mono_synth', 'mono_to_device',
            'lidar_synth', 'lidar_to_device', 'indoor_synth',
            'synth_point_channels', 'mvx_synth', 'mvx_to_device',
+           'groupfree3d_synth', 'imvotenet_synth', 'imvotenet_to_device',
            'MONO_GT_KEYS']
 
 MONO_GT_KEYS = ('gt_bboxes2d', 'centers2d', 'gt_depths', 'gt_boxes_cam',
@@ -233,9 +239,15 @@ def lidar_synth(cfg, b, seed, n=None):
     centres clipped half a size inside the range. `n` defaults to 512, to
     4096 for PointRCNN, whose batch has no 'point_mask' (JAX's PointRCNN
     adapter), and to 1024 for 3DSSD, whose points get a zero fourth
-    column (JAX's SSD3D adapter); VoteNet's is `indoor_synth`."""
+    column (JAX's SSD3D adapter); VoteNet's and H3DNet's is
+    `indoor_synth`, GroupFree3D's `groupfree3d_synth`, ImVoteNet's
+    `imvotenet_synth`."""
+    if isinstance(cfg, ImVoteNetConfig):
+        return imvotenet_synth(cfg, b, seed, n or 256)
     if isinstance(cfg, VoteNetConfig):
         return indoor_synth(cfg, b, seed, n or 256)
+    if isinstance(cfg, GroupFree3DConfig):
+        return groupfree3d_synth(cfg, b, seed, n or 1024)
     point_rcnn = isinstance(cfg, PointRCNNConfig)
     ssd3d = isinstance(cfg, SSD3DConfig)
     n = n or (4096 if point_rcnn else 1024 if ssd3d else 512)
@@ -274,11 +286,60 @@ def indoor_synth(cfg, b, seed, n=256):
                 gt_mask=np.ones((b, g), bool))
 
 
+def groupfree3d_synth(cfg, b, seed, n=1024):
+    """JAX's GroupFree3D batch: `n` xyz points a sample uniform in a 6 m
+    room cube, 4 axis-aligned bottom-centre boxes (centres in [0.5, 5.5),
+    sizes in [0.5, 1.5)) of classes below `cfg.num_classes`, all valid.
+    At its 1,024 points the first SA level samples more points than the
+    cloud holds: FPS repeats index 0, as JAX's does."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((b, n, 3)).astype(np.float32) * 6.0
+    g = 4
+    ctr = rng.random((b, g, 3)).astype(np.float32) * 5.0 + 0.5
+    dim = rng.uniform(0.5, 1.5, (b, g, 3)).astype(np.float32)
+    boxes = np.concatenate([ctr - dim * [0, 0, 0.5], dim,
+                            np.zeros((b, g, 1), np.float32)], -1)
+    return dict(points=pts, gt_boxes=boxes.astype(np.float32),
+                gt_labels=rng.integers(0, cfg.num_classes, (b, g)).astype(
+                    np.int32),
+                gt_mask=np.ones((b, g), bool))
+
+
+def imvotenet_synth(cfg, b, seed, n=256, h=48, w=64, m=6):
+    """JAX's ImVoteNet batch: `indoor_synth`'s room (`n` xyz points, 4
+    yawed boxes of sizes in [0.5, 1.2)) drawn in its order with a 0-255
+    image (B, h, w, 3) between, `m` 2D box slots of which the first 3 are
+    live (20 px boxes from [0, 20), confidence in [0.3, 0.9), a class)
+    and a pinhole depth2img of focal 50 at the image centre."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((b, n, 3)).astype(np.float32) * 6.0
+    g = 4
+    ctr = rng.random((b, g, 3)).astype(np.float32) * 5.0 + 0.5
+    dim = rng.uniform(0.5, 1.2, (b, g, 3)).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, (b, g, 1)).astype(np.float32)
+    img = rng.integers(0, 255, (b, h, w, 3)).astype(np.float32)
+    boxes2d = np.zeros((b, m, 6), np.float32)
+    boxes2d[:, :3, :4] = rng.uniform(0, 20, (b, 3, 4))
+    boxes2d[:, :3, 2:4] += 20
+    boxes2d[:, :3, 4] = rng.uniform(0.3, 0.9, (b, 3))
+    boxes2d[:, :3, 5] = rng.integers(0, cfg.num_classes, (b, 3))
+    d2i = np.tile(np.eye(4, dtype=np.float32)[None], (b, 1, 1))
+    d2i[:, 0, 0] = d2i[:, 1, 1] = 50.0
+    d2i[:, 0, 2] = w / 2
+    d2i[:, 1, 2] = h / 2
+    return dict(points=pts, img=img, bboxes_2d=boxes2d, depth2img=d2i,
+                gt_boxes=np.concatenate([ctr, dim, yaw], -1),
+                gt_labels=rng.integers(0, cfg.num_classes, (b, g)).astype(
+                    np.int32),
+                gt_mask=np.ones((b, g), bool))
+
+
 def synth_point_channels(cfg):
     """The width of a point-based config's synthetic points where it is
-    not its model's default (VoteNet: 3, xyz without the datasets'
-    height), else None."""
-    return 3 if isinstance(cfg, VoteNetConfig) else None
+    not its model's default (the indoor types: 3, xyz without the
+    datasets' height), else None."""
+    return 3 if isinstance(cfg, (VoteNetConfig, GroupFree3DConfig)) \
+        else None
 
 
 def mvx_synth(cfg, b, seed, n=512, h=64, w=96):
@@ -317,4 +378,16 @@ def mvx_to_device(batch, device):
 
     return t(batch['points']), tuple(t(batch[k]) for k in (
         'point_mask', 'img', 'lidar2img')), {
+        k: t(batch[k]) for k in ('gt_boxes', 'gt_labels', 'gt_mask')}
+
+
+def imvotenet_to_device(batch, device):
+    """A batch of `imvotenet_synth` -> (points, (img, bboxes_2d,
+    depth2img), gt dict), tensors on `device`: ImVoteNet's
+    `forward_train` arguments."""
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return t(batch['points']), tuple(t(batch[k]) for k in (
+        'img', 'bboxes_2d', 'depth2img')), {
         k: t(batch[k]) for k in ('gt_boxes', 'gt_labels', 'gt_mask')}

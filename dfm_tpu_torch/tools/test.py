@@ -1,6 +1,6 @@
 """Evaluation of a DfM or mono (FCOS3D, PGD, SMOKE) config on KITTI, of a
 MultiViewDfM config on Waymo, of FCOS3D / PGD on nuScenes-mono, or of
-VoteNet on ScanNet / SUN RGB-D, with the port.
+VoteNet, GroupFree3D and H3DNet on ScanNet / SUN RGB-D, with the port.
 
     python -m dfm_tpu_torch.tools.test CONFIG \\
         [--checkpoint X.pth] [--cfg-options key=value ...] \\
@@ -43,20 +43,24 @@ KITTI mono (FCOSMono3D, PGD, SMOKEMono3D; data type 'KittiMono'), as
 such as the train CLI's) -> padded camera-frame detections -> KITTI annos
 with the 2D boxes projected by the original image's P2
 (`cam_detections_to_kitti_annos`) -> `kitti_eval`, the same AP lines.
-Indoor (VoteNet; data type 'ScanNetDataset' or 'SUNRGBDDataset'), as
-`tools/test.py:543-545` routes it: `{scannet,sunrgbd}_infos_val.pkl` under
-`data.data_root` (`python -m dfm_tpu_torch.tools.create_data
-scannet|sunrgbd` writes it) -> `data/indoor.py`'s dataset (`train=False`:
-`data.num_points` points a scene, with the height feature) -> VoteNet
-(bfloat16; seeded random weights or a checkpoint in the port's layout)
--> every proposal with its score and class -> `indoor_eval`, printing
-the mAP and mAR lines at IoU 0.25 and 0.5. The boxes go in as the model
-gives them: trained on the dataset's boxes, whose centres
-`votenet_loss` matches to `gt_boxes[..., :3]` (the bottom centre), its
-centres are bottom centres. JAX's `indoor_real_eval` reads `boxes3d`,
-`scores` and `labels` of `votenet_predict`'s output, which names them
-`boxes_3d`, `scores_3d`, `labels_3d`, and raises KeyError (ROADMAP.md
-§3); the port reads its keys.
+Indoor (VoteNet, GroupFree3DNet, H3DNet; data type 'ScanNetDataset' or
+'SUNRGBDDataset'), as `tools/test.py:543-545` routes them:
+`{scannet,sunrgbd}_infos_val.pkl` under `data.data_root` (`python -m
+dfm_tpu_torch.tools.create_data scannet|sunrgbd` writes it) ->
+`data/indoor.py`'s dataset (`train=False`: `data.num_points` points a
+scene, with the height feature) -> the model (bfloat16; seeded random
+weights or a checkpoint in the port's layout) -> every proposal with its
+score and class -> `indoor_eval`, printing the mAP and mAR lines at IoU
+0.25 and 0.5. The boxes go in as the model gives them: VoteNet and
+H3DNet, trained on the dataset's boxes, whose centres `votenet_loss`
+matches to `gt_boxes[..., :3]` (the bottom centre), give bottom centres;
+GroupFree3D decodes bottom-centre boxes. JAX's `indoor_real_eval` reads
+`boxes3d`, `scores` and `labels` of the predict's output, which the three
+name `boxes_3d`, `scores_3d`, `labels_3d`, and raises KeyError
+(ROADMAP.md §3); the port reads its keys. ImVoteNet has no real-data
+evaluation: the indoor datasets give no image, 2D boxes or depth2img
+(JAX's neither: its indoor route calls ImVoteNet with points alone and
+raises), so without `--synthetic` it exits 2 naming them.
 
 MonoFlex and ImVoxelNet have no real-data evaluation in either package
 (JAX falls back to a synthetic batch): they run with `--synthetic` only,
@@ -87,9 +91,9 @@ trunks keep their norms; DLA's convs, its neck's DCNv2 and MonoFlex's
 edge-fusion 1D convs fold too). `--synthetic` needs no data: one forward
 and decode of a batch of one from the train adapters' synthetic batches
 (`runtime/adapters.py`: `dfm_synth`, `mv_synth`, `imvoxel_synth`,
-`mono_synth`, `lidar_synth`, `mvx_synth`), for every ported type; it prints
-the decoded arrays' shapes and whether they are finite, and exits 1 when
-one is not.
+`mono_synth`, `lidar_synth`, `mvx_synth`, `imvotenet_synth`), for every
+ported type; it prints the decoded arrays' shapes and whether they are
+finite, and exits 1 when one is not.
 
 Another model type, or a data root without its info file, exits with a
 message and code 2. Runs on the CUDA card unless `--device cpu`, in
@@ -124,15 +128,16 @@ from ..evaluation.kitti_eval import kitti_eval
 from ..evaluation.results import (cam_detections_to_kitti_annos,
                                   detections_to_kitti_annos)
 from ..evaluation.waymo_eval import gt_annos_to_bin, gt_objects_from_infos
-from ..models.builder import (LIDAR_TYPES, MONO_TYPES, MVX_TYPES,
-                              build_detector, mono_backbone_depth,
-                              unused_keys)
+from ..models.builder import (IMVOTE_TYPES, INDOOR_TYPES, LIDAR_TYPES,
+                              MONO_TYPES, MVX_TYPES, build_detector,
+                              mono_backbone_depth, unused_keys)
 from ..parallel import dist as D
-from ..runtime.adapters import (dfm_synth, imvoxel_synth, lidar_synth,
-                                lidar_to_device, mono_synth, mono_to_device,
-                                mv_synth, mv_to_device, mvx_synth,
-                                mvx_to_device, synth_point_channels,
-                                to_device)
+from ..runtime.adapters import (dfm_synth, imvotenet_synth,
+                                imvotenet_to_device, imvoxel_synth,
+                                lidar_synth, lidar_to_device, mono_synth,
+                                mono_to_device, mv_synth, mv_to_device,
+                                mvx_synth, mvx_to_device,
+                                synth_point_channels, to_device)
 from ..runtime.config import load_config, merge_options
 from ..utils.fuse_conv_bn import fuse_conv_bn
 from ..utils.weights import load_reference_state_dict, read_checkpoint
@@ -183,7 +188,7 @@ def init_handle(args, cfg, point_channels=None):
         handle = init_mvdfm_model(mcfg, dtype, args.device)
     elif kind == 'ImVoxelNet':
         handle = init_imvoxelnet_model(mcfg, dtype, args.device)
-    elif kind in LIDAR_TYPES + MVX_TYPES:
+    elif kind in LIDAR_TYPES + MVX_TYPES + IMVOTE_TYPES:
         handle = init_lidar_model(mcfg, dtype, args.device, point_channels)
     elif kind in MONO_TYPES:
         handle = init_mono_model(mcfg, mono_backbone_depth(cfg.model), dtype,
@@ -346,7 +351,7 @@ def nuscenes_mono_eval(args, cfg):
 
 def indoor_real_eval(args, cfg):
     """Build -> load -> infer each scene -> indoor AP at IoU 0.25 / 0.5
-    (`tools/test.py:234-283`, with `votenet_predict`'s keys)."""
+    (`tools/test.py:234-283`, with the predicts' keys)."""
     ds = indoor_split(cfg.data, 'val')
     n = min(len(ds), args.max_samples or len(ds))
     handle = init_handle(args, cfg, ds.get_sample(0)['points'].shape[-1])
@@ -395,6 +400,9 @@ def synthetic_eval(args, cfg):
     elif kind in MVX_TYPES:
         pts, cond, _ = mvx_to_device(mvx_synth(mcfg, 1, 0), dev)
         det = handle['infer'](pts, *cond)
+    elif kind in IMVOTE_TYPES:
+        pts, cond, _ = imvotenet_to_device(imvotenet_synth(mcfg, 1, 0), dev)
+        det = handle['infer'](pts, None, *cond)
     elif kind in MONO_TYPES:
         img, cam2img, _ = mono_to_device(mono_synth(
             1, 0, kpts=kind == 'PGD', flex=kind == 'MonoFlex'), dev)
@@ -476,7 +484,7 @@ def main(argv=None):
                            nuscenes_mono_eval)
     elif kind in MONO_TYPES:
         want, info, run = 'KittiMono', INFO_FILE, kitti_mono_eval
-    elif kind == 'VoteNet':
+    elif kind in INDOOR_TYPES:
         want = data_type if data_type in INDOOR_DATASETS else \
             'ScanNetDataset or SUNRGBDDataset'
         info = f'{INDOOR_DATASETS[data_type][0]}_infos_val.pkl' \
@@ -493,7 +501,16 @@ def main(argv=None):
               'which the LiDAR model arguments read: KeyError); --synthetic '
               'decodes a synthetic batch', file=sys.stderr)
         return 2
-    elif (kind in LIDAR_TYPES and kind != 'VoteNet') or kind in MVX_TYPES:
+    elif kind in IMVOTE_TYPES:
+        print(f'[data] {kind} has no real-data evaluation: the indoor '
+              f'datasets (here {data_type!r}) give no img, bboxes_2d or '
+              'depth2img, its image inputs (JAX\'s SUNRGBDDataset neither: '
+              'its indoor route calls the model with points alone and '
+              'raises); --synthetic decodes a synthetic batch',
+              file=sys.stderr)
+        return 2
+    elif (kind in LIDAR_TYPES and kind not in INDOOR_TYPES) or \
+            kind in MVX_TYPES:
         print(f'[data] {kind} has no real-data evaluation (JAX wires none '
               'either): running the synthetic evaluation', flush=True)
         run, args.synthetic = synthetic_eval, True

@@ -1,7 +1,8 @@
 """Train DfM, DfMFull, MultiViewDfM, ImVoxelNet, the mono types (FCOSMono3D,
 PGD, SMOKEMono3D, MonoFlex), the LiDAR types (VoxelNet, DynamicVoxelNet,
-CenterPoint, SASSD, PointRCNN, PartA2, SSD3DNet), MVX or VoteNet with the
-port, in one process or data-parallel across processes.
+CenterPoint, SASSD, PointRCNN, PartA2, SSD3DNet), MVX or the indoor types
+(VoteNet, GroupFree3DNet, H3DNet, ImVoteNet) with the port, in one process
+or data-parallel across processes.
 
     python -m dfm_tpu_torch.tools.train configs/dfm_r34_kitti_3class.py \
         [--cfg-options key=value ...] [--work-dir W] [--auto-resume] \
@@ -68,13 +69,21 @@ train source: with `--synthetic` they train on `lidar_synth` (3DSSD's 1024
 points with a zero fourth column) or `mvx_synth` (its points, a 64x96
 image and lidar2img), loss `ssd3d_loss` / `mvx_loss` among them; without
 it the CLI exits 2 naming the flag (JAX falls back to synthetic batches
-silently, `tools/train.py:454-461`). VoteNet on data type 'ScanNetDataset'
-or 'SUNRGBDDataset' trains on `IndoorSource` (`tools/train.py:357-395`:
-`{scannet,sunrgbd}_infos_train.pkl` under `data.data_root` as
-`data/indoor.py` train samples, augmented from the dataset's own
-RandomState(0), indices from a fresh permutation of `rng` each epoch),
-loss `votenet_loss`; with `--synthetic`, `indoor_synth` (256 xyz points
-in a room cube, the model built for 3 point channels).
+silently, `tools/train.py:454-461`). VoteNet, GroupFree3DNet and H3DNet on
+data type 'ScanNetDataset' or 'SUNRGBDDataset' train on `IndoorSource`
+(`tools/train.py:357-395`: `{scannet,sunrgbd}_infos_train.pkl` under
+`data.data_root` as `data/indoor.py` train samples, augmented from the
+dataset's own RandomState(0), indices from a fresh permutation of `rng`
+each epoch), loss `votenet_loss` / `groupfree3d_loss` / `h3dnet_loss`;
+with `--synthetic`, `indoor_synth` (VoteNet, H3DNet: 256 xyz points in a
+room cube) or `groupfree3d_synth` (1,024), the model built for 3 point
+channels. ImVoteNet trains on `imvotenet_synth` with `--synthetic` only
+(256 points, a 48x64 image, 2D boxes and depth2img; loss
+`imvotenet_loss`): the indoor datasets give no image inputs (JAX's
+neither, whose indoor source feeds it points alone and raises), so
+without the flag it exits 2 naming them. Its frozen image branch gets
+no gradient, and AdamW still decays it, as JAX's CLI freezes no prefix
+of ImVoteNet.
 Another model type exits with a message
 and code 2, as does a KITTI data root without the train infos (without
 `--synthetic`). Runs on the CUDA card unless `--device cpu`.
@@ -111,9 +120,9 @@ from ..data.waymo import frames_per_sample
 from ..evaluation.kitti_eval import kitti_eval
 from ..data.dbsampler import DataBaseSampler, paste_objects
 from ..data.indoor import INDOOR_DATASETS, indoor_split
-from ..models.builder import (LIDAR_TYPES, MONO_TYPES, MVX_TYPES,
-                              atss_config, build_detector, lidar_class,
-                              mono_model)
+from ..models.builder import (IMVOTE_TYPES, INDOOR_TYPES, LIDAR_TYPES,
+                              MONO_TYPES, MVX_TYPES, atss_config,
+                              build_detector, lidar_class, mono_model)
 from ..models.detectors.dfm import DfM
 from ..models.detectors.dfm_full import DfMFull
 from ..models.detectors.imvoxelnet import ImVoxelNet
@@ -123,11 +132,12 @@ from ..parallel import dist as D
 from ..parallel.multihost import broadcast_seed
 from ..runtime.checkpoint import CheckpointManager
 from ..runtime.config import load_config, merge_options
-from ..runtime.adapters import (dfm_synth, imvoxel_synth, lidar_synth,
-                                lidar_to_device, mono_synth, mono_to_device,
-                                mv_synth, mv_to_device, mvx_synth,
-                                mvx_to_device, synth_point_channels,
-                                to_device)
+from ..runtime.adapters import (dfm_synth, imvotenet_synth,
+                                imvotenet_to_device, imvoxel_synth,
+                                lidar_synth, lidar_to_device, mono_synth,
+                                mono_to_device, mv_synth, mv_to_device,
+                                mvx_synth, mvx_to_device,
+                                synth_point_channels, to_device)
 from ..runtime.logging import MetricsLogger
 from ..runtime.schedule import liga_schedule
 from ..runtime.train import TrainStep, make_optimizer
@@ -139,7 +149,7 @@ VOXEL_TYPES = ('MultiViewDfM', 'ImVoxelNet')
 # `tools/train.py:456-458`); every other LiDAR case has no source
 KITTI_LIDAR_TYPES = ('VoxelNet', 'DynamicVoxelNet', 'CenterPoint', 'SASSD')
 TRAINED_TYPES = ('DfM', 'DfMFull') + VOXEL_TYPES + MONO_TYPES + \
-    LIDAR_TYPES + MVX_TYPES
+    LIDAR_TYPES + MVX_TYPES + IMVOTE_TYPES
 
 
 def parse_args(argv=None):
@@ -385,7 +395,7 @@ class KittiLidarSource:
 
 
 class IndoorSource:
-    """ScanNet / SUN RGB-D -> VoteNet batches (`tools/train.py:357-395`):
+    """ScanNet / SUN RGB-D -> VoteNet / GroupFree3D / H3DNet batches (`tools/train.py:357-395`):
     the split's infos as `data/indoor.py` samples (`data.num_points`
     points, `data.max_gt` boxes; train-time flips, rotation and scale from
     the dataset's own RandomState(0)), `batch_size` indices a step from a
@@ -430,7 +440,8 @@ class SyntheticSource:
     `mono_synth(batch_size, seed + s)` for the mono types (64x96; PGD's
     with its keypoint keys, MonoFlex's with `kpts2d` and `gt_alphas`),
     `lidar_synth(cfg, batch_size, seed + s)` for the LiDAR types (VoteNet's
-    `indoor_synth`), `mvx_synth` for MVX;
+    and H3DNet's `indoor_synth`, GroupFree3D's `groupfree3d_synth`),
+    `mvx_synth` for MVX, `imvotenet_synth` for ImVoteNet;
     `rng` is not drawn from. 16 steps an epoch."""
 
     steps_per_epoch = 16
@@ -453,6 +464,9 @@ class SyntheticSource:
             return lidar_synth(self.cfg, self.batch_size, self.seed + step)
         if self.kind in MVX_TYPES:
             return mvx_synth(self.cfg, self.batch_size, self.seed + step)
+        if self.kind in IMVOTE_TYPES:
+            return imvotenet_synth(self.cfg, self.batch_size,
+                                   self.seed + step)
         return dfm_synth(self.cfg, self.batch_size, self.seed + step,
                          full=self.kind == 'DfMFull')
 
@@ -460,7 +474,8 @@ class SyntheticSource:
         to = mv_to_device if self.kind in VOXEL_TYPES else \
             mono_to_device if self.kind in MONO_TYPES else \
             lidar_to_device if self.kind in LIDAR_TYPES else \
-            mvx_to_device if self.kind in MVX_TYPES else to_device
+            mvx_to_device if self.kind in MVX_TYPES else \
+            imvotenet_to_device if self.kind in IMVOTE_TYPES else to_device
         return to(self.next_samples(step, rng), device)
 
 
@@ -543,7 +558,7 @@ def build_model(kind, cfg, mcfg, seed, synthetic=False):
         model = MultiViewDfM(mcfg)
     elif kind == 'ImVoxelNet':
         model = ImVoxelNet(mcfg)
-    elif kind in LIDAR_TYPES + MVX_TYPES:
+    elif kind in LIDAR_TYPES + MVX_TYPES + IMVOTE_TYPES:
         width = synth_point_channels(mcfg) if synthetic else None
         model = lidar_class(mcfg)(mcfg, **(
             {} if width is None else dict(point_channels=width)))
@@ -573,14 +588,22 @@ def main(argv=None):
               'source is wired for it (JAX wires none either); pass '
               '--synthetic', file=sys.stderr)
         return 2
-    indoor = kind == 'VoteNet' and d.get('type', '') in INDOOR_DATASETS
+    if kind in IMVOTE_TYPES and not args.synthetic:
+        print(f'[data] {kind} trains on synthetic batches only: the indoor '
+              f'datasets (here {d.get("type", "")!r}) give no img, '
+              'bboxes_2d or depth2img, its image inputs (JAX\'s '
+              'SUNRGBDDataset neither: its indoor source feeds the model '
+              'points alone and raises); pass --synthetic', file=sys.stderr)
+        return 2
+    indoor = kind in INDOOR_TYPES and d.get('type', '') in INDOOR_DATASETS
     if (kind in LIDAR_TYPES + MVX_TYPES) and not args.synthetic and \
             not indoor and (kind not in KITTI_LIDAR_TYPES or
                             d.get('type', '') != 'KittiDataset'):
         print(f'[data] {kind} on dataset type {d.get("type", "")!r} has no '
               'train source (JAX wires KITTI velodyne points for VoxelNet, '
               'DynamicVoxelNet, CenterPoint and SASSD on KittiDataset alone, '
-              'indoor scenes for VoteNet on ScanNetDataset / SUNRGBDDataset, '
+              'indoor scenes for VoteNet, GroupFree3DNet and H3DNet on '
+              'ScanNetDataset / SUNRGBDDataset, '
               'and falls back to synthetic batches otherwise); pass '
               '--synthetic', file=sys.stderr)
         return 2
@@ -638,7 +661,7 @@ def train(args, cfg, kind, d, device):
             frames_per_sample(d, mcfg) if multiview else 1)
     elif kind in MONO_TYPES:
         source = KittiMonoSource(cfg, batch_size)
-    elif kind == 'VoteNet':
+    elif kind in INDOOR_TYPES:
         source = IndoorSource(cfg, batch_size)
     elif kind in LIDAR_TYPES:
         source = KittiLidarSource(cfg, batch_size)

@@ -8,10 +8,14 @@ rules (:27-34, :59-72):
 
   flax Conv (k..., I, O)                 -> torch (O, I, k...)
   flax Dense kernel (I, O) (kind 'linear') -> torch (O, I)
+  flax attention DenseGeneral kernel (I, heads, head_dim) (kind
+      'mha_in': query / key / value) -> torch (heads * head_dim, I), its
+      bias (heads, head_dim) flattened; (heads, head_dim, O) (kind
+      'mha_out': out) -> torch (O, heads * head_dim)
   flax ConvTranspose kernel[k..., i, o]  -> torch w[i, o, K-1-k...]
       (spatial flip: torch's transposed conv correlates with the flipped
       kernel)
-  GroupNorm / BatchNorm scale, bias      -> weight, bias
+  GroupNorm / BatchNorm / LayerNorm ('ln') scale, bias -> weight, bias
   BatchNorm batch_stats mean, var        -> running_mean, running_var
   a bare parameter (kind 'param': the mono heads' `scales`,
       `fuse_lambda`, `scale_kpts`, `scale_bbox2d`) -> the same array
@@ -37,6 +41,7 @@ __all__ = ['dfm_key_map', 'dfm_full_key_map', 'mvdfm_key_map',
            'imvoxelnet_key_map', 'voxelnet_key_map', 'centerpoint_key_map',
            'sassd_key_map', 'point_rcnn_key_map', 'parta2_key_map',
            'ssd3d_key_map', 'mvx_key_map', 'votenet_key_map',
+           'groupfree3d_key_map', 'imvotenet_key_map', 'h3dnet_key_map',
            'dynamic_voxelnet_key_map', 'sparse_teacher_key_map',
            'dfm_with_teacher_key_map',
            'center_head_key_map', 'mono_key_map', 'fcos3d_head_key_map',
@@ -237,14 +242,22 @@ def sassd_key_map():
 
 
 def _dense_key_map(module, prefix=''):
-    """(torch_prefix, flax_path, kind) of every `Linear` ('linear') and
-    `BatchNormLast` ('bn') of `module` whose torch path is the flax path
-    (the point-set modules keep flax's names)."""
-    from ..models.layers import BatchNormLast, Linear
+    """(torch_prefix, flax_path, kind) of every `Linear` ('linear'; in a
+    `MultiHeadAttention` 'mha_in' for its query / key / value and
+    'mha_out' for its out), `BatchNormLast` ('bn') and `LayerNorm` ('ln')
+    of `module` whose torch path is the flax path (the point-set and
+    transformer modules keep flax's names)."""
+    from ..models.layers import (BatchNormLast, LayerNorm, Linear,
+                                 MultiHeadAttention)
+    attn = {n for n, mod in module.named_modules()
+            if isinstance(mod, MultiHeadAttention)}
     m = []
     for name, mod in module.named_modules():
         kind = 'linear' if isinstance(mod, Linear) else \
-            'bn' if isinstance(mod, BatchNormLast) else None
+            'bn' if isinstance(mod, BatchNormLast) else \
+            'ln' if isinstance(mod, LayerNorm) else None
+        if kind == 'linear' and name.rpartition('.')[0] in attn:
+            kind = 'mha_out' if name.endswith('.out') else 'mha_in'
         if kind:
             m.append((prefix + name, tuple(name.split('.')), kind))
     return m
@@ -279,6 +292,71 @@ def votenet_key_map(cfg=None):
     from ..models.detectors.votenet import VoteNet
     with torch.device('meta'):
         return _dense_key_map(VoteNet(cfg))
+
+
+def groupfree3d_key_map(cfg=None):
+    """(torch_prefix, flax_path, kind) for the JAX `GroupFree3DNet` tree
+    of config `cfg`: the SSG `backbone`'s `sa{i}` / `fp{j}` MLPs, the KPS
+    `points_obj_*`, the heads `head_proposal` / `head_s{i}`, the query
+    and key projections and position embeddings and the `decoder{i}`
+    layers (`self_attn` / `cross_attn` query, key, value, out; `norm0..2`
+    LayerNorms; `ffn0`, `ffn1`)."""
+    from ..models.detectors.groupfree3d import GroupFree3DNet
+    with torch.device('meta'):
+        return _dense_key_map(GroupFree3DNet(cfg))
+
+
+def h3dnet_key_map(cfg=None):
+    """(torch_prefix, flax_path, kind) for the JAX `H3DNet` tree of
+    config `cfg`: `backbone{t}` (SSG), `fuse`, the `rpn` tower, the
+    `prim_{z,xy,line}` heads, the matching (`match_surf`, `match_line`,
+    `cue_obj`, `cue_sem`, or `match0`) and `ref0`, `ref1`, `ref_out`."""
+    from ..models.detectors.h3dnet import H3DNet
+    with torch.device('meta'):
+        return _dense_key_map(H3DNet(cfg))
+
+
+def _liga_resnet(prefix, fpath, model):
+    """A port BatchNorm `LIGAResNet` `model` (any strides, factors and
+    stages) under `prefix`, JAX's at `fpath`: the stem and each block,
+    with its downsample branch where the model has one."""
+    m = [(f'{prefix}.conv1', fpath + ('Conv_0',), 'conv2d'),
+         (f'{prefix}.bn1', fpath + ('BatchNorm_0',), 'bn')]
+    for li in range(1, len(model.out_channels) + 1):
+        for b, block in enumerate(getattr(model, f'layer{li}')):
+            m += _resnet_basic(f'{prefix}.layer{li}.{b}',
+                               fpath + (f'layer{li}_block{b}',),
+                               block.downsample is not None)
+    return m
+
+
+def imvotenet_key_map(cfg=None):
+    """(torch_prefix, flax_path, kind) for the JAX `ImVoteNet` tree of
+    config `cfg`: the SSG `backbone`, `img_mlp`, the `joint` / `pts` /
+    `img` towers and, with the image branch, `img_backbone` (the plain
+    ResNet-18 form of `LIGAResNet`), the FPN `img_neck` (lateral0..2,
+    fpn_conv0..2, extra_conv3..4) and the ATSS `img_bbox_head` (one
+    GroupNorm conv a tower, atss_cls / atss_reg / atss_centerness)."""
+    from ..models.detectors.imvotenet import ImVoteNet
+    with torch.device('meta'):
+        model = ImVoteNet(cfg)
+    m = _dense_key_map(model)
+    if not model.cfg.with_img_branch:
+        return m
+    m += _liga_resnet('img_backbone', ('img_backbone',), model.img_backbone)
+    n = ('img_neck',)
+    for i in range(model.img_neck.num_ins):
+        m += [(f'img_neck.lateral{i}', n + (f'lateral{i}',), 'conv2d'),
+              (f'img_neck.fpn_conv{i}', n + (f'fpn_conv{i}',), 'conv2d')]
+    m += [(f'img_neck.extra_conv{j}', n + (f'extra_conv{j}',), 'conv2d')
+          for j in range(model.img_neck.num_ins, model.img_neck.num_outs)]
+    h = ('img_bbox_head',)
+    for i in range(model.img_bbox_head.stacked_convs):
+        for tower in ('cls_tower', 'reg_tower'):
+            m += _convnorm(f'img_bbox_head.{tower}{i}', h + (f'{tower}{i}',),
+                           2)
+    return m + [(f'img_bbox_head.{k}', h + (k,), 'conv2d')
+                for k in ('atss_cls', 'atss_reg', 'atss_centerness')]
 
 
 def mvx_key_map(cfg=None):
@@ -684,6 +762,12 @@ def state_dict_from_jax(variables, key_map=None):
             put(f'{prefix}.weight', _conv_weight(node['kernel'], kind))
             if 'bias' in node:
                 put(f'{prefix}.bias', node['bias'])
+        elif kind.startswith('mha'):
+            k = np.asarray(node['kernel'])
+            k = k.reshape(k.shape[0], -1) if kind == 'mha_in' else \
+                k.reshape(-1, k.shape[-1])
+            put(f'{prefix}.weight', k.T)
+            put(f'{prefix}.bias', np.asarray(node['bias']).reshape(-1))
         else:
             put(f'{prefix}.weight', node['scale'])
             put(f'{prefix}.bias', node['bias'])

@@ -383,8 +383,9 @@ def test_port_runs_without_jax(tmp_path):
     """A fresh process imports the port (with the K9a / K9b modules, the
     card-only scripts, the KITTI data, evaluation, config, builder and
     tool modules, the training modules, MultiViewDfM's with `DfMNeck`,
-    the CenterHead and `voxel_sample`, and 3DSSD's, MVX's, VoteNet's and
-    the indoor data's) and runs a tiny CPU forward
+    the CenterHead and `voxel_sample`, and 3DSSD's, MVX's, VoteNet's,
+    GroupFree3D's, ImVoteNet's, H3DNet's and the indoor data's) and runs a
+    tiny CPU forward
     in the full-chain form, whose neck runs the fused K2's plain
     version, K1's sweep on the CPU, a tiny `dataset_inference` on a
     synthetic KITTI tree in `tmp_path` (PNG files), and one CPU train
@@ -417,6 +418,9 @@ def test_port_runs_without_jax(tmp_path):
         'import dfm_tpu_torch.models.detectors.ssd3d\n'
         'import dfm_tpu_torch.models.detectors.mvx_two_stage\n'
         'import dfm_tpu_torch.models.detectors.votenet\n'
+        'import dfm_tpu_torch.models.detectors.groupfree3d\n'
+        'import dfm_tpu_torch.models.detectors.imvotenet\n'
+        'import dfm_tpu_torch.models.detectors.h3dnet\n'
         'import dfm_tpu_torch.ops.grid_sample, dfm_tpu_torch.data.indoor\n'
         'import dfm_tpu_torch.evaluation.indoor_eval\n'
         'import dfm_tpu_torch.tools.data_converter.indoor_converter\n'

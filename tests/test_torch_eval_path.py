@@ -197,7 +197,7 @@ def test_cli_from_config_to_ap(tree, tmp_path, capsys):
 def test_cli_refuses_unported_model():
     res = subprocess.run(
         [sys.executable, '-m', 'dfm_tpu_torch.tools.test',
-         os.path.join(ROOT, 'configs', 'groupfree3d_scannet.py')],
+         os.path.join(ROOT, 'configs', 'pointnet2_ssg_s3dis_seg.py')],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
         env=dict(os.environ, PYTHONPATH=ROOT))
     assert res.returncode == 2 and 'not ported' in res.stderr

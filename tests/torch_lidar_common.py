@@ -4,6 +4,8 @@ _mvx.py, _votenet.py): seeded point
 clouds, the relative L2, and one training step of a JAX module against
 the port's `TrainStep` by the rules of tests/test_torch_train_step.py."""
 
+import concurrent.futures
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,8 +135,8 @@ def _to64(x):
 
 
 def check_step(jm, j_loss, variables, key_map, port, jbatch, model_args,
-               port_inputs, live=(), f64=None, probe=False,
-               compiler_options=FAST_COMPILE):
+               port_inputs, live=(), f64=None, probe=False, rounding=(),
+               float32=True, compiler_options=FAST_COMPILE):
     """One JAX `make_train_step` of `jm` (loss `j_loss(outputs, batch)`) and
     one port `TrainStep` of `port` (loaded with the same weights) on the
     same batch: the loss terms (rtol LOSS_RTOL), each parameter's
@@ -160,25 +162,55 @@ def check_step(jm, j_loss, variables, key_map, port, jbatch, model_args,
     features), JAX's float32 step of `jm` runs too: a loss term and the
     whole gradient vector may then also lie as far from the float64 step
     as JAX's own float32 step does; each parameter stays within
-    GRAD_REL_L2.
+    GRAD_REL_L2 and each statistic within STATS_ATOL, but for those whose
+    names start with one of `rounding` (with `probe`): each of them must
+    lie beyond that limit in JAX's own float32 step (a gradient's relative
+    L2, a statistic's largest error), and the port's float32 step no
+    farther than JAX's (the float64 port's 1e-6 holds them as every
+    other).
+
+    `float32=False` (with `f64`, not `probe`): the float64 pair alone, for
+    weights where the float32 steps of both packages lie beyond these
+    rules from the float64 step.
+
+    The steps run in threads: JAX's compiles beside the port's steps.
     Returns (the reference step's metrics, the worst parameter's gradient
-    gap, the whole vector's)."""
-    assert f64 is not None or not probe
-    if f64 is None or probe:
-        metrics32, grads32, after = _jax_step(jm, j_loss, variables, key_map,
-                                              jbatch, model_args,
-                                              compiler_options)
-        metrics, jgrads = metrics32, grads32
+    gap outside `rounding`, the whole vector's; None for both without
+    `float32`)."""
+    assert f64 is not None or (float32 and not probe)
+    assert probe or not rounding
+    assert float32 or not probe
     if f64 is not None:
-        jm64, inputs64 = f64
-        with jax.enable_x64():
-            metrics, jgrads, after = _jax_step(
-                jm64, j_loss, jax.tree.map(_to64, variables), key_map,
-                jax.tree.map(lambda x: jnp.asarray(_to64(np.asarray(x))),
-                             jbatch), model_args, compiler_options)
         port64 = type(port)(port.cfg, dtype=torch.float64).double()
         port64.load_state_dict(port.state_dict())
-        got64, grads64 = _port_step(port64, inputs64(port64))
+
+    def jax64():
+        with jax.enable_x64():
+            return _jax_step(
+                f64[0], j_loss, jax.tree.map(_to64, variables), key_map,
+                jax.tree.map(lambda x: jnp.asarray(_to64(np.asarray(x))),
+                             jbatch), model_args, compiler_options)
+
+    # oneDNN off around all the steps: each port step turns it off and
+    # back to the state it found
+    with torch.backends.mkldnn.flags(enabled=False), \
+            concurrent.futures.ThreadPoolExecutor(3) as pool:
+        j32 = pool.submit(_jax_step, jm, j_loss, variables, key_map, jbatch,
+                          model_args, compiler_options) \
+            if f64 is None or probe else None
+        if f64 is not None:
+            j64 = pool.submit(jax64)
+            p64 = pool.submit(_port_step, port64, f64[1](port64))
+        if float32:
+            got, grads = _port_step(port, port_inputs)
+        if j32 is not None:
+            metrics32, grads32, after32 = j32.result()
+            metrics, jgrads, after = metrics32, grads32, after32
+        if f64 is not None:
+            (metrics, jgrads, after), (got64, grads64) = (j64.result(),
+                                                          p64.result())
+    if f64 is not None:
+        assert set(got64) == set(metrics)
         for k, v in got64.items():
             np.testing.assert_allclose(v, metrics[k], rtol=1e-6, atol=1e-9,
                                        err_msg=k)
@@ -192,7 +224,8 @@ def check_step(jm, j_loss, variables, key_map, port, jbatch, model_args,
             if n.endswith(('running_mean', 'running_var')):
                 np.testing.assert_allclose(x.numpy(), after[n].numpy(),
                                            atol=1e-6, err_msg=n)
-    got, grads = _port_step(port, port_inputs)
+    if not float32:
+        return metrics, None, None
     assert set(got) == set(metrics)
     for k, v in got.items():
         x = metrics[k]
@@ -202,7 +235,7 @@ def check_step(jm, j_loss, variables, key_map, port, jbatch, model_args,
         assert abs(v - x) <= lim, (k, v, x)
     fw = np.concatenate([jgrads[n].numpy().ravel() for n in grads])
     scale = float(np.linalg.norm(fw))
-    gaps, zero = {}, {}
+    gaps, zero, rounded = {}, {}, {}
     for n, g in grads.items():
         want = jgrads[n].numpy()
         if np.linalg.norm(want) <= ZERO_GRAD * scale:
@@ -210,16 +243,24 @@ def check_step(jm, j_loss, variables, key_map, port, jbatch, model_args,
             # which removes it): both sides' rounding only
             zero[n] = float(np.linalg.norm(g.numpy())) / scale
             continue
+        if rounding and n.startswith(tuple(rounding)):
+            rounded[n] = (rel(g.numpy(), want),
+                          rel(grads32[n].numpy(), want))
+            continue
         gaps[n] = rel(g.numpy(), want)
     dead = [n for n in zero if n.startswith(tuple(live))]
     assert not dead, dead
     bad = {n: v for n, v in gaps.items() if v > GRAD_REL_L2}
     bad.update({n: v for n, v in zero.items() if v > ZERO_GRAD})
+    bad.update({n: v for n, v in rounded.items()
+                if v[1] <= GRAD_REL_L2 or v[0] > v[1]})
     assert not bad, bad
     whole = rel(np.concatenate([g.numpy().ravel() for g in grads.values()]),
                 fw)
     lim = GRAD_REL_L2_ALL
     if probe:
+        worst32 = max(rel(grads32[n].numpy(), jgrads[n].numpy())
+                      for n in gaps)
         lim = max(lim, rel(np.concatenate(
             [grads32[n].numpy().ravel() for n in grads]), fw))
     assert whole <= lim, (whole, lim)
@@ -230,12 +271,26 @@ def check_step(jm, j_loss, variables, key_map, port, jbatch, model_args,
         want = after[n].numpy()
         if n.endswith(('running_mean', 'running_var')):
             atol = STATS_ATOL
+            if rounding and n.startswith(tuple(rounding)):
+                err = np.abs(v.numpy() - want).max()
+                rounded[n] = (err, np.abs(after32[n].numpy() - want).max())
+                assert atol < rounded[n][1] and err <= rounded[n][1], \
+                    (n, rounded[n])
+                continue
         else:
             g = grads[n].numpy().astype(np.float64) * clip
             gw = jgrads[n].numpy().astype(np.float64) * clip_jax
             atol = lr0 * np.abs(g / (np.abs(g) + 1e-8) -
                                 gw / (np.abs(gw) + 1e-8)) + PARAM_ATOL
         assert (np.abs(v.numpy() - want) <= atol).all(), n
+    unused = [r for r in rounding if not any(n.startswith(r)
+                                             for n in rounded)]
+    assert not unused, unused
+    if probe:
+        print(f'JAX float32 step against the float64 step: worst parameter '
+              f'{worst32:.3g}, whole vector {lim:.3g}', *(
+                  ['(port, JAX float32) gaps of', rounded] if rounded
+                  else []))
     return metrics, max(gaps.values()), whole
 
 
